@@ -7,24 +7,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero
 before the last line is printed:
 
 1. device: the card's name and power limit, the library versions;
-2. build: compile every CUDA kernel of the training path from
-   ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a) and time it;
-3. kernels against their plain PyTorch versions on the card: ``gaia_select``
-   bit-exact (mask and count) at every GN-LeNet parameter shape stacked at
-   K=5, at a ragged n=1,000,003, in float32 and bfloat16; ``neighbor_mix``
-   allclose (float32 2e-5, bfloat16 2e-2) at (5, 96682) on a ring, on a
-   random K=16 degree-4 graph, and in bfloat16;
+2. build: compile the three CUDA sources of the training path from
+   ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a, one process each, all
+   started together) and time it;
+3. kernels against their plain PyTorch versions on the card:
+   ``gaia_select`` and ``rand_k_select`` bit-exact (output and count) at
+   every GN-LeNet parameter shape stacked at K=5 and at a ragged
+   n=1,000,003, in float32 and bfloat16 (rand-k with seeds past 2**31 and
+   keep = 1 - float32(0.999)); ``neighbor_mix`` allclose (float32 2e-5,
+   bfloat16 2e-2) at (5, 96682) on a ring, on a random K=16 degree-4 graph,
+   and in bfloat16; its src-gather variant likewise with a (15, 96682)
+   snapshot buffer read at staleness 2 and a (48, 96682) one on the
+   random graph, and an index past the buffer refused with no launch;
 4. the main path: ``train_decentralized`` trains GN-LeNet at full width
-   (96,682 parameters a node, K=5, batch 20): first five steps of each of
-   BSP, Gaia and D-PSGD on the card and on the CPU (plain versions) must
-   give the same losses; then 30 steps of each on the card, with every
-   launch count set to 0 just before each run and read just after;
+   (96,682 parameters a node, K=5, batch 20) under every strategy: BSP,
+   Gaia, D-PSGD (ring), AD-PSGD (ring, staleness 2), DGC top-k, DGC
+   rand-k, FedAvg (iter_local 5) and D-PSGD steered by SkewScout over the
+   topology ladder.  First five steps of each on the card and on the CPU
+   (plain versions) must give the same losses (and SkewScout the same θ
+   history); AD-PSGD at staleness 0 must give D-PSGD's results exactly on
+   the card; then 30 steps of each on the card, with every launch count
+   set to 0 just before each run and read just after;
 5. kernel times: the median of 50 CUDA-event-timed launches at the main
    path's shapes: the kernel launch alone (``ms``) and the whole op with its
    checks and allocations (``op_ms``), beside the plain version, the library
    call that computes the same function where there is one, and the least
-   time the card could take (bytes over 3.35 TB/s, flops over 67 TFLOP/s
-   float32).
+   time the card could take (bytes over 3.35 TB/s, operations over
+   67 TFLOP/s, the float32 rate of the CUDA cores, which the integer hash
+   of rand-k is counted at too).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -53,6 +63,16 @@ FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
 STEPS = 30
 CPU_CHECK_STEPS = 5
 K = 5
+#: 1 - 0.999 in float32: DGC's keep probability at its last sparsity rung
+KEEP_999 = float(np.float32(1) - np.float32(0.999))
+#: the main path's runs: (label, strategy, CommConfig fields besides the
+#: ring fabric); the SkewScout run's travel interval is set per phase
+RUNS = (("bsp", "bsp", {}), ("gaia", "gaia", {}), ("dpsgd", "dpsgd", {}),
+        ("adpsgd", "adpsgd", {"max_staleness": 2}),
+        ("dgc", "dgc", {}),
+        ("dgc-randk", "dgc", {"dgc_compressor": "randk"}),
+        ("fedavg", "fedavg", {"iter_local": 5}),
+        ("dpsgd-skewscout", "dpsgd", {"skewscout": True}))
 
 
 def phase(n: int, title: str) -> None:
@@ -92,6 +112,24 @@ def tf32_off():
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
+
+
+def thetas(history):
+    """SkewScout's (step, θ, new θ) sequence, schedules by name."""
+    name = lambda th: getattr(th, "name", th)
+    return [(h.step, name(h.theta), name(h.new_theta)) for h in history]
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    """cuDNN's deterministic algorithms (its default backward convolutions
+    may sum in a different order on every call), then the flag as it was."""
+    flag = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = flag
 
 
 def bound_ms(n_bytes: float, flops: float):
@@ -201,6 +239,62 @@ def main() -> int:
             mix_err = err
         print(f"neighbor_mix {label} {tuple(shape)}: max |err| {err:.3g} "
               f"(tol {tol})")
+
+    def stale_operands(ops_t, stale, k):
+        """AD-PSGD's gather index: real neighbours read slot ``stale``."""
+        idx, w, sw = ops_t
+        return (torch.where(w > 0, stale * k, 0) + idx).int(), w, sw
+
+    ring_src_ops = stale_operands(ring_ops, 2, K)
+    rand_src_ops = stale_operands(rand_ops, 2, 16)
+    src_err = 0.0
+    for label, ops_t, k, dtype, tol in (
+            ("ring f32", ring_src_ops, K, torch.float32, 2e-5),
+            ("random K=16 D=4 f32", rand_src_ops, 16, torch.float32, 2e-5),
+            ("ring bf16", ring_src_ops, K, torch.bfloat16, 2e-2)):
+        x = randn(k, n_params).to(dtype)
+        src = torch.cat([x, randn(2 * k, n_params).to(dtype)])
+        out = ops.neighbor_mix(x, *ops_t, src=src)
+        with tf32_off():
+            expect = ref.neighbor_mix_padded_ref(x, *ops_t, src)
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == x.shape
+        err = float((out.float() - expect.float()).abs().max())
+        torch.testing.assert_close(out.float(), expect.float(), atol=tol,
+                                   rtol=tol)
+        if label == "ring f32":
+            src_err = err
+        print(f"neighbor_mix_src {label} x {tuple(x.shape)} src "
+              f"{tuple(src.shape)}: max |err| {err:.3g} (tol {tol})")
+    before = dict(ops.launches)
+    bad = ring_src_ops[0].clone()
+    bad[1, 0] = 3 * K                       # one past the buffer
+    try:
+        ops.neighbor_mix(x, bad, *ring_src_ops[1:], src=src)
+        raise AssertionError("an index past the buffer was not refused")
+    except ValueError as e:
+        assert "outside" in str(e), e
+    assert ops.launches == before, (ops.launches, before)
+    print("neighbor_mix_src: an index past the buffer is refused, no launch")
+
+    randk_checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shape in leaf_shapes + [(1_000_003,)]:
+            v = randn(*shape).to(dtype)
+            for keep, seed in ((0.25, 1009), (KEEP_999, 3594),
+                               (0.0625, 2**31 + 131)):
+                sel, cnt = ops.rand_k_sparsify(v, keep, seed)
+                rsel, rcnt = ref.rand_k_select_ref(v, keep, seed)
+                torch.cuda.synchronize()
+                assert torch.equal(sel != 0, rsel != 0), (shape, dtype, seed)
+                assert torch.equal(sel, rsel), (shape, dtype, seed)
+                assert int(cnt) == int(rcnt), (shape, dtype, int(cnt),
+                                               int(rcnt))
+                randk_checks += 1
+    print(f"rand_k_select: bit-exact in {randk_checks} checks "
+          f"({len(leaf_shapes) + 1} shapes x {{float32, bfloat16}} x 3 "
+          f"(keep, seed), keep {KEEP_999!r} and seed {2**31 + 131} among "
+          "them)")
     sys.stdout.flush()
 
     # ---------------------------------------------------------------- 4
@@ -209,27 +303,71 @@ def main() -> int:
     val = synth_images(800, seed=99, noise=0.8, class_sep=0.35)
     idx = partition_label_skew(ds.y, K, 1.0, seed=1)
     parts = [(ds.x[i], ds.y[i]) for i in idx]
-    comm = CommConfig(fabric=FabricConfig(topology="ring"))
+
+    def run(label, algo_name, fields, device=None, steps=STEPS,
+            travel_every=2):
+        comm = CommConfig(fabric=FabricConfig(topology="ring"),
+                          travel_every=travel_every, **fields)
+        return trainer.train_decentralized(
+            cfg, algo_name, parts, (val.x, val.y), comm=comm, steps=steps,
+            eval_every=steps, seed=0, device=device)
 
     # the same five steps on the card and on the CPU (plain versions), TF32
     # off; this also warms the card up (cuDNN, allocator) for the timed runs
     with tf32_off():
-        for algo_name in ("bsp", "gaia", "dpsgd"):
-            curves = [[loss for _, loss in trainer.train_decentralized(
-                cfg, algo_name, parts, (val.x, val.y), comm=comm,
-                steps=CPU_CHECK_STEPS, eval_every=CPU_CHECK_STEPS, seed=0,
-                device=d).loss_curve] for d in ("cuda", "cpu")]
+        for label, algo_name, fields in RUNS:
+            r_card, r_cpu = (run(label, algo_name, fields, device=d,
+                                 steps=CPU_CHECK_STEPS)
+                             for d in ("cuda", "cpu"))
+            curves = [[loss for _, loss in r.loss_curve]
+                      for r in (r_card, r_cpu)]
             np.testing.assert_allclose(curves[0], curves[1], rtol=1e-3)
-            print(f"{algo_name}: {CPU_CHECK_STEPS} steps on cuda and cpu "
+            assert thetas(r_card.skewscout_history) == \
+                thetas(r_cpu.skewscout_history), label
+            print(f"{label}: {CPU_CHECK_STEPS} steps on cuda and cpu "
                   f"agree (rtol 1e-3, TF32 off): "
-                  f"{np.round(curves[0], 5).tolist()}", flush=True)
-    # warm each strategy up at the default flags too: cuDNN picks its TF32
+                  f"{np.round(curves[0], 5).tolist()}"
+                  + (f"; SkewScout θ {thetas(r_card.skewscout_history)}"
+                     if r_card.skewscout_history else ""), flush=True)
+    # AD-PSGD at staleness 0 (buffer depth 3) is D-PSGD bit for bit on the
+    # card: its src-gather launch reads slot 0, D-PSGD's own x.  cuDNN runs
+    # deterministically here, so the runs differ only in the mixing; D-PSGD
+    # runs twice to show that the card repeats itself under these flags
+    with tf32_off(), cudnn_deterministic():
+        fns, _ = trainer.make_cnn_fns(cfg)
+        ring_comm = CommConfig(fabric=FabricConfig(topology="ring"),
+                               max_staleness=2)
+        p0, s0 = init_cnn(torch.Generator().manual_seed(0), cfg)
+        rs = np.random.default_rng(1)
+        batches = [{"x": torch.from_numpy(rs.standard_normal(
+                        (K, 20, 16, 16, 3)).astype(np.float32)).to(dev),
+                    "y": torch.from_numpy(rs.integers(0, 10, (K, 20))).to(dev)}
+                   for _ in range(CPU_CHECK_STEPS)]
+        finals = []
+        for algo_name in ("dpsgd", "dpsgd", "adpsgd"):
+            algo = trainer.make_algorithm(algo_name, fns, K, ring_comm,
+                                          staleness=0)
+            state = algo.init({n: t.to(dev) for n, t in p0.items()},
+                              {n: t.to(dev) for n, t in s0.items()})
+            losses = []
+            for t, b in enumerate(batches):
+                state, met = algo.step(state, b,
+                                       torch.tensor(0.05, device=dev), t)
+                losses.append(float(met["loss"]))
+            finals.append((losses, state["params"]))
+        for i, label in ((1, "dpsgd run twice"), (2, "adpsgd")):
+            assert finals[i][0] == finals[0][0], (label, finals[i][0],
+                                                  finals[0][0])
+            for n, t in finals[0][1].items():
+                assert torch.equal(finals[i][1][n], t), (label, n)
+        print(f"adpsgd at staleness 0 (buffer depth 3) equals dpsgd bit for "
+              f"bit on the card over {CPU_CHECK_STEPS} steps: losses "
+              f"{finals[0][0]}", flush=True)
+    # warm each run up at the default flags too: cuDNN picks its TF32
     # convolutions for each strategy's shapes on first use, which must not
     # fall into the timed runs below
-    for algo_name in ("bsp", "gaia", "dpsgd"):
-        trainer.train_decentralized(
-            cfg, algo_name, parts, (val.x, val.y), comm=comm,
-            steps=CPU_CHECK_STEPS, eval_every=CPU_CHECK_STEPS, seed=0)
+    for label, algo_name, fields in RUNS:
+        run(label, algo_name, fields, steps=CPU_CHECK_STEPS)
 
     # record each run's last training state, to check where it lives
     last_state = {}
@@ -247,43 +385,47 @@ def main() -> int:
         return algo
 
     trainer.make_algorithm = recording_make_algorithm
-    launches = {"gaia_select": 0, "neighbor_mix": 0}
-    results = {}
+    launches = {k_: 0 for k_ in ops.launches}
+    results, rates = {}, {}
     try:
-        for algo_name in ("bsp", "gaia", "dpsgd"):
-            ops.gaia_select.launches = 0
-            ops.neighbor_mix.launches = 0
+        for label, algo_name, fields in RUNS:
+            for k_ in ops.launches:
+                ops.launches[k_] = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            r = trainer.train_decentralized(
-                cfg, algo_name, parts, (val.x, val.y), comm=comm,
-                steps=STEPS, eval_every=STEPS, seed=0)
+            r = run(label, algo_name, fields, travel_every=10)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            counts = {"gaia_select": ops.gaia_select.launches,
-                      "neighbor_mix": ops.neighbor_mix.launches}
+            counts = dict(ops.launches)
             for k_, c in counts.items():
                 launches[k_] += c
-            results[algo_name] = r
+            results[label], rates[label] = r, STEPS / wall
             losses = [loss for _, loss in r.loss_curve]
-            print(f"{algo_name}: {STEPS / wall:.2f} steps/s (wall, one "
-                  f"eval included, default TF32 flags), loss {losses[0]:.4f} -> "
+            print(f"{label}: {STEPS / wall:.2f} steps/s (wall, one eval "
+                  f"included, default TF32 flags), loss {losses[0]:.4f} -> "
                   f"{losses[-1]:.4f}, val_acc {r.val_acc:.4f}, "
                   f"comm_total_floats {r.comm_total_floats:.1f}, "
-                  f"launches {counts}", flush=True)
+                  f"launches {counts}"
+                  + (f", SkewScout θ {thetas(r.skewscout_history)}"
+                     if r.skewscout_history else ""), flush=True)
             assert len(losses) == STEPS and np.all(np.isfinite(losses)), \
-                (algo_name, losses)
-            for part in ("params", "mstate", "vel"):
-                for tname, t in last_state[algo_name][part].items():
-                    assert t.device.type == "cuda", (algo_name, tname,
-                                                     t.device)
+                (label, losses)
+            for part, tree in last_state[algo_name].items():
+                tensors = tree.values() if isinstance(tree, dict) else [tree]
+                for t in tensors:
+                    assert t.device.type == "cuda", (label, part, t.device)
     finally:
         trainer.make_algorithm = make_algorithm
     bsp_losses = [loss for _, loss in results["bsp"].loss_curve]
     assert np.mean(bsp_losses[-5:]) < np.mean(bsp_losses[:5]), bsp_losses
+    assert len(results["dpsgd-skewscout"].skewscout_history) == 3
     assert launches["gaia_select"] >= STEPS * 16, launches
     assert launches["neighbor_mix"] >= STEPS, launches
+    assert launches["neighbor_mix_src"] >= STEPS, launches
+    assert launches["rand_k_select"] >= STEPS * 32, launches
     print(f"main-path launches: {launches}")
+    print("steps/s: " + json.dumps({k_: round(v, 2)
+                                   for k_, v in rates.items()}))
 
     sys.stdout.flush()
 
@@ -336,6 +478,53 @@ def main() -> int:
           f"{time_ms(lambda: ops.launch_neighbor_mix(x16, *rand_ops, mixed16)):.4f}"
           " ms")
 
+    src = torch.cat([x, randn(2 * K, n_params)])
+    gidx, _, _ = ring_src_ops
+    Wp = torch.zeros(K, 3 * K, device=dev)
+    Wp.scatter_add_(1, gidx.long(), w_t)
+    Wp[:, :K] += torch.diag(sw_t)           # slot 0 of the buffer is x
+    s_ms = time_ms(lambda: ops.launch_neighbor_mix_src(
+        x, src, gidx, w_t, sw_t, mixed))
+    s_op = time_ms(lambda: ops.neighbor_mix(x, gidx, w_t, sw_t, src=src))
+    s_plain = time_ms(lambda: ref.neighbor_mix_padded_ref(x, gidx, w_t, sw_t,
+                                                          src))
+    s_lib = time_ms(lambda: torch.matmul(Wp, src))
+    rows_read = int(torch.unique(gidx[w_t > 0]).numel())
+    s_bound, s_by = bound_ms((2 + rows_read / K) * K * n_params * 4
+                             + K * D * 8 + K * 4,
+                             2 * (D + 1) * K * n_params)
+    print(f"neighbor_mix_src x (5, 96682), src (15, 96682) f32 ring, "
+          f"staleness 2: kernel {s_ms:.4f} ms, op {s_op:.4f} ms, plain "
+          f"{s_plain:.4f} ms, dense W' @ src {s_lib:.4f} ms, bound "
+          f"{s_bound:.5f} ms ({s_by}; x, {rows_read} src rows, y)")
+    x48 = randn(16, n_params)
+    src48 = torch.cat([x48, randn(32, n_params)])
+    mixed48 = torch.empty_like(x48)
+    print(f"neighbor_mix_src (16, 96682) from (48, 96682) random D=4: kernel "
+          f"{time_ms(lambda: ops.launch_neighbor_mix_src(x48, src48, rand_src_ops[0], *rand_src_ops[1:], mixed48)):.4f}"
+          " ms")
+
+    # one DGC rand-k step: acc and vel of every tensor, same seed each
+    randk_leaves = [randn(*s_, scale=0.01) for s_ in leaf_shapes]
+    randk_outs = [torch.empty_like(v) for v in randk_leaves]
+    r_ms = 2 * sum(time_ms(lambda v=v, o=o, li=li: ops.launch_rand_k_select(
+        v, o, count, 1009 * 7 + li, KEEP_999))
+        for li, (v, o) in enumerate(zip(randk_leaves, randk_outs)))
+    r_op = 2 * sum(time_ms(lambda v=v, li=li: ops.rand_k_sparsify(
+        v, KEEP_999, 1009 * 7 + li)) for li, v in enumerate(randk_leaves))
+    r_plain = 2 * sum(time_ms(lambda v=v, li=li: ref.rand_k_select_ref(
+        v, KEEP_999, 1009 * 7 + li)) for li, v in enumerate(randk_leaves))
+    # per element: v read and out written (8 bytes), ~14 integer and float
+    # operations (lowbias32, the 24-bit conversion, the compare, the select)
+    r_bound, r_by = bound_ms(2 * n_step * 8 + 32 * 4, 2 * n_step * 14)
+    print(f"rand_k_select, one DGC rand-k step (32 launches, 2 x {n_step} "
+          f"floats): kernel {r_ms:.4f} ms, op {r_op:.4f} ms, plain "
+          f"{r_plain:.4f} ms, bound {r_bound:.5f} ms ({r_by})")
+    big_o2 = torch.empty_like(big_v)
+    print(f"rand_k_select n=1,000,003 f32: kernel "
+          f"{time_ms(lambda: ops.launch_rand_k_select(big_v, big_o2, count, 3594, KEEP_999)):.4f}"
+          f" ms, bound {bound_ms(1_000_003 * 8, 1_000_003 * 14)[0]:.5f} ms")
+
     kernels = [
         {"name": "gaia_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gaia_select.cu",
@@ -349,6 +538,18 @@ def main() -> int:
          "launches": launches["neighbor_mix"], "max_abs_err": mix_err,
          "ms": m_ms, "op_ms": m_op, "plain_ms": m_plain, "bound_ms": m_bound,
          "bound_by": m_by, "library_ms": m_lib},
+        {"name": "neighbor_mix_src", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/neighbor_mix.cu",
+         "replaces": "src/repro/kernels/neighbor_mix.py:60",
+         "launches": launches["neighbor_mix_src"], "max_abs_err": src_err,
+         "ms": s_ms, "op_ms": s_op, "plain_ms": s_plain, "bound_ms": s_bound,
+         "bound_by": s_by, "library_ms": s_lib},
+        {"name": "rand_k_select", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/rand_k_select.cu",
+         "replaces": "src/repro/kernels/dgc_topk.py:152",
+         "launches": launches["rand_k_select"], "max_abs_err": 0.0,
+         "ms": r_ms, "op_ms": r_op, "plain_ms": r_plain, "bound_ms": r_bound,
+         "bound_by": r_by, "library_ms": None},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

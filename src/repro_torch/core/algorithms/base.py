@@ -19,7 +19,7 @@ step).  Metrics are 0-d tensors on the training device.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.func import grad_and_value, vmap
@@ -33,12 +33,29 @@ class ModelFns:
 
     loss_fn(params, mstate, batch) -> (loss, new_mstate)
         where ``batch`` is one node's minibatch ({"x": ..., "y": ...}).
+    ref_perm(name) -> permutation or None
+        how tensor ``name`` (one node's) is permuted from this package's
+        layout into the reference's (``repro``), or None where the two
+        agree.  DGC's rand-k counts its counters in the reference's
+        layout, so both packages keep the same elements.
     """
     loss_fn: Callable
+    ref_perm: Callable[[str], Optional[Tuple[int, ...]]] = lambda name: None
 
 
 def tree_size(tree: Tree) -> int:
     return sum(t.numel() for t in tree.values())
+
+
+def tree_leaf_order(tree: Tree) -> List[str]:
+    """The names of ``tree`` in the order the reference's pytree
+    flattening visits its nested params (dict keys sorted, list items by
+    index): ``"conv.10.w"`` comes after ``"conv.9.w"``, and ``"fc"``
+    before ``"norm"``."""
+    def key(name: str):
+        return tuple((0, int(p), "") if p.isdigit() else (1, 0, p)
+                     for p in name.split("."))
+    return sorted(tree, key=key)
 
 
 def tree_stack_n(tree: Tree, k: int) -> Tree:

@@ -11,7 +11,9 @@ accuracy-under-skew for per-node bandwidth of ``degree * |model|``.
 The fabric is a :class:`~repro_torch.topology.graphs.TopologySchedule`:
 round ``t`` mixes with ``schedule.at(t)``'s neighbors.  Its padded
 neighbor indices and weights are device tensors, cached once per distinct
-graph and padded to the schedule-wide max degree, so every round hands
+graph and padded to the schedule-wide max degree (or to ``pad_degree``,
+the max over a SkewScout topology ladder, so a rung switch through
+:meth:`DPSGD.set_schedule` keeps the operand shape), so every round hands
 the mixing kernel operands of one shape; a round that changes the graph
 changes only which cached operands go in, never the kernel.
 
@@ -21,7 +23,7 @@ flattened to (K, N) float32: on the card the hand-written kernel
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,8 +42,12 @@ class DPSGD:
     def __init__(self, fns: ModelFns, n_nodes: int, *,
                  topology: Union[Topology, TopologySchedule],
                  momentum: float = 0.9, weight_decay: float = 0.0,
-                 participation=None):
-        """``participation``: optional
+                 pad_degree: Optional[int] = None, participation=None):
+        """``pad_degree`` widens the neighbor operand shape beyond this
+        schedule's max degree: set it to the max over a SkewScout
+        topology ladder so rung switches keep one operand shape.
+
+        ``participation``: optional
         :class:`~repro_torch.topology.links.Participation` sampler.  Each
         round its seeded node mask zeroes the mixing weight of every
         edge with a sampled-out endpoint (slack returns to the self
@@ -54,9 +60,34 @@ class DPSGD:
         self.fns, self.K = fns, n_nodes
         self.m, self.wd = momentum, weight_decay
         self.participation = participation
-        self.schedule = schedule
-        self._pad_degree = max(schedule.max_degree, 1)
+        self._pad_degree = max(schedule.max_degree, 1, pad_degree or 0)
+        self._stepped = False
         self._operand_cache: Dict[int, tuple] = {}
+        self.set_schedule(schedule)
+
+    def set_schedule(self, fabric: Union[Topology, TopologySchedule]
+                     ) -> None:
+        """Swap the fabric mid-run (SkewScout topology rung switch).
+        The operand padding only grows, and refuses to grow once the
+        first step has run, so the mixing operands keep one shape for
+        the whole run."""
+        schedule = as_schedule(fabric)
+        if schedule.n_nodes != self.K:
+            raise ValueError(f"schedule has {schedule.n_nodes} nodes, "
+                             f"the run {self.K}")
+        if schedule.max_degree > self._pad_degree and self._stepped:
+            raise ValueError(
+                f"schedule {schedule.name!r} needs degree "
+                f"{schedule.max_degree} > pad {self._pad_degree}; construct "
+                f"{type(self).__name__} with pad_degree=max over the ladder")
+        self._pad_degree = max(self._pad_degree, schedule.max_degree)
+        self.schedule = schedule
+        self._operand_cache.clear()
+
+    @property
+    def topology(self) -> Topology:
+        """Round-0 graph — the full graph for constant schedules."""
+        return self.schedule.at(0)
 
     def mix_operands(self, t: int, device: torch.device
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -95,29 +126,38 @@ class DPSGD:
                 "mstate": tree_stack_n(mstate, self.K),
                 "vel": tree_zeros_stacked(params, self.K)}
 
-    def _mix(self, stacked: Tree, nbr_idx, nbr_w, self_w) -> Tree:
-        """Gossip-average every tensor: flatten the per-node model stack
-        to one (K, N) float32 matrix, mix once, split back."""
-        flat = torch.cat([t.reshape(self.K, -1).float()
+    def _flatten(self, stacked: Tree) -> torch.Tensor:
+        """Per-node model stack -> one (K, N) float32 matrix."""
+        return torch.cat([t.reshape(self.K, -1).float()
                           for t in stacked.values()], dim=1)
-        mixed = ops.neighbor_mix(flat, nbr_idx, nbr_w, self_w)
-        sizes = [t[0].numel() for t in stacked.values()]
+
+    def _unflatten(self, mixed: torch.Tensor, like: Tree) -> Tree:
+        """Split a (K, N) matrix back into tensors shaped like ``like``."""
+        sizes = [t[0].numel() for t in like.values()]
         return {n: part.reshape(t.shape).to(t.dtype)
-                for (n, t), part in zip(stacked.items(),
+                for (n, t), part in zip(like.items(),
                                         mixed.split(sizes, dim=1))}
 
-    def step(self, state, batch, lr, step_idx) -> Tuple[Dict, Dict]:
-        """One local step + gossip round.  ``step_idx`` selects the
-        round's graph."""
+    def _local_update(self, state, batch, lr):
+        """Per-node momentum-SGD step (pre-gossip), shared with ADPSGD."""
+        self._stepped = True
         w0 = state["params"]
-        nbr_idx, nbr_w, self_w = self.mix_operands(
-            int(step_idx), next(iter(w0.values())).device)
         losses, grads, new_ms = pernode_grads(
             self.fns, w0, state["mstate"], batch, params_stacked=True)
         vel = {n: self.m * u - lr * (grads[n] + self.wd * w0[n])
                for n, u in state["vel"].items()}
-        params = self._mix({n: w0[n] + vel[n] for n in w0},
-                           nbr_idx, nbr_w, self_w)
+        return losses, new_ms, vel, {n: w0[n] + vel[n] for n in w0}
+
+    def step(self, state, batch, lr, step_idx) -> Tuple[Dict, Dict]:
+        """One local step + gossip round.  ``step_idx`` selects the
+        round's graph."""
+        nbr_idx, nbr_w, self_w = self.mix_operands(
+            int(step_idx), next(iter(state["params"].values())).device)
+        losses, new_ms, vel, params = self._local_update(state, batch, lr)
+        # gossip-average every tensor at once: flatten the per-node model
+        # stack to one (K, N) float32 matrix, mix once, split back
+        params = self._unflatten(ops.neighbor_mix(
+            self._flatten(params), nbr_idx, nbr_w, self_w), params)
         return ({"params": params, "mstate": new_ms, "vel": vel},
                 self._gossip_metrics(losses, params, nbr_w))
 
@@ -137,3 +177,7 @@ class DPSGD:
 
     def eval_params(self, state):
         return tree_mean0(state["params"]), tree_mean0(state["mstate"])
+
+    def node_params(self, state, k: int):
+        return ({n: t[k] for n, t in state["params"].items()},
+                {n: t[k] for n, t in state["mstate"].items()})

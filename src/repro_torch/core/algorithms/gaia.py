@@ -72,6 +72,10 @@ class Gaia:
     def eval_params(self, state):
         return tree_mean0(state["params"]), tree_mean0(state["mstate"])
 
+    def node_params(self, state, k: int):
+        return ({n: t[k] for n, t in state["params"].items()},
+                {n: t[k] for n, t in state["mstate"].items()})
+
 
 def _mean_rel(acc: Tree, params: Tree):
     num = sum(a.abs().sum() for a in acc.values())

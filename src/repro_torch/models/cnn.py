@@ -14,7 +14,7 @@ only the conv weights transposed.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +26,19 @@ from repro_torch.models.layers import (batchnorm_apply, batchrenorm_apply,
                                        init_groupnorm)
 
 Params = Dict[str, torch.Tensor]
+
+#: a conv weight's dims in the reference's layout (HWIO), as positions in
+#: this module's (OIHW)
+HWIO_FROM_OIHW = (2, 3, 1, 0)
+
+
+def reference_perm(name: str) -> Optional[Tuple[int, ...]]:
+    """How parameter ``name`` (one node's) is permuted from this module's
+    layout into ``repro.models.cnn``'s: conv weights OIHW -> HWIO, every
+    other tensor as it is."""
+    if name.startswith("conv.") and name.endswith(".w"):
+        return HWIO_FROM_OIHW
+    return None
 
 
 def _prefixed(prefix: str, d: Mapping[str, torch.Tensor]) -> Params:
@@ -152,9 +165,11 @@ def cnn_params_from_jax(params_np: Any, state_np: Any, cfg: CNNConfig
     params = {}
     for k, a in _flatten_tree(params_np).items():
         t = torch.from_numpy(np.array(a, np.float32))
-        if k.startswith("conv.") and k.endswith(".w"):
+        perm = reference_perm(k)
+        if perm is not None:
             lead = t.dim() - 4          # HWIO after any node axes
-            t = t.permute(*range(lead), lead + 3, lead + 2, lead, lead + 1)
+            t = t.permute(*range(lead),
+                          *(lead + perm.index(d) for d in range(4)))
         params[k] = t.contiguous()
     state = {k: torch.from_numpy(np.array(a, np.float32))
              for k, a in _flatten_tree(state_np).items()}

@@ -6,8 +6,11 @@ parameters across with ``cnn_params_from_jax``; inputs are NumPy arrays
 made from a seed.  Tolerances: the model (logits, loss, gradients, BN
 state) at rtol 1e-4 / atol 1e-5, float32 sums taken in another order by
 XLA and ATen; one algorithm step at atol 1e-4; five trainer steps'
-losses within 1e-3 relative.  Host-side NumPy code (data, partitions,
-topology, ledger, RNG) is a copy and must be bit-equal.
+losses within 1e-3 relative.  A Gaia or DGC top-k entry within rounding
+of its threshold may flip (at most 1e-3 of them); rand-k's masks, the
+communication of data-independent strategies and SkewScout's θ sequence
+are exact.  Host-side NumPy code (data, partitions, topology, ledger,
+RNG, SkewScout's controller) is a copy and must be bit-equal.
 """
 import ast
 import dataclasses
@@ -23,6 +26,7 @@ import pytest
 import torch
 import torch.nn.functional as F
 
+import repro.core.divergence as jax_divergence
 import repro.core.trainer as jax_trainer
 from repro.configs.base import CommConfig as JaxCommConfig
 from repro.configs.base import FabricConfig as JaxFabricConfig
@@ -38,6 +42,7 @@ from repro.topology import LINK_PROFILES as JAX_LINK_PROFILES
 from repro.topology import CommLedger as JaxLedger
 from repro.topology import build_schedule as jax_build_schedule
 from repro.topology.graphs import full_skew_label_hist
+import repro_torch.core.divergence as divergence
 import repro_torch.core.trainer as trainer
 from repro_torch.configs.base import CommConfig, FabricConfig
 from repro_torch.configs.cnn_zoo import CNN_ZOO
@@ -176,40 +181,85 @@ def test_cnn_batch_stats_matches_jax(name):
                                        **MODEL_TOL)
 
 
+def test_divergence_probes_match_jax():
+    """Figure 4's BN-statistics divergence across three partitions' batches
+    and the relative L2 distance between two models."""
+    cfg_name = "bn-lenet"
+    p_np, _ = _jax_init(cfg_name)
+    params, _ = cnn_params_from_jax(p_np, {}, CNN_ZOO[cfg_name])
+    rs = np.random.default_rng(INPUT_SEED[cfg_name])
+    batches = [rs.standard_normal((4, 16, 16, 3)).astype(np.float32) + k
+               for k in range(3)]
+    for layer in (0, 1):
+        mine = divergence.bn_divergence(params, CNN_ZOO[cfg_name], batches,
+                                        layer)
+        theirs = jax_divergence.bn_divergence(p_np, JAX_CNN_ZOO[cfg_name],
+                                              batches, layer)
+        for port, ref_a in zip(mine, theirs):
+            np.testing.assert_allclose(port, ref_a, rtol=1e-4)
+    shifted = {n: t * 1.5 for n, t in params.items()}
+    jshifted = jax.tree_util.tree_map(lambda a: a * 1.5, p_np)
+    np.testing.assert_allclose(
+        divergence.model_l2_distance(shifted, params),
+        jax_divergence.model_l2_distance(jshifted, p_np), rtol=1e-5)
+
+
 # ---------------------------------------------------------------------------
 # one algorithm step
 # ---------------------------------------------------------------------------
 
-STEP_K, STEP_B = 4, 8
+STEP_K, STEP_B, STEP_LR = 4, 8, 0.05
 
 
-def _step_pair(algo_name: str, cfg_name: str):
-    """One step of ``algo_name`` on both sides from the same state and
-    batch.  Returns (jax state, jax metrics, port state, port metrics)."""
+def _step_inputs(cfg_name: str):
     p_np, s_np = _jax_init(cfg_name)
     rs = np.random.default_rng(2)
     x = rs.standard_normal((STEP_K, STEP_B, 16, 16, 3)).astype(np.float32)
     y = rs.integers(0, 10, size=(STEP_K, STEP_B)).astype(np.int32)
-    lr = 0.05
-    jcomm = JaxCommConfig(fabric=JaxFabricConfig(topology="ring"))
-    comm = CommConfig(fabric=FabricConfig(topology="ring"))
+    return p_np, s_np, x, y
 
-    jfns, _ = jax_trainer.make_cnn_fns(JAX_CNN_ZOO[cfg_name])
-    jalgo = jax_trainer.make_algorithm(algo_name, jfns, STEP_K, jcomm, lr0=lr)
-    jstate = jalgo.init(p_np, s_np)
-    jkw = {"t0": jnp.float32(0.1)} if algo_name == "gaia" else {}
-    jnew, jmet = jalgo.step(jstate, {"x": jnp.asarray(x), "y": jnp.asarray(y)},
-                            jnp.float32(lr), jnp.int32(0), **jkw)
 
+def _port_step(algo_name: str, cfg_name: str, *, step_idx: int = 0,
+               hypers=None, staleness=None, **comm_kw):
+    """One step of the port's ``algo_name`` from ``repro``'s initial
+    state, on the same batch as :func:`_step_pair`.  ``hypers`` are the
+    step's dynamic hyper-parameters as Python numbers.  Returns (state,
+    metrics, algorithm)."""
+    hypers = dict(hypers or {})
+    p_np, s_np, x, y = _step_inputs(cfg_name)
+    comm = CommConfig(fabric=FabricConfig(topology="ring"), **comm_kw)
     cfg = CNN_ZOO[cfg_name]
     fns, _ = trainer.make_cnn_fns(cfg)
-    algo = trainer.make_algorithm(algo_name, fns, STEP_K, comm, lr0=lr)
+    algo = trainer.make_algorithm(algo_name, fns, STEP_K, comm, lr0=STEP_LR,
+                                  staleness=staleness)
     params, state = cnn_params_from_jax(p_np, s_np, cfg)
-    kw = {"t0": torch.tensor(0.1)} if algo_name == "gaia" else {}
+    if algo_name == "gaia":
+        hypers["t0"] = torch.tensor(hypers["t0"])
     batch = {"x": torch.from_numpy(x), "y": torch.from_numpy(y).long()}
-    new, met = algo.step(algo.init(params, state), batch, torch.tensor(lr),
-                         0, **kw)
-    return jnew, jmet, new, met
+    new, met = algo.step(algo.init(params, state), batch,
+                         torch.tensor(STEP_LR), step_idx, **hypers)
+    return new, met, algo
+
+
+def _step_pair(algo_name: str, cfg_name: str, *, step_idx: int = 0,
+               hypers=None, staleness=None, **comm_kw):
+    """One step of ``algo_name`` on both sides from the same state and
+    batch, the reference's hyper-parameters passed as the trainer passes
+    them (float32, or int32 for ``iter_local``).  Returns (jax state,
+    jax metrics, port state, port metrics, port algorithm)."""
+    p_np, s_np, x, y = _step_inputs(cfg_name)
+    jcomm = JaxCommConfig(fabric=JaxFabricConfig(topology="ring"), **comm_kw)
+    jfns, _ = jax_trainer.make_cnn_fns(JAX_CNN_ZOO[cfg_name])
+    jalgo = jax_trainer.make_algorithm(algo_name, jfns, STEP_K, jcomm,
+                                       lr0=STEP_LR, staleness=staleness)
+    jkw = {k: jnp.asarray(v, jnp.int32 if k == "iter_local" else jnp.float32)
+           for k, v in (hypers or {}).items()}
+    jnew, jmet = jalgo.step(jalgo.init(p_np, s_np),
+                            {"x": jnp.asarray(x), "y": jnp.asarray(y)},
+                            jnp.float32(STEP_LR), jnp.int32(step_idx), **jkw)
+    return (jnew, jmet) + _port_step(algo_name, cfg_name, step_idx=step_idx,
+                                     hypers=hypers, staleness=staleness,
+                                     **comm_kw)
 
 
 def _port_layout(jtree, cfg_name: str):
@@ -218,24 +268,133 @@ def _port_layout(jtree, cfg_name: str):
     return cnn_params_from_jax(_np(p), _np(s), CNN_ZOO[cfg_name])
 
 
-@pytest.mark.parametrize("algo_name", ["bsp", "dpsgd"])
-def test_algorithm_step_matches_jax(algo_name, jax_oracles):
-    cfg_name = "bn-lenet"
-    jnew, jmet, new, met = _step_pair(algo_name, cfg_name)
-    assert float(met["comm_floats"]) == float(jmet["comm_floats"])
-    for key in set(jmet) - {"comm_floats"}:
-        np.testing.assert_allclose(float(met[key]), float(jmet[key]),
-                                   rtol=1e-4, err_msg=key)
-    for key in ("params", "vel"):
+def _check_states(jnew, new, cfg_name: str, keys=("params", "vel")):
+    for key in keys:
         ref_p, _ = _port_layout((jnew[key], {}), cfg_name)
         _assert_trees_close(new[key], ref_p, atol=1e-4, rtol=0)
     _, ref_s = _port_layout((jnew["params"], jnew["mstate"]), cfg_name)
     _assert_trees_close(new["mstate"], ref_s, atol=1e-4, rtol=0)
 
 
+def _check_metrics(jmet, met, exact=("comm_floats",)):
+    assert set(met) == set(jmet)
+    for key in jmet:
+        if key in exact:
+            assert float(met[key]) == float(jmet[key]), key
+        else:
+            np.testing.assert_allclose(float(met[key]), float(jmet[key]),
+                                       rtol=1e-4, err_msg=key)
+
+
+@pytest.mark.parametrize("algo_name", ["bsp", "dpsgd"])
+def test_algorithm_step_matches_jax(algo_name, jax_oracles):
+    cfg_name = "bn-lenet"
+    jnew, jmet, new, met, _ = _step_pair(algo_name, cfg_name)
+    _check_metrics(jmet, met)
+    _check_states(jnew, new, cfg_name)
+
+
+@pytest.mark.parametrize("staleness", [0, 2])
+def test_adpsgd_step_matches_jax(staleness, jax_oracles):
+    """One AD-PSGD step from a buffer whose deeper slots differ from
+    slot 0, so staleness 2 really reads other rows; snapshots compared
+    slot by slot in the port's layout."""
+    cfg_name = "bn-lenet"
+    jnew, jmet, new, met, algo = _step_pair("adpsgd", cfg_name,
+                                            staleness=staleness, step_idx=1)
+    _check_metrics(jmet, met, exact=("comm_floats", "max_staleness_used"))
+    assert float(met["mean_staleness"]) == staleness
+    _check_states(jnew, new, cfg_name)
+    leaves, treedef = jax.tree_util.tree_flatten(jnew["params"])
+    sizes = np.cumsum([l[0].size for l in leaves])[:-1]
+    assert new["snaps"].shape == (3, STEP_K, sizes[-1] + leaves[-1][0].size)
+    for slot in range(3):
+        parts = np.split(np.asarray(jnew["snaps"][slot]), sizes, axis=1)
+        jtree = jax.tree_util.tree_unflatten(
+            treedef, [a.reshape(l.shape) for a, l in zip(parts, leaves)])
+        ref_p, _ = _port_layout((jtree, {}), cfg_name)
+        _assert_trees_close(algo._unflatten(new["snaps"][slot],
+                                            new["params"]),
+                            ref_p, atol=1e-4, rtol=0)
+
+
+def test_adpsgd_staleness0_is_dpsgd_bit_for_bit():
+    new, met, _ = _port_step("adpsgd", "bn-lenet", staleness=0)
+    dnew, dmet, _ = _port_step("dpsgd", "bn-lenet")
+    for key in ("params", "vel", "mstate"):
+        for n, t in dnew[key].items():
+            assert torch.equal(new[key][n], t), (key, n)
+    for key, v in dmet.items():
+        assert torch.equal(met[key], v), key
+
+
+@pytest.mark.parametrize("step_idx", [0, 1])
+def test_fedavg_step_matches_jax(step_idx, jax_oracles):
+    """iter_local 2: step 0 trains locally, step 1 syncs (params and BN
+    state averaged over the nodes)."""
+    cfg_name = "bn-lenet"
+    jnew, jmet, new, met, _ = _step_pair("fedavg", cfg_name,
+                                         step_idx=step_idx,
+                                         hypers={"iter_local": 2})
+    _check_metrics(jmet, met, exact=("comm_floats", "synced"))
+    assert bool(met["synced"]) == (step_idx == 1)
+    _check_states(jnew, new, cfg_name)
+    synced = all(torch.equal(t, t[:1].expand_as(t))
+                 for t in new["params"].values())
+    assert synced == (step_idx == 1)
+
+
+def test_dgc_randk_step_matches_jax(jax_oracles):
+    """Rand-k keeps the same elements on both sides (the mask is a pure
+    function of seed, tensor and flat index in the reference's layout),
+    so the count is exact and every state tensor agrees."""
+    cfg_name = "bn-lenet"
+    jnew, jmet, new, met, _ = _step_pair(
+        "dgc", cfg_name, step_idx=3, hypers={"sparsity": 0.75},
+        dgc_compressor="randk")
+    _check_metrics(jmet, met)
+    _check_states(jnew, new, cfg_name, keys=("params", "vel", "acc"))
+
+
+def test_dgc_topk_step_matches_jax(jax_oracles):
+    """Top-k thresholds at the quantile of |v| computed as jnp.quantile
+    does; an entry within rounding of the threshold may flip, as in
+    Gaia's test: flips <= 1e-3, everything else at atol 1e-4."""
+    cfg_name = "bn-lenet"
+    jnew, jmet, new, met, _ = _step_pair("dgc", cfg_name,
+                                         hypers={"sparsity": 0.9375})
+    ref_acc, _ = _port_layout((jnew["acc"], {}), cfg_name)
+    ref_v, _ = _port_layout((jnew["vel"], {}), cfg_name)
+    ref_p, ref_s = _port_layout((jnew["params"], jnew["mstate"]), cfg_name)
+    # vel is cleared exactly where the entry was shared
+    flips = total = 0
+    for n, a in new["acc"].items():
+        shared, ref_shared = new["vel"][n] == 0, ref_v[n] == 0
+        flip = shared != ref_shared
+        flips += int(flip.sum())
+        total += a.numel()
+        keep = ~flip
+        for port, ref_t in ((a, ref_acc[n]), (new["vel"][n], ref_v[n])):
+            np.testing.assert_allclose(port[keep].numpy(),
+                                       ref_t[keep].numpy(), atol=1e-4,
+                                       rtol=0, err_msg=n)
+        col = ~flip.any(dim=0)          # the global model sums the nodes
+        np.testing.assert_allclose(new["params"][n][col].numpy(),
+                                   ref_p[n][col].numpy(), atol=1e-4,
+                                   rtol=0, err_msg=n)
+    assert flips / total <= 1e-3, (flips, total)
+    assert abs(float(met["comm_floats"]) - float(jmet["comm_floats"])) \
+        <= flips / STEP_K
+    for key in ("loss", "resid_delta"):
+        np.testing.assert_allclose(float(met[key]), float(jmet[key]),
+                                   rtol=1e-3, err_msg=key)
+    _assert_trees_close(new["mstate"], ref_s, atol=1e-4, rtol=0)
+
+
 def test_gaia_step_matches_jax(jax_oracles):
     cfg_name = "bn-lenet"
-    jnew, jmet, new, met = _step_pair("gaia", cfg_name)
+    jnew, jmet, new, met, _ = _step_pair("gaia", cfg_name,
+                                         hypers={"t0": 0.1})
     ref_acc, _ = _port_layout((jnew["acc"], {}), cfg_name)
     ref_p, ref_s = _port_layout((jnew["params"], jnew["mstate"]), cfg_name)
     ref_v, _ = _port_layout((jnew["vel"], {}), cfg_name)
@@ -278,34 +437,86 @@ def _partitions(K: int = 5):
     return [(ds.x[i], ds.y[i]) for i in idx], (val.x, val.y)
 
 
-@pytest.mark.parametrize("algo_name", ["gaia", "dpsgd"])
-def test_trainer_matches_jax(algo_name, monkeypatch, jax_oracles):
+def _trainer_pair(cfg_name: str, algo_name: str, monkeypatch, *,
+                  steps: int = 5, **comm_kw):
+    """``steps`` steps of ``train_decentralized`` on both sides, the
+    port's initial parameters carried across from ``repro``."""
     parts, val = _partitions()
-    cfg_name = "gn-lenet"
     p_np, s_np = _jax_init(cfg_name)
     monkeypatch.setattr(
         trainer, "init_cnn",
         lambda gen, cfg: cnn_params_from_jax(p_np, s_np, cfg))
-    kw = dict(steps=5, batch=20, lr=0.05, eval_every=5, seed=0)
+    fabric = comm_kw.pop("topology", "ring")
+    kw = dict(steps=steps, batch=20, lr=0.05, eval_every=steps, seed=0)
     jr = jax_trainer.train_decentralized(
         JAX_CNN_ZOO[cfg_name], algo_name, parts, val,
-        comm=JaxCommConfig(fabric=JaxFabricConfig(topology="ring")), **kw)
+        comm=JaxCommConfig(fabric=JaxFabricConfig(topology=fabric),
+                           **comm_kw), **kw)
     r = trainer.train_decentralized(
         CNN_ZOO[cfg_name], algo_name, parts, val,
-        comm=CommConfig(fabric=FabricConfig(topology="ring")),
+        comm=CommConfig(fabric=FabricConfig(topology=fabric), **comm_kw),
         device="cpu", **kw)
+    return jr, r
+
+
+@pytest.mark.parametrize("algo_name,comm_kw,exact_comm", [
+    ("gaia", {}, False), ("dpsgd", {}, True), ("adpsgd", {}, True),
+    ("fedavg", {"iter_local": 2}, True), ("dgc", {}, False),
+    ("dgc", {"dgc_compressor": "randk"}, True)],
+    ids=["gaia", "dpsgd", "adpsgd", "fedavg", "dgc", "dgc-randk"])
+def test_trainer_matches_jax(algo_name, comm_kw, exact_comm, monkeypatch,
+                             jax_oracles):
+    """Five steps of GN-LeNet.  Where the communication does not depend
+    on the data (gossip, FedAvg's syncs, rand-k's seeded masks) it must
+    be exact; Gaia's and DGC top-k's counts can move with a flipped
+    tie."""
+    jr, r = _trainer_pair("gn-lenet", algo_name, monkeypatch, **comm_kw)
     losses = np.array([l for _, l in r.loss_curve])
     np.testing.assert_allclose(losses, [l for _, l in jr.loss_curve],
                                rtol=1e-3)
     assert np.all(np.isfinite(losses))
     assert r.topology == jr.topology
-    if algo_name == "dpsgd":
+    if exact_comm:
         assert r.comm_total_floats == jr.comm_total_floats
-        assert r.extras["ledger"] == jr.extras["ledger"]
-        assert r.sim_time_s == jr.sim_time_s
     else:
         np.testing.assert_allclose(r.comm_total_floats,
                                    jr.comm_total_floats, rtol=1e-3)
+    if algo_name in ("dpsgd", "adpsgd"):
+        assert r.extras["ledger"] == jr.extras["ledger"]
+        assert r.sim_time_s == jr.sim_time_s
+    if algo_name == "adpsgd":
+        assert r.extras["staleness_curve"] == jr.extras["staleness_curve"]
+
+
+def _thetas(history):
+    name = lambda th: getattr(th, "name", th)
+    return [(h.step, name(h.theta), name(h.new_theta)) for h in history]
+
+
+@pytest.mark.parametrize("algo_name,comm_kw,ladder", [
+    ("gaia", {"topology": "full"}, None),
+    ("dpsgd", {}, "topology_ladder"),
+    ("adpsgd", {"async_gossip": True}, "staleness_ladder")],
+    ids=["gaia", "dpsgd", "adpsgd"])
+def test_skewscout_matches_jax(algo_name, comm_kw, ladder, monkeypatch,
+                               jax_oracles):
+    """SkewScout over Gaia's θ ladder, D-PSGD's topology ladder and
+    AD-PSGD's staleness ladder: the same probes (2K evaluations a travel
+    on 256-sample subsets) steer θ through the same sequence; accuracy
+    losses agree within one sample in 256."""
+    jr, r = _trainer_pair("gn-lenet", algo_name, monkeypatch, steps=6,
+                          skewscout=True, travel_every=2, **comm_kw)
+    assert len(r.skewscout_history) == 3
+    assert _thetas(r.skewscout_history) == _thetas(jr.skewscout_history)
+    for h, jh in zip(r.skewscout_history, jr.skewscout_history):
+        assert abs(h.accuracy_loss - jh.accuracy_loss) <= 1 / 256
+        assert h.probe_edges == jh.probe_edges
+        assert h.probe_floats == jh.probe_floats
+    np.testing.assert_allclose([l for _, l in r.loss_curve],
+                               [l for _, l in jr.loss_curve], rtol=1e-3)
+    assert r.topology == jr.topology
+    if ladder is not None:
+        assert r.extras[ladder] == jr.extras[ladder]
 
 
 def test_trainer_defaults_to_cuda(monkeypatch):
@@ -316,14 +527,48 @@ def test_trainer_defaults_to_cuda(monkeypatch):
                                     steps=1)
 
 
-@pytest.mark.parametrize("algo_name,comm", [
-    ("fedavg", CommConfig()), ("dgc", CommConfig()), ("adpsgd", CommConfig()),
-    ("gaia", CommConfig(skewscout=True))])
-def test_unported_strategies_raise(algo_name, comm):
+def test_unknown_strategy_raises():
     parts, val = _partitions()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trainer.train_decentralized(CNN_ZOO["gn-lenet"], algo_name, parts,
-                                    val, comm=comm, steps=1, device="cpu")
+    with pytest.raises(ValueError, match="sgd"):
+        trainer.train_decentralized(CNN_ZOO["gn-lenet"], "sgd", parts, val,
+                                    steps=1, device="cpu")
+
+
+def test_staleness_outside_bound_raises():
+    fns, _ = trainer.make_cnn_fns(CNN_ZOO["gn-lenet"])
+    comm = CommConfig(fabric=FabricConfig(topology="ring"), max_staleness=2)
+    algo = trainer.make_algorithm("adpsgd", fns, 5, comm)
+    assert algo.staleness == 2
+    algo.set_staleness(0)
+    assert algo.staleness == 0
+    for bad in (-1, 3):
+        with pytest.raises(ValueError, match="bound"):
+            algo.set_staleness(bad)
+        with pytest.raises(ValueError, match="bound"):
+            trainer.make_algorithm("adpsgd", fns, 5, comm, staleness=bad)
+    assert algo.staleness == 0
+
+
+def test_set_schedule_refuses_wider_pad_once_stepped():
+    """A rung switch may not widen the neighbour operands after the first
+    step; with ``pad_degree`` set to the ladder's max it never has to."""
+    fns, _ = trainer.make_cnn_fns(CNN_ZOO["lenet"])
+    algo = trainer.make_algorithm(
+        "dpsgd", fns, 5, CommConfig(fabric=FabricConfig(topology="ring")))
+    params, _ = trainer.init_cnn(torch.Generator().manual_seed(0),
+                                 CNN_ZOO["lenet"])
+    state = algo.init(params, {})
+    algo.set_schedule(build_schedule("full", 5))    # before any step: grows
+    algo.set_schedule(build_schedule("ring", 5))
+    batch = {"x": torch.zeros(5, 2, 16, 16, 3),
+             "y": torch.zeros(5, 2, dtype=torch.long)}
+    algo.step(state, batch, torch.tensor(0.05), 0)
+    algo.set_schedule(build_schedule("full", 5))    # pad is already 4
+    narrow = trainer.make_algorithm(
+        "dpsgd", fns, 5, CommConfig(fabric=FabricConfig(topology="ring")))
+    narrow.step(narrow.init(params, {}), batch, torch.tensor(0.05), 0)
+    with pytest.raises(ValueError, match="pad_degree"):
+        narrow.set_schedule(build_schedule("full", 5))
 
 
 # ---------------------------------------------------------------------------
