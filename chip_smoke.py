@@ -7,9 +7,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero
 before the last line is printed:
 
 1. device: the card's name and power limit, the library versions;
-2. build: compile the three CUDA sources of the training path from
-   ``src/repro_torch/kernels/csrc`` (``nvcc``, sm_90a, one process each, all
-   started together) and time it;
+2. build: compile the five CUDA sources from ``src/repro_torch/kernels/csrc``
+   (``nvcc``, sm_90a, one process each, all started together) and time it;
 3. kernels against their plain PyTorch versions on the card:
    ``gaia_select`` and ``rand_k_select`` bit-exact (output and count) at
    every GN-LeNet parameter shape stacked at K=5 and at a ragged
@@ -19,6 +18,18 @@ before the last line is printed:
    and in bfloat16; its src-gather variant likewise with a (15, 96682)
    snapshot buffer read at staleness 2 and a (48, 96682) one on the
    random graph, and an index past the buffer refused with no launch;
+   DGC's histogram route bit-exact (``abs_max``, ``abs_histogram``,
+   ``dgc_select`` and ``dgc_sparsify``'s threshold against the bisection)
+   at n in {1, 37, 4096, 483,410, 1,000,003, 2**20}, float32 and
+   bfloat16, sparsities {0.5, 0.9, 0.99, 0.999}, at 100 bins, with ties
+   at max|v|, all zeros and an external v_max below max|v|;
+   ``group_norm`` allclose (float32 1e-5, bfloat16 2e-2) at (2, 8, 8, 16)
+   and (4, 4, 4, 32) with group_size {2, 4} and at (128, 8, 8, 64), and
+   a channel count off the group size refused with no launch; then every
+   kernel of phase 6's bench on the bench's own operands
+   (``kernels_bench.inputs``): ``gaia_select``, ``rand_k_select`` and
+   ``dgc_sparsify`` at n = 2**20 bit-exact, ``neighbor_mix`` at (8, 2**17)
+   on ``ring(8)`` within 2e-5 and ``group_norm`` within 1e-5;
 4. the main path: ``train_decentralized`` trains GN-LeNet at full width
    (96,682 parameters a node, K=5, batch 20) under every strategy: BSP,
    Gaia, D-PSGD (ring), AD-PSGD (ring, staleness 2), DGC top-k, DGC
@@ -29,12 +40,18 @@ before the last line is printed:
    the card; then 30 steps of each on the card, with every launch count
    set to 0 just before each run and read just after;
 5. kernel times: the median of 50 CUDA-event-timed launches at the main
-   path's shapes: the kernel launch alone (``ms``) and the whole op with its
-   checks and allocations (``op_ms``), beside the plain version, the library
-   call that computes the same function where there is one, and the least
-   time the card could take (bytes over 3.35 TB/s, operations over
-   67 TFLOP/s, the float32 rate of the CUDA cores, which the integer hash
-   of rand-k is counted at too).
+   path's shapes (the bench's for the DGC histogram kernels, n = 2**20,
+   and for ``group_norm``, (128, 8, 8, 64)): the kernel launch alone
+   (``ms``) and the whole op with its checks and allocations (``op_ms``),
+   beside the plain version, the library call that computes the same
+   function where there is one, and the least time the card could take
+   (bytes over 3.35 TB/s, operations over 67 TFLOP/s, the float32 rate of
+   the CUDA cores, which integer work is counted at too);
+6. the kernel bench (``repro_torch.benchmarks.kernels_bench``, every
+   non-attention row of the reference's ``benchmarks/kernels_bench.py``)
+   through its entry point on the card, with every launch count set to 0
+   just before and read just after: the DGC histogram kernels and
+   ``group_norm`` run on no training path, so this is their main path.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -65,6 +82,23 @@ CPU_CHECK_STEPS = 5
 K = 5
 #: 1 - 0.999 in float32: DGC's keep probability at its last sparsity rung
 KEEP_999 = float(np.float32(1) - np.float32(0.999))
+#: DGC histogram checks: ragged sizes, GN-LeNet's K=5 stack (483,410),
+#: the bench's 2**20
+DGC_SIZES = (1, 37, 4096, 483_410, 1_000_003, 1 << 20)
+DGC_SPARSITIES = (0.5, 0.9, 0.99, 0.999)
+#: GroupNorm checks: tests/test_kernels.py's shapes and the bench's
+GN_CASES = (((2, 8, 8, 16), 2), ((2, 8, 8, 16), 4), ((4, 4, 4, 32), 2),
+            ((4, 4, 4, 32), 4), ((128, 8, 8, 64), 2))
+#: the rows of the kernel bench: the reference's rows without attention
+#: and interpret mode, and the library calls
+BENCH_ROWS = (
+    "kernel/gaia_select_1M", "oracle/gaia_select_1M",
+    "kernel/dgc_sparsify_1M", "oracle/dgc_sparsify_1M",
+    "oracle/dgc_quantile_1M", "library/dgc_quantile_1M",
+    "kernel/rand_k_1M", "oracle/rand_k_1M",
+    "kernel/neighbor_mix_ring8_128k", "oracle/neighbor_mix_ring8_128k",
+    "oracle/neighbor_mix_dense", "library/neighbor_mix_dense",
+    "kernel/group_norm", "oracle/group_norm", "library/group_norm")
 #: the main path's runs: (label, strategy, CommConfig fields besides the
 #: ring fabric); the SkewScout run's travel interval is set per phase
 RUNS = (("bsp", "bsp", {}), ("gaia", "gaia", {}), ("dpsgd", "dpsgd", {}),
@@ -147,6 +181,7 @@ def main() -> int:
     from repro_torch.core import trainer
     from repro_torch.core.partition import partition_label_skew
     from repro_torch.data.synthetic import synth_images
+    from repro_torch.benchmarks import kernels_bench
     from repro_torch.kernels import build, ops, ref
     from repro_torch.models.cnn import init_cnn
     from repro_torch.topology import build_schedule
@@ -295,6 +330,116 @@ def main() -> int:
           f"({len(leaf_shapes) + 1} shapes x {{float32, bfloat16}} x 3 "
           f"(keep, seed), keep {KEEP_999!r} and seed {2**31 + 131} among "
           "them)")
+
+    # DGC's histogram route: abs_max, abs_histogram, dgc_select and the
+    # threshold, bit-exact against the plain versions (the bisection for
+    # the threshold), at the bench's n = 2**20, GN-LeNet's K=5 stack and
+    # ragged sizes
+    dgc_checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for n in DGC_SIZES:
+            v = randn(n).to(dtype)
+            hist, v_max = ops.abs_histogram_fused(v)
+            r_max = v.float().abs().max()
+            assert float(v_max) == float(r_max), (n, dtype)
+            assert torch.equal(hist, ref.abs_histogram_ref(v, 256, r_max)), \
+                (n, dtype)
+            assert int(hist.sum()) == n, (n, dtype)
+            for s_ in DGC_SPARSITIES:
+                sel, cnt, t_ = ops.dgc_sparsify(v, s_)
+                rsel, rcnt, rt = ref.dgc_sparsify_ref(v, s_)
+                torch.cuda.synchronize()
+                assert float(t_) == float(rt), (n, dtype, s_, float(t_),
+                                                float(rt))
+                assert int(cnt) == int(rcnt) and torch.equal(sel, rsel), \
+                    (n, dtype, s_)
+                dgc_checks += 1
+    v = randn(4096)
+    for s_ in DGC_SPARSITIES:                 # a bin count off a power of 2
+        sel, cnt, t_ = ops.dgc_sparsify(v, s_, n_bins=100)
+        rsel, rcnt, rt = ref.dgc_sparsify_ref(v, s_, n_bins=100)
+        assert float(t_) == float(rt) and int(cnt) == int(rcnt), s_
+        assert torch.equal(sel, rsel), s_
+    tied = randn(4096)
+    top = float(tied.abs().max())
+    tied[[5, 99, 4000]] = torch.tensor([top, -top, top], device=dev)
+    hist, v_max = ops.abs_histogram_fused(tied)
+    assert float(v_max) == top and int(hist[255]) >= 3, int(hist[255])
+    assert torch.equal(hist, ref.abs_histogram_ref(tied, 256, v_max))
+    zeros = torch.zeros(1000, device=dev)
+    hist, v_max = ops.abs_histogram_fused(zeros)
+    assert float(v_max) == 0.0 and int(hist[0]) == 1000
+    sel, cnt, t_ = ops.dgc_sparsify(zeros, 0.999)
+    assert float(t_) == 0.0 and int(cnt) == 0 and not sel.any()
+    for vm in (0.5 * top, 1e-35):   # external v_max below max|v|; floored
+        hist = ops.abs_histogram(tied, vm)
+        assert torch.equal(hist, ref.abs_histogram_ref(tied, 256, vm)), vm
+        assert int(hist.sum()) == tied.numel(), vm
+    for t_ in (0.0, 0.5, 3.0):
+        sel, cnt = ops.dgc_select(tied, t_)
+        rsel, rcnt = ref.dgc_select_ref(tied, t_)
+        assert torch.equal(sel, rsel) and int(cnt) == int(rcnt), t_
+    print(f"abs_max, abs_histogram, dgc_select, dgc_sparsify threshold: "
+          f"bit-exact in {dgc_checks} checks ({len(DGC_SIZES)} sizes x "
+          f"{{float32, bfloat16}} x sparsities {list(DGC_SPARSITIES)}), "
+          f"at n_bins=100, with ties at v_max, all zeros, an external "
+          f"v_max of half max|v| and of 1e-35")
+
+    gn_err = 0.0
+    for shape, gs in GN_CASES:
+        for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            x = randn(*shape).to(dtype)
+            sc = randn(shape[-1], scale=0.1) + 1.0
+            bi = randn(shape[-1], scale=0.1)
+            out = ops.group_norm(x, sc, bi, group_size=gs)
+            expect = ref.group_norm_ref(x, sc, bi, group_size=gs)
+            torch.cuda.synchronize()
+            assert out.dtype == dtype and out.shape == x.shape
+            torch.testing.assert_close(out.float(), expect.float(),
+                                       atol=tol, rtol=tol)
+            err = float((out.float() - expect.float()).abs().max())
+            if dtype == torch.float32:
+                gn_err = max(gn_err, err)
+            print(f"group_norm {tuple(shape)} group_size {gs} "
+                  f"{str(dtype)[6:]}: max |err| {err:.3g} (tol {tol})")
+    before = dict(ops.launches)
+    try:
+        ops.group_norm(randn(2, 4, 4, 6), torch.ones(6, device=dev),
+                       torch.zeros(6, device=dev), group_size=4)
+        raise AssertionError("C % group_size != 0 was not refused")
+    except ValueError as e:
+        assert "multiple" in str(e), e
+    assert ops.launches == before, (ops.launches, before)
+    print("group_norm: C % group_size != 0 is refused, no launch")
+
+    # every kernel of the bench (phase 6) on the bench's own operands
+    b_in = kernels_bench.inputs("cuda")
+    bv, bw, bxs, bmix = b_in["v"], b_in["w"], b_in["xs"], b_in["mix_ops"]
+    checks = (("gaia_select", ops.gaia_select(bv, bw, 0.5),
+               ref.gaia_select_ref(bv, bw, 0.5)),
+              ("rand_k_select", ops.rand_k_sparsify(bv, 0.001, 7),
+               ref.rand_k_select_ref(bv, 0.001, 7)),
+              ("dgc_sparsify", ops.dgc_sparsify(bv, 0.999),
+               ref.dgc_sparsify_ref(bv, 0.999)))
+    torch.cuda.synchronize()
+    for kname, got, expect in checks:
+        for g_, e_ in zip(got, expect):
+            assert g_.dtype == e_.dtype and torch.equal(g_, e_), kname
+    out = ops.neighbor_mix(bxs, *bmix)
+    with tf32_off():
+        expect = ref.neighbor_mix_padded_ref(bxs, *bmix)
+    torch.testing.assert_close(out, expect, atol=2e-5, rtol=2e-5)
+    bmix_err = float((out - expect).abs().max())
+    out = ops.group_norm(b_in["x"], b_in["scale"], b_in["bias"], group_size=2)
+    expect = ref.group_norm_ref(b_in["x"], b_in["scale"], b_in["bias"],
+                                group_size=2)
+    torch.testing.assert_close(out, expect, atol=1e-5, rtol=1e-5)
+    print(f"the bench's operands (n = {bv.numel()}, xs {tuple(bxs.shape)} "
+          f"on ring(8), x {tuple(b_in['x'].shape)}): gaia_select (T 0.5), "
+          f"rand_k_select (keep 0.001, seed 7) and dgc_sparsify (sparsity "
+          f"0.999: selection, count, threshold) bit-exact; neighbor_mix "
+          f"max |err| {bmix_err:.3g} (tol 2e-5); group_norm max |err| "
+          f"{float((out - expect).abs().max()):.3g} (tol 1e-5)")
     sys.stdout.flush()
 
     # ---------------------------------------------------------------- 4
@@ -525,6 +670,94 @@ def main() -> int:
           f"{time_ms(lambda: ops.launch_rand_k_select(big_v, big_o2, count, 3594, KEEP_999)):.4f}"
           f" ms, bound {bound_ms(1_000_003 * 8, 1_000_003 * 14)[0]:.5f} ms")
 
+    # the bench path's shapes: DGC top-s% at n = 2**20 float32, sparsity
+    # 0.999; GroupNorm at (128, 8, 8, 64), group_size 2
+    nb = 1 << 20
+    dv = randn(nb)
+    d_max = torch.zeros(1, device=dev)
+    d_hist = torch.zeros(256, dtype=torch.int32, device=dev)
+    d_out = torch.empty_like(dv)
+    d_vmax = dv.abs().max()
+    _, _, d_t = ops.dgc_sparsify(dv, 0.999)
+    am_ms = time_ms(lambda: ops.launch_abs_max(dv, d_max))
+    am_op = time_ms(lambda: ops.abs_histogram_fused(dv))
+    am_plain = time_ms(lambda: dv.float().abs().max())
+    am_lib = time_ms(lambda: torch.linalg.vector_norm(dv, float("inf")))
+    # v read, the max written; abs and max an element
+    am_bound, am_by = bound_ms(nb * 4 + 4, 2 * nb)
+    print(f"abs_max n=2**20 f32: kernel {am_ms:.4f} ms, op "
+          f"(abs_histogram_fused: abs_max, abs_histogram, two zero-fills) "
+          f"{am_op:.4f} ms, plain {am_plain:.4f} ms, vector_norm(inf) "
+          f"{am_lib:.4f} ms, bound {am_bound:.5f} ms ({am_by})")
+    ah_ms = time_ms(lambda: ops.launch_abs_histogram(
+        dv, d_vmax.reshape(1), d_hist))
+    ah_op = time_ms(lambda: ops.abs_histogram(dv, d_vmax))
+    ah_plain = time_ms(lambda: ref.abs_histogram_ref(dv, 256, d_vmax))
+    # v read, v_max read, 256 counts written; abs, divide, multiply,
+    # convert, two clamps and the count's add an element
+    ah_bound, ah_by = bound_ms(nb * 4 + 4 + 256 * 4, 7 * nb)
+    print(f"abs_histogram n=2**20 f32, 256 bins: kernel {ah_ms:.4f} ms, op "
+          f"{ah_op:.4f} ms, plain {ah_plain:.4f} ms, bound {ah_bound:.5f} "
+          f"ms ({ah_by})")
+    ds_ms = time_ms(lambda: ops.launch_dgc_select(dv, d_t.reshape(1), d_out,
+                                                  count))
+    ds_op = time_ms(lambda: ops.dgc_select(dv, d_t))
+    ds_plain = time_ms(lambda: ref.dgc_select_ref(dv, d_t))
+    # v read, out written, t read, the count written; abs, compare, select
+    ds_bound, ds_by = bound_ms(nb * 8 + 8, 3 * nb)
+    print(f"dgc_select n=2**20 f32: kernel {ds_ms:.4f} ms, op {ds_op:.4f} "
+          f"ms, plain {ds_plain:.4f} ms, bound {ds_bound:.5f} ms ({ds_by})")
+    sp_op = time_ms(lambda: ops.dgc_sparsify(dv, 0.999))
+    sp_plain = time_ms(lambda: ref.dgc_sparsify_ref(dv, 0.999))
+    sp_exact = time_ms(lambda: ref.dgc_threshold_ref(dv, 0.999))
+    # the function reads v and writes out (8 n bytes); the three-pass
+    # design reads v three times (abs_max, abs_histogram, dgc_select)
+    sp_bound = bound_ms(nb * 8, 12 * nb)[0]
+    sp_bound3 = bound_ms(nb * 16, 12 * nb)[0]
+    print(f"dgc_sparsify n=2**20 f32, sparsity 0.999, whole op (3 kernels, "
+          f"the threshold's tensor ops, 3 zero-fills): {sp_op:.4f} ms, plain "
+          f"(bisection) {sp_plain:.4f} ms, exact quantile threshold alone "
+          f"{sp_exact:.4f} ms, bound {sp_bound:.5f} ms (bytes: 8 n, v read "
+          f"and out written), three-pass design's bound {sp_bound3:.5f} ms "
+          f"(bytes: 16 n)")
+    gx = randn(128, 8, 8, 64)
+    gsc, gbi = torch.ones(64, device=dev), torch.zeros(64, device=dev)
+    g_out = torch.empty_like(gx)
+    gn_ms = time_ms(lambda: ops.launch_group_norm(gx, gsc, gbi, g_out, 2,
+                                                  1e-5))
+    gn_op = time_ms(lambda: ops.group_norm(gx, gsc, gbi, group_size=2))
+    gn_plain = time_ms(lambda: ref.group_norm_ref(gx, gsc, gbi,
+                                                  group_size=2))
+    gn_lib = time_ms(lambda: torch.nn.functional.group_norm(
+        gx.permute(0, 3, 1, 2), 32, gsc, gbi))
+    # x read, y written, scale and bias read; ~8 flops an element
+    gn_bound, gn_by = bound_ms(2 * gx.numel() * 4 + 2 * 64 * 4,
+                               8 * gx.numel())
+    print(f"group_norm (128, 8, 8, 64) f32, group_size 2: kernel "
+          f"{gn_ms:.4f} ms, op {gn_op:.4f} ms, plain {gn_plain:.4f} ms, "
+          f"F.group_norm {gn_lib:.4f} ms, bound {gn_bound:.5f} ms ({gn_by})")
+    sys.stdout.flush()
+
+    # ---------------------------------------------------------------- 6
+    phase(6, "the kernel bench on the card "
+             "(python -m repro_torch.benchmarks.kernels_bench)")
+    bench_json = ROOT / "build" / "kernels_bench.json"
+    bench_json.parent.mkdir(exist_ok=True)
+    for k_ in ops.launches:
+        ops.launches[k_] = 0
+    torch.cuda.synchronize()
+    assert kernels_bench.main(["--json", str(bench_json)]) == 0
+    torch.cuda.synchronize()
+    bench_launches = dict(ops.launches)
+    rows = json.loads(bench_json.read_text())["rows"]
+    assert [r["name"] for r in rows] == list(BENCH_ROWS), rows
+    assert all(np.isfinite(r["us_per_call"]) and r["us_per_call"] > 0
+               for r in rows), rows
+    for k_ in ("gaia_select", "rand_k_select", "neighbor_mix", "abs_max",
+               "abs_histogram", "dgc_select", "group_norm"):
+        assert bench_launches[k_] > 0, (k_, bench_launches)
+    print(f"bench-path launches: {bench_launches}")
+
     kernels = [
         {"name": "gaia_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gaia_select.cu",
@@ -550,6 +783,30 @@ def main() -> int:
          "launches": launches["rand_k_select"], "max_abs_err": 0.0,
          "ms": r_ms, "op_ms": r_op, "plain_ms": r_plain, "bound_ms": r_bound,
          "bound_by": r_by, "library_ms": None},
+        {"name": "abs_max", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dgc_topk.cu",
+         "replaces": "src/repro/kernels/dgc_topk.py:94",
+         "launches": bench_launches["abs_max"], "max_abs_err": 0.0,
+         "ms": am_ms, "op_ms": am_op, "plain_ms": am_plain,
+         "bound_ms": am_bound, "bound_by": am_by, "library_ms": am_lib},
+        {"name": "abs_histogram", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dgc_topk.cu",
+         "replaces": "src/repro/kernels/dgc_topk.py:54",
+         "launches": bench_launches["abs_histogram"], "max_abs_err": 0.0,
+         "ms": ah_ms, "op_ms": ah_op, "plain_ms": ah_plain,
+         "bound_ms": ah_bound, "bound_by": ah_by, "library_ms": None},
+        {"name": "dgc_select", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/dgc_topk.cu",
+         "replaces": "src/repro/kernels/dgc_topk.py:200",
+         "launches": bench_launches["dgc_select"], "max_abs_err": 0.0,
+         "ms": ds_ms, "op_ms": ds_op, "plain_ms": ds_plain,
+         "bound_ms": ds_bound, "bound_by": ds_by, "library_ms": None},
+        {"name": "group_norm", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/group_norm.cu",
+         "replaces": "src/repro/kernels/group_norm.py:17",
+         "launches": bench_launches["group_norm"], "max_abs_err": gn_err,
+         "ms": gn_ms, "op_ms": gn_op, "plain_ms": gn_plain,
+         "bound_ms": gn_bound, "bound_by": gn_by, "library_ms": gn_lib},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -12,8 +12,9 @@ operand is.
 
 Top-k: a per-node threshold at the ``s`` quantile of |v|, interpolated
 linearly between the two order statistics around it exactly as
-``jnp.quantile`` does (rank, floor, ceil and weights in float32), the two
-order statistics from ``torch.kthvalue``, which has no size limit.
+``jnp.quantile`` does (``kernels/dgc_topk.py`` ``quantile_rows``: rank,
+floor, ceil and weights in float32, the two order statistics from
+``torch.kthvalue``, which has no size limit).
 
 ``compressor="randk"`` swaps the top-s% selection for seeded rand-k: the
 keep mask is a pure function of (seed, step, tensor, flat index),
@@ -35,7 +36,7 @@ from repro_torch.core.algorithms.base import (ModelFns, Tree, pernode_grads,
                                               tree_leaf_order, tree_mean0,
                                               tree_stack_n,
                                               tree_zeros_stacked)
-from repro_torch.kernels import ops
+from repro_torch.kernels import dgc_topk, ops
 
 WARMUP_SPARSITIES = (0.75, 0.9375, 0.984375, 0.996, 0.999)
 
@@ -103,7 +104,7 @@ class DGC:
         ``s`` quantile of |v|, and clear them from u in place."""
         shared, counts = {}, []
         for n, v in acc.items():
-            t = _quantile_per_node(v.abs().reshape(self.K, -1), s)
+            t = dgc_topk.quantile_rows(v.abs().reshape(self.K, -1), s)
             mask = v.abs() > _per_node(t, v)
             shared[n] = torch.where(mask, v, torch.zeros_like(v))
             vel[n] = torch.where(mask, torch.zeros_like(v), vel[n])
@@ -137,22 +138,6 @@ class DGC:
 def _per_node(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A (K,) tensor shaped to broadcast over the stacked ``like``."""
     return x.reshape((-1,) + (1,) * (like.dim() - 1))
-
-
-def _quantile_per_node(a: torch.Tensor, q: np.float32) -> torch.Tensor:
-    """Row-wise ``jnp.quantile(a, q, axis=1)`` (linear interpolation) of a
-    (K, n) float32 tensor: the rank ``q * (n - 1)``, its floor and ceil
-    and the two weights in float32 on the host, the two order statistics
-    from ``kthvalue``, and ``low * w_low + high * w_high`` in float32."""
-    n = a.shape[1]
-    rank = np.float32(q) * (np.float32(n) - np.float32(1))
-    lo, hi = np.floor(rank), np.ceil(rank)
-    w_hi = np.float32(rank - lo)
-    w_lo = np.float32(1) - w_hi
-    lo, hi = (int(np.clip(r, 0, n - 1)) for r in (lo, hi))
-    low = a.kthvalue(lo + 1, dim=1).values
-    high = low if hi == lo else a.kthvalue(hi + 1, dim=1).values
-    return low * float(w_lo) + high * float(w_hi)
 
 
 def _layout(perm, dim: int):

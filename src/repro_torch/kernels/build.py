@@ -20,7 +20,9 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
-KERNELS = ("gaia_select", "neighbor_mix", "rand_k_select")
+KERNELS = ("gaia_select", "neighbor_mix", "rand_k_select", "dgc_topk",
+           "group_norm")
+#: no --use_fast_math: the histogram's bins need IEEE division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -7,10 +7,18 @@ kernel cannot take (wrong dtype, shape or layout) raises, and so does a
 failed build or launch.  Operands are checked the same way on both
 routes, so a bad operand raises on the card as it does on the CPU.
 
+The ops: ``gaia_select``, ``neighbor_mix`` (and its ``src=`` gather),
+``rand_k_sparsify``; DGC's histogram-thresholded top-s% as
+``abs_histogram``, ``abs_histogram_fused``, ``dgc_select`` and
+``dgc_sparsify`` (histogram, then ``dgc_topk.threshold_from_histogram``
+on the device, then select); and ``group_norm`` (NHWC, forward).
+
 ``launch_gaia_select``, ``launch_neighbor_mix``,
-``launch_neighbor_mix_src`` and ``launch_rand_k_select`` launch a kernel
-alone, on operands the op has checked and allocated; the ops call them,
-and ``chip_smoke.py`` times them to separate a kernel from its wrapper.
+``launch_neighbor_mix_src``, ``launch_rand_k_select``,
+``launch_abs_max``, ``launch_abs_histogram``, ``launch_dgc_select`` and
+``launch_group_norm`` launch a kernel alone, on operands the op has
+checked and allocated; the ops call them, and ``chip_smoke.py`` times
+them to separate a kernel from its wrapper.
 
 ``launches`` counts the launches of each kernel by name, incremented
 only where the kernel is launched, so a run can show that its path went
@@ -24,7 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import build, ref
+from repro_torch.kernels import build, dgc_topk, ref
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -36,10 +44,22 @@ _MIX_ARGS = [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _P]
 _MIX_SRC_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P]
 # v, out, count, n, seed, keep_prob, device, stream
 _RANDK_ARGS = [_P, _P, _P, _LL, ctypes.c_uint, ctypes.c_float, _I, _P]
+# v, vmax, n, device, stream
+_MAX_ARGS = [_P, _P, _LL, _I, _P]
+# v, vmax, hist, n, n_bins, device, stream
+_HIST_ARGS = [_P, _P, _P, _LL, _I, _I, _P]
+# v, threshold, out, count, n, device, stream
+_SELECT_ARGS = [_P, _P, _P, _P, _LL, _I, _P]
+# x, scale, bias, y, batch, H*W, C, group_size, eps, device, stream
+_GN_ARGS = [_P, _P, _P, _P, _LL, _LL, _I, _I, ctypes.c_float, _I, _P]
+
+#: the most bins ``abs_histogram`` takes (the kernel's shared counters)
+MAX_BINS = 1024
 
 #: launches of each kernel since the count was last set to 0
 launches = {"gaia_select": 0, "neighbor_mix": 0, "neighbor_mix_src": 0,
-            "rand_k_select": 0}
+            "rand_k_select": 0, "abs_max": 0, "abs_histogram": 0,
+            "dgc_select": 0, "group_norm": 0}
 
 
 def _kernel(lib: str, entry: str, dtype: torch.dtype, argtypes):
@@ -222,3 +242,162 @@ def launch_rand_k_select(v: torch.Tensor, out: torch.Tensor,
     _launched("rand_k_select", "rand_k_sparsify", fn(
         v.data_ptr(), out.data_ptr(), count.data_ptr(), v.numel(), seed,
         keep_prob, v.device.index, stream))
+
+
+def _check_bins(n_bins: int) -> None:
+    if not 1 <= n_bins <= MAX_BINS:
+        raise ValueError(f"n_bins={n_bins} outside [1, {MAX_BINS}]")
+
+
+def _scalar(name: str, x, device: torch.device) -> torch.Tensor:
+    """A float32 scalar operand on ``device``, as a 0-d tensor."""
+    t = torch.as_tensor(x, dtype=torch.float32, device=device)
+    if t.numel() != 1:
+        raise ValueError(f"{name} must be a scalar, got shape {t.shape}")
+    return t.reshape(())
+
+
+def abs_histogram(v: torch.Tensor, v_max, *, n_bins: int = 256
+                  ) -> torch.Tensor:
+    """int32 (n_bins,) histogram of |v| over [0, v_max] in ``n_bins``
+    linear bins, clamped (an element at or past ``v_max`` goes to the last
+    bin), the bin computed in float32 as ``ref.abs_histogram_ref`` does.
+    ``v_max`` is a host number or a float32 scalar tensor (on the device
+    of ``v`` to avoid a copy); ``n_bins`` is at most ``MAX_BINS``."""
+    _check_bins(n_bins)
+    vm = _scalar("abs_histogram v_max", v_max, v.device)
+    if _on_cpu(v, vm):
+        return ref.abs_histogram_ref(v, n_bins, vm)
+    _check("abs_histogram v", v, _SUFFIX)
+    hist = torch.zeros(n_bins, dtype=torch.int32, device=v.device)
+    launch_abs_histogram(v, vm.reshape(1), hist)
+    return hist
+
+
+def abs_histogram_fused(v: torch.Tensor, *, n_bins: int = 256
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(int32 (n_bins,) histogram of |v| over [0, max|v|], float32 0-d
+    max|v|).  On the card two launches on one stream, ``abs_max`` and
+    then ``abs_histogram`` reading the max through a device pointer."""
+    _check_bins(n_bins)
+    if v.numel() == 0:
+        raise ValueError("abs_histogram_fused: v is empty")
+    if _on_cpu(v):
+        v_max = v.float().abs().max()
+        return ref.abs_histogram_ref(v, n_bins, v_max), v_max
+    _check("abs_histogram_fused v", v, _SUFFIX)
+    v_max = torch.zeros(1, dtype=torch.float32, device=v.device)
+    hist = torch.zeros(n_bins, dtype=torch.int32, device=v.device)
+    launch_abs_max(v, v_max)
+    launch_abs_histogram(v, v_max, hist)
+    return hist, v_max.reshape(())
+
+
+def launch_abs_max(v: torch.Tensor, v_max: torch.Tensor) -> None:
+    """Launch the ``abs_max`` kernel on a CUDA tensor that the op checked:
+    ``v_max`` a zeroed (1,) float32 the kernel raises to max|v|."""
+    fn = _kernel("dgc_topk", "abs_max", v.dtype, _MAX_ARGS)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    _launched("abs_max", "abs_histogram_fused", fn(
+        v.data_ptr(), v_max.data_ptr(), v.numel(), v.device.index, stream))
+
+
+def launch_abs_histogram(v: torch.Tensor, v_max: torch.Tensor,
+                         hist: torch.Tensor) -> None:
+    """Launch the ``abs_histogram`` kernel on CUDA operands that the op
+    checked: ``v_max`` a (1,) float32, ``hist`` a zeroed int32 (n_bins,)
+    the kernel adds its counts to."""
+    fn = _kernel("dgc_topk", "abs_histogram", v.dtype, _HIST_ARGS)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    _launched("abs_histogram", "abs_histogram", fn(
+        v.data_ptr(), v_max.data_ptr(), hist.data_ptr(), v.numel(),
+        hist.numel(), v.device.index, stream))
+
+
+def dgc_select(v: torch.Tensor, threshold
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absolute-magnitude select: (v where |v| > t else 0, int32 count),
+    compared in float32.  ``threshold`` is a host number or a float32
+    scalar tensor (on the device of ``v`` to avoid a copy)."""
+    t = _scalar("dgc_select threshold", threshold, v.device)
+    if _on_cpu(v, t):
+        return ref.dgc_select_ref(v, t)
+    _check("dgc_select v", v, _SUFFIX)
+    out = torch.empty_like(v)
+    count = torch.zeros((), dtype=torch.int32, device=v.device)
+    launch_dgc_select(v, t.reshape(1), out, count)
+    return out, count
+
+
+def launch_dgc_select(v: torch.Tensor, t: torch.Tensor, out: torch.Tensor,
+                      count: torch.Tensor) -> None:
+    """Launch the ``dgc_select`` kernel on CUDA operands that
+    ``dgc_select`` checked: ``t`` a (1,) float32 threshold, ``out`` like
+    ``v``, ``count`` an int32 scalar the kernel adds its count to."""
+    fn = _kernel("dgc_topk", "dgc_select", v.dtype, _SELECT_ARGS)
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    _launched("dgc_select", "dgc_select", fn(
+        v.data_ptr(), t.data_ptr(), out.data_ptr(), count.data_ptr(),
+        v.numel(), v.device.index, stream))
+
+
+def dgc_sparsify(v: torch.Tensor, sparsity, *, n_bins: int = 256
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """DGC top-s%: (v where |v| > t else 0, int32 count, float32 0-d
+    threshold t), t the upper edge of the ``n_bins``-histogram bin of
+    |v| over [0, max|v|] where the cumulative count reaches ``sparsity``
+    of the total.  On the card: ``abs_histogram_fused``, then
+    ``dgc_topk.threshold_from_histogram``, then ``dgc_select``, the
+    threshold kept on the device (no host sync).  On the CPU: the
+    bisection ``ref.dgc_sparsify_ref``, which lands on the same bin, so
+    the two routes give one threshold bit for bit."""
+    _check_bins(n_bins)
+    if v.numel() == 0:
+        raise ValueError("dgc_sparsify: v is empty")
+    if _on_cpu(v):
+        return ref.dgc_sparsify_ref(v, sparsity, n_bins=n_bins)
+    hist, v_max = abs_histogram_fused(v, n_bins=n_bins)
+    t = dgc_topk.threshold_from_histogram(hist, v_max, sparsity)
+    sel, count = dgc_select(v, t)
+    return sel, count, t
+
+
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+               group_size: int = 2, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm of an NHWC (B, H, W, C) tensor, per sample, over groups
+    of ``group_size`` adjacent channels: float32 mean and biased
+    variance, ``(x - mu) * rsqrt(var + eps) * scale + bias`` with float32
+    (C,) ``scale`` and ``bias``, returned in x's dtype.  Forward only, as
+    the reference's kernel."""
+    if x.dim() != 4:
+        raise ValueError(f"group_norm: x must be (B, H, W, C), got "
+                         f"{tuple(x.shape)}")
+    C = x.shape[3]
+    if group_size < 1 or C % group_size != 0:
+        raise ValueError(f"group_norm: C={C} is not a multiple of "
+                         f"group_size={group_size}")
+    if scale.shape != (C,) or bias.shape != (C,):
+        raise ValueError(f"group_norm: scale {tuple(scale.shape)} and bias "
+                         f"{tuple(bias.shape)} must be ({C},)")
+    if _on_cpu(x, scale, bias):
+        return ref.group_norm_ref(x, scale, bias, group_size=group_size,
+                                  eps=eps)
+    _check("group_norm x", x, _SUFFIX)
+    _check("group_norm scale", scale, (torch.float32,))
+    _check("group_norm bias", bias, (torch.float32,))
+    out = torch.empty_like(x)
+    launch_group_norm(x, scale, bias, out, group_size, eps)
+    return out
+
+
+def launch_group_norm(x: torch.Tensor, scale: torch.Tensor,
+                      bias: torch.Tensor, out: torch.Tensor,
+                      group_size: int, eps: float) -> None:
+    """Launch the ``group_norm`` kernel on CUDA operands that
+    ``group_norm`` checked, writing into ``out`` (like ``x``)."""
+    B, H, W, C = x.shape
+    fn = _kernel("group_norm", "group_norm", x.dtype, _GN_ARGS)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    _launched("group_norm", "group_norm", fn(
+        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B,
+        H * W, C, group_size, eps, x.device.index, stream))

@@ -8,9 +8,10 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.kernels import rng
+from repro_torch.kernels import dgc_topk, rng
 
 
 def gaia_select_ref(v: torch.Tensor, w: torch.Tensor, threshold
@@ -61,3 +62,100 @@ def neighbor_mix_ref(x: torch.Tensor, mixing: torch.Tensor) -> torch.Tensor:
     """Dense gossip averaging ``W @ X`` with the full (K, K) mixing
     matrix.  x: (K, N) stacked per-node vectors."""
     return (mixing.float() @ x.float()).to(x.dtype)
+
+
+def dgc_threshold_ref(v: torch.Tensor, sparsity) -> torch.Tensor:
+    """Exact top-(1 - sparsity) magnitude threshold: the ``sparsity``
+    quantile of |v| in float32, as ``jnp.quantile`` computes it."""
+    return dgc_topk.quantile_rows(v.float().abs().reshape(1, -1),
+                                  sparsity)[0]
+
+
+def dgc_select_ref(v: torch.Tensor, threshold
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absolute-magnitude select ``|v| > t``, compared in float32 whatever
+    the dtype of ``v``.  Returns (v where selected else 0, int32 count).
+
+    The reference's oracle multiplies by the mask, which gives -0.0 for a
+    negative entry that is not selected; this version and the kernels
+    (the Pallas one's ``jnp.where`` and ``csrc/dgc_topk.cu``) give +0.0.
+    The two are equal as numbers, so compare values with ``==`` or
+    ``torch.equal``, not bit patterns."""
+    t = torch.as_tensor(threshold, dtype=torch.float32, device=v.device)
+    mask = v.float().abs() > t
+    return (torch.where(mask, v, torch.zeros((), dtype=v.dtype,
+                                             device=v.device)),
+            mask.sum(dtype=torch.int32))
+
+
+def _abs_bins(a: torch.Tensor, v_max: torch.Tensor, n_bins: int
+              ) -> torch.Tensor:
+    """The bin of each float32 |v|: ``clip(int32(a / max(v_max, 1e-30) *
+    n_bins), 0, n_bins - 1)``, the quotient divided and multiplied in
+    float32.  The float is clamped to ``n_bins - 1`` before the cast:
+    XLA's float-to-int conversion saturates, a plain cast of a float past
+    the int32 range does not (an external ``v_max`` far below max|v|)."""
+    vmax = torch.clamp(v_max, min=1e-30)
+    q = a / vmax * n_bins
+    return torch.clamp(q, max=float(n_bins - 1)).to(torch.int32).clamp_(
+        0, n_bins - 1)
+
+
+def abs_histogram_ref(v: torch.Tensor, n_bins: int, v_max
+                      ) -> torch.Tensor:
+    """int32 (n_bins,) histogram of |v| over [0, v_max] with ``n_bins``
+    linear bins, the bins clamped (an element at or past ``v_max`` goes
+    to the last bin)."""
+    a = v.reshape(-1).float().abs()
+    vmax = torch.as_tensor(v_max, dtype=torch.float32, device=v.device)
+    idx = _abs_bins(a, vmax, n_bins)
+    return torch.bincount(idx, minlength=n_bins).to(torch.int32)
+
+
+def dgc_sparsify_ref(v: torch.Tensor, sparsity, *, n_bins: int = 256
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Histogram-thresholded DGC without the histogram: (selected, int32
+    count, float32 threshold).  The threshold's bin is the first ``b``
+    whose count of elements in bins ``<= b``, as float32, reaches
+    ``sparsity * float32(n)``, found by bisection over [0, n_bins - 1];
+    the threshold is that bin's upper edge over [0, max|v|]
+    (``dgc_topk.bin_threshold``).  That is the bin
+    ``dgc_topk.threshold_from_histogram`` picks from the histogram, so
+    the two routes of ``ops.dgc_sparsify`` give one threshold bit for
+    bit.
+
+    The bisection takes ``(n_bins - 1).bit_length()`` steps, which is
+    ceil(log2(n_bins)), enough to narrow n_bins candidates to one.  The
+    reference's oracle (``repro/kernels/ref.py``) takes
+    ``n_bins.bit_length() - 1``, one step short when ``n_bins`` is not a
+    power of two; at powers of two the two counts are equal."""
+    a = v.reshape(-1).float().abs()
+    v_max = a.max()
+    idx = _abs_bins(a, v_max, n_bins)
+    target = (torch.as_tensor(sparsity, dtype=torch.float32, device=v.device)
+              * float(np.float32(a.numel())))
+    lo = torch.zeros((), dtype=torch.int64, device=v.device)
+    hi = torch.full((), n_bins - 1, dtype=torch.int64, device=v.device)
+    for _ in range((n_bins - 1).bit_length()):
+        mid = torch.div(lo + hi, 2, rounding_mode="floor")
+        reached = (idx <= mid).sum().float() >= target
+        hi = torch.where(reached, mid, hi)
+        lo = torch.where(reached, lo, mid + 1)
+    t = dgc_topk.bin_threshold(hi, n_bins, v_max)
+    sel, cnt = dgc_select_ref(v, t)
+    return sel, cnt, t
+
+
+def group_norm_ref(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   *, group_size: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm of an NHWC (B, H, W, C) tensor over groups of
+    ``group_size`` adjacent channels, per sample: float32 mean and biased
+    variance (the mean of squared deviations), ``(x - mu) * rsqrt(var +
+    eps) * scale + bias``, returned in x's dtype."""
+    B, H, W, C = x.shape
+    xg = x.float().reshape(B, H * W, C // group_size, group_size)
+    mu = xg.mean(dim=(1, 3), keepdim=True)
+    var = (xg - mu).square().mean(dim=(1, 3), keepdim=True)
+    y = (xg - mu) * torch.rsqrt(var + eps)
+    y = y.reshape(B, H, W, C) * scale.float() + bias.float()
+    return y.to(x.dtype)

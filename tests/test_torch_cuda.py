@@ -230,3 +230,106 @@ def test_dpsgd_step_on_card_matches_cpu(dev, algo, comm_kw):
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
          torch.backends.cudnn.allow_tf32) = flags
+
+
+DGC_SHAPES = [(1,), (37,), (5, 32, 3, 5, 5), (1_000_003,)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", DGC_SHAPES)
+def test_dgc_histogram_kernels_bit_exact(dev, shape, dtype):
+    """abs_max, abs_histogram and dgc_select against their plain versions,
+    and dgc_sparsify's card route against the bisection: histograms,
+    max|v|, thresholds and counts bit for bit, values equal."""
+    v = _randn(shape, 2).to(dev, dtype)
+    before = dict(ops.launches)
+    hist, v_max = ops.abs_histogram_fused(v)
+    r_max = v.float().abs().max()
+    assert float(v_max) == float(r_max)
+    assert torch.equal(hist, ref.abs_histogram_ref(v, 256, r_max))
+    for vm in (0.5 * float(r_max), 1e-35):
+        assert torch.equal(ops.abs_histogram(v, vm),
+                           ref.abs_histogram_ref(v, 256, vm))
+    for s in (0.5, 0.9, 0.99, 0.999):
+        for n_bins in (256, 100):
+            sel, cnt, t = ops.dgc_sparsify(v, s, n_bins=n_bins)
+            rsel, rcnt, rt = ref.dgc_sparsify_ref(v, s, n_bins=n_bins)
+            assert float(t) == float(rt), (s, n_bins)
+            assert int(cnt) == int(rcnt) and torch.equal(sel, rsel)
+    sel, cnt = ops.dgc_select(v, 0.5)
+    rsel, rcnt = ref.dgc_select_ref(v, 0.5)
+    assert torch.equal(sel, rsel) and int(cnt) == int(rcnt)
+    after = ops.launches
+    assert after["abs_max"] == before["abs_max"] + 9
+    assert after["abs_histogram"] == before["abs_histogram"] + 11
+    assert after["dgc_select"] == before["dgc_select"] + 9
+
+
+def test_dgc_histogram_kernels_at_ties_and_zeros(dev):
+    v = _randn((4096,), 3).to(dev)
+    top = float(v.abs().max())
+    v[[5, 99, 4000]] = torch.tensor([top, -top, top], device=dev)
+    hist, v_max = ops.abs_histogram_fused(v)
+    assert float(v_max) == top and int(hist[255]) >= 3
+    assert torch.equal(hist, ref.abs_histogram_ref(v, 256, top))
+    zeros = torch.zeros(1000, device=dev)
+    sel, cnt, t = ops.dgc_sparsify(zeros, 0.999)
+    assert float(t) == 0.0 and int(cnt) == 0 and not sel.any()
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape,group_size", [
+    ((2, 8, 8, 16), 2), ((2, 8, 8, 16), 4), ((4, 4, 4, 32), 2),
+    ((4, 4, 4, 32), 4), ((128, 8, 8, 64), 2), ((1, 3, 5, 6), 3)])
+def test_group_norm_kernel_matches_ref(dev, shape, group_size, dtype, tol):
+    x = _randn(shape, 4).to(dev, dtype)
+    sc = (_randn(shape[-1:], 5, 0.1) + 1.0).to(dev)
+    bi = _randn(shape[-1:], 6, 0.1).to(dev)
+    launches = ops.launches["group_norm"]
+    out = ops.group_norm(x, sc, bi, group_size=group_size)
+    assert ops.launches["group_norm"] == launches + 1
+    assert out.dtype == dtype and out.shape == shape
+    torch.testing.assert_close(
+        out.float(),
+        ref.group_norm_ref(x, sc, bi, group_size=group_size).float(),
+        atol=tol, rtol=tol)
+
+
+def test_new_kernels_refuse_what_they_cannot_take(dev):
+    v = torch.zeros(4, 10, device=dev)
+    before = dict(ops.launches)
+    with pytest.raises(TypeError):
+        ops.dgc_sparsify(v.double(), 0.9)
+    with pytest.raises(ValueError):
+        ops.dgc_select(v.t(), 0.1)                  # not contiguous
+    with pytest.raises(ValueError, match="n_bins"):
+        ops.abs_histogram(v, 1.0, n_bins=2048)
+    x = torch.zeros(2, 4, 4, 6, device=dev)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.group_norm(x, torch.ones(6, device=dev),
+                       torch.zeros(6, device=dev), group_size=4)
+    with pytest.raises(TypeError):
+        ops.group_norm(x, torch.ones(6, device=dev).double(),
+                       torch.zeros(6, device=dev), group_size=2)
+    assert ops.launches == before
+
+
+def test_new_launches_alone_match_the_ops(dev):
+    v = _randn((5, 1000), 7).to(dev)
+    v_max = torch.zeros(1, device=dev)
+    ops.launch_abs_max(v, v_max)
+    hist = torch.zeros(256, dtype=torch.int32, device=dev)
+    ops.launch_abs_histogram(v, v_max, hist)
+    r_hist, r_max = ops.abs_histogram_fused(v)
+    assert torch.equal(hist, r_hist) and float(v_max) == float(r_max)
+    sel, cnt, t = ops.dgc_sparsify(v, 0.9)
+    out = torch.empty_like(v)
+    count = torch.zeros((), dtype=torch.int32, device=dev)
+    ops.launch_dgc_select(v, t.reshape(1), out, count)
+    assert torch.equal(out, sel) and int(count) == int(cnt)
+    x = _randn((2, 4, 4, 8), 8).to(dev)
+    sc, bi = torch.ones(8, device=dev), torch.zeros(8, device=dev)
+    y = torch.empty_like(x)
+    ops.launch_group_norm(x, sc, bi, y, 2, 1e-5)
+    assert torch.equal(y, ops.group_norm(x, sc, bi, group_size=2))

@@ -1,0 +1,293 @@
+"""The port's DGC histogram route and GroupNorm against the JAX reference,
+on the CPU.
+
+The same NumPy inputs, made from a seed, go through ``repro``'s Pallas
+kernels (always with an explicit ``interpret=True``: without it the
+reference's dispatcher times candidates and writes its cache), its jnp
+oracles, and ``repro_torch``'s plain PyTorch versions, which are what
+``repro_torch.kernels.ops`` runs for a CPU tensor.  Histograms, max|v|,
+counts and DGC thresholds must be bit-exact and selected values equal as
+numbers; GroupNorm agrees to 1e-5 in float32 (the reference test's
+tolerance) and 2e-2 in bfloat16 (one bf16 rounding of the output, after
+float32 statistics summed in another order).  The CUDA kernels are held
+against these plain versions on the card by ``tests/test_torch_cuda.py``
+and ``chip_smoke.py``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import dgc_topk as jax_dgc
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+from repro_torch.benchmarks import kernels_bench
+from repro_torch.kernels import dgc_topk, ops, ref
+
+DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+#: tests/test_kernels.py's DGC shapes and a ragged size
+SHAPES = [(5000,), (100, 77), (17, 33, 9), (12345,)]
+SPARSITIES = [0.0, 0.5, 0.75, 0.9, 0.99, 0.999, 1.0]
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """One float32 NumPy array as a JAX and a torch array of ``dtype``
+    (both round float32 -> bfloat16 to nearest even: the same bits)."""
+    jdt, tdt, _ = DTYPES[dtype]
+    return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+
+def _np32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _normal(shape, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+# ---------------------------------------------------------------------------
+# histogram, threshold, select
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_abs_histogram_ref_matches_jax(shape, dtype):
+    """Bins of |v| against an external v_max: max|v| (ties land in the
+    last bin), half of it (everything above clamps to the last bin), a
+    v_max so small that the quotient saturates the int32 conversion, and
+    an all-zero v (its v_max floored at 1e-30)."""
+    v_np = _normal(shape, sum(shape))
+    jv, tv = _pair(v_np, dtype)
+    top = float(tv.float().abs().max())
+    cases = [(jv, tv, top), (jv, tv, 0.5 * top), (jv, tv, 1e-35)]
+    cases.append(_pair(np.zeros(shape, np.float32), dtype) + (0.0,))
+    for jx, tx, vmax in cases:
+        vm32 = np.float32(vmax)
+        hist = ref.abs_histogram_ref(tx, 256, vm32)
+        assert hist.dtype == torch.int32 and hist.shape == (256,)
+        assert int(hist.sum()) == tx.numel()
+        assert torch.equal(hist, ops.abs_histogram(tx, vm32))
+        for other in (jax_dgc.abs_histogram(jx, jnp.float32(vm32),
+                                            interpret=True),
+                      jax_ref.abs_histogram_ref(jx, 256, jnp.float32(vm32))):
+            np.testing.assert_array_equal(hist.numpy(), np.asarray(other))
+    assert int(ref.abs_histogram_ref(tv, 256, top)[255]) >= 1
+
+
+@pytest.mark.parametrize("n_bins", [256, 100])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_abs_histogram_fused_matches_jax(shape, dtype, n_bins):
+    v_np = _normal(shape, 1 + sum(shape))
+    jv, tv = _pair(v_np, dtype)
+    hist, v_max = ops.abs_histogram_fused(tv, n_bins=n_bins)
+    assert hist.dtype == torch.int32 and v_max.dtype == torch.float32
+    j_hist, j_max = jax_dgc.abs_histogram_fused(jv, n_bins=n_bins,
+                                                interpret=True)
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(j_hist))
+    assert float(v_max) == float(j_max)
+
+
+@pytest.mark.parametrize("n_bins", [256, 100])
+def test_threshold_from_histogram_matches_jax(n_bins):
+    """Bit-equal to the reference's glue as the reference runs it, under
+    ``jit``: XLA turns its ``/ n_bins`` into a multiply by the float32
+    reciprocal, which the port computes.  At 256 bins (a power of two)
+    JAX's eager division gives the same bits too."""
+    jit_threshold = jax.jit(jax_dgc.threshold_from_histogram)
+    for seed in range(3):
+        v_np = _normal(5000, seed)
+        j_hist, j_max = jax_dgc.abs_histogram_fused(
+            jnp.asarray(v_np), n_bins=n_bins, interpret=True)
+        hist = torch.from_numpy(np.array(j_hist))
+        v_max = torch.tensor(float(j_max))
+        for s in SPARSITIES:
+            t = dgc_topk.threshold_from_histogram(hist, v_max, s)
+            assert t.dtype == torch.float32 and t.shape == ()
+            expect = [jit_threshold(j_hist, j_max, jnp.float32(s))]
+            if n_bins == 256:
+                expect.append(jax_dgc.threshold_from_histogram(
+                    j_hist, j_max, jnp.float32(s)))
+            for e in expect:
+                assert float(t) == float(e), (seed, s, float(t), float(e))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_dgc_select_ref_matches_jax(shape, dtype):
+    """Values equal as numbers: the reference's oracle multiplies by the
+    mask and gives -0.0 for a negative entry it drops, where the port and
+    the Pallas kernel give +0.0."""
+    v_np = _normal(shape, 2 + sum(shape))
+    jv, tv = _pair(v_np, dtype)
+    for t in (0.0, 0.5, 1.5, 10.0):
+        t32 = np.float32(t)
+        sel, cnt = ref.dgc_select_ref(tv, t32)
+        assert sel.dtype == tv.dtype and cnt.dtype == torch.int32
+        op_sel, op_cnt = ops.dgc_select(tv, t32)
+        assert torch.equal(op_sel, sel) and int(op_cnt) == int(cnt)
+        assert not torch.signbit(sel[sel == 0]).any()
+        for o_sel, o_cnt in (jax_dgc.dgc_select(jv, t32, interpret=True),
+                             jax_ref.dgc_select_ref(jv, jnp.float32(t))):
+            np.testing.assert_array_equal(_np32(sel), _np32(o_sel))
+            assert int(cnt) == int(o_cnt)
+
+
+def _card_route(v: torch.Tensor, sparsity, n_bins: int):
+    """The op's card route, composed from the plain versions on the CPU:
+    histogram at max|v|, the threshold glue, the select."""
+    v_max = v.float().abs().max()
+    hist = ref.abs_histogram_ref(v, n_bins, v_max)
+    t = dgc_topk.threshold_from_histogram(hist, v_max, sparsity)
+    sel, cnt = ref.dgc_select_ref(v, t)
+    return sel, cnt, t
+
+
+@pytest.mark.parametrize("n_bins", [256, 100])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_dgc_sparsify_routes_agree(shape, dtype, n_bins):
+    """The port's CPU op (the bisection ``ref.dgc_sparsify_ref``) and its
+    card route (histogram, threshold, select) give one threshold, count
+    and selection bit for bit, and so does the reference's kernel route
+    (``ops.dgc_sparsify(..., interpret=True)``) at every bin count.  The
+    reference's own oracle (``repro/kernels/ref.py`` ``dgc_sparsify_ref``)
+    bisects for ``n_bins.bit_length() - 1`` steps, one short of
+    ceil(log2(n_bins)) when ``n_bins`` is not a power of two, so it is
+    held to the port only at 256 bins."""
+    v_np = _normal(shape, 3 + sum(shape))
+    jv, tv = _pair(v_np, dtype)
+    for s in SPARSITIES:
+        sel, cnt, t = ops.dgc_sparsify(tv, s, n_bins=n_bins)
+        assert t.dtype == torch.float32 and cnt.dtype == torch.int32
+        c_sel, c_cnt, c_t = _card_route(tv, s, n_bins)
+        assert float(t) == float(c_t), (s, float(t), float(c_t))
+        assert int(cnt) == int(c_cnt) and torch.equal(sel, c_sel)
+        expects = [jax_ops.dgc_sparsify(jv, jnp.float32(s), n_bins=n_bins,
+                                        interpret=True)]
+        if n_bins == 256:
+            expects.append(jax.jit(
+                jax_ref.dgc_sparsify_ref, static_argnames="n_bins")(
+                    jv, jnp.float32(s), n_bins=n_bins))
+        for o_sel, o_cnt, o_t in expects:
+            assert float(t) == float(o_t), (s, float(t), float(o_t))
+            assert int(cnt) == int(o_cnt)
+            np.testing.assert_array_equal(_np32(sel), _np32(o_sel))
+        assert bool((sel.float().abs() > float(t)).eq(sel != 0).all())
+
+
+# ---------------------------------------------------------------------------
+# GroupNorm
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("group_size", [2, 4])
+@pytest.mark.parametrize("shape", [(2, 8, 8, 16), (4, 4, 4, 32)])
+def test_group_norm_ref_matches_jax(shape, group_size, dtype):
+    x_np = _normal(shape, 4 + group_size)
+    c = shape[-1]
+    scale = _normal(c, 5) * 0.1 + 1.0
+    bias = _normal(c, 6) * 0.1
+    jx, tx = _pair(x_np, dtype)
+    tol = DTYPES[dtype][2]
+    out = ref.group_norm_ref(tx, torch.from_numpy(scale),
+                             torch.from_numpy(bias), group_size=group_size)
+    assert out.dtype == tx.dtype and out.shape == shape
+    assert torch.equal(out, ops.group_norm(
+        tx, torch.from_numpy(scale), torch.from_numpy(bias),
+        group_size=group_size))
+    js, jb = jnp.asarray(scale), jnp.asarray(bias)
+    for e in (jax_ops.group_norm(jx, js, jb, group_size=group_size,
+                                 interpret=True),
+              jax_ref.group_norm_ref(jx, js, jb, group_size=group_size)):
+        np.testing.assert_allclose(_np32(out), _np32(e), atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# the kernel bench twin
+# ---------------------------------------------------------------------------
+
+#: the reference bench's rows (benchmarks/kernels_bench.py) without the two
+#: attention rows and the interpret-mode rows
+REFERENCE_ROWS = [
+    "kernel/gaia_select_1M", "oracle/gaia_select_1M",
+    "kernel/dgc_sparsify_1M", "oracle/dgc_sparsify_1M",
+    "oracle/dgc_quantile_1M",
+    "kernel/rand_k_1M", "oracle/rand_k_1M",
+    "kernel/neighbor_mix_ring8_128k", "oracle/neighbor_mix_ring8_128k",
+    "oracle/neighbor_mix_dense",
+    "kernel/group_norm", "oracle/group_norm"]
+LIBRARY_ROWS = ["library/dgc_quantile_1M", "library/neighbor_mix_dense",
+                "library/group_norm"]
+
+
+def test_kernels_bench_rows_on_cpu():
+    launches = dict(ops.launches)
+    rows = kernels_bench.run("cpu", n=4096, mix_cols=256,
+                             gn_shape=(4, 4, 4, 8), reps=2)
+    names = [name for name, _ in rows]
+    assert [n for n in names if not n.startswith("library/")] == \
+        REFERENCE_ROWS
+    assert sorted(n for n in names if n.startswith("library/")) == \
+        sorted(LIBRARY_ROWS)
+    assert all(np.isfinite(us) and us > 0 for _, us in rows)
+    assert ops.launches == launches            # the CPU launches nothing
+
+
+def test_kernels_bench_entry_point_prints_rows(monkeypatch, capsys,
+                                               tmp_path):
+    small = kernels_bench.run
+
+    def run_small(device):
+        return small(device, n=2048, mix_cols=128, gn_shape=(2, 4, 4, 8),
+                     reps=1)
+    monkeypatch.setattr(kernels_bench, "run", run_small)
+    out_json = tmp_path / "rows.json"
+    assert kernels_bench.main(["--device", "cpu", "--json",
+                               str(out_json)]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == "# device: cpu"
+    assert lines[-1] == kernels_bench.ATTENTION_NOTE
+    rows = [line.split(",") for line in lines[1:-1]]
+    assert [r[0] for r in rows] == [n for n, _ in run_small("cpu")]
+    assert all(len(r) == 3 and r[2] == "" and float(r[1]) > 0 for r in rows)
+    assert out_json.read_text().count("us_per_call") == len(rows)
+
+
+def test_kernels_bench_needs_a_card_by_default(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        kernels_bench.run()
+
+
+def _quantile_np(a: np.ndarray, q: float) -> np.float32:
+    """``jnp.quantile``'s linear interpolation as its source writes it,
+    each float32 operation rounded on its own."""
+    s = np.sort(a.reshape(-1))
+    rank = np.float32(q) * (np.float32(s.size) - np.float32(1))
+    w_hi = np.float32(rank - np.floor(rank))
+    w_lo = np.float32(1) - w_hi
+    return (s[int(np.floor(rank))] * w_lo) + (s[int(np.ceil(rank))] * w_hi)
+
+
+def test_dgc_threshold_ref_is_the_exact_quantile():
+    """The exact threshold (the bench's ``oracle/dgc_quantile_1M``) is
+    ``jnp.quantile``'s function of |v| bit for bit, and within one ulp of
+    what XLA's CPU backend computes for it: that backend may fuse the
+    interpolation's multiply and add into one fused multiply-add, which
+    rounds once where the source rounds twice."""
+    for shape in SHAPES:
+        v_np = _normal(shape, 7)
+        for s in (0.5, 0.9, 0.99, 0.999):
+            t = ref.dgc_threshold_ref(torch.from_numpy(v_np), s)
+            assert t.dtype == torch.float32 and t.shape == ()
+            assert float(t) == float(_quantile_np(np.abs(v_np), s)), \
+                (shape, s)
+            np.testing.assert_array_max_ulp(
+                t.numpy(), np.asarray(jax_ref.dgc_threshold_ref(
+                    jnp.asarray(v_np), s)), maxulp=1)

@@ -276,3 +276,61 @@ def test_neighbor_mix_src_ref_matches_jax(topology, dtype):
                   jax_ref.neighbor_mix_src_ref(jx, jsrc, *jops)):
             np.testing.assert_allclose(_np32(out), _np32(e), atol=tol,
                                        rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# DGC's histogram route and GroupNorm: routing and refusals (parity with the
+# reference is in tests/test_torch_dgc_gn.py)
+# ---------------------------------------------------------------------------
+
+def test_dgc_and_group_norm_ops_route_cpu_tensors_to_ref(no_kernel_build):
+    rs = np.random.default_rng(3)
+    v = torch.from_numpy(rs.standard_normal((5, 300)).astype(np.float32))
+    launches = dict(ops.launches)
+    vm = float(v.abs().max())
+    assert torch.equal(ops.abs_histogram(v, vm),
+                       ref.abs_histogram_ref(v, 256, vm))
+    hist, v_max = ops.abs_histogram_fused(v, n_bins=64)
+    assert float(v_max) == vm
+    assert torch.equal(hist, ref.abs_histogram_ref(v, 64, vm))
+    sel, cnt = ops.dgc_select(v, 1.0)
+    rsel, rcnt = ref.dgc_select_ref(v, 1.0)
+    assert torch.equal(sel, rsel) and int(cnt) == int(rcnt)
+    for got, expect in zip(ops.dgc_sparsify(v, 0.99),
+                           ref.dgc_sparsify_ref(v, 0.99)):
+        assert torch.equal(got, expect)
+    x = torch.from_numpy(rs.standard_normal((2, 4, 4, 8)).astype(np.float32))
+    sc, bi = torch.ones(8), torch.zeros(8)
+    assert torch.equal(ops.group_norm(x, sc, bi, group_size=4),
+                       ref.group_norm_ref(x, sc, bi, group_size=4))
+    assert ops.launches == launches
+
+
+def test_dgc_and_group_norm_ops_reject_bad_operands(no_kernel_build):
+    v = torch.zeros(100)
+    for n_bins in (0, ops.MAX_BINS + 1):
+        with pytest.raises(ValueError, match="n_bins"):
+            ops.abs_histogram(v, 1.0, n_bins=n_bins)
+        with pytest.raises(ValueError, match="n_bins"):
+            ops.abs_histogram_fused(v, n_bins=n_bins)
+        with pytest.raises(ValueError, match="n_bins"):
+            ops.dgc_sparsify(v, 0.9, n_bins=n_bins)
+    assert ops.abs_histogram(v, 1.0, n_bins=ops.MAX_BINS).shape == \
+        (ops.MAX_BINS,)
+    with pytest.raises(ValueError, match="scalar"):
+        ops.abs_histogram(v, torch.ones(2))
+    with pytest.raises(ValueError, match="scalar"):
+        ops.dgc_select(v, torch.ones(3))
+    with pytest.raises(ValueError, match="empty"):
+        ops.dgc_sparsify(torch.zeros(0), 0.9)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.dgc_select(torch.zeros(4, device="meta"), torch.tensor(0.5))
+    x = torch.zeros(2, 4, 4, 6)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.group_norm(x, torch.ones(6), torch.zeros(6), group_size=4)
+    with pytest.raises(ValueError, match="multiple"):
+        ops.group_norm(x, torch.ones(6), torch.zeros(6), group_size=0)
+    with pytest.raises(ValueError, match="scale"):
+        ops.group_norm(x, torch.ones(4), torch.zeros(6), group_size=2)
+    with pytest.raises(ValueError, match="B, H, W, C"):
+        ops.group_norm(x[0], torch.ones(6), torch.zeros(6), group_size=2)

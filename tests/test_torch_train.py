@@ -653,7 +653,9 @@ def test_ledger_fabric_config_knobs_equal(window, rewire):
 # ---------------------------------------------------------------------------
 
 def test_port_import_loads_no_jax_or_repro():
-    code = ("import sys, repro_torch.core.trainer\n"
+    code = ("import sys, repro_torch.core.trainer, "
+            "repro_torch.kernels.dgc_topk, "
+            "repro_torch.benchmarks.kernels_bench\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
