@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure raises and exits non-zero
 before the last line is printed:
 
 1. device: the card's name and power limit, the library versions;
-2. build: compile the five CUDA sources from ``src/repro_torch/kernels/csrc``
+2. build: compile the six CUDA sources from ``src/repro_torch/kernels/csrc``
    (``nvcc``, sm_90a, one process each, all started together) and time it;
 3. kernels against their plain PyTorch versions on the card:
    ``gaia_select`` and ``rand_k_select`` bit-exact (output and count) at
@@ -25,11 +25,19 @@ before the last line is printed:
    at max|v|, all zeros and an external v_max below max|v|;
    ``group_norm`` allclose (float32 1e-5, bfloat16 2e-2) at (2, 8, 8, 16)
    and (4, 4, 4, 32) with group_size {2, 4} and at (128, 8, 8, 64), and
-   a channel count off the group size refused with no launch; then every
-   kernel of phase 6's bench on the bench's own operands
-   (``kernels_bench.inputs``): ``gaia_select``, ``rand_k_select`` and
-   ``dgc_sparsify`` at n = 2**20 bit-exact, ``neighbor_mix`` at (8, 2**17)
-   on ``ring(8)`` within 2e-5 and ``group_norm`` within 1e-5;
+   a channel count off the group size refused with no launch;
+   ``flash_attention`` allclose (float32 2e-5, bfloat16 2e-2) on
+   ``tests/test_kernels.py``'s grid (B, H, Tq, Tk, D) = (1, 2, 128, 128,
+   64), (2, 1, 64, 192, 64), (1, 1, 200, 200, 128), at D = 256 (gemma2's
+   head dim) and at the LM prefill's (4, 16, 2048, 2048, 128) in
+   bfloat16, causal, non-causal, causal with a window of 64 and causal
+   with softcap 30, and a head dim of 96 and a non-contiguous input
+   refused with no launch; then every kernel of phase 6's bench on the
+   bench's own operands (``kernels_bench.inputs``): ``gaia_select``,
+   ``rand_k_select`` and ``dgc_sparsify`` at n = 2**20 bit-exact,
+   ``neighbor_mix`` at (8, 2**17) on ``ring(8)`` within 2e-5,
+   ``group_norm`` within 1e-5 and ``flash_attention`` at (1, 4, 256, 64)
+   within 2e-5;
 4. the main path: ``train_decentralized`` trains GN-LeNet at full width
    (96,682 parameters a node, K=5, batch 20) under every strategy: BSP,
    Gaia, D-PSGD (ring), AD-PSGD (ring, staleness 2), DGC top-k, DGC
@@ -41,17 +49,33 @@ before the last line is printed:
    set to 0 just before each run and read just after;
 5. kernel times: the median of 50 CUDA-event-timed launches at the main
    path's shapes (the bench's for the DGC histogram kernels, n = 2**20,
-   and for ``group_norm``, (128, 8, 8, 64)): the kernel launch alone
-   (``ms``) and the whole op with its checks and allocations (``op_ms``),
-   beside the plain version, the library call that computes the same
-   function where there is one, and the least time the card could take
-   (bytes over 3.35 TB/s, operations over 67 TFLOP/s, the float32 rate of
-   the CUDA cores, which integer work is counted at too);
-6. the kernel bench (``repro_torch.benchmarks.kernels_bench``, every
-   non-attention row of the reference's ``benchmarks/kernels_bench.py``)
-   through its entry point on the card, with every launch count set to 0
-   just before and read just after: the DGC histogram kernels and
-   ``group_norm`` run on no training path, so this is their main path.
+   and for ``group_norm``, (128, 8, 8, 64); the LM prefill's for
+   ``flash_attention``, and the bench's (1, 4, 256, 64) float32): the
+   kernel launch alone (``ms``) and the whole op with its checks and
+   allocations (``op_ms``), beside the plain version, the library call
+   that computes the same function where there is one, and the least time
+   the card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s,
+   the float32 rate of the CUDA cores, which integer work is counted at
+   too, or over 989 TFLOP/s, the bfloat16 rate of the tensor cores, for
+   bfloat16 products);
+6. the kernel bench (``repro_torch.benchmarks.kernels_bench``, every row
+   of the reference's ``benchmarks/kernels_bench.py`` but the
+   interpret-mode ones) through its entry point on the card, with every
+   launch count set to 0 just before and read just after: the DGC
+   histogram kernels and ``group_norm`` run on no training path, so this
+   is their main path;
+7. LM serving: ``qwen3-0.6b`` at full width (28 layers, d_model 1024, 16
+   heads over 8 KV heads of 128, vocab 151,936), bfloat16, random weights
+   from a seeded generator on the card.  (a) ``make_prefill_step`` on 4
+   prompts of 2048 tokens, the launch counts set to 0 just before the
+   timed calls and read just after: 28 ``flash_attention`` launches a
+   call; (b) the ``serve_decode`` example's loop answers 4 requests of a
+   64-token prompt with 32 generated tokens over a 128-slot cache; (c)
+   ``forward``'s logits at every position of 256 tokens against
+   ``decode_step``'s after the same tokens (the kernel's causal prefill
+   against the kernel-free decode path); (d) the reduced float32
+   ``qwen3-0.6b``, ``gemma2-9b`` and ``starcoder2-3b`` on the card against
+   the CPU (TF32 off, rtol and atol 1e-3).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -63,6 +87,7 @@ device or no ``src/repro_torch`` beside this file.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import subprocess
 import sys
@@ -77,6 +102,7 @@ import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12       # H100 SXM, bfloat16 tensor cores, dense
 STEPS = 30
 CPU_CHECK_STEPS = 5
 K = 5
@@ -89,9 +115,37 @@ DGC_SPARSITIES = (0.5, 0.9, 0.99, 0.999)
 #: GroupNorm checks: tests/test_kernels.py's shapes and the bench's
 GN_CASES = (((2, 8, 8, 16), 2), ((2, 8, 8, 16), 4), ((4, 4, 4, 32), 2),
             ((4, 4, 4, 32), 4), ((128, 8, 8, 64), 2))
-#: the rows of the kernel bench: the reference's rows without attention
-#: and interpret mode, and the library calls
+#: flash_attention checks: tests/test_kernels.py's grid (B, H, Tq, Tk, D),
+#: then D = 256 with Tq = Tk and with Tq < Tk
+FA_SHAPES = ((1, 2, 128, 128, 64), (2, 1, 64, 192, 64), (1, 1, 200, 200, 128),
+             (1, 2, 160, 160, 256), (1, 1, 64, 300, 256))
+FA_KWS = ({"causal": True}, {"causal": False}, {"causal": True, "window": 64},
+          {"causal": True, "logit_softcap": 30.0})
+#: the LM prefill: qwen3-0.6b's attention over 4 prompts of 2048 tokens
+PREFILL_B, PREFILL_T, PREFILL_CALLS = 4, 2048, 3
+FA_PREFILL = (PREFILL_B, 16, PREFILL_T, PREFILL_T, 128)
+#: the kernel's bound at the prefill's shape in bfloat16, tighter than the
+#: grid's 2e-2 (about half an output there): an H100 read max |err| 3.91e-3
+#: (one bfloat16 ulp in [0.5, 1)), so 8e-3 is twice it; and a bound on the
+#: mean |err| over the 33.5 M outputs, which read 2.9e-8 to 3.0e-8 for the
+#: four masks (most outputs round to the same bfloat16)
+FA_PREFILL_TOL, FA_PREFILL_MEAN_TOL = 8e-3, 1e-6
+#: serving: 4 requests, 64-token prompts, 32 generated, 128 cache slots
+SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 4, 64, 32, 128
+#: prefill/decode agreement: 2 sequences of 256 tokens
+AGREE_B, AGREE_T = 2, 256
+#: its tolerances: in float32 (the same weights, TF32 off) max |logit
+#: difference| and the least share of equal greedy tokens; in bfloat16 the
+#: largest max and mean |difference| (logits' std 2: random weights make 28
+#: bfloat16 layers amplify rounding, and both bfloat16 paths lie as far from
+#: float32 as from each other)
+AGREE_TOL_F32, AGREE_SAME_F32 = 5e-3, 0.99
+AGREE_TOL_BF16, AGREE_MEAN_BF16 = 4.0, 0.5
+#: the rows of the kernel bench: the reference's rows without interpret
+#: mode, and the library calls
 BENCH_ROWS = (
+    "kernel/flash_attention", "oracle/flash_attention",
+    "library/flash_attention", "prod/chunked_attention",
     "kernel/gaia_select_1M", "oracle/gaia_select_1M",
     "kernel/dgc_sparsify_1M", "oracle/dgc_sparsify_1M",
     "oracle/dgc_quantile_1M", "library/dgc_quantile_1M",
@@ -166,23 +220,78 @@ def cudnn_deterministic():
         torch.backends.cudnn.deterministic = flag
 
 
-def bound_ms(n_bytes: float, flops: float):
+def bound_ms(n_bytes: float, flops: float,
+             flops_per_s: float = FP32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def attention_work(shape, dtype_bytes: int, causal: bool = True):
+    """(bytes, flops) attention must move and do: q, k, v read and o
+    written once; 4 D flops (two multiply-adds) a valid (query, key)
+    pair, causal over Tq = Tk counting T (T + 1) / 2 pairs a head."""
+    B, H, Tq, Tk, D = shape
+    pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
+    return (2 * B * H * (Tq + Tk) * D * dtype_bytes,
+            4 * B * H * D * pairs)
+
+
+def tree_to(tree, to):
+    """A parameter tree (dicts, lists, tensors, None) with every tensor
+    moved or cast by ``tensor.to(to)``."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, to) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_to(v, to) for v in tree]
+    return None if tree is None else tree.to(to)
+
+
+def device_profile(fn):
+    """Run ``fn()`` once under ``torch.profiler`` and sum the card's kernel
+    time: (busy ms, kernel launches, {kernel name: ms})."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_kernel, launches = {}, 0
+    for e in prof.key_averages():
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
+        launches += e.count
+    return sum(per_kernel.values()), launches, per_kernel
+
+
+def tree_numel(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_numel(v) for v in tree.values())
+    if isinstance(tree, list):
+        return sum(tree_numel(v) for v in tree)
+    return 0 if tree is None else tree.numel()
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    import torch.nn.functional as F
     from repro_torch.configs.base import CommConfig, FabricConfig
     from repro_torch.configs.cnn_zoo import CNN_ZOO
+    from repro_torch.configs.registry import ARCH_IDS, get_config
     from repro_torch.core import trainer
     from repro_torch.core.partition import partition_label_skew
     from repro_torch.data.synthetic import synth_images
     from repro_torch.benchmarks import kernels_bench
+    from repro_torch.examples import serve_decode
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.launch.steps import make_prefill_step
+    from repro_torch.models import model as lm
+    from repro_torch.models.attention import chunked_attention
     from repro_torch.models.cnn import init_cnn
     from repro_torch.topology import build_schedule
 
@@ -412,6 +521,59 @@ def main() -> int:
     assert ops.launches == before, (ops.launches, before)
     print("group_norm: C % group_size != 0 is refused, no launch")
 
+    fa_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    fa_checks = 0
+    fa_prefill_err, fa_prefill_max = [], 0.0
+    with tf32_off():
+        for shape in FA_SHAPES + (FA_PREFILL,):
+            B_, H_, Tq_, Tk_, D_ = shape
+            for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+                if shape == FA_PREFILL and dtype == torch.float32:
+                    continue                  # the prefill runs in bfloat16
+                if shape == FA_PREFILL:
+                    tol = FA_PREFILL_TOL
+                q_, k_, v_ = (randn(B_, H_, t_, D_).to(dtype)
+                              for t_ in (Tq_, Tk_, Tk_))
+                for kw in FA_KWS:
+                    out = ops.flash_attention(q_, k_, v_, **kw)
+                    expect = ref.flash_attention_ref(q_, k_, v_, **kw)
+                    torch.cuda.synchronize()
+                    assert out.dtype == dtype and out.shape == q_.shape
+                    torch.testing.assert_close(out.float(), expect.float(),
+                                               atol=tol, rtol=tol)
+                    diff = (out.float() - expect.float()).abs()
+                    err = float(diff.max())
+                    fa_err[dtype] = max(fa_err[dtype], err)
+                    fa_checks += 1
+                    if shape == FA_PREFILL:
+                        mean = float(diff.mean())
+                        assert mean <= FA_PREFILL_MEAN_TOL, (kw, mean)
+                        fa_prefill_max = max(fa_prefill_max, err)
+                        fa_prefill_err.append(
+                            f"{kw}: max {err:.3g}, mean {mean:.3g}")
+                    del diff
+                del q_, k_, v_, out, expect
+    print(f"flash_attention: {fa_checks} checks ({len(FA_SHAPES)} shapes x "
+          f"{{float32, bfloat16}} and the prefill's {FA_PREFILL} in "
+          f"bfloat16, each causal, non-causal, window 64, softcap 30): max "
+          f"|err| float32 {fa_err[torch.float32]:.3g} (tol 2e-5), bfloat16 "
+          f"{fa_err[torch.bfloat16]:.3g} (tol 2e-2, at the prefill's shape "
+          f"{FA_PREFILL_TOL:g} and mean {FA_PREFILL_MEAN_TOL:g}); at the "
+          f"prefill's shape |err| {'; '.join(fa_prefill_err)}")
+    before = dict(ops.launches)
+    q96 = randn(1, 2, 16, 96)
+    qt = randn(1, 2, 64, 16).transpose(2, 3)
+    for bad, what in (((q96, q96, q96), "head dim"),
+                      ((qt, qt, qt), "contiguous")):
+        try:
+            ops.flash_attention(*bad)
+            raise AssertionError(f"flash_attention took a bad {what}")
+        except ValueError as e:
+            assert what in str(e), e
+    assert ops.launches == before, (ops.launches, before)
+    print("flash_attention: a head dim of 96 and a non-contiguous input are "
+          "refused, no launch")
+
     # every kernel of the bench (phase 6) on the bench's own operands
     b_in = kernels_bench.inputs("cuda")
     bv, bw, bxs, bmix = b_in["v"], b_in["w"], b_in["xs"], b_in["mix_ops"]
@@ -434,12 +596,20 @@ def main() -> int:
     expect = ref.group_norm_ref(b_in["x"], b_in["scale"], b_in["bias"],
                                 group_size=2)
     torch.testing.assert_close(out, expect, atol=1e-5, rtol=1e-5)
+    bgn_err = float((out - expect).abs().max())
+    bq, bk, bva = b_in["q"], b_in["k"], b_in["v_attn"]
+    out = ops.flash_attention(bq, bk, bva)
+    with tf32_off():
+        expect = ref.flash_attention_ref(bq, bk, bva)
+    torch.testing.assert_close(out, expect, atol=2e-5, rtol=2e-5)
     print(f"the bench's operands (n = {bv.numel()}, xs {tuple(bxs.shape)} "
-          f"on ring(8), x {tuple(b_in['x'].shape)}): gaia_select (T 0.5), "
-          f"rand_k_select (keep 0.001, seed 7) and dgc_sparsify (sparsity "
-          f"0.999: selection, count, threshold) bit-exact; neighbor_mix "
-          f"max |err| {bmix_err:.3g} (tol 2e-5); group_norm max |err| "
-          f"{float((out - expect).abs().max()):.3g} (tol 1e-5)")
+          f"on ring(8), x {tuple(b_in['x'].shape)}, q/k/v "
+          f"{tuple(bq.shape)}): gaia_select (T 0.5), rand_k_select (keep "
+          f"0.001, seed 7) and dgc_sparsify (sparsity 0.999: selection, "
+          f"count, threshold) bit-exact; neighbor_mix max |err| "
+          f"{bmix_err:.3g} (tol 2e-5); group_norm max |err| {bgn_err:.3g} "
+          f"(tol 1e-5); flash_attention max |err| "
+          f"{float((out - expect).abs().max()):.3g} (tol 2e-5)")
     sys.stdout.flush()
 
     # ---------------------------------------------------------------- 4
@@ -736,6 +906,46 @@ def main() -> int:
     print(f"group_norm (128, 8, 8, 64) f32, group_size 2: kernel "
           f"{gn_ms:.4f} ms, op {gn_op:.4f} ms, plain {gn_plain:.4f} ms, "
           f"F.group_norm {gn_lib:.4f} ms, bound {gn_bound:.5f} ms ({gn_by})")
+
+    # flash_attention at the LM prefill's shape (bfloat16, causal) and at
+    # the bench's (float32, causal)
+    fa = {}
+    for label, shape, dtype, rate in (
+            ("prefill", FA_PREFILL, torch.bfloat16, BF16_FLOPS_PER_S),
+            ("bench", (1, 4, 256, 256, 64), torch.float32,
+             FP32_FLOPS_PER_S)):
+        B_, H_, T_, _, D_ = shape
+        q_, k_, v_ = (randn(B_, H_, T_, D_).to(dtype) for _ in range(3))
+        o_ = torch.empty_like(q_)
+        r = {"ms": time_ms(lambda: ops.launch_flash_attention(
+                 q_, k_, v_, o_, causal=True, window=None,
+                 logit_softcap=None, scale=D_ ** -0.5)),
+             "op_ms": time_ms(lambda: ops.flash_attention(q_, k_, v_)),
+             "plain_ms": time_ms(lambda: ref.flash_attention_ref(q_, k_,
+                                                                 v_)),
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                 q_, k_, v_, is_causal=True))}
+        n_bytes, flops = attention_work(shape, q_.element_size())
+        r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops, rate)
+        # the model path's call: (B, T, H, D) q and KV heads of GQA
+        if label == "prefill":
+            qm = q_.transpose(1, 2).contiguous()
+            km, vm = (t_[:, ::2].transpose(1, 2).contiguous()
+                      for t_ in (k_, v_))
+            r["chunked_ms"] = time_ms(lambda: chunked_attention(qm, km, vm))
+            del qm, km, vm
+        fa[label] = r
+        print(f"flash_attention {label} {shape} {str(dtype)[6:]} causal: "
+              f"kernel {r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.1f} "
+              f"TFLOP/s useful), op {r['op_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {flops:.4g} flops, "
+              f"{n_bytes:.4g} bytes), kernel / bound "
+              f"{r['ms'] / r['bound_ms']:.1f}"
+              + (f"; chunked_attention (16 over 8 KV heads, (B, T, H, D), "
+                 f"with the expansion and layout copies) "
+                 f"{r['chunked_ms']:.4f} ms" if "chunked_ms" in r else ""))
+        del q_, k_, v_, o_
     sys.stdout.flush()
 
     # ---------------------------------------------------------------- 6
@@ -754,9 +964,177 @@ def main() -> int:
     assert all(np.isfinite(r["us_per_call"]) and r["us_per_call"] > 0
                for r in rows), rows
     for k_ in ("gaia_select", "rand_k_select", "neighbor_mix", "abs_max",
-               "abs_histogram", "dgc_select", "group_norm"):
+               "abs_histogram", "dgc_select", "group_norm", "flash_attention"):
         assert bench_launches[k_] > 0, (k_, bench_launches)
     print(f"bench-path launches: {bench_launches}")
+    print("bench rows (us a call): " + json.dumps(
+        {r["name"]: round(r["us_per_call"], 3) for r in rows}))
+    sys.stdout.flush()
+
+    # ---------------------------------------------------------------- 7
+    phase(7, "LM serving on the card: qwen3-0.6b at full width, bfloat16")
+    lm_cfg = get_config("qwen3-0.6b")
+    V = lm_cfg.vocab
+    t0 = time.perf_counter()
+    lm_params = lm.init_model(torch.Generator(device=dev).manual_seed(0),
+                              lm_cfg, dev)
+    torch.cuda.synchronize()
+    print(f"qwen3-0.6b: {tree_numel(lm_params)} parameters "
+          f"({lm_cfg.n_layers} layers, d_model {lm_cfg.d_model}, "
+          f"{lm_cfg.attention.n_heads} heads over "
+          f"{lm_cfg.attention.n_kv_heads} KV heads of "
+          f"{lm_cfg.attention.head_dim}, vocab {V}), {lm_cfg.dtype}, drawn "
+          f"on the card in {time.perf_counter() - t0:.2f} s")
+    rs = np.random.default_rng(0)
+
+    # (a) prefill: the main path of this slice
+    tokens = torch.from_numpy(rs.integers(0, V, (PREFILL_B, PREFILL_T))).to(
+        dev)
+    prefill = make_prefill_step(lm_cfg)
+    with torch.inference_mode():
+        prefill(lm_params, {"tokens": tokens})      # warm-up: cuBLAS, allocator
+        torch.cuda.synchronize()
+        for k_ in ops.launches:
+            ops.launches[k_] = 0
+        times = []
+        for _ in range(PREFILL_CALLS):
+            t0 = time.perf_counter()
+            nxt = prefill(lm_params, {"tokens": tokens})
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        lm_launches = dict(ops.launches)
+    assert lm_launches["flash_attention"] == lm_cfg.n_layers * PREFILL_CALLS, \
+        lm_launches
+    assert sum(lm_launches.values()) == lm_launches["flash_attention"], \
+        lm_launches
+    assert nxt.shape == (PREFILL_B, V) and nxt.dtype == torch.float32
+    assert bool(torch.isfinite(nxt).all())
+    prefill_ms = float(np.median(times)) * 1e3
+    prefill_tok_s = PREFILL_B * PREFILL_T / (prefill_ms / 1e3)
+    print(f"prefill {PREFILL_B} x {PREFILL_T} tokens: {prefill_ms:.2f} ms a "
+          f"call (median of {PREFILL_CALLS}, wall, synchronised), "
+          f"{prefill_tok_s:.1f} tokens/s; launches {lm_launches} "
+          f"({lm_launches['flash_attention'] // PREFILL_CALLS} flash_attention "
+          f"a call); the {lm_cfg.n_layers} kernel launches at phase 5's "
+          f"{fa['prefill']['ms']:.4f} ms are "
+          f"{100 * lm_cfg.n_layers * fa['prefill']['ms'] / prefill_ms:.1f}% "
+          f"of the call")
+
+    # (b) decode: the serve_decode example's loop
+    prompt = torch.from_numpy(rs.integers(0, V, (SERVE_B, SERVE_PROMPT))).to(
+        dev)
+    serve_decode.serve(lm_params, lm_cfg, prompt, SERVE_GEN, SERVE_CACHE)
+    for k_ in ops.launches:
+        ops.launches[k_] = 0
+    gen_tok, secs = serve_decode.serve(lm_params, lm_cfg, prompt, SERVE_GEN,
+                                       SERVE_CACHE)
+    assert gen_tok.shape == (SERVE_B, SERVE_GEN)
+    assert int(gen_tok.min()) >= 0 and int(gen_tok.max()) < V
+    assert sum(ops.launches.values()) == 0, ops.launches   # no kernel decodes
+    decode_tok_s = SERVE_B * (SERVE_PROMPT + SERVE_GEN - 1) / secs
+    print(f"decode: {SERVE_B} requests x ({SERVE_PROMPT} prompt + "
+          f"{SERVE_GEN - 1} generated) steps over {SERVE_CACHE} cache slots "
+          f"in {secs:.3f} s (wall), {decode_tok_s:.1f} tokens/s, "
+          f"{secs / (SERVE_PROMPT + SERVE_GEN - 1) * 1e3:.2f} ms a step; "
+          f"request 0: {gen_tok[0, :8].tolist()} ...")
+
+    # where a prefill call and a decode step spend the card's time
+    with torch.inference_mode():
+        busy, n_kern, per_kernel = device_profile(
+            lambda: prefill(lm_params, {"tokens": tokens}))
+    fa_busy = sum(v for k, v in per_kernel.items() if "flash_attention" in k)
+    gemm_busy = sum(v for k, v in per_kernel.items()
+                    if any(w in k.lower() for w in ("gemm", "nvjet", "sm90")))
+    print(f"prefill call under torch.profiler: {n_kern} kernel launches, "
+          f"device busy {busy:.2f} ms of the unprofiled {prefill_ms:.2f} ms "
+          f"wall (idle {100 * (1 - busy / prefill_ms):.1f}%): "
+          f"flash_attention {fa_busy:.2f} ms, GEMMs {gemm_busy:.2f} ms, "
+          f"other {busy - fa_busy - gemm_busy:.2f} ms; top kernels "
+          + json.dumps({k[:60]: round(v, 3) for k, v in sorted(
+              per_kernel.items(), key=lambda kv: -kv[1])[:6]}))
+    step_ms = secs / (SERVE_PROMPT + SERVE_GEN - 1) * 1e3
+    d_cache = lm.init_cache(lm_cfg, SERVE_B, SERVE_CACHE, device=dev)
+    d_batch = {"token": prompt[:, 0],
+               "t": torch.zeros(SERVE_B, dtype=torch.int32, device=dev)}
+    with torch.inference_mode():
+        busy, n_kern, _ = device_profile(
+            lambda: lm.decode_step(lm_params, lm_cfg, d_batch, d_cache))
+    print(f"decode step under torch.profiler: {n_kern} kernel launches, "
+          f"device busy {busy:.2f} ms of the unprofiled {step_ms:.2f} ms "
+          f"wall a step (idle {100 * (1 - busy / step_ms):.1f}%)")
+
+    # (c) prefill/decode agreement at full width: the kernel's causal
+    # prefill against the kernel-free decode path, position by position, in
+    # bfloat16 and, on the same weights cast, in float32 (TF32 off)
+    agree_tok = torch.from_numpy(rs.integers(0, V, (AGREE_B, AGREE_T))).to(dev)
+
+    def prefill_and_decode(params, cfg_):
+        full, _ = lm.forward(params, cfg_, {"tokens": agree_tok})
+        cache = lm.init_cache(cfg_, AGREE_B, AGREE_T, device=dev)
+        steps_ = []
+        for t_ in range(AGREE_T):
+            step_logits, cache = lm.decode_step(
+                params, cfg_,
+                {"token": agree_tok[:, t_],
+                 "t": torch.full((AGREE_B,), t_, dtype=torch.int32,
+                                 device=dev)}, cache)
+            steps_.append(step_logits)
+        return full, torch.stack(steps_, dim=1)
+
+    def gap(a, b):
+        d = (a - b).abs()
+        same = int((a.argmax(-1) == b.argmax(-1)).sum())
+        return float(d.max()), float(d.mean()), same
+
+    cfg32 = dataclasses.replace(lm_cfg, dtype="float32")
+    with torch.inference_mode(), tf32_off():
+        full16, dec16 = prefill_and_decode(lm_params, lm_cfg)
+        full32, dec32 = prefill_and_decode(tree_to(lm_params, torch.float32),
+                                           cfg32)
+        gaps = {"bf16 prefill vs bf16 decode": gap(full16, dec16),
+                "f32 prefill vs f32 decode": gap(full32, dec32),
+                "bf16 prefill vs f32 prefill": gap(full16, full32),
+                "bf16 decode vs f32 decode": gap(dec16, dec32)}
+        logit_std = float(full32.std())
+    n_pos = AGREE_B * AGREE_T
+    for label, (mx, mean, same) in gaps.items():
+        print(f"{label}, {AGREE_B} x {AGREE_T} tokens: max |logit "
+              f"difference| {mx:.4g}, mean {mean:.4g}, greedy tokens equal at "
+              f"{same} of {n_pos} positions (logits' std {logit_std:.4g})")
+    mx, mean, same = gaps["f32 prefill vs f32 decode"]
+    assert mx <= AGREE_TOL_F32 and same >= AGREE_SAME_F32 * n_pos, (mx, same)
+    mx, mean, _ = gaps["bf16 prefill vs bf16 decode"]
+    assert mx <= AGREE_TOL_BF16 and mean <= AGREE_MEAN_BF16, (mx, mean)
+    print(f"prefill/decode agreement holds: float32 max <= {AGREE_TOL_F32}, "
+          f"greedy equal at >= {AGREE_SAME_F32:.0%}; bfloat16 (28 layers of "
+          f"bfloat16 rounding) max <= {AGREE_TOL_BF16}, mean <= "
+          f"{AGREE_MEAN_BF16}")
+    del full16, dec16, full32, dec32, lm_params
+
+    # (d) the three dense archs, reduced, float32: card against CPU
+    with tf32_off():
+        for arch in ARCH_IDS:
+            rcfg = get_config(arch).reduced()
+            p_cpu = lm.init_model(torch.Generator().manual_seed(1), rcfg,
+                                  "cpu")
+            toks = torch.from_numpy(rs.integers(0, rcfg.vocab, (2, 96)))
+            cpu_logits, _ = lm.forward(p_cpu, rcfg, {"tokens": toks})
+            card_logits, _ = lm.forward(tree_to(p_cpu, dev), rcfg,
+                                        {"tokens": toks.to(dev)})
+            np.testing.assert_allclose(card_logits.cpu().numpy(),
+                                       cpu_logits.numpy(), rtol=1e-3,
+                                       atol=1e-3)
+            print(f"{arch} reduced ({rcfg.n_layers} layers, d_model "
+                  f"{rcfg.d_model}, windows "
+                  f"{[rcfg.attn_window(i) for i in range(rcfg.n_layers)]}, "
+                  f"softcap {rcfg.attention.attn_softcap}), 2 x 96 tokens: "
+                  f"card and CPU logits agree (rtol 1e-3, atol 1e-3, TF32 "
+                  f"off), max |diff| "
+                  f"{float((card_logits.cpu() - cpu_logits).abs().max()):.3g}")
+    print("serving: " + json.dumps({
+        "prefill_tokens_per_s": prefill_tok_s, "prefill_ms": prefill_ms,
+        "decode_tokens_per_s": decode_tok_s}))
+    sys.stdout.flush()
 
     kernels = [
         {"name": "gaia_select", "route": "cuda",
@@ -807,6 +1185,14 @@ def main() -> int:
          "launches": bench_launches["group_norm"], "max_abs_err": gn_err,
          "ms": gn_ms, "op_ms": gn_op, "plain_ms": gn_plain,
          "bound_ms": gn_bound, "bound_by": gn_by, "library_ms": gn_lib},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:25",
+         "launches": lm_launches["flash_attention"],
+         "max_abs_err": fa_prefill_max,
+         **{k_: fa["prefill"][k_] for k_ in (
+             "ms", "op_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")}},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -11,12 +11,17 @@ Rows, printed as ``name,us_per_call,``:
 * ``oracle/<op>``  -- the op's plain PyTorch version (``kernels/ref.py``)
   on the same device;
 * ``library/<op>`` -- one PyTorch call that computes the same function,
-  where there is one (``torch.quantile``, ``W @ X``,
-  ``F.group_norm``); timed here only, never called by the port.
+  where there is one (``F.scaled_dot_product_attention``,
+  ``torch.quantile``, ``W @ X``, ``F.group_norm``); timed here only,
+  never called by the port;
+* ``prod/chunked_attention`` -- the LM's attention as its model path
+  calls it (``models.attention.chunked_attention`` on the (B, T, H, D)
+  layout): on the card the ``flash_attention`` kernel and its layout
+  copies.
 
-The reference's ``interp/<op>`` rows (Pallas in interpret mode) have no
-counterpart.  Its two attention rows wait for the port of the LM stack
-and its attention kernel; the bench says so in one line.
+The attention rows run at the reference's shape, B, H, T, D = 1, 4, 256,
+64, float32, causal.  The reference's ``interp/<op>`` rows (Pallas in
+interpret mode) have no counterpart.
 
 A call's time is the median of 50 calls after 3 warm-up calls.  On the
 card each call lies between two CUDA events, so a row reads the device's
@@ -37,10 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
+from repro_torch.models.attention import chunked_attention
 from repro_torch.topology import ring
-
-ATTENTION_NOTE = ("# flash_attention, prod/chunked_attention_jnp: not "
-                  "ported; they wait for the LM slice")
 
 
 def time_us(fn: Callable[[], object], device: torch.device,
@@ -69,13 +72,16 @@ def time_us(fn: Callable[[], object], device: torch.device,
 
 def inputs(device: str = "cuda", *, n: int = 1 << 20,
            mix_cols: int = 1 << 17,
-           gn_shape: Sequence[int] = (128, 8, 8, 64)) -> Dict[str, object]:
+           gn_shape: Sequence[int] = (128, 8, 8, 64),
+           attn_shape: Sequence[int] = (1, 4, 256, 64)
+           ) -> Dict[str, object]:
     """The bench's operands on ``device``, drawn on the host from seed 0
     and then moved, so every device gets the same numbers: ``v``, ``w``
     (n,) for the select rows, ``xs`` (8, mix_cols) with the ``ring(8)``
-    neighbour operands ``mix_ops`` and dense ``W``, and the NHWC ``x``
-    with float32 ``scale``/``bias`` for GroupNorm.  ``chip_smoke.py``
-    holds each kernel against its plain version on these."""
+    neighbour operands ``mix_ops`` and dense ``W``, the NHWC ``x`` with
+    float32 ``scale``/``bias`` for GroupNorm, and ``q``, ``k``, ``v_attn``
+    (B, H, T, D) for attention.  ``chip_smoke.py`` holds each kernel
+    against its plain version on these."""
     dev = torch.device(device)
     gen = torch.Generator().manual_seed(0)
 
@@ -95,29 +101,43 @@ def inputs(device: str = "cuda", *, n: int = 1 << 20,
     # feature maps
     x = randn(*gn_shape)
     C = gn_shape[-1]
+    q, k, v_attn = (randn(*attn_shape) for _ in range(3))
     return {"v": v, "w": w, "xs": xs, "mix_ops": mix_ops, "W": W, "x": x,
             "scale": torch.ones(C, device=dev),
-            "bias": torch.zeros(C, device=dev)}
+            "bias": torch.zeros(C, device=dev),
+            "q": q, "k": k, "v_attn": v_attn}
 
 
 def run(device: str = "cuda", *, n: int = 1 << 20, mix_cols: int = 1 << 17,
-        gn_shape: Sequence[int] = (128, 8, 8, 64), reps: int = 50
+        gn_shape: Sequence[int] = (128, 8, 8, 64),
+        attn_shape: Sequence[int] = (1, 4, 256, 64), reps: int = 50
         ) -> List[Tuple[str, float]]:
-    """Every non-attention row of the reference's kernel bench, as
-    (name, microseconds a call).  ``device`` is where the tensors live:
-    ``"cuda"`` (the default) raises without a card; the sizes default to
-    the reference's."""
+    """Every row of the reference's kernel bench but the interpret-mode
+    ones, and the library rows, as (name, microseconds a call).
+    ``device`` is where the tensors live: ``"cuda"`` (the default) raises
+    without a card; the sizes default to the reference's."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("kernels_bench: no CUDA device (pass "
                            "--device cpu to run the plain versions)")
-    a = inputs(device, n=n, mix_cols=mix_cols, gn_shape=gn_shape)
+    a = inputs(device, n=n, mix_cols=mix_cols, gn_shape=gn_shape,
+               attn_shape=attn_shape)
     vv, ww, xs, mix_ops, W = a["v"], a["w"], a["xs"], a["mix_ops"], a["W"]
     x, sc, bi = a["x"], a["scale"], a["bias"]
+    q, k, va = a["q"], a["k"], a["v_attn"]
     rows: List[Tuple[str, float]] = []
 
     def bench(name: str, fn: Callable[[], object]) -> None:
         rows.append((name, time_us(fn, dev, reps)))
+
+    bench("kernel/flash_attention", lambda: ops.flash_attention(q, k, va))
+    bench("oracle/flash_attention",
+          lambda: ref.flash_attention_ref(q, k, va))
+    bench("library/flash_attention",
+          lambda: F.scaled_dot_product_attention(q, k, va, is_causal=True))
+    qb, kb, vb = (t.transpose(1, 2) for t in (q, k, va))
+    bench("prod/chunked_attention",
+          lambda: chunked_attention(qb, kb, vb, chunk=64))
 
     bench("kernel/gaia_select_1M", lambda: ops.gaia_select(vv, ww, 0.5))
     bench("oracle/gaia_select_1M", lambda: ref.gaia_select_ref(vv, ww, 0.5))
@@ -159,8 +179,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             else "cpu")
     print(f"# device: {name}")
     for row, us in rows:
-        print(f"{row},{us:.3f},")
-    print(ATTENTION_NOTE, flush=True)
+        print(f"{row},{us:.3f},", flush=True)
     if args.json:
         with open(args.json, "w") as f:
             json.dump({"device": name, "rows": [

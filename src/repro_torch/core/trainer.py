@@ -29,24 +29,13 @@ from repro_torch.core.algorithms.fedavg import FedAvg
 from repro_torch.core.algorithms.gaia import Gaia
 from repro_torch.core.skewscout import SkewScout
 from repro_torch.data.pipeline import DecentralizedLoader
+from repro_torch.device import resolve_device
 from repro_torch.models.cnn import cnn_apply, init_cnn, reference_perm
 from repro_torch.topology import (LABEL_AWARE_TOPOLOGIES, LINK_PROFILES,
                                   CommLedger, Participation, Topology,
                                   TopologySchedule, as_schedule,
                                   build_schedule, make_link_model,
                                   topology_ladder)
-
-
-def _resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means CUDA, and raises
-    where there is none rather than running on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: repro_torch runs on the GPU unless the "
-                "caller passes device='cpu'")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 # ---------------------------------------------------------------------------
@@ -164,7 +153,7 @@ def train_decentralized(cnn_cfg: CNNConfig, algo_name: str,
         raise ValueError(f"eval_every must be >= 1, got {eval_every} "
                          "(with steps < eval_every the final step still "
                          "evaluates, but eval_every itself must be valid)")
-    device = _resolve_device(device)
+    device = resolve_device(device)
     K = len(parts)
     fns, eval_acc = make_cnn_fns(cnn_cfg)
     params, mstate = init_cnn(torch.Generator().manual_seed(seed), cnn_cfg)

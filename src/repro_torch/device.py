@@ -1,0 +1,17 @@
+"""The port's default device: its entry points run on CUDA unless the
+caller passes ``device="cpu"``."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``; ``None`` means CUDA, and raises
+    where there is none rather than running on the CPU."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: repro_torch runs on the GPU unless the "
+                "caller passes device='cpu'")
+        return torch.device("cuda")
+    return torch.device(device)

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_ext"
 KERNELS = ("gaia_select", "neighbor_mix", "rand_k_select", "dgc_topk",
-           "group_norm")
+           "group_norm", "flash_attention")
 #: no --use_fast_math: the histogram's bins need IEEE division
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -11,14 +11,15 @@ The ops: ``gaia_select``, ``neighbor_mix`` (and its ``src=`` gather),
 ``rand_k_sparsify``; DGC's histogram-thresholded top-s% as
 ``abs_histogram``, ``abs_histogram_fused``, ``dgc_select`` and
 ``dgc_sparsify`` (histogram, then ``dgc_topk.threshold_from_histogram``
-on the device, then select); and ``group_norm`` (NHWC, forward).
+on the device, then select); ``group_norm`` (NHWC, forward); and
+``flash_attention`` ((B, H, T, D), forward).
 
 ``launch_gaia_select``, ``launch_neighbor_mix``,
 ``launch_neighbor_mix_src``, ``launch_rand_k_select``,
-``launch_abs_max``, ``launch_abs_histogram``, ``launch_dgc_select`` and
-``launch_group_norm`` launch a kernel alone, on operands the op has
-checked and allocated; the ops call them, and ``chip_smoke.py`` times
-them to separate a kernel from its wrapper.
+``launch_abs_max``, ``launch_abs_histogram``, ``launch_dgc_select``,
+``launch_group_norm`` and ``launch_flash_attention`` launch a kernel
+alone, on operands the op has checked and allocated; the ops call them,
+and ``chip_smoke.py`` times them to separate a kernel from its wrapper.
 
 ``launches`` counts the launches of each kernel by name, incremented
 only where the kernel is launched, so a run can show that its path went
@@ -52,14 +53,19 @@ _HIST_ARGS = [_P, _P, _P, _LL, _I, _I, _P]
 _SELECT_ARGS = [_P, _P, _P, _P, _LL, _I, _P]
 # x, scale, bias, y, batch, H*W, C, group_size, eps, device, stream
 _GN_ARGS = [_P, _P, _P, _P, _LL, _LL, _I, _I, ctypes.c_float, _I, _P]
+# q, k, v, o, B*H, Tq, Tk, D, scale, causal, window, softcap, device, stream
+_FA_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+            ctypes.c_float, _I, _P]
 
 #: the most bins ``abs_histogram`` takes (the kernel's shared counters)
 MAX_BINS = 1024
+#: the head dims the ``flash_attention`` kernel is built for
+FLASH_HEAD_DIMS = (64, 128, 256)
 
 #: launches of each kernel since the count was last set to 0
 launches = {"gaia_select": 0, "neighbor_mix": 0, "neighbor_mix_src": 0,
             "rand_k_select": 0, "abs_max": 0, "abs_histogram": 0,
-            "dgc_select": 0, "group_norm": 0}
+            "dgc_select": 0, "group_norm": 0, "flash_attention": 0}
 
 
 def _kernel(lib: str, entry: str, dtype: torch.dtype, argtypes):
@@ -401,3 +407,73 @@ def launch_group_norm(x: torch.Tensor, scale: torch.Tensor,
     _launched("group_norm", "group_norm", fn(
         x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B,
         H * W, C, group_size, eps, x.device.index, stream))
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    logit_softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention forward over q (B, H, Tq, D) and k, v (B, H, Tk, D) of
+    one dtype (MHA layout: GQA callers expand the KV heads first), as
+    ``ref.flash_attention_ref`` computes it: float32 scores, softmax and
+    accumulator, the query at row i at position ``i + (Tk - Tq)``,
+    ``causal`` and sliding-``window`` masks, ``logit_softcap``, scale
+    ``D ** -0.5`` by default; the result in q's dtype.  On the card the
+    kernel takes float32 or bfloat16, contiguous, D in
+    ``FLASH_HEAD_DIMS``, and no input that requires a gradient (it has
+    no backward)."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention: q, k, v must be (B, H, T, D), "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, H, Tq, D = q.shape
+    if k.shape[:2] != (B, H) or k.shape[3] != D or v.shape != k.shape:
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be ({B}, {H}, Tk, {D})")
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window={window} leaves no key")
+    if logit_softcap is not None and not logit_softcap > 0:
+        raise ValueError(f"flash_attention: logit_softcap={logit_softcap} "
+                         "must be positive")
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       logit_softcap=logit_softcap,
+                                       scale=scale)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check(f"flash_attention {name}", t, _SUFFIX)
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} dtype {t.dtype} "
+                            f"differs from q's {q.dtype}")
+        if t.requires_grad:
+            raise ValueError(f"flash_attention: {name} requires grad; the "
+                             "kernel has no backward")
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in "
+                         f"{FLASH_HEAD_DIMS}")
+    if B * H > 65535:
+        raise ValueError(f"flash_attention: B*H={B * H} exceeds the grid's "
+                         "65535 rows")
+    out = torch.empty_like(q)
+    launch_flash_attention(q, k, v, out, causal=causal, window=window,
+                           logit_softcap=logit_softcap,
+                           scale=D ** -0.5 if scale is None else scale)
+    return out
+
+
+def launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, out: torch.Tensor, *,
+                           causal: bool, window: Optional[int],
+                           logit_softcap: Optional[float],
+                           scale: float) -> None:
+    """Launch the ``flash_attention`` kernel on CUDA operands that
+    ``flash_attention`` checked, writing into ``out`` (like ``q``).  The
+    kernel skips the k-blocks outside the causal and window band when
+    Tq <= Tk, where every row keeps a valid key."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    fn = _kernel("flash_attention", "flash_attention", q.dtype, _FA_ARGS)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    _launched("flash_attention", "flash_attention", fn(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, Tq,
+        Tk, D, scale, int(causal), window or 0, logit_softcap or 0.0,
+        q.device.index, stream))

@@ -14,6 +14,38 @@ import torch
 from repro_torch.kernels import dgc_topk, rng
 
 
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True,
+                        window: Optional[int] = None,
+                        logit_softcap: Optional[float] = None,
+                        scale: Optional[float] = None) -> torch.Tensor:
+    """Materialised-softmax attention.  q: (B, H, Tq, D); k, v: (B, H, Tk,
+    D).  float32 scores ``q.k * scale``, softcapped as ``cap *
+    tanh(s / cap)``, then masked to -1e30 (not -inf, so a row with no
+    valid key averages every key, as the reference's oracle does): the
+    query at row i sits at position ``i + (Tk - Tq)``; a key is valid if
+    it is at or before it (``causal``) and later than ``q_pos - window``
+    (``window``).  Softmax and the product with v in float32, the result
+    in q's dtype."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    scale = D ** -0.5 if scale is None else scale
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    if logit_softcap is not None:
+        s = logit_softcap * torch.tanh(s / logit_softcap)
+    q_pos = torch.arange(Tq, device=q.device) + (Tk - Tq)
+    k_pos = torch.arange(Tk, device=q.device)
+    valid = torch.ones(Tq, Tk, dtype=torch.bool, device=q.device)
+    if causal:
+        valid &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        valid &= k_pos[None, :] > q_pos[:, None] - window
+    s = torch.where(valid, s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, v.float())
+    return out.to(q.dtype)
+
+
 def gaia_select_ref(v: torch.Tensor, w: torch.Tensor, threshold
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Significance filter ``|v| > T*|w|``, compared in float32 whatever

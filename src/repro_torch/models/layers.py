@@ -1,8 +1,15 @@
-"""Normalization layers of the CNNs (the paper's §5 study), in NCHW.
+"""Core layers: the normalization layers of the CNNs (the paper's §5
+study, in NCHW), and the LM's per-token norms, linear layers, gated MLP,
+embedding and softcap (``(..., d)`` tensors, linear weights ``(d_in,
+d_out)`` applied as ``x @ w``).
 
 Pure functions on tensors, as in ``repro.models.layers``: ``init_*``
 build parameter dicts, ``*_apply`` return new tensors and never mutate
 their inputs, so they run under ``torch.func.vmap`` over the node axis.
+Random initialisers take an explicit ``torch.Generator`` and draw on its
+device, then move the result to ``device``.  The LM initialisers place
+every leaf on ``device``, which defaults to CUDA as the port's entry
+points do (``repro_torch.device.resolve_device``).
 
 BatchNorm carries its running statistics explicitly (returned as the new
 state) and updates them with the *biased* minibatch variance as
@@ -14,9 +21,12 @@ running estimates match none of them: the paper's non-IID pathology.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
+
+from repro_torch.device import resolve_device
 
 Params = Dict[str, torch.Tensor]
 
@@ -112,3 +122,118 @@ def groupnorm_apply(p: Params, x: torch.Tensor, *, group_size: int = 2,
     y = ((xg - mu) * torch.rsqrt(var + eps)).reshape(xf.shape)
     return (y * _channel_view(p["scale"], xf)
             + _channel_view(p["bias"], xf)).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# LM layers: per-token norms, linear, gated MLP, embedding
+# ---------------------------------------------------------------------------
+
+def init_rmsnorm(dim: int, dtype=torch.float32, device=None) -> Params:
+    return {"scale": torch.ones(dim, dtype=dtype,
+                                device=resolve_device(device))}
+
+
+def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6
+                  ) -> torch.Tensor:
+    """RMSNorm over the last axis with float32 statistics, the scale
+    applied as ``1 + scale`` (zero-initialised scales are the identity)."""
+    xf = x.float()
+    var = (xf * xf).mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * (1.0 + p["scale"].float())).to(x.dtype)
+
+
+def init_layernorm(dim: int, dtype=torch.float32, device=None) -> Params:
+    device = resolve_device(device)
+    return {"scale": torch.ones(dim, dtype=dtype, device=device),
+            "bias": torch.zeros(dim, dtype=dtype, device=device)}
+
+
+def layernorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-5
+                    ) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+#: the per-token norms' apply functions by ``ModelConfig.norm``
+NORM_APPLY = {"rms": rmsnorm_apply, "layer": layernorm_apply}
+
+
+def make_norm(kind: str, dim: int, device=None):
+    """Returns (init_fn() -> params, apply_fn(params, x) -> y) for the
+    per-token norms of the transformer blocks."""
+    if kind == "rms":
+        return (lambda: init_rmsnorm(dim, device=device)), rmsnorm_apply
+    if kind == "layer":
+        return (lambda: init_layernorm(dim, device=device)), layernorm_apply
+    raise ValueError(kind)
+
+
+def _normal(gen: torch.Generator, shape, std: float, dtype, device
+            ) -> torch.Tensor:
+    """float32 normals of ``std`` drawn on the generator's device, then
+    cast to ``dtype`` on ``device``."""
+    w = torch.randn(shape, generator=gen, device=gen.device) * std
+    return w.to(device=resolve_device(device), dtype=dtype)
+
+
+def init_linear(gen: torch.Generator, d_in: int, d_out: int,
+                dtype=torch.bfloat16, bias: bool = False,
+                scale: Optional[float] = None, device=None) -> Params:
+    s = scale if scale is not None else d_in ** -0.5
+    device = resolve_device(device)
+    p = {"w": _normal(gen, (d_in, d_out), s, dtype, device)}
+    if bias:
+        p["b"] = torch.zeros(d_out, dtype=dtype, device=device)
+    return p
+
+
+def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    y = x @ p["w"].to(x.dtype)
+    if "b" in p:
+        y = y + p["b"].to(x.dtype)
+    return y
+
+
+def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int,
+                   dtype=torch.bfloat16, device=None) -> Params:
+    return {
+        "gate": init_linear(gen, d_model, d_ff, dtype, device=device),
+        "up": init_linear(gen, d_model, d_ff, dtype, device=device),
+        "down": init_linear(gen, d_ff, d_model, dtype, device=device),
+    }
+
+
+def gated_mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    g = F.silu(linear_apply(p["gate"], x))
+    u = linear_apply(p["up"], x)
+    return linear_apply(p["down"], g * u)
+
+
+def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
+                   dtype=torch.bfloat16, device=None) -> Params:
+    # unit-variance activations after the sqrt(d_model) embed scaling
+    return {"table": _normal(gen, (vocab, d_model), d_model ** -0.5, dtype,
+                             device)}
+
+
+def embedding_apply(p: Params, tokens: torch.Tensor,
+                    compute_dtype=None) -> torch.Tensor:
+    t = p["table"]
+    if compute_dtype is not None:
+        t = t.to(compute_dtype)
+    return t[tokens]
+
+
+def unembed_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+    return x @ p["table"].to(x.dtype).T
+
+
+def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
+    if cap is None:
+        return x
+    return cap * torch.tanh(x / cap)

@@ -1,0 +1,82 @@
+"""Top-level LM API of the port (``repro.models.model``): one entry point
+per operation, for the dense-GQA archs the port runs.
+
+``batch`` layout:
+- prefill: {"tokens": (B, T) integer}
+- decode: {"token": (B,) integer, "t": (B,) integer absolute positions},
+  with the cache from ``init_cache``.
+
+``lm_params_from_jax`` carries the reference's ``init_model`` parameters
+(as NumPy arrays) into the port, so both packages can run the same
+weights.  ``loss_fn`` comes with the training slice.
+
+Parameters and caches go to ``device``, which defaults to CUDA and
+raises where there is none (``repro_torch.device.resolve_device``); the
+CPU runs them only when the caller passes ``device="cpu"``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer
+
+Params = Dict[str, Any]
+
+
+def init_model(gen: torch.Generator, cfg: ModelConfig,
+               device=None) -> Params:
+    """Random parameters drawn from ``gen`` (on its device), every leaf
+    placed on ``device``."""
+    return transformer.init_lm(gen, cfg, device)
+
+
+def forward(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (logits (B, T, V) float32, moe_aux),
+    the auxiliary loss a float32 zero (no MoE layer runs)."""
+    logits = transformer.lm_apply(p, cfg, batch["tokens"], chunk=chunk)
+    return logits, torch.zeros((), device=logits.device)
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
+               long_mode: bool = False, device=None) -> Params:
+    return transformer.lm_init_cache(cfg, batch, cache_len, long_mode,
+                                     device)
+
+
+def decode_step(p: Params, cfg: ModelConfig, batch: Dict[str, Any],
+                cache: Params) -> Tuple[torch.Tensor, Params]:
+    """One serve step: next-token logits (B, V) float32 and the cache,
+    updated in place."""
+    return transformer.lm_decode(p, cfg, batch["token"], cache, batch["t"])
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":          # ml_dtypes' bfloat16: same bits
+        return torch.from_numpy(a.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def lm_params_from_jax(tree: Any, device=None) -> Any:
+    """The reference's ``init_model`` parameter tree, its leaves as NumPy
+    arrays (``jax.tree_util.tree_map(np.asarray, params)``), as the
+    port's: the same dicts, lists and keys, the stacked ``"body"`` kept,
+    every leaf a tensor of the same dtype and bits on ``device``."""
+    return _from_jax(tree, resolve_device(device))
+
+
+def _from_jax(tree: Any, device: torch.device) -> Any:
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_from_jax(v, device) for v in tree]
+    return _tensor(tree, device)

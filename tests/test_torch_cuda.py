@@ -14,8 +14,10 @@ import torch
 
 from repro_torch.configs.base import CommConfig, FabricConfig
 from repro_torch.configs.cnn_zoo import CNN_ZOO
+from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.core import trainer
 from repro_torch.kernels import ops, ref
+from repro_torch.models import attention, model
 from repro_torch.models.cnn import init_cnn
 from repro_torch.topology import build_schedule
 
@@ -333,3 +335,122 @@ def test_new_launches_alone_match_the_ops(dev):
     y = torch.empty_like(x)
     ops.launch_group_norm(x, sc, bi, y, 2, 1e-5)
     assert torch.equal(y, ops.group_norm(x, sc, bi, group_size=2))
+
+
+# ---------------------------------------------------------------------------
+# flash_attention and the LM on the card
+# ---------------------------------------------------------------------------
+
+#: tests/test_kernels.py's grid (B, H, Tq, Tk, D), D = 256 (gemma2's head
+#: dim) and the LM prefill's shape
+FA_SHAPES = [(1, 2, 128, 128, 64), (2, 1, 64, 192, 64), (1, 1, 200, 200, 128),
+             (1, 2, 160, 160, 256), (1, 1, 64, 300, 256)]
+FA_KWS = [dict(causal=True), dict(causal=False), dict(causal=True, window=64),
+          dict(causal=True, logit_softcap=30.0)]
+
+
+def _qkv(shape, dtype, dev):
+    B, H, Tq, Tk, D = shape
+    return [_randn((B, H, t, D), s).to(dev, dtype)
+            for s, t in ((0, Tq), (1, Tk), (2, Tk))]
+
+
+@pytest.mark.parametrize("kw", FA_KWS, ids=["causal", "full", "window64",
+                                            "softcap30"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", FA_SHAPES)
+def test_flash_attention_kernel_matches_ref(dev, shape, dtype, tol, kw):
+    q, k, v = _qkv(shape, dtype, dev)
+    launches = ops.launches["flash_attention"]
+    out = ops.flash_attention(q, k, v, **kw)
+    assert ops.launches["flash_attention"] == launches + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(
+        out.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
+        atol=tol, rtol=tol)
+
+
+def test_flash_attention_kernel_at_the_prefill_shape(dev):
+    q, k, v = _qkv((4, 16, 2048, 2048, 128), torch.bfloat16, dev)
+    out = ops.flash_attention(q, k, v)
+    torch.testing.assert_close(out.float(),
+                               ref.flash_attention_ref(q, k, v).float(),
+                               atol=2e-2, rtol=2e-2)
+    o2 = torch.empty_like(q)
+    ops.launch_flash_attention(q, k, v, o2, causal=True, window=None,
+                               logit_softcap=None, scale=128 ** -0.5)
+    assert torch.equal(o2, out)
+
+
+def test_flash_attention_refuses_what_it_cannot_take(dev):
+    q = torch.zeros(1, 2, 16, 64, device=dev)
+    before = dict(ops.launches)
+    with pytest.raises(TypeError):
+        ops.flash_attention(q.double(), q.double(), q.double())
+    with pytest.raises(TypeError, match="differs"):
+        ops.flash_attention(q, q.bfloat16(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention(q.transpose(2, 3), q.transpose(2, 3),
+                            q.transpose(2, 3))
+    q96 = torch.zeros(1, 2, 16, 96, device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention(q96, q96, q96)
+    g = torch.zeros(1, 16, 2, 64, device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="requires grad"):
+        attention.chunked_attention(g, g, g)
+    assert ops.launches == before
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_reduced_lm_forward_on_card_matches_cpu(dev, arch):
+    cfg = get_config(arch).reduced()
+    p = model.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 96)))
+    cpu, _ = model.forward(p, cfg, {"tokens": toks})
+    p_dev = _to(p, dev)                         # the same values, on the card
+    launches = ops.launches["flash_attention"]
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        card, _ = model.forward(p_dev, cfg, {"tokens": toks.to(dev)})
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags
+    assert ops.launches["flash_attention"] == launches + cfg.n_layers
+    np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-3,
+                               atol=1e-3)
+
+
+def _devices(tree):
+    if isinstance(tree, dict):
+        return set().union(*(_devices(v) for v in tree.values()))
+    if isinstance(tree, list):
+        return set().union(*(_devices(v) for v in tree))
+    return set() if tree is None else {tree.device.type}
+
+
+@pytest.mark.parametrize("gen_device", ["cpu", "cuda"])
+def test_lm_defaults_place_every_leaf_on_the_card(dev, gen_device):
+    """``init_model``/``init_cache`` with no device: every parameter and
+    cache leaf on the card, whichever device the generator draws on, and a
+    decode step runs there."""
+    cfg = get_config("qwen3-0.6b").reduced()
+    p = model.init_model(torch.Generator(device=gen_device).manual_seed(0),
+                         cfg)
+    cache = model.init_cache(cfg, 2, 8)
+    assert _devices(p) == {"cuda"} and _devices(cache) == {"cuda"}
+    tok = torch.zeros(2, dtype=torch.long, device=dev)
+    logits, _ = model.decode_step(
+        p, cfg, {"token": tok, "t": torch.zeros(2, dtype=torch.int32,
+                                                 device=dev)}, cache)
+    assert logits.device.type == "cuda" and logits.shape == (2, cfg.vocab)
+    assert bool(torch.isfinite(logits).all())
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to(v, dev) for v in tree]
+    return None if tree is None else tree.to(dev)

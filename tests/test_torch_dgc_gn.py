@@ -24,6 +24,7 @@ from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
 from repro_torch.benchmarks import kernels_bench
 from repro_torch.kernels import dgc_topk, ops, ref
+from repro_torch.models.attention import chunked_attention
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
           "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
@@ -212,9 +213,11 @@ def test_group_norm_ref_matches_jax(shape, group_size, dtype):
 # the kernel bench twin
 # ---------------------------------------------------------------------------
 
-#: the reference bench's rows (benchmarks/kernels_bench.py) without the two
-#: attention rows and the interpret-mode rows
+#: the reference bench's rows (benchmarks/kernels_bench.py) without the
+#: interpret-mode rows
 REFERENCE_ROWS = [
+    "kernel/flash_attention", "oracle/flash_attention",
+    "prod/chunked_attention",
     "kernel/gaia_select_1M", "oracle/gaia_select_1M",
     "kernel/dgc_sparsify_1M", "oracle/dgc_sparsify_1M",
     "oracle/dgc_quantile_1M",
@@ -222,14 +225,15 @@ REFERENCE_ROWS = [
     "kernel/neighbor_mix_ring8_128k", "oracle/neighbor_mix_ring8_128k",
     "oracle/neighbor_mix_dense",
     "kernel/group_norm", "oracle/group_norm"]
-LIBRARY_ROWS = ["library/dgc_quantile_1M", "library/neighbor_mix_dense",
-                "library/group_norm"]
+LIBRARY_ROWS = ["library/flash_attention", "library/dgc_quantile_1M",
+                "library/neighbor_mix_dense", "library/group_norm"]
 
 
 def test_kernels_bench_rows_on_cpu():
     launches = dict(ops.launches)
     rows = kernels_bench.run("cpu", n=4096, mix_cols=256,
-                             gn_shape=(4, 4, 4, 8), reps=2)
+                             gn_shape=(4, 4, 4, 8), attn_shape=(1, 2, 32, 64),
+                             reps=2)
     names = [name for name, _ in rows]
     assert [n for n in names if not n.startswith("library/")] == \
         REFERENCE_ROWS
@@ -245,18 +249,36 @@ def test_kernels_bench_entry_point_prints_rows(monkeypatch, capsys,
 
     def run_small(device):
         return small(device, n=2048, mix_cols=128, gn_shape=(2, 4, 4, 8),
-                     reps=1)
+                     attn_shape=(1, 2, 16, 64), reps=1)
     monkeypatch.setattr(kernels_bench, "run", run_small)
     out_json = tmp_path / "rows.json"
     assert kernels_bench.main(["--device", "cpu", "--json",
                                str(out_json)]) == 0
     lines = capsys.readouterr().out.splitlines()
     assert lines[0] == "# device: cpu"
-    assert lines[-1] == kernels_bench.ATTENTION_NOTE
-    rows = [line.split(",") for line in lines[1:-1]]
+    rows = [line.split(",") for line in lines[1:]]
     assert [r[0] for r in rows] == [n for n, _ in run_small("cpu")]
     assert all(len(r) == 3 and r[2] == "" and float(r[1]) > 0 for r in rows)
     assert out_json.read_text().count("us_per_call") == len(rows)
+
+
+def test_kernels_bench_attention_rows_compute_one_function():
+    """The four attention rows compute the reference's causal attention:
+    the op, its plain version, SDPA and the model path's
+    ``chunked_attention`` on the (B, T, H, D) layout, within 2e-5 of
+    ``repro``'s oracle (float32)."""
+    a = kernels_bench.inputs("cpu", n=64, mix_cols=8, gn_shape=(1, 2, 2, 4),
+                             attn_shape=(1, 2, 48, 64))
+    q, k, v = a["q"], a["k"], a["v_attn"]
+    expect = np.asarray(jax_ref.flash_attention_ref(
+        *(jnp.asarray(t.numpy()) for t in (q, k, v))))
+    got = [ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v),
+           torch.nn.functional.scaled_dot_product_attention(q, k, v,
+                                                            is_causal=True),
+           chunked_attention(*(t.transpose(1, 2) for t in (q, k, v)),
+                             chunk=64).transpose(1, 2)]
+    for out in got:
+        np.testing.assert_allclose(out.numpy(), expect, atol=2e-5, rtol=2e-5)
 
 
 def test_kernels_bench_needs_a_card_by_default(monkeypatch):

@@ -1,0 +1,426 @@
+"""The port's LM serving path against the JAX reference, on the CPU.
+
+The same NumPy inputs, made from a seed, go through ``repro`` and
+``repro_torch``.  On the CPU the port's ``ops.flash_attention`` is its
+plain version (``kernels/ref.py``), which ``chunked_attention`` and so
+every full-sequence forward reach; the CUDA kernel is held against that
+plain version on the card by ``tests/test_torch_cuda.py`` and
+``chip_smoke.py``.  Whole models run on the reference's own weights,
+carried across by ``lm_params_from_jax``.
+
+Tolerances: attention 2e-5 in float32 and 2e-2 in bfloat16 (the
+reference's kernel tests; in bfloat16 the reference's ``chunked_attention``
+also rounds the probabilities to bfloat16 before the product with v,
+which the port's kernel and plain version keep in float32); layers 1e-5
+in float32; whole reduced models (float32, two layers) 1e-4, for float32
+products summed in another order by XLA and ATen.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs.base import AttentionConfig as JaxAttentionConfig
+from repro.configs.registry import get_config as jax_get_config
+from repro.kernels import ops as jax_ops
+from repro.kernels import ref as jax_ref
+from repro.launch import steps as jax_steps
+from repro.models import attention as jax_attn
+from repro.models import layers as jax_layers
+from repro.models import model as jax_model
+from repro.models import rope as jax_rope
+from repro_torch.configs import registry
+from repro_torch.configs.base import AttentionConfig
+from repro_torch.kernels import ops
+from repro_torch.launch import steps
+from repro_torch.models import attention, layers, model, rope, transformer
+
+REPO = Path(__file__).resolve().parents[1]
+DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
+          "bfloat16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
+#: tests/test_kernels.py's attention grid: (B, H, Tq, Tk, D) and options
+FA_SHAPES = [(1, 2, 128, 128, 64), (2, 1, 64, 192, 64), (1, 1, 200, 200, 128)]
+FA_KWS = [dict(causal=True), dict(causal=False),
+          dict(causal=True, window=64), dict(causal=True, logit_softcap=30.0)]
+LM_TOL = 1e-4
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """One float32 NumPy array as a JAX and a torch array of ``dtype``
+    (both round float32 -> bfloat16 to nearest even: the same bits)."""
+    jdt, tdt, _ = DTYPES[dtype]
+    return jnp.asarray(a, jdt), torch.from_numpy(a).to(tdt)
+
+
+def _np32(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _normal(seed: int, *shape) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _to_torch(tree):
+    return model.lm_params_from_jax(jax.tree_util.tree_map(np.asarray, tree),
+                                    "cpu")
+
+
+def _qkv(shape, dtype):
+    B, H, Tq, Tk, D = shape
+    return [_pair(_normal(s, B, H, t, D), dtype)
+            for s, t in ((0, Tq), (1, Tk), (2, Tk))]
+
+
+# ---------------------------------------------------------------------------
+# flash_attention: the op's CPU route against the reference
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kw", FA_KWS, ids=["causal", "full", "window64",
+                                            "softcap30"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", FA_SHAPES)
+def test_flash_attention_matches_jax_oracle(shape, dtype, kw):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(shape, dtype)
+    launches = dict(ops.launches)
+    out = ops.flash_attention(tq, tk, tv, **kw)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    assert ops.launches == launches                 # the CPU launches nothing
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(
+        _np32(out), _np32(jax_ref.flash_attention_ref(jq, jk, jv, **kw)),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape,dtype,kw", [
+    ((1, 1, 200, 200, 128), "float32", dict(causal=True)),
+    ((2, 1, 64, 192, 64), "float32", dict(causal=True, window=64)),
+    ((1, 2, 128, 128, 64), "bfloat16", dict(causal=True, logit_softcap=30.0)),
+    ((1, 2, 128, 128, 64), "float32", dict(causal=False))])
+def test_flash_attention_matches_pallas_interpret(shape, dtype, kw):
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(shape, dtype)
+    expect = jax_ops.flash_attention(jq, jk, jv, block_q=64, block_k=64,
+                                     interpret=True, **kw)
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(_np32(ops.flash_attention(tq, tk, tv, **kw)),
+                               _np32(expect), atol=tol, rtol=tol)
+
+
+def test_flash_attention_refuses_bad_operands():
+    q = torch.zeros(1, 2, 8, 64)
+    with pytest.raises(ValueError, match=r"\(B, H, T, D\)"):
+        ops.flash_attention(q[0], q[0], q[0])
+    with pytest.raises(ValueError, match="must be"):
+        ops.flash_attention(q, torch.zeros(1, 2, 8, 32), q)
+    with pytest.raises(ValueError, match="must be"):
+        ops.flash_attention(q, q, torch.zeros(1, 2, 9, 64))
+    with pytest.raises(ValueError, match="leaves no key"):
+        ops.flash_attention(q, q, q, window=0)
+    with pytest.raises(ValueError, match="positive"):
+        ops.flash_attention(q, q, q, logit_softcap=0.0)
+
+
+# ---------------------------------------------------------------------------
+# chunked_attention (GQA, (B, T, H, D)) against the reference's scan
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (4, 1)])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, window=16),
+                                dict(causal=True, logit_softcap=50.0)],
+                         ids=["causal", "full", "window16", "softcap50"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_chunked_attention_matches_jax(dtype, kw, heads):
+    Hq, Hkv = heads
+    B, T, D = 2, 40, 64
+    jq, tq = _pair(_normal(3, B, T, Hq, D), dtype)
+    jk, tk = _pair(_normal(4, B, T, Hkv, D), dtype)
+    jv, tv = _pair(_normal(5, B, T, Hkv, D), dtype)
+    out = attention.chunked_attention(tq, tk, tv, **kw)
+    assert out.shape == (B, T, Hq, D) and out.dtype == tq.dtype
+    expect = jax_attn.chunked_attention(jq, jk, jv, chunk=16, **kw)
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(_np32(out), _np32(expect), atol=tol, rtol=tol)
+
+
+def test_chunked_attention_refuses_foreign_q_offset():
+    q = torch.zeros(1, 8, 2, 64)
+    kv = torch.zeros(1, 12, 2, 64)
+    with pytest.raises(ValueError, match="q_offset"):
+        attention.chunked_attention(q, q, q, q_offset=3)
+    with pytest.raises(ValueError, match="q_offset"):
+        attention.chunked_attention(q, kv, kv)        # the default offset 0
+    out = attention.chunked_attention(q, kv, kv, q_offset=4)
+    assert out.shape == q.shape
+
+
+# ---------------------------------------------------------------------------
+# layers and RoPE
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("theta", [10_000.0, 1_000_000.0])
+def test_apply_rope_matches_jax(theta):
+    x = _normal(6, 2, 12, 4, 64)
+    pos = np.random.default_rng(7).integers(0, 5000, (2, 12))
+    got = rope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta)
+    expect = jax_rope.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta)
+    np.testing.assert_allclose(_np32(got), _np32(expect), atol=1e-5,
+                               rtol=1e-5)
+    got1 = rope.apply_rope(torch.from_numpy(x), torch.arange(12), theta)
+    expect1 = jax_rope.apply_rope(jnp.asarray(x), jnp.arange(12), theta)
+    np.testing.assert_allclose(_np32(got1), _np32(expect1), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_norms_and_gated_mlp_match_jax(dtype):
+    """Norms: 1e-5 in float32, 2e-2 in bfloat16 (one rounding of the
+    output after float32 statistics).  Gated MLP: 1e-5 in float32; in
+    bfloat16 one bfloat16 ulp of the largest output (2**-7 of it): the
+    three products' outputs are rounded to bfloat16 at places XLA and
+    ATen choose differently."""
+    tol = 1e-5 if dtype == "float32" else 2e-2
+    jx, tx = _pair(_normal(8, 2, 5, 32) * 3 + 1, dtype)
+    scale, bias = _normal(9, 32) * 0.1, _normal(10, 32) * 0.1
+    rms_j = {"scale": jnp.asarray(scale)}
+    rms_t = {"scale": torch.from_numpy(scale)}
+    np.testing.assert_allclose(
+        _np32(layers.rmsnorm_apply(rms_t, tx)),
+        _np32(jax_layers.rmsnorm_apply(rms_j, jx)), atol=tol, rtol=tol)
+    ln_j = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
+    ln_t = {"scale": torch.from_numpy(scale), "bias": torch.from_numpy(bias)}
+    np.testing.assert_allclose(
+        _np32(layers.layernorm_apply(ln_t, tx)),
+        _np32(jax_layers.layernorm_apply(ln_j, jx)), atol=tol, rtol=tol)
+    jdt = DTYPES[dtype][0]
+    mlp_j = jax_layers.init_gated_mlp(jax.random.PRNGKey(1), 32, 48, jdt)
+    expect = _np32(jax_layers.gated_mlp_apply(mlp_j, jx))
+    mlp_tol = 1e-5 if dtype == "float32" else 2.0 ** -7 * np.abs(
+        expect).max()
+    np.testing.assert_allclose(
+        _np32(layers.gated_mlp_apply(_to_torch(mlp_j), tx)), expect,
+        atol=mlp_tol, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# GQA block: prefill, decode, ring buffer
+# ---------------------------------------------------------------------------
+
+GQA_CONFIGS = {
+    "qknorm-gqa": dict(n_heads=4, n_kv_heads=2, head_dim=64, qk_norm=True),
+    "softcap-window": dict(n_heads=4, n_kv_heads=4, head_dim=64,
+                           attn_softcap=50.0, sliding_window=6,
+                           layer_pattern=("local",)),
+}
+
+
+@pytest.mark.parametrize("name", list(GQA_CONFIGS))
+def test_gqa_apply_and_decode_match_jax(name):
+    kw = GQA_CONFIGS[name]
+    ja, a = JaxAttentionConfig(kind="gqa", **kw), AttentionConfig(**kw)
+    window = a.sliding_window
+    d_model, B, T = 32, 2, 12
+    jp = jax_attn.init_gqa(jax.random.PRNGKey(0), ja, d_model, jnp.float32)
+    p = _to_torch(jp)
+    x = _normal(11, B, T, d_model)
+    positions = np.broadcast_to(np.arange(T), (B, T))
+    full = attention.gqa_apply(p, a, torch.from_numpy(x), window=window,
+                               positions=torch.from_numpy(positions.copy()))
+    jfull = jax_attn.gqa_apply(jp, ja, jnp.asarray(x), window=window,
+                               positions=jnp.asarray(positions), chunk=4)
+    np.testing.assert_allclose(_np32(full), _np32(jfull), atol=1e-5,
+                               rtol=1e-5)
+    # decode over a ring of `window` slots (or all T), against the
+    # reference's decode and the port's own full-sequence pass
+    L = window or T
+    cache = attention.gqa_init_cache(a, B, L, torch.float32, "cpu")
+    jcache = jax_attn.gqa_init_cache(ja, B, L, jnp.float32)
+    jdecode = jax.jit(lambda p_, x_, c_, t_: jax_attn.gqa_decode(
+        p_, ja, x_, c_, t_))
+    for t in range(T):
+        o, cache = attention.gqa_decode(
+            p, a, torch.from_numpy(x[:, t:t + 1]), cache,
+            torch.full((B,), t, dtype=torch.int32))
+        jo, jcache = jdecode(jp, jnp.asarray(x[:, t:t + 1]), jcache,
+                             jnp.full((B,), t, jnp.int32))
+        np.testing.assert_allclose(_np32(o), _np32(jo), atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(_np32(o[:, 0]), _np32(full[:, t]),
+                                   atol=1e-4, rtol=1e-3)
+    np.testing.assert_array_equal(cache["pos"].numpy(),
+                                  np.asarray(jcache["pos"]))
+
+
+def test_gqa_ring_buffer_equals_sliding_window():
+    """A ring buffer of W slots == sliding-window attention of width W."""
+    a = AttentionConfig(kind="gqa", n_heads=2, n_kv_heads=2, head_dim=64,
+                        sliding_window=4, layer_pattern=("local",))
+    d_model, T, W = 16, 12, 4
+    p = attention.init_gqa(torch.Generator().manual_seed(0), a, d_model,
+                           torch.float32, "cpu")
+    x = torch.from_numpy(_normal(12, 1, T, d_model))
+    full = attention.gqa_apply(p, a, x, window=W,
+                               positions=torch.arange(T).expand(1, T))
+    cache = attention.gqa_init_cache(a, 1, W, torch.float32, "cpu")
+    outs = []
+    for t in range(T):
+        o, cache = attention.gqa_decode(p, a, x[:, t:t + 1], cache,
+                                        torch.full((1,), t))
+        outs.append(o)
+    np.testing.assert_allclose(_np32(torch.cat(outs, dim=1)), _np32(full),
+                               atol=1e-4, rtol=1e-3)
+
+
+# ---------------------------------------------------------------------------
+# whole reduced models through lm_params_from_jax
+# ---------------------------------------------------------------------------
+
+#: gemma2 and starcoder2 at T = 96 > their reduced window of 64
+LM_CASES = [("qwen3-0.6b", 24), ("gemma2-9b", 96), ("starcoder2-3b", 96)]
+
+
+@pytest.mark.parametrize("arch,T", LM_CASES)
+def test_reduced_lm_matches_jax(arch, T):
+    jcfg = jax_get_config(arch).reduced()
+    cfg = registry.get_config(arch).reduced()
+    jp = jax_model.init_model(jax.random.PRNGKey(0), jcfg)
+    p = _to_torch(jp)
+    B = 2
+    toks = np.random.default_rng(13).integers(0, cfg.vocab, (B, T)).astype(
+        np.int32)
+    tt = torch.from_numpy(toks).long()
+
+    logits, aux = model.forward(p, cfg, {"tokens": tt})
+    jlogits, _ = jax.jit(lambda p_, t_: jax_model.forward(
+        p_, jcfg, {"tokens": t_}))(jp, jnp.asarray(toks))
+    assert logits.shape == (B, T, cfg.vocab) and logits.dtype == torch.float32
+    assert float(aux) == 0.0
+    np.testing.assert_allclose(_np32(logits), _np32(jlogits), atol=LM_TOL,
+                               rtol=LM_TOL)
+
+    prefill = steps.make_prefill_step(cfg)
+    np.testing.assert_array_equal(_np32(prefill(p, {"tokens": tt})),
+                                  _np32(logits[:, -1]))
+
+    cache = model.init_cache(cfg, B, T, device="cpu")
+    jcache = jax_model.init_cache(jcfg, B, T)
+    jdecode = jax.jit(lambda p_, b_, c_: jax_model.decode_step(
+        p_, jcfg, b_, c_))
+    serve = steps.make_serve_step(cfg)
+    jserve = jax.jit(jax_steps.make_serve_step(jcfg))
+    serve_cache = model.init_cache(cfg, B, T, device="cpu")
+    jserve_cache = jax_model.init_cache(jcfg, B, T)
+    for t in range(T):
+        tpos = torch.full((B,), t, dtype=torch.int32)
+        batch = {"token": tt[:, t], "t": tpos}
+        jbatch = {"token": jnp.asarray(toks[:, t]),
+                  "t": jnp.full((B,), t, jnp.int32)}
+        step_logits, cache = model.decode_step(p, cfg, batch, cache)
+        jstep_logits, jcache = jdecode(jp, jbatch, jcache)
+        np.testing.assert_allclose(_np32(step_logits), _np32(jstep_logits),
+                                   atol=LM_TOL, rtol=LM_TOL)
+        np.testing.assert_allclose(_np32(step_logits), _np32(logits[:, t]),
+                                   atol=LM_TOL, rtol=LM_TOL)
+        tok, serve_cache = serve(p, serve_cache, batch)
+        jtok, jserve_cache = jserve(jp, jserve_cache, jbatch)
+        assert tok.dtype == torch.int32
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+        np.testing.assert_array_equal(
+            tok.numpy(), np.argmax(_np32(logits[:, t]), axis=-1))
+
+
+def test_lm_params_from_jax_keeps_the_tree_and_bits():
+    jcfg = jax_get_config("gemma2-9b").reduced()
+    jp = jax_model.init_model(jax.random.PRNGKey(1), jcfg)
+    p = _to_torch(jp)
+    jleaves, jdef = jax.tree_util.tree_flatten_with_path(jp)
+    for path, leaf in jleaves:
+        t = p
+        for key in path:
+            t = t[key.key if hasattr(key, "key") else key.idx]
+        np.testing.assert_array_equal(t.numpy(), np.asarray(leaf))
+    # the stacked body: one cycle of gemma2's (local, global) pair
+    assert transformer.cycle_period(registry.get_config("gemma2-9b")) == 2
+    assert len(p["body"]) == 2 and p["body"][0]["mixer"]["wq"]["w"].shape[0] \
+        == 1
+    bf = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16), jp)
+    pb = _to_torch(bf)
+    assert pb["embed"]["table"].dtype == torch.bfloat16
+    np.testing.assert_array_equal(_np32(pb["embed"]["table"]),
+                                  _np32(bf["embed"]["table"]))
+
+
+def test_init_model_shapes_follow_the_reference():
+    for arch in registry.ARCH_IDS:
+        cfg = registry.get_config(arch).reduced()
+        jp = jax_model.init_model(jax.random.PRNGKey(0),
+                                  jax_get_config(arch).reduced())
+        p = model.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+        shapes = jax.tree_util.tree_map(lambda a: tuple(a.shape), jp)
+        assert jax.tree_util.tree_map(lambda t: tuple(t.shape), p) == shapes
+        assert sum(t.numel() for t in jax.tree_util.tree_leaves(p)) == \
+            sum(a.size for a in jax.tree_util.tree_leaves(jp))
+
+
+def _leaf_devices(tree):
+    return {t.device for t in jax.tree_util.tree_leaves(tree)}
+
+
+def test_lm_entry_points_default_to_cuda(monkeypatch):
+    """Without a device the LM's entry points place everything on CUDA,
+    so where there is none they raise instead of running on the CPU; with
+    ``device="cpu"`` every leaf of the parameters and cache lies there."""
+    cfg = registry.get_config("qwen3-0.6b").reduced()
+    gen = torch.Generator().manual_seed(0)
+    jp = jax.tree_util.tree_map(np.asarray, jax_model.init_model(
+        jax.random.PRNGKey(0), jax_get_config("qwen3-0.6b").reduced()))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for build in (lambda: model.init_model(gen, cfg),
+                  lambda: model.init_cache(cfg, 1, 8),
+                  lambda: model.lm_params_from_jax(jp),
+                  lambda: layers.init_rmsnorm(8),
+                  lambda: layers.init_layernorm(8),
+                  lambda: layers.init_linear(gen, 4, 4, bias=True),
+                  lambda: attention.gqa_init_cache(cfg.attention, 1, 8,
+                                                   torch.float32)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            build()
+    cpu = torch.device("cpu")
+    assert _leaf_devices(model.init_model(gen, cfg, "cpu")) == {cpu}
+    assert _leaf_devices(model.init_cache(cfg, 1, 8, device="cpu")) == {cpu}
+    assert _leaf_devices(model.lm_params_from_jax(jp, "cpu")) == {cpu}
+
+
+def test_registry_and_unported_families():
+    assert registry.ARCH_IDS == ["qwen3-0.6b", "gemma2-9b", "starcoder2-3b"]
+    with pytest.raises(KeyError, match="unknown arch"):
+        registry.get_config("no-such-arch")
+    with pytest.raises(KeyError):
+        registry.get_config("mamba2-780m")
+    for arch, cfg in registry.all_configs().items():
+        assert cfg.n_params() == jax_get_config(arch).n_params()
+    qwen = registry.get_config("qwen3-0.6b").reduced()
+    mla = dataclasses.replace(qwen, attention=dataclasses.replace(
+        qwen.attention, kind="mla"))
+    with pytest.raises(ValueError, match="ROADMAP A10"):
+        model.init_model(torch.Generator().manual_seed(0), mla, "cpu")
+    with pytest.raises(ValueError, match="ROADMAP A10"):
+        model.init_cache(mla, 1, 8, device="cpu")
+
+
+def test_serve_decode_example_runs_on_cpu():
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.serve_decode",
+         "--device", "cpu", "--reduced"], env=env, cwd=REPO,
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    assert "arch=qwen3-0.6b (reduced, float32)  batch=4  device=cpu" in out
+    assert "generated 32 tokens/request" in out and "tok/s" in out

@@ -655,7 +655,9 @@ def test_ledger_fabric_config_knobs_equal(window, rewire):
 def test_port_import_loads_no_jax_or_repro():
     code = ("import sys, repro_torch.core.trainer, "
             "repro_torch.kernels.dgc_topk, "
-            "repro_torch.benchmarks.kernels_bench\n"
+            "repro_torch.benchmarks.kernels_bench, "
+            "repro_torch.models.model, repro_torch.launch.steps, "
+            "repro_torch.examples.serve_decode\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
