@@ -31,8 +31,12 @@ before the last line is printed:
    64), (2, 1, 64, 192, 64), (1, 1, 200, 200, 128), at D = 256 (gemma2's
    head dim) and at the LM prefill's (4, 16, 2048, 2048, 128) in
    bfloat16, causal, non-causal, causal with a window of 64 and causal
-   with softcap 30, and a head dim of 96 and a non-contiguous input
-   refused with no launch; then every kernel of phase 6's bench on the
+   with softcap 30, and a head dim of 96 and an input with D off unit
+   stride refused with no launch; ``flash_attention_bthd`` likewise on
+   (B, T, H, D) views of one projection-shaped tensor, at 1, 2 and 4
+   query heads a KV head on the same grid and at the prefill's 16 over 8
+   heads (bfloat16, max |err| 8e-3 and mean 1e-6, printed for each
+   mask); then every kernel of phase 6's bench on the
    bench's own operands (``kernels_bench.inputs``): ``gaia_select``,
    ``rand_k_select`` and ``dgc_sparsify`` at n = 2**20 bit-exact,
    ``neighbor_mix`` at (8, 2**17) on ``ring(8)`` within 2e-5,
@@ -50,9 +54,12 @@ before the last line is printed:
 5. kernel times: the median of 50 CUDA-event-timed launches at the main
    path's shapes (the bench's for the DGC histogram kernels, n = 2**20,
    and for ``group_norm``, (128, 8, 8, 64); the LM prefill's for
-   ``flash_attention``, and the bench's (1, 4, 256, 64) float32): the
-   kernel launch alone (``ms``) and the whole op with its checks and
-   allocations (``op_ms``), beside the plain version, the library call
+   ``flash_attention``, through the (B, H, T, D) launch and through the
+   (B, T, H, D) launch the model makes, 16 over 8 heads, with
+   ``chunked_attention`` around it, and the bench's (1, 4, 256, 64)
+   float32): the kernel launch alone (``ms``) and the whole op with its
+   checks and allocations (``op_ms``), beside the plain version, the
+   library call
    that computes the same function where there is one, and the least time
    the card could take (bytes over 3.35 TB/s, operations over 67 TFLOP/s,
    the float32 rate of the CUDA cores, which integer work is counted at
@@ -89,6 +96,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -121,9 +129,15 @@ FA_SHAPES = ((1, 2, 128, 128, 64), (2, 1, 64, 192, 64), (1, 1, 200, 200, 128),
              (1, 2, 160, 160, 256), (1, 1, 64, 300, 256))
 FA_KWS = ({"causal": True}, {"causal": False}, {"causal": True, "window": 64},
           {"causal": True, "logit_softcap": 30.0})
+#: query heads over KV heads in the (B, T, H, D) checks
+FA_GROUPS = (1, 2, 4)
 #: the LM prefill: qwen3-0.6b's attention over 4 prompts of 2048 tokens
 PREFILL_B, PREFILL_T, PREFILL_CALLS = 4, 2048, 3
 FA_PREFILL = (PREFILL_B, 16, PREFILL_T, PREFILL_T, 128)
+#: the same as the model runs it: 16 query heads over 8 KV heads, as
+#: (B, H_kv, Tq, Tk, D) with a group of 2
+FA_PREFILL_GQA, FA_PREFILL_GROUP = (PREFILL_B, 8, PREFILL_T, PREFILL_T,
+                                    128), 2
 #: the kernel's bound at the prefill's shape in bfloat16, tighter than the
 #: grid's 2e-2 (about half an output there): an H100 read max |err| 3.91e-3
 #: (one bfloat16 ulp in [0.5, 1)), so 8e-3 is twice it; and a bound on the
@@ -237,6 +251,31 @@ def attention_work(shape, dtype_bytes: int, causal: bool = True):
             4 * B * H * D * pairs)
 
 
+def demangle(name: str) -> str:
+    """A kernel's C++ name by ``c++filt``, cut to the function and its
+    template arguments; the mangled name where there is no ``c++filt``."""
+    try:
+        name = subprocess.run(["c++filt"], input=name, capture_output=True,
+                              text=True, timeout=30).stdout.strip() or name
+    except OSError:
+        return name
+    m = re.search(r"([A-Za-z_]\w*(?:<[^()]*?>)?)\(", name)
+    return m.group(1) if m else name
+
+
+def fused_qkv(gen, dev, shape, group, dtype):
+    """q (B, Tq, H * group, D) and k, v (B, Tk, H, D), for (B, H, Tq, Tk,
+    D), as the views of one projection-shaped (B, T, (H * group + 2 H) D)
+    tensor that the model's attention takes: none contiguous."""
+    B, H, Tq, Tk, D = shape
+    Hq = H * group
+    fused = torch.randn(B, max(Tq, Tk), (Hq + 2 * H) * D,
+                        generator=gen).to(dev, dtype)
+    return (fused[:, :Tq, :Hq * D].unflatten(2, (Hq, D)),
+            fused[:, :Tk, Hq * D:(Hq + H) * D].unflatten(2, (H, D)),
+            fused[:, :Tk, (Hq + H) * D:].unflatten(2, (H, D)))
+
+
 def tree_to(tree, to):
     """A parameter tree (dicts, lists, tensors, None) with every tensor
     moved or cast by ``tensor.to(to)``."""
@@ -318,9 +357,12 @@ def main() -> int:
     print(f"built {sorted(logs) or 'nothing (libraries up to date)'} in "
           f"{time.perf_counter() - t0:.2f} s")
     for kname, log in sorted(logs.items()):
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {kname}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = demangle(line.split("'")[1])
+            elif "registers" in line or "spill" in line:
+                print(f"  {kname} {entry}: {line.strip()}")
     for kname in build.KERNELS:
         build.load(kname)
     sys.stdout.flush()
@@ -571,8 +613,52 @@ def main() -> int:
         except ValueError as e:
             assert what in str(e), e
     assert ops.launches == before, (ops.launches, before)
-    print("flash_attention: a head dim of 96 and a non-contiguous input are "
-          "refused, no launch")
+    print("flash_attention: a head dim of 96 and an input with D off unit "
+          "stride are refused, no launch")
+
+    # the model's layout: flash_attention_bthd on (B, T, H, D) views of a
+    # projection-shaped tensor, H / Hkv in FA_GROUPS, then the prefill's
+    # 16 over 8 heads
+    bthd_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    bthd_checks, bthd_prefill_err = 0, []
+    with tf32_off():
+        for shape in FA_SHAPES:
+            for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+                for group in FA_GROUPS:
+                    q_, k_, v_ = fused_qkv(gen, dev, shape, group, dtype)
+                    for kw in FA_KWS:
+                        out = ops.flash_attention_bthd(q_, k_, v_, **kw)
+                        expect = ref.flash_attention_bthd_ref(q_, k_, v_,
+                                                              **kw)
+                        torch.cuda.synchronize()
+                        assert out.dtype == dtype and out.shape == q_.shape
+                        torch.testing.assert_close(
+                            out.float(), expect.float(), atol=tol, rtol=tol)
+                        bthd_err[dtype] = max(bthd_err[dtype], float(
+                            (out.float() - expect.float()).abs().max()))
+                        bthd_checks += 1
+        q_, k_, v_ = fused_qkv(gen, dev, FA_PREFILL_GQA, FA_PREFILL_GROUP,
+                               torch.bfloat16)
+        for kw in FA_KWS:
+            diff = (ops.flash_attention_bthd(q_, k_, v_, **kw).float()
+                    - ref.flash_attention_bthd_ref(q_, k_, v_, **kw).float()
+                    ).abs()
+            err, mean = float(diff.max()), float(diff.mean())
+            assert err <= FA_PREFILL_TOL and mean <= FA_PREFILL_MEAN_TOL, (
+                kw, err, mean)
+            fa_prefill_max = max(fa_prefill_max, err)
+            bthd_checks += 1
+            bthd_prefill_err.append(f"{kw}: max {err:.3g}, mean {mean:.3g}")
+            del diff
+        del q_, k_, v_
+    print(f"flash_attention_bthd: {bthd_checks} checks on (B, T, H, D) views "
+          f"of a fused projection ({len(FA_SHAPES)} shapes x {{float32, "
+          f"bfloat16}} x H / Hkv in {FA_GROUPS} x the four masks, and the "
+          f"prefill's 16 over 8 heads in bfloat16): max |err| float32 "
+          f"{bthd_err[torch.float32]:.3g} (tol 2e-5), bfloat16 "
+          f"{bthd_err[torch.bfloat16]:.3g} (tol 2e-2); at the prefill's "
+          f"shape (tol {FA_PREFILL_TOL:g}, mean {FA_PREFILL_MEAN_TOL:g}) "
+          f"|err| {'; '.join(bthd_prefill_err)}")
 
     # every kernel of the bench (phase 6) on the bench's own operands
     b_in = kernels_bench.inputs("cuda")
@@ -927,25 +1013,46 @@ def main() -> int:
                  q_, k_, v_, is_causal=True))}
         n_bytes, flops = attention_work(shape, q_.element_size())
         r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops, rate)
-        # the model path's call: (B, T, H, D) q and KV heads of GQA
-        if label == "prefill":
-            qm = q_.transpose(1, 2).contiguous()
-            km, vm = (t_[:, ::2].transpose(1, 2).contiguous()
-                      for t_ in (k_, v_))
-            r["chunked_ms"] = time_ms(lambda: chunked_attention(qm, km, vm))
-            del qm, km, vm
+        print(f"flash_attention {label} {shape} {str(dtype)[6:]} causal, "
+              f"(B, H, T, D) launch: kernel {r['ms']:.4f} ms "
+              f"({flops / r['ms'] / 1e9:.1f} TFLOP/s useful), op "
+              f"{r['op_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+              f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}: {flops:.4g} flops, {n_bytes:.4g} bytes), "
+              f"kernel / bound {r['ms'] / r['bound_ms']:.2f}")
         fa[label] = r
-        print(f"flash_attention {label} {shape} {str(dtype)[6:]} causal: "
-              f"kernel {r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.1f} "
-              f"TFLOP/s useful), op {r['op_ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.5f} ms ({r['bound_by']}: {flops:.4g} flops, "
-              f"{n_bytes:.4g} bytes), kernel / bound "
-              f"{r['ms'] / r['bound_ms']:.1f}"
-              + (f"; chunked_attention (16 over 8 KV heads, (B, T, H, D), "
-                 f"with the expansion and layout copies) "
-                 f"{r['chunked_ms']:.4f} ms" if "chunked_ms" in r else ""))
         del q_, k_, v_, o_
+    # the model path's call: (B, T, H, D) views of the projections, 16
+    # query heads over 8 KV heads, launched as the prefill launches it
+    _, H_, _, _, D_ = FA_PREFILL_GQA
+    qm, km, vm = fused_qkv(gen, dev, FA_PREFILL_GQA, FA_PREFILL_GROUP,
+                           torch.bfloat16)
+    om = torch.empty(qm.shape, dtype=qm.dtype, device=dev)
+    qs, ks, vs = (t_.transpose(1, 2) for t_ in (qm, km, vm))
+    r = {"ms": time_ms(lambda: ops.launch_flash_attention(
+             qm, km, vm, om, causal=True, window=None, logit_softcap=None,
+             scale=D_ ** -0.5, layout="bthd")),
+         "op_ms": time_ms(lambda: ops.flash_attention_bthd(qm, km, vm)),
+         "chunked_ms": time_ms(lambda: chunked_attention(qm, km, vm)),
+         "plain_ms": time_ms(lambda: ref.flash_attention_bthd_ref(qm, km,
+                                                                  vm)),
+         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+             qs, ks, vs, is_causal=True, enable_gqa=True))}
+    n_bytes, flops = attention_work(FA_PREFILL, 2)
+    n_bytes = (n_bytes // 2) * 3 // 2           # KV heads: half of k and v
+    r["bound_ms"], r["bound_by"] = bound_ms(n_bytes, flops,
+                                            BF16_FLOPS_PER_S)
+    fa["prefill_gqa"] = r
+    print(f"flash_attention prefill as the model calls it ((B, T, H, D) "
+          f"views of a fused projection, {FA_PREFILL_GROUP * H_} over {H_} "
+          f"KV heads, bfloat16, causal): kernel {r['ms']:.4f} ms "
+          f"({flops / r['ms'] / 1e9:.1f} TFLOP/s useful, "
+          f"{r['ms'] / r['bound_ms']:.2f}x the {r['bound_ms']:.5f} ms bound, "
+          f"{r['bound_by']}), op {r['op_ms']:.4f} ms, chunked_attention "
+          f"{r['chunked_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, SDPA "
+          f"(enable_gqa, same views) {r['library_ms']:.4f} ms; the "
+          f"(B, H, T, D) launch above {fa['prefill']['ms']:.4f} ms")
+    del qm, km, vm, om, qs, ks, vs
     sys.stdout.flush()
 
     # ---------------------------------------------------------------- 6
@@ -1016,9 +1123,9 @@ def main() -> int:
           f"{prefill_tok_s:.1f} tokens/s; launches {lm_launches} "
           f"({lm_launches['flash_attention'] // PREFILL_CALLS} flash_attention "
           f"a call); the {lm_cfg.n_layers} kernel launches at phase 5's "
-          f"{fa['prefill']['ms']:.4f} ms are "
-          f"{100 * lm_cfg.n_layers * fa['prefill']['ms'] / prefill_ms:.1f}% "
-          f"of the call")
+          f"{fa['prefill_gqa']['ms']:.4f} ms are "
+          f"{100 * lm_cfg.n_layers * fa['prefill_gqa']['ms'] / prefill_ms:.1f}"
+          f"% of the call")
 
     # (b) decode: the serve_decode example's loop
     prompt = torch.from_numpy(rs.integers(0, V, (SERVE_B, SERVE_PROMPT))).to(
@@ -1190,9 +1297,11 @@ def main() -> int:
          "replaces": "src/repro/kernels/flash_attention.py:25",
          "launches": lm_launches["flash_attention"],
          "max_abs_err": fa_prefill_max,
-         **{k_: fa["prefill"][k_] for k_ in (
-             "ms", "op_ms", "plain_ms", "bound_ms", "bound_by",
-             "library_ms")}},
+         **{k_: fa["prefill_gqa"][k_] for k_ in (
+             "ms", "op_ms", "chunked_ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms")},
+         "mha_ms": fa["prefill"]["ms"],
+         "mha_library_ms": fa["prefill"]["library_ms"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -15,9 +15,9 @@ Rows, printed as ``name,us_per_call,``:
   ``torch.quantile``, ``W @ X``, ``F.group_norm``); timed here only,
   never called by the port;
 * ``prod/chunked_attention`` -- the LM's attention as its model path
-  calls it (``models.attention.chunked_attention`` on the (B, T, H, D)
-  layout): on the card the ``flash_attention`` kernel and its layout
-  copies.
+  calls it (``models.attention.chunked_attention`` on (B, T, H, D)
+  views): on the card the ``flash_attention`` kernel reading them in
+  place.
 
 The attention rows run at the reference's shape, B, H, T, D = 1, 4, 256,
 64, float32, causal.  The reference's ``interp/<op>`` rows (Pallas in

@@ -12,7 +12,9 @@ The ops: ``gaia_select``, ``neighbor_mix`` (and its ``src=`` gather),
 ``abs_histogram``, ``abs_histogram_fused``, ``dgc_select`` and
 ``dgc_sparsify`` (histogram, then ``dgc_topk.threshold_from_histogram``
 on the device, then select); ``group_norm`` (NHWC, forward); and
-``flash_attention`` ((B, H, T, D), forward).
+attention forward as ``flash_attention`` (the reference's (B, H, T, D)
+layout) and ``flash_attention_bthd`` (the model's (B, T, H, D) layout,
+GQA heads read in place), one kernel under both.
 
 ``launch_gaia_select``, ``launch_neighbor_mix``,
 ``launch_neighbor_mix_src``, ``launch_rand_k_select``,
@@ -53,14 +55,19 @@ _HIST_ARGS = [_P, _P, _P, _LL, _I, _I, _P]
 _SELECT_ARGS = [_P, _P, _P, _P, _LL, _I, _P]
 # x, scale, bias, y, batch, H*W, C, group_size, eps, device, stream
 _GN_ARGS = [_P, _P, _P, _P, _LL, _LL, _I, _I, ctypes.c_float, _I, _P]
-# q, k, v, o, B*H, Tq, Tk, D, scale, causal, window, softcap, device, stream
-_FA_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, ctypes.c_float, _I, _I,
+# q, k, v, o, B, H, Hkv, Tq, Tk, D, strides (q, k, v, o: B, T, H), scale,
+# causal, window, softcap, device, stream
+_FA_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I,
             ctypes.c_float, _I, _P]
 
 #: the most bins ``abs_histogram`` takes (the kernel's shared counters)
 MAX_BINS = 1024
 #: the head dims the ``flash_attention`` kernel is built for
 FLASH_HEAD_DIMS = (64, 128, 256)
+#: query rows a block of the kernel (both bodies): the grid's y runs over
+#: Tq / this, at most 65535
+_FLASH_BLOCK_Q = 64
 
 #: launches of each kernel since the count was last set to 0
 launches = {"gaia_select": 0, "neighbor_mix": 0, "neighbor_mix_src": 0,
@@ -409,19 +416,67 @@ def launch_group_norm(x: torch.Tensor, scale: torch.Tensor,
         H * W, C, group_size, eps, x.device.index, stream))
 
 
+def _flash_options(window: Optional[int],
+                   logit_softcap: Optional[float]) -> None:
+    if window is not None and window < 1:
+        raise ValueError(f"flash_attention: window={window} leaves no key")
+    if logit_softcap is not None and not logit_softcap > 0:
+        raise ValueError(f"flash_attention: logit_softcap={logit_softcap} "
+                         "must be positive")
+
+
+def _flash_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                  ) -> None:
+    """Raise unless the head dim of q, k and v lies at unit stride."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.stride(3) != 1 and t.shape[3] > 1:
+            raise ValueError(f"flash_attention: {name} must be contiguous "
+                             f"in its head dim (strides {t.stride()})")
+
+
+def _flash_card_operands(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, Tq: int) -> None:
+    """What the kernel takes beyond the layout: one dtype of two, no
+    gradient, a head dim it is built for; in bfloat16, operands whose
+    16-byte rows cp.async can copy."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype not in _SUFFIX:
+            raise TypeError(f"flash_attention {name}: dtype {t.dtype} not "
+                            f"in {tuple(_SUFFIX)}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"flash_attention: {name} dtype {t.dtype} "
+                            f"differs from q's {q.dtype}")
+        if t.requires_grad:
+            raise ValueError(f"flash_attention: {name} requires grad; the "
+                             "kernel has no backward")
+        if q.dtype == torch.bfloat16 and (
+                t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
+            raise ValueError(f"flash_attention: bfloat16 {name} must be "
+                             "16-byte aligned with strides a multiple of 8 "
+                             f"(strides {t.stride()})")
+    D = q.shape[3]
+    if D not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {D} not in "
+                         f"{FLASH_HEAD_DIMS}")
+    if -(-Tq // _FLASH_BLOCK_Q) > 65535:
+        raise ValueError(f"flash_attention: Tq={Tq} exceeds the grid's "
+                         f"65535 blocks of {_FLASH_BLOCK_Q} rows")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     logit_softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention forward over q (B, H, Tq, D) and k, v (B, H, Tk, D) of
-    one dtype (MHA layout: GQA callers expand the KV heads first), as
-    ``ref.flash_attention_ref`` computes it: float32 scores, softmax and
-    accumulator, the query at row i at position ``i + (Tk - Tq)``,
-    ``causal`` and sliding-``window`` masks, ``logit_softcap``, scale
-    ``D ** -0.5`` by default; the result in q's dtype.  On the card the
-    kernel takes float32 or bfloat16, contiguous, D in
-    ``FLASH_HEAD_DIMS``, and no input that requires a gradient (it has
-    no backward)."""
+    one dtype (the reference's MHA layout; ``flash_attention_bthd`` takes
+    the model's layout and GQA heads), as ``ref.flash_attention_ref``
+    computes it: float32 scores, softmax and accumulator, the query at
+    row i at position ``i + (Tk - Tq)``, ``causal`` and sliding-``window``
+    masks, ``logit_softcap``, scale ``D ** -0.5`` by default; the result
+    in q's dtype, contiguous.  On the card the kernel takes float32 or
+    bfloat16 with D at unit stride (other strides are free), D in
+    ``FLASH_HEAD_DIMS``, and no input that requires a gradient (it has no
+    backward)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention: q, k, v must be (B, H, T, D), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -430,50 +485,86 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.shape[:2] != (B, H) or k.shape[3] != D or v.shape != k.shape:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must be ({B}, {H}, Tk, {D})")
-    if window is not None and window < 1:
-        raise ValueError(f"flash_attention: window={window} leaves no key")
-    if logit_softcap is not None and not logit_softcap > 0:
-        raise ValueError(f"flash_attention: logit_softcap={logit_softcap} "
-                         "must be positive")
+    _flash_options(window, logit_softcap)
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        logit_softcap=logit_softcap,
                                        scale=scale)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check(f"flash_attention {name}", t, _SUFFIX)
-        if t.dtype != q.dtype:
-            raise TypeError(f"flash_attention: {name} dtype {t.dtype} "
-                            f"differs from q's {q.dtype}")
-        if t.requires_grad:
-            raise ValueError(f"flash_attention: {name} requires grad; the "
-                             "kernel has no backward")
-    if D not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in "
-                         f"{FLASH_HEAD_DIMS}")
-    if B * H > 65535:
-        raise ValueError(f"flash_attention: B*H={B * H} exceeds the grid's "
-                         "65535 rows")
-    out = torch.empty_like(q)
+    _flash_layout(q, k, v)
+    _flash_card_operands(q, k, v, Tq)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
                            logit_softcap=logit_softcap,
                            scale=D ** -0.5 if scale is None else scale)
     return out
 
 
+def flash_attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         logit_softcap: Optional[float] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """``flash_attention`` on the model's layout: q (B, Tq, H, D) and k, v
+    (B, Tk, Hkv, D) with H % Hkv == 0, query head h reading KV head
+    ``h // (H // Hkv)``; the result (B, Tq, H, D), contiguous, in q's
+    dtype.  The kernel reads q, k and v where they lie, with any strides
+    but a unit one for D (views of a fused projection, say), so the
+    caller neither expands the KV heads nor copies a layout.  The plain
+    version (``ref.flash_attention_bthd_ref``) expands the KV heads.  The
+    layout and the grouping are checked on both routes; on the card the
+    operands also as ``flash_attention`` checks them."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"flash_attention_bthd: q, k, v must be (B, T, H, "
+                         f"D), got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Tq, H, D = q.shape
+    Hkv = k.shape[2]
+    if k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
+        raise ValueError(f"flash_attention_bthd: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} must be ({B}, Tk, Hkv, {D})")
+    if Hkv < 1 or H % Hkv:
+        raise ValueError(f"flash_attention_bthd: {H} query heads do not "
+                         f"group over {Hkv} KV heads")
+    _flash_options(window, logit_softcap)
+    _flash_layout(q, k, v)
+    if _on_cpu(q, k, v):
+        return ref.flash_attention_bthd_ref(q, k, v, causal=causal,
+                                            window=window,
+                                            logit_softcap=logit_softcap,
+                                            scale=scale)
+    _flash_card_operands(q, k, v, Tq)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    launch_flash_attention(q, k, v, out, causal=causal, window=window,
+                           logit_softcap=logit_softcap,
+                           scale=D ** -0.5 if scale is None else scale,
+                           layout="bthd")
+    return out
+
+
 def launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, out: torch.Tensor, *,
                            causal: bool, window: Optional[int],
-                           logit_softcap: Optional[float],
-                           scale: float) -> None:
-    """Launch the ``flash_attention`` kernel on CUDA operands that
-    ``flash_attention`` checked, writing into ``out`` (like ``q``).  The
-    kernel skips the k-blocks outside the causal and window band when
-    Tq <= Tk, where every row keeps a valid key."""
-    B, H, Tq, D = q.shape
-    Tk = k.shape[2]
+                           logit_softcap: Optional[float], scale: float,
+                           layout: str = "bhtd") -> None:
+    """Launch the ``flash_attention`` kernel on CUDA operands that an op
+    checked, writing into ``out`` (q's shape).  ``layout`` names the
+    order of the four tensors' dims: ``"bhtd"`` (B, H, T, D) or
+    ``"bthd"`` (B, T, H, D).  The kernel reads every tensor's batch, time
+    and head strides and the KV heads' count from k; query head h reads KV
+    head ``h // (H // Hkv)``.  It skips the k-blocks outside the causal
+    and window band when Tq <= Tk, where every row keeps a valid key."""
+    if layout == "bhtd":
+        q, k, v, out = (t.transpose(1, 2) for t in (q, k, v, out))
+    elif layout != "bthd":
+        raise ValueError(f"launch_flash_attention: layout {layout!r} is "
+                         "neither 'bhtd' nor 'bthd'")
+    B, Tq, H, D = q.shape
+    Tk, Hkv = k.shape[1], k.shape[2]
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     fn = _kernel("flash_attention", "flash_attention", q.dtype, _FA_ARGS)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launched("flash_attention", "flash_attention", fn(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, Tq,
-        Tk, D, scale, int(causal), window or 0, logit_softcap or 0.0,
-        q.device.index, stream))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv,
+        Tq, Tk, D, strides, scale, int(causal), window or 0,
+        logit_softcap or 0.0, q.device.index, stream))

@@ -46,6 +46,24 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.to(q.dtype)
 
 
+def flash_attention_bthd_ref(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, *, causal: bool = True,
+                             window: Optional[int] = None,
+                             logit_softcap: Optional[float] = None,
+                             scale: Optional[float] = None) -> torch.Tensor:
+    """``flash_attention_ref`` on the model's layout: q (B, Tq, H, D), k
+    and v (B, Tk, Hkv, D) with H % Hkv == 0.  The KV heads are expanded
+    (query head h reads KV head ``h // (H // Hkv)``); the result is (B,
+    Tq, H, D), contiguous."""
+    g = q.shape[2] // k.shape[2]
+    k, v = (t.repeat_interleave(g, dim=2) for t in (k, v))
+    out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=window, logit_softcap=logit_softcap,
+                              scale=scale)
+    return out.transpose(1, 2).contiguous()
+
+
 def gaia_select_ref(v: torch.Tensor, w: torch.Tensor, threshold
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Significance filter ``|v| > T*|w|``, compared in float32 whatever

@@ -2,10 +2,12 @@
 softcap, sliding window), with two paths:
 
 - train/prefill: ``chunked_attention`` over the whole sequence, which in
-  the port computes through ``kernels.ops.flash_attention``: on a CUDA
-  tensor the hand-written kernel (``kernels/csrc/flash_attention.cu``),
-  on the CPU its plain version.  The reference computes it with a jnp
-  scan over key chunks and calls the Pallas kernel its TPU twin.
+  the port computes through ``kernels.ops.flash_attention_bthd`` on q, k
+  and v as the projections leave them (no KV expansion, no layout copy):
+  on a CUDA tensor the hand-written kernel
+  (``kernels/csrc/flash_attention.cu``), on the CPU its plain version.
+  The reference computes it with a jnp scan over key chunks and calls
+  the Pallas kernel its TPU twin.
 - decode: one query token against a fixed-capacity KV cache, which may be
   a *ring buffer* of ``window`` slots (the cache positions say which slot
   holds which token).  Plain tensor code, no kernel.
@@ -34,15 +36,6 @@ NEG_INF = -1e30
 # Core: full-sequence attention through the flash_attention kernel
 # ---------------------------------------------------------------------------
 
-def expand_kv(k: torch.Tensor, n_heads: int) -> torch.Tensor:
-    """GQA group expansion of (B, T, Hkv, D) to (B, T, n_heads, D): query
-    head h reads KV head ``h // (n_heads // Hkv)``."""
-    Hkv = k.shape[2]
-    if Hkv == n_heads:
-        return k
-    return torch.repeat_interleave(k, n_heads // Hkv, dim=2)
-
-
 def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       causal: bool = True,
                       window: Optional[int] = None,
@@ -52,32 +45,24 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       q_offset: int = 0) -> torch.Tensor:
     """q: (B, Tq, Hq, D); k, v: (B, Tk, Hkv, D).  Hq % Hkv == 0.
 
-    The KV heads are expanded to Hq, q/k/v laid out as (B, H, T, D) and
-    handed to ``ops.flash_attention``, whose kernel keeps the online
-    softmax's statistics in float32 and never materialises the scores.
-    ``q_offset`` is the absolute position of q[0] relative to k[0]; the
-    kernel places queries at ``Tk - Tq`` (prefill after a prefix), the
-    only offset it takes, so another raises ``ValueError`` (with the
-    default 0, Tq must equal Tk).  ``chunk`` (the reference scan's
-    key-chunk length) is kept for the signature and not used: the kernel
-    picks its own tiles.  On a CUDA device an input that requires a gradient
-    raises, as the kernel has no backward.
+    Handed as they are to ``ops.flash_attention_bthd``, whose kernel reads
+    the KV head of each query head and every stride itself, keeps the
+    online softmax's statistics in float32 and never materialises the
+    scores; the result is (B, Tq, Hq, D), contiguous.  ``q_offset`` is
+    the absolute position of q[0] relative to k[0]; the kernel places
+    queries at ``Tk - Tq`` (prefill after a prefix), the only offset it
+    takes, so another raises ``ValueError`` (with the default 0, Tq must
+    equal Tk).  ``chunk`` (the reference scan's key-chunk length) is kept
+    for the signature and not used: the kernel picks its own tiles.  On a
+    CUDA device an input that requires a gradient raises, as the kernel
+    has no backward.
     """
-    B, Tq, Hq, D = q.shape
-    Tk = k.shape[1]
-    if Hq % k.shape[2]:
-        raise ValueError(f"chunked_attention: {Hq} query heads do not group "
-                         f"over {k.shape[2]} KV heads")
+    Tq, Tk = q.shape[1], k.shape[1]
     if q_offset != Tk - Tq:
         raise ValueError(f"chunked_attention: q_offset={q_offset}; the "
                          f"kernel places q at Tk - Tq = {Tk - Tq}")
-    k = expand_kv(k, Hq)
-    v = expand_kv(v, Hq)
-    out = ops.flash_attention(
-        q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-        v.transpose(1, 2).contiguous(), causal=causal, window=window,
-        logit_softcap=logit_softcap, scale=scale)
-    return out.transpose(1, 2)
+    return ops.flash_attention_bthd(q, k, v, causal=causal, window=window,
+                                    logit_softcap=logit_softcap, scale=scale)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -402,6 +402,94 @@ def test_flash_attention_refuses_what_it_cannot_take(dev):
     assert ops.launches == before
 
 
+def _fused_qkv(shape, group, dtype, dev):
+    """q (B, Tq, H * group, D) and k, v (B, Tk, H, D) as views of one fused
+    projection-shaped tensor (none contiguous), for (B, H, Tq, Tk, D)."""
+    B, H, Tq, Tk, D = shape
+    Hq = H * group
+    fused = _randn((B, max(Tq, Tk), (Hq + 2 * H) * D), 3).to(dev, dtype)
+    return (fused[:, :Tq, :Hq * D].unflatten(2, (Hq, D)),
+            fused[:, :Tk, Hq * D:(Hq + H) * D].unflatten(2, (H, D)),
+            fused[:, :Tk, (Hq + H) * D:].unflatten(2, (H, D)))
+
+
+@pytest.mark.parametrize("group", [2, 4])
+@pytest.mark.parametrize("kw", FA_KWS, ids=["causal", "full", "window64",
+                                            "softcap30"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", FA_SHAPES)
+def test_flash_attention_bthd_kernel_matches_ref(dev, shape, dtype, tol, kw,
+                                                 group):
+    """The kernel on GQA heads, reading strided (B, T, H, D) views."""
+    q, k, v = _fused_qkv(shape, group, dtype, dev)
+    launches = ops.launches["flash_attention"]
+    out = ops.flash_attention_bthd(q, k, v, **kw)
+    assert ops.launches["flash_attention"] == launches + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    assert out.is_contiguous()
+    torch.testing.assert_close(
+        out.float(), ref.flash_attention_bthd_ref(q, k, v, **kw).float(),
+        atol=tol, rtol=tol)
+
+
+def test_flash_attention_bthd_kernel_at_the_prefill_shape(dev):
+    """qwen3-0.6b's prefill: 4 x 2048 tokens, 16 query heads over 8 KV
+    heads of 128, bfloat16, held to chip_smoke.py's bounds: max |err|
+    8e-3 and mean |err| 1e-6 (the reference multiplies the float32
+    probabilities by v; the kernel's bf16 hi/lo pair keeps to that)."""
+    q, k, v = _fused_qkv((4, 8, 2048, 2048, 128), 2, torch.bfloat16, dev)
+    for kw in FA_KWS:
+        diff = (ops.flash_attention_bthd(q, k, v, **kw).float()
+                - ref.flash_attention_bthd_ref(q, k, v, **kw).float()).abs()
+        assert float(diff.max()) <= 8e-3, kw
+        assert float(diff.mean()) <= 1e-6, kw
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_layouts_give_the_same_bits(dev, dtype):
+    """The (B, H, T, D) op and the (B, T, H, D) op on the same data give
+    the same bits: one kernel reads both layouts by their strides, and a
+    GQA head reads what the expanded MHA head holds."""
+    B, H, T, D = 2, 4, 200, 128
+    q, k, v = (_randn((B, H, T, D), s).to(dev, dtype) for s in (0, 1, 2))
+    for kw in FA_KWS:
+        mha = ops.flash_attention(q, k, v, **kw)
+        bthd = ops.flash_attention_bthd(
+            *(t.transpose(1, 2) for t in (q, k, v)), **kw)
+        assert torch.equal(bthd.transpose(1, 2), mha), kw
+        kg, vg = k[:, ::2], v[:, ::2]                    # 4 over 2 KV heads
+        mha = ops.flash_attention(q, kg.repeat_interleave(2, dim=1),
+                                  vg.repeat_interleave(2, dim=1), **kw)
+        gqa = ops.flash_attention_bthd(
+            *(t.transpose(1, 2) for t in (q, kg, vg)), **kw)
+        assert torch.equal(gqa.transpose(1, 2), mha), kw
+
+
+def test_flash_attention_bthd_refuses_what_it_cannot_take(dev):
+    q = torch.zeros(1, 16, 4, 64, device=dev, dtype=torch.bfloat16)
+    kv = q[:, :, :2]
+    before = dict(ops.launches)
+    with pytest.raises(TypeError, match="differs"):
+        ops.flash_attention_bthd(q, kv.float(), kv.float())
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.flash_attention_bthd(q, kv.transpose(2, 3).contiguous()
+                                 .transpose(2, 3), kv)
+    with pytest.raises(ValueError, match="do not group"):
+        ops.flash_attention_bthd(q, q[:, :, :3], q[:, :, :3])
+    q96 = torch.zeros(1, 16, 2, 96, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim"):
+        ops.flash_attention_bthd(q96, q96, q96)
+    odd = torch.zeros(1, 16, 4 * 64 + 4, device=dev,
+                      dtype=torch.bfloat16)[..., 4:].unflatten(2, (4, 64))
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        ops.flash_attention_bthd(odd, odd, odd)
+    g = torch.zeros(1, 16, 2, 64, device=dev, requires_grad=True)
+    with pytest.raises(ValueError, match="requires grad"):
+        ops.flash_attention_bthd(g, g, g)
+    assert ops.launches == before
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_reduced_lm_forward_on_card_matches_cpu(dev, arch):
     cfg = get_config(arch).reduced()

@@ -36,6 +36,7 @@ from repro.models import attention as jax_attn
 from repro.models import layers as jax_layers
 from repro.models import model as jax_model
 from repro.models import rope as jax_rope
+from repro_torch.benchmarks import pv_rounding
 from repro_torch.configs import registry
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.kernels import ops
@@ -161,6 +162,107 @@ def test_chunked_attention_refuses_foreign_q_offset():
         attention.chunked_attention(q, kv, kv)        # the default offset 0
     out = attention.chunked_attention(q, kv, kv, q_offset=4)
     assert out.shape == q.shape
+
+
+# ---------------------------------------------------------------------------
+# flash_attention_bthd: the model's (B, T, H, D) layout and GQA heads, read
+# where they lie, against the reference
+# ---------------------------------------------------------------------------
+
+def _fused_views(dtype: str, B: int, T: int, Hq: int, Hkv: int, D: int):
+    """q, k, v as (B, T, H, D) views of one fused (B, T, (Hq + 2 Hkv) D)
+    projection, as a JAX and a torch triple: the torch views are not
+    contiguous (their time stride is the fused row)."""
+    jf, tf = _pair(_normal(8, B, T, (Hq + 2 * Hkv) * D), dtype)
+    cuts = ((0, Hq), (Hq, Hq + Hkv), (Hq + Hkv, Hq + 2 * Hkv))
+    jax_views = [jf[..., a * D:b * D].reshape(B, T, b - a, D)
+                 for a, b in cuts]
+    torch_views = [tf[..., a * D:b * D].unflatten(-1, (b - a, D))
+                   for a, b in cuts]
+    return jax_views, torch_views
+
+
+@pytest.mark.parametrize("heads", [(4, 4), (4, 2), (4, 1)])
+@pytest.mark.parametrize("kw", FA_KWS, ids=["causal", "full", "window64",
+                                            "softcap30"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_bthd_matches_jax(dtype, kw, heads):
+    """The op's CPU route on GQA heads against the reference's oracle on
+    the KV heads expanded, and against its ``chunked_attention``."""
+    Hq, Hkv = heads
+    B, T, D = 2, 96, 64
+    jq, tq = _pair(_normal(9, B, T, Hq, D), dtype)
+    jk, tk = _pair(_normal(10, B, T, Hkv, D), dtype)
+    jv, tv = _pair(_normal(11, B, T, Hkv, D), dtype)
+    launches = dict(ops.launches)
+    out = ops.flash_attention_bthd(tq, tk, tv, **kw)
+    assert ops.launches == launches                 # the CPU launches nothing
+    assert out.shape == (B, T, Hq, D) and out.dtype == tq.dtype
+    assert out.is_contiguous()
+    tol = DTYPES[dtype][2]
+    oracle = jax_ref.flash_attention_ref(
+        *(jnp.repeat(t, Hq // t.shape[2], axis=2).transpose(0, 2, 1, 3)
+          for t in (jq, jk, jv)), **kw).transpose(0, 2, 1, 3)
+    np.testing.assert_allclose(_np32(out), _np32(oracle), atol=tol, rtol=tol)
+    scan = jax_attn.chunked_attention(jq, jk, jv, chunk=32, **kw)
+    np.testing.assert_allclose(_np32(out), _np32(scan), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("heads", [(4, 2), (4, 1)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_flash_attention_bthd_reads_views_of_a_fused_projection(dtype,
+                                                                heads):
+    """Non-contiguous (B, T, H, D) views of a fused qkv projection give
+    the reference's result, and the bits of their contiguous copies."""
+    Hq, Hkv = heads
+    B, T, D = 2, 48, 64
+    (jq, jk, jv), (tq, tk, tv) = _fused_views(dtype, B, T, Hq, Hkv, D)
+    assert not any(t.is_contiguous() for t in (tq, tk, tv))
+    out = ops.flash_attention_bthd(tq, tk, tv, window=16)
+    assert torch.equal(out, ops.flash_attention_bthd(
+        tq.contiguous(), tk.contiguous(), tv.contiguous(), window=16))
+    tol = DTYPES[dtype][2]
+    expect = jax_attn.chunked_attention(jq, jk, jv, chunk=16, window=16)
+    np.testing.assert_allclose(_np32(out), _np32(expect), atol=tol, rtol=tol)
+    out = attention.chunked_attention(tq, tk, tv, logit_softcap=30.0)
+    expect = jax_attn.chunked_attention(jq, jk, jv, chunk=16,
+                                        logit_softcap=30.0)
+    np.testing.assert_allclose(_np32(out), _np32(expect), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", ["d_stride_q", "d_stride_kv", "grouping",
+                                  "shape"])
+def test_flash_attention_bthd_refuses_what_it_cannot_take(case):
+    """A head dim off unit stride, query heads that do not group over the
+    KV heads and mismatched k, v raise on the CPU as on the card, with no
+    launch."""
+    q = torch.zeros(1, 8, 4, 64)
+    kv = torch.zeros(1, 8, 2, 64)
+    d_strided = torch.zeros(1, 8, 64, 2).transpose(2, 3)
+    bad = {"d_stride_q": ((torch.zeros(1, 8, 64, 4).transpose(2, 3), kv, kv),
+                          "contiguous"),
+           "d_stride_kv": ((q, d_strided, d_strided), "contiguous"),
+           "grouping": ((q, torch.zeros(1, 8, 3, 64),
+                         torch.zeros(1, 8, 3, 64)), "do not group"),
+           "shape": ((q, kv, torch.zeros(1, 9, 2, 64)), "must be")}
+    operands, match = bad[case]
+    launches = dict(ops.launches)
+    with pytest.raises(ValueError, match=match):
+        ops.flash_attention_bthd(*operands)
+    assert ops.launches == launches
+
+
+def test_pv_rounding_keeps_the_hi_lo_split_near_float32():
+    """Why the kernel splits p: on the CPU table of ``pv_rounding`` at a
+    small size, one bf16 product of bf16(p) lies far over the 1e-6 mean
+    |err| the prefill check allows, TF32 p over it too, and the hi/lo
+    pair under it, within 30x of float32 p summed in another order."""
+    rows = {name: mean for name, _, mean, _ in
+            pv_rounding.rounding_table(heads=2, seq=256, dim=64)}
+    assert rows["p bf16"] > 100 * 1e-6
+    assert rows["p tf32"] > 10 * 1e-6
+    assert rows["p hi/lo bf16"] <= 1e-6
+    assert rows["p hi/lo bf16"] <= 30 * rows["p f32, f64 sum"]
 
 
 # ---------------------------------------------------------------------------
