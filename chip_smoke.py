@@ -13,7 +13,12 @@ before the last line is printed:
    ``gaia_select`` and ``rand_k_select`` bit-exact (output and count) at
    every GN-LeNet parameter shape stacked at K=5 and at a ragged
    n=1,000,003, in float32 and bfloat16 (rand-k with seeds past 2**31 and
-   keep = 1 - float32(0.999)); ``neighbor_mix`` allclose (float32 2e-5,
+   keep = 1 - float32(0.999)), one tensor a launch, and as the training
+   path launches them, GN-LeNet's 16 tensors in one launch
+   (``gaia_select_many``; ``rand_k_sparsify_many``, acc and vel with the
+   conv weights counted in the reference's layout) and a ragged list of
+   1, 37 and 1,000,003 elements, against the plain versions' loops;
+   ``neighbor_mix`` allclose (float32 2e-5,
    bfloat16 2e-2) at (5, 96682) on a ring, on a random K=16 degree-4 graph,
    and in bfloat16; its src-gather variant likewise with a (15, 96682)
    snapshot buffer read at staleness 2 and a (48, 96682) one on the
@@ -31,8 +36,14 @@ before the last line is printed:
    64), (2, 1, 64, 192, 64), (1, 1, 200, 200, 128), at D = 256 (gemma2's
    head dim) and at the LM prefill's (4, 16, 2048, 2048, 128) in
    bfloat16, causal, non-causal, causal with a window of 64 and causal
-   with softcap 30, and a head dim of 96 and an input with D off unit
-   stride refused with no launch; ``flash_attention_bthd`` likewise on
+   with softcap 30, and a head dim of 80 and an input with D off unit
+   stride refused with no launch; the (Dk, Dv) pairs (96, 96), (192,
+   128), (96, 64) and (48, 32) likewise (float32 on the CUDA-core body,
+   bfloat16 on the tensor cores) at (B, H, Tq, Tk) in (1, 2, 128, 128),
+   (2, 1, 64, 192), (1, 1, 200, 200), (1, 2, 100, 37), and on a v sliced
+   from a fused kv projection as MLA's is; cross-attention (non-causal,
+   q_offset 0, Tq > Tk and Tq < Tk) through ``chunked_attention``, one
+   launch each; ``flash_attention_bthd`` likewise on
    (B, T, H, D) views of one projection-shaped tensor, at 1, 2 and 4
    query heads a KV head on the same grid and at the prefill's 16 over 8
    heads (bfloat16, max |err| 8e-3 and mean 1e-6, printed for each
@@ -50,14 +61,27 @@ before the last line is printed:
    (plain versions) must give the same losses (and SkewScout the same θ
    history); AD-PSGD at staleness 0 must give D-PSGD's results exactly on
    the card; then 30 steps of each on the card, with every launch count
-   set to 0 just before each run and read just after;
+   set to 0 just before each run and read just after: one ``gaia_select``
+   launch a Gaia step, one ``rand_k_select`` launch a DGC rand-k step.
+   Then one step of Gaia and of DGC rand-k on the earlier design (one
+   ``gaia_select`` launch a tensor; two ``rand_k_select`` launches a
+   tensor and permuted copies into the reference's layout and back),
+   swapped in here, against the one-launch step: the same state bit for
+   bit after a step from the same state (cuDNN deterministic), the wall
+   time a step (median of 40 in two rounds, in turns), and one step of
+   each under ``torch.profiler``: its kernels, device busy time, idle
+   share and top kernels (traced last, after phase 7, so that no
+   profiling runs before a host-bound timing of the script);
 5. kernel times: the median of 50 CUDA-event-timed launches at the main
-   path's shapes (the bench's for the DGC histogram kernels, n = 2**20,
+   path's shapes (a whole training step's tensors in one launch for
+   ``gaia_select`` and ``rand_k_select``, beside the earlier design's one
+   launch a tensor; the bench's for the DGC histogram kernels, n = 2**20,
    and for ``group_norm``, (128, 8, 8, 64); the LM prefill's for
    ``flash_attention``, through the (B, H, T, D) launch and through the
    (B, T, H, D) launch the model makes, 16 over 8 heads, with
-   ``chunked_attention`` around it, and the bench's (1, 4, 256, 64)
-   float32): the kernel launch alone (``ms``) and the whole op with its
+   ``chunked_attention`` around it, the (Dk, Dv) pairs at (1, 16, 2048,
+   2048) bfloat16 causal, and the bench's (1, 4, 256, 64) float32): the
+   kernel launch alone (``ms``) and the whole op with its
    checks and allocations (``op_ms``), beside the plain version, the
    library call
    that computes the same function where there is one, and the least time
@@ -131,6 +155,16 @@ FA_KWS = ({"causal": True}, {"causal": False}, {"causal": True, "window": 64},
           {"causal": True, "logit_softcap": 30.0})
 #: query heads over KV heads in the (B, T, H, D) checks
 FA_GROUPS = (1, 2, 4)
+#: the (Dk, Dv) pairs besides the dense LMs' equal ones: phi-3-vision's,
+#: deepseek-v2's, minicpm3's, the reduced MLA configs'
+FA_PAIRS = ((96, 96), (192, 128), (96, 64), (48, 32))
+#: their checks' (B, H, Tq, Tk): the grid above and a ragged Tq over Tk
+FA_PAIR_SHAPES = ((1, 2, 128, 128), (2, 1, 64, 192), (1, 1, 200, 200),
+                  (1, 2, 100, 37))
+#: their timing shape (B, H, T): a prefill of 2048 tokens, 16 heads
+FA_PAIR_TIMED = (1, 16, 2048)
+#: wall-clock steps a side in phase 4's comparison of the two designs
+PROFILE_STEPS = 20
 #: the LM prefill: qwen3-0.6b's attention over 4 prompts of 2048 tokens
 PREFILL_B, PREFILL_T, PREFILL_CALLS = 4, 2048, 3
 FA_PREFILL = (PREFILL_B, 16, PREFILL_T, PREFILL_T, 128)
@@ -241,14 +275,28 @@ def bound_ms(n_bytes: float, flops: float,
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def attention_work(shape, dtype_bytes: int, causal: bool = True):
-    """(bytes, flops) attention must move and do: q, k, v read and o
-    written once; 4 D flops (two multiply-adds) a valid (query, key)
-    pair, causal over Tq = Tk counting T (T + 1) / 2 pairs a head."""
+def attention_work(shape, dtype_bytes: int, causal: bool = True,
+                   dv: int = None):
+    """(bytes, flops) attention must move and do: q, k (head dim D), v
+    and o (head dim ``dv``, D by default) read and written once; 2 (D +
+    dv) flops (two multiply-adds) a valid (query, key) pair, causal over
+    Tq = Tk counting T (T + 1) / 2 pairs a head."""
     B, H, Tq, Tk, D = shape
+    dv = D if dv is None else dv
     pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
-    return (2 * B * H * (Tq + Tk) * D * dtype_bytes,
-            4 * B * H * D * pairs)
+    return (B * H * (Tq + Tk) * (D + dv) * dtype_bytes,
+            2 * B * H * (D + dv) * pairs)
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, fn):
+    """``module.name`` replaced by ``fn``, then restored."""
+    old = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
 
 
 def demangle(name: str) -> str:
@@ -323,6 +371,7 @@ def main() -> int:
     from repro_torch.configs.cnn_zoo import CNN_ZOO
     from repro_torch.configs.registry import ARCH_IDS, get_config
     from repro_torch.core import trainer
+    from repro_torch.core.algorithms.base import tree_leaf_order
     from repro_torch.core.partition import partition_label_skew
     from repro_torch.data.synthetic import synth_images
     from repro_torch.benchmarks import kernels_bench
@@ -331,7 +380,7 @@ def main() -> int:
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import model as lm
     from repro_torch.models.attention import chunked_attention
-    from repro_torch.models.cnn import init_cnn
+    from repro_torch.models.cnn import init_cnn, reference_perm
     from repro_torch.topology import build_schedule
 
     dev = torch.device("cuda")
@@ -396,6 +445,28 @@ def main() -> int:
                                            .abs().max()))
     print(f"gaia_select: bit-exact at {len(leaf_shapes) + 1} shapes x "
           "{float32, bfloat16}")
+    # the training path's launch: GN-LeNet's 16 tensors (in the reference's
+    # leaf order, with their counter layouts for rand-k) in one launch
+    gn_names = tree_leaf_order(params0)
+    gn_shapes = [(K,) + tuple(params0[n_].shape) for n_ in gn_names]
+    gn_perms = [reference_perm(n_) for n_ in gn_names]
+    ragged = [(1,), (37,), (1_000_003,)]
+    for dtype in (torch.float32, torch.bfloat16):
+        for shapes in (gn_shapes, ragged):
+            vs = [randn(*s_, scale=0.01).to(dtype) for s_ in shapes]
+            ws = [randn(*s_, scale=0.3).to(dtype) for s_ in shapes]
+            t = torch.tensor(0.1, device=dev)
+            before = ops.launches["gaia_select"]
+            outs, cnts = ops.gaia_select_many(vs, ws, t)
+            assert ops.launches["gaia_select"] == before + 1
+            routs, rcnts = ref.gaia_select_many_ref(vs, ws, t)
+            torch.cuda.synchronize()
+            assert all(torch.equal(o_, r_) for o_, r_ in zip(outs, routs)), \
+                (dtype, shapes)
+            assert torch.equal(cnts, rcnts), (dtype, cnts, rcnts)
+    print(f"gaia_select_many: bit-exact in one launch on GN-LeNet's "
+          f"{len(gn_shapes)} tensors at K={K} and on {ragged}, float32 and "
+          "bfloat16")
 
     def mix_operands(sched):
         idx, w, sw = sched.neighbor_arrays(0)
@@ -481,6 +552,30 @@ def main() -> int:
           f"({len(leaf_shapes) + 1} shapes x {{float32, bfloat16}} x 3 "
           f"(keep, seed), keep {KEEP_999!r} and seed {2**31 + 131} among "
           "them)")
+    many_checks = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for shapes, perms in ((gn_shapes, gn_perms),
+                              (ragged, [None] * len(ragged))):
+            accs = [randn(*s_, scale=0.01).to(dtype) for s_ in shapes]
+            vels = [randn(*s_, scale=0.01).to(dtype) for s_ in shapes]
+            for keep, base in ((0.25, 1009), (KEEP_999, 2**31 + 131)):
+                seeds = [base + 1009 * li for li in range(len(shapes))]
+                before = ops.launches["rand_k_select"]
+                got = ops.rand_k_sparsify_many(accs, vels, keep, seeds, perms)
+                assert ops.launches["rand_k_select"] == before + 1
+                expect = ref.rand_k_sparsify_many_ref(accs, vels, keep,
+                                                      seeds, perms)
+                torch.cuda.synchronize()
+                for g_, e_ in zip(got[0] + got[1], expect[0] + expect[1]):
+                    assert torch.equal(g_, e_) and torch.equal(
+                        torch.signbit(g_), torch.signbit(e_)), (dtype, keep)
+                assert torch.equal(got[2], expect[2]), (dtype, keep)
+                many_checks += 1
+    print(f"rand_k_sparsify_many: acc, vel and counts bit-exact in one "
+          f"launch in {many_checks} checks (GN-LeNet's {len(gn_shapes)} "
+          f"tensors at K={K}, conv weights counted in the reference's HWIO "
+          f"layout, and {ragged}; float32 and bfloat16; keep 0.25 and "
+          f"{KEEP_999!r}, seeds past 2**31)")
 
     # DGC's histogram route: abs_max, abs_histogram, dgc_select and the
     # threshold, bit-exact against the plain versions (the bisection for
@@ -603,9 +698,9 @@ def main() -> int:
           f"{FA_PREFILL_TOL:g} and mean {FA_PREFILL_MEAN_TOL:g}); at the "
           f"prefill's shape |err| {'; '.join(fa_prefill_err)}")
     before = dict(ops.launches)
-    q96 = randn(1, 2, 16, 96)
+    q80 = randn(1, 2, 16, 80)
     qt = randn(1, 2, 64, 16).transpose(2, 3)
-    for bad, what in (((q96, q96, q96), "head dim"),
+    for bad, what in (((q80, q80, q80), "head dim"),
                       ((qt, qt, qt), "contiguous")):
         try:
             ops.flash_attention(*bad)
@@ -613,8 +708,66 @@ def main() -> int:
         except ValueError as e:
             assert what in str(e), e
     assert ops.launches == before, (ops.launches, before)
-    print("flash_attention: a head dim of 96 and an input with D off unit "
+    print("flash_attention: a head dim of 80 and an input with D off unit "
           "stride are refused, no launch")
+
+    # k and v of their own head dims: (B, H, T, D) tensors, then a v that
+    # is a slice of a fused kv projection (MLA's nope half, then v: head
+    # stride 2 Dv, offset Dv) under 4 query heads over 2 KV heads
+    pair_err = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    pair_checks = 0
+    with tf32_off():
+        for dk_, dv_ in FA_PAIRS:
+            for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+                for B_, H_, Tq_, Tk_ in FA_PAIR_SHAPES:
+                    q_ = randn(B_, H_, Tq_, dk_).to(dtype)
+                    k_ = randn(B_, H_, Tk_, dk_).to(dtype)
+                    v_ = randn(B_, H_, Tk_, dv_).to(dtype)
+                    for kw in FA_KWS:
+                        out = ops.flash_attention(q_, k_, v_, **kw)
+                        expect = ref.flash_attention_ref(q_, k_, v_, **kw)
+                        torch.cuda.synchronize()
+                        assert out.dtype == dtype and \
+                            out.shape == (B_, H_, Tq_, dv_)
+                        torch.testing.assert_close(
+                            out.float(), expect.float(), atol=tol, rtol=tol)
+                        pair_err[dtype] = max(pair_err[dtype], float(
+                            (out.float() - expect.float()).abs().max()))
+                        pair_checks += 1
+                q_ = randn(2, 96, 4, dk_).to(dtype)
+                k_ = randn(2, 96, 2, dk_).to(dtype)
+                v_ = randn(2, 96, 2, 2 * dv_).to(dtype)[..., dv_:]
+                for kw in FA_KWS:
+                    out = ops.flash_attention_bthd(q_, k_, v_, **kw)
+                    expect = ref.flash_attention_bthd_ref(q_, k_, v_, **kw)
+                    torch.cuda.synchronize()
+                    assert out.shape == (2, 96, 4, dv_)
+                    torch.testing.assert_close(out.float(), expect.float(),
+                                               atol=tol, rtol=tol)
+                    pair_err[dtype] = max(pair_err[dtype], float(
+                        (out.float() - expect.float()).abs().max()))
+                    pair_checks += 1
+        # cross-attention: no mask reads positions, q_offset 0, Tq != Tk
+        for tq_, tk_ in ((192, 64), (64, 192)):
+            for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+                q_ = randn(2, tq_, 4, 64).to(dtype)
+                k_, v_ = (randn(2, tk_, 2, 64).to(dtype) for _ in range(2))
+                before = ops.launches["flash_attention"]
+                out = chunked_attention(q_, k_, v_, causal=False, q_offset=0)
+                assert ops.launches["flash_attention"] == before + 1
+                expect = ref.flash_attention_bthd_ref(q_, k_, v_,
+                                                      causal=False)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(out.float(), expect.float(),
+                                           atol=tol, rtol=tol)
+                pair_checks += 1
+    print(f"flash_attention (Dk, Dv) pairs {list(FA_PAIRS)}: {pair_checks} "
+          f"checks ({len(FA_PAIR_SHAPES)} shapes x {{float32, bfloat16}} x "
+          f"the four masks, v sliced from a fused kv under 4 over 2 heads, "
+          f"and cross-attention at q_offset 0 with Tq 192 over Tk 64 and 64 "
+          f"over 192, one launch each): max |err| float32 "
+          f"{pair_err[torch.float32]:.3g} (tol 2e-5), bfloat16 "
+          f"{pair_err[torch.bfloat16]:.3g} (tol 2e-2)")
 
     # the model's layout: flash_attention_bthd on (B, T, H, D) views of a
     # projection-shaped tensor, H / Hkv in FA_GROUPS, then the prefill's
@@ -820,41 +973,141 @@ def main() -> int:
     bsp_losses = [loss for _, loss in results["bsp"].loss_curve]
     assert np.mean(bsp_losses[-5:]) < np.mean(bsp_losses[:5]), bsp_losses
     assert len(results["dpsgd-skewscout"].skewscout_history) == 3
-    assert launches["gaia_select"] >= STEPS * 16, launches
+    # one launch a step: the Gaia run alone launches gaia_select, the
+    # rand-k run alone rand_k_select
+    assert launches["gaia_select"] == STEPS, launches
     assert launches["neighbor_mix"] >= STEPS, launches
     assert launches["neighbor_mix_src"] >= STEPS, launches
-    assert launches["rand_k_select"] >= STEPS * 32, launches
+    assert launches["rand_k_select"] == STEPS, launches
     print(f"main-path launches: {launches}")
     print("steps/s: " + json.dumps({k_: round(v, 2)
                                    for k_, v in rates.items()}))
+    sys.stdout.flush()
 
+    # one training step on the earlier design against the one-launch step:
+    # the earlier design is swapped in here, for this comparison only
+    def gaia_per_tensor(vs, ws, threshold):
+        """One ``gaia_select`` launch a tensor, each with its own output
+        and count, as the single-tensor op made them."""
+        t1 = torch.as_tensor(threshold, dtype=torch.float32,
+                             device=vs[0].device).reshape(1)
+        outs, counts = [], []
+        for v_, w_ in zip(vs, ws):
+            outs.append(torch.empty_like(v_))
+            counts.append(torch.zeros(1, dtype=torch.int32, device=dev))
+            ops.launch_gaia_select([v_], [w_], t1, [outs[-1]], counts[-1])
+        return outs, torch.cat(counts)
+
+    def randk_per_tensor(accs, vels, keep_prob, seeds, perms):
+        """Per tensor, acc and vel permuted into the reference's layout, one
+        ``rand_k_select`` launch each, the results permuted back."""
+        shared, new_vels, counts = [], [], []
+        for a_, u_, seed_, perm_ in zip(accs, vels, seeds, perms):
+            to_ref, from_ref = ref.reference_layout(perm_, a_.dim())
+            sv, cnt = ops.rand_k_sparsify(to_ref(a_), keep_prob, seed_)
+            su, _ = ops.rand_k_sparsify(to_ref(u_), keep_prob, seed_)
+            shared.append(from_ref(sv))
+            new_vels.append(u_ - from_ref(su))
+            counts.append(cnt)
+        return shared, new_vels, torch.stack(counts)
+
+    fns, _ = trainer.make_cnn_fns(cfg)
+    p0, s0 = init_cnn(torch.Generator().manual_seed(0), cfg)
+    rs = np.random.default_rng(2)
+    step_batch = {"x": torch.from_numpy(rs.standard_normal(
+                      (K, 20, 16, 16, 3)).astype(np.float32)).to(dev),
+                  "y": torch.from_numpy(rs.integers(0, 10, (K, 20))).to(dev)}
+    step_lr = torch.tensor(0.05, device=dev)
+
+    def train_step(algo, state_, t_, kw):
+        """A step as the trainer makes it, with its one host read."""
+        new, met = algo.step(state_, step_batch, step_lr, t_, **kw)
+        float(met["comm_floats"])
+        return new
+
+    def design(side, op_name, per_tensor):
+        """The earlier design swapped in for ``side == "per_tensor"``."""
+        return (swapped(ops, op_name, per_tensor) if side == "per_tensor"
+                else contextlib.nullcontext())
+
+    step_runs, profiles = [], {}
+    for label, algo_name, fields, kw, op_name, per_tensor in (
+            ("gaia", "gaia", {}, {"t0": torch.tensor(0.1, device=dev)},
+             "gaia_select_many", gaia_per_tensor),
+            ("dgc-randk", "dgc", {"dgc_compressor": "randk"},
+             {"sparsity": 0.999}, "rand_k_sparsify_many", randk_per_tensor)):
+        algo = trainer.make_algorithm(
+            algo_name, fns, K,
+            CommConfig(fabric=FabricConfig(topology="ring"), **fields))
+        state = algo.init({n_: t_.to(dev) for n_, t_ in p0.items()},
+                          {n_: t_.to(dev) for n_, t_ in s0.items()})
+        for t_ in range(3):                 # warm-up: cuDNN, the allocator
+            state = train_step(algo, state, t_, kw)
+        # both designs from one state give the same state bit for bit
+        with tf32_off(), cudnn_deterministic():
+            one = train_step(algo, state, 3, kw)
+            with design("per_tensor", op_name, per_tensor):
+                per = train_step(algo, state, 3, kw)
+            for part in ("params", "vel", "acc"):
+                for n_, t_ in one[part].items():
+                    assert torch.equal(t_, per[part][n_]), (label, part, n_)
+        walls = {"per_tensor": [], "one_launch": []}
+        for side in ("per_tensor", "one_launch", "one_launch", "per_tensor"):
+            with design(side, op_name, per_tensor):
+                for t_ in range(PROFILE_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    state = train_step(algo, state, t_, kw)
+                    torch.cuda.synchronize()
+                    walls[side].append((time.perf_counter() - t0) * 1e3)
+        for side, w_ in walls.items():
+            rounds = [float(np.median(w_[:PROFILE_STEPS])),
+                      float(np.median(w_[PROFILE_STEPS:]))]
+            profiles[f"{label}/{side}"] = {"wall_ms": float(np.median(w_)),
+                                           "wall_ms_rounds": rounds}
+            print(f"{label} step, {side.replace('_', '-')} design: wall "
+                  f"{np.median(w_):.4f} ms a step (median of "
+                  f"{2 * PROFILE_STEPS}, rounds {rounds[0]:.4f} and "
+                  f"{rounds[1]:.4f} ms)", flush=True)
+        step_runs.append((label, algo_name, algo, kw, state, op_name,
+                          per_tensor))
+    print("one training step of each design: the same state bit for bit "
+          "(cuDNN deterministic, TF32 off); traced under torch.profiler "
+          "after phase 7's timings")
     sys.stdout.flush()
 
     # ---------------------------------------------------------------- 5
     phase(5, "kernel times (median of 50 CUDA-event-timed launches)")
     t = torch.tensor(0.1, device=dev)
     t1 = t.reshape(1)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
-    leaves = [(randn(*s, scale=0.01), randn(*s, scale=0.3))
-              for s in leaf_shapes]
-    outs = [torch.empty_like(v) for v, _ in leaves]
-    g_ms = sum(time_ms(lambda v=v, w=w, o=o: ops.launch_gaia_select(
-        v, w, t1, o, count)) for (v, w), o in zip(leaves, outs))
-    g_op = sum(time_ms(lambda v=v, w=w: ops.gaia_select(v, w, t))
-               for v, w in leaves)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    counts16 = torch.zeros(len(gn_shapes), dtype=torch.int32, device=dev)
+    g_vs = [randn(*s, scale=0.01) for s in gn_shapes]
+    g_ws = [randn(*s, scale=0.3) for s in gn_shapes]
+    g_outs = [torch.empty_like(v) for v in g_vs]
+    g_ms = time_ms(lambda: ops.launch_gaia_select(g_vs, g_ws, t1, g_outs,
+                                                  counts16))
+    g_op = time_ms(lambda: ops.gaia_select_many(g_vs, g_ws, t))
+    # the earlier design: one launch a tensor
+    g_per = sum(time_ms(lambda v=v, w=w, o=o: ops.launch_gaia_select(
+        [v], [w], t1, [o], count)) for v, w, o in zip(g_vs, g_ws, g_outs))
     g_plain = sum(time_ms(lambda v=v, w=w: ref.gaia_select_ref(v, w, t))
-                  for v, w in leaves)
+                  for v, w in zip(g_vs, g_ws))
     n_step = K * n_params
-    g_bound, g_by = bound_ms(3 * n_step * 4 + 16 * 8, 3 * n_step)
-    print(f"gaia_select, one Gaia step (16 launches, {n_step} floats): "
-          f"kernel {g_ms:.4f} ms, op {g_op:.4f} ms, plain {g_plain:.4f} ms, "
-          f"bound {g_bound:.5f} ms ({g_by})")
+    # v and w read, out written; the threshold read, 16 counts written
+    g_bound, g_by = bound_ms(3 * n_step * 4 + 4 + 16 * 4, 3 * n_step)
+    print(f"gaia_select, one Gaia step ({n_step} floats in "
+          f"{len(gn_shapes)} tensors): kernel {g_ms:.4f} ms (one launch), "
+          f"op {g_op:.4f} ms, the earlier design's {len(gn_shapes)} "
+          f"launches {g_per:.4f} ms, plain {g_plain:.4f} ms, bound "
+          f"{g_bound:.5f} ms ({g_by}), kernel / bound {g_ms / g_bound:.1f}")
     big_v = randn(1_000_003, scale=0.01)
     big_w = randn(1_000_003, scale=0.3)
     big_o = torch.empty_like(big_v)
-    print(f"gaia_select n=1,000,003 f32: kernel "
-          f"{time_ms(lambda: ops.launch_gaia_select(big_v, big_w, t1, big_o, count)):.4f}"
-          f" ms, bound {bound_ms(3 * 1_000_003 * 4, 3 * 1_000_003)[0]:.5f} ms")
+    big_ms = time_ms(lambda: ops.launch_gaia_select([big_v], [big_w], t1,
+                                                    [big_o], count))
+    print(f"gaia_select n=1,000,003 f32: kernel {big_ms:.4f} ms, bound "
+          f"{bound_ms(3 * 1_000_003 * 4, 3 * 1_000_003)[0]:.5f} ms")
 
     x = randn(K, n_params)
     idx_t, w_t, sw_t = ring_ops
@@ -905,26 +1158,44 @@ def main() -> int:
           f"{time_ms(lambda: ops.launch_neighbor_mix_src(x48, src48, rand_src_ops[0], *rand_src_ops[1:], mixed48)):.4f}"
           " ms")
 
-    # one DGC rand-k step: acc and vel of every tensor, same seed each
-    randk_leaves = [randn(*s_, scale=0.01) for s_ in leaf_shapes]
-    randk_outs = [torch.empty_like(v) for v in randk_leaves]
-    r_ms = 2 * sum(time_ms(lambda v=v, o=o, li=li: ops.launch_rand_k_select(
-        v, o, count, 1009 * 7 + li, KEEP_999))
-        for li, (v, o) in enumerate(zip(randk_leaves, randk_outs)))
-    r_op = 2 * sum(time_ms(lambda v=v, li=li: ops.rand_k_sparsify(
-        v, KEEP_999, 1009 * 7 + li)) for li, v in enumerate(randk_leaves))
-    r_plain = 2 * sum(time_ms(lambda v=v, li=li: ref.rand_k_select_ref(
-        v, KEEP_999, 1009 * 7 + li)) for li, v in enumerate(randk_leaves))
-    # per element: v read and out written (8 bytes), ~14 integer and float
-    # operations (lowbias32, the 24-bit conversion, the compare, the select)
-    r_bound, r_by = bound_ms(2 * n_step * 8 + 32 * 4, 2 * n_step * 14)
-    print(f"rand_k_select, one DGC rand-k step (32 launches, 2 x {n_step} "
-          f"floats): kernel {r_ms:.4f} ms, op {r_op:.4f} ms, plain "
-          f"{r_plain:.4f} ms, bound {r_bound:.5f} ms ({r_by})")
+    # one DGC rand-k step: acc and vel of every tensor, one seed a tensor,
+    # the conv weights counted in the reference's layout
+    r_accs = [randn(*s_, scale=0.01) for s_ in gn_shapes]
+    r_vels = [randn(*s_, scale=0.01) for s_ in gn_shapes]
+    r_shared = [torch.empty_like(a_) for a_ in r_accs]
+    r_newv = [torch.empty_like(a_) for a_ in r_accs]
+    r_seeds = [1009 * 7 + li for li in range(len(gn_shapes))]
+    r_ms = time_ms(lambda: ops.launch_rand_k_select(
+        r_accs, r_vels, r_shared, r_newv, counts16, r_seeds, KEEP_999,
+        gn_perms))
+    r_op = time_ms(lambda: ops.rand_k_sparsify_many(r_accs, r_vels, KEEP_999,
+                                                    r_seeds, gn_perms))
+    # the earlier design: two launches a tensor (its permuted copies not
+    # counted here; phase 4's step profile has them)
+    r_per = sum(time_ms(lambda a_=a_, o_=o_, sd=sd: ops.launch_rand_k_select(
+        [a_], None, [o_], None, count, [sd], KEEP_999, [None]))
+        for a_, o_, sd in zip(r_accs + r_vels, r_shared + r_newv,
+                              r_seeds + r_seeds))
+    r_plain = sum(time_ms(lambda a_=a_, u_=u_, sd=sd, pm=pm:
+                          ref.rand_k_sparsify_many_ref([a_], [u_], KEEP_999,
+                                                       [sd], [pm]))
+                  for a_, u_, sd, pm in zip(r_accs, r_vels, r_seeds,
+                                            gn_perms))
+    # per element: acc and vel read, shared and new vel written (16 bytes);
+    # ~18 integer and float operations (lowbias32, the 24-bit conversion,
+    # the compare, two selects, the subtraction), 16 counts written
+    r_bound, r_by = bound_ms(4 * n_step * 4 + 16 * 4, n_step * 18)
+    print(f"rand_k_select, one DGC rand-k step (acc and vel, {n_step} floats "
+          f"each in {len(gn_shapes)} tensors): kernel {r_ms:.4f} ms (one "
+          f"launch), op {r_op:.4f} ms, the earlier design's "
+          f"{2 * len(gn_shapes)} launches {r_per:.4f} ms, plain "
+          f"{r_plain:.4f} ms, bound {r_bound:.5f} ms ({r_by}), kernel / "
+          f"bound {r_ms / r_bound:.1f}")
     big_o2 = torch.empty_like(big_v)
-    print(f"rand_k_select n=1,000,003 f32: kernel "
-          f"{time_ms(lambda: ops.launch_rand_k_select(big_v, big_o2, count, 3594, KEEP_999)):.4f}"
-          f" ms, bound {bound_ms(1_000_003 * 8, 1_000_003 * 14)[0]:.5f} ms")
+    big_ms = time_ms(lambda: ops.launch_rand_k_select(
+        [big_v], None, [big_o2], None, count, [3594], KEEP_999, [None]))
+    print(f"rand_k_select n=1,000,003 f32, acc only: kernel {big_ms:.4f} ms, "
+          f"bound {bound_ms(1_000_003 * 8, 1_000_003 * 14)[0]:.5f} ms")
 
     # the bench path's shapes: DGC top-s% at n = 2**20 float32, sparsity
     # 0.999; GroupNorm at (128, 8, 8, 64), group_size 2
@@ -1053,6 +1324,25 @@ def main() -> int:
           f"(enable_gqa, same views) {r['library_ms']:.4f} ms; the "
           f"(B, H, T, D) launch above {fa['prefill']['ms']:.4f} ms")
     del qm, km, vm, om, qs, ks, vs
+    # the (Dk, Dv) pairs at a 2048-token prefill, bfloat16, causal
+    B_, H_, T_ = FA_PAIR_TIMED
+    fa["pairs"] = {}
+    for dk_, dv_ in FA_PAIRS:
+        q_, k_ = (randn(B_, H_, T_, dk_).to(torch.bfloat16) for _ in range(2))
+        v_ = randn(B_, H_, T_, dv_).to(torch.bfloat16)
+        o_ = torch.empty(B_, H_, T_, dv_, dtype=torch.bfloat16, device=dev)
+        ms_ = time_ms(lambda: ops.launch_flash_attention(
+            q_, k_, v_, o_, causal=True, window=None, logit_softcap=None,
+            scale=dk_ ** -0.5))
+        n_bytes, flops = attention_work((B_, H_, T_, T_, dk_), 2, dv=dv_)
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+        fa["pairs"][f"{dk_}x{dv_}"] = {"ms": ms_, "bound_ms": b_ms,
+                                       "bound_by": b_by}
+        print(f"flash_attention (Dk, Dv) = ({dk_}, {dv_}) at "
+              f"{FA_PAIR_TIMED} bfloat16 causal: kernel {ms_:.4f} ms "
+              f"({flops / ms_ / 1e9:.1f} TFLOP/s useful), bound {b_ms:.5f} "
+              f"ms ({b_by}), kernel / bound {ms_ / b_ms:.2f}")
+        del q_, k_, v_, o_
     sys.stdout.flush()
 
     # ---------------------------------------------------------------- 6
@@ -1243,13 +1533,48 @@ def main() -> int:
         "decode_tokens_per_s": decode_tok_s}))
     sys.stdout.flush()
 
+    # phase 4's step profiles, traced after every host-bound timing of the
+    # script, so that profiling cannot touch one
+    phase(4, "continued: one training step of each design under "
+             "torch.profiler")
+    for label, algo_name, algo, kw, state, op_name, per_tensor in step_runs:
+        kname = "gaia_select" if algo_name == "gaia" else "rand_k_select"
+        for side in ("per_tensor", "one_launch"):
+            with design(side, op_name, per_tensor):
+                before = ops.launches[kname]
+                box = [state]
+                busy, n_kern, per_kernel = device_profile(
+                    lambda: box.__setitem__(0, train_step(algo, box[0], 4,
+                                                          kw)))
+                state = box[0]
+                made = ops.launches[kname] - before
+            assert made == (1 if side == "one_launch" else
+                            16 if algo_name == "gaia" else 32), (label, side,
+                                                                 made)
+            prof = profiles[f"{label}/{side}"]
+            ours = sum(v_ for k_, v_ in per_kernel.items() if kname in k_)
+            prof.update({"kernels": n_kern, "busy_ms": busy,
+                         "idle": 1 - busy / prof["wall_ms"],
+                         f"{kname}_launches": made, f"{kname}_ms": ours})
+            print(f"{label} step, {side.replace('_', '-')} design, under "
+                  f"torch.profiler: {n_kern} kernels, device busy "
+                  f"{busy:.4f} ms of phase 4's {prof['wall_ms']:.4f} ms "
+                  f"wall (idle {100 * prof['idle']:.1f}%), {made} {kname} "
+                  f"launches taking {ours:.4f} ms; top kernels "
+                  + json.dumps({k_[:60]: round(v_, 4) for k_, v_ in sorted(
+                      per_kernel.items(), key=lambda kv: -kv[1])[:6]}),
+                  flush=True)
+    print("step profiles: " + json.dumps(profiles))
+    sys.stdout.flush()
+
     kernels = [
         {"name": "gaia_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gaia_select.cu",
          "replaces": "src/repro/kernels/gaia_select.py:22",
          "launches": launches["gaia_select"], "max_abs_err": gaia_err,
-         "ms": g_ms, "op_ms": g_op, "plain_ms": g_plain, "bound_ms": g_bound,
-         "bound_by": g_by, "library_ms": None},
+         "ms": g_ms, "op_ms": g_op, "per_tensor_ms": g_per,
+         "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
+         "library_ms": None},
         {"name": "neighbor_mix", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/neighbor_mix.cu",
          "replaces": "src/repro/kernels/neighbor_mix.py:48",
@@ -1266,8 +1591,9 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/rand_k_select.cu",
          "replaces": "src/repro/kernels/dgc_topk.py:152",
          "launches": launches["rand_k_select"], "max_abs_err": 0.0,
-         "ms": r_ms, "op_ms": r_op, "plain_ms": r_plain, "bound_ms": r_bound,
-         "bound_by": r_by, "library_ms": None},
+         "ms": r_ms, "op_ms": r_op, "per_tensor_ms": r_per,
+         "plain_ms": r_plain, "bound_ms": r_bound, "bound_by": r_by,
+         "library_ms": None},
         {"name": "abs_max", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/dgc_topk.cu",
          "replaces": "src/repro/kernels/dgc_topk.py:94",
@@ -1301,7 +1627,8 @@ def main() -> int:
              "ms", "op_ms", "chunked_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},
          "mha_ms": fa["prefill"]["ms"],
-         "mha_library_ms": fa["prefill"]["library_ms"]},
+         "mha_library_ms": fa["prefill"]["library_ms"],
+         "pairs": fa["pairs"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

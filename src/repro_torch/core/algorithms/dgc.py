@@ -19,11 +19,13 @@ floor, ceil and weights in float32, the two order statistics from
 ``compressor="randk"`` swaps the top-s% selection for seeded rand-k: the
 keep mask is a pure function of (seed, step, tensor, flat index),
 generated inside the kernel ``kernels/csrc/rand_k_select.cu`` through
-``ops.rand_k_sparsify``, and the same stream masks ``v`` and ``u``, so no
-mask is ever materialised: two launches a tensor a step.  The tensors
-are visited, and their counters laid out, as the reference visits and
-lays out its parameters (``tree_leaf_order``, ``ModelFns.ref_perm``), so
-both packages keep the same elements.
+``ops.rand_k_sparsify_many``, and the same stream masks ``v`` and ``u``,
+so no mask is ever materialised: one launch a step masks both of every
+tensor.  The tensors are visited, and their counters laid out, as the
+reference visits and lays out its parameters (``tree_leaf_order``,
+``ModelFns.ref_perm``: the kernel counts a conv weight's elements in the
+reference's HWIO order where it lies, OIHW), so both packages keep the
+same elements.
 """
 from __future__ import annotations
 
@@ -93,7 +95,7 @@ class DGC:
             shared, counts = self._top_k(acc, vel, s)
         params = {n: w[n] + shared[n].sum(dim=0) for n in w}  # sum over nodes
         acc = {n: acc[n] - shared[n] for n in acc}
-        comm = sum(c.float() for c in counts) / self.K
+        comm = counts.sum().float() / self.K
         metrics = {"loss": losses.mean(), "comm_floats": comm,
                    "resid_delta": _mean_rel(acc, params)}
         return ({"params": params, "mstate": new_ms, "vel": vel, "acc": acc},
@@ -109,23 +111,21 @@ class DGC:
             shared[n] = torch.where(mask, v, torch.zeros_like(v))
             vel[n] = torch.where(mask, torch.zeros_like(v), vel[n])
             counts.append(mask.sum(dtype=torch.int32))
-        return shared, counts
+        return shared, torch.stack(counts)
 
     def _rand_k(self, acc: Tree, vel: Tree, step: int, s: np.float32):
-        """Per tensor, seeded rand-k on v and, with the same stream, on u
-        (cleared in place): each (step, tensor) gets its own seed."""
+        """Seeded rand-k on v and, with the same stream, on u (cleared in
+        place), every tensor in one op: each (step, tensor) gets its own
+        seed."""
         keep = float(np.float32(1) - s)
-        shared, counts = {}, []
-        for li, n in enumerate(tree_leaf_order(acc)):
-            leaf_seed = (step * 1009 + self.seed * 131 + li) & 0xFFFFFFFF
-            perm = self.fns.ref_perm(n)
-            to_ref, from_ref = _layout(perm, acc[n].dim())
-            sv, cnt = ops.rand_k_sparsify(to_ref(acc[n]), keep, leaf_seed)
-            su, _ = ops.rand_k_sparsify(to_ref(vel[n]), keep, leaf_seed)
-            shared[n] = from_ref(sv)
-            vel[n] = vel[n] - from_ref(su)
-            counts.append(cnt)
-        return shared, counts
+        names = tree_leaf_order(acc)
+        seeds = [(step * 1009 + self.seed * 131 + li) & 0xFFFFFFFF
+                 for li in range(len(names))]
+        shared, new_vel, counts = ops.rand_k_sparsify_many(
+            [acc[n] for n in names], [vel[n] for n in names], keep, seeds,
+            [self.fns.ref_perm(n) for n in names])
+        vel.update(zip(names, new_vel))
+        return dict(zip(names, shared)), counts
 
     def eval_params(self, state):
         return state["params"], tree_mean0(state["mstate"])
@@ -138,17 +138,6 @@ class DGC:
 def _per_node(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """A (K,) tensor shaped to broadcast over the stacked ``like``."""
     return x.reshape((-1,) + (1,) * (like.dim() - 1))
-
-
-def _layout(perm, dim: int):
-    """(to, from) the reference's layout for a stacked (K, ...) tensor
-    whose per-node dims are permuted by ``perm`` (None: no change)."""
-    if perm is None:
-        return (lambda t: t), (lambda t: t)
-    fwd = (0,) + tuple(p + 1 for p in perm)
-    inv = (0,) + tuple(perm.index(d) + 1 for d in range(dim - 1))
-    return ((lambda t: t.permute(fwd).contiguous()),
-            (lambda t: t.permute(inv).contiguous()))
 
 
 def _mean_rel(acc: Tree, params: Tree) -> torch.Tensor:

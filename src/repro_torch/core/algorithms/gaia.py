@@ -6,9 +6,9 @@ by every other node and cleared locally.  T decays with the learning rate
 (update_threshold).  Under non-IID partitions the insignificant residuals
 let each node's model specialize — the paper's §4.3 failure mode.
 
-The significance filter is ``ops.gaia_select``, once per stacked (K, ...)
-parameter tensor: on the card the hand-written kernel
-(``kernels/csrc/gaia_select.cu``), 16 launches a step for GN-LeNet.
+The significance filter is ``ops.gaia_select_many`` over every stacked
+(K, ...) parameter tensor: on the card one launch a step of the
+hand-written kernel (``kernels/csrc/gaia_select.cu``).
 ``t0`` may change every step (a 0-d tensor), which changes an operand's
 value and nothing else.
 """
@@ -53,12 +53,14 @@ class Gaia:
         params = {n: w0[n] + vel[n] for n in w0}
         acc = {n: state["acc"][n] + vel[n] for n in w0}
 
-        # significance filter |v / w| > thresh, one kernel per tensor:
-        # (v * mask, count), so the mask never materializes and the
-        # shared part is cleared exactly via acc - shared
-        picked = {n: ops.gaia_select(acc[n], params[n], thresh) for n in acc}
-        comm = sum(cnt.float() for _, cnt in picked.values()) / self.K
-        for n, (shared, _) in picked.items():
+        # significance filter |v / w| > thresh, one kernel for every
+        # tensor: (v * mask, count), so the mask never materializes and
+        # the shared part is cleared exactly via acc - shared
+        names = list(acc)
+        picked, counts = ops.gaia_select_many(
+            [acc[n] for n in names], [params[n] for n in names], thresh)
+        comm = counts.sum().float() / self.K
+        for n, shared in zip(names, picked):
             # apply everyone else's significant updates; clear own part
             total = shared.sum(dim=0, keepdim=True)
             params[n] = params[n] + (total - shared)

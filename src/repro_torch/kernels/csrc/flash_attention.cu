@@ -1,12 +1,17 @@
 // Flash attention forward for Hopper (sm_90a): blocked online softmax over
-// q of shape (B, Tq, H, D) and k, v of shape (B, Tk, Hkv, D), each with its
-// own strides for B, T and heads (D at unit stride), float32 or bfloat16:
+// q of shape (B, Tq, H, Dk), k of shape (B, Tk, Hkv, Dk) and v of shape
+// (B, Tk, Hkv, Dv), each with its own strides for B, T and heads (the head
+// dim at unit stride), float32 or bfloat16:
 //   s[i, j] = (q_i . k_j) * scale                                   (float32)
 //   s       = cap * tanh(s / cap)                        (logit softcap > 0)
 //   s[i, j] = -1e30 unless key j is valid for query i
 //   o_i     = sum_j exp(s[i, j] - m_i) v_j / max(l_i, 1e-30)
 // with m_i the running row max and l_i the running row sum, in float32,
-// written in the input's dtype to o, (B, Tq, H, D) with its own strides.
+// written in the input's dtype to o, (B, Tq, H, Dv) with its own strides.
+// The (Dk, Dv) pairs built (FA_PAIRS below): (64, 64), (128, 128) and
+// (256, 256) for the dense LMs, (96, 96) for phi-3-vision, and MLA's
+// (192, 128) (deepseek-v2), (96, 64) (minicpm3) and (48, 32) (the reduced
+// MLA configs), where k carries the rope dims and v does not.
 // Query head h reads KV head h / (H / Hkv) (GQA; Hkv = H is MHA).  The query
 // at row i sits at position i + (Tk - Tq).  Key j is valid when j <= q_pos
 // (causal) and j > q_pos - window (sliding window), as in the reference's
@@ -51,7 +56,14 @@
 //     wherever the caller's strides put it and zero-fills the ragged tail;
 //     K and V take two stages each, the copies of the next tiles in flight
 //     while this k-block computes, one __syncthreads a k-block.  81 KB of
-//     dynamic shared memory at D = 128 (2 blocks a SM), 161 KB at 256.
+//     dynamic shared memory at D = 128 (2 blocks a SM), 161 KB at 256;
+//   - a head dim that is not a multiple of 64 (Dk = 48, 96, 192; Dv = 32,
+//     96) keeps the 64-column pitch of the swizzle: its last 64-column
+//     block is filled only to the real 16-byte chunks, the rest zero-filled
+//     by cp.async.  Q.K^T stops at Dk / 16 k-steps, so it never reads the
+//     padding; P.V runs N = 64 on each 64-column block of V, so at Dv = 32
+//     or 96 the last block's products include padded columns (zeros), whose
+//     outputs are dropped at the store.
 // cp.async rather than TMA: a tensor map would have to be encoded on the
 // host for every call's strides, and cp.async's zero-fill covers the
 // ragged tail.
@@ -63,7 +75,7 @@
 // next scores, before the softmax.
 //
 // float32: the CUDA-core body (flash_attention_f32_kernel) of 256 threads
-// as 16 x 16, each owning 4 rows x 2 score columns and 4 x D/16
+// as 16 x 16, each owning 4 rows x 2 score columns and 4 x Dv/16
 // accumulators, float32 FMAs on tiles staged in shared memory.  Kept
 // deliberately: a bf16 tensor-core product of float32 q and k cannot meet
 // the float32 tolerance (2e-5) that the tests hold this dtype to.
@@ -104,7 +116,8 @@ namespace {
 
 constexpr float kMasked = -1e30f;      // the reference's masked score
 
-// Element strides of q, k, v and o over (batch, time, head); D is unit.
+// Element strides of q, k, v and o over (batch, time, head); the head
+// dim is at unit stride.
 struct Strides {
   long long qb, qt, qh, kb, kt, kh, vb, vt, vh, ob, ot, oh;
 };
@@ -152,17 +165,22 @@ constexpr int kBQ = 64;                // query rows a block: one wgmma M
 constexpr int kBK = 64;                // keys a k-block: the scores' wgmma N
 
 // Shared tiles hold rows of 64 bf16 (128 bytes) in the 128-byte swizzle
-// wgmma reads: a tile of R rows x D is D / 64 blocks of R x 128 bytes, and
-// the 16-byte chunk c of row r sits at chunk c ^ (r % 8).  Tiles start at
-// 1024-byte boundaries, where the swizzle's period begins.
+// wgmma reads: a tile of R rows x D is ceil(D / 64) blocks of R x 128
+// bytes, and the 16-byte chunk c of row r sits at chunk c ^ (r % 8).  Tiles
+// start at 1024-byte boundaries, where the swizzle's period begins.
+template <int D>
+__host__ __device__ constexpr int col_blocks() { return (D + 63) / 64; }
 template <int R>
 __host__ __device__ constexpr int block_bytes() { return R * 128; }
 template <int R, int D>
-__host__ __device__ constexpr int tile_bytes() { return R * D * 2; }
+__host__ __device__ constexpr int tile_bytes() {
+  return col_blocks<D>() * block_bytes<R>();
+}
 
-template <int D>
+template <int DK, int DV>
 constexpr int smem_bytes() {  // Q, 2 stages of K and V, alignment slack
-  return tile_bytes<kBQ, D>() + 4 * tile_bytes<kBK, D>() + 1024;
+  return tile_bytes<kBQ, DK>() + 2 * tile_bytes<kBK, DK>() +
+         2 * tile_bytes<kBK, DV>() + 1024;
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -271,12 +289,14 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const unsigned (&a)[4],
 }
 
 // Rows [r0, r0 + R) of a (t, D) bf16 matrix with row stride `stride` into
-// a swizzled tile; rows at or past t read as zeros.
+// a swizzled tile; rows at or past t, and the chunks of the last 64-column
+// block past D, read as zeros.
 template <int D, int R>
 __device__ __forceinline__ void load_tile(unsigned char* dst,
                                           const __nv_bfloat16* src,
                                           long long stride, int r0, int t) {
-  constexpr int kChunks = D / 8;       // 16-byte chunks a row
+  static_assert(D % 8 == 0, "whole 16-byte chunks");
+  constexpr int kChunks = col_blocks<D>() * 8;  // 16-byte chunks a tile row
   static_assert(R * kChunks % kThreads == 0, "whole rounds of the block");
 #pragma unroll
   for (int i = 0; i < R * kChunks / kThreads; ++i) {
@@ -284,10 +304,10 @@ __device__ __forceinline__ void load_tile(unsigned char* dst,
     const int r = c / kChunks;
     const int ch = c % kChunks;
     const int row = r0 + r;
-    const bool in = row < t;
+    const bool in = row < t && ch < D / 8;
     cp_async16(dst + (ch >> 3) * block_bytes<R>() + r * 128 +
                        (((ch & 7) ^ (r & 7)) << 4),
-                   src + (in ? row * stride : 0) + ch * 8, in);
+                   src + (in ? row * stride + ch * 8 : 0), in);
   }
 }
 
@@ -295,14 +315,15 @@ __device__ __forceinline__ void load_tile(unsigned char* dst,
 // Q and K are K-major: a k-step of 16 columns is 32 bytes into a 64-column
 // block (the swizzle applies to the address), 8-row groups 1024 bytes
 // apart; the leading offset is unused in this swizzle.
-template <int D>
+template <int DK>
 __device__ __forceinline__ void scores(float (&s)[32],
                                        const unsigned char* s_q,
                                        const unsigned char* sk) {
+  static_assert(DK % 16 == 0, "whole k-steps");
   pin(s);
   fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DK / 16; ++kk) {
     const int off = (kk & 3) * 32;     // 16 columns: 32 bytes
     mma_ss(s, desc(s_q + (kk >> 2) * block_bytes<kBQ>() + off, 16, 1024),
            desc(sk + (kk >> 2) * block_bytes<kBK>() + off, 16, 1024),
@@ -311,20 +332,20 @@ __device__ __forceinline__ void scores(float (&s)[32],
   commit();
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads, D <= 128 ? 2 : 1)
+template <int DK, int DV>
+__global__ void __launch_bounds__(kThreads, DK <= 128 ? 2 : 1)
 flash_attention_tc(const __nv_bfloat16* __restrict__ q,
                    const __nv_bfloat16* __restrict__ k,
                    const __nv_bfloat16* __restrict__ v,
                    __nv_bfloat16* __restrict__ o, int heads, int group,
                    int tq, int tk, Strides st, float scale, int causal,
                    int window, float softcap) {
-  constexpr int kDB = D / 64;          // 64-column blocks of an output row
+  constexpr int kDB = col_blocks<DV>();  // 64-column blocks of an output row
   extern __shared__ unsigned char smem_raw[];
   unsigned char* s_q = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<unsigned long long>(smem_raw) + 1023) & ~1023ull);
-  unsigned char* s_k = s_q + tile_bytes<kBQ, D>();
-  unsigned char* s_v = s_k + 2 * tile_bytes<kBK, D>();
+  unsigned char* s_k = s_q + tile_bytes<kBQ, DK>();
+  unsigned char* s_v = s_k + 2 * tile_bytes<kBK, DK>();
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -342,19 +363,19 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q,
   kblock_range(q0, kBQ, kBK, tq, tk, causal, window, &kb_lo, &kb_hi);
 
   const int tq0 = q0 + 16 * warp + off;  // position of the warp's row 0
-  auto k_tile = [&](int kb) { return s_k + (kb & 1) * tile_bytes<kBK, D>(); };
-  auto v_tile = [&](int kb) { return s_v + (kb & 1) * tile_bytes<kBK, D>(); };
+  auto k_tile = [&](int kb) { return s_k + (kb & 1) * tile_bytes<kBK, DK>(); };
+  auto v_tile = [&](int kb) { return s_v + (kb & 1) * tile_bytes<kBK, DV>(); };
 
   // K of k-block kb + 1 is staged a k-block ahead of V of kb, so that the
   // scores of kb + 1 run on the tensor cores while the softmax of kb runs
-  load_tile<D, kBQ>(s_q, qh, st.qt, q0, tq);
+  load_tile<DK, kBQ>(s_q, qh, st.qt, q0, tq);
   if (kb_lo < kb_hi) {
-    load_tile<D, kBK>(k_tile(kb_lo), kh, st.kt, kb_lo * kBK, tk);
-    load_tile<D, kBK>(v_tile(kb_lo), vh, st.vt, kb_lo * kBK, tk);
+    load_tile<DK, kBK>(k_tile(kb_lo), kh, st.kt, kb_lo * kBK, tk);
+    load_tile<DV, kBK>(v_tile(kb_lo), vh, st.vt, kb_lo * kBK, tk);
   }
   cp_async_commit();
   if (kb_lo + 1 < kb_hi)
-    load_tile<D, kBK>(k_tile(kb_lo + 1), kh, st.kt, (kb_lo + 1) * kBK, tk);
+    load_tile<DK, kBK>(k_tile(kb_lo + 1), kh, st.kt, (kb_lo + 1) * kBK, tk);
   cp_async_commit();
   cp_async_wait<1>();
   // cp.async wrote through the generic proxy; wgmma reads through the
@@ -364,7 +385,7 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q,
 
   float s[32];
   if (kb_lo < kb_hi) {
-    scores<D>(s, s_q, k_tile(kb_lo));
+    scores<DK>(s, s_q, k_tile(kb_lo));
     wait<0>();
     pin(s);
   }
@@ -385,13 +406,13 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q,
     // whose stages the next copies take
     __syncthreads();
     if (kb + 2 < kb_hi)
-      load_tile<D, kBK>(k_tile(kb + 2), kh, st.kt, (kb + 2) * kBK, tk);
+      load_tile<DK, kBK>(k_tile(kb + 2), kh, st.kt, (kb + 2) * kBK, tk);
     if (kb + 1 < kb_hi)
-      load_tile<D, kBK>(v_tile(kb + 1), vh, st.vt, (kb + 1) * kBK, tk);
+      load_tile<DV, kBK>(v_tile(kb + 1), vh, st.vt, (kb + 1) * kBK, tk);
     cp_async_commit();
 
     float s_next[32];
-    if (kb + 1 < kb_hi) scores<D>(s_next, s_q, k_tile(kb + 1));
+    if (kb + 1 < kb_hi) scores<DK>(s_next, s_q, k_tile(kb + 1));
 
     // scale, softcap, masks (only where the warp's rows meet an edge in
     // this k-block), then the online softmax: p = exp(s - m) in float32;
@@ -497,25 +518,26 @@ flash_attention_tc(const __nv_bfloat16* __restrict__ q,
     for (int nb = 0; nb < kDB; ++nb)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(oh + row * st.ot + 64 * nb +
-                                           8 * j + 2 * tig) =
-            __floats2bfloat162_rn(acc[nb][4 * j + 2 * r] / denom,
-                                  acc[nb][4 * j + 2 * r + 1] / denom);
+        if (64 * nb + 8 * j < DV)      // padded columns are dropped
+          *reinterpret_cast<__nv_bfloat162*>(oh + row * st.ot + 64 * nb +
+                                             8 * j + 2 * tig) =
+              __floats2bfloat162_rn(acc[nb][4 * j + 2 * r] / denom,
+                                    acc[nb][4 * j + 2 * r + 1] / denom);
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int heads, int group, int tq, int tk, const Strides& st,
            float scale, int causal, int window, float softcap,
            cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
+  constexpr int smem = smem_bytes<DK, DV>();
   const cudaError_t set = cudaFuncSetAttribute(
-      flash_attention_tc<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      flash_attention_tc<DK, DV>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(bh, (tq + kBQ - 1) / kBQ);
-  flash_attention_tc<D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_tc<DK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -537,9 +559,9 @@ constexpr int kThreads = 256;          // 16 x 16
 constexpr int kRows = kBQ / 16;        // query rows a thread
 constexpr int kCols = kBK / 16;        // score columns a thread
 
-template <int D>
+template <int DK, int DV>
 constexpr int smem_bytes() {
-  return (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * (kBK + 1)) *
+  return (kBQ * (DK + 1) + kBK * (DK + 1) + kBK * DV + kBQ * (kBK + 1)) *
          static_cast<int>(sizeof(float));
 }
 
@@ -558,7 +580,7 @@ __device__ __forceinline__ void load_tile(float* dst, int pitch,
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
@@ -566,12 +588,13 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            int heads, int group, int tq, int tk, Strides st,
                            float scale, int causal, int window,
                            float softcap) {
-  constexpr int kAcc = D / 16;         // accumulator columns a thread
+  static_assert(DV % 16 == 0, "whole accumulator columns a thread");
+  constexpr int kAcc = DV / 16;        // accumulator columns a thread
   extern __shared__ float smem[];
-  float* s_q = smem;                   // kBQ x (D + 1)
-  float* s_k = s_q + kBQ * (D + 1);    // kBK x (D + 1)
-  float* s_v = s_k + kBK * (D + 1);    // kBK x D
-  float* s_p = s_v + kBK * D;          // kBQ x (kBK + 1)
+  float* s_q = smem;                   // kBQ x (DK + 1)
+  float* s_k = s_q + kBQ * (DK + 1);   // kBK x (DK + 1)
+  float* s_v = s_k + kBK * (DK + 1);   // kBK x DV
+  float* s_p = s_v + kBK * DV;         // kBQ x (kBK + 1)
 
   const int tx = threadIdx.x & 15;
   const int ty = threadIdx.x >> 4;
@@ -586,7 +609,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   int kb_lo, kb_hi;
   kblock_range(q0, kBQ, kBK, tq, tk, causal, window, &kb_lo, &kb_hi);
 
-  load_tile<D>(s_q, D + 1, qh, st.qt, q0, kBQ, tq);
+  load_tile<DK>(s_q, DK + 1, qh, st.qt, q0, kBQ, tq);
 
   float m[kRows], l[kRows], acc[kRows][kAcc];
 #pragma unroll
@@ -600,8 +623,8 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   for (int kb = kb_lo; kb < kb_hi; ++kb) {
     const int k0 = kb * kBK;
     __syncthreads();                   // s_k, s_v, s_p of the last k-block
-    load_tile<D>(s_k, D + 1, kh, st.kt, k0, kBK, tk);
-    load_tile<D>(s_v, D, vh, st.vt, k0, kBK, tk);
+    load_tile<DK>(s_k, DK + 1, kh, st.kt, k0, kBK, tk);
+    load_tile<DV>(s_v, DV, vh, st.vt, k0, kBK, tk);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -610,13 +633,14 @@ flash_attention_f32_kernel(const float* __restrict__ q,
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = 0.0f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DK; ++d) {
       float kd[kCols];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) kd[j] = s_k[(tx + 16 * j) * (D + 1) + d];
+      for (int j = 0; j < kCols; ++j)
+        kd[j] = s_k[(tx + 16 * j) * (DK + 1) + d];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
-        const float qd = s_q[(ty * kRows + i) * (D + 1) + d];
+        const float qd = s_q[(ty * kRows + i) * (DK + 1) + d];
 #pragma unroll
         for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qd, kd[j], s[i][j]);
       }
@@ -658,7 +682,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     for (int c = 0; c < kBK; ++c) {
       float vc[kAcc];
 #pragma unroll
-      for (int j = 0; j < kAcc; ++j) vc[j] = s_v[c * D + tx + 16 * j];
+      for (int j = 0; j < kAcc; ++j) vc[j] = s_v[c * DV + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) {
         const float p = s_p[(ty * kRows + i) * (kBK + 1) + c];
@@ -680,18 +704,18 @@ flash_attention_f32_kernel(const float* __restrict__ q,
   }
 }
 
-template <int D>
+template <int DK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int bh,
            int heads, int group, int tq, int tk, const Strides& st,
            float scale, int causal, int window, float softcap,
            cudaStream_t stream) {
-  constexpr int smem = smem_bytes<D>();
+  constexpr int smem = smem_bytes<DK, DV>();
   const cudaError_t set = cudaFuncSetAttribute(
-      flash_attention_f32_kernel<D>,
+      flash_attention_f32_kernel<DK, DV>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (set != cudaSuccess) return static_cast<int>(set);
   const dim3 grid(bh, (tq + kBQ - 1) / kBQ);
-  flash_attention_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_attention_f32_kernel<DK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), heads, group, tq,
       tk, st, scale, causal, window, softcap);
@@ -700,14 +724,34 @@ int launch(const void* q, const void* k, const void* v, void* o, int bh,
 
 }  // namespace f32
 
+// A head-dim pair as a type, for the dispatch below.
+template <int K, int V>
+struct Dims {
+  static constexpr int kDK = K, kDV = V;
+};
+
+// Calls f(Dims<Dk, Dv>{}) for the pair (dk, dv) the kernels are built for;
+// cudaErrorInvalidValue for any other pair.
+template <typename F>
+int dispatch(int dk, int dv, F&& f) {
+#define FA_PAIRS(X) \
+  X(64, 64) X(128, 128) X(256, 256) X(96, 96) X(192, 128) X(96, 64) X(48, 32)
+#define FA_CASE(K, V) \
+  if (dk == K && dv == V) return f(Dims<K, V>{});
+  FA_PAIRS(FA_CASE)
+#undef FA_CASE
+#undef FA_PAIRS
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The checks both entries share; 0 when the launch may go ahead, -1 when
 // there is nothing to do, else a cudaError_t.
-int check(int batch, int heads, int kv_heads, int tq, int tk, int d, int bq,
-          int device) {
+int check(int batch, int heads, int kv_heads, int tq, int tk, int dk, int dv,
+          int bq, int device) {
   if (batch < 0 || heads < 1 || kv_heads < 1 || heads % kv_heads != 0 ||
       tq < 0 || tk < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (d != 64 && d != 128 && d != 256)
+  if (dispatch(dk, dv, [](auto) { return 0; }) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (static_cast<long long>(batch) * heads > 0x7fffffffLL ||
       (tq + bq - 1) / bq > 65535)
@@ -723,32 +767,28 @@ Strides strides_of(const long long* s) {
 
 }  // namespace
 
-// q (B, Tq, H, D), k and v (B, Tk, Hkv, D), o (B, Tq, H, D), each at the
-// element strides `strides` gives over (batch, time, head): q's three, then
-// k's, v's and o's; D at unit stride.  window <= 0: no window; softcap
-// <= 0: no softcap.
+// q (B, Tq, H, Dk), k (B, Tk, Hkv, Dk), v (B, Tk, Hkv, Dv), o (B, Tq, H, Dv),
+// each at the element strides `strides` gives over (batch, time, head): q's
+// three, then k's, v's and o's; the head dim at unit stride.  (dk, dv) one
+// of the pairs of FA_PAIRS.  window <= 0: no window; softcap <= 0: no
+// softcap.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* o, int batch,
                                    int heads, int kv_heads, int tq, int tk,
-                                   int d, const long long* strides,
+                                   int dk, int dv, const long long* strides,
                                    float scale, int causal, int window,
                                    float softcap, int device, void* stream) {
-  const int ok = check(batch, heads, kv_heads, tq, tk, d, f32::kBQ, device);
+  const int ok = check(batch, heads, kv_heads, tq, tk, dk, dv, f32::kBQ,
+                       device);
   if (ok != 0) return ok < 0 ? 0 : ok;
   const Strides st = strides_of(strides);
   const int bh = batch * heads, group = heads / kv_heads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return f32::launch<64>(q, k, v, o, bh, heads, group, tq, tk, st,
-                             scale, causal, window, softcap, s);
-    case 128:
-      return f32::launch<128>(q, k, v, o, bh, heads, group, tq, tk, st,
-                              scale, causal, window, softcap, s);
-    default:
-      return f32::launch<256>(q, k, v, o, bh, heads, group, tq, tk, st,
-                              scale, causal, window, softcap, s);
-  }
+  return dispatch(dk, dv, [&](auto d) {
+    using P = decltype(d);
+    return f32::launch<P::kDK, P::kDV>(q, k, v, o, bh, heads, group, tq, tk,
+                                       st, scale, causal, window, softcap, s);
+  });
 }
 
 // As flash_attention_f32; besides, q, k, v must be 16-byte aligned with
@@ -757,10 +797,11 @@ extern "C" int flash_attention_f32(const void* q, const void* k,
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* o, int batch,
                                     int heads, int kv_heads, int tq, int tk,
-                                    int d, const long long* strides,
+                                    int dk, int dv, const long long* strides,
                                     float scale, int causal, int window,
                                     float softcap, int device, void* stream) {
-  const int ok = check(batch, heads, kv_heads, tq, tk, d, tc::kBQ, device);
+  const int ok = check(batch, heads, kv_heads, tq, tk, dk, dv, tc::kBQ,
+                       device);
   if (ok != 0) return ok < 0 ? 0 : ok;
   for (int i = 0; i < 9; ++i)
     if (strides[i] % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -774,15 +815,9 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
   const Strides st = strides_of(strides);
   const int bh = batch * heads, group = heads / kv_heads;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (d) {
-    case 64:
-      return tc::launch<64>(q, k, v, o, bh, heads, group, tq, tk, st, scale,
-                            causal, window, softcap, s);
-    case 128:
-      return tc::launch<128>(q, k, v, o, bh, heads, group, tq, tk, st, scale,
-                             causal, window, softcap, s);
-    default:
-      return tc::launch<256>(q, k, v, o, bh, heads, group, tq, tk, st, scale,
-                             causal, window, softcap, s);
-  }
+  return dispatch(dk, dv, [&](auto d) {
+    using P = decltype(d);
+    return tc::launch<P::kDK, P::kDV>(q, k, v, o, bh, heads, group, tq, tk,
+                                      st, scale, causal, window, softcap, s);
+  });
 }

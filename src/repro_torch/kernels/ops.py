@@ -7,14 +7,17 @@ kernel cannot take (wrong dtype, shape or layout) raises, and so does a
 failed build or launch.  Operands are checked the same way on both
 routes, so a bad operand raises on the card as it does on the CPU.
 
-The ops: ``gaia_select``, ``neighbor_mix`` (and its ``src=`` gather),
-``rand_k_sparsify``; DGC's histogram-thresholded top-s% as
+The ops: ``gaia_select`` and ``gaia_select_many`` (one launch for a list
+of tensors), ``neighbor_mix`` (and its ``src=`` gather),
+``rand_k_sparsify`` and ``rand_k_sparsify_many`` (DGC's acc and vel of a
+list of tensors in one launch); DGC's histogram-thresholded top-s% as
 ``abs_histogram``, ``abs_histogram_fused``, ``dgc_select`` and
 ``dgc_sparsify`` (histogram, then ``dgc_topk.threshold_from_histogram``
 on the device, then select); ``group_norm`` (NHWC, forward); and
 attention forward as ``flash_attention`` (the reference's (B, H, T, D)
 layout) and ``flash_attention_bthd`` (the model's (B, T, H, D) layout,
-GQA heads read in place), one kernel under both.
+GQA heads read in place), one kernel under both, with k and v of their
+own head dims (``FLASH_HEAD_DIMS``).
 
 ``launch_gaia_select``, ``launch_neighbor_mix``,
 ``launch_neighbor_mix_src``, ``launch_rand_k_select``,
@@ -24,13 +27,15 @@ alone, on operands the op has checked and allocated; the ops call them,
 and ``chip_smoke.py`` times them to separate a kernel from its wrapper.
 
 ``launches`` counts the launches of each kernel by name, incremented
-only where the kernel is launched, so a run can show that its path went
-through the kernels.
+only where the kernel is launched (a list of tensors too long for one
+launch counts each of its launches), so a run can show that its path
+went through the kernels.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,14 +44,21 @@ from repro_torch.kernels import build, dgc_topk, ref
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# v, w, threshold, out, count, n, device, stream
-_GAIA_ARGS = [_P, _P, _P, _P, _P, _LL, _I, _P]
+_PP, _PLL, _PU, _PI = (ctypes.POINTER(t) for t in (
+    ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int))
+# v[], w[], out[], n[], count, threshold, counts, device, stream, launches
+_GAIA_ARGS = [_PP, _PP, _PP, _PLL, _I, _P, _P, _I, _P, _PI]
 # x, idx, w, self_w, out, K, D, N, device, stream
 _MIX_ARGS = [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _P]
 # x, src, idx, w, self_w, out, K, D, M, N, device, stream
 _MIX_SRC_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P]
-# v, out, count, n, seed, keep_prob, device, stream
-_RANDK_ARGS = [_P, _P, _P, _LL, ctypes.c_uint, ctypes.c_float, _I, _P]
+# acc[], vel[], shared[], new_vel[], n[], seeds[], dims[], sizes[],
+# cstrides[], count, keep_prob, counts, device, stream, launches
+_RANDK_ARGS = [_PP, _PP, _PP, _PP, _PLL, _PU, _PI, _PU, _PU, _I,
+               ctypes.c_float, _P, _I, _P, _PI]
+#: dims of a tensor's counter layout in ``rand_k_select.cu``: the node axis
+#: and four of a conv weight
+_RANDK_MAX_DIMS = 5
 # v, vmax, n, device, stream
 _MAX_ARGS = [_P, _P, _LL, _I, _P]
 # v, vmax, hist, n, n_bins, device, stream
@@ -55,16 +67,19 @@ _HIST_ARGS = [_P, _P, _P, _LL, _I, _I, _P]
 _SELECT_ARGS = [_P, _P, _P, _P, _LL, _I, _P]
 # x, scale, bias, y, batch, H*W, C, group_size, eps, device, stream
 _GN_ARGS = [_P, _P, _P, _P, _LL, _LL, _I, _I, ctypes.c_float, _I, _P]
-# q, k, v, o, B, H, Hkv, Tq, Tk, D, strides (q, k, v, o: B, T, H), scale,
-# causal, window, softcap, device, stream
-_FA_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-            ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, _I, _I,
-            ctypes.c_float, _I, _P]
+# q, k, v, o, B, H, Hkv, Tq, Tk, Dk, Dv, strides (q, k, v, o: B, T, H),
+# scale, causal, window, softcap, device, stream
+_FA_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _PLL,
+            ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
 
 #: the most bins ``abs_histogram`` takes (the kernel's shared counters)
 MAX_BINS = 1024
-#: the head dims the ``flash_attention`` kernel is built for
-FLASH_HEAD_DIMS = (64, 128, 256)
+#: the (Dk, Dv) head-dim pairs the ``flash_attention`` kernel is built
+#: for: the dense LMs' (64, 64), (128, 128), (256, 256); phi-3-vision's
+#: (96, 96); MLA's (192, 128) (deepseek-v2), (96, 64) (minicpm3) and
+#: (48, 32) (the reduced MLA configs)
+FLASH_HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (96, 96),
+                             (192, 128), (96, 64), (48, 32)})
 #: query rows a block of the kernel (both bodies): the grid's y runs over
 #: Tq / this, at most 65535
 _FLASH_BLOCK_Q = 64
@@ -103,42 +118,85 @@ def _check(name: str, t: torch.Tensor, dtypes) -> None:
         raise ValueError(f"{name}: tensor must be contiguous")
 
 
-def _launched(kernel: str, op: str, err: int) -> None:
+def _launched(kernel: str, op: str, err: int, n: int = 1) -> None:
+    """Raise on a failed launch, else count ``n`` launches of ``kernel``."""
     if err != 0:
         raise RuntimeError(f"{op}: kernel launch failed with cudaError {err}")
-    launches[kernel] += 1
+    launches[kernel] += n
+
+
+def _pointers(tensors) -> ctypes.Array:
+    """The data pointers of ``tensors`` (None for a missing one) as a C
+    array of ``void*``."""
+    return (ctypes.c_void_p * len(tensors))(
+        *(None if t is None else t.data_ptr() for t in tensors))
+
+
+def _lists(op: str, *lists: Sequence) -> List[list]:
+    """The argument lists as lists, raising unless they have one length of
+    at least 1."""
+    out = [list(x) for x in lists]
+    if not out[0] or any(len(x) != len(out[0]) for x in out):
+        raise ValueError(f"{op}: needs lists of one length >= 1, got "
+                         f"{[len(x) for x in out]}")
+    return out
+
+
+def _check_many(op: str, tensors: Sequence[torch.Tensor]) -> None:
+    """One dtype the kernel takes, every tensor contiguous."""
+    for t in tensors:
+        _check(op, t, _SUFFIX)
+        if t.dtype != tensors[0].dtype:
+            raise TypeError(f"{op}: dtypes differ {tensors[0].dtype} vs "
+                            f"{t.dtype}")
 
 
 def gaia_select(v: torch.Tensor, w: torch.Tensor, threshold
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Gaia significance filter: (v * (|v| > T|w|), int32 count), the
     compare in float32.  ``threshold`` is a Python float or a 0-d float
-    tensor (on the device of ``v`` to avoid a copy)."""
-    if v.shape != w.shape:
-        raise ValueError(f"gaia_select: shapes differ {v.shape} vs {w.shape}")
-    t = torch.as_tensor(threshold, dtype=torch.float32, device=v.device)
-    if _on_cpu(v, w, t):
-        return ref.gaia_select_ref(v, w, t)
-    _check("gaia_select v", v, _SUFFIX)
-    if w.dtype != v.dtype:
-        raise TypeError(f"gaia_select: dtypes differ {v.dtype} vs {w.dtype}")
-    _check("gaia_select w", w, _SUFFIX)
-    out = torch.empty_like(v)
-    count = torch.zeros((), dtype=torch.int32, device=v.device)
-    launch_gaia_select(v, w, t.reshape(1).contiguous(), out, count)
-    return out, count
+    tensor (on the device of ``v`` to avoid a copy).  ``gaia_select_many``
+    on one tensor."""
+    outs, counts = gaia_select_many([v], [w], threshold)
+    return outs[0], counts.reshape(())
 
 
-def launch_gaia_select(v: torch.Tensor, w: torch.Tensor, t: torch.Tensor,
-                       out: torch.Tensor, count: torch.Tensor) -> None:
+def gaia_select_many(vs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
+                     threshold) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``gaia_select`` on each pair (v, w) of ``vs`` and ``ws`` with one
+    threshold: ([v_j * (|v_j| > T|w_j|)], int32 (len(vs),) counts).  On
+    the card one launch covers every tensor (up to 32 a launch), all of
+    one dtype, each contiguous; on the CPU the plain version loops."""
+    vs, ws = _lists("gaia_select", vs, ws)
+    for v, w in zip(vs, ws):
+        if v.shape != w.shape:
+            raise ValueError(f"gaia_select: shapes differ {v.shape} vs "
+                             f"{w.shape}")
+    t = torch.as_tensor(threshold, dtype=torch.float32, device=vs[0].device)
+    if _on_cpu(*vs, *ws, t):
+        return ref.gaia_select_many_ref(vs, ws, t)
+    _check_many("gaia_select", vs + ws)
+    outs = [torch.empty_like(v) for v in vs]
+    counts = torch.zeros(len(vs), dtype=torch.int32, device=vs[0].device)
+    launch_gaia_select(vs, ws, t.reshape(1).contiguous(), outs, counts)
+    return outs, counts
+
+
+def launch_gaia_select(vs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
+                       t: torch.Tensor, outs: Sequence[torch.Tensor],
+                       counts: torch.Tensor) -> None:
     """Launch the ``gaia_select`` kernel on CUDA operands that
-    ``gaia_select`` checked: ``t`` a (1,) float32 threshold, ``out`` like
-    ``v``, ``count`` an int32 scalar the kernel adds its count to."""
-    fn = _kernel("gaia_select", "gaia_select", v.dtype, _GAIA_ARGS)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    _launched("gaia_select", "gaia_select", fn(
-        v.data_ptr(), w.data_ptr(), t.data_ptr(), out.data_ptr(),
-        count.data_ptr(), v.numel(), v.device.index, stream))
+    ``gaia_select_many`` checked: ``t`` a (1,) float32 threshold, each of
+    ``outs`` like its v, ``counts`` int32 (len(vs),) the kernel adds each
+    tensor's count to.  One launch for up to 32 tensors."""
+    fn = _kernel("gaia_select", "gaia_select", vs[0].dtype, _GAIA_ARGS)
+    dev = vs[0].device
+    made = ctypes.c_int(0)
+    err = fn(_pointers(vs), _pointers(ws), _pointers(outs),
+             (ctypes.c_longlong * len(vs))(*(v.numel() for v in vs)),
+             len(vs), t.data_ptr(), counts.data_ptr(), dev.index,
+             torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(made))
+    _launched("gaia_select", "gaia_select", err, made.value)
 
 
 def neighbor_mix(x: torch.Tensor, nbr_idx: torch.Tensor,
@@ -232,29 +290,131 @@ def rand_k_sparsify(v: torch.Tensor, keep_prob, seed
     (``kernels/rng.py``).  ``keep_prob`` is a host number, rounded to
     float32 (the compare is in float32); ``seed`` an integer taken modulo
     2**32.  Both reach the kernel by value, and the mask is generated
-    inside it, so the two routes keep the same elements bit for bit."""
+    inside it, so the two routes keep the same elements bit for bit.  On
+    the card, the ``rand_k_select`` launch of ``rand_k_sparsify_many`` on
+    one tensor and no vel."""
     p = float(np.float32(keep_prob))
     key = int(seed) & 0xFFFFFFFF
     if _on_cpu(v):
         return ref.rand_k_select_ref(v, p, key)
     _check("rand_k_sparsify v", v, _SUFFIX)
     out = torch.empty_like(v)
-    count = torch.zeros((), dtype=torch.int32, device=v.device)
-    launch_rand_k_select(v, out, count, key, p)
-    return out, count
+    counts = torch.zeros(1, dtype=torch.int32, device=v.device)
+    launch_rand_k_select([v], None, [out], None, counts, [key], p, [None])
+    return out, counts.reshape(())
 
 
-def launch_rand_k_select(v: torch.Tensor, out: torch.Tensor,
-                         count: torch.Tensor, seed: int,
-                         keep_prob: float) -> None:
-    """Launch the ``rand_k_select`` kernel on a CUDA tensor that
-    ``rand_k_sparsify`` checked: ``out`` like ``v``, ``count`` an int32
-    scalar the kernel adds its count to, ``seed`` in [0, 2**32)."""
-    fn = _kernel("rand_k_select", "rand_k_select", v.dtype, _RANDK_ARGS)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    _launched("rand_k_select", "rand_k_sparsify", fn(
-        v.data_ptr(), out.data_ptr(), count.data_ptr(), v.numel(), seed,
-        keep_prob, v.device.index, stream))
+def rand_k_sparsify_many(accs: Sequence[torch.Tensor],
+                         vels: Sequence[torch.Tensor], keep_prob,
+                         seeds: Sequence[int],
+                         perms: Sequence[Optional[Tuple[int, ...]]]
+                         ) -> Tuple[List[torch.Tensor], List[torch.Tensor],
+                                    torch.Tensor]:
+    """DGC's rand-k on a list of stacked (K, ...) tensors, acc and vel
+    masked by one stream: for tensor j, with the counter of each element
+    its flat index in the reference's layout, the tensor's per-node dims
+    permuted by ``perms[j]`` (None: this layout), and seed ``seeds[j]``
+    (modulo 2**32), ``mask = uniform01(seed, counter) < keep_prob``
+    (float32).  Returns ([acc_j * mask], [vel_j - vel_j * mask], int32
+    (len(accs),) counts of acc's kept entries), bit-equal to
+    ``rand_k_sparsify`` on ``acc_j`` and ``vel_j`` permuted into the
+    reference's layout, the results permuted back.  On the card one launch
+    covers every tensor (up to 32 a launch), all of one dtype, each
+    contiguous, read where it lies (no permuted copies); on the CPU the
+    plain version loops."""
+    accs, vels, seeds, perms = _lists("rand_k_sparsify", accs, vels, seeds,
+                                      perms)
+    for a, u, perm in zip(accs, vels, perms):
+        if a.shape != u.shape:
+            raise ValueError(f"rand_k_sparsify: acc {tuple(a.shape)} and vel "
+                             f"{tuple(u.shape)} differ")
+        _counter_layout(tuple(a.shape), perm)         # raises on a bad perm
+    p = float(np.float32(keep_prob))
+    keys = [int(s_) & 0xFFFFFFFF for s_ in seeds]
+    if _on_cpu(*accs, *vels):
+        return ref.rand_k_sparsify_many_ref(accs, vels, p, keys, perms)
+    _check_many("rand_k_sparsify", accs + vels)
+    shared = [torch.empty_like(a) for a in accs]
+    new_vels = [torch.empty_like(u) for u in vels]
+    counts = torch.zeros(len(accs), dtype=torch.int32, device=accs[0].device)
+    launch_rand_k_select(accs, vels, shared, new_vels, counts, keys, p, perms)
+    return shared, new_vels, counts
+
+
+@functools.lru_cache(maxsize=1024)
+def _counter_layout(shape: Tuple[int, ...],
+                    perm: Optional[Tuple[int, ...]]
+                    ) -> Tuple[int, Tuple[int, ...], Tuple[int, ...]]:
+    """A stacked (K, ...) tensor's counter layout for ``rand_k_select.cu``:
+    (dims, sizes, strides), the sizes this layout's dims, outermost first,
+    and each dim's stride in the reference's flat index, where the
+    reference lays one node's dims out permuted by ``perm`` (its dim i is
+    this layout's per-node dim ``perm[i]``); both padded to 5.  dims = 0
+    (no perm): the counter is the flat index itself."""
+    pad = (0,) * _RANDK_MAX_DIMS
+    if perm is None:
+        return 0, pad, pad
+    node = shape[1:]
+    if sorted(perm) != list(range(len(node))):
+        raise ValueError(f"rand_k_sparsify: perm {perm} does not permute the "
+                         f"{len(node)} per-node dims of {shape}")
+    if len(shape) > _RANDK_MAX_DIMS:
+        raise ValueError(f"rand_k_sparsify: a permuted tensor has at most "
+                         f"{_RANDK_MAX_DIMS} dims, got {shape}")
+    if int(np.prod(shape)) >= 2 ** 32:
+        raise ValueError(f"rand_k_sparsify: a permuted tensor has fewer "
+                         f"than 2**32 elements, got {shape}")
+    ref_strides = [int(np.prod([node[p_] for p_ in perm[i + 1:]]))
+                   for i in range(len(perm))]
+    strides = (int(np.prod(node)),) + tuple(
+        ref_strides[perm.index(d)] for d in range(len(node)))
+    fill = (0,) * (_RANDK_MAX_DIMS - len(shape))
+    return len(shape), tuple(shape) + fill, strides + fill
+
+
+def launch_rand_k_select(accs: Sequence[torch.Tensor],
+                         vels: Optional[Sequence[torch.Tensor]],
+                         shared: Sequence[torch.Tensor],
+                         new_vels: Optional[Sequence[torch.Tensor]],
+                         counts: torch.Tensor, seeds: Sequence[int],
+                         keep_prob: float,
+                         perms: Sequence[Optional[Tuple[int, ...]]]) -> None:
+    """Launch the ``rand_k_select`` kernel on CUDA operands that an op
+    checked: ``shared`` and ``new_vels`` like ``accs`` and ``vels``
+    (``vels`` and ``new_vels`` None: acc only), ``counts`` int32
+    (len(accs),) the kernel adds each tensor's count to, ``seeds`` in
+    [0, 2**32).  One launch for up to 32 tensors."""
+    T = len(accs)
+    fn = _kernel("rand_k_select", "rand_k_select", accs[0].dtype, _RANDK_ARGS)
+    n, dims, sizes, strides = _randk_layouts(
+        tuple(tuple(a.shape) for a in accs), tuple(perms))
+    none = [None] * T
+    dev = accs[0].device
+    made = ctypes.c_int(0)
+    err = fn(_pointers(accs), _pointers(vels or none), _pointers(shared),
+             _pointers(new_vels or none), n, (ctypes.c_uint * T)(*seeds),
+             dims, sizes, strides, T, keep_prob, counts.data_ptr(), dev.index,
+             torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(made))
+    _launched("rand_k_select", "rand_k_sparsify", err, made.value)
+
+
+@functools.lru_cache(maxsize=256)
+def _randk_layouts(shapes: Tuple[Tuple[int, ...], ...],
+                   perms: Tuple[Optional[Tuple[int, ...]], ...]
+                   ) -> Tuple[ctypes.Array, ...]:
+    """The rows of the ``rand_k_select`` table that follow from the
+    tensors' shapes and perms alone, as the C arrays the launcher reads
+    (and never writes): element counts, then each tensor's counter dims,
+    sizes and strides (``_counter_layout``).  Cached: a training run asks
+    for the same list every step."""
+    T = len(shapes)
+    layouts = [_counter_layout(s_, p_) for s_, p_ in zip(shapes, perms)]
+    return ((ctypes.c_longlong * T)(*(int(np.prod(s_)) for s_ in shapes)),
+            (ctypes.c_int * T)(*(d for d, _, _ in layouts)),
+            (ctypes.c_uint * (T * _RANDK_MAX_DIMS))(
+                *(x for _, sz, _ in layouts for x in sz)),
+            (ctypes.c_uint * (T * _RANDK_MAX_DIMS))(
+                *(x for _, _, st in layouts for x in st)))
 
 
 def _check_bins(n_bins: int) -> None:
@@ -427,7 +587,7 @@ def _flash_options(window: Optional[int],
 
 def _flash_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                   ) -> None:
-    """Raise unless the head dim of q, k and v lies at unit stride."""
+    """Raise unless the head dims of q, k and v lie at unit stride."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.stride(3) != 1 and t.shape[3] > 1:
             raise ValueError(f"flash_attention: {name} must be contiguous "
@@ -437,8 +597,8 @@ def _flash_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 def _flash_card_operands(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, Tq: int) -> None:
     """What the kernel takes beyond the layout: one dtype of two, no
-    gradient, a head dim it is built for; in bfloat16, operands whose
-    16-byte rows cp.async can copy."""
+    gradient, a (Dk, Dv) pair it is built for; in bfloat16, operands
+    whose 16-byte rows cp.async can copy."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _SUFFIX:
             raise TypeError(f"flash_attention {name}: dtype {t.dtype} not "
@@ -454,10 +614,10 @@ def _flash_card_operands(q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"flash_attention: bfloat16 {name} must be "
                              "16-byte aligned with strides a multiple of 8 "
                              f"(strides {t.stride()})")
-    D = q.shape[3]
-    if D not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in "
-                         f"{FLASH_HEAD_DIMS}")
+    dims = (q.shape[3], v.shape[3])
+    if dims not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dims (Dk, Dv) = {dims} not "
+                         f"in {sorted(FLASH_HEAD_DIMS)}")
     if -(-Tq // _FLASH_BLOCK_Q) > 65535:
         raise ValueError(f"flash_attention: Tq={Tq} exceeds the grid's "
                          f"65535 blocks of {_FLASH_BLOCK_Q} rows")
@@ -467,14 +627,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     logit_softcap: Optional[float] = None,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """Attention forward over q (B, H, Tq, D) and k, v (B, H, Tk, D) of
-    one dtype (the reference's MHA layout; ``flash_attention_bthd`` takes
-    the model's layout and GQA heads), as ``ref.flash_attention_ref``
-    computes it: float32 scores, softmax and accumulator, the query at
-    row i at position ``i + (Tk - Tq)``, ``causal`` and sliding-``window``
-    masks, ``logit_softcap``, scale ``D ** -0.5`` by default; the result
-    in q's dtype, contiguous.  On the card the kernel takes float32 or
-    bfloat16 with D at unit stride (other strides are free), D in
+    """Attention forward over q (B, H, Tq, Dk), k (B, H, Tk, Dk) and v
+    (B, H, Tk, Dv) of one dtype (the reference's MHA layout;
+    ``flash_attention_bthd`` takes the model's layout and GQA heads), as
+    ``ref.flash_attention_ref`` computes it: float32 scores, softmax and
+    accumulator, the query at row i at position ``i + (Tk - Tq)``,
+    ``causal`` and sliding-``window`` masks, ``logit_softcap``, scale
+    ``Dk ** -0.5`` by default; the result (B, H, Tq, Dv) in q's dtype,
+    contiguous.  On the card the kernel takes float32 or bfloat16 with
+    the head dims at unit stride (other strides are free), (Dk, Dv) in
     ``FLASH_HEAD_DIMS``, and no input that requires a gradient (it has no
     backward)."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -482,9 +643,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, H, Tq, D = q.shape
-    if k.shape[:2] != (B, H) or k.shape[3] != D or v.shape != k.shape:
+    if k.shape[:2] != (B, H) or k.shape[3] != D or \
+            v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must be ({B}, {H}, Tk, {D})")
+                         f"{tuple(v.shape)} must be ({B}, {H}, Tk, {D}) and "
+                         f"({B}, {H}, Tk, Dv)")
     _flash_options(window, logit_softcap)
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
@@ -492,7 +655,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                        scale=scale)
     _flash_layout(q, k, v)
     _flash_card_operands(q, k, v, Tq)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((B, H, Tq, v.shape[3]), dtype=q.dtype, device=q.device)
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
                            logit_softcap=logit_softcap,
                            scale=D ** -0.5 if scale is None else scale)
@@ -504,24 +667,26 @@ def flash_attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          window: Optional[int] = None,
                          logit_softcap: Optional[float] = None,
                          scale: Optional[float] = None) -> torch.Tensor:
-    """``flash_attention`` on the model's layout: q (B, Tq, H, D) and k, v
-    (B, Tk, Hkv, D) with H % Hkv == 0, query head h reading KV head
-    ``h // (H // Hkv)``; the result (B, Tq, H, D), contiguous, in q's
-    dtype.  The kernel reads q, k and v where they lie, with any strides
-    but a unit one for D (views of a fused projection, say), so the
-    caller neither expands the KV heads nor copies a layout.  The plain
-    version (``ref.flash_attention_bthd_ref``) expands the KV heads.  The
-    layout and the grouping are checked on both routes; on the card the
-    operands also as ``flash_attention`` checks them."""
+    """``flash_attention`` on the model's layout: q (B, Tq, H, Dk), k (B,
+    Tk, Hkv, Dk) and v (B, Tk, Hkv, Dv) with H % Hkv == 0, query head h
+    reading KV head ``h // (H // Hkv)``; the result (B, Tq, H, Dv),
+    contiguous, in q's dtype.  The kernel reads q, k and v where they lie,
+    with any strides but a unit one for the head dims (views of a fused
+    projection, say), so the caller neither expands the KV heads nor
+    copies a layout.  The plain version (``ref.flash_attention_bthd_ref``)
+    expands the KV heads.  The layout and the grouping are checked on both
+    routes; on the card the operands also as ``flash_attention`` checks
+    them."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention_bthd: q, k, v must be (B, T, H, "
                          f"D), got {tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     B, Tq, H, D = q.shape
     Hkv = k.shape[2]
-    if k.shape[0] != B or k.shape[3] != D or v.shape != k.shape:
+    if k.shape[0] != B or k.shape[3] != D or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention_bthd: k {tuple(k.shape)} and v "
-                         f"{tuple(v.shape)} must be ({B}, Tk, Hkv, {D})")
+                         f"{tuple(v.shape)} must be ({B}, Tk, Hkv, {D}) and "
+                         f"({B}, Tk, Hkv, Dv)")
     if Hkv < 1 or H % Hkv:
         raise ValueError(f"flash_attention_bthd: {H} query heads do not "
                          f"group over {Hkv} KV heads")
@@ -533,7 +698,7 @@ def flash_attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                             logit_softcap=logit_softcap,
                                             scale=scale)
     _flash_card_operands(q, k, v, Tq)
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    out = torch.empty((B, Tq, H, v.shape[3]), dtype=q.dtype, device=q.device)
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
                            logit_softcap=logit_softcap,
                            scale=D ** -0.5 if scale is None else scale,
@@ -547,7 +712,8 @@ def launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
                            logit_softcap: Optional[float], scale: float,
                            layout: str = "bhtd") -> None:
     """Launch the ``flash_attention`` kernel on CUDA operands that an op
-    checked, writing into ``out`` (q's shape).  ``layout`` names the
+    checked, writing into ``out`` (q's shape with v's head dim).
+    ``layout`` names the
     order of the four tensors' dims: ``"bhtd"`` (B, H, T, D) or
     ``"bthd"`` (B, T, H, D).  The kernel reads every tensor's batch, time
     and head strides and the KV heads' count from k; query head h reads KV
@@ -558,13 +724,13 @@ def launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
     elif layout != "bthd":
         raise ValueError(f"launch_flash_attention: layout {layout!r} is "
                          "neither 'bhtd' nor 'bthd'")
-    B, Tq, H, D = q.shape
-    Tk, Hkv = k.shape[1], k.shape[2]
+    B, Tq, H, Dk = q.shape
+    Tk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (q, k, v, out) for s in t.stride()[:3]))
     fn = _kernel("flash_attention", "flash_attention", q.dtype, _FA_ARGS)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     _launched("flash_attention", "flash_attention", fn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, Hkv,
-        Tq, Tk, D, strides, scale, int(causal), window or 0,
+        Tq, Tk, Dk, Dv, strides, scale, int(causal), window or 0,
         logit_softcap or 0.0, q.device.index, stream))

@@ -6,7 +6,7 @@ holds each CUDA kernel against them on the card.  They run on any
 device."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -19,14 +19,15 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         window: Optional[int] = None,
                         logit_softcap: Optional[float] = None,
                         scale: Optional[float] = None) -> torch.Tensor:
-    """Materialised-softmax attention.  q: (B, H, Tq, D); k, v: (B, H, Tk,
-    D).  float32 scores ``q.k * scale``, softcapped as ``cap *
+    """Materialised-softmax attention.  q: (B, H, Tq, Dk); k: (B, H, Tk,
+    Dk); v: (B, H, Tk, Dv).  float32 scores ``q.k * scale`` (by default
+    ``Dk ** -0.5``), softcapped as ``cap *
     tanh(s / cap)``, then masked to -1e30 (not -inf, so a row with no
     valid key averages every key, as the reference's oracle does): the
     query at row i sits at position ``i + (Tk - Tq)``; a key is valid if
     it is at or before it (``causal``) and later than ``q_pos - window``
     (``window``).  Softmax and the product with v in float32, the result
-    in q's dtype."""
+    (B, H, Tq, Dv) in q's dtype."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     scale = D ** -0.5 if scale is None else scale
@@ -51,10 +52,10 @@ def flash_attention_bthd_ref(q: torch.Tensor, k: torch.Tensor,
                              window: Optional[int] = None,
                              logit_softcap: Optional[float] = None,
                              scale: Optional[float] = None) -> torch.Tensor:
-    """``flash_attention_ref`` on the model's layout: q (B, Tq, H, D), k
-    and v (B, Tk, Hkv, D) with H % Hkv == 0.  The KV heads are expanded
-    (query head h reads KV head ``h // (H // Hkv)``); the result is (B,
-    Tq, H, D), contiguous."""
+    """``flash_attention_ref`` on the model's layout: q (B, Tq, H, Dk), k
+    (B, Tk, Hkv, Dk) and v (B, Tk, Hkv, Dv) with H % Hkv == 0.  The KV
+    heads are expanded (query head h reads KV head ``h // (H // Hkv)``);
+    the result is (B, Tq, H, Dv), contiguous."""
     g = q.shape[2] // k.shape[2]
     k, v = (t.repeat_interleave(g, dim=2) for t in (k, v))
     out = flash_attention_ref(q.transpose(1, 2), k.transpose(1, 2),
@@ -74,6 +75,51 @@ def gaia_select_ref(v: torch.Tensor, w: torch.Tensor, threshold
     return (torch.where(mask, v, torch.zeros((), dtype=v.dtype,
                                              device=v.device)),
             mask.sum(dtype=torch.int32))
+
+
+def gaia_select_many_ref(vs: Sequence[torch.Tensor],
+                         ws: Sequence[torch.Tensor], threshold
+                         ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """``gaia_select_ref`` on each pair of ``vs`` and ``ws``: (the
+    selections, int32 (len(vs),) counts)."""
+    picked = [gaia_select_ref(v, w, threshold) for v, w in zip(vs, ws)]
+    return [sel for sel, _ in picked], torch.stack([c for _, c in picked])
+
+
+def reference_layout(perm: Optional[Tuple[int, ...]], dim: int
+                     ) -> Tuple[Callable, Callable]:
+    """(to, from) the reference's layout for a stacked (K, ...) tensor of
+    ``dim`` dims whose per-node dims the reference permutes by ``perm``
+    (its dim i is this layout's per-node dim ``perm[i]``; None: no
+    change), each returning a contiguous tensor."""
+    if perm is None:
+        return (lambda t: t), (lambda t: t)
+    fwd = (0,) + tuple(p + 1 for p in perm)
+    inv = (0,) + tuple(perm.index(d) + 1 for d in range(dim - 1))
+    return ((lambda t: t.permute(fwd).contiguous()),
+            (lambda t: t.permute(inv).contiguous()))
+
+
+def rand_k_sparsify_many_ref(accs: Sequence[torch.Tensor],
+                             vels: Sequence[torch.Tensor], keep_prob,
+                             seeds: Sequence[int],
+                             perms: Sequence[Optional[Tuple[int, ...]]]
+                             ) -> Tuple[List[torch.Tensor],
+                                        List[torch.Tensor], torch.Tensor]:
+    """DGC's rand-k on each (acc, vel) pair by ``rand_k_select_ref``: both
+    permuted into the reference's layout (``reference_layout(perm)``),
+    masked with the pair's seed, and permuted back.  Returns (the selected
+    accs, each vel less its selection, int32 (len(accs),) counts of the
+    accs' kept entries)."""
+    shared, new_vels, counts = [], [], []
+    for acc, vel, seed, perm in zip(accs, vels, seeds, perms):
+        to_ref, from_ref = reference_layout(perm, acc.dim())
+        sv, cnt = rand_k_select_ref(to_ref(acc), keep_prob, seed)
+        su, _ = rand_k_select_ref(to_ref(vel), keep_prob, seed)
+        shared.append(from_ref(sv))
+        new_vels.append(vel - from_ref(su))
+        counts.append(cnt)
+    return shared, new_vels, torch.stack(counts)
 
 
 def rand_k_select_ref(v: torch.Tensor, keep_prob, seed: int

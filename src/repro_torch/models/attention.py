@@ -12,7 +12,8 @@ softcap, sliding window), with two paths:
   a *ring buffer* of ``window`` slots (the cache positions say which slot
   holds which token).  Plain tensor code, no kernel.
 
-MLA (deepseek-v2 / minicpm3) waits for its slice of the port.
+MLA (deepseek-v2 / minicpm3) waits for its slice of the port; the kernel
+already takes its k and v of two head dims.
 """
 from __future__ import annotations
 
@@ -43,24 +44,28 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       scale: Optional[float] = None,
                       chunk: int = 512,
                       q_offset: int = 0) -> torch.Tensor:
-    """q: (B, Tq, Hq, D); k, v: (B, Tk, Hkv, D).  Hq % Hkv == 0.
+    """q: (B, Tq, Hq, Dk); k: (B, Tk, Hkv, Dk); v: (B, Tk, Hkv, Dv).
+    Hq % Hkv == 0.
 
     Handed as they are to ``ops.flash_attention_bthd``, whose kernel reads
     the KV head of each query head and every stride itself, keeps the
     online softmax's statistics in float32 and never materialises the
-    scores; the result is (B, Tq, Hq, D), contiguous.  ``q_offset`` is
-    the absolute position of q[0] relative to k[0]; the kernel places
-    queries at ``Tk - Tq`` (prefill after a prefix), the only offset it
-    takes, so another raises ``ValueError`` (with the default 0, Tq must
-    equal Tk).  ``chunk`` (the reference scan's key-chunk length) is kept
-    for the signature and not used: the kernel picks its own tiles.  On a
-    CUDA device an input that requires a gradient raises, as the kernel
-    has no backward.
+    scores; the result is (B, Tq, Hq, Dv), contiguous.  ``q_offset`` is
+    the absolute position of q[0] relative to k[0].  Only the causal and
+    window masks read positions, and the kernel places queries at ``Tk -
+    Tq`` (prefill after a prefix), so with either mask another offset
+    raises ``ValueError`` (with the default 0, Tq must equal Tk); with
+    neither (``causal=False``, ``window=None``: cross-attention) any
+    offset and any Tq, Tk give the same result and are taken.  ``chunk``
+    (the reference scan's key-chunk length) is kept for the signature and
+    not used: the kernel picks its own tiles.  On a CUDA device an input
+    that requires a gradient raises, as the kernel has no backward.
     """
     Tq, Tk = q.shape[1], k.shape[1]
-    if q_offset != Tk - Tq:
+    if (causal or window is not None) and q_offset != Tk - Tq:
         raise ValueError(f"chunked_attention: q_offset={q_offset}; the "
-                         f"kernel places q at Tk - Tq = {Tk - Tq}")
+                         f"kernel places q at Tk - Tq = {Tk - Tq}, and the "
+                         f"causal or window mask reads positions")
     return ops.flash_attention_bthd(q, k, v, causal=causal, window=window,
                                     logit_softcap=logit_softcap, scale=scale)
 

@@ -105,8 +105,8 @@ def test_launch_alone_matches_the_op(dev):
     w = _randn((5, 1000), 1, 0.3).to(dev)
     t = torch.full((1,), 0.1, device=dev)
     out = torch.empty_like(v)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
-    ops.launch_gaia_select(v, w, t, out, count)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    ops.launch_gaia_select([v], [w], t, [out], count)
     sel, cnt = ops.gaia_select(v, w, 0.1)
     assert torch.equal(out, sel) and int(count) == int(cnt)
     idx, nw, sw = build_schedule("ring", 5).neighbor_arrays(0)
@@ -122,7 +122,8 @@ def test_launch_alone_matches_the_op(dev):
     assert torch.equal(mixed, ops.neighbor_mix(v, operands[0] + 5,
                                                *operands[1:], src=src))
     count.zero_()
-    ops.launch_rand_k_select(v, out, count, 2**31 + 7, 0.25)
+    ops.launch_rand_k_select([v], None, [out], None, count, [2**31 + 7], 0.25,
+                             [None])
     sel, cnt = ops.rand_k_sparsify(v, 0.25, 2**31 + 7)
     assert torch.equal(out, sel) and int(count) == int(cnt)
 
@@ -393,9 +394,11 @@ def test_flash_attention_refuses_what_it_cannot_take(dev):
     with pytest.raises(ValueError, match="contiguous"):
         ops.flash_attention(q.transpose(2, 3), q.transpose(2, 3),
                             q.transpose(2, 3))
-    q96 = torch.zeros(1, 2, 16, 96, device=dev)
+    q80 = torch.zeros(1, 2, 16, 80, device=dev)
     with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(q96, q96, q96)
+        ops.flash_attention(q80, q80, q80)
+    with pytest.raises(ValueError, match="head dim"):      # a pair not built
+        ops.flash_attention(q, q, q[..., :32])
     g = torch.zeros(1, 16, 2, 64, device=dev, requires_grad=True)
     with pytest.raises(ValueError, match="requires grad"):
         attention.chunked_attention(g, g, g)
@@ -477,9 +480,9 @@ def test_flash_attention_bthd_refuses_what_it_cannot_take(dev):
                                  .transpose(2, 3), kv)
     with pytest.raises(ValueError, match="do not group"):
         ops.flash_attention_bthd(q, q[:, :, :3], q[:, :, :3])
-    q96 = torch.zeros(1, 16, 2, 96, device=dev, dtype=torch.bfloat16)
+    q80 = torch.zeros(1, 16, 2, 80, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention_bthd(q96, q96, q96)
+        ops.flash_attention_bthd(q80, q80, q80)
     odd = torch.zeros(1, 16, 4 * 64 + 4, device=dev,
                       dtype=torch.bfloat16)[..., 4:].unflatten(2, (4, 64))
     with pytest.raises(ValueError, match="16-byte aligned"):
@@ -542,3 +545,161 @@ def _to(tree, dev):
     if isinstance(tree, list):
         return [_to(v, dev) for v in tree]
     return None if tree is None else tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# k and v of their own head dims (MLA), offset-free cross-attention
+# ---------------------------------------------------------------------------
+
+#: the (Dk, Dv) pairs besides the dense LMs' equal ones
+FA_PAIRS = [(96, 96), (192, 128), (96, 64), (48, 32)]
+#: (B, H, Tq, Tk): tests/test_kernels.py's grid, and a ragged Tq over Tk
+FA_PAIR_SHAPES = [(1, 2, 128, 128), (2, 1, 64, 192), (1, 1, 200, 200),
+                  (1, 2, 100, 37)]
+
+
+@pytest.mark.parametrize("kw", FA_KWS, ids=["causal", "full", "window64",
+                                            "softcap30"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("shape", FA_PAIR_SHAPES)
+@pytest.mark.parametrize("pair", FA_PAIRS, ids=lambda p: f"{p[0]}-{p[1]}")
+def test_flash_attention_head_dim_pairs_match_ref(dev, pair, shape, dtype,
+                                                  tol, kw):
+    B, H, Tq, Tk = shape
+    Dk, Dv = pair
+    q, k = (_randn((B, H, t, Dk), s).to(dev, dtype)
+            for s, t in ((0, Tq), (1, Tk)))
+    v = _randn((B, H, Tk, Dv), 2).to(dev, dtype)
+    launches = ops.launches["flash_attention"]
+    out = ops.flash_attention(q, k, v, **kw)
+    assert ops.launches["flash_attention"] == launches + 1
+    assert out.dtype == dtype and out.shape == (B, H, Tq, Dv)
+    torch.testing.assert_close(
+        out.float(), ref.flash_attention_ref(q, k, v, **kw).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("pair", [(192, 128), (96, 64), (48, 32)],
+                         ids=lambda p: f"{p[0]}-{p[1]}")
+def test_flash_attention_bthd_reads_v_sliced_from_a_fused_kv(dev, pair, dtype,
+                                                            tol):
+    """MLA's v is a slice of the fused kv projection (its nope half, then
+    v): head stride nope + Dv, at an offset of nope elements.  The kernel
+    reads it where it lies, 4 query heads over 2 KV heads."""
+    Dk, Dv = pair
+    B, T = 2, 96
+    q = _randn((B, T, 4, Dk), 0).to(dev, dtype)
+    k = _randn((B, T, 2, Dk), 1).to(dev, dtype)
+    kv = _randn((B, T, 2, 2 * Dv), 2).to(dev, dtype)
+    v = kv[..., Dv:]
+    assert not v.is_contiguous() and v.stride(2) == 2 * Dv
+    for kw in FA_KWS:
+        out = ops.flash_attention_bthd(q, k, v, **kw)
+        assert out.shape == (B, T, 4, Dv) and out.is_contiguous()
+        torch.testing.assert_close(
+            out.float(),
+            ref.flash_attention_bthd_ref(q, k, v, **kw).float(),
+            atol=tol, rtol=tol)
+        assert torch.equal(out, ops.flash_attention_bthd(q, k, v.contiguous(),
+                                                         **kw))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("tq,tk", [(192, 64), (3, 5), (64, 192)])
+def test_cross_attention_at_offset_0_runs_the_kernel(dev, tq, tk, dtype,
+                                                     tol):
+    """Non-causal, window-free attention with Tq != Tk at q_offset 0 (the
+    reference's cross-attention): one kernel launch, the plain version's
+    result; Tq > Tk visits every k-block."""
+    q = _randn((2, tq, 4, 64), 0).to(dev, dtype)
+    k, v = (_randn((2, tk, 2, 64), s).to(dev, dtype) for s in (1, 2))
+    launches = ops.launches["flash_attention"]
+    out = attention.chunked_attention(q, k, v, causal=False, q_offset=0)
+    assert ops.launches["flash_attention"] == launches + 1
+    torch.testing.assert_close(
+        out.float(),
+        ref.flash_attention_bthd_ref(q, k, v, causal=False).float(),
+        atol=tol, rtol=tol)
+
+
+# ---------------------------------------------------------------------------
+# gaia_select_many and rand_k_sparsify_many: one launch for a list
+# ---------------------------------------------------------------------------
+
+#: a ragged list: one element, a ragged 37, a conv weight stacked at K=5
+#: (permuted into the reference's layout for rand-k) and 1,000,003
+MANY_SHAPES = [(1,), (37,), (5, 32, 3, 5, 5), (1_000_003,), (5, 64)]
+MANY_PERMS = [None, None, (2, 3, 1, 0), None, None]
+
+
+def _off16(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` one element past a 16-byte boundary, so
+    the kernels take their scalar path on it."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    out = buf[1:].view(t.shape)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gaia_select_many_kernel_bit_exact(dev, dtype):
+    vs = [_randn(s, i, 0.01).to(dev, dtype) for i, s in enumerate(MANY_SHAPES)]
+    ws = [_randn(s, 10 + i, 0.3).to(dev, dtype)
+          for i, s in enumerate(MANY_SHAPES)]
+    vs[4], ws[4] = _off16(vs[4]), _off16(ws[4])
+    launches = ops.launches["gaia_select"]
+    for t in (0.0, 0.05, torch.tensor(0.1, device=dev)):
+        outs, counts = ops.gaia_select_many(vs, ws, t)
+        routs, rcounts = ref.gaia_select_many_ref(vs, ws, t)
+        for o, r in zip(outs, routs):
+            assert torch.equal(o, r)
+        assert counts.dtype == torch.int32 and torch.equal(counts, rcounts)
+    assert ops.launches["gaia_select"] == launches + 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rand_k_sparsify_many_kernel_bit_exact(dev, dtype):
+    accs = [_randn(s, i).to(dev, dtype) for i, s in enumerate(MANY_SHAPES)]
+    vels = [_randn(s, 10 + i).to(dev, dtype)
+            for i, s in enumerate(MANY_SHAPES)]
+    vels[1][::3] = -0.0                  # signed zeros stay as they were
+    accs[4], vels[4] = _off16(accs[4]), _off16(vels[4])
+    keep_999 = float(np.float32(1) - np.float32(0.999))
+    launches = ops.launches["rand_k_select"]
+    for keep, base in ((0.25, 3), (keep_999, 3594), (0.5, 2**31 + 7)):
+        seeds = [base + 131 * i for i in range(len(accs))]
+        got = ops.rand_k_sparsify_many(accs, vels, keep, seeds, MANY_PERMS)
+        expect = ref.rand_k_sparsify_many_ref(accs, vels, keep, seeds,
+                                              MANY_PERMS)
+        for g, e in zip(got[0] + got[1], expect[0] + expect[1]):
+            assert torch.equal(g, e)
+            assert torch.equal(torch.signbit(g), torch.signbit(e))
+        assert got[2].dtype == torch.int32 and torch.equal(got[2], expect[2])
+    assert ops.launches["rand_k_select"] == launches + 3
+
+
+def test_many_kernels_take_more_tensors_than_a_launch(dev):
+    """40 tensors: two launches of up to 32, each tensor's count in its
+    place."""
+    shapes = [(5, 3 + 97 * i) for i in range(40)]
+    vs = [_randn(s, i, 0.01).to(dev) for i, s in enumerate(shapes)]
+    ws = [_randn(s, 100 + i, 0.3).to(dev) for i, s in enumerate(shapes)]
+    before = dict(ops.launches)
+    outs, counts = ops.gaia_select_many(vs, ws, 0.05)
+    routs, rcounts = ref.gaia_select_many_ref(vs, ws, 0.05)
+    assert all(torch.equal(o, r) for o, r in zip(outs, routs))
+    assert torch.equal(counts, rcounts)
+    perms = [None] * 40
+    seeds = list(range(2**31, 2**31 + 40))
+    got = ops.rand_k_sparsify_many(vs, ws, 0.25, seeds, perms)
+    expect = ref.rand_k_sparsify_many_ref(vs, ws, 0.25, seeds, perms)
+    for g, e in zip(got[0] + got[1], expect[0] + expect[1]):
+        assert torch.equal(g, e)
+    assert torch.equal(got[2], expect[2])
+    assert ops.launches["gaia_select"] == before["gaia_select"] + 2
+    assert ops.launches["rand_k_select"] == before["rand_k_select"] + 2

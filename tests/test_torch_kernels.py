@@ -21,7 +21,10 @@ from repro.kernels import ref as jax_ref
 from repro.kernels import rng as jax_rng
 from repro.topology import build_schedule as jax_build_schedule
 from repro.topology.graphs import full_skew_label_hist
+from repro_torch.configs.cnn_zoo import CNN_ZOO
+from repro_torch.core.algorithms.base import tree_leaf_order
 from repro_torch.kernels import build, ops, ref, rng
+from repro_torch.models.cnn import init_cnn, reference_perm
 from repro_torch.topology import build_schedule
 
 DTYPES = {"float32": (jnp.float32, torch.float32, 2e-5),
@@ -334,3 +337,119 @@ def test_dgc_and_group_norm_ops_reject_bad_operands(no_kernel_build):
         ops.group_norm(x, torch.ones(4), torch.zeros(6), group_size=2)
     with pytest.raises(ValueError, match="B, H, W, C"):
         ops.group_norm(x[0], torch.ones(6), torch.zeros(6), group_size=2)
+
+
+# ---------------------------------------------------------------------------
+# gaia_select_many and rand_k_sparsify_many: every GN-LeNet tensor at K=5
+# in one op, against the reference's kernels (interpret mode) one tensor
+# at a time, the reference's tensors in its own layout (conv weights HWIO)
+# ---------------------------------------------------------------------------
+
+def _gn_lenet_leaves(dtype: str, K: int = 5):
+    """GN-LeNet's parameter tensors stacked at K, in the reference's leaf
+    order: [(name, perm, port tensor, JAX tensor in the reference's
+    layout)] of seeded normals (two independent sets)."""
+    params, _ = init_cnn(torch.Generator().manual_seed(0), CNN_ZOO["gn-lenet"])
+    assert len(params) == 16
+    rs = np.random.default_rng(5)
+    sets = ([], [])
+    for name in tree_leaf_order(params):
+        perm = reference_perm(name)
+        shape = (K,) + tuple(params[name].shape)
+        to_ref, from_ref = ref.reference_layout(perm, len(shape))
+        ref_shape = tuple(to_ref(torch.empty(shape)).shape)
+        for out in sets:
+            a = rs.standard_normal(ref_shape).astype(np.float32) * 0.01
+            j, t = _pair(a, dtype)
+            out.append((name, perm, from_ref(t), j))
+    return sets
+
+
+def _ref_layout_np(t: torch.Tensor, perm) -> np.ndarray:
+    return _np32(ref.reference_layout(perm, t.dim())[0](t))
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_gaia_select_many_matches_jax_per_tensor(dtype):
+    vs, ws = _gn_lenet_leaves(dtype)
+    launches = dict(ops.launches)
+    t = np.float32(0.05)
+    outs, counts = ops.gaia_select_many([v for _, _, v, _ in vs],
+                                        [w for _, _, w, _ in ws], t)
+    assert ops.launches == launches                 # the CPU launches nothing
+    assert counts.dtype == torch.int32 and counts.shape == (16,)
+    for (name, perm, _, jv), (_, _, _, jw), out, cnt in zip(vs, ws, outs,
+                                                            counts):
+        k_sel, k_cnt = jax_ops.gaia_select(jv, jw, t, interpret=True)
+        np.testing.assert_array_equal(_ref_layout_np(out, perm),
+                                      _np32(k_sel), err_msg=name)
+        assert int(cnt) == int(k_cnt), name
+    assert 0 < int(counts.sum()) < sum(v.numel() for _, _, v, _ in vs)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_rand_k_sparsify_many_matches_jax_per_tensor(dtype):
+    """Each tensor's counters in the reference's layout, acc and vel by
+    one stream, seeds past 2**31: the selections, vel less its selection
+    and the counts are the reference's bits, its ``rand_k_sparsify`` run
+    on each tensor in its own layout."""
+    accs, vels = _gn_lenet_leaves(dtype)
+    keep = np.float32(0.25)
+    seeds = [(2**31 + 7) * 1009 + li for li in range(len(accs))]
+    shared, new_vels, counts = ops.rand_k_sparsify_many(
+        [a for _, _, a, _ in accs], [u for _, _, u, _ in vels], keep, seeds,
+        [perm for _, perm, _, _ in accs])
+    assert counts.dtype == torch.int32 and counts.shape == (16,)
+    for li, ((name, perm, _, ja), (_, _, _, ju)) in enumerate(zip(accs,
+                                                                  vels)):
+        jseed = np.uint32(seeds[li] & 0xFFFFFFFF).view(np.int32)
+        sv, cnt = jax_ops.rand_k_sparsify(ja, keep, jseed, interpret=True)
+        su, _ = jax_ops.rand_k_sparsify(ju, keep, jseed, interpret=True)
+        np.testing.assert_array_equal(_ref_layout_np(shared[li], perm),
+                                      _np32(sv), err_msg=name)
+        np.testing.assert_array_equal(_ref_layout_np(new_vels[li], perm),
+                                      _np32(ju - su), err_msg=name)
+        assert int(counts[li]) == int(cnt), name
+
+
+@pytest.mark.parametrize("name", ["conv.0.w", "conv.1.w", "conv.1.b",
+                                  "fc.0.w"])
+def test_rand_k_counter_layout_is_the_reference_flat_index(name):
+    """What ``rand_k_select.cu`` computes from ``ops._counter_layout``:
+    splitting flat index i over the port's dims and summing each index
+    times its stride gives the element's flat index in the reference's
+    layout."""
+    params, _ = init_cnn(torch.Generator().manual_seed(0), CNN_ZOO["gn-lenet"])
+    shape = (5,) + tuple(params[name].shape)
+    perm = reference_perm(name)
+    dims, sizes, strides = ops._counter_layout(shape, perm)
+    i = np.arange(int(np.prod(shape)), dtype=np.int64)
+    if dims == 0:
+        counter = i
+    else:
+        rem, counter = i.copy(), np.zeros_like(i)
+        for d in range(dims - 1, -1, -1):
+            counter += (rem % sizes[d]) * strides[d]
+            rem //= sizes[d]
+    to_ref, from_ref = ref.reference_layout(perm, len(shape))
+    ref_shape = to_ref(torch.empty(shape)).shape
+    expect = from_ref(torch.arange(i.size).reshape(ref_shape)).reshape(-1)
+    np.testing.assert_array_equal(counter, expect.numpy())
+
+
+def test_many_ops_refuse_bad_lists(no_kernel_build):
+    x = torch.zeros(5, 4, 3)
+    bad = [(lambda: ops.gaia_select_many([], [], 0.1), "one length"),
+           (lambda: ops.gaia_select_many([x, x], [x], 0.1), "one length"),
+           (lambda: ops.gaia_select_many([x], [x[:, :2]], 0.1), "differ"),
+           (lambda: ops.rand_k_sparsify_many([x], [x], 0.5, [1, 2],
+                                             [None]), "one length"),
+           (lambda: ops.rand_k_sparsify_many([x], [x[:2]], 0.5, [1],
+                                             [None]), "differ"),
+           (lambda: ops.rand_k_sparsify_many([x], [x], 0.5, [1], [(0, 0)]),
+            "permute")]
+    launches = dict(ops.launches)
+    for call, match in bad:
+        with pytest.raises(ValueError, match=match):
+            call()
+    assert ops.launches == launches

@@ -154,14 +154,74 @@ def test_chunked_attention_matches_jax(dtype, kw, heads):
 
 
 def test_chunked_attention_refuses_foreign_q_offset():
+    """A mask that reads positions (causal, window) takes only the
+    kernel's offset Tk - Tq."""
     q = torch.zeros(1, 8, 2, 64)
     kv = torch.zeros(1, 12, 2, 64)
     with pytest.raises(ValueError, match="q_offset"):
         attention.chunked_attention(q, q, q, q_offset=3)
     with pytest.raises(ValueError, match="q_offset"):
         attention.chunked_attention(q, kv, kv)        # the default offset 0
+    with pytest.raises(ValueError, match="q_offset"):
+        attention.chunked_attention(q, kv, kv, causal=False, window=4)
     out = attention.chunked_attention(q, kv, kv, q_offset=4)
     assert out.shape == q.shape
+
+
+@pytest.mark.parametrize("tq,tk", [(3, 5), (7, 5), (5, 5)])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_chunked_attention_cross_attention_at_offset_0(dtype, tq, tk):
+    """The reference's cross-attention: no causal or window mask, Tq and
+    Tk free, q_offset 0 (``repro/models/encdec.py``); the offset reads
+    nothing, so the port takes it and gives the reference's result."""
+    jq, tq_ = _pair(_normal(20, 1, tq, 2, 64), dtype)
+    jk, tk_ = _pair(_normal(21, 1, tk, 2, 64), dtype)
+    jv, tv_ = _pair(_normal(22, 1, tk, 2, 64), dtype)
+    out = attention.chunked_attention(tq_, tk_, tv_, causal=False,
+                                      q_offset=0)
+    assert out.shape == (1, tq, 2, 64) and out.dtype == tq_.dtype
+    expect = jax_attn.chunked_attention(jq, jk, jv, causal=False,
+                                        q_offset=0)
+    tol = DTYPES[dtype][2]
+    np.testing.assert_allclose(_np32(out), _np32(expect), atol=tol, rtol=tol)
+
+
+#: MLA's head dims as (B, T, Hq, Hkv, Dk, Dv): the reduced MLA configs
+#: (nope 32 + rope 16, v 32) at one and two query heads a KV head,
+#: minicpm3's (96, 64) and deepseek-v2's (192, 128)
+MLA_CASES = [(1, 5, 2, 2, 48, 32), (2, 64, 4, 2, 48, 32),
+             (1, 33, 2, 2, 96, 64), (1, 17, 2, 1, 192, 128)]
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False)],
+                         ids=["causal", "full"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("case", MLA_CASES,
+                         ids=lambda c: "x".join(map(str, c)))
+def test_chunked_attention_takes_dk_ne_dv(case, dtype, kw):
+    """k and v of their own head dims, as MLA's prefill passes them
+    (``repro/models/attention.py``), through ``chunked_attention`` and
+    both ops, against the reference's ``chunked_attention`` (its Pallas
+    kernel takes one head dim)."""
+    B, T, Hq, Hkv, Dk, Dv = case
+    jq, tq = _pair(_normal(23, B, T, Hq, Dk), dtype)
+    jk, tk = _pair(_normal(24, B, T, Hkv, Dk), dtype)
+    jv, tv = _pair(_normal(25, B, T, Hkv, Dv), dtype)
+    expect = _np32(jax_attn.chunked_attention(jq, jk, jv, chunk=16, **kw))
+    tol = DTYPES[dtype][2]
+    launches = dict(ops.launches)
+    out = attention.chunked_attention(tq, tk, tv, **kw)
+    assert out.shape == (B, T, Hq, Dv) and out.dtype == tq.dtype
+    np.testing.assert_allclose(_np32(out), expect, atol=tol, rtol=tol)
+    assert torch.equal(ops.flash_attention_bthd(tq, tk, tv, **kw), out)
+    g = Hq // Hkv
+    mha = ops.flash_attention(
+        tq.transpose(1, 2), *(t.repeat_interleave(g, dim=2).transpose(1, 2)
+                              for t in (tk, tv)), **kw)
+    assert mha.shape == (B, Hq, T, Dv)
+    np.testing.assert_allclose(_np32(mha.transpose(1, 2)), expect, atol=tol,
+                               rtol=tol)
+    assert ops.launches == launches                 # the CPU launches nothing
 
 
 # ---------------------------------------------------------------------------

@@ -50,9 +50,10 @@ from repro_torch.core.algorithms.base import tree_size
 from repro_torch.core.partition import partition_label_skew
 from repro_torch.data.pipeline import DecentralizedLoader
 from repro_torch.data.synthetic import synth_images
+from repro_torch.kernels import ops
 from repro_torch.kernels import rng
 from repro_torch.models.cnn import (cnn_apply, cnn_batch_stats,
-                                   cnn_params_from_jax)
+                                   cnn_params_from_jax, init_cnn)
 from repro_torch.topology import LINK_PROFILES, CommLedger, build_schedule
 
 REPO = Path(__file__).resolve().parents[1]
@@ -354,6 +355,32 @@ def test_dgc_randk_step_matches_jax(jax_oracles):
         dgc_compressor="randk")
     _check_metrics(jmet, met)
     _check_states(jnew, new, cfg_name, keys=("params", "vel", "acc"))
+
+
+@pytest.mark.parametrize("algo_name,op,hypers,comm_kw", [
+    ("gaia", "gaia_select_many", {"t0": 0.1}, {}),
+    ("dgc", "rand_k_sparsify_many", {"sparsity": 0.75},
+     {"dgc_compressor": "randk"})])
+def test_step_filters_every_tensor_in_one_op(algo_name, op, hypers, comm_kw,
+                                             monkeypatch):
+    """Gaia's and DGC rand-k's step call their multi-tensor op once, on
+    every parameter tensor, and the single-tensor ops not at all: on the
+    card that is one kernel launch a step."""
+    calls = []
+    many = getattr(ops, op)
+
+    def counted(*args, **kwargs):
+        calls.append(len(args[0]))
+        return many(*args, **kwargs)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a single-tensor op was called")
+    monkeypatch.setattr(ops, op, counted)
+    monkeypatch.setattr(ops, "gaia_select", refuse)
+    monkeypatch.setattr(ops, "rand_k_sparsify", refuse)
+    _, _, algo = _port_step(algo_name, "bn-lenet", hypers=hypers, **comm_kw)
+    assert calls == [len(init_cnn(torch.Generator().manual_seed(0),
+                                  CNN_ZOO["bn-lenet"])[0])]
 
 
 def test_dgc_topk_step_matches_jax(jax_oracles):
