@@ -23,14 +23,19 @@ before the last line is printed:
    and in bfloat16; its src-gather variant likewise with a (15, 96682)
    snapshot buffer read at staleness 2 and a (48, 96682) one on the
    random graph, and an index past the buffer refused with no launch;
-   DGC's histogram route bit-exact (``abs_max``, ``abs_histogram``,
-   ``dgc_select`` and ``dgc_sparsify``'s threshold against the bisection)
-   at n in {1, 37, 4096, 483,410, 1,000,003, 2**20}, float32 and
-   bfloat16, sparsities {0.5, 0.9, 0.99, 0.999}, at 100 bins, with ties
-   at max|v|, all zeros and an external v_max below max|v|;
-   ``group_norm`` allclose (float32 1e-5, bfloat16 2e-2) at (2, 8, 8, 16)
-   and (4, 4, 4, 32) with group_size {2, 4} and at (128, 8, 8, 64), and
-   a channel count off the group size refused with no launch;
+   DGC's histogram route bit-exact (``dgc_sparsify``'s selection, count
+   and threshold against the bisection, one launch a call; its parts
+   ``abs_histogram_fused``, ``abs_histogram`` and ``dgc_select``, one
+   launch each) at n in {1, 37, 4096, 483,410, 1,000,003, 2**20},
+   float32 and bfloat16, sparsities {0.5, 0.9, 0.99, 0.999}, at 100
+   bins, with ties at max|v|, all zeros and an external v_max below
+   max|v| and of 1e-35; ``group_norm`` allclose (float32 1e-5, bfloat16
+   2e-2) at (2, 8, 8, 16) and (4, 4, 4, 32) with group_size {2, 4}, at
+   (128, 8, 8, 64), at GN-LeNet's and resnet-s-gn's first activations
+   at K=5 x batch 20, (100, 16, 16, 32) and (100, 16, 16, 16), on the
+   one-block-a-sample route, and at (2, 128, 128, 16) (1 MB a sample)
+   on the (sample, group) route, and a channel count off the group size
+   refused with no launch;
    ``flash_attention`` allclose (float32 2e-5, bfloat16 2e-2) on
    ``tests/test_kernels.py``'s grid (B, H, Tq, Tk, D) = (1, 2, 128, 128,
    64), (2, 1, 64, 192, 64), (1, 1, 200, 200, 128), at D = 256 (gemma2's
@@ -75,8 +80,10 @@ before the last line is printed:
 5. kernel times: the median of 50 CUDA-event-timed launches at the main
    path's shapes (a whole training step's tensors in one launch for
    ``gaia_select`` and ``rand_k_select``, beside the earlier design's one
-   launch a tensor; the bench's for the DGC histogram kernels, n = 2**20,
-   and for ``group_norm``, (128, 8, 8, 64); the LM prefill's for
+   launch a tensor; the bench's for the DGC histogram kernel, n = 2**20,
+   its one-launch ``dgc_sparsify`` and each of its parts, with
+   ``torch.histc`` as the histogram's yardstick, and for ``group_norm``,
+   (128, 8, 8, 64), and GN-LeNet's (100, 16, 16, 32); the LM prefill's for
    ``flash_attention``, through the (B, H, T, D) launch and through the
    (B, T, H, D) launch the model makes, 16 over 8 heads, with
    ``chunked_attention`` around it, the (Dk, Dv) pairs at (1, 16, 2048,
@@ -93,8 +100,8 @@ before the last line is printed:
    of the reference's ``benchmarks/kernels_bench.py`` but the
    interpret-mode ones) through its entry point on the card, with every
    launch count set to 0 just before and read just after: the DGC
-   histogram kernels and ``group_norm`` run on no training path, so this
-   is their main path;
+   histogram kernel (one ``dgc_sparsify`` launch a call) and
+   ``group_norm`` run on no training path, so this is their main path;
 7. LM serving: ``qwen3-0.6b`` at full width (28 layers, d_model 1024, 16
    heads over 8 KV heads of 128, vocab 151,936), bfloat16, random weights
    from a seeded generator on the card.  (a) ``make_prefill_step`` on 4
@@ -144,9 +151,12 @@ KEEP_999 = float(np.float32(1) - np.float32(0.999))
 #: the bench's 2**20
 DGC_SIZES = (1, 37, 4096, 483_410, 1_000_003, 1 << 20)
 DGC_SPARSITIES = (0.5, 0.9, 0.99, 0.999)
-#: GroupNorm checks: tests/test_kernels.py's shapes and the bench's
+#: GroupNorm checks: tests/test_kernels.py's shapes, the bench's,
+#: GN-LeNet's and resnet-s-gn's first activations at K=5 x batch 20, and a
+#: 1 MB sample, which takes the (sample, group) route
 GN_CASES = (((2, 8, 8, 16), 2), ((2, 8, 8, 16), 4), ((4, 4, 4, 32), 2),
-            ((4, 4, 4, 32), 4), ((128, 8, 8, 64), 2))
+            ((4, 4, 4, 32), 4), ((128, 8, 8, 64), 2), ((100, 16, 16, 32), 2),
+            ((100, 16, 16, 16), 2), ((2, 128, 128, 16), 2))
 #: flash_attention checks: tests/test_kernels.py's grid (B, H, Tq, Tk, D),
 #: then D = 256 with Tq = Tk and with Tq < Tk
 FA_SHAPES = ((1, 2, 128, 128, 64), (2, 1, 64, 192, 64), (1, 1, 200, 200, 128),
@@ -311,6 +321,18 @@ def demangle(name: str) -> str:
     return m.group(1) if m else name
 
 
+def ptxas_lines(kname: str, log: str):
+    """ptxas' register and spill lines of a kernel's build log, each with
+    its entry function's name."""
+    entry, lines = "", []
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            entry = demangle(line.split("'")[1])
+        elif "registers" in line or "spill" in line:
+            lines.append(f"  {kname} {entry}: {line.strip()}")
+    return lines
+
+
 def fused_qkv(gen, dev, shape, group, dtype):
     """q (B, Tq, H * group, D) and k, v (B, Tk, H, D), for (B, H, Tq, Tk,
     D), as the views of one projection-shaped (B, T, (H * group + 2 H) D)
@@ -406,12 +428,7 @@ def main() -> int:
     print(f"built {sorted(logs) or 'nothing (libraries up to date)'} in "
           f"{time.perf_counter() - t0:.2f} s")
     for kname, log in sorted(logs.items()):
-        entry = ""
-        for line in log.splitlines():
-            if "Compiling entry function" in line:
-                entry = demangle(line.split("'")[1])
-            elif "registers" in line or "spill" in line:
-                print(f"  {kname} {entry}: {line.strip()}")
+        print("\n".join(ptxas_lines(kname, log)))
     for kname in build.KERNELS:
         build.load(kname)
     sys.stdout.flush()
@@ -577,22 +594,28 @@ def main() -> int:
           f"layout, and {ragged}; float32 and bfloat16; keep 0.25 and "
           f"{KEEP_999!r}, seeds past 2**31)")
 
-    # DGC's histogram route: abs_max, abs_histogram, dgc_select and the
-    # threshold, bit-exact against the plain versions (the bisection for
-    # the threshold), at the bench's n = 2**20, GN-LeNet's K=5 stack and
-    # ragged sizes
+    # DGC's histogram route: dgc_sparsify in one launch (max|v|, histogram,
+    # threshold, select) and its parts, bit-exact against the plain
+    # versions (the bisection for the threshold), at the bench's n = 2**20,
+    # GN-LeNet's K=5 stack and ragged sizes
     dgc_checks = 0
     for dtype in (torch.float32, torch.bfloat16):
         for n in DGC_SIZES:
             v = randn(n).to(dtype)
+            before = ops.launches["abs_histogram_fused"]
             hist, v_max = ops.abs_histogram_fused(v)
+            assert ops.launches["abs_histogram_fused"] == before + 1
             r_max = v.float().abs().max()
             assert float(v_max) == float(r_max), (n, dtype)
             assert torch.equal(hist, ref.abs_histogram_ref(v, 256, r_max)), \
                 (n, dtype)
             assert int(hist.sum()) == n, (n, dtype)
             for s_ in DGC_SPARSITIES:
+                before = dict(ops.launches)
                 sel, cnt, t_ = ops.dgc_sparsify(v, s_)
+                made = {k_: c_ - before[k_] for k_, c_ in ops.launches.items()
+                        if c_ != before[k_]}
+                assert made == {"dgc_sparsify": 1}, made
                 rsel, rcnt, rt = ref.dgc_sparsify_ref(v, s_)
                 torch.cuda.synchronize()
                 assert float(t_) == float(rt), (n, dtype, s_, float(t_),
@@ -625,19 +648,25 @@ def main() -> int:
         sel, cnt = ops.dgc_select(tied, t_)
         rsel, rcnt = ref.dgc_select_ref(tied, t_)
         assert torch.equal(sel, rsel) and int(cnt) == int(rcnt), t_
-    print(f"abs_max, abs_histogram, dgc_select, dgc_sparsify threshold: "
-          f"bit-exact in {dgc_checks} checks ({len(DGC_SIZES)} sizes x "
-          f"{{float32, bfloat16}} x sparsities {list(DGC_SPARSITIES)}), "
-          f"at n_bins=100, with ties at v_max, all zeros, an external "
-          f"v_max of half max|v| and of 1e-35")
+    print(f"dgc_sparsify (one launch a call: selection, count, threshold), "
+          f"abs_histogram_fused, abs_histogram, dgc_select: bit-exact in "
+          f"{dgc_checks} checks ({len(DGC_SIZES)} sizes x {{float32, "
+          f"bfloat16}} x sparsities {list(DGC_SPARSITIES)}), at n_bins=100, "
+          f"with ties at v_max, all zeros, an external v_max of half max|v| "
+          f"and of 1e-35")
 
     gn_err = 0.0
+    gn_routes = set()
     for shape, gs in GN_CASES:
         for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
             x = randn(*shape).to(dtype)
             sc = randn(shape[-1], scale=0.1) + 1.0
             bi = randn(shape[-1], scale=0.1)
+            route = ops.group_norm_route(shape, dtype, gs)
+            gn_routes.add(route)
+            before = ops.launches["group_norm"]
             out = ops.group_norm(x, sc, bi, group_size=gs)
+            assert ops.launches["group_norm"] == before + 1
             expect = ref.group_norm_ref(x, sc, bi, group_size=gs)
             torch.cuda.synchronize()
             assert out.dtype == dtype and out.shape == x.shape
@@ -647,7 +676,9 @@ def main() -> int:
             if dtype == torch.float32:
                 gn_err = max(gn_err, err)
             print(f"group_norm {tuple(shape)} group_size {gs} "
-                  f"{str(dtype)[6:]}: max |err| {err:.3g} (tol {tol})")
+                  f"{str(dtype)[6:]}, {route} route: max |err| {err:.3g} "
+                  f"(tol {tol})")
+    assert gn_routes == {"sample", "group"}, gn_routes
     before = dict(ops.launches)
     try:
         ops.group_norm(randn(2, 4, 4, 6), torch.ones(6, device=dev),
@@ -1198,71 +1229,107 @@ def main() -> int:
           f"bound {bound_ms(1_000_003 * 8, 1_000_003 * 14)[0]:.5f} ms")
 
     # the bench path's shapes: DGC top-s% at n = 2**20 float32, sparsity
-    # 0.999; GroupNorm at (128, 8, 8, 64), group_size 2
+    # 0.999, 256 bins, in one launch and as each of its parts (each one
+    # launch of the same kernel); GroupNorm at (128, 8, 8, 64) and
+    # GN-LeNet's (100, 16, 16, 32), group_size 2, on both routes
     nb = 1 << 20
     dv = randn(nb)
-    d_max = torch.zeros(1, device=dev)
-    d_hist = torch.zeros(256, dtype=torch.int32, device=dev)
+    # what any launch costs under this timing (a spin kernel of one cycle)
+    # and what a launch that reads and writes v costs (a copy): the floors
+    # the one-launch kernels below stand on
+    floor_ms = time_ms(lambda: torch.cuda._sleep(1))
+    clone_ms = time_ms(lambda: dv.clone())
+    print(f"calibration: an empty launch {floor_ms:.4f} ms; a copy of v "
+          f"(n=2**20 f32: 4 MB read, 4 MB written) {clone_ms:.4f} ms")
+    d_work = ops.dgc_work(256, dev)
     d_out = torch.empty_like(dv)
     d_vmax = dv.abs().max()
+    vmax_host = float(d_vmax)
     _, _, d_t = ops.dgc_sparsify(dv, 0.999)
-    am_ms = time_ms(lambda: ops.launch_abs_max(dv, d_max))
-    am_op = time_ms(lambda: ops.abs_histogram_fused(dv))
-    am_plain = time_ms(lambda: dv.float().abs().max())
-    am_lib = time_ms(lambda: torch.linalg.vector_norm(dv, float("inf")))
-    # v read, the max written; abs and max an element
-    am_bound, am_by = bound_ms(nb * 4 + 4, 2 * nb)
-    print(f"abs_max n=2**20 f32: kernel {am_ms:.4f} ms, op "
-          f"(abs_histogram_fused: abs_max, abs_histogram, two zero-fills) "
-          f"{am_op:.4f} ms, plain {am_plain:.4f} ms, vector_norm(inf) "
-          f"{am_lib:.4f} ms, bound {am_bound:.5f} ms ({am_by})")
-    ah_ms = time_ms(lambda: ops.launch_abs_histogram(
-        dv, d_vmax.reshape(1), d_hist))
+    sp_ms = time_ms(lambda: ops.launch_dgc_topk(
+        "dgc_sparsify", dv, d_work, 256, out=d_out, sparsity=0.999))
+    sp_op = time_ms(lambda: ops.dgc_sparsify(dv, 0.999))
+    sp_plain = time_ms(lambda: ref.dgc_sparsify_ref(dv, 0.999))
+    sp_exact = time_ms(lambda: ref.dgc_threshold_ref(dv, 0.999))
+    # the function reads v and writes out (8 n bytes); abs, divide,
+    # multiply, convert, two clamps, the count's add, compare and select
+    sp_bound, sp_by = bound_ms(nb * 8, 12 * nb)
+    print(f"dgc_sparsify n=2**20 f32, sparsity 0.999, one launch (max|v|, "
+          f"histogram, threshold, select): kernel {sp_ms:.4f} ms, op "
+          f"{sp_op:.4f} ms, plain (bisection) {sp_plain:.4f} ms, exact "
+          f"quantile threshold alone {sp_exact:.4f} ms, bound {sp_bound:.5f} "
+          f"ms ({sp_by}: 8 n, v read and out written), kernel / bound "
+          f"{sp_ms / sp_bound:.1f}")
+    # torch.histc bins |v| over [0, v_max] in one call, its bin edges
+    # computed otherwise than the reference's: a yardstick only
+    histc = lambda: torch.histc(dv.abs(), bins=256, min=0, max=vmax_host)
+    hf_ms = time_ms(lambda: ops.launch_dgc_topk("abs_histogram_fused", dv,
+                                                d_work, 256))
+    hf_op = time_ms(lambda: ops.abs_histogram_fused(dv))
+    hf_plain = time_ms(lambda: ref.abs_histogram_ref(
+        dv, 256, dv.float().abs().max()))
+    hf_lib = time_ms(histc)
+    # v read, max|v| and 256 counts written; abs and max, then the bin's
+    # abs, divide, multiply, convert, two clamps and add an element
+    hf_bound, hf_by = bound_ms(nb * 4 + 4 + 256 * 4, 9 * nb)
+    print(f"abs_histogram_fused n=2**20 f32, 256 bins, one launch (max|v|, "
+          f"histogram): kernel {hf_ms:.4f} ms, op {hf_op:.4f} ms, plain "
+          f"{hf_plain:.4f} ms, torch.histc(|v|) {hf_lib:.4f} ms (other bin "
+          f"edges, yardstick only), bound {hf_bound:.5f} ms ({hf_by})")
+    ah_ms = time_ms(lambda: ops.launch_dgc_topk(
+        "abs_histogram", dv, d_work, 256, v_max=d_vmax.reshape(1)))
     ah_op = time_ms(lambda: ops.abs_histogram(dv, d_vmax))
     ah_plain = time_ms(lambda: ref.abs_histogram_ref(dv, 256, d_vmax))
+    ah_lib = time_ms(histc)
     # v read, v_max read, 256 counts written; abs, divide, multiply,
     # convert, two clamps and the count's add an element
     ah_bound, ah_by = bound_ms(nb * 4 + 4 + 256 * 4, 7 * nb)
-    print(f"abs_histogram n=2**20 f32, 256 bins: kernel {ah_ms:.4f} ms, op "
-          f"{ah_op:.4f} ms, plain {ah_plain:.4f} ms, bound {ah_bound:.5f} "
-          f"ms ({ah_by})")
-    ds_ms = time_ms(lambda: ops.launch_dgc_select(dv, d_t.reshape(1), d_out,
-                                                  count))
+    print(f"abs_histogram n=2**20 f32, 256 bins, v_max given: kernel "
+          f"{ah_ms:.4f} ms, op {ah_op:.4f} ms, plain {ah_plain:.4f} ms, "
+          f"torch.histc(|v|) {ah_lib:.4f} ms (yardstick only), bound "
+          f"{ah_bound:.5f} ms ({ah_by})")
+    ds_ms = time_ms(lambda: ops.launch_dgc_topk(
+        "dgc_select", dv, d_work, 256, out=d_out, threshold=d_t.reshape(1)))
     ds_op = time_ms(lambda: ops.dgc_select(dv, d_t))
     ds_plain = time_ms(lambda: ref.dgc_select_ref(dv, d_t))
     # v read, out written, t read, the count written; abs, compare, select
     ds_bound, ds_by = bound_ms(nb * 8 + 8, 3 * nb)
     print(f"dgc_select n=2**20 f32: kernel {ds_ms:.4f} ms, op {ds_op:.4f} "
           f"ms, plain {ds_plain:.4f} ms, bound {ds_bound:.5f} ms ({ds_by})")
-    sp_op = time_ms(lambda: ops.dgc_sparsify(dv, 0.999))
-    sp_plain = time_ms(lambda: ref.dgc_sparsify_ref(dv, 0.999))
-    sp_exact = time_ms(lambda: ref.dgc_threshold_ref(dv, 0.999))
-    # the function reads v and writes out (8 n bytes); the three-pass
-    # design reads v three times (abs_max, abs_histogram, dgc_select)
-    sp_bound = bound_ms(nb * 8, 12 * nb)[0]
-    sp_bound3 = bound_ms(nb * 16, 12 * nb)[0]
-    print(f"dgc_sparsify n=2**20 f32, sparsity 0.999, whole op (3 kernels, "
-          f"the threshold's tensor ops, 3 zero-fills): {sp_op:.4f} ms, plain "
-          f"(bisection) {sp_plain:.4f} ms, exact quantile threshold alone "
-          f"{sp_exact:.4f} ms, bound {sp_bound:.5f} ms (bytes: 8 n, v read "
-          f"and out written), three-pass design's bound {sp_bound3:.5f} ms "
-          f"(bytes: 16 n)")
-    gx = randn(128, 8, 8, 64)
-    gsc, gbi = torch.ones(64, device=dev), torch.zeros(64, device=dev)
-    g_out = torch.empty_like(gx)
-    gn_ms = time_ms(lambda: ops.launch_group_norm(gx, gsc, gbi, g_out, 2,
-                                                  1e-5))
-    gn_op = time_ms(lambda: ops.group_norm(gx, gsc, gbi, group_size=2))
-    gn_plain = time_ms(lambda: ref.group_norm_ref(gx, gsc, gbi,
-                                                  group_size=2))
-    gn_lib = time_ms(lambda: torch.nn.functional.group_norm(
-        gx.permute(0, 3, 1, 2), 32, gsc, gbi))
-    # x read, y written, scale and bias read; ~8 flops an element
-    gn_bound, gn_by = bound_ms(2 * gx.numel() * 4 + 2 * 64 * 4,
-                               8 * gx.numel())
-    print(f"group_norm (128, 8, 8, 64) f32, group_size 2: kernel "
-          f"{gn_ms:.4f} ms, op {gn_op:.4f} ms, plain {gn_plain:.4f} ms, "
-          f"F.group_norm {gn_lib:.4f} ms, bound {gn_bound:.5f} ms ({gn_by})")
+    gn_t = {}
+    for shape in ((128, 8, 8, 64), (100, 16, 16, 32), (2, 128, 128, 16)):
+        C_ = shape[-1]
+        gx = randn(*shape)
+        gsc, gbi = torch.ones(C_, device=dev), torch.zeros(C_, device=dev)
+        g_out = torch.empty_like(gx)
+        route = ops.group_norm_route(shape, gx.dtype, 2)
+        r = {"route": route,
+             "ms": time_ms(lambda: ops.launch_group_norm(gx, gsc, gbi, g_out,
+                                                         2, 1e-5)),
+             "op_ms": time_ms(lambda: ops.group_norm(gx, gsc, gbi,
+                                                     group_size=2)),
+             "plain_ms": time_ms(lambda: ref.group_norm_ref(
+                 gx, gsc, gbi, group_size=2)),
+             "library_ms": time_ms(lambda: F.group_norm(
+                 gx.permute(0, 3, 1, 2), C_ // 2, gsc, gbi))}
+        if route == "sample":           # the earlier design, in this run
+            r["group_route_ms"] = time_ms(lambda: ops.launch_group_norm(
+                gx, gsc, gbi, g_out, 2, 1e-5, route="group"))
+        # x read, y written, scale and bias read; ~8 flops an element
+        r["bound_ms"], r["bound_by"] = bound_ms(
+            2 * gx.numel() * 4 + 2 * C_ * 4, 8 * gx.numel())
+        gn_t[shape] = r
+        print(f"group_norm {shape} f32, group_size 2, {route} route: kernel "
+              f"{r['ms']:.4f} ms, op {r['op_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, F.group_norm {r['library_ms']:.4f} "
+              f"ms, bound {r['bound_ms']:.5f} ms ({r['bound_by']}), kernel / "
+              f"bound {r['ms'] / r['bound_ms']:.1f}"
+              + (f"; the (sample, group) route {r['group_route_ms']:.4f} ms"
+                 if "group_route_ms" in r else ""))
+        del gx, g_out
+    for kname in ("dgc_topk", "group_norm"):
+        print("\n".join(ptxas_lines(kname, logs[kname])) if kname in logs
+              else f"  {kname}: no ptxas report (the library was up to date)")
 
     # flash_attention at the LM prefill's shape (bfloat16, causal) and at
     # the bench's (float32, causal)
@@ -1360,9 +1427,12 @@ def main() -> int:
     assert [r["name"] for r in rows] == list(BENCH_ROWS), rows
     assert all(np.isfinite(r["us_per_call"]) and r["us_per_call"] > 0
                for r in rows), rows
-    for k_ in ("gaia_select", "rand_k_select", "neighbor_mix", "abs_max",
-               "abs_histogram", "dgc_select", "group_norm", "flash_attention"):
+    for k_ in ("gaia_select", "rand_k_select", "neighbor_mix",
+               "dgc_sparsify", "group_norm", "flash_attention"):
         assert bench_launches[k_] > 0, (k_, bench_launches)
+    # the bench's DGC row makes one launch a call and no other
+    for k_ in ("abs_histogram_fused", "abs_histogram", "dgc_select"):
+        assert bench_launches[k_] == 0, (k_, bench_launches)
     print(f"bench-path launches: {bench_launches}")
     print("bench rows (us a call): " + json.dumps(
         {r["name"]: round(r["us_per_call"], 3) for r in rows}))
@@ -1594,30 +1664,35 @@ def main() -> int:
          "ms": r_ms, "op_ms": r_op, "per_tensor_ms": r_per,
          "plain_ms": r_plain, "bound_ms": r_bound, "bound_by": r_by,
          "library_ms": None},
-        {"name": "abs_max", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/dgc_topk.cu",
-         "replaces": "src/repro/kernels/dgc_topk.py:94",
-         "launches": bench_launches["abs_max"], "max_abs_err": 0.0,
-         "ms": am_ms, "op_ms": am_op, "plain_ms": am_plain,
-         "bound_ms": am_bound, "bound_by": am_by, "library_ms": am_lib},
-        {"name": "abs_histogram", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/dgc_topk.cu",
-         "replaces": "src/repro/kernels/dgc_topk.py:54",
-         "launches": bench_launches["abs_histogram"], "max_abs_err": 0.0,
-         "ms": ah_ms, "op_ms": ah_op, "plain_ms": ah_plain,
-         "bound_ms": ah_bound, "bound_by": ah_by, "library_ms": None},
-        {"name": "dgc_select", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/dgc_topk.cu",
-         "replaces": "src/repro/kernels/dgc_topk.py:200",
-         "launches": bench_launches["dgc_select"], "max_abs_err": 0.0,
-         "ms": ds_ms, "op_ms": ds_op, "plain_ms": ds_plain,
-         "bound_ms": ds_bound, "bound_by": ds_by, "library_ms": None},
+        # rows 4, 5 and 7 of PERF.md: each TPU kernel's work runs on the
+        # bench path inside the one dgc_sparsify launch a call
+        *({"name": name_, "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/dgc_topk.cu",
+           "replaces": f"src/repro/kernels/dgc_topk.py:{line_}",
+           "launches": bench_launches["dgc_sparsify"],
+           "main_path_kernel": "dgc_sparsify", "max_abs_err": 0.0,
+           "ms": ms_, "op_ms": op_, "plain_ms": plain_, "bound_ms": bound_,
+           "bound_by": by_, "library_ms": lib_,
+           "library": None if lib_ is None else
+           "torch.histc(|v|, 256, 0, v_max): bin edges computed "
+           "differently; yardstick only",
+           "sparsify_ms": sp_ms, "sparsify_op_ms": sp_op,
+           "sparsify_bound_ms": sp_bound}
+          for name_, line_, ms_, op_, plain_, bound_, by_, lib_ in (
+              ("abs_histogram", 54, ah_ms, ah_op, ah_plain, ah_bound, ah_by,
+               ah_lib),
+              ("abs_histogram_fused", 94, hf_ms, hf_op, hf_plain, hf_bound,
+               hf_by, hf_lib),
+              ("dgc_select", 200, ds_ms, ds_op, ds_plain, ds_bound, ds_by,
+               None))),
         {"name": "group_norm", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/group_norm.cu",
          "replaces": "src/repro/kernels/group_norm.py:17",
          "launches": bench_launches["group_norm"], "max_abs_err": gn_err,
-         "ms": gn_ms, "op_ms": gn_op, "plain_ms": gn_plain,
-         "bound_ms": gn_bound, "bound_by": gn_by, "library_ms": gn_lib},
+         **{k_: gn_t[(128, 8, 8, 64)][k_] for k_ in (
+             "ms", "op_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "group_route_ms")},
+         "shapes": {"x".join(map(str, k_)): v_ for k_, v_ in gn_t.items()}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:25",

@@ -1,12 +1,14 @@
 """DGC's magnitude thresholds: from a histogram of |v|, and exact.
 
-The binning and the select are kernels (``csrc/dgc_topk.cu``, launched
-from ``ops.py``); picking the threshold from the histogram is a few
-small tensor ops between them, on the device of the histogram and with
-no host sync, as the reference computes it outside its Pallas kernels.
+On the card one kernel (``csrc/dgc_topk.cu``) bins, picks the threshold
+and selects; these are the threshold's plain versions:
+``threshold_from_histogram`` as the reference writes it, and
+``threshold_by_count``, the kernel's search, which lands on the same bin.
 DGC top-k in training takes the exact threshold, ``quantile_rows``.
 """
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -39,10 +41,29 @@ def threshold_from_histogram(hist: torch.Tensor, v_max, sparsity
     gives int32; every cumulative count is below 2**31, so the two
     integers are equal and round to the same float32."""
     n_bins = hist.shape[0]
-    cum = torch.cumsum(hist, 0).float()
-    target = cum[-1] * float(np.float32(sparsity))
+    cum, target = _cumulative(hist, sparsity)
     b = torch.searchsorted(cum, target.reshape(1)).clamp_(0, n_bins - 1)[0]
     return bin_threshold(b, n_bins, v_max)
+
+
+def threshold_by_count(hist: torch.Tensor, v_max, sparsity) -> torch.Tensor:
+    """``threshold_from_histogram`` as ``csrc/dgc_topk.cu`` searches: the
+    bin is the number of bins whose float32 cumulative count lies below
+    ``float32(sparsity) * float32(total)``, clipped to the last bin.  The
+    cumulative counts rise, so that number is ``searchsorted``'s left
+    index, and the two give one threshold bit for bit."""
+    n_bins = hist.shape[0]
+    cum, target = _cumulative(hist, sparsity)
+    b = (cum < target).sum().clamp_(max=n_bins - 1)
+    return bin_threshold(b, n_bins, v_max)
+
+
+def _cumulative(hist: torch.Tensor, sparsity
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The float32 cumulative counts of ``hist`` and the count to reach,
+    ``float32(sparsity) * total``."""
+    cum = torch.cumsum(hist, 0).float()
+    return cum, cum[-1] * float(np.float32(sparsity))
 
 
 def quantile_rows(a: torch.Tensor, q) -> torch.Tensor:

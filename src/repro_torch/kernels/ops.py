@@ -11,20 +11,22 @@ The ops: ``gaia_select`` and ``gaia_select_many`` (one launch for a list
 of tensors), ``neighbor_mix`` (and its ``src=`` gather),
 ``rand_k_sparsify`` and ``rand_k_sparsify_many`` (DGC's acc and vel of a
 list of tensors in one launch); DGC's histogram-thresholded top-s% as
-``abs_histogram``, ``abs_histogram_fused``, ``dgc_select`` and
-``dgc_sparsify`` (histogram, then ``dgc_topk.threshold_from_histogram``
-on the device, then select); ``group_norm`` (NHWC, forward); and
-attention forward as ``flash_attention`` (the reference's (B, H, T, D)
-layout) and ``flash_attention_bthd`` (the model's (B, T, H, D) layout,
-GQA heads read in place), one kernel under both, with k and v of their
-own head dims (``FLASH_HEAD_DIMS``).
+``dgc_sparsify`` (max|v|, histogram, threshold and select in one
+launch) and its parts ``abs_histogram``, ``abs_histogram_fused`` and
+``dgc_select``, each one launch of the same kernel; ``group_norm``
+(NHWC, forward; one block a sample, or one a (sample, group) where a
+sample outgrows shared memory, ``group_norm_route``); and attention
+forward as ``flash_attention`` (the reference's (B, H, T, D) layout) and
+``flash_attention_bthd`` (the model's (B, T, H, D) layout, GQA heads read
+in place), one kernel under both, with k and v of their own head dims
+(``FLASH_HEAD_DIMS``).
 
 ``launch_gaia_select``, ``launch_neighbor_mix``,
 ``launch_neighbor_mix_src``, ``launch_rand_k_select``,
-``launch_abs_max``, ``launch_abs_histogram``, ``launch_dgc_select``,
-``launch_group_norm`` and ``launch_flash_attention`` launch a kernel
-alone, on operands the op has checked and allocated; the ops call them,
-and ``chip_smoke.py`` times them to separate a kernel from its wrapper.
+``launch_dgc_topk``, ``launch_group_norm`` and ``launch_flash_attention``
+launch a kernel alone, on operands the op has checked and allocated; the
+ops call them, and ``chip_smoke.py`` times them to separate a kernel from
+its wrapper.
 
 ``launches`` counts the launches of each kernel by name, incremented
 only where the kernel is launched (a list of tensors too long for one
@@ -40,7 +42,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import build, dgc_topk, ref
+from repro_torch.kernels import build, ref
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -59,14 +61,11 @@ _RANDK_ARGS = [_PP, _PP, _PP, _PP, _PLL, _PU, _PI, _PU, _PU, _I,
 #: dims of a tensor's counter layout in ``rand_k_select.cu``: the node axis
 #: and four of a conv weight
 _RANDK_MAX_DIMS = 5
-# v, vmax, n, device, stream
-_MAX_ARGS = [_P, _P, _LL, _I, _P]
-# v, vmax, hist, n, n_bins, device, stream
-_HIST_ARGS = [_P, _P, _P, _LL, _I, _I, _P]
-# v, threshold, out, count, n, device, stream
-_SELECT_ARGS = [_P, _P, _P, _P, _LL, _I, _P]
-# x, scale, bias, y, batch, H*W, C, group_size, eps, device, stream
-_GN_ARGS = [_P, _P, _P, _P, _LL, _LL, _I, _I, ctypes.c_float, _I, _P]
+# phases, v, out, n, n_bins, sparsity, vmax_in, t_in, work, slots, device,
+# stream
+_DGC_ARGS = [_I, _P, _P, _LL, _I, ctypes.c_float, _P, _P, _P, _I, _I, _P]
+# route, x, scale, bias, y, batch, H*W, C, group_size, eps, device, stream
+_GN_ARGS = [_I, _P, _P, _P, _P, _LL, _LL, _I, _I, ctypes.c_float, _I, _P]
 # q, k, v, o, B, H, Hkv, Tq, Tk, Dk, Dv, strides (q, k, v, o: B, T, H),
 # scale, causal, window, softcap, device, stream
 _FA_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _PLL,
@@ -74,6 +73,20 @@ _FA_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _PLL,
 
 #: the most bins ``abs_histogram`` takes (the kernel's shared counters)
 MAX_BINS = 1024
+#: the phases of ``csrc/dgc_topk.cu``'s kernel (bits: max|v| 1, histogram
+#: 2, select 4; the threshold runs where histogram and select do) that
+#: each op runs in its one launch, by the op's launch-count name
+_DGC_PHASES = {"dgc_sparsify": 7, "abs_histogram_fused": 3,
+               "abs_histogram": 2, "dgc_select": 4}
+#: per-block slots in a ``dgc_topk`` work buffer: a cap on the cooperative
+#: grid, above the H100's 132 SMs x 4 blocks of 512 threads
+_DGC_SLOTS = 2048
+#: the most shared memory GroupNorm's one-block-a-sample route takes (a
+#: Hopper block may have up to 227 KB); a larger sample takes the
+#: (sample, group) route
+GN_SAMPLE_SMEM = 200 * 1024
+#: threads a block of the one-block-a-sample route
+_GN_SAMPLE_THREADS = 256
 #: the (Dk, Dv) head-dim pairs the ``flash_attention`` kernel is built
 #: for: the dense LMs' (64, 64), (128, 128), (256, 256); phi-3-vision's
 #: (96, 96); MLA's (192, 128) (deepseek-v2), (96, 64) (minicpm3) and
@@ -86,8 +99,9 @@ _FLASH_BLOCK_Q = 64
 
 #: launches of each kernel since the count was last set to 0
 launches = {"gaia_select": 0, "neighbor_mix": 0, "neighbor_mix_src": 0,
-            "rand_k_select": 0, "abs_max": 0, "abs_histogram": 0,
-            "dgc_select": 0, "group_norm": 0, "flash_attention": 0}
+            "rand_k_select": 0, "dgc_sparsify": 0, "abs_histogram_fused": 0,
+            "abs_histogram": 0, "dgc_select": 0, "group_norm": 0,
+            "flash_attention": 0}
 
 
 def _kernel(lib: str, entry: str, dtype: torch.dtype, argtypes):
@@ -436,22 +450,23 @@ def abs_histogram(v: torch.Tensor, v_max, *, n_bins: int = 256
     linear bins, clamped (an element at or past ``v_max`` goes to the last
     bin), the bin computed in float32 as ``ref.abs_histogram_ref`` does.
     ``v_max`` is a host number or a float32 scalar tensor (on the device
-    of ``v`` to avoid a copy); ``n_bins`` is at most ``MAX_BINS``."""
+    of ``v`` to avoid a copy); ``n_bins`` is at most ``MAX_BINS``.  On the
+    card one launch of the ``dgc_topk`` kernel, histogram phase only."""
     _check_bins(n_bins)
     vm = _scalar("abs_histogram v_max", v_max, v.device)
     if _on_cpu(v, vm):
         return ref.abs_histogram_ref(v, n_bins, vm)
     _check("abs_histogram v", v, _SUFFIX)
-    hist = torch.zeros(n_bins, dtype=torch.int32, device=v.device)
-    launch_abs_histogram(v, vm.reshape(1), hist)
-    return hist
+    work = dgc_work(n_bins, v.device)
+    launch_dgc_topk("abs_histogram", v, work, n_bins, v_max=vm.reshape(1))
+    return dgc_outputs(work, n_bins)[0]
 
 
 def abs_histogram_fused(v: torch.Tensor, *, n_bins: int = 256
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(int32 (n_bins,) histogram of |v| over [0, max|v|], float32 0-d
-    max|v|).  On the card two launches on one stream, ``abs_max`` and
-    then ``abs_histogram`` reading the max through a device pointer."""
+    max|v|).  On the card one launch of the ``dgc_topk`` kernel, max and
+    histogram phases, a grid-wide barrier between them."""
     _check_bins(n_bins)
     if v.numel() == 0:
         raise ValueError("abs_histogram_fused: v is empty")
@@ -459,59 +474,26 @@ def abs_histogram_fused(v: torch.Tensor, *, n_bins: int = 256
         v_max = v.float().abs().max()
         return ref.abs_histogram_ref(v, n_bins, v_max), v_max
     _check("abs_histogram_fused v", v, _SUFFIX)
-    v_max = torch.zeros(1, dtype=torch.float32, device=v.device)
-    hist = torch.zeros(n_bins, dtype=torch.int32, device=v.device)
-    launch_abs_max(v, v_max)
-    launch_abs_histogram(v, v_max, hist)
-    return hist, v_max.reshape(())
-
-
-def launch_abs_max(v: torch.Tensor, v_max: torch.Tensor) -> None:
-    """Launch the ``abs_max`` kernel on a CUDA tensor that the op checked:
-    ``v_max`` a zeroed (1,) float32 the kernel raises to max|v|."""
-    fn = _kernel("dgc_topk", "abs_max", v.dtype, _MAX_ARGS)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    _launched("abs_max", "abs_histogram_fused", fn(
-        v.data_ptr(), v_max.data_ptr(), v.numel(), v.device.index, stream))
-
-
-def launch_abs_histogram(v: torch.Tensor, v_max: torch.Tensor,
-                         hist: torch.Tensor) -> None:
-    """Launch the ``abs_histogram`` kernel on CUDA operands that the op
-    checked: ``v_max`` a (1,) float32, ``hist`` a zeroed int32 (n_bins,)
-    the kernel adds its counts to."""
-    fn = _kernel("dgc_topk", "abs_histogram", v.dtype, _HIST_ARGS)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    _launched("abs_histogram", "abs_histogram", fn(
-        v.data_ptr(), v_max.data_ptr(), hist.data_ptr(), v.numel(),
-        hist.numel(), v.device.index, stream))
+    work = dgc_work(n_bins, v.device)
+    launch_dgc_topk("abs_histogram_fused", v, work, n_bins)
+    hist, _, _, v_max = dgc_outputs(work, n_bins)
+    return hist, v_max
 
 
 def dgc_select(v: torch.Tensor, threshold
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Absolute-magnitude select: (v where |v| > t else 0, int32 count),
     compared in float32.  ``threshold`` is a host number or a float32
-    scalar tensor (on the device of ``v`` to avoid a copy)."""
+    scalar tensor (on the device of ``v`` to avoid a copy).  On the card
+    one launch of the ``dgc_topk`` kernel, select phase only."""
     t = _scalar("dgc_select threshold", threshold, v.device)
     if _on_cpu(v, t):
         return ref.dgc_select_ref(v, t)
     _check("dgc_select v", v, _SUFFIX)
     out = torch.empty_like(v)
-    count = torch.zeros((), dtype=torch.int32, device=v.device)
-    launch_dgc_select(v, t.reshape(1), out, count)
-    return out, count
-
-
-def launch_dgc_select(v: torch.Tensor, t: torch.Tensor, out: torch.Tensor,
-                      count: torch.Tensor) -> None:
-    """Launch the ``dgc_select`` kernel on CUDA operands that
-    ``dgc_select`` checked: ``t`` a (1,) float32 threshold, ``out`` like
-    ``v``, ``count`` an int32 scalar the kernel adds its count to."""
-    fn = _kernel("dgc_topk", "dgc_select", v.dtype, _SELECT_ARGS)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    _launched("dgc_select", "dgc_select", fn(
-        v.data_ptr(), t.data_ptr(), out.data_ptr(), count.data_ptr(),
-        v.numel(), v.device.index, stream))
+    work = dgc_work(1, v.device)
+    launch_dgc_topk("dgc_select", v, work, 1, out=out, threshold=t.reshape(1))
+    return out, dgc_outputs(work, 1)[1]
 
 
 def dgc_sparsify(v: torch.Tensor, sparsity, *, n_bins: int = 256
@@ -519,20 +501,62 @@ def dgc_sparsify(v: torch.Tensor, sparsity, *, n_bins: int = 256
     """DGC top-s%: (v where |v| > t else 0, int32 count, float32 0-d
     threshold t), t the upper edge of the ``n_bins``-histogram bin of
     |v| over [0, max|v|] where the cumulative count reaches ``sparsity``
-    of the total.  On the card: ``abs_histogram_fused``, then
-    ``dgc_topk.threshold_from_histogram``, then ``dgc_select``, the
-    threshold kept on the device (no host sync).  On the CPU: the
-    bisection ``ref.dgc_sparsify_ref``, which lands on the same bin, so
-    the two routes give one threshold bit for bit."""
+    of the total.  On the card one launch of the ``dgc_topk`` kernel:
+    max|v|, histogram, threshold (``dgc_topk.threshold_by_count``'s
+    search) and select, the outputs written by the kernel alone.  On the
+    CPU: the bisection ``ref.dgc_sparsify_ref``, which lands on the same
+    bin, so the two routes give one threshold bit for bit."""
     _check_bins(n_bins)
     if v.numel() == 0:
         raise ValueError("dgc_sparsify: v is empty")
     if _on_cpu(v):
         return ref.dgc_sparsify_ref(v, sparsity, n_bins=n_bins)
-    hist, v_max = abs_histogram_fused(v, n_bins=n_bins)
-    t = dgc_topk.threshold_from_histogram(hist, v_max, sparsity)
-    sel, count = dgc_select(v, t)
-    return sel, count, t
+    _check("dgc_sparsify v", v, _SUFFIX)
+    out = torch.empty_like(v)
+    work = dgc_work(n_bins, v.device)
+    launch_dgc_topk("dgc_sparsify", v, work, n_bins, out=out,
+                    sparsity=sparsity)
+    _, count, t, _ = dgc_outputs(work, n_bins)
+    return out, count, t
+
+
+def dgc_work(n_bins: int, device: torch.device) -> torch.Tensor:
+    """The int32 work buffer of one ``dgc_topk`` launch, left unfilled
+    (the kernel writes what it reads): the histogram, the count, the
+    threshold and max|v| as float32 bits, then ``_DGC_SLOTS`` per-block
+    slots."""
+    return torch.empty(n_bins + 3 + _DGC_SLOTS, dtype=torch.int32,
+                       device=device)
+
+
+def dgc_outputs(work: torch.Tensor, n_bins: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                           torch.Tensor]:
+    """(int32 (n_bins,) histogram, int32 0-d count, float32 0-d
+    threshold, float32 0-d max|v|): views of a ``dgc_work`` buffer."""
+    floats = work[n_bins + 1:n_bins + 3].view(torch.float32)
+    return work[:n_bins], work[n_bins], floats[0], floats[1]
+
+
+def launch_dgc_topk(op: str, v: torch.Tensor, work: torch.Tensor,
+                    n_bins: int, *, out: Optional[torch.Tensor] = None,
+                    sparsity=0.0, v_max: Optional[torch.Tensor] = None,
+                    threshold: Optional[torch.Tensor] = None) -> None:
+    """Launch the ``dgc_topk`` kernel with the phases of ``op`` (a key of
+    ``_DGC_PHASES``, also the launch count it adds to) on CUDA operands
+    that an op checked: ``work`` a ``dgc_work(n_bins)`` buffer the kernel
+    writes its histogram, count, threshold and max|v| into; ``out`` like
+    ``v`` (ops that select); ``sparsity`` a host number, rounded to
+    float32 (``dgc_sparsify``); ``v_max`` a (1,) float32
+    (``abs_histogram``); ``threshold`` a (1,) float32 (``dgc_select``).
+    One cooperative launch; a launch the card refuses raises."""
+    fn = _kernel("dgc_topk", "dgc_topk", v.dtype, _DGC_ARGS)
+    ptr = (lambda t: None if t is None else t.data_ptr())
+    stream = torch.cuda.current_stream(v.device).cuda_stream
+    _launched(op, op, fn(
+        _DGC_PHASES[op], v.data_ptr(), ptr(out), v.numel(), n_bins,
+        float(np.float32(sparsity)), ptr(v_max), ptr(threshold),
+        work.data_ptr(), _DGC_SLOTS, v.device.index, stream))
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
@@ -541,7 +565,8 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     of ``group_size`` adjacent channels: float32 mean and biased
     variance, ``(x - mu) * rsqrt(var + eps) * scale + bias`` with float32
     (C,) ``scale`` and ``bias``, returned in x's dtype.  Forward only, as
-    the reference's kernel."""
+    the reference's kernel.  On the card one launch, on the route
+    ``group_norm_route`` picks."""
     if x.dim() != 4:
         raise ValueError(f"group_norm: x must be (B, H, W, C), got "
                          f"{tuple(x.shape)}")
@@ -563,17 +588,42 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     return out
 
 
+def group_norm_sample_smem(shape: Sequence[int], dtype: torch.dtype,
+                           group_size: int) -> int:
+    """Bytes of shared memory a block of GroupNorm's one-block-a-sample
+    route takes (as ``csrc/group_norm.cu`` counts them): the sample's
+    (H*W, C) tile in x's dtype, rounded up to 16 bytes, then float32
+    per-channel partial sums and each group's mean and scale."""
+    _, H, W, C = shape
+    tile = -(-H * W * C * (torch.finfo(dtype).bits // 8) // 16) * 16
+    return tile + 4 * (max(_GN_SAMPLE_THREADS, C) + 2 * (C // group_size))
+
+
+def group_norm_route(shape: Sequence[int], dtype: torch.dtype,
+                     group_size: int) -> str:
+    """GroupNorm's kernel route for an NHWC ``shape`` of ``dtype``:
+    ``"sample"`` (one block a sample, x read once into shared memory)
+    where the sample fits ``GN_SAMPLE_SMEM``, else ``"group"`` (one block
+    a (sample, group), the group read three times at stride C)."""
+    return ("sample" if group_norm_sample_smem(shape, dtype, group_size)
+            <= GN_SAMPLE_SMEM else "group")
+
+
 def launch_group_norm(x: torch.Tensor, scale: torch.Tensor,
                       bias: torch.Tensor, out: torch.Tensor,
-                      group_size: int, eps: float) -> None:
+                      group_size: int, eps: float,
+                      route: Optional[str] = None) -> None:
     """Launch the ``group_norm`` kernel on CUDA operands that
-    ``group_norm`` checked, writing into ``out`` (like ``x``)."""
+    ``group_norm`` checked, writing into ``out`` (like ``x``), on
+    ``route`` (``group_norm_route``'s by default)."""
     B, H, W, C = x.shape
+    route = route or group_norm_route(x.shape, x.dtype, group_size)
     fn = _kernel("group_norm", "group_norm", x.dtype, _GN_ARGS)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     _launched("group_norm", "group_norm", fn(
-        x.data_ptr(), scale.data_ptr(), bias.data_ptr(), out.data_ptr(), B,
-        H * W, C, group_size, eps, x.device.index, stream))
+        {"sample": 0, "group": 1}[route], x.data_ptr(), scale.data_ptr(),
+        bias.data_ptr(), out.data_ptr(), B, H * W, C, group_size, eps,
+        x.device.index, stream))
 
 
 def _flash_options(window: Optional[int],

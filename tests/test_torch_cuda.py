@@ -241,9 +241,10 @@ DGC_SHAPES = [(1,), (37,), (5, 32, 3, 5, 5), (1_000_003,)]
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", DGC_SHAPES)
 def test_dgc_histogram_kernels_bit_exact(dev, shape, dtype):
-    """abs_max, abs_histogram and dgc_select against their plain versions,
-    and dgc_sparsify's card route against the bisection: histograms,
-    max|v|, thresholds and counts bit for bit, values equal."""
+    """abs_histogram_fused, abs_histogram and dgc_select against their
+    plain versions, and dgc_sparsify's one launch against the bisection:
+    histograms, max|v|, thresholds and counts bit for bit, values equal;
+    one launch of the kernel an op call."""
     v = _randn(shape, 2).to(dev, dtype)
     before = dict(ops.launches)
     hist, v_max = ops.abs_histogram_fused(v)
@@ -263,9 +264,10 @@ def test_dgc_histogram_kernels_bit_exact(dev, shape, dtype):
     rsel, rcnt = ref.dgc_select_ref(v, 0.5)
     assert torch.equal(sel, rsel) and int(cnt) == int(rcnt)
     after = ops.launches
-    assert after["abs_max"] == before["abs_max"] + 9
-    assert after["abs_histogram"] == before["abs_histogram"] + 11
-    assert after["dgc_select"] == before["dgc_select"] + 9
+    assert after["dgc_sparsify"] == before["dgc_sparsify"] + 8
+    assert after["abs_histogram_fused"] == before["abs_histogram_fused"] + 1
+    assert after["abs_histogram"] == before["abs_histogram"] + 2
+    assert after["dgc_select"] == before["dgc_select"] + 1
 
 
 def test_dgc_histogram_kernels_at_ties_and_zeros(dev):
@@ -284,19 +286,28 @@ def test_dgc_histogram_kernels_at_ties_and_zeros(dev):
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("shape,group_size", [
     ((2, 8, 8, 16), 2), ((2, 8, 8, 16), 4), ((4, 4, 4, 32), 2),
-    ((4, 4, 4, 32), 4), ((128, 8, 8, 64), 2), ((1, 3, 5, 6), 3)])
+    ((4, 4, 4, 32), 4), ((128, 8, 8, 64), 2), ((1, 3, 5, 6), 3),
+    ((100, 16, 16, 32), 2), ((100, 16, 16, 16), 2), ((2, 128, 128, 16), 2)])
 def test_group_norm_kernel_matches_ref(dev, shape, group_size, dtype, tol):
+    """Today's shapes, GN-LeNet's and resnet-s-gn's first activations at
+    K=5 x batch 20, and a 1 MB sample on the (sample, group) route; the
+    other shapes take the one-block-a-sample route.  Both routes forced
+    on a shape that fits either."""
     x = _randn(shape, 4).to(dev, dtype)
     sc = (_randn(shape[-1:], 5, 0.1) + 1.0).to(dev)
     bi = _randn(shape[-1:], 6, 0.1).to(dev)
+    expect = ref.group_norm_ref(x, sc, bi, group_size=group_size).float()
+    route = ops.group_norm_route(shape, dtype, group_size)
+    assert route == ("group" if shape == (2, 128, 128, 16) else "sample")
     launches = ops.launches["group_norm"]
     out = ops.group_norm(x, sc, bi, group_size=group_size)
     assert ops.launches["group_norm"] == launches + 1
     assert out.dtype == dtype and out.shape == shape
-    torch.testing.assert_close(
-        out.float(),
-        ref.group_norm_ref(x, sc, bi, group_size=group_size).float(),
-        atol=tol, rtol=tol)
+    torch.testing.assert_close(out.float(), expect, atol=tol, rtol=tol)
+    if route == "sample":
+        y = torch.empty_like(x)
+        ops.launch_group_norm(x, sc, bi, y, group_size, 1e-5, route="group")
+        torch.testing.assert_close(y.float(), expect, atol=tol, rtol=tol)
 
 
 def test_new_kernels_refuse_what_they_cannot_take(dev):
@@ -318,19 +329,44 @@ def test_new_kernels_refuse_what_they_cannot_take(dev):
     assert ops.launches == before
 
 
+@pytest.mark.parametrize("bad,error,match", [
+    (lambda dev: (torch.zeros(64, device=dev).double(), {}), TypeError,
+     "dtype"),
+    (lambda dev: (torch.zeros(64, device=dev).half(), {}), TypeError,
+     "dtype"),
+    (lambda dev: (torch.zeros(8, 8, device=dev).t(), {}), ValueError,
+     "contiguous"),
+    (lambda dev: (torch.zeros(64, device=dev), {"n_bins": 2048}),
+     ValueError, "n_bins"),
+    (lambda dev: (torch.zeros(64, device=dev), {"n_bins": 0}), ValueError,
+     "n_bins"),
+    (lambda dev: (torch.zeros(0, device=dev), {}), ValueError, "empty")],
+    ids=["float64", "float16", "strided", "bins2048", "bins0", "empty"])
+def test_dgc_sparsify_refuses_without_launch(dev, bad, error, match):
+    v, kw = bad(dev)
+    before = dict(ops.launches)
+    with pytest.raises(error, match=match):
+        ops.dgc_sparsify(v, 0.9, **kw)
+    assert ops.launches == before
+
+
 def test_new_launches_alone_match_the_ops(dev):
     v = _randn((5, 1000), 7).to(dev)
-    v_max = torch.zeros(1, device=dev)
-    ops.launch_abs_max(v, v_max)
-    hist = torch.zeros(256, dtype=torch.int32, device=dev)
-    ops.launch_abs_histogram(v, v_max, hist)
+    work = ops.dgc_work(256, dev)
+    ops.launch_dgc_topk("abs_histogram_fused", v, work, 256)
+    hist, _, _, v_max = ops.dgc_outputs(work, 256)
     r_hist, r_max = ops.abs_histogram_fused(v)
     assert torch.equal(hist, r_hist) and float(v_max) == float(r_max)
     sel, cnt, t = ops.dgc_sparsify(v, 0.9)
     out = torch.empty_like(v)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
-    ops.launch_dgc_select(v, t.reshape(1), out, count)
+    ops.launch_dgc_topk("dgc_sparsify", v, work, 256, out=out, sparsity=0.9)
+    _, count, t_, _ = ops.dgc_outputs(work, 256)
     assert torch.equal(out, sel) and int(count) == int(cnt)
+    assert float(t_) == float(t)
+    out = torch.empty_like(v)
+    ops.launch_dgc_topk("dgc_select", v, work, 256, out=out,
+                        threshold=t.reshape(1))
+    assert torch.equal(out, sel) and int(work[256]) == int(cnt)
     x = _randn((2, 4, 4, 8), 8).to(dev)
     sc, bi = torch.ones(8, device=dev), torch.zeros(8, device=dev)
     y = torch.empty_like(x)

@@ -31,6 +31,10 @@ DTYPES = {"float32": (jnp.float32, torch.float32, 1e-5),
 #: tests/test_kernels.py's DGC shapes and a ragged size
 SHAPES = [(5000,), (100, 77), (17, 33, 9), (12345,)]
 SPARSITIES = [0.0, 0.5, 0.75, 0.9, 0.99, 0.999, 1.0]
+#: the sizes and sparsities chip_smoke.py checks the DGC kernel at on the
+#: card: ragged sizes, GN-LeNet's K=5 stack (483,410), the bench's 2**20
+CARD_SIZES = [1, 37, 4096, 483_410, 1_000_003, 1 << 20]
+CARD_SPARSITIES = [0.5, 0.9, 0.99, 0.999]
 
 
 def _pair(a: np.ndarray, dtype: str):
@@ -182,6 +186,89 @@ def test_dgc_sparsify_routes_agree(shape, dtype, n_bins):
         assert bool((sel.float().abs() > float(t)).eq(sel != 0).all())
 
 
+@pytest.mark.parametrize("n_bins", [256, 100])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", CARD_SIZES)
+def test_abs_histogram_fused_matches_jax_at_card_sizes(n, dtype, n_bins):
+    """The histogram and max|v| of the sizes the card checks, and the
+    threshold picked from it (the reference's search and the kernel's),
+    against the reference's Pallas kernel (interpret mode) and its jitted
+    glue."""
+    v_np = _normal(n, 11 + n)
+    jv, tv = _pair(v_np, dtype)
+    hist, v_max = ops.abs_histogram_fused(tv, n_bins=n_bins)
+    j_hist, j_max = jax_dgc.abs_histogram_fused(jv, n_bins=n_bins,
+                                                interpret=True)
+    np.testing.assert_array_equal(hist.numpy(), np.asarray(j_hist))
+    assert float(v_max) == float(j_max) and int(hist.sum()) == n
+    jit_threshold = jax.jit(jax_dgc.threshold_from_histogram)
+    for s in CARD_SPARSITIES:
+        expect = float(jit_threshold(j_hist, j_max, jnp.float32(s)))
+        for pick in (dgc_topk.threshold_from_histogram,
+                     dgc_topk.threshold_by_count):
+            assert float(pick(hist, v_max, s)) == expect, (pick, s)
+
+
+@pytest.mark.parametrize("n_bins", [256, 100])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("n", CARD_SIZES)
+def test_dgc_sparsify_matches_jax_at_card_sizes(n, dtype, n_bins):
+    """The port's CPU op (the bisection) at the sizes and sparsities the
+    card checks its one-launch kernel at, against the reference's kernel
+    route (Pallas, interpret mode): threshold and count bit for bit,
+    values equal."""
+    v_np = _normal(n, 12 + n)
+    jv, tv = _pair(v_np, dtype)
+    for s in CARD_SPARSITIES:
+        sel, cnt, t = ops.dgc_sparsify(tv, s, n_bins=n_bins)
+        o_sel, o_cnt, o_t = jax_ops.dgc_sparsify(
+            jv, jnp.float32(s), n_bins=n_bins, interpret=True)
+        assert float(t) == float(o_t), (s, float(t), float(o_t))
+        assert int(cnt) == int(o_cnt), s
+        np.testing.assert_array_equal(_np32(sel), _np32(o_sel))
+
+
+def _histogram(kind: str, n_bins: int, seed: int) -> np.ndarray:
+    """An int32 (n_bins,) histogram: random counts, everything in bin 0,
+    all zeros, everything in the last bin, or a few non-zero bins."""
+    rng = np.random.default_rng(seed)
+    h = np.zeros(n_bins, np.int32)
+    if kind == "random":
+        h[:] = rng.integers(0, 5000, n_bins)
+    elif kind == "bin0":
+        h[0] = 1 << 20
+    elif kind == "last":
+        h[-1] = 4097
+    elif kind == "sparse":
+        h[rng.integers(0, n_bins, 3)] = rng.integers(1, 1 << 24, 3)
+    return h
+
+
+@pytest.mark.parametrize("kind", ["random", "bin0", "zeros", "last",
+                                  "sparse"])
+@pytest.mark.parametrize("n_bins", [1, 7, 100, 255, 256, 1000, 1024])
+def test_threshold_by_count_matches_jax(n_bins, kind):
+    """The kernel's search (the number of bins whose float32 cumulative
+    count lies below the target) against the reference's
+    ``threshold_from_histogram`` under ``jit``, bit for bit, on
+    histograms of every kind, at bin counts on and off a power of two,
+    and against the port's searchsorted form."""
+    jit_threshold = jax.jit(jax_dgc.threshold_from_histogram)
+    for seed in range(2):
+        h = _histogram(kind, n_bins, seed)
+        v_max = np.float32(np.random.default_rng(seed).uniform(0.1, 10.0))
+        for s in SPARSITIES:
+            t = dgc_topk.threshold_by_count(torch.from_numpy(h),
+                                            torch.tensor(v_max), s)
+            assert t.dtype == torch.float32 and t.shape == ()
+            expect = jit_threshold(jnp.asarray(h), jnp.float32(v_max),
+                                   jnp.float32(s))
+            assert float(t) == float(expect), (seed, s, float(t),
+                                               float(expect))
+            assert float(t) == float(dgc_topk.threshold_from_histogram(
+                torch.from_numpy(h), torch.tensor(v_max), s))
+
+
 # ---------------------------------------------------------------------------
 # GroupNorm
 # ---------------------------------------------------------------------------
@@ -207,6 +294,56 @@ def test_group_norm_ref_matches_jax(shape, group_size, dtype):
                                  interpret=True),
               jax_ref.group_norm_ref(jx, js, jb, group_size=group_size)):
         np.testing.assert_allclose(_np32(out), _np32(e), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("shape", [(100, 16, 16, 32), (100, 16, 16, 16),
+                                   (2, 128, 128, 16)])
+def test_group_norm_ref_matches_jax_at_card_shapes(shape, dtype):
+    """The shapes the card checks GroupNorm's two routes at: GN-LeNet's
+    and resnet-s-gn's first activations at K=5 x batch 20 (group_size 2,
+    the zoo's) and a 1 MB sample, against the reference's Pallas kernel
+    (interpret mode) and its oracle."""
+    x_np = _normal(shape, 13)
+    c = shape[-1]
+    scale = _normal(c, 14) * 0.1 + 1.0
+    bias = _normal(c, 15) * 0.1
+    jx, tx = _pair(x_np, dtype)
+    tol = DTYPES[dtype][2]
+    out = ops.group_norm(tx, torch.from_numpy(scale), torch.from_numpy(bias),
+                         group_size=2)
+    assert out.dtype == tx.dtype and out.shape == shape
+    js, jb = jnp.asarray(scale), jnp.asarray(bias)
+    for e in (jax_ops.group_norm(jx, js, jb, group_size=2, interpret=True),
+              jax_ref.group_norm_ref(jx, js, jb, group_size=2)):
+        np.testing.assert_allclose(_np32(out), _np32(e), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape,dtype,group_size,route", [
+    ((128, 8, 8, 64), torch.float32, 2, "sample"),      # the bench's
+    ((100, 16, 16, 32), torch.float32, 2, "sample"),    # GN-LeNet's
+    ((100, 16, 16, 16), torch.bfloat16, 2, "sample"),   # resnet-s-gn's
+    ((1, 3, 5, 6), torch.float32, 3, "sample"),
+    ((2, 128, 128, 16), torch.float32, 2, "group"),     # 1 MB a sample
+    ((2, 128, 128, 16), torch.bfloat16, 2, "group"),
+    ((1, 64, 64, 16), torch.float32, 2, "group"),       # 256 KB
+    ((1, 64, 64, 16), torch.bfloat16, 2, "sample"),     # 128 KB
+    ((1, 56, 56, 16), torch.float32, 2, "sample"),      # 201,792 bytes
+    ((1, 57, 57, 16), torch.float32, 2, "group"),       # 209,024 bytes
+    ((1, 79, 79, 16), torch.bfloat16, 2, "sample"),
+    ((1, 80, 80, 16), torch.bfloat16, 2, "group")])
+def test_group_norm_route(shape, dtype, group_size, route):
+    """The one-block-a-sample route where the block's shared memory (the
+    sample's tile in x's dtype, per-channel partial sums, each group's
+    mean and scale) fits ``GN_SAMPLE_SMEM``, the (sample, group) route
+    above it; a pure function of shape and dtype."""
+    B, H, W, C = shape
+    smem = ops.group_norm_sample_smem(shape, dtype, group_size)
+    item = 4 if dtype == torch.float32 else 2
+    assert smem == -(-H * W * C * item // 16) * 16 + 4 * (
+        max(256, C) + 2 * (C // group_size))
+    assert ops.group_norm_route(shape, dtype, group_size) == route
+    assert (route == "sample") == (smem <= ops.GN_SAMPLE_SMEM)
 
 
 # ---------------------------------------------------------------------------
