@@ -23,6 +23,13 @@ before the last line is printed:
    and in bfloat16; its src-gather variant likewise with a (15, 96682)
    snapshot buffer read at staleness 2 and a (48, 96682) one on the
    random graph, and an index past the buffer refused with no launch;
+   as the training path launches them, every leaf of GN-LeNet, resnet-s
+   and alexnet-s in one launch (``neighbor_mix_many``; and
+   ``neighbor_mix_push_many``, AD-PSGD's snapshot push and stale gather,
+   at staleness 0 and 2 over a 3-slot buffer, the pushed buffer exact)
+   at K=5 on a ring and on the random K=16 degree-4 graph, float32 2e-5
+   and bfloat16 2e-2, and an index of -1 or past the buffer refused when
+   the operands are built (``mix_operands``), with no launch;
    DGC's histogram route bit-exact (``dgc_sparsify``'s selection, count
    and threshold against the bisection, one launch a call; its parts
    ``abs_histogram_fused``, ``abs_histogram`` and ``dgc_select``, one
@@ -68,19 +75,31 @@ before the last line is printed:
    the card; then 30 steps of each on the card, with every launch count
    set to 0 just before each run and read just after: one ``gaia_select``
    launch a Gaia step, one ``rand_k_select`` launch a DGC rand-k step.
-   Then one step of Gaia and of DGC rand-k on the earlier design (one
-   ``gaia_select`` launch a tensor; two ``rand_k_select`` launches a
-   tensor and permuted copies into the reference's layout and back),
-   swapped in here, against the one-launch step: the same state bit for
-   bit after a step from the same state (cuDNN deterministic), the wall
-   time a step (median of 40 in two rounds, in turns), and one step of
-   each under ``torch.profiler``: its kernels, device busy time, idle
-   share and top kernels (traced last, after phase 7, so that no
-   profiling runs before a host-bound timing of the script);
+   D-PSGD and SkewScout make one ``neighbor_mix`` launch a step, AD-PSGD
+   one ``neighbor_mix_src`` launch.
+   Then one step of Gaia, DGC rand-k, D-PSGD and AD-PSGD on the earlier
+   design (one ``gaia_select`` launch a tensor; two ``rand_k_select``
+   launches a tensor and permuted copies into the reference's layout and
+   back; the leaves flattened into one matrix, the raw ``neighbor_mix``
+   with its host-side index check, the result split back, and for
+   AD-PSGD the snapshot buffer rebuilt by ``torch.cat``), swapped in
+   here, against the one-launch step: the same state bit for bit after a
+   step from the same state (cuDNN deterministic), the host syncs of the
+   step (PyTorch's sync debug mode), the wall time a step (median of 40
+   in two rounds, in turns), and one step of each under
+   ``torch.profiler``: its kernels, device busy time, idle share and top
+   kernels (traced last, after phase 7, so that no profiling runs before
+   a host-bound timing of the script);
 5. kernel times: the median of 50 CUDA-event-timed launches at the main
    path's shapes (a whole training step's tensors in one launch for
    ``gaia_select`` and ``rand_k_select``, beside the earlier design's one
-   launch a tensor; the bench's for the DGC histogram kernel, n = 2**20,
+   launch a tensor; GN-LeNet's 16 leaves in one launch for
+   ``neighbor_mix_many`` and, with the snapshot push at staleness 2,
+   ``neighbor_mix_push_many``, beside the earlier design's pieces: the
+   raw op's index check with its host sync, its one launch on the flat
+   matrix, the push by ``torch.cat``, and the design whole; an empty
+   launch and a copy of the same bytes as floors; the bench's for the
+   DGC histogram kernel, n = 2**20,
    its one-launch ``dgc_sparsify`` and each of its parts, with
    ``torch.histc`` as the histogram's yardstick, and for ``group_norm``,
    (128, 8, 8, 64), and GN-LeNet's (100, 16, 16, 32); the LM prefill's for
@@ -131,6 +150,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -173,6 +193,8 @@ FA_PAIR_SHAPES = ((1, 2, 128, 128), (2, 1, 64, 192), (1, 1, 200, 200),
                   (1, 2, 100, 37))
 #: their timing shape (B, H, T): a prefill of 2048 tokens, 16 heads
 FA_PAIR_TIMED = (1, 16, 2048)
+#: zoo models whose leaf sets phase 3 mixes in one launch
+GOSSIP_CFGS = ("gn-lenet", "resnet-s", "alexnet-s")
 #: wall-clock steps a side in phase 4's comparison of the two designs
 PROFILE_STEPS = 20
 #: the LM prefill: qwen3-0.6b's attention over 4 prompts of 2048 tokens
@@ -550,6 +572,83 @@ def main() -> int:
         assert "outside" in str(e), e
     assert ops.launches == before, (ops.launches, before)
     print("neighbor_mix_src: an index past the buffer is refused, no launch")
+
+    # the training path's gossip: every leaf of a zoo model in one launch,
+    # D-PSGD's round (neighbor_mix_many) and AD-PSGD's push and stale
+    # gather (neighbor_mix_push_many), against their plain versions
+    gossip_err = {"neighbor_mix_many": 0.0, "neighbor_mix_push_many": 0.0}
+    gossip_checks = 0
+    for cfg_name in GOSSIP_CFGS:
+        zoo_p, _ = init_cnn(torch.Generator().manual_seed(0),
+                            CNN_ZOO[cfg_name])
+        shapes = [tuple(t_.shape) for t_ in zoo_p.values()]
+        for topo, k in (("ring", K), ("random", 16)):
+            idx_np, w_np, sw_np = build_schedule(topo, k,
+                                                 seed=0).neighbor_arrays(0)
+            mix = ops.mix_operands(idx_np, w_np, sw_np, k, dev)
+            for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 2e-2)):
+                xs = [randn(k, *s_).to(dtype) for s_ in shapes]
+                n_cols = sum(x_[0].numel() for x_ in xs)
+                snaps = randn(3, k, n_cols).to(dtype)
+                runs = [("neighbor_mix_many", "neighbor_mix", 0,
+                         lambda: ops.neighbor_mix_many(xs, mix),
+                         lambda: (ref.neighbor_mix_many_ref(
+                             xs, mix.idx, mix.w, mix.self_w), None))]
+                for stale in (0, 2):
+                    smix = ops.mix_operands(
+                        np.where(w_np > 0, stale, 0) * k + idx_np, w_np,
+                        sw_np, 3 * k, dev)
+                    runs.append((
+                        "neighbor_mix_push_many", "neighbor_mix_src", stale,
+                        lambda smix=smix: ops.neighbor_mix_push_many(
+                            xs, snaps, smix),
+                        lambda smix=smix: ref.neighbor_mix_push_many_ref(
+                            xs, snaps, smix.idx, smix.w, smix.self_w)))
+                for op_name, kname, stale, call, plain in runs:
+                    before = dict(ops.launches)
+                    got = call()
+                    made = {k_: c_ - before[k_] for k_, c_ in
+                            ops.launches.items() if c_ != before[k_]}
+                    assert made == {kname: 1}, (op_name, made)
+                    with tf32_off():
+                        expect, expect_snaps = plain()
+                    torch.cuda.synchronize()
+                    if expect_snaps is not None:
+                        got, new_snaps = got
+                        assert torch.equal(new_snaps, expect_snaps), \
+                            (op_name, cfg_name, topo, dtype)
+                    for o_, e_, x_ in zip(got, expect, xs):
+                        assert o_.dtype == dtype and o_.shape == x_.shape
+                        torch.testing.assert_close(o_.float(), e_.float(),
+                                                   atol=tol, rtol=tol)
+                    err = max(float((o_.float() - e_.float()).abs().max())
+                              for o_, e_ in zip(got, expect))
+                    if cfg_name == "gn-lenet" and topo == "ring" and \
+                            dtype == torch.float32:
+                        gossip_err[op_name] = max(gossip_err[op_name], err)
+                    gossip_checks += 1
+                    print(f"{op_name} {cfg_name} ({len(xs)} leaves, "
+                          f"{n_cols} columns) {topo} K={k} "
+                          f"{str(dtype)[6:]}"
+                          + (f" staleness {stale}" if kname ==
+                             "neighbor_mix_src" else "")
+                          + f", one launch: max |err| {err:.3g} (tol {tol})"
+                          + ("; pushed buffer exact"
+                             if expect_snaps is not None else ""))
+                del xs, snaps
+    before = dict(ops.launches)
+    bad = np.where(w_np > 0, 2, 0) * 16 + idx_np
+    for b_ in (-1, 3 * 16):
+        bad[1, 0] = b_
+        try:
+            ops.mix_operands(bad, w_np, sw_np, 3 * 16, dev)
+            raise AssertionError(f"index {b_} was not refused")
+        except ValueError as e:
+            assert "outside" in str(e), e
+    assert ops.launches == before, (ops.launches, before)
+    print(f"neighbor_mix_many, neighbor_mix_push_many: {gossip_checks} checks "
+          f"in one launch each on {GOSSIP_CFGS}'s leaves; an index of -1 or "
+          "past the buffer refused when the operands are built, no launch")
 
     randk_checks = 0
     for dtype in (torch.float32, torch.bfloat16):
@@ -1006,9 +1105,11 @@ def main() -> int:
     assert len(results["dpsgd-skewscout"].skewscout_history) == 3
     # one launch a step: the Gaia run alone launches gaia_select, the
     # rand-k run alone rand_k_select
+    # one gossip launch a step: the D-PSGD and SkewScout runs launch
+    # neighbor_mix, the AD-PSGD run neighbor_mix_src
     assert launches["gaia_select"] == STEPS, launches
-    assert launches["neighbor_mix"] >= STEPS, launches
-    assert launches["neighbor_mix_src"] >= STEPS, launches
+    assert launches["neighbor_mix"] == 2 * STEPS, launches
+    assert launches["neighbor_mix_src"] == STEPS, launches
     assert launches["rand_k_select"] == STEPS, launches
     print(f"main-path launches: {launches}")
     print("steps/s: " + json.dumps({k_: round(v, 2)
@@ -1042,6 +1143,52 @@ def main() -> int:
             counts.append(cnt)
         return shared, new_vels, torch.stack(counts)
 
+    def mix_flat(xs, operands):
+        """D-PSGD's earlier design: the leaves flattened into one (K, N)
+        float32 matrix, the raw op (its index check and host sync
+        included), the result split back."""
+        k = operands.idx.shape[0]
+        flat = torch.cat([x_.reshape(k, -1).float() for x_ in xs], dim=1)
+        mixed = ops.neighbor_mix(flat, operands.idx, operands.w,
+                                 operands.self_w)
+        return [p_.reshape(x_.shape).to(x_.dtype) for p_, x_ in
+                zip(mixed.split([x_[0].numel() for x_ in xs], dim=1), xs)]
+
+    def push_flat(xs, snaps, operands):
+        """AD-PSGD's earlier design: the leaves flattened, the buffer
+        rebuilt by ``torch.cat``, the raw op with ``src=``, split back."""
+        k = operands.idx.shape[0]
+        flat = torch.cat([x_.reshape(k, -1).float() for x_ in xs], dim=1)
+        new_snaps = torch.cat([flat[None], snaps[:-1]], dim=0)
+        mixed = ops.neighbor_mix(flat, operands.idx, operands.w,
+                                 operands.self_w,
+                                 src=new_snaps.reshape(-1, flat.shape[1]))
+        return ([p_.reshape(x_.shape).to(x_.dtype) for p_, x_ in
+                 zip(mixed.split([x_[0].numel() for x_ in xs], dim=1), xs)],
+                new_snaps)
+
+    def state_items(state_):
+        """(name, tensor) of every tensor of a training state."""
+        for part, tree in state_.items():
+            if isinstance(tree, dict):
+                yield from ((f"{part}/{n_}", t_) for n_, t_ in tree.items())
+            else:
+                yield part, tree
+
+    def count_syncs(fn):
+        """Host syncs ``fn()`` makes, by PyTorch's sync debug mode: its
+        "called a synchronizing CUDA operation" warnings."""
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return sum("called a synchronizing" in str(w_.message)
+                   for w_ in caught)
+
     fns, _ = trainer.make_cnn_fns(cfg)
     p0, s0 = init_cnn(torch.Generator().manual_seed(0), cfg)
     rs = np.random.default_rng(2)
@@ -1061,12 +1208,25 @@ def main() -> int:
         return (swapped(ops, op_name, per_tensor) if side == "per_tensor"
                 else contextlib.nullcontext())
 
+    # (label, strategy, CommConfig fields, step keywords, the op the step
+    # calls, the earlier design swapped in for it, the kernel's launch
+    # count name and the piece of its name in a trace, the earlier design's
+    # launches a step)
+    design_runs = (
+        ("gaia", "gaia", {}, {"t0": torch.tensor(0.1, device=dev)},
+         "gaia_select_many", gaia_per_tensor, "gaia_select", "gaia_select",
+         16),
+        ("dgc-randk", "dgc", {"dgc_compressor": "randk"},
+         {"sparsity": 0.999}, "rand_k_sparsify_many", randk_per_tensor,
+         "rand_k_select", "rand_k_select", 32),
+        ("dpsgd", "dpsgd", {}, {}, "neighbor_mix_many", mix_flat,
+         "neighbor_mix", "neighbor_mix_kernel", 1),
+        ("adpsgd", "adpsgd", {"max_staleness": 2}, {},
+         "neighbor_mix_push_many", push_flat, "neighbor_mix_src",
+         "neighbor_mix_kernel", 1))
     step_runs, profiles = [], {}
-    for label, algo_name, fields, kw, op_name, per_tensor in (
-            ("gaia", "gaia", {}, {"t0": torch.tensor(0.1, device=dev)},
-             "gaia_select_many", gaia_per_tensor),
-            ("dgc-randk", "dgc", {"dgc_compressor": "randk"},
-             {"sparsity": 0.999}, "rand_k_sparsify_many", randk_per_tensor)):
+    for (label, algo_name, fields, kw, op_name, per_tensor, kname, ktrace,
+         per_launches) in design_runs:
         algo = trainer.make_algorithm(
             algo_name, fns, K,
             CommConfig(fabric=FabricConfig(topology="ring"), **fields))
@@ -1079,9 +1239,21 @@ def main() -> int:
             one = train_step(algo, state, 3, kw)
             with design("per_tensor", op_name, per_tensor):
                 per = train_step(algo, state, 3, kw)
-            for part in ("params", "vel", "acc"):
-                for n_, t_ in one[part].items():
-                    assert torch.equal(t_, per[part][n_]), (label, part, n_)
+            one_items, per_items = list(state_items(one)), dict(
+                state_items(per))
+            assert [n_ for n_, _ in one_items] == list(per_items), label
+            for n_, t_ in one_items:
+                assert torch.equal(t_, per_items[n_]), (label, n_)
+        # the host syncs of the step alone (the trainer's reads left out)
+        syncs = {}
+        for side in ("per_tensor", "one_launch"):
+            with design(side, op_name, per_tensor):
+                syncs[side] = count_syncs(
+                    lambda: algo.step(state, step_batch, step_lr, 3, **kw))
+        print(f"{label} step: the same state bit for bit on both designs "
+              f"({len(one_items)} tensors); host syncs in the step, "
+              f"earlier design {syncs['per_tensor']}, one-launch "
+              f"{syncs['one_launch']}", flush=True)
         walls = {"per_tensor": [], "one_launch": []}
         for side in ("per_tensor", "one_launch", "one_launch", "per_tensor"):
             with design(side, op_name, per_tensor):
@@ -1095,13 +1267,14 @@ def main() -> int:
             rounds = [float(np.median(w_[:PROFILE_STEPS])),
                       float(np.median(w_[PROFILE_STEPS:]))]
             profiles[f"{label}/{side}"] = {"wall_ms": float(np.median(w_)),
-                                           "wall_ms_rounds": rounds}
+                                           "wall_ms_rounds": rounds,
+                                           "syncs": syncs[side]}
             print(f"{label} step, {side.replace('_', '-')} design: wall "
                   f"{np.median(w_):.4f} ms a step (median of "
                   f"{2 * PROFILE_STEPS}, rounds {rounds[0]:.4f} and "
                   f"{rounds[1]:.4f} ms)", flush=True)
-        step_runs.append((label, algo_name, algo, kw, state, op_name,
-                          per_tensor))
+        step_runs.append((label, algo, kw, state, op_name, per_tensor,
+                          kname, ktrace, per_launches))
     print("one training step of each design: the same state bit for bit "
           "(cuDNN deterministic, TF32 off); traced under torch.profiler "
           "after phase 7's timings")
@@ -1140,54 +1313,107 @@ def main() -> int:
     print(f"gaia_select n=1,000,003 f32: kernel {big_ms:.4f} ms, bound "
           f"{bound_ms(3 * 1_000_003 * 4, 3 * 1_000_003)[0]:.5f} ms")
 
-    x = randn(K, n_params)
-    idx_t, w_t, sw_t = ring_ops
-    D = idx_t.shape[1]
-    W = torch.zeros(K, K, device=dev)
-    W.scatter_add_(1, idx_t.long(), w_t)
-    W += torch.diag(sw_t)
+    # the gossip kernels at GN-LeNet's leaves (K = 5, ring, float32): the
+    # leaf-table launch and op, beside the earlier design's pieces (the raw
+    # op on the flat matrix: its index check with the host sync, and its
+    # launch), the earlier design whole, dense W @ X, and what any launch
+    # and a copy of the same bytes cost under this timing
+    idx_np, w_np, sw_np = build_schedule("ring", K).neighbor_arrays(0)
+    mix = ops.mix_operands(idx_np, w_np, sw_np, K, dev)
+    D = mix.idx.shape[1]
+    mx_xs = [randn(*s_) for s_ in leaf_shapes]
+    mx_outs = [torch.empty_like(x_) for x_ in mx_xs]
+    x = torch.cat([x_.reshape(K, -1) for x_ in mx_xs], dim=1)
     mixed = torch.empty_like(x)
-    m_ms = time_ms(lambda: ops.launch_neighbor_mix(x, idx_t, w_t, sw_t, mixed))
-    m_op = time_ms(lambda: ops.neighbor_mix(x, idx_t, w_t, sw_t))
-    m_plain = time_ms(lambda: ref.neighbor_mix_padded_ref(x, idx_t, w_t,
-                                                          sw_t))
+    W = torch.zeros(K, K, device=dev)
+    W.scatter_add_(1, mix.idx.long(), mix.w)
+    W += torch.diag(mix.self_w)
+    mix_floor = time_ms(lambda: torch.cuda._sleep(1))
+    m_ms = time_ms(lambda: ops.launch_neighbor_mix_many(mx_xs, mix, mx_outs))
+    m_op = time_ms(lambda: ops.neighbor_mix_many(mx_xs, mix))
+    m_flat = time_ms(lambda: ops.launch_neighbor_mix(x, mix.idx, mix.w,
+                                                     mix.self_w, mixed))
+    m_raw = time_ms(lambda: ops.neighbor_mix(x, mix.idx, mix.w, mix.self_w))
+    m_check = time_ms(lambda: [int(b_) for b_ in torch.aminmax(mix.idx)])
+    m_earlier = time_ms(lambda: mix_flat(mx_xs, mix))
+    m_plain = time_ms(lambda: ref.neighbor_mix_many_ref(mx_xs, mix.idx, mix.w,
+                                                        mix.self_w))
     m_lib = time_ms(lambda: torch.matmul(W, x))
+    m_copy = time_ms(lambda: x.clone())
     m_bound, m_by = bound_ms(2 * K * n_params * 4 + K * D * 8 + K * 4,
                              2 * (D + 1) * K * n_params)
-    print(f"neighbor_mix (5, 96682) f32 ring: kernel {m_ms:.4f} ms, op "
-          f"{m_op:.4f} ms, plain {m_plain:.4f} ms, dense W @ X {m_lib:.4f} ms, bound "
-          f"{m_bound:.5f} ms ({m_by})")
+    print(f"neighbor_mix_many, GN-LeNet's {len(mx_xs)} leaves at K={K} f32 "
+          f"ring, one launch: kernel {m_ms:.4f} ms, op {m_op:.4f} ms, plain "
+          f"{m_plain:.4f} ms, dense W @ X {m_lib:.4f} ms, bound "
+          f"{m_bound:.5f} ms ({m_by}), kernel / bound {m_ms / m_bound:.1f}; "
+          f"the earlier design: one launch on the flat (5, 96682) matrix "
+          f"{m_flat:.4f} ms, the raw op {m_raw:.4f} ms of which its index "
+          f"check with the host sync {m_check:.4f} ms, flatten + raw op + "
+          f"split {m_earlier:.4f} ms; calibration: an empty launch "
+          f"{mix_floor:.4f} ms, a copy of the same bytes (x, 3.87 MB moved) "
+          f"{m_copy:.4f} ms")
     x16 = randn(16, n_params)
     mixed16 = torch.empty_like(x16)
-    print(f"neighbor_mix (16, 96682) f32 random D=4: kernel "
+    print(f"neighbor_mix (16, 96682) f32 random D=4, one launch on the "
+          f"matrix: kernel "
           f"{time_ms(lambda: ops.launch_neighbor_mix(x16, *rand_ops, mixed16)):.4f}"
           " ms")
 
-    src = torch.cat([x, randn(2 * K, n_params)])
-    gidx, _, _ = ring_src_ops
-    Wp = torch.zeros(K, 3 * K, device=dev)
-    Wp.scatter_add_(1, gidx.long(), w_t)
-    Wp[:, :K] += torch.diag(sw_t)           # slot 0 of the buffer is x
-    s_ms = time_ms(lambda: ops.launch_neighbor_mix_src(
-        x, src, gidx, w_t, sw_t, mixed))
-    s_op = time_ms(lambda: ops.neighbor_mix(x, gidx, w_t, sw_t, src=src))
-    s_plain = time_ms(lambda: ref.neighbor_mix_padded_ref(x, gidx, w_t, sw_t,
-                                                          src))
+    # AD-PSGD at staleness 2 (buffer of S + 1 = 3 slots): the push and the
+    # stale gather in one launch, beside the earlier design's push by
+    # torch.cat and its raw src-gather launch
+    S = 2
+    snaps = randn(S + 1, K, n_params)
+    new_snaps = torch.empty_like(snaps)
+    smix = ops.mix_operands(np.where(w_np > 0, S, 0) * K + idx_np, w_np,
+                            sw_np, (S + 1) * K, dev)
+    src = torch.cat([x[None], snaps[:-1]]).reshape(-1, n_params)
+    Wp = torch.zeros(K, (S + 1) * K, device=dev)
+    Wp.scatter_add_(1, smix.idx.long(), smix.w)
+    Wp[:, :K] += torch.diag(smix.self_w)   # slot 0 of the buffer is x
+    s_ms = time_ms(lambda: ops.launch_neighbor_mix_push_many(
+        mx_xs, snaps, smix, mx_outs, new_snaps))
+    s_op = time_ms(lambda: ops.neighbor_mix_push_many(mx_xs, snaps, smix))
+    s_flat = time_ms(lambda: ops.launch_neighbor_mix_src(
+        x, src, smix.idx, smix.w, smix.self_w, mixed))
+    s_cat = time_ms(lambda: torch.cat([x[None], snaps[:-1]]))
+    s_earlier = time_ms(lambda: push_flat(mx_xs, snaps, smix))
+    s_plain = time_ms(lambda: ref.neighbor_mix_push_many_ref(
+        mx_xs, snaps, smix.idx, smix.w, smix.self_w))
     s_lib = time_ms(lambda: torch.matmul(Wp, src))
-    rows_read = int(torch.unique(gidx[w_t > 0]).numel())
-    s_bound, s_by = bound_ms((2 + rows_read / K) * K * n_params * 4
-                             + K * D * 8 + K * 4,
+    push_bytes = (2 * S + 3) * K * n_params * 4
+    s_copy_src = randn(push_bytes // 8)
+    s_copy = time_ms(lambda: s_copy_src.clone())
+    s_bound, s_by = bound_ms(push_bytes + K * D * 8 + K * 4,
                              2 * (D + 1) * K * n_params)
-    print(f"neighbor_mix_src x (5, 96682), src (15, 96682) f32 ring, "
-          f"staleness 2: kernel {s_ms:.4f} ms, op {s_op:.4f} ms, plain "
-          f"{s_plain:.4f} ms, dense W' @ src {s_lib:.4f} ms, bound "
-          f"{s_bound:.5f} ms ({s_by}; x, {rows_read} src rows, y)")
+    # the mix alone, as the earlier design's bound counted it: x, the src
+    # rows the index reads, y
+    rows_read = int(torch.unique(smix.idx[smix.w > 0]).numel())
+    s_mix_bound, _ = bound_ms((2 + rows_read / K) * K * n_params * 4
+                              + K * D * 8 + K * 4,
+                              2 * (D + 1) * K * n_params)
+    print(f"neighbor_mix_push_many, GN-LeNet's leaves at K={K} f32 ring, "
+          f"staleness {S}, one launch (push and gather): kernel {s_ms:.4f} "
+          f"ms, op {s_op:.4f} ms, plain {s_plain:.4f} ms, dense W' @ src "
+          f"{s_lib:.4f} ms (the gather alone), bound {s_bound:.5f} ms "
+          f"({s_by}: {push_bytes} bytes, x and {S} old slots read, "
+          f"{S + 1} slots and y written), kernel / bound "
+          f"{s_ms / s_bound:.1f}; the gather alone's bound "
+          f"{s_mix_bound:.5f} ms; the earlier design: the raw src-gather "
+          f"launch {s_flat:.4f} ms, the push by torch.cat {s_cat:.4f} ms, "
+          f"flatten + push + raw op + split {s_earlier:.4f} ms; a copy of "
+          f"the same bytes {s_copy:.4f} ms")
+    del s_copy_src, snaps, new_snaps
     x48 = randn(16, n_params)
     src48 = torch.cat([x48, randn(32, n_params)])
     mixed48 = torch.empty_like(x48)
-    print(f"neighbor_mix_src (16, 96682) from (48, 96682) random D=4: kernel "
+    print(f"neighbor_mix_src (16, 96682) from (48, 96682) random D=4, one "
+          f"launch on the matrix: kernel "
           f"{time_ms(lambda: ops.launch_neighbor_mix_src(x48, src48, rand_src_ops[0], *rand_src_ops[1:], mixed48)):.4f}"
           " ms")
+    print("\n".join(ptxas_lines("neighbor_mix", logs["neighbor_mix"]))
+          if "neighbor_mix" in logs
+          else "  neighbor_mix: no ptxas report (the library was up to date)")
 
     # one DGC rand-k step: acc and vel of every tensor, one seed a tensor,
     # the conv weights counted in the reference's layout
@@ -1607,8 +1833,8 @@ def main() -> int:
     # script, so that profiling cannot touch one
     phase(4, "continued: one training step of each design under "
              "torch.profiler")
-    for label, algo_name, algo, kw, state, op_name, per_tensor in step_runs:
-        kname = "gaia_select" if algo_name == "gaia" else "rand_k_select"
+    for (label, algo, kw, state, op_name, per_tensor, kname, ktrace,
+         per_launches) in step_runs:
         for side in ("per_tensor", "one_launch"):
             with design(side, op_name, per_tensor):
                 before = ops.launches[kname]
@@ -1618,11 +1844,10 @@ def main() -> int:
                                                           kw)))
                 state = box[0]
                 made = ops.launches[kname] - before
-            assert made == (1 if side == "one_launch" else
-                            16 if algo_name == "gaia" else 32), (label, side,
-                                                                 made)
+            assert made == (1 if side == "one_launch" else per_launches), \
+                (label, side, made)
             prof = profiles[f"{label}/{side}"]
-            ours = sum(v_ for k_, v_ in per_kernel.items() if kname in k_)
+            ours = sum(v_ for k_, v_ in per_kernel.items() if ktrace in k_)
             prof.update({"kernels": n_kern, "busy_ms": busy,
                          "idle": 1 - busy / prof["wall_ms"],
                          f"{kname}_launches": made, f"{kname}_ms": ours})
@@ -1645,18 +1870,31 @@ def main() -> int:
          "ms": g_ms, "op_ms": g_op, "per_tensor_ms": g_per,
          "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
          "library_ms": None},
+        # rows 1 and 2 of PERF.md: D-PSGD's leaf-table launch, AD-PSGD's
+        # push-and-gather launch; the earlier design's pieces beside them
         {"name": "neighbor_mix", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/neighbor_mix.cu",
          "replaces": "src/repro/kernels/neighbor_mix.py:48",
-         "launches": launches["neighbor_mix"], "max_abs_err": mix_err,
+         "launches": launches["neighbor_mix"],
+         "max_abs_err": gossip_err["neighbor_mix_many"],
          "ms": m_ms, "op_ms": m_op, "plain_ms": m_plain, "bound_ms": m_bound,
-         "bound_by": m_by, "library_ms": m_lib},
+         "bound_by": m_by, "library_ms": m_lib,
+         "library": "dense W @ X on the flattened leaves",
+         "flat_launch_ms": m_flat, "raw_op_ms": m_raw,
+         "index_check_ms": m_check, "earlier_design_ms": m_earlier,
+         "raw_max_abs_err": mix_err, "empty_launch_ms": mix_floor,
+         "copy_ms": m_copy},
         {"name": "neighbor_mix_src", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/neighbor_mix.cu",
          "replaces": "src/repro/kernels/neighbor_mix.py:60",
-         "launches": launches["neighbor_mix_src"], "max_abs_err": src_err,
+         "launches": launches["neighbor_mix_src"],
+         "max_abs_err": gossip_err["neighbor_mix_push_many"],
          "ms": s_ms, "op_ms": s_op, "plain_ms": s_plain, "bound_ms": s_bound,
-         "bound_by": s_by, "library_ms": s_lib},
+         "bound_by": s_by, "library_ms": s_lib,
+         "library": "dense W' @ src: the gather alone, not the push",
+         "gather_bound_ms": s_mix_bound, "flat_launch_ms": s_flat,
+         "push_cat_ms": s_cat, "earlier_design_ms": s_earlier,
+         "raw_max_abs_err": src_err, "copy_ms": s_copy},
         {"name": "rand_k_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/rand_k_select.cu",
          "replaces": "src/repro/kernels/dgc_topk.py:152",

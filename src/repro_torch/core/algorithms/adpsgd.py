@@ -12,13 +12,15 @@ tensor, and every neighbor read gathers from slot ``staleness`` instead
 of slot 0.  ``staleness = 0`` is bit-identical to D-PSGD; the *bound* is
 structural: a read deeper than the buffer cannot be expressed.
 
-The mixing is one ``ops.neighbor_mix(..., src=)`` a step: on the card the
-src-gather entry of ``kernels/csrc/neighbor_mix.cu``.  The buffer is
-viewed as one ((S + 1) * K, N) source matrix and the round's padded
-neighbor indices are offset by ``staleness * K``, so the staleness
-values ride inside the same index operand as the schedule's neighbor
-sets: rotating schedules, SkewScout rung switches and staleness changes
-(``set_staleness``) all change operand values only.
+The push and the mixing are one ``ops.neighbor_mix_push_many`` a step:
+on the card one launch of ``kernels/csrc/neighbor_mix.cu`` reads the
+leaves where they lie, writes the new buffer (this round's leaves into
+slot 0, each older slot one deeper) and gathers every neighbor row from
+it.  The buffer is viewed as one ((S + 1) * K, N) source matrix and the
+round's padded neighbor indices are offset by ``staleness * K``, so the
+staleness values ride inside the same index operand as the schedule's
+neighbor sets: rotating schedules, SkewScout rung switches and staleness
+changes (``set_staleness``) all change operand values only.
 """
 from __future__ import annotations
 
@@ -78,22 +80,25 @@ class ADPSGD(DPSGD):
             self._stale_cache = {}
 
     def _stale_operands(self, t: int, device: torch.device
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+                        ) -> Tuple[torch.Tensor, ops.MixOperands]:
         """Round ``t``'s (K, D) int32 staleness slots (the current rung on
         real neighbor slots, 0 on padding: padding weights are 0, so the
-        slot only has to keep the gather index in range) and the gather
-        index ``stale * K + nbr_idx`` into the flattened buffer, cached
-        per (graph, rung) on ``device``."""
+        slot only has to keep the gather index in range) and the operands
+        with the gather index ``stale * K + nbr_idx`` into the flattened
+        buffer of (S + 1) K rows (range-checked once), cached per (graph,
+        rung) on ``device``."""
         key = (id(self.schedule.at(t)), self.staleness)
         ent = self._stale_cache.get(key)
         if ent is None:
-            idx, w, _ = self.schedule.neighbor_arrays(
+            idx, w, sw = self.schedule.neighbor_arrays(
                 t, pad_degree=self._pad_degree)
             stale = np.where(w > 0, self.staleness, 0).astype(np.int32)
-            gidx = (stale * self.K + idx).astype(np.int32)
+            gidx = stale * self.K + idx
             ent = (self.schedule.at(t),
                    torch.from_numpy(stale).to(device),
-                   torch.from_numpy(gidx).to(device))
+                   ops.mix_operands(gidx, w, sw,
+                                    (self.max_staleness + 1) * self.K,
+                                    device))
             self._stale_cache[key] = ent
         return ent[1], ent[2]
 
@@ -116,19 +121,19 @@ class ADPSGD(DPSGD):
         """One local step + stale gossip round."""
         t = int(step_idx)
         device = state["snaps"].device
-        nbr_idx, nbr_w, self_w = self.mix_operands(t, device)
-        stale, gidx = self._stale_operands(t, device)
+        mix = self.mix_operands(t, device)
+        stale, gather = self._stale_operands(t, device)
+        gather = gather.with_weights(mix.w, mix.self_w)
         losses, new_ms, vel, params = self._local_update(state, batch, lr)
-        flat = self._flatten(params)
-        # push this round's post-gradient stack into slot 0; slot s now
-        # holds the stack from s rounds ago (pre-mix, like slot 0)
-        snaps = torch.cat([flat[None], state["snaps"][:-1]], dim=0)
-        mixed = ops.neighbor_mix(flat, gidx, nbr_w, self_w,
-                                 src=snaps.reshape(-1, flat.shape[1]))
-        params = self._unflatten(mixed, params)
+        # push this round's post-gradient stack into slot 0 (slot s then
+        # holds the stack from s rounds ago, pre-mix like slot 0) and mix
+        # from the pushed buffer, in one op
+        mixed, snaps = ops.neighbor_mix_push_many(list(params.values()),
+                                                  state["snaps"], gather)
+        params = dict(zip(params, mixed))
 
-        metrics = self._gossip_metrics(losses, params, nbr_w)
-        nbr_mask = nbr_w > 0
+        metrics = self._gossip_metrics(losses, params, mix.w)
+        nbr_mask = mix.w > 0
         reads = nbr_mask.sum().float().clamp_min(1.0)
         metrics["mean_staleness"] = (stale * nbr_mask).sum().float() / reads
         metrics["max_staleness_used"] = (stale * nbr_mask).max()

@@ -10,16 +10,18 @@ accuracy-under-skew for per-node bandwidth of ``degree * |model|``.
 
 The fabric is a :class:`~repro_torch.topology.graphs.TopologySchedule`:
 round ``t`` mixes with ``schedule.at(t)``'s neighbors.  Its padded
-neighbor indices and weights are device tensors, cached once per distinct
-graph and padded to the schedule-wide max degree (or to ``pad_degree``,
-the max over a SkewScout topology ladder, so a rung switch through
-:meth:`DPSGD.set_schedule` keeps the operand shape), so every round hands
-the mixing kernel operands of one shape; a round that changes the graph
-changes only which cached operands go in, never the kernel.
+neighbor indices and weights are ``ops.MixOperands``, range-checked on
+the host and uploaded once per distinct graph, padded to the
+schedule-wide max degree (or to ``pad_degree``, the max over a SkewScout
+topology ladder, so a rung switch through :meth:`DPSGD.set_schedule`
+keeps the operand shape), so every round hands the mixing kernel
+operands of one shape; a round that changes the graph changes only which
+cached operands go in, never the kernel.
 
-The mixing itself is one ``ops.neighbor_mix`` over the parameter stack
-flattened to (K, N) float32: on the card the hand-written kernel
-``kernels/csrc/neighbor_mix.cu``, one launch a step.
+The mixing itself is one ``ops.neighbor_mix_many`` over the model's
+leaves where they lie: on the card the hand-written kernel
+``kernels/csrc/neighbor_mix.cu``, one launch a step that reads no device
+value back.
 """
 from __future__ import annotations
 
@@ -90,36 +92,34 @@ class DPSGD:
         return self.schedule.at(0)
 
     def mix_operands(self, t: int, device: torch.device
-                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """Round ``t``'s (nbr_idx, nbr_w, self_w) device tensors, cached
-        per unique graph of the period, all padded to one shape.  With a
-        participation sampler, round ``t``'s node mask is applied to the
-        cached host arrays (same shapes, masked values) before upload; a
-        full-participation round returns the cached device operands."""
+                     ) -> ops.MixOperands:
+        """Round ``t``'s neighbor operands on ``device``, cached per
+        unique graph of the period, all padded to one shape, the index
+        range-checked once when the entry is built.  With a participation
+        sampler, round ``t``'s node mask is applied to the cached host
+        weights (same shapes, masked values), which replace the weights
+        alone; a full-participation round returns the cached operands."""
         graph = self.schedule.at(t)
         ent = self._operand_cache.get(id(graph))
         if ent is None:
             idx, w, sw = self.schedule.neighbor_arrays(
                 t, pad_degree=self._pad_degree)
-            dev = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                        for a in (idx.astype(np.int32),
-                                  w.astype(np.float32),
-                                  sw.astype(np.float32)))
             # the graph is kept in the entry so its id cannot be recycled
-            ent = (graph, (idx, w), dev)
+            ent = (graph, (idx, w), ops.mix_operands(idx, w, sw, self.K,
+                                                     device))
             self._operand_cache[id(graph)] = ent
-        _, (idx_np, w_np), ops_t = ent
+        _, (idx_np, w_np), mix = ent
         if self.participation is None:
-            return ops_t
+            return mix
         m = self.participation.mask(int(t))
         if m.all():
-            return ops_t
+            return mix
         # w'_ij = w_ij * m_i * m_j (symmetric), slack to the diagonal:
         # rows still sum to 1 and sampled-out nodes mix with nobody
         w2 = np.where(m[idx_np] & m[:, None], w_np, 0.0).astype(np.float32)
         sw2 = (1.0 - w2.sum(axis=1)).astype(np.float32)
-        return (ops_t[0], torch.from_numpy(w2).to(device),
-                torch.from_numpy(sw2).to(device))
+        return mix.with_weights(torch.from_numpy(w2).to(device),
+                                torch.from_numpy(sw2).to(device))
 
     def init(self, params: Tree, mstate: Tree) -> Dict[str, Tree]:
         return {"params": tree_stack_n(params, self.K),
@@ -127,7 +127,9 @@ class DPSGD:
                 "vel": tree_zeros_stacked(params, self.K)}
 
     def _flatten(self, stacked: Tree) -> torch.Tensor:
-        """Per-node model stack -> one (K, N) float32 matrix."""
+        """Per-node model stack -> one (K, N) float32 matrix, the leaves'
+        per-node entries side by side in the tree's order (the layout of
+        ADPSGD's snapshot buffer)."""
         return torch.cat([t.reshape(self.K, -1).float()
                           for t in stacked.values()], dim=1)
 
@@ -151,15 +153,14 @@ class DPSGD:
     def step(self, state, batch, lr, step_idx) -> Tuple[Dict, Dict]:
         """One local step + gossip round.  ``step_idx`` selects the
         round's graph."""
-        nbr_idx, nbr_w, self_w = self.mix_operands(
+        mix = self.mix_operands(
             int(step_idx), next(iter(state["params"].values())).device)
         losses, new_ms, vel, params = self._local_update(state, batch, lr)
-        # gossip-average every tensor at once: flatten the per-node model
-        # stack to one (K, N) float32 matrix, mix once, split back
-        params = self._unflatten(ops.neighbor_mix(
-            self._flatten(params), nbr_idx, nbr_w, self_w), params)
+        # gossip-average every leaf at once, each read where it lies
+        params = dict(zip(params, ops.neighbor_mix_many(
+            list(params.values()), mix)))
         return ({"params": params, "mstate": new_ms, "vel": vel},
-                self._gossip_metrics(losses, params, nbr_w))
+                self._gossip_metrics(losses, params, mix.w))
 
     def _gossip_metrics(self, losses, params: Tree, nbr_w) -> Dict:
         # per-node price: ship the model once to each active neighbor

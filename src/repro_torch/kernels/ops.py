@@ -8,7 +8,12 @@ failed build or launch.  Operands are checked the same way on both
 routes, so a bad operand raises on the card as it does on the CPU.
 
 The ops: ``gaia_select`` and ``gaia_select_many`` (one launch for a list
-of tensors), ``neighbor_mix`` (and its ``src=`` gather),
+of tensors); gossip averaging as ``neighbor_mix_many`` (D-PSGD: every
+leaf of a model in one launch) and ``neighbor_mix_push_many`` (AD-PSGD:
+the stale gather and the snapshot push in one launch), both on
+``MixOperands`` that ``mix_operands`` range-checks once on the host, and
+as the raw one-matrix ``neighbor_mix`` (and its ``src=`` gather), which
+checks its index on the device (one sync a call);
 ``rand_k_sparsify`` and ``rand_k_sparsify_many`` (DGC's acc and vel of a
 list of tensors in one launch); DGC's histogram-thresholded top-s% as
 ``dgc_sparsify`` (max|v|, histogram, threshold and select in one
@@ -21,7 +26,8 @@ forward as ``flash_attention`` (the reference's (B, H, T, D) layout) and
 in place), one kernel under both, with k and v of their own head dims
 (``FLASH_HEAD_DIMS``).
 
-``launch_gaia_select``, ``launch_neighbor_mix``,
+``launch_gaia_select``, ``launch_neighbor_mix_many``,
+``launch_neighbor_mix_push_many``, ``launch_neighbor_mix``,
 ``launch_neighbor_mix_src``, ``launch_rand_k_select``,
 ``launch_dgc_topk``, ``launch_group_norm`` and ``launch_flash_attention``
 launch a kernel alone, on operands the op has checked and allocated; the
@@ -36,6 +42,7 @@ went through the kernels.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import List, Optional, Sequence, Tuple
 
@@ -50,10 +57,10 @@ _PP, _PLL, _PU, _PI = (ctypes.POINTER(t) for t in (
     ctypes.c_void_p, ctypes.c_longlong, ctypes.c_uint, ctypes.c_int))
 # v[], w[], out[], n[], count, threshold, counts, device, stream, launches
 _GAIA_ARGS = [_PP, _PP, _PP, _PLL, _I, _P, _P, _I, _P, _PI]
-# x, idx, w, self_w, out, K, D, N, device, stream
-_MIX_ARGS = [_P, _P, _P, _P, _P, _I, _I, _LL, _I, _P]
-# x, src, idx, w, self_w, out, K, D, M, N, device, stream
-_MIX_SRC_ARGS = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _I, _P]
+# x[], out[], n[], off[], count, idx, w, self_w, K, D, src, src_ld, E, base,
+# M, snaps, snaps_ld, device, stream, launches
+_MIX_ARGS = [_PP, _PP, _PLL, _PLL, _I, _P, _P, _P, _I, _I, _P, _LL, _I, _I,
+             _I, _P, _LL, _I, _P, _PI]
 # acc[], vel[], shared[], new_vel[], n[], seeds[], dims[], sizes[],
 # cstrides[], count, keep_prob, counts, device, stream, launches
 _RANDK_ARGS = [_PP, _PP, _PP, _PP, _PLL, _PU, _PI, _PU, _PU, _I,
@@ -71,6 +78,9 @@ _GN_ARGS = [_I, _P, _P, _P, _P, _LL, _LL, _I, _I, ctypes.c_float, _I, _P]
 _FA_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _PLL,
             ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
 
+#: the most shared memory a block of the ``neighbor_mix`` kernel takes (a
+#: Hopper block's 227 KB): bounds the rows it stages
+_MIX_MAX_SMEM = 232448
 #: the most bins ``abs_histogram`` takes (the kernel's shared counters)
 MAX_BINS = 1024
 #: the phases of ``csrc/dgc_topk.cu``'s kernel (bits: max|v| 1, histogram
@@ -97,7 +107,10 @@ FLASH_HEAD_DIMS = frozenset({(64, 64), (128, 128), (256, 256), (96, 96),
 #: Tq / this, at most 65535
 _FLASH_BLOCK_Q = 64
 
-#: launches of each kernel since the count was last set to 0
+#: launches of each kernel since the count was last set to 0 (the gossip
+#: kernel counts as ``neighbor_mix`` where it gathers from the leaves
+#: themselves, as ``neighbor_mix_src`` where it gathers from a source
+#: buffer: AD-PSGD's push, the raw op's ``src=``)
 launches = {"gaia_select": 0, "neighbor_mix": 0, "neighbor_mix_src": 0,
             "rand_k_select": 0, "dgc_sparsify": 0, "abs_histogram_fused": 0,
             "abs_histogram": 0, "dgc_select": 0, "group_norm": 0,
@@ -213,6 +226,55 @@ def launch_gaia_select(vs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     _launched("gaia_select", "gaia_select", err, made.value)
 
 
+@dataclasses.dataclass(frozen=True)
+class MixOperands:
+    """A gossip round's padded neighbor operands on the device, checked
+    once on the host: ``idx`` (K, D) int32 rows of a source of ``n_src``
+    rows, each in [0, n_src); ``w`` (K, D) and ``self_w`` (K,) float32.
+    Built by ``mix_operands``; ``with_weights`` swaps the weights alone
+    (a participation mask), keeping the checked index."""
+    idx: torch.Tensor
+    w: torch.Tensor
+    self_w: torch.Tensor
+    n_src: int
+
+    def with_weights(self, w: torch.Tensor, self_w: torch.Tensor
+                     ) -> "MixOperands":
+        if w.shape != self.w.shape or self_w.shape != self.self_w.shape:
+            raise ValueError(
+                f"with_weights: w {tuple(w.shape)} and self_w "
+                f"{tuple(self_w.shape)} must keep the shapes "
+                f"{tuple(self.w.shape)} and {tuple(self.self_w.shape)}")
+        return dataclasses.replace(self, w=w, self_w=self_w)
+
+
+def mix_operands(nbr_idx: np.ndarray, nbr_w: np.ndarray,
+                 self_w: np.ndarray, n_src: int, device) -> MixOperands:
+    """``MixOperands`` from the host arrays of
+    ``TopologySchedule.neighbor_arrays`` (or AD-PSGD's gather index into
+    its snapshot buffer): ``0 <= nbr_idx < n_src`` is checked on these
+    arrays, and a failure raises ``ValueError`` before anything reaches
+    ``device``; then the arrays are uploaded once, as int32, float32 and
+    float32."""
+    nbr_idx, nbr_w, self_w = (np.asarray(a) for a in (nbr_idx, nbr_w,
+                                                      self_w))
+    if nbr_idx.ndim != 2 or nbr_w.shape != nbr_idx.shape or \
+            self_w.shape != nbr_idx.shape[:1]:
+        raise ValueError(
+            f"mix_operands: shapes nbr_idx {nbr_idx.shape}, nbr_w "
+            f"{nbr_w.shape}, self_w {self_w.shape}; want (K, D), (K, D), "
+            "(K,)")
+    if nbr_idx.size and (nbr_idx.min() < 0 or nbr_idx.max() >= n_src):
+        raise ValueError(f"mix_operands: neighbor index outside [0, "
+                         f"{n_src}): range [{nbr_idx.min()}, "
+                         f"{nbr_idx.max()}]")
+    idx_t, w_t, sw_t = (
+        torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+        for a, dtype in ((nbr_idx, np.int32), (nbr_w, np.float32),
+                         (self_w, np.float32)))
+    return MixOperands(idx_t, w_t, sw_t, int(n_src))
+
+
 def neighbor_mix(x: torch.Tensor, nbr_idx: torch.Tensor,
                  nbr_w: torch.Tensor, self_w: torch.Tensor, *,
                  src: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -225,7 +287,8 @@ def neighbor_mix(x: torch.Tensor, nbr_idx: torch.Tensor,
     its flattened snapshot buffer); the self term stays on x.
     Accumulates in float32, returns x's dtype.  An index outside [0, M)
     (M = K without ``src``) raises ``ValueError`` on either route (a host
-    read of the index range, one sync a call)."""
+    read of the index range, one sync a call).  On the card, one launch
+    of the kernel of ``neighbor_mix_many`` on the one leaf x."""
     if x.dim() != 2:
         raise ValueError(f"neighbor_mix: x must be (K, N), got {x.shape}")
     K, N = x.shape
@@ -253,12 +316,8 @@ def neighbor_mix(x: torch.Tensor, nbr_idx: torch.Tensor,
                              f"[0, {M}): range [{lo}, {hi}]")
     if on_cpu:
         return ref.neighbor_mix_padded_ref(x, nbr_idx, nbr_w, self_w, src)
-    if K > 65535:
-        raise ValueError(f"neighbor_mix: K={K} exceeds the grid's 65535 rows")
     _check("neighbor_mix x", x, _SUFFIX)
-    _check("neighbor_mix nbr_idx", nbr_idx, (torch.int32,))
-    _check("neighbor_mix nbr_w", nbr_w, (torch.float32,))
-    _check("neighbor_mix self_w", self_w, (torch.float32,))
+    _check_mix_operands(nbr_idx, nbr_w, self_w)
     out = torch.empty_like(x)
     if src is None:
         launch_neighbor_mix(x, nbr_idx, nbr_w, self_w, out)
@@ -268,33 +327,163 @@ def neighbor_mix(x: torch.Tensor, nbr_idx: torch.Tensor,
     return out
 
 
+def neighbor_mix_many(xs: Sequence[torch.Tensor], operands: MixOperands
+                      ) -> List[torch.Tensor]:
+    """D-PSGD's gossip round on every leaf of a model: for each stacked
+    (K, ...) leaf x, its per-node entries as a row, ``neighbor_mix(x,
+    operands.idx, operands.w, operands.self_w)``, returned as a new
+    contiguous tensor shaped like x.  ``operands.n_src`` must be K (the
+    neighbours are the leaves' own rows).  On the card one launch covers
+    every leaf (up to 32 a launch), all of one dtype (float32 or
+    bfloat16), each contiguous and read where it lies, and no device value
+    is read back; on the CPU the plain version loops."""
+    xs, K = _mix_leaves("neighbor_mix_many", xs, operands)
+    if operands.n_src != K:
+        raise ValueError(f"neighbor_mix_many: operands index {operands.n_src}"
+                         f" source rows, the leaves have {K}")
+    if _on_cpu(*xs, operands.idx, operands.w, operands.self_w):
+        return ref.neighbor_mix_many_ref(xs, operands.idx, operands.w,
+                                         operands.self_w)
+    _check_many("neighbor_mix_many", xs)
+    _check_mix_operands(operands.idx, operands.w, operands.self_w)
+    outs = [torch.empty_like(x) for x in xs]
+    launch_neighbor_mix_many(xs, operands, outs)
+    return outs
+
+
+def neighbor_mix_push_many(xs: Sequence[torch.Tensor], snaps: torch.Tensor,
+                           operands: MixOperands
+                           ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """AD-PSGD's stale gossip round and its snapshot push, on every leaf
+    of a model.  ``snaps`` (S + 1, K, N), of the leaves' dtype, holds the
+    last S + 1 rounds' stacks flattened, the leaves' per-node entries
+    side by side in the order of ``xs`` (N their sizes summed; slot 0 the
+    newest).  Returns (mixed leaves, new_snaps): new_snaps[0] is this
+    round's leaves flattened, new_snaps[s] = snaps[s - 1]; each leaf x is
+    mixed as ``neighbor_mix(x, operands.idx, operands.w, operands.self_w,
+    src=new_snaps viewed as ((S + 1) K, N))`` on its own columns, so
+    ``idx = staleness * K + neighbour`` reads slot ``staleness`` and
+    ``operands.n_src`` must be (S + 1) K.  Both are new tensors.  On the
+    card one launch does the push and the gather of every leaf (up to 32
+    a launch), reading the leaves and snaps where they lie, with no device
+    value read back; on the CPU the plain version loops."""
+    xs, K = _mix_leaves("neighbor_mix_push_many", xs, operands)
+    N = sum(x[0].numel() for x in xs)
+    if snaps.dim() != 3 or snaps.shape[1:] != (K, N):
+        raise ValueError(f"neighbor_mix_push_many: snaps {tuple(snaps.shape)}"
+                         f" must be (S + 1, {K}, {N})")
+    if operands.n_src != snaps.shape[0] * K:
+        raise ValueError(f"neighbor_mix_push_many: operands index "
+                         f"{operands.n_src} source rows, the buffer has "
+                         f"{snaps.shape[0] * K}")
+    if snaps.dtype != xs[0].dtype:
+        raise TypeError(f"neighbor_mix_push_many: snaps dtype {snaps.dtype} "
+                        f"differs from the leaves' {xs[0].dtype}")
+    if _on_cpu(*xs, snaps, operands.idx, operands.w, operands.self_w):
+        return ref.neighbor_mix_push_many_ref(xs, snaps, operands.idx,
+                                              operands.w, operands.self_w)
+    _check_many("neighbor_mix_push_many", xs + [snaps])
+    _check_mix_operands(operands.idx, operands.w, operands.self_w)
+    outs = [torch.empty_like(x) for x in xs]
+    new_snaps = torch.empty_like(snaps)
+    launch_neighbor_mix_push_many(xs, snaps, operands, outs, new_snaps)
+    return outs, new_snaps
+
+
+def _mix_leaves(op: str, xs: Sequence[torch.Tensor], operands: MixOperands
+                ) -> Tuple[List[torch.Tensor], int]:
+    """The leaves as a list of one or more (K, ...) tensors, K the
+    operands' node count."""
+    xs = list(xs)
+    K = operands.idx.shape[0]
+    if not xs or any(x.dim() < 1 or x.shape[0] != K for x in xs):
+        raise ValueError(f"{op}: needs one or more (K={K}, ...) leaves, got "
+                         f"{[tuple(x.shape) for x in xs]}")
+    return xs, K
+
+
+def _check_mix_operands(nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
+                        self_w: torch.Tensor) -> None:
+    _check("neighbor_mix nbr_idx", nbr_idx, (torch.int32,))
+    _check("neighbor_mix nbr_w", nbr_w, (torch.float32,))
+    _check("neighbor_mix self_w", self_w, (torch.float32,))
+
+
+def _launch_mix(kernel: str, xs: Sequence[torch.Tensor],
+                outs: Sequence[torch.Tensor], offs: Sequence[int],
+                nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
+                self_w: torch.Tensor, *, src: Optional[torch.Tensor] = None,
+                extra: int = 0, base: int = 0, n_src: int,
+                snaps: Optional[torch.Tensor] = None) -> None:
+    """Launch the ``neighbor_mix`` kernel on checked CUDA operands: the
+    staged rows of leaf j are its K rows, then ``extra`` rows of ``src``
+    (row stride N = src's last dim) at column ``offs[j]``; an index names
+    staged row ``base + idx``, in [0, n_src); with ``snaps`` every staged
+    row is also written there (same stride and columns).  One launch for
+    up to 32 leaves, counted under ``kernel``."""
+    K, D = nbr_idx.shape
+    # a block's shared memory: 1 KB a staged row, then idx, w and sw
+    if (K + extra) * 1024 + K * D * 8 + K * 4 > _MIX_MAX_SMEM:
+        raise ValueError(f"neighbor_mix: {K + extra} staged rows at K={K}, "
+                         f"D={D} exceed a block's shared memory")
+    fn = _kernel("neighbor_mix", "neighbor_mix", xs[0].dtype, _MIX_ARGS)
+    dev = xs[0].device
+    ld = 0 if src is None else src.shape[-1]
+    made = ctypes.c_int(0)
+    err = fn(_pointers(xs), _pointers(outs),
+             (ctypes.c_longlong * len(xs))(*(x.numel() // K for x in xs)),
+             (ctypes.c_longlong * len(xs))(*offs), len(xs),
+             nbr_idx.data_ptr(), nbr_w.data_ptr(), self_w.data_ptr(), K, D,
+             None if src is None else src.data_ptr(), ld, extra, base, n_src,
+             None if snaps is None else snaps.data_ptr(), ld, dev.index,
+             torch.cuda.current_stream(dev).cuda_stream, ctypes.byref(made))
+    _launched(kernel, "neighbor_mix", err, made.value)
+
+
+def launch_neighbor_mix_many(xs: Sequence[torch.Tensor],
+                             operands: MixOperands,
+                             outs: Sequence[torch.Tensor]) -> None:
+    """Launch the ``neighbor_mix`` kernel as ``neighbor_mix_many`` does,
+    on leaves it checked, writing each leaf's result into ``outs``."""
+    _launch_mix("neighbor_mix", xs, outs, [0] * len(xs), operands.idx,
+                operands.w, operands.self_w, n_src=operands.n_src)
+
+
+def launch_neighbor_mix_push_many(xs: Sequence[torch.Tensor],
+                                  snaps: torch.Tensor, operands: MixOperands,
+                                  outs: Sequence[torch.Tensor],
+                                  new_snaps: torch.Tensor) -> None:
+    """Launch the ``neighbor_mix`` kernel as ``neighbor_mix_push_many``
+    does, on operands it checked: the mixed leaves into ``outs``, the
+    pushed buffer into ``new_snaps`` (like ``snaps``)."""
+    K = operands.idx.shape[0]
+    offs = np.cumsum([0] + [x.numel() // K for x in xs[:-1]]).tolist()
+    _launch_mix("neighbor_mix_src", xs, outs, offs, operands.idx, operands.w,
+                operands.self_w, src=snaps,
+                extra=(snaps.shape[0] - 1) * K, n_src=operands.n_src,
+                snaps=new_snaps)
+
+
 def launch_neighbor_mix(x: torch.Tensor, nbr_idx: torch.Tensor,
                         nbr_w: torch.Tensor, self_w: torch.Tensor,
                         out: torch.Tensor) -> None:
     """Launch the ``neighbor_mix`` kernel on CUDA operands that
-    ``neighbor_mix`` checked, writing into ``out`` (like ``x``)."""
-    K, N = x.shape
-    fn = _kernel("neighbor_mix", "neighbor_mix", x.dtype, _MIX_ARGS)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _launched("neighbor_mix", "neighbor_mix", fn(
-        x.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(),
-        self_w.data_ptr(), out.data_ptr(), K, nbr_idx.shape[1], N,
-        x.device.index, stream))
+    ``neighbor_mix`` checked, writing into ``out`` (like ``x``): one
+    leaf, the (K, N) matrix x."""
+    _launch_mix("neighbor_mix", [x], [out], [0], nbr_idx, nbr_w, self_w,
+                n_src=x.shape[0])
 
 
 def launch_neighbor_mix_src(x: torch.Tensor, src: torch.Tensor,
                             nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
                             self_w: torch.Tensor, out: torch.Tensor) -> None:
-    """Launch the src-gather variant of the ``neighbor_mix`` kernel on
-    CUDA operands that ``neighbor_mix(..., src=src)`` checked, writing
-    into ``out`` (like ``x``)."""
-    K, N = x.shape
-    fn = _kernel("neighbor_mix", "neighbor_mix_src", x.dtype, _MIX_SRC_ARGS)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    _launched("neighbor_mix_src", "neighbor_mix", fn(
-        x.data_ptr(), src.data_ptr(), nbr_idx.data_ptr(), nbr_w.data_ptr(),
-        self_w.data_ptr(), out.data_ptr(), K, nbr_idx.shape[1],
-        src.shape[0], N, x.device.index, stream))
+    """Launch the ``neighbor_mix`` kernel with its neighbour rows from
+    ``src`` on CUDA operands that ``neighbor_mix(..., src=src)`` checked,
+    writing into ``out`` (like ``x``): one leaf x, every row of src
+    staged after x's."""
+    _launch_mix("neighbor_mix_src", [x], [out], [0], nbr_idx, nbr_w, self_w,
+                src=src, extra=src.shape[0], base=x.shape[0],
+                n_src=src.shape[0])
 
 
 def rand_k_sparsify(v: torch.Tensor, keep_prob, seed

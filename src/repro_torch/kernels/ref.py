@@ -154,6 +154,39 @@ def neighbor_mix_padded_ref(x: torch.Tensor, nbr_idx: torch.Tensor,
     return out.to(x.dtype)
 
 
+def neighbor_mix_many_ref(xs: Sequence[torch.Tensor], nbr_idx: torch.Tensor,
+                          nbr_w: torch.Tensor, self_w: torch.Tensor
+                          ) -> List[torch.Tensor]:
+    """``neighbor_mix_padded_ref`` on each stacked (K, ...) leaf, its
+    per-node entries as a row, the result shaped like the leaf."""
+    K = nbr_idx.shape[0]
+    return [neighbor_mix_padded_ref(x.reshape(K, -1), nbr_idx, nbr_w,
+                                    self_w).reshape(x.shape) for x in xs]
+
+
+def neighbor_mix_push_many_ref(xs: Sequence[torch.Tensor],
+                               snaps: torch.Tensor, nbr_idx: torch.Tensor,
+                               nbr_w: torch.Tensor, self_w: torch.Tensor
+                               ) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """AD-PSGD's round: the leaves, flattened and side by side, pushed
+    into slot 0 of the (S + 1, K, N) buffer ``snaps`` (its last slot
+    dropped), then ``neighbor_mix_padded_ref`` on each leaf with its
+    neighbour rows from its own columns of the pushed buffer viewed as
+    ((S + 1) K, N).  Returns (the mixed leaves, the pushed buffer)."""
+    K = nbr_idx.shape[0]
+    flat = torch.cat([x.reshape(K, -1) for x in xs], dim=1)
+    new_snaps = torch.cat([flat[None], snaps[:-1]])
+    src = new_snaps.reshape(-1, flat.shape[1])
+    outs, off = [], 0
+    for x in xs:
+        n = x[0].numel()
+        outs.append(neighbor_mix_padded_ref(
+            x.reshape(K, -1), nbr_idx, nbr_w, self_w,
+            src[:, off:off + n]).reshape(x.shape))
+        off += n
+    return outs, new_snaps
+
+
 def neighbor_mix_ref(x: torch.Tensor, mixing: torch.Tensor) -> torch.Tensor:
     """Dense gossip averaging ``W @ X`` with the full (K, K) mixing
     matrix.  x: (K, N) stacked per-node vectors."""

@@ -739,3 +739,156 @@ def test_many_kernels_take_more_tensors_than_a_launch(dev):
     assert torch.equal(got[2], expect[2])
     assert ops.launches["gaia_select"] == before["gaia_select"] + 2
     assert ops.launches["rand_k_select"] == before["rand_k_select"] + 2
+
+
+# ---------------------------------------------------------------------------
+# neighbor_mix_many and neighbor_mix_push_many: one gossip launch a step
+# over a model's leaves
+# ---------------------------------------------------------------------------
+
+GOSSIP_CFGS = ["gn-lenet", "resnet-s", "alexnet-s"]
+
+
+def _zoo_leaves(cfg_name, K, dev, dtype, seed):
+    """Seeded normal leaves of a zoo model's shapes, stacked at K."""
+    params, _ = init_cnn(torch.Generator().manual_seed(0), CNN_ZOO[cfg_name])
+    return [_randn((K,) + tuple(t.shape), seed + i).to(dev, dtype)
+            for i, t in enumerate(params.values())]
+
+
+def _gossip_operands(topology, K, stale, n_src, dev):
+    """The round-0 operands of ``topology``, real neighbours read at slot
+    ``stale`` of a buffer of ``n_src`` rows."""
+    idx, w, sw = build_schedule(topology, K, seed=0).neighbor_arrays(0)
+    return ops.mix_operands(np.where(w > 0, stale, 0) * K + idx, w, sw,
+                            n_src, dev)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("topology,K", [("ring", 5), ("random", 16)])
+@pytest.mark.parametrize("cfg_name", GOSSIP_CFGS)
+def test_neighbor_mix_many_kernel_matches_ref(dev, cfg_name, topology, K,
+                                              dtype, tol):
+    xs = _zoo_leaves(cfg_name, K, dev, dtype, 0)
+    mix = _gossip_operands(topology, K, 0, K, dev)
+    before = dict(ops.launches)
+    outs = ops.neighbor_mix_many(xs, mix)
+    assert ops.launches["neighbor_mix"] == before["neighbor_mix"] + 1
+    expect = ref.neighbor_mix_many_ref(xs, mix.idx, mix.w, mix.self_w)
+    for o, e, x in zip(outs, expect, xs):
+        assert o.dtype == dtype and o.shape == x.shape and o.is_contiguous()
+        torch.testing.assert_close(o.float(), e.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("staleness", [0, 2])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("topology,K", [("ring", 5), ("random", 16)])
+@pytest.mark.parametrize("cfg_name", GOSSIP_CFGS)
+def test_neighbor_mix_push_many_kernel_matches_ref(dev, cfg_name, topology, K,
+                                                   dtype, tol, staleness):
+    """The push is a copy (exact); the mix within the tolerance."""
+    S = 2
+    xs = _zoo_leaves(cfg_name, K, dev, dtype, 0)
+    N = sum(x[0].numel() for x in xs)
+    snaps = _randn((S + 1, K, N), 99).to(dev, dtype)
+    mix = _gossip_operands(topology, K, staleness, (S + 1) * K, dev)
+    before = ops.launches["neighbor_mix_src"]
+    outs, new_snaps = ops.neighbor_mix_push_many(xs, snaps, mix)
+    assert ops.launches["neighbor_mix_src"] == before + 1
+    expect, expect_snaps = ref.neighbor_mix_push_many_ref(
+        xs, snaps, mix.idx, mix.w, mix.self_w)
+    assert torch.equal(new_snaps, expect_snaps)
+    for o, e, x in zip(outs, expect, xs):
+        assert o.dtype == dtype and o.shape == x.shape and o.is_contiguous()
+        torch.testing.assert_close(o.float(), e.float(), atol=tol, rtol=tol)
+
+
+def _flat_mix(xs, operands):
+    """The earlier D-PSGD design: flatten, the raw op (its index check
+    and sync included), split."""
+    K = operands.idx.shape[0]
+    flat = torch.cat([x.reshape(K, -1).float() for x in xs], dim=1)
+    mixed = ops.neighbor_mix(flat, operands.idx, operands.w, operands.self_w)
+    return [p.reshape(x.shape).to(x.dtype) for p, x in
+            zip(mixed.split([x[0].numel() for x in xs], dim=1), xs)]
+
+
+def _flat_push(xs, snaps, operands):
+    """The earlier AD-PSGD design: flatten, push by ``torch.cat``, the raw
+    op with ``src=``, split."""
+    K = operands.idx.shape[0]
+    flat = torch.cat([x.reshape(K, -1).float() for x in xs], dim=1)
+    new_snaps = torch.cat([flat[None], snaps[:-1]], dim=0)
+    mixed = ops.neighbor_mix(flat, operands.idx, operands.w,
+                             operands.self_w,
+                             src=new_snaps.reshape(-1, flat.shape[1]))
+    return ([p.reshape(x.shape).to(x.dtype) for p, x in
+             zip(mixed.split([x[0].numel() for x in xs], dim=1), xs)],
+            new_snaps)
+
+
+@pytest.mark.parametrize("algo_name,op,flat_route,kernel", [
+    ("dpsgd", "neighbor_mix_many", _flat_mix, "neighbor_mix"),
+    ("adpsgd", "neighbor_mix_push_many", _flat_push, "neighbor_mix_src")])
+def test_gossip_step_on_card_matches_the_flat_route(dev, algo_name, op,
+                                                    flat_route, kernel,
+                                                    monkeypatch):
+    """One D-PSGD or AD-PSGD step (staleness 2, its third round, so the
+    deeper slots differ) through the leaf-table op makes one launch and
+    gives the state of the earlier flatten-mix-split route bit for bit
+    (cuDNN deterministic: the steps differ only in the mixing)."""
+    cfg = CNN_ZOO["gn-lenet"]
+    fns, _ = trainer.make_cnn_fns(cfg)
+    comm = CommConfig(fabric=FabricConfig(topology="ring"), max_staleness=2)
+    params, mstate = init_cnn(torch.Generator().manual_seed(0), cfg)
+    rs = np.random.default_rng(3)
+    batch = {"x": torch.from_numpy(rs.standard_normal(
+                 (5, 20, 16, 16, 3)).astype(np.float32)).to(dev),
+             "y": torch.from_numpy(rs.integers(0, 10, (5, 20))).to(dev)}
+    lr = torch.tensor(0.05, device=dev)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    algo = trainer.make_algorithm(algo_name, fns, 5, comm)
+    state = algo.init({n: t.to(dev) for n, t in params.items()},
+                      {n: t.to(dev) for n, t in mstate.items()})
+    for t in range(2):
+        state, _ = algo.step(state, batch, lr, t)
+    before = dict(ops.launches)
+    new, _ = algo.step(state, batch, lr, 2)
+    made = {k: c - before[k] for k, c in ops.launches.items()
+            if c != before[k]}
+    assert made == {kernel: 1}, made
+    monkeypatch.setattr(ops, op, flat_route)
+    old, _ = algo.step(state, batch, lr, 2)
+    assert set(new) == set(old)
+    for part, tree in new.items():
+        if isinstance(tree, torch.Tensor):
+            assert torch.equal(tree, old[part]), part
+            continue
+        for n, t in tree.items():
+            assert torch.equal(t, old[part][n]), (part, n)
+
+
+def test_gossip_many_kernels_take_more_leaves_than_a_launch(dev):
+    """40 leaves, one of them off a 16-byte boundary and some of ragged
+    sizes: two launches of up to 32 each, for both ops."""
+    K, S = 5, 2
+    xs = [_randn((K, 3 + 97 * i), i).to(dev) for i in range(40)]
+    xs[7] = _off16(xs[7])
+    mix = _gossip_operands("ring", K, 0, K, dev)
+    stale = _gossip_operands("ring", K, 2, (S + 1) * K, dev)
+    N = sum(x[0].numel() for x in xs)
+    snaps = _randn((S + 1, K, N), 77).to(dev)
+    before = dict(ops.launches)
+    outs = ops.neighbor_mix_many(xs, mix)
+    pushed, new_snaps = ops.neighbor_mix_push_many(xs, snaps, stale)
+    assert ops.launches["neighbor_mix"] == before["neighbor_mix"] + 2
+    assert ops.launches["neighbor_mix_src"] == before["neighbor_mix_src"] + 2
+    expect = ref.neighbor_mix_many_ref(xs, mix.idx, mix.w, mix.self_w)
+    expect_p, expect_snaps = ref.neighbor_mix_push_many_ref(
+        xs, snaps, stale.idx, stale.w, stale.self_w)
+    assert torch.equal(new_snaps, expect_snaps)
+    for got, exp in ((outs, expect), (pushed, expect_p)):
+        for o, e in zip(got, exp):
+            torch.testing.assert_close(o, e, atol=2e-5, rtol=2e-5)

@@ -453,3 +453,164 @@ def test_many_ops_refuse_bad_lists(no_kernel_build):
         with pytest.raises(ValueError, match=match):
             call()
     assert ops.launches == launches
+
+
+# ---------------------------------------------------------------------------
+# neighbor_mix_many and neighbor_mix_push_many: D-PSGD's and AD-PSGD's
+# rounds over a model's leaves, against the reference's kernel (interpret
+# mode) on the leaves concatenated as the reference's step concatenates them
+# ---------------------------------------------------------------------------
+
+#: per-node leaf shapes: a conv weight, norm scales, sizes off a multiple of
+#: 4 (the kernel's 16-byte vectors) and a leaf of one element
+MIX_LEAF_SHAPES = [(5, 5, 3, 8), (8,), (8,), (37,), (10, 13), (1,), (10,)]
+
+
+def _leaf_pair(K: int, dtype: str, seed: int):
+    """Seeded normal leaves stacked at K: (JAX leaves, torch leaves)."""
+    rs = np.random.default_rng(seed)
+    pairs = [_pair(rs.standard_normal((K,) + s).astype(np.float32), dtype)
+             for s in MIX_LEAF_SHAPES]
+    return [j for j, _ in pairs], [t for _, t in pairs]
+
+
+def _flat_jax(jleaves, K: int):
+    return jnp.concatenate([j.reshape(K, -1) for j in jleaves], axis=1)
+
+
+def _split_np(flat, like):
+    sizes = np.cumsum([t[0].numel() for t in like])[:-1]
+    return [p.reshape(t.shape) for p, t in
+            zip(np.split(_np32(flat), sizes, axis=1), like)]
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("topology", ["ring", "torus", "random"])
+def test_neighbor_mix_many_ref_matches_jax(topology, dtype):
+    """Each leaf mixed on its own equals the reference's kernel on the
+    leaves concatenated (D-PSGD's flatten), split back."""
+    K = 16
+    tol = DTYPES[dtype][2]
+    idx, w, sw = build_schedule(topology, K, seed=3).neighbor_arrays(0)
+    mix = ops.mix_operands(idx, w, sw, K, "cpu")
+    jleaves, leaves = _leaf_pair(K, dtype, 11)
+    outs = ops.neighbor_mix_many(leaves, mix)
+    expect = jax_mix.neighbor_mix(
+        _flat_jax(jleaves, K), jnp.asarray(idx, jnp.int32),
+        jnp.asarray(w, jnp.float32), jnp.asarray(sw, jnp.float32),
+        interpret=True)
+    for out, x, e in zip(outs, leaves, _split_np(expect, leaves)):
+        assert out.dtype == x.dtype and out.shape == x.shape
+        assert out.is_contiguous()
+        np.testing.assert_allclose(_np32(out), e, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("staleness", [0, 2])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+@pytest.mark.parametrize("topology", ["ring", "torus", "random"])
+def test_neighbor_mix_push_many_ref_matches_jax(topology, dtype, staleness):
+    """The push and the stale gather against the reference's step: the
+    leaves concatenated, pushed by ``concatenate([flat[None],
+    snaps[:-1]])`` and mixed by the reference's kernel with ``src=``;
+    the pushed buffer is exact (a copy)."""
+    K, S = 16, 2
+    tol = DTYPES[dtype][2]
+    idx, w, sw = build_schedule(topology, K, seed=3).neighbor_arrays(0)
+    gidx = (np.where(w > 0, staleness, 0) * K + idx).astype(np.int32)
+    mix = ops.mix_operands(gidx, w, sw, (S + 1) * K, "cpu")
+    jleaves, leaves = _leaf_pair(K, dtype, 12)
+    N = sum(t[0].numel() for t in leaves)
+    jsnaps, snaps = _pair(np.random.default_rng(13).standard_normal(
+        (S + 1, K, N)).astype(np.float32), dtype)
+    outs, new_snaps = ops.neighbor_mix_push_many(leaves, snaps, mix)
+    jflat = _flat_jax(jleaves, K)
+    jnew = jnp.concatenate([jflat[None], jsnaps[:-1]])
+    expect = jax_ops.neighbor_mix(
+        jflat, jnp.asarray(gidx), jnp.asarray(w, jnp.float32),
+        jnp.asarray(sw, jnp.float32), src=jnew.reshape(-1, N),
+        interpret=True)
+    assert new_snaps.dtype == snaps.dtype
+    np.testing.assert_array_equal(_np32(new_snaps), _np32(jnew))
+    for out, x, e in zip(outs, leaves, _split_np(expect, leaves)):
+        assert out.dtype == x.dtype and out.shape == x.shape
+        np.testing.assert_allclose(_np32(out), e, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("push", [False, True], ids=["dpsgd", "adpsgd"])
+@pytest.mark.parametrize("cfg_name", ["gn-lenet", "resnet-s", "alexnet-s"])
+def test_neighbor_mix_many_matches_the_raw_op_on_the_flat_matrix(
+        cfg_name, push, no_kernel_build):
+    """A zoo model's leaves at K = 5 on a ring through the leaf-table op
+    against the raw op on the flattened (K, N) matrix (and, for the push,
+    the buffer pushed by ``torch.cat``), within 2e-5."""
+    K, S = 5, 2
+    params, _ = init_cnn(torch.Generator().manual_seed(0), CNN_ZOO[cfg_name])
+    g = torch.Generator().manual_seed(1)
+    leaves = [torch.randn((K,) + tuple(t.shape), generator=g)
+              for t in params.values()]
+    flat = torch.cat([x.reshape(K, -1) for x in leaves], dim=1)
+    idx, w, sw = build_schedule("ring", K).neighbor_arrays(0)
+    stale = S if push else 0
+    gidx = (np.where(w > 0, stale, 0) * K + idx).astype(np.int32)
+    raw = (torch.from_numpy(gidx), torch.from_numpy(w), torch.from_numpy(sw))
+    launches = dict(ops.launches)
+    if push:
+        snaps = torch.randn((S + 1,) + tuple(flat.shape), generator=g)
+        outs, new_snaps = ops.neighbor_mix_push_many(
+            leaves, snaps, ops.mix_operands(gidx, w, sw, (S + 1) * K, "cpu"))
+        pushed = torch.cat([flat[None], snaps[:-1]])
+        assert torch.equal(new_snaps, pushed)
+        expect = ops.neighbor_mix(flat, *raw, src=pushed.reshape(-1,
+                                                                 flat.shape[1]))
+    else:
+        outs = ops.neighbor_mix_many(leaves,
+                                     ops.mix_operands(gidx, w, sw, K, "cpu"))
+        expect = ops.neighbor_mix(flat, *raw)
+    assert ops.launches == launches              # the CPU launches nothing
+    got = torch.cat([o.reshape(K, -1) for o in outs], dim=1)
+    torch.testing.assert_close(got, expect, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("bad", [-1, "n_src"])
+def test_mix_operands_refuse_index_outside_range(bad, no_kernel_build):
+    """The range check runs on the host arrays, before any upload: the
+    operands are asked for on a CUDA device, and the refusal comes first
+    (here, where there is no card, as on one)."""
+    idx, w, sw = build_schedule("ring", 5).neighbor_arrays(0)
+    n_src = 15
+    idx = idx.copy()
+    idx[3, 1] = n_src if bad == "n_src" else bad
+    launches = dict(ops.launches)
+    with pytest.raises(ValueError, match="outside"):
+        ops.mix_operands(idx, w, sw, n_src, "cuda")
+    assert ops.launches == launches
+    idx[3, 1] = n_src - 1                        # in range: built
+    mix = ops.mix_operands(idx, w, sw, n_src, "cpu")
+    assert (mix.idx.dtype, mix.w.dtype, mix.self_w.dtype) == (
+        torch.int32, torch.float32, torch.float32)
+    assert mix.n_src == n_src and mix.idx.shape == (5, 2)
+
+
+def test_gossip_many_ops_refuse_bad_operands(no_kernel_build):
+    idx, w, sw = build_schedule("ring", 5).neighbor_arrays(0)
+    mix = ops.mix_operands(idx, w, sw, 5, "cpu")
+    stale = ops.mix_operands(idx, w, sw, 15, "cpu")
+    x = torch.zeros(5, 4, 3)
+    snaps = torch.zeros(3, 5, 12)
+    bad = [(lambda: ops.neighbor_mix_many([], mix), "leaves"),
+           (lambda: ops.neighbor_mix_many([x, x[:4]], mix), "leaves"),
+           (lambda: ops.neighbor_mix_many([x], stale), "source rows"),
+           (lambda: ops.neighbor_mix_push_many([x], snaps, mix),
+            "source rows"),
+           (lambda: ops.neighbor_mix_push_many([x], snaps[:, :, :8], stale),
+            "snaps"),
+           (lambda: ops.mix_operands(idx[:, :1], w, sw, 5, "cpu"), "shapes"),
+           (lambda: mix.with_weights(torch.zeros(5, 3), mix.self_w),
+            "shapes")]
+    launches = dict(ops.launches)
+    for call, match in bad:
+        with pytest.raises(ValueError, match=match):
+            call()
+    with pytest.raises(TypeError, match="dtype"):
+        ops.neighbor_mix_push_many([x], snaps.double(), stale)
+    assert ops.launches == launches

@@ -360,12 +360,15 @@ def test_dgc_randk_step_matches_jax(jax_oracles):
 @pytest.mark.parametrize("algo_name,op,hypers,comm_kw", [
     ("gaia", "gaia_select_many", {"t0": 0.1}, {}),
     ("dgc", "rand_k_sparsify_many", {"sparsity": 0.75},
-     {"dgc_compressor": "randk"})])
+     {"dgc_compressor": "randk"}),
+    ("dpsgd", "neighbor_mix_many", {}, {}),
+    ("adpsgd", "neighbor_mix_push_many", {}, {})])
 def test_step_filters_every_tensor_in_one_op(algo_name, op, hypers, comm_kw,
                                              monkeypatch):
-    """Gaia's and DGC rand-k's step call their multi-tensor op once, on
-    every parameter tensor, and the single-tensor ops not at all: on the
-    card that is one kernel launch a step."""
+    """Gaia's, DGC rand-k's, D-PSGD's and AD-PSGD's step call their
+    multi-tensor op once, on every parameter tensor, and the
+    single-tensor ops (the raw one-matrix ``neighbor_mix`` among them)
+    not at all: on the card that is one kernel launch a step."""
     calls = []
     many = getattr(ops, op)
 
@@ -378,6 +381,7 @@ def test_step_filters_every_tensor_in_one_op(algo_name, op, hypers, comm_kw,
     monkeypatch.setattr(ops, op, counted)
     monkeypatch.setattr(ops, "gaia_select", refuse)
     monkeypatch.setattr(ops, "rand_k_sparsify", refuse)
+    monkeypatch.setattr(ops, "neighbor_mix", refuse)
     _, _, algo = _port_step(algo_name, "bn-lenet", hypers=hypers, **comm_kw)
     assert calls == [len(init_cnn(torch.Generator().manual_seed(0),
                                   CNN_ZOO["bn-lenet"])[0])]
