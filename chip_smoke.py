@@ -88,7 +88,7 @@ before the last line is printed:
    step (PyTorch's sync debug mode), the wall time a step (median of 40
    in two rounds, in turns), and one step of each under
    ``torch.profiler``: its kernels, device busy time, idle share and top
-   kernels (traced last, after phase 7, so that no profiling runs before
+   kernels (traced last, after phase 8, so that no profiling runs before
    a host-bound timing of the script);
 5. kernel times: the median of 50 CUDA-event-timed launches at the main
    path's shapes (a whole training step's tensors in one launch for
@@ -106,7 +106,12 @@ before the last line is printed:
    ``flash_attention``, through the (B, H, T, D) launch and through the
    (B, T, H, D) launch the model makes, 16 over 8 heads, with
    ``chunked_attention`` around it, the (Dk, Dv) pairs at (1, 16, 2048,
-   2048) bfloat16 causal, and the bench's (1, 4, 256, 64) float32): the
+   2048) bfloat16 causal, the three prefill shapes of phase 8's models
+   as they launch the kernel ((4, 2048) tokens of 16 heads at (192, 128),
+   40 at (96, 64) and 32 at (96, 96), MLA's v a view of its expansion)
+   beside SDPA where one of its fused backends takes the pair, each
+   also held against its plain version under the four masks at the
+   prefill's tolerances, and the bench's (1, 4, 256, 64) float32): the
    kernel launch alone (``ms``) and the whole op with its
    checks and allocations (``op_ms``), beside the plain version, the
    library call
@@ -130,9 +135,29 @@ before the last line is printed:
    64-token prompt with 32 generated tokens over a 128-slot cache; (c)
    ``forward``'s logits at every position of 256 tokens against
    ``decode_step``'s after the same tokens (the kernel's causal prefill
-   against the kernel-free decode path); (d) the reduced float32
-   ``qwen3-0.6b``, ``gemma2-9b`` and ``starcoder2-3b`` on the card against
-   the CPU (TF32 off, rtol and atol 1e-3).
+   against the kernel-free decode path); (d) every arch of the registry,
+   reduced, float32 (the VLM with patches), on the card against the CPU,
+   logits and MoE aux (TF32 off, rtol and atol 1e-3);
+8. LM serving of the MLA, MoE and VLM families at full width, bfloat16,
+   random weights from a seeded generator on the card, each model's
+   parameter counts, draw time and peak memory printed, and its prefill
+   (``make_prefill_step``, 4 x 2048 positions, one ``flash_attention``
+   launch a layer and no other kernel, counted over the timed calls) and
+   decode (the ``serve_decode`` loop of phase 7, no kernel launch, host
+   syncs a step) timed: (a) ``deepseek-v2-lite-16b`` (MLA over 26 MoE
+   layers, 27 launches a call), prefill against decode at 1 x 8 tokens
+   (no capacity drop) in bfloat16 at full depth and in float32 on a
+   4-layer cut (1 dense, 3 MoE, every width as published; within 5e-3,
+   every greedy token equal); beside the bfloat16 gap, the (token,
+   expert) pairs each path routes differently at each MoE layer and the
+   same prefill with the plain attention in the kernel's place; and,
+   after every timing, one prefill call
+   under ``torch.profiler`` (flash_attention, GEMMs, MoE dispatch, other)
+   and one decode step's launches; (b) ``minicpm3-4b`` (dense MLA, 62
+   launches a call), prefill against decode at 2 x 256 in float32 (5e-3,
+   99% greedy equal) and bfloat16 (reported); (c)
+   ``phi-3-vision-4.2b`` (576 patches prepended to 1,472 text tokens, 32
+   launches a call), its logits over the text positions only.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -210,6 +235,8 @@ FA_PREFILL_GQA, FA_PREFILL_GROUP = (PREFILL_B, 8, PREFILL_T, PREFILL_T,
 #: mean |err| over the 33.5 M outputs, which read 2.9e-8 to 3.0e-8 for the
 #: four masks (most outputs round to the same bfloat16)
 FA_PREFILL_TOL, FA_PREFILL_MEAN_TOL = 8e-3, 1e-6
+#: phase 8's models, whose prefill shapes phase 5 times the kernel at
+FA_MODEL_ARCHS = ("deepseek-v2-lite-16b", "minicpm3-4b", "phi-3-vision-4.2b")
 #: serving: 4 requests, 64-token prompts, 32 generated, 128 cache slots
 SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 4, 64, 32, 128
 #: prefill/decode agreement: 2 sequences of 256 tokens
@@ -221,6 +248,16 @@ AGREE_B, AGREE_T = 2, 256
 #: float32 as from each other)
 AGREE_TOL_F32, AGREE_SAME_F32 = 5e-3, 0.99
 AGREE_TOL_BF16, AGREE_MEAN_BF16 = 4.0, 0.5
+#: the MoE model's prefill/decode agreement: 1 x 8 tokens, where the
+#: capacity (8 slots an expert) drops no (token, expert) pair on either
+#: path, and the float32 cut: the dense first layer and 3 MoE layers
+MOE_AGREE_T, MOE_CUT_LAYERS = 8, 4
+#: kernel names (lower case) of a prefill trace: cuBLAS' and CUTLASS'
+#: GEMMs, and the MoE dispatch (router top-k, rank cumsum, the slot
+#: scatter and the gathers)
+GEMM_KEYS = ("gemm", "nvjet", "sm90", "cutlass")
+DISPATCH_KEYS = ("topk", "sort", "scan", "cumsum", "index", "scatter",
+                 "gather")
 #: the rows of the kernel bench: the reference's rows without interpret
 #: mode, and the library calls
 BENCH_ROWS = (
@@ -398,6 +435,65 @@ def device_profile(fn):
     return sum(per_kernel.values()), launches, per_kernel
 
 
+def count_syncs(fn):
+    """Host syncs ``fn()`` makes, by PyTorch's sync debug mode: its
+    "called a synchronizing CUDA operation" warnings."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w_.message) for w_ in caught)
+
+
+def prefill_and_decode(lm, params, cfg, tokens):
+    """``forward``'s logits at every position of ``tokens`` (B, T) and
+    ``decode_step``'s after the same tokens: the kernel's causal prefill
+    and the kernel-free decode path, (B, T, V) each."""
+    B, T = tokens.shape
+    full, _ = lm.forward(params, cfg, {"tokens": tokens})
+    cache = lm.init_cache(cfg, B, T, device=tokens.device)
+    steps_ = []
+    for t_ in range(T):
+        step_logits, cache = lm.decode_step(
+            params, cfg, {"token": tokens[:, t_],
+                          "t": torch.full((B,), t_, dtype=torch.int32,
+                                          device=tokens.device)}, cache)
+        steps_.append(step_logits)
+    return full, torch.stack(steps_, dim=1)
+
+
+def logit_gap(a, b):
+    """(max |a - b|, mean |a - b|, positions whose greedy tokens agree)."""
+    d = (a - b).abs()
+    same = int((a.argmax(-1) == b.argmax(-1)).sum())
+    return float(d.max()), float(d.mean()), same
+
+
+def sdpa_backends(q, k, v):
+    """The fused backends of ``F.scaled_dot_product_attention`` (flash,
+    memory-efficient, cuDNN) that take causal attention over q, k, v
+    (B, H, T, D); each refusal is the backend's own ``RuntimeError``."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    ok = []
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                with sdpa_kernel([b]):
+                    F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            except RuntimeError:
+                continue
+        ok.append(b.name)
+    torch.cuda.synchronize()
+    return ok
+
+
 def tree_numel(tree) -> int:
     if isinstance(tree, dict):
         return sum(tree_numel(v) for v in tree.values())
@@ -423,6 +519,7 @@ def main() -> int:
     from repro_torch.kernels import build, ops, ref
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import model as lm
+    from repro_torch.models import moe as moe_mod
     from repro_torch.models.attention import chunked_attention
     from repro_torch.models.cnn import init_cnn, reference_perm
     from repro_torch.topology import build_schedule
@@ -1175,20 +1272,6 @@ def main() -> int:
             else:
                 yield part, tree
 
-    def count_syncs(fn):
-        """Host syncs ``fn()`` makes, by PyTorch's sync debug mode: its
-        "called a synchronizing CUDA operation" warnings."""
-        torch.cuda.synchronize()
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return sum("called a synchronizing" in str(w_.message)
-                   for w_ in caught)
-
     fns, _ = trainer.make_cnn_fns(cfg)
     p0, s0 = init_cnn(torch.Generator().manual_seed(0), cfg)
     rs = np.random.default_rng(2)
@@ -1277,7 +1360,7 @@ def main() -> int:
                           kname, ktrace, per_launches))
     print("one training step of each design: the same state bit for bit "
           "(cuDNN deterministic, TF32 off); traced under torch.profiler "
-          "after phase 7's timings")
+          "after phase 8's timings")
     sys.stdout.flush()
 
     # ---------------------------------------------------------------- 5
@@ -1636,6 +1719,71 @@ def main() -> int:
               f"({flops / ms_ / 1e9:.1f} TFLOP/s useful), bound {b_ms:.5f} "
               f"ms ({b_by}), kernel / bound {ms_ / b_ms:.2f}")
         del q_, k_, v_, o_
+    # the pairs as phase 8's models launch them at their 4 x 2048 prefill,
+    # bfloat16, causal: MLA's q and k contiguous and v the view kv[...,
+    # nope:] of the expansion; phi-3-vision's q, k and v views of one
+    # projection; beside the bound and SDPA on the same operands where one
+    # of its fused backends takes the pair
+    fa["models"] = {}
+    for arch_ in FA_MODEL_ARCHS:
+        a_ = get_config(arch_).attention
+        H_ = a_.n_heads
+        if a_.kind == "mla":
+            dk_, dv_ = a_.nope_head_dim + a_.rope_head_dim, a_.v_head_dim
+            q_, k_ = (randn(PREFILL_B, PREFILL_T, H_, dk_).to(torch.bfloat16)
+                      for _ in range(2))
+            v_ = randn(PREFILL_B, PREFILL_T, H_,
+                       a_.nope_head_dim + dv_).to(torch.bfloat16)[
+                ..., a_.nope_head_dim:]
+        else:
+            dk_ = dv_ = a_.head_dim
+            q_, k_, v_ = fused_qkv(gen, dev, (PREFILL_B, H_, PREFILL_T,
+                                              PREFILL_T, dk_), 1,
+                                   torch.bfloat16)
+        o_ = torch.empty(q_.shape[:3] + (dv_,), dtype=torch.bfloat16,
+                         device=dev)
+        ms_ = time_ms(lambda: ops.launch_flash_attention(
+            q_, k_, v_, o_, causal=True, window=None, logit_softcap=None,
+            scale=dk_ ** -0.5, layout="bthd"))
+        # the op on the same operands against its plain version, every
+        # mask, at the prefill's tolerances
+        errs_ = []
+        with tf32_off():
+            for kw in FA_KWS:
+                diff = (ops.flash_attention_bthd(q_, k_, v_, scale=dk_ ** -0.5,
+                                                 **kw).float()
+                        - ref.flash_attention_bthd_ref(
+                            q_, k_, v_, scale=dk_ ** -0.5, **kw).float()
+                        ).abs()
+                err, mean = float(diff.max()), float(diff.mean())
+                assert err <= FA_PREFILL_TOL and \
+                    mean <= FA_PREFILL_MEAN_TOL, (arch_, kw, err, mean)
+                fa_prefill_max = max(fa_prefill_max, err)
+                errs_.append(f"{kw}: max {err:.3g}, mean {mean:.3g}")
+                del diff
+        n_bytes, flops = attention_work(
+            (PREFILL_B, H_, PREFILL_T, PREFILL_T, dk_), 2, dv=dv_)
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+        qs_, ks_, vs_ = (t_.transpose(1, 2) for t_ in (q_, k_, v_))
+        backends_ = sdpa_backends(qs_, ks_, vs_)
+        lib_ = (time_ms(lambda: F.scaled_dot_product_attention(
+            qs_, ks_, vs_, is_causal=True)) if backends_ else None)
+        fa["models"][arch_] = {
+            "shape": [PREFILL_B, PREFILL_T, H_, dk_, dv_], "ms": ms_,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_,
+            "sdpa_backends": backends_, "errors": errs_}
+        print(f"flash_attention at {arch_}'s prefill ((B, T, H) = "
+              f"({PREFILL_B}, {PREFILL_T}, {H_}), (Dk, Dv) = ({dk_}, {dv_}), "
+              f"bfloat16, causal, as the model launches it): kernel "
+              f"{ms_:.4f} ms ({flops / ms_ / 1e9:.1f} TFLOP/s useful), bound "
+              f"{b_ms:.5f} ms ({b_by}: {flops:.4g} flops, {n_bytes:.4g} "
+              f"bytes), kernel / bound {ms_ / b_ms:.2f}; "
+              + (f"SDPA {lib_:.4f} ms (fused backends that take it: "
+                 f"{backends_})" if backends_ else
+                 "SDPA refuses: none of its fused backends takes the pair")
+              + f"; op against plain (tol {FA_PREFILL_TOL:g}, mean "
+              f"{FA_PREFILL_MEAN_TOL:g}) |err| {'; '.join(errs_)}")
+        del q_, k_, v_, o_, qs_, ks_, vs_
     sys.stdout.flush()
 
     # ---------------------------------------------------------------- 6
@@ -1761,33 +1909,15 @@ def main() -> int:
     # bfloat16 and, on the same weights cast, in float32 (TF32 off)
     agree_tok = torch.from_numpy(rs.integers(0, V, (AGREE_B, AGREE_T))).to(dev)
 
-    def prefill_and_decode(params, cfg_):
-        full, _ = lm.forward(params, cfg_, {"tokens": agree_tok})
-        cache = lm.init_cache(cfg_, AGREE_B, AGREE_T, device=dev)
-        steps_ = []
-        for t_ in range(AGREE_T):
-            step_logits, cache = lm.decode_step(
-                params, cfg_,
-                {"token": agree_tok[:, t_],
-                 "t": torch.full((AGREE_B,), t_, dtype=torch.int32,
-                                 device=dev)}, cache)
-            steps_.append(step_logits)
-        return full, torch.stack(steps_, dim=1)
-
-    def gap(a, b):
-        d = (a - b).abs()
-        same = int((a.argmax(-1) == b.argmax(-1)).sum())
-        return float(d.max()), float(d.mean()), same
-
     cfg32 = dataclasses.replace(lm_cfg, dtype="float32")
     with torch.inference_mode(), tf32_off():
-        full16, dec16 = prefill_and_decode(lm_params, lm_cfg)
-        full32, dec32 = prefill_and_decode(tree_to(lm_params, torch.float32),
-                                           cfg32)
-        gaps = {"bf16 prefill vs bf16 decode": gap(full16, dec16),
-                "f32 prefill vs f32 decode": gap(full32, dec32),
-                "bf16 prefill vs f32 prefill": gap(full16, full32),
-                "bf16 decode vs f32 decode": gap(dec16, dec32)}
+        full16, dec16 = prefill_and_decode(lm, lm_params, lm_cfg, agree_tok)
+        full32, dec32 = prefill_and_decode(
+            lm, tree_to(lm_params, torch.float32), cfg32, agree_tok)
+        gaps = {"bf16 prefill vs bf16 decode": logit_gap(full16, dec16),
+                "f32 prefill vs f32 decode": logit_gap(full32, dec32),
+                "bf16 prefill vs f32 prefill": logit_gap(full16, full32),
+                "bf16 decode vs f32 decode": logit_gap(dec16, dec32)}
         logit_std = float(full32.std())
     n_pos = AGREE_B * AGREE_T
     for label, (mx, mean, same) in gaps.items():
@@ -1804,29 +1934,368 @@ def main() -> int:
           f"{AGREE_MEAN_BF16}")
     del full16, dec16, full32, dec32, lm_params
 
-    # (d) the three dense archs, reduced, float32: card against CPU
+    # (d) every arch of the registry, reduced, float32: card against CPU
+    # (the VLM with its reduced patches; the MoE archs' aux too)
     with tf32_off():
         for arch in ARCH_IDS:
             rcfg = get_config(arch).reduced()
             p_cpu = lm.init_model(torch.Generator().manual_seed(1), rcfg,
                                   "cpu")
-            toks = torch.from_numpy(rs.integers(0, rcfg.vocab, (2, 96)))
-            cpu_logits, _ = lm.forward(p_cpu, rcfg, {"tokens": toks})
-            card_logits, _ = lm.forward(tree_to(p_cpu, dev), rcfg,
-                                        {"tokens": toks.to(dev)})
+            r_batch = {"tokens": torch.from_numpy(
+                rs.integers(0, rcfg.vocab, (2, 96)))}
+            if rcfg.modality.kind == "vision":
+                r_batch["patches"] = torch.from_numpy(rs.standard_normal(
+                    (2, rcfg.modality.n_tokens,
+                     rcfg.modality.feat_dim)).astype(np.float32))
+            cpu_logits, cpu_aux = lm.forward(p_cpu, rcfg, r_batch)
+            card_logits, card_aux = lm.forward(
+                tree_to(p_cpu, dev), rcfg,
+                {k_: v_.to(dev) for k_, v_ in r_batch.items()})
             np.testing.assert_allclose(card_logits.cpu().numpy(),
                                        cpu_logits.numpy(), rtol=1e-3,
                                        atol=1e-3)
+            np.testing.assert_allclose(float(card_aux), float(cpu_aux),
+                                       rtol=1e-3, atol=1e-3)
+            a_ = rcfg.attention
             print(f"{arch} reduced ({rcfg.n_layers} layers, d_model "
-                  f"{rcfg.d_model}, windows "
+                  f"{rcfg.d_model}, {a_.kind}, windows "
                   f"{[rcfg.attn_window(i) for i in range(rcfg.n_layers)]}, "
-                  f"softcap {rcfg.attention.attn_softcap}), 2 x 96 tokens: "
-                  f"card and CPU logits agree (rtol 1e-3, atol 1e-3, TF32 "
-                  f"off), max |diff| "
-                  f"{float((card_logits.cpu() - cpu_logits).abs().max()):.3g}")
+                  f"softcap {a_.attn_softcap}, experts "
+                  f"{rcfg.moe.n_experts}, patches "
+                  f"{tuple(r_batch.get('patches', torch.empty(0)).shape)}"
+                  f"), 2 x 96 tokens: card and CPU logits agree (rtol 1e-3, "
+                  f"atol 1e-3, TF32 off), max |diff| "
+                  f"{float((card_logits.cpu() - cpu_logits).abs().max()):.3g}"
+                  f"; aux card {float(card_aux):.6g}, CPU "
+                  f"{float(cpu_aux):.6g}")
     print("serving: " + json.dumps({
         "prefill_tokens_per_s": prefill_tok_s, "prefill_ms": prefill_ms,
         "decode_tokens_per_s": decode_tok_s}))
+    sys.stdout.flush()
+
+    # ---------------------------------------------------------------- 8
+    phase(8, "LM serving of the MLA, MoE and VLM families at full width, "
+             "bfloat16")
+    torch.cuda.empty_cache()
+    serving8 = {}
+
+    def init_full(arch, cfg_=None, seed=0):
+        """The arch's random weights from a seeded generator on the card,
+        its parameter counts, draw time and peak memory printed."""
+        cfg_ = cfg_ or get_config(arch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before_ = torch.cuda.memory_allocated()
+        t0_ = time.perf_counter()
+        params_ = lm.init_model(torch.Generator(device=dev).manual_seed(seed),
+                                cfg_, dev)
+        torch.cuda.synchronize()
+        secs_ = time.perf_counter() - t0_
+        a_ = cfg_.attention
+        dims_ = ((a_.nope_head_dim + a_.rope_head_dim, a_.v_head_dim)
+                 if a_.kind == "mla" else (a_.head_dim, a_.head_dim))
+        print(f"{arch}: {cfg_.n_params()} parameters by the config's count, "
+              f"{tree_numel(params_)} in the tree (norms included); "
+              f"{cfg_.n_layers} layers, d_model {cfg_.d_model}, {a_.kind} "
+              f"attention of {a_.n_heads} heads at (Dk, Dv) = {dims_}, "
+              f"{cfg_.moe.n_experts} routed experts (top {cfg_.moe.top_k}) "
+              f"and {cfg_.moe.n_shared} shared, vocab {cfg_.vocab}, "
+              f"{cfg_.dtype}; drawn on the card in {secs_:.2f} s, peak "
+              f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+              f"({before_ / 2**30:.2f} GiB allocated before the draw, "
+              f"{torch.cuda.memory_allocated() / 2**30:.2f} after)",
+              flush=True)
+        return cfg_, params_
+
+    def time_prefill(arch, cfg_, params_, batch_):
+        """``make_prefill_step`` on ``batch_``, the launch counts set to 0
+        just before the timed calls and read just after: one
+        ``flash_attention`` launch a layer, no other kernel of the port."""
+        prefill_ = make_prefill_step(cfg_)
+        with torch.inference_mode():
+            prefill_(params_, batch_)           # warm-up: cuBLAS, allocator
+            torch.cuda.synchronize()
+            for k_ in ops.launches:
+                ops.launches[k_] = 0
+            times_ = []
+            for _ in range(PREFILL_CALLS):
+                t0_ = time.perf_counter()
+                nxt_ = prefill_(params_, batch_)
+                torch.cuda.synchronize()
+                times_.append(time.perf_counter() - t0_)
+            made_ = dict(ops.launches)
+        assert made_["flash_attention"] == cfg_.n_layers * PREFILL_CALLS, \
+            (arch, made_)
+        assert sum(made_.values()) == made_["flash_attention"], (arch, made_)
+        assert nxt_.shape == (PREFILL_B, cfg_.vocab), nxt_.shape
+        assert nxt_.dtype == torch.float32 and bool(torch.isfinite(nxt_).all())
+        ms_ = float(np.median(times_)) * 1e3
+        tok_s_ = PREFILL_B * PREFILL_T / (ms_ / 1e3)
+        print(f"{arch} prefill {PREFILL_B} x {PREFILL_T} positions: "
+              f"{ms_:.2f} ms a call (median of {PREFILL_CALLS}: "
+              f"{[round(t_ * 1e3, 2) for t_ in times_]}, wall, "
+              f"synchronised), {tok_s_:.1f} tokens/s; launches {made_} "
+              f"({made_['flash_attention'] // PREFILL_CALLS} flash_attention "
+              f"a call)", flush=True)
+        return prefill_, {"prefill_ms": ms_, "prefill_tokens_per_s": tok_s_,
+                          "flash_attention_launches":
+                              made_["flash_attention"]}
+
+    def time_decode(arch, cfg_, params_):
+        """The ``serve_decode`` example's loop: SERVE_B requests, no kernel
+        launch; then one decode step's host syncs (PyTorch's sync debug
+        mode)."""
+        prompt_ = torch.from_numpy(rs.integers(
+            0, cfg_.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
+        serve_decode.serve(params_, cfg_, prompt_[:, :4], 2, SERVE_CACHE)
+        for k_ in ops.launches:
+            ops.launches[k_] = 0
+        gen_, secs_ = serve_decode.serve(params_, cfg_, prompt_, SERVE_GEN,
+                                         SERVE_CACHE)
+        assert gen_.shape == (SERVE_B, SERVE_GEN)
+        assert int(gen_.min()) >= 0 and int(gen_.max()) < cfg_.vocab
+        assert sum(ops.launches.values()) == 0, ops.launches
+        n_steps_ = SERVE_PROMPT + SERVE_GEN - 1
+        cache_ = lm.init_cache(cfg_, SERVE_B, SERVE_CACHE, device=dev)
+        batch_ = {"token": prompt_[:, 0],
+                  "t": torch.zeros(SERVE_B, dtype=torch.int32, device=dev)}
+        with torch.inference_mode():
+            syncs_ = count_syncs(
+                lambda: lm.decode_step(params_, cfg_, batch_, cache_))
+        r_ = {"decode_tokens_per_s": SERVE_B * n_steps_ / secs_,
+              "decode_step_ms": secs_ / n_steps_ * 1e3,
+              "decode_syncs_per_step": syncs_}
+        print(f"{arch} decode: {SERVE_B} requests x ({SERVE_PROMPT} prompt + "
+              f"{SERVE_GEN - 1} generated) steps over {SERVE_CACHE} cache "
+              f"slots in {secs_:.3f} s (wall), "
+              f"{r_['decode_tokens_per_s']:.1f} tokens/s, "
+              f"{r_['decode_step_ms']:.2f} ms a step, {syncs_} host syncs a "
+              f"step; request 0: {gen_[0, :8].tolist()} ...", flush=True)
+        return r_
+
+    def agreement(label, params_, cfg_, tokens_):
+        """Prefill against decode on ``tokens_``: the gaps printed and
+        returned."""
+        with torch.inference_mode(), tf32_off():
+            full_, dec_ = prefill_and_decode(lm, params_, cfg_, tokens_)
+        mx_, mean_, same_ = logit_gap(full_, dec_)
+        n_ = tokens_.numel()
+        print(f"{label}, {tuple(tokens_.shape)} tokens: prefill vs decode "
+              f"max |logit difference| {mx_:.4g}, mean {mean_:.4g}, greedy "
+              f"tokens equal at {same_} of {n_} positions (logits' std "
+              f"{float(full_.std()):.4g})", flush=True)
+        return mx_, mean_, same_, n_
+
+    def routed(fn):
+        """``fn()`` and the routes it took: each prefill call's experts (L,
+        T, k) and router probabilities (L, T, E), and the decode steps'
+        experts (L, T, k), for one sequence of T tokens over L MoE
+        layers."""
+        calls_ = []
+        route0_ = moe_mod.moe_route
+
+        def route_(p_, m_, xf_):
+            out_ = route0_(p_, m_, xf_)
+            calls_.append((out_[0], out_[2]))
+            return out_
+        with swapped(moe_mod, "moe_route", route_):
+            r_ = fn()
+        pre_ = [c_ for c_ in calls_ if c_[1].shape[0] > 1]
+        dec_ = [c_[1] for c_ in calls_ if c_[1].shape[0] == 1]
+        L_ = len(pre_)
+        pre_e_ = (torch.stack([c_[1] for c_ in pre_]) if pre_ else None)
+        pre_p_ = (torch.stack([c_[0] for c_ in pre_]) if pre_ else None)
+        dec_e_ = (torch.stack(dec_).view(-1, L_, dec_[0].shape[1])
+                  .transpose(0, 1) if dec_ else None)
+        return r_, (pre_e_, pre_p_, dec_e_)
+
+    def route_diff(a_, b_):
+        """(token, expert) pairs of routes ``a_`` (L, T, k) absent from
+        ``b_``, a layer."""
+        hit_ = (a_[..., :, None] == b_[..., None, :]).any(-1)
+        return (~hit_).sum(dim=(1, 2)).tolist()
+
+    # (a) deepseek-v2-lite-16b, MLA over MoE: the main path of this slice
+    ds_cfg, ds_params = init_full("deepseek-v2-lite-16b")
+    serving8["deepseek-v2-lite-16b"] = {
+        "init_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    ds_tokens = torch.from_numpy(rs.integers(
+        0, ds_cfg.vocab, (PREFILL_B, PREFILL_T))).to(dev)
+    ds_prefill, r = time_prefill("deepseek-v2-lite-16b", ds_cfg, ds_params,
+                                 {"tokens": ds_tokens})
+    serving8["deepseek-v2-lite-16b"].update(r)
+    serving8["deepseek-v2-lite-16b"].update(
+        time_decode("deepseek-v2-lite-16b", ds_cfg, ds_params))
+    # prefill against decode at 1 x MOE_AGREE_T tokens, where the capacity
+    # (8 slots) drops no (token, expert) pair on either path: bfloat16 at
+    # full depth, then float32 (TF32 off) on a cut of the first layers,
+    # every width as published
+    ds_agree = torch.from_numpy(rs.integers(
+        0, ds_cfg.vocab, (1, MOE_AGREE_T))).to(dev)
+    (mx, mean, same, n_), (pre_e, pre_p, dec_e) = routed(lambda: agreement(
+        f"deepseek-v2-lite-16b bf16, {ds_cfg.n_layers} layers", ds_params,
+        ds_cfg, ds_agree))
+    serving8["deepseek-v2-lite-16b"]["agree_bf16"] = [mx, mean, same, n_]
+    # the bfloat16 gap's witnesses: the experts each path routes every
+    # token to at each MoE layer, and the prefill with the plain attention
+    # in the kernel's place, against the same decode
+    with torch.inference_mode(), tf32_off():
+        full_k, _ = lm.forward(ds_params, ds_cfg, {"tokens": ds_agree})
+        with swapped(ops, "flash_attention_bthd",
+                     ref.flash_attention_bthd_ref):
+            full_p, (plain_e, _, _) = routed(lambda: lm.forward(
+                ds_params, ds_cfg, {"tokens": ds_agree})[0])
+        cache_ = lm.init_cache(ds_cfg, 1, MOE_AGREE_T, device=dev)
+        dec_ = []
+        for t_ in range(MOE_AGREE_T):
+            logits_, cache_ = lm.decode_step(
+                ds_params, ds_cfg, {"token": ds_agree[:, t_], "t": torch.full(
+                    (1,), t_, dtype=torch.int32, device=dev)}, cache_)
+            dec_.append(logits_)
+        dec_ = torch.stack(dec_, dim=1)
+    k_top = ds_cfg.moe.top_k
+    margin = (lambda v_: v_[..., k_top - 1] - v_[..., k_top])(
+        torch.topk(pre_p, k_top + 1, dim=-1).values)          # (L, T)
+    wit = {"kernel_vs_decode": logit_gap(full_k, dec_),
+           "plain_vs_decode": logit_gap(full_p, dec_),
+           "kernel_vs_plain": logit_gap(full_k, full_p),
+           "routes_differ_kernel_vs_decode": route_diff(pre_e, dec_e),
+           "routes_differ_plain_vs_decode": route_diff(plain_e, dec_e),
+           "routes_differ_kernel_vs_plain": route_diff(pre_e, plain_e),
+           "least_topk_margin_by_layer": margin.min(dim=1).values.tolist()}
+    serving8["deepseek-v2-lite-16b"]["agree_bf16_witness"] = wit
+    first_ = {k_: next((i_ for i_, n_d in enumerate(v_) if n_d), None)
+              for k_, v_ in wit.items() if k_.startswith("routes")}
+    print(f"deepseek-v2-lite-16b bf16, {tuple(ds_agree.shape)} tokens, "
+          f"(max, mean |logit difference|, greedy equal): kernel prefill vs "
+          f"decode {wit['kernel_vs_decode']}, plain-attention prefill vs "
+          f"decode {wit['plain_vs_decode']}, kernel vs plain prefill "
+          f"{wit['kernel_vs_plain']}; (token, expert) pairs routed "
+          f"differently at each of the {len(pre_e)} MoE layers, kernel "
+          f"prefill vs decode {wit['routes_differ_kernel_vs_decode']}, plain "
+          f"vs decode {wit['routes_differ_plain_vs_decode']}, kernel vs "
+          f"plain {wit['routes_differ_kernel_vs_plain']} (first MoE layer "
+          f"that differs: {first_}); the prefill's least gap between the "
+          f"k-th and (k+1)-th router probability a layer "
+          f"{[float(f'{m_:.3g}') for m_ in margin.min(dim=1).values]}",
+          flush=True)
+    del full_k, full_p, dec_, cache_
+    cut_cfg = dataclasses.replace(ds_cfg, n_layers=MOE_CUT_LAYERS)
+    _, cut16 = init_full("deepseek-v2-lite-16b, first "
+                         f"{MOE_CUT_LAYERS} layers", cut_cfg, seed=1)
+    agreement(f"deepseek-v2-lite-16b bf16, {MOE_CUT_LAYERS}-layer cut",
+              cut16, cut_cfg, ds_agree)
+    cut32 = tree_to(cut16, torch.float32)
+    del cut16
+    mx, mean, same, n_ = agreement(
+        f"deepseek-v2-lite-16b f32, {MOE_CUT_LAYERS}-layer cut (1 dense, "
+        f"{MOE_CUT_LAYERS - 1} MoE)", cut32,
+        dataclasses.replace(cut_cfg, dtype="float32"), ds_agree)
+    serving8["deepseek-v2-lite-16b"]["agree_f32_cut"] = [mx, mean, same, n_]
+    assert mx <= AGREE_TOL_F32 and same == n_, (mx, same)
+    del cut32
+    print(f"deepseek-v2-lite-16b prefill/decode agreement holds: float32 "
+          f"max <= {AGREE_TOL_F32}, every greedy token equal", flush=True)
+
+    # (b) minicpm3-4b, dense MLA (q_lora)
+    mc_cfg, mc_params = init_full("minicpm3-4b")
+    mc_tokens = torch.from_numpy(rs.integers(
+        0, mc_cfg.vocab, (PREFILL_B, PREFILL_T))).to(dev)
+    _, r = time_prefill("minicpm3-4b", mc_cfg, mc_params,
+                        {"tokens": mc_tokens})
+    serving8["minicpm3-4b"] = r
+    serving8["minicpm3-4b"].update(
+        time_decode("minicpm3-4b", mc_cfg, mc_params))
+    mc_agree = torch.from_numpy(rs.integers(
+        0, mc_cfg.vocab, (AGREE_B, AGREE_T))).to(dev)
+    r16 = agreement("minicpm3-4b bf16", mc_params, mc_cfg, mc_agree)
+    r32 = agreement("minicpm3-4b f32 (the same weights cast)",
+                    tree_to(mc_params, torch.float32),
+                    dataclasses.replace(mc_cfg, dtype="float32"), mc_agree)
+    serving8["minicpm3-4b"].update({"agree_bf16": list(r16),
+                                    "agree_f32": list(r32)})
+    assert r32[0] <= AGREE_TOL_F32 and r32[2] >= AGREE_SAME_F32 * r32[3], r32
+    print(f"minicpm3-4b prefill/decode agreement holds: float32 max <= "
+          f"{AGREE_TOL_F32}, greedy equal at >= {AGREE_SAME_F32:.0%}; "
+          f"bfloat16 within qwen3's {AGREE_TOL_BF16} / {AGREE_MEAN_BF16}: "
+          f"{r16[0] <= AGREE_TOL_BF16 and r16[1] <= AGREE_MEAN_BF16} "
+          f"(reported, not gated)", flush=True)
+    del mc_params
+
+    # (c) phi-3-vision-4.2b: the patches prepended to the text
+    pv_cfg, pv_params = init_full("phi-3-vision-4.2b")
+    n_vis = pv_cfg.modality.n_tokens
+    pv_batch = {
+        "tokens": torch.from_numpy(rs.integers(
+            0, pv_cfg.vocab, (PREFILL_B, PREFILL_T - n_vis))).to(dev),
+        "patches": torch.randn(
+            PREFILL_B, n_vis, pv_cfg.modality.feat_dim, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(2))}
+    _, r = time_prefill("phi-3-vision-4.2b", pv_cfg, pv_params, pv_batch)
+    serving8["phi-3-vision-4.2b"] = r
+    with torch.inference_mode():
+        pv_logits, pv_aux = lm.forward(pv_params, pv_cfg, pv_batch)
+    assert pv_logits.shape == (PREFILL_B, PREFILL_T - n_vis, pv_cfg.vocab), \
+        pv_logits.shape
+    assert bool(torch.isfinite(pv_logits).all()) and float(pv_aux) == 0.0
+    print(f"phi-3-vision-4.2b forward of {PREFILL_B} x ({n_vis} patches + "
+          f"{PREFILL_T - n_vis} text tokens): logits "
+          f"{tuple(pv_logits.shape)} over the text positions only, finite",
+          flush=True)
+    del pv_logits
+    serving8["phi-3-vision-4.2b"].update(
+        time_decode("phi-3-vision-4.2b", pv_cfg, pv_params))
+    del pv_params
+
+    # deepseek-v2-lite-16b under torch.profiler, after every timing of
+    # phases 7 and 8: a prefill call split by kernel kind, and a decode
+    # step's launches
+    with torch.inference_mode():
+        busy, n_kern, per_kernel = device_profile(
+            lambda: ds_prefill(ds_params, {"tokens": ds_tokens}))
+    split = {"flash_attention": 0.0, "gemm": 0.0, "moe_dispatch": 0.0,
+             "other": 0.0}
+    for k_, v_ in per_kernel.items():
+        low = k_.lower()
+        if "flash_attention" in low:
+            split["flash_attention"] += v_
+        elif any(w_ in low for w_ in GEMM_KEYS):
+            split["gemm"] += v_
+        elif any(w_ in low for w_ in DISPATCH_KEYS):
+            split["moe_dispatch"] += v_
+        else:
+            split["other"] += v_
+    ds_wall_ms = serving8["deepseek-v2-lite-16b"]["prefill_ms"]
+    serving8["deepseek-v2-lite-16b"].update({
+        "prefill_kernels": n_kern, "prefill_busy_ms": busy,
+        "prefill_idle": 1 - busy / ds_wall_ms, "prefill_split_ms": split})
+    print(f"deepseek-v2-lite-16b prefill call under torch.profiler: {n_kern} "
+          f"kernel launches, device busy {busy:.2f} ms of the unprofiled "
+          f"{ds_wall_ms:.2f} ms wall "
+          f"(idle {100 * (1 - busy / ds_wall_ms):.1f}%): "
+          + ", ".join(f"{k_} {v_:.2f} ms ({100 * v_ / busy:.1f}%)"
+                      for k_, v_ in split.items())
+          + "; top kernels " + json.dumps({k_[:60]: round(v_, 3) for k_, v_
+                                           in sorted(per_kernel.items(),
+                                                     key=lambda kv: -kv[1])
+                                           [:8]}), flush=True)
+    d_cache = lm.init_cache(ds_cfg, SERVE_B, SERVE_CACHE, device=dev)
+    d_batch = {"token": ds_tokens[:SERVE_B, 0],
+               "t": torch.zeros(SERVE_B, dtype=torch.int32, device=dev)}
+    with torch.inference_mode():
+        busy, n_kern, _ = device_profile(
+            lambda: lm.decode_step(ds_params, ds_cfg, d_batch, d_cache))
+    step_ms = serving8["deepseek-v2-lite-16b"]["decode_step_ms"]
+    serving8["deepseek-v2-lite-16b"].update({
+        "decode_launches_per_step": n_kern, "decode_busy_ms": busy,
+        "decode_idle": 1 - busy / step_ms})
+    print(f"deepseek-v2-lite-16b decode step under torch.profiler: {n_kern} "
+          f"kernel launches, device busy {busy:.2f} ms of the unprofiled "
+          f"{step_ms:.2f} ms wall a step (idle "
+          f"{100 * (1 - busy / step_ms):.1f}%)")
+    del ds_params, d_cache
+    torch.cuda.empty_cache()
+    print("serving (phase 8): " + json.dumps(serving8))
     sys.stdout.flush()
 
     # phase 4's step profiles, traced after every host-bound timing of the
@@ -1934,14 +2403,22 @@ def main() -> int:
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:25",
+         # qwen3's prefill (phase 7), as before; every prefill path summed
+         # and by path beside it
          "launches": lm_launches["flash_attention"],
+         "launches_all_paths": lm_launches["flash_attention"] + sum(
+             r_["flash_attention_launches"] for r_ in serving8.values()),
+         "launches_by_path": {
+             "qwen3-0.6b": lm_launches["flash_attention"],
+             **{a_: r_["flash_attention_launches"]
+                for a_, r_ in serving8.items()}},
          "max_abs_err": fa_prefill_max,
          **{k_: fa["prefill_gqa"][k_] for k_ in (
              "ms", "op_ms", "chunked_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},
          "mha_ms": fa["prefill"]["ms"],
          "mha_library_ms": fa["prefill"]["library_ms"],
-         "pairs": fa["pairs"]},
+         "pairs": fa["pairs"], "model_shapes": fa["models"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

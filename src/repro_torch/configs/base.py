@@ -3,8 +3,9 @@
 The LM model configs (``AttentionConfig``, ``MoEConfig``, ``SSMConfig``,
 ``RGLRUConfig``, ``EncoderConfig``, ``ModalityStub``, ``ModelConfig``,
 ``InputShape`` and ``INPUT_SHAPES``) are whole copies, so every arch of
-the reference can be expressed; the port's models run the dense-GQA
-family of them so far (``repro_torch.models.transformer``).  The
+the reference can be expressed; the port's models run its dense GQA,
+MLA, MoE and VLM families so far (``repro_torch.models.transformer``;
+the SSM, RG-LRU and enc-dec ones are refused there).  The
 communication configs (``CommConfig``, ``FabricConfig``,
 ``LinkConfig``) of the decentralized trainer follow, without the
 deprecated flat-field properties.

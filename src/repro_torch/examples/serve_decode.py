@@ -1,5 +1,6 @@
-"""Serving example: batched greedy decoding with a ring-buffer KV cache,
-through the same serve step the reference's ``examples/serve_decode.py``
+"""Serving example: batched greedy decoding over the arch's decode cache
+(a ring-buffer KV cache, or MLA's compressed c_kv), through the same
+serve step the reference's ``examples/serve_decode.py``
 drives.  A batch of random prompts is fed one token at a time through
 the serve step, then the model generates greedily; the tokens/s of the
 whole loop are printed.
@@ -27,6 +28,12 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models.model import Params, init_cache, init_model
+
+#: the decode cache each family keeps, the reference's table
+#: (``examples/serve_decode.py``); the families the port runs print the
+#: ring-buffer KV line or, for MoE (MLA over MoE), the compressed c_kv
+CACHE_KINDS = {"ssm": "constant SSM state", "hybrid": "RG-LRU + ring KV",
+               "moe": "compressed MLA c_kv"}
 
 
 def serve(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
@@ -98,7 +105,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           f"({n_tok / seconds:.1f} tok/s, prompt steps included)")
     for b in range(min(B, 2)):
         print(f"  request {b}: {tokens[b, :16].tolist()} ...")
-    print("cache family: ring-buffer KV")
+    print(f"cache family: {CACHE_KINDS.get(cfg.family, 'ring-buffer KV')}")
     return 0
 
 

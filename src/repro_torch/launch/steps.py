@@ -14,7 +14,8 @@ from repro_torch.models.model import decode_step, forward
 
 def make_prefill_step(cfg: ModelConfig, *, chunk: int = 512) -> Callable:
     """``prefill_step(params, batch)``: the next-token logits (B, V)
-    float32 of a full-sequence forward of ``batch["tokens"]``."""
+    float32 of a full-sequence forward of ``batch`` (its ``"tokens"``,
+    and for the VLM its ``"patches"``, which ``forward`` prepends)."""
     def prefill_step(params, batch):
         logits, _ = forward(params, cfg, batch, chunk=chunk)
         return logits[:, -1]

@@ -1,5 +1,6 @@
-"""Attention: the GQA half of ``repro.models.attention`` (qk-norm, logit
-softcap, sliding window), with two paths:
+"""Attention (``repro.models.attention``): GQA (qk-norm, logit softcap,
+sliding window) and MLA (multi-head latent attention, deepseek-v2 and
+minicpm3), with two paths:
 
 - train/prefill: ``chunked_attention`` over the whole sequence, which in
   the port computes through ``kernels.ops.flash_attention_bthd`` on q, k
@@ -12,8 +13,10 @@ softcap, sliding window), with two paths:
   a *ring buffer* of ``window`` slots (the cache positions say which slot
   holds which token).  Plain tensor code, no kernel.
 
-MLA (deepseek-v2 / minicpm3) waits for its slice of the port; the kernel
-already takes its k and v of two head dims.
+MLA's prefill expands K and V from the latent and hands the kernel k and
+v of their own head dims, v a view of the expansion; its decode takes
+the *absorbed* form in float32, scores against the compressed ``ckv``
+and ``krope`` cache directly, never re-expanding K.
 """
 from __future__ import annotations
 
@@ -24,7 +27,7 @@ import torch
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
-from repro_torch.models.layers import (init_linear, init_rmsnorm,
+from repro_torch.models.layers import (init_linear, init_normal, init_rmsnorm,
                                        linear_apply, rmsnorm_apply, softcap)
 from repro_torch.models.rope import apply_rope
 
@@ -178,3 +181,129 @@ def gqa_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
                            cache_positions=cache["pos"],
                            logit_softcap=a.attn_softcap)
     return linear_apply(p["wo"], out.reshape(B, 1, -1)), cache
+
+
+# ---------------------------------------------------------------------------
+# MLA block (deepseek-v2 / minicpm3)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, a: AttentionConfig, d_model: int, dtype,
+             device=None) -> Params:
+    h = a.n_heads
+    qhead = a.nope_head_dim + a.rope_head_dim
+    p: Params = {}
+    if a.q_lora_rank:
+        p["wdq"] = init_linear(gen, d_model, a.q_lora_rank, dtype,
+                               device=device)
+        p["q_norm"] = init_rmsnorm(a.q_lora_rank, device=device)
+        p["wuq"] = init_linear(gen, a.q_lora_rank, h * qhead, dtype,
+                               device=device)
+    else:
+        p["wq"] = init_linear(gen, d_model, h * qhead, dtype, device=device)
+    p["wdkv"] = init_linear(gen, d_model, a.kv_lora_rank + a.rope_head_dim,
+                            dtype, device=device)
+    p["kv_norm"] = init_rmsnorm(a.kv_lora_rank, device=device)
+    # up-projection, kept 3-D so decode can use the absorbed form
+    p["wukv"] = init_normal(gen, (a.kv_lora_rank, h,
+                                  a.nope_head_dim + a.v_head_dim),
+                            a.kv_lora_rank ** -0.5, dtype, device)
+    p["wo"] = init_linear(gen, h * a.v_head_dim, d_model, dtype,
+                          device=device)
+    return p
+
+
+def _mla_q(p: Params, a: AttentionConfig, x: torch.Tensor,
+           positions: torch.Tensor):
+    B, T, _ = x.shape
+    if a.q_lora_rank:
+        cq = rmsnorm_apply(p["q_norm"], linear_apply(p["wdq"], x))
+        q = linear_apply(p["wuq"], cq)
+    else:
+        q = linear_apply(p["wq"], x)
+    q = q.reshape(B, T, a.n_heads, a.nope_head_dim + a.rope_head_dim)
+    q_nope = q[..., :a.nope_head_dim]
+    q_rope = apply_rope(q[..., a.nope_head_dim:], positions, a.rope_theta)
+    return q_nope, q_rope
+
+
+def _mla_ckv(p: Params, a: AttentionConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    ckv_kr = linear_apply(p["wdkv"], x)
+    c_kv = rmsnorm_apply(p["kv_norm"], ckv_kr[..., :a.kv_lora_rank])
+    k_rope = ckv_kr[..., a.kv_lora_rank:][:, :, None, :]   # (B,T,1,rope_dim)
+    k_rope = apply_rope(k_rope, positions, a.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
+              positions: torch.Tensor, window: Optional[int] = None,
+              chunk: int = 512) -> torch.Tensor:
+    """Train/prefill: expand K and V from the latent and run
+    ``chunked_attention`` at scale (nope + rope) ** -0.5.  v is the view
+    ``kv[..., nope:]`` of the expansion, which the kernel reads in place
+    (at both full widths its rows start 16-byte aligned, its strides
+    multiples of 8)."""
+    B, T, _ = x.shape
+    h = a.n_heads
+    q_nope, q_rope = _mla_q(p, a, x, positions)
+    c_kv, k_rope = _mla_ckv(p, a, x, positions)
+    wukv = p["wukv"].to(x.dtype)
+    kv = (c_kv @ wukv.flatten(1)).unflatten(-1, wukv.shape[1:])  # (B,T,h,·)
+    k_nope = kv[..., :a.nope_head_dim]
+    v = kv[..., a.nope_head_dim:]
+    k_rope_b = k_rope[:, :, None, :].expand(B, T, h, a.rope_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_b], dim=-1)
+    scale = (a.nope_head_dim + a.rope_head_dim) ** -0.5
+    out = chunked_attention(q, k, v, causal=True, window=window,
+                            scale=scale, chunk=chunk)
+    return linear_apply(p["wo"], out.reshape(B, T, -1))
+
+
+def mla_init_cache(a: AttentionConfig, batch: int, length: int, dtype,
+                   device=None) -> Params:
+    device = resolve_device(device)
+    return {
+        "ckv": torch.zeros(batch, length, a.kv_lora_rank, dtype=dtype,
+                           device=device),
+        "krope": torch.zeros(batch, length, a.rope_head_dim, dtype=dtype,
+                             device=device),
+        "pos": torch.full((batch, length), -1, dtype=torch.int32,
+                          device=device),
+    }
+
+
+def mla_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
+               cache: Params, t: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """Absorbed decode, in float32: W_uk folded into q, scores taken
+    against the compressed cache, W_uv applied to the weighted latent.
+    The cache is a ring buffer of ``L`` slots (slot = t mod L); this
+    writes the token's c_kv, k_rope and position into it in place, as
+    ``gqa_decode`` does, and returns it."""
+    B = x.shape[0]
+    L = cache["ckv"].shape[1]
+    q_nope, q_rope = _mla_q(p, a, x, t[:, None])           # (B,1,h,*)
+    c_kv, k_rope = _mla_ckv(p, a, x, t[:, None])           # (B,1,r),(B,1,rd)
+    slot = (t % L).long()
+    b_idx = torch.arange(B, device=x.device)
+    cache["ckv"][b_idx, slot] = c_kv[:, 0].to(cache["ckv"].dtype)
+    cache["krope"][b_idx, slot] = k_rope[:, 0].to(cache["krope"].dtype)
+    cache["pos"][b_idx, slot] = t.to(torch.int32)
+    wukv = p["wukv"].float()
+    w_uk = wukv[..., :a.nope_head_dim]                     # (r,h,nope)
+    w_uv = wukv[..., a.nope_head_dim:]                     # (r,h,v)
+    q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_uk)
+    ckv_f = cache["ckv"].float()                           # (B,L,r)
+    s_nope = torch.einsum("bhr,blr->bhl", q_abs, ckv_f)
+    s_rope = torch.einsum("bhd,bld->bhl", q_rope[:, 0].float(),
+                          cache["krope"].float())
+    scale = (a.nope_head_dim + a.rope_head_dim) ** -0.5
+    s = (s_nope + s_rope) * scale
+    valid = (cache["pos"] >= 0) & (cache["pos"] <= t[:, None])
+    s = torch.where(valid[:, None], s,
+                    torch.full((), NEG_INF, device=s.device))
+    pr = torch.softmax(s, dim=-1)
+    out_c = torch.einsum("bhl,blr->bhr", pr, ckv_f)        # (B,h,r)
+    out = torch.einsum("bhr,rhv->bhv", out_c, w_uv)        # (B,h,v)
+    out = out.reshape(B, 1, a.n_heads * a.v_head_dim).to(x.dtype)
+    return linear_apply(p["wo"], out), cache

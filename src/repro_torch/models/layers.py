@@ -173,8 +173,8 @@ def make_norm(kind: str, dim: int, device=None):
     raise ValueError(kind)
 
 
-def _normal(gen: torch.Generator, shape, std: float, dtype, device
-            ) -> torch.Tensor:
+def init_normal(gen: torch.Generator, shape, std: float, dtype, device
+                ) -> torch.Tensor:
     """float32 normals of ``std`` drawn on the generator's device, then
     cast to ``dtype`` on ``device``."""
     w = torch.randn(shape, generator=gen, device=gen.device) * std
@@ -186,7 +186,7 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
                 scale: Optional[float] = None, device=None) -> Params:
     s = scale if scale is not None else d_in ** -0.5
     device = resolve_device(device)
-    p = {"w": _normal(gen, (d_in, d_out), s, dtype, device)}
+    p = {"w": init_normal(gen, (d_in, d_out), s, dtype, device)}
     if bias:
         p["b"] = torch.zeros(d_out, dtype=dtype, device=device)
     return p
@@ -217,7 +217,7 @@ def gated_mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
 def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
                    dtype=torch.bfloat16, device=None) -> Params:
     # unit-variance activations after the sqrt(d_model) embed scaling
-    return {"table": _normal(gen, (vocab, d_model), d_model ** -0.5, dtype,
+    return {"table": init_normal(gen, (vocab, d_model), d_model ** -0.5, dtype,
                              device)}
 
 

@@ -1,8 +1,10 @@
 """Top-level LM API of the port (``repro.models.model``): one entry point
-per operation, for the dense-GQA archs the port runs.
+per operation, for the archs the port runs (dense GQA, MLA, MoE and the
+VLM; ``repro_torch.configs.registry``).
 
 ``batch`` layout:
-- prefill: {"tokens": (B, T) integer}
+- prefill: {"tokens": (B, T_text) integer, ["patches": (B, n_vis,
+  feat_dim) float, for the VLM]}
 - decode: {"token": (B,) integer, "t": (B,) integer absolute positions},
   with the cache from ``init_cache``.
 
@@ -37,10 +39,11 @@ def init_model(gen: torch.Generator, cfg: ModelConfig,
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
             chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits (B, T, V) float32, moe_aux),
-    the auxiliary loss a float32 zero (no MoE layer runs)."""
-    logits = transformer.lm_apply(p, cfg, batch["tokens"], chunk=chunk)
-    return logits, torch.zeros((), device=logits.device)
+    """Full-sequence forward.  Returns (logits (B, T_text, V) float32,
+    moe_aux), the MoE auxiliary loss summed over layers, a float32 zero
+    for a dense arch."""
+    return transformer.lm_apply(p, cfg, batch["tokens"],
+                                patches=batch.get("patches"), chunk=chunk)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,

@@ -1,7 +1,8 @@
-"""Decoder-only LM composition (``repro.models.transformer``), the
-dense-GQA subset: RMSNorm or LayerNorm blocks of GQA attention (global
-or sliding-window layers, qk-norm, logit softcap) and a gated MLP, with
-tied or separate embeddings and gemma2's final logit softcap.
+"""Decoder-only LM composition (``repro.models.transformer``): RMSNorm or
+LayerNorm blocks of GQA attention (global or sliding-window layers,
+qk-norm, logit softcap) or MLA, over a gated MLP or, past the dense
+prefix, a MoE FFN; tied or separate embeddings and gemma2's final logit
+softcap; for the VLM, projected patch embeddings prepended to the text.
 
 Layers are grouped into *cycles* (the smallest repeating structural
 unit, e.g. gemma2's (local, global)), and the body's parameters are
@@ -9,23 +10,24 @@ stacked over cycles, each leaf with a leading ``n_cycles`` axis, as in
 the reference, whose ``lax.scan`` over that axis becomes a Python loop
 over the cycle index here.  Forward only: there is no remat.
 
-A layer whose kind (RG-LRU, SSM), attention kind (MLA) or family (MoE,
-enc-dec, VLM) the port does not run yet raises ``ValueError`` naming
-ROADMAP item A10, where those slices are queued.  The check runs where
-parameters and caches are built, not on every forward or decode step.
+A layer whose mixer (SSM, RG-LRU) or stack (enc-dec) the port does not
+run yet raises ``ValueError`` naming ROADMAP A10.4–A10.6, where those
+slices are queued.  The check runs where parameters and caches are
+built, not on every forward or decode step.
 
 ``device`` defaults to CUDA, as at every entry point of the port.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (NORM_APPLY, embedding_apply,
                                        gated_mlp_apply, init_embedding,
                                        init_gated_mlp, init_linear,
@@ -74,23 +76,18 @@ def layer_plan(cfg: ModelConfig) -> Tuple[List[int], int, int, List[int]]:
     return prefix, n_cycles, P, suffix
 
 
-def _require_dense_gqa(cfg: ModelConfig, sig: Tuple) -> None:
+def _require_ported(cfg: ModelConfig, sig: Tuple) -> None:
     """Raise for a layer this slice of the port does not run."""
-    kind, _, is_moe = sig
+    kind = sig[0]
     what = None
     if kind != "attn":
         what = f"{kind} mixer"
-    elif cfg.attention.kind != "gqa":
-        what = f"{cfg.attention.kind} attention"
-    elif is_moe:
-        what = "MoE FFN"
     elif cfg.encoder is not None:
         what = "encoder-decoder stack"
-    elif cfg.modality.kind != "none":
-        what = f"{cfg.modality.kind} frontend"
     if what is not None:
         raise ValueError(f"{cfg.arch_id}: the {what} is not ported yet "
-                         "(ROADMAP A10); the port runs dense GQA layers")
+                         "(ROADMAP A10.4-A10.6); the port runs GQA and MLA "
+                         "layers over dense and MoE FFNs")
 
 
 # ---------------------------------------------------------------------------
@@ -99,25 +96,44 @@ def _require_dense_gqa(cfg: ModelConfig, sig: Tuple) -> None:
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, i: int,
                device=None) -> Params:
-    _require_dense_gqa(cfg, layer_sig(cfg, i))
+    sig = layer_sig(cfg, i)
+    _require_ported(cfg, sig)
     dt = _dtype(cfg)
+    a = cfg.attention
     norm_init, _ = make_norm(cfg.norm, cfg.d_model, device)
     p: Params = {"norm1": norm_init(), "norm2": norm_init()}
-    p["mixer"] = attn.init_gqa(gen, cfg.attention, cfg.d_model, dt, device)
-    p["ffn"] = init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
+    if a.kind == "mla":
+        p["mixer"] = attn.init_mla(gen, a, cfg.d_model, dt, device)
+    else:
+        p["mixer"] = attn.init_gqa(gen, a, cfg.d_model, dt, device)
+    if sig[2]:
+        p["ffn"] = moe_mod.init_moe(gen, cfg.moe, cfg.d_model, dt, device)
+    else:
+        p["ffn"] = init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
     return p
 
 
 def layer_apply(p: Params, cfg: ModelConfig, sig: Tuple, x: torch.Tensor, *,
-                positions: torch.Tensor, chunk: int = 512) -> torch.Tensor:
-    """Full-sequence layer (train/prefill)."""
-    _, window, _ = sig
+                positions: torch.Tensor, chunk: int = 512
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Full-sequence layer (train/prefill).  Returns (x, the MoE
+    auxiliary loss, or None for a dense FFN)."""
+    _, window, is_moe = sig
+    a = cfg.attention
     norm_apply = NORM_APPLY[cfg.norm]
     h = norm_apply(p["norm1"], x)
-    x = x + attn.gqa_apply(p["mixer"], cfg.attention, h, window=window,
+    if a.kind == "mla":
+        y = attn.mla_apply(p["mixer"], a, h, positions=positions,
+                           window=window, chunk=chunk)
+    else:
+        y = attn.gqa_apply(p["mixer"], a, h, window=window,
                            positions=positions, chunk=chunk)
+    x = x + y
     h2 = norm_apply(p["norm2"], x)
-    return x + gated_mlp_apply(p["ffn"], h2)
+    if is_moe:
+        y2, aux = moe_mod.moe_apply(p["ffn"], cfg.moe, h2)
+        return x + y2, aux
+    return x + gated_mlp_apply(p["ffn"], h2), None
 
 
 # ---------------------------------------------------------------------------
@@ -127,25 +143,36 @@ def layer_apply(p: Params, cfg: ModelConfig, sig: Tuple, x: torch.Tensor, *,
 def layer_init_cache(cfg: ModelConfig, i: int, batch: int, cache_len: int,
                      long_mode: bool, device=None) -> Params:
     sig = layer_sig(cfg, i)
-    _require_dense_gqa(cfg, sig)
+    _require_ported(cfg, sig)
     _, window, _ = sig
+    a = cfg.attention
     L = cache_len
     if window is not None:
         L = min(L, window)
     if long_mode and cfg.long_context == "window":
         L = min(L, cfg.long_window)
-    return attn.gqa_init_cache(cfg.attention, batch, L, _dtype(cfg), device)
+    if a.kind == "mla":
+        return attn.mla_init_cache(a, batch, L, _dtype(cfg), device)
+    return attn.gqa_init_cache(a, batch, L, _dtype(cfg), device)
 
 
 def layer_decode(p: Params, cfg: ModelConfig, sig: Tuple, x: torch.Tensor,
                  cache: Params, t: torch.Tensor
                  ) -> Tuple[torch.Tensor, Params]:
+    a = cfg.attention
     norm_apply = NORM_APPLY[cfg.norm]
     h = norm_apply(p["norm1"], x)
-    y, cache = attn.gqa_decode(p["mixer"], cfg.attention, h, cache, t)
+    if a.kind == "mla":
+        y, cache = attn.mla_decode(p["mixer"], a, h, cache, t)
+    else:
+        y, cache = attn.gqa_decode(p["mixer"], a, h, cache, t)
     x = x + y
     h2 = norm_apply(p["norm2"], x)
-    return x + gated_mlp_apply(p["ffn"], h2), cache
+    if sig[2]:
+        y2, _ = moe_mod.moe_apply(p["ffn"], cfg.moe, h2)
+    else:
+        y2 = gated_mlp_apply(p["ffn"], h2)
+    return x + y2, cache
 
 
 # ---------------------------------------------------------------------------
@@ -160,14 +187,29 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _tree_stack(trees: List[Params]) -> Params:
-    """Stack same-structured trees leaf by leaf on a new leading axis."""
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_stack([t[k] for t in trees]) for k in first}
-    if isinstance(first, list):
-        return [_tree_stack([t[j] for t in trees]) for j in range(len(first))]
-    return torch.stack(trees)
+def _stacked(n: int, make) -> Params:
+    """The trees ``make(0)``, ..., ``make(n - 1)`` (same structure) stacked
+    leaf by leaf on a new leading axis: each tree is made in turn and
+    copied into leaves allocated from the first, so at most one unstacked
+    tree is held beside the stack (what ``torch.stack`` of all n would
+    give, bit for bit, for half the memory)."""
+    out = None
+    for c in range(n):
+        tree = make(c)
+        if out is None:
+            out = _tree_map(lambda t: t.new_empty((n,) + t.shape), tree)
+        for dst, src in zip(_leaves(out), _leaves(tree)):
+            dst[c].copy_(src)
+        del tree                # freed before the next tree is made
+    return out
+
+
+def _leaves(tree) -> List[torch.Tensor]:
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    if isinstance(tree, list):
+        return [t for v in tree for t in _leaves(v)]
+    return [tree]
 
 
 def _cycle(body: Params, c: int) -> Params:
@@ -186,11 +228,14 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
     if not cfg.tie_embeddings:
         p["unembed"] = init_linear(gen, cfg.d_model, cfg.vocab, dt,
                                    device=device)
+    if cfg.modality.kind == "vision":
+        p["projector"] = init_linear(gen, cfg.modality.feat_dim,
+                                     cfg.d_model, dt, device=device)
     p["prefix"] = [init_layer(gen, cfg, i, device) for i in prefix]
     base = len(prefix)
-    cycles = [[init_layer(gen, cfg, base + c * P + j, device)
-               for j in range(P)] for c in range(n_cycles)]
-    p["body"] = _tree_stack(cycles) if cycles else None
+    p["body"] = _stacked(n_cycles, lambda c: [
+        init_layer(gen, cfg, base + c * P + j, device)
+        for j in range(P)]) if n_cycles else None
     p["suffix"] = [init_layer(gen, cfg, i, device) for i in suffix]
     return p
 
@@ -205,11 +250,17 @@ def body_sigs(cfg: ModelConfig) -> List[Tuple]:
 # Whole-model forward (train / prefill)
 # ---------------------------------------------------------------------------
 
-def embed_inputs(p: Params, cfg: ModelConfig, tokens: torch.Tensor
-                 ) -> torch.Tensor:
+def embed_inputs(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
+                 patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The text's embeddings scaled by √d_model; for the VLM, with
+    ``patches`` (B, n_vis, feat_dim) projected and prepended."""
     dt = _dtype(cfg)
     x = embedding_apply(p["embed"], tokens, compute_dtype=dt)
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    if cfg.modality.kind == "vision" and patches is not None:
+        vis = linear_apply(p["projector"], patches.to(dt))
+        x = torch.cat([vis, x], dim=1)
+    return x
 
 
 def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -222,27 +273,38 @@ def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-             chunk: int = 512) -> torch.Tensor:
-    """tokens: (B, T) integer.  Returns the float32 logits (B, T, V)."""
+             patches: Optional[torch.Tensor] = None, chunk: int = 512
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens: (B, T) integer.  Returns (the float32 logits (B, T, V) over
+    the *text* positions, the MoE auxiliary loss summed over layers, a
+    float32 zero where no layer is MoE).  For the VLM, ``patches``
+    prepend ``cfg.modality.n_tokens`` positions, and the first that many
+    positions' logits are dropped (as in the reference, also where no
+    patches were given)."""
     prefix, n_cycles, P, suffix = layer_plan(cfg)
-    x = embed_inputs(p, cfg, tokens)
+    x = embed_inputs(p, cfg, tokens, patches)
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+
+    def run(lp, sig, x, aux):
+        x, a = layer_apply(lp, cfg, sig, x, positions=positions, chunk=chunk)
+        return x, aux if a is None else aux + a
 
     for i, lp in zip(prefix, p["prefix"]):
-        x = layer_apply(lp, cfg, layer_sig(cfg, i), x, positions=positions,
-                        chunk=chunk)
+        x, aux = run(lp, layer_sig(cfg, i), x, aux)
     if p["body"] is not None:
         sigs = body_sigs(cfg)
         for c in range(n_cycles):
             cyc = _cycle(p["body"], c)
             for j in range(P):
-                x = layer_apply(cyc[j], cfg, sigs[j], x, positions=positions,
-                                chunk=chunk)
+                x, aux = run(cyc[j], sigs[j], x, aux)
     for i, lp in zip(suffix, p["suffix"]):
-        x = layer_apply(lp, cfg, layer_sig(cfg, i), x, positions=positions,
-                        chunk=chunk)
-    return _logits(p, cfg, x)
+        x, aux = run(lp, layer_sig(cfg, i), x, aux)
+    n_vis = cfg.modality.n_tokens if cfg.modality.kind == "vision" else 0
+    if n_vis:
+        x = x[:, n_vis:]
+    return _logits(p, cfg, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -260,17 +322,17 @@ def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         "suffix": [layer_init_cache(cfg, i, batch, cache_len, long_mode,
                                     device) for i in suffix],
     }
-    cyc = [[layer_init_cache(cfg, base + j, batch, cache_len, long_mode,
-                             device) for j in range(P)]
-           for _ in range(n_cycles)]
-    cache["body"] = _tree_stack(cyc) if cyc else None
+    cache["body"] = _stacked(n_cycles, lambda _: [
+        layer_init_cache(cfg, base + j, batch, cache_len, long_mode, device)
+        for j in range(P)]) if n_cycles else None
     return cache
 
 
 def lm_decode(p: Params, cfg: ModelConfig, token: torch.Tensor,
               cache: Params, t: torch.Tensor) -> Tuple[torch.Tensor, Params]:
     """token: (B,) integer; t: (B,) absolute positions.  One decode step:
-    (float32 logits (B, V), the cache with this token written in place)."""
+    (float32 logits (B, V), the cache with this token written in place).
+    The VLM's patches take no part, as in the reference."""
     prefix, n_cycles, P, suffix = layer_plan(cfg)
     dt = _dtype(cfg)
     x = embedding_apply(p["embed"], token[:, None], compute_dtype=dt)

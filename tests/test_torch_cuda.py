@@ -533,19 +533,26 @@ def test_flash_attention_bthd_refuses_what_it_cannot_take(dev):
 def test_reduced_lm_forward_on_card_matches_cpu(dev, arch):
     cfg = get_config(arch).reduced()
     p = model.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, (2, 96)))
-    cpu, _ = model.forward(p, cfg, {"tokens": toks})
+    rs = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rs.integers(0, cfg.vocab, (2, 96)))}
+    if cfg.modality.kind == "vision":
+        batch["patches"] = torch.from_numpy(rs.standard_normal(
+            (2, cfg.modality.n_tokens, cfg.modality.feat_dim)).astype(
+                np.float32))
+    cpu, cpu_aux = model.forward(p, cfg, batch)
     p_dev = _to(p, dev)                         # the same values, on the card
     launches = ops.launches["flash_attention"]
     flags = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        card, _ = model.forward(p_dev, cfg, {"tokens": toks.to(dev)})
+        card, card_aux = model.forward(
+            p_dev, cfg, {k: v.to(dev) for k, v in batch.items()})
     finally:
         torch.backends.cuda.matmul.allow_tf32 = flags
     assert ops.launches["flash_attention"] == launches + cfg.n_layers
     np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-3,
+                               atol=1e-3)
+    np.testing.assert_allclose(float(card_aux), float(cpu_aux), rtol=1e-3,
                                atol=1e-3)
 
 
