@@ -57,9 +57,16 @@ before the last line is printed:
    q_offset 0, Tq > Tk and Tq < Tk) through ``chunked_attention``, one
    launch each; ``flash_attention_bthd`` likewise on
    (B, T, H, D) views of one projection-shaped tensor, at 1, 2 and 4
-   query heads a KV head on the same grid and at the prefill's 16 over 8
-   heads (bfloat16, max |err| 8e-3 and mean 1e-6, printed for each
-   mask); then every kernel of phase 6's bench on the
+   query heads a KV head on the same grid (and 10, recurrentgemma's
+   group) and at the prefill's 16 over 8 heads (bfloat16, max |err| 8e-3
+   and mean 1e-6, printed for each mask); at phase 9's model shapes as
+   the models launch them, in bfloat16 at those bounds and in float32 at
+   2e-5: recurrentgemma's (4, 2048) tokens of 10 query heads over one KV
+   head of 256, causal with its window of 2048, and the same at (1,
+   4096), where the window cuts keys; seamless' encoder (4, 1500, 16
+   heads of 64, non-causal, a ragged tail of keys), its decoder's causal
+   (4, 2048) self-attention and its cross-attention (Tq 2048 and 1 over
+   Tk 1500, non-causal); then every kernel of phase 6's bench on the
    bench's own operands (``kernels_bench.inputs``): ``gaia_select``,
    ``rand_k_select`` and ``dgc_sparsify`` at n = 2**20 bit-exact,
    ``neighbor_mix`` at (8, 2**17) on ``ring(8)`` within 2e-5,
@@ -111,7 +118,10 @@ before the last line is printed:
    40 at (96, 64) and 32 at (96, 96), MLA's v a view of its expansion)
    beside SDPA where one of its fused backends takes the pair, each
    also held against its plain version under the four masks at the
-   prefill's tolerances, and the bench's (1, 4, 256, 64) float32): the
+   prefill's tolerances, the five shapes of phase 9's models beside SDPA
+   on the same operands, with ptxas' register and spill lines of
+   ``flash_attention_tc<256>`` and ``<64>``, and the bench's (1, 4, 256,
+   64) float32): the
    kernel launch alone (``ms``) and the whole op with its
    checks and allocations (``op_ms``), beside the plain version, the
    library call
@@ -137,7 +147,8 @@ before the last line is printed:
    ``decode_step``'s after the same tokens (the kernel's causal prefill
    against the kernel-free decode path); (d) every arch of the registry,
    reduced, float32 (the VLM with patches), on the card against the CPU,
-   logits and MoE aux (TF32 off, rtol and atol 1e-3);
+   logits and MoE aux (TF32 off, rtol and atol 1e-3; seamless with its
+   reduced frames);
 8. LM serving of the MLA, MoE and VLM families at full width, bfloat16,
    random weights from a seeded generator on the card, each model's
    parameter counts, draw time and peak memory printed, and its prefill
@@ -157,7 +168,24 @@ before the last line is printed:
    launches a call), prefill against decode at 2 x 256 in float32 (5e-3,
    99% greedy equal) and bfloat16 (reported); (c)
    ``phi-3-vision-4.2b`` (576 patches prepended to 1,472 text tokens, 32
-   launches a call), its logits over the text positions only.
+   launches a call), its logits over the text positions only;
+9. LM serving of the SSM, RG-LRU and enc-dec families at full width,
+   bfloat16, one model on the card at a time, as phase 8 serves its
+   own: ``mamba2-780m`` (48 SSD layers, no attention: 0 launches a
+   prefill call), ``recurrentgemma-2b`` (18 RG-LRU and 8 attention
+   layers of 10 heads over one KV head of 256, window 2048: 8 launches)
+   and ``seamless-m4t-large-v2`` (24 encoder layers over (4, 1500, 1024)
+   random frames, 24 decoder layers each with self- and
+   cross-attention: 72 launches); decode through the ``serve_decode``
+   loop (seamless' encoder run once, then 24 cross-attention launches a
+   step); prefill against decode at 1 x 8 tokens in bfloat16 (reported)
+   and in float32 on a depth cut (4 SSD layers; recurrentgemma's first
+   cycle (rglru, rglru, attn); 2 encoder and 2 decoder layers: within
+   5e-3, every greedy token equal); the SSD and RG-LRU scans timed alone
+   at the models' shapes; and, after every timing of phases 7-9,
+   deepseek-v2-lite-16b's traces (phase 8) and one prefill call of each
+   phase 9 model under ``torch.profiler`` (GEMMs, flash_attention, the
+   SSD / RG-LRU scan, the elementwise glue).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -208,8 +236,9 @@ FA_SHAPES = ((1, 2, 128, 128, 64), (2, 1, 64, 192, 64), (1, 1, 200, 200, 128),
              (1, 2, 160, 160, 256), (1, 1, 64, 300, 256))
 FA_KWS = ({"causal": True}, {"causal": False}, {"causal": True, "window": 64},
           {"causal": True, "logit_softcap": 30.0})
-#: query heads over KV heads in the (B, T, H, D) checks
-FA_GROUPS = (1, 2, 4)
+#: query heads over KV heads in the (B, T, H, D) checks: recurrentgemma's
+#: 10 besides
+FA_GROUPS = (1, 2, 4, 10)
 #: the (Dk, Dv) pairs besides the dense LMs' equal ones: phi-3-vision's,
 #: deepseek-v2's, minicpm3's, the reduced MLA configs'
 FA_PAIRS = ((96, 96), (192, 128), (96, 64), (48, 32))
@@ -237,6 +266,30 @@ FA_PREFILL_GQA, FA_PREFILL_GROUP = (PREFILL_B, 8, PREFILL_T, PREFILL_T,
 FA_PREFILL_TOL, FA_PREFILL_MEAN_TOL = 8e-3, 1e-6
 #: phase 8's models, whose prefill shapes phase 5 times the kernel at
 FA_MODEL_ARCHS = ("deepseek-v2-lite-16b", "minicpm3-4b", "phi-3-vision-4.2b")
+#: phase 9's models as they launch the kernel: (label, (B, Hkv, Tq, Tk,
+#: D), query heads a KV head, mask)
+FA_NEW_SHAPES = (
+    ("recurrentgemma-2b", (PREFILL_B, 1, PREFILL_T, PREFILL_T, 256), 10,
+     {"causal": True, "window": 2048}),
+    ("recurrentgemma-2b at 4096 tokens", (1, 1, 4096, 4096, 256), 10,
+     {"causal": True, "window": 2048}),
+    ("seamless encoder", (PREFILL_B, 16, 1500, 1500, 64), 1,
+     {"causal": False}),
+    ("seamless decoder self-attention", (PREFILL_B, 16, PREFILL_T,
+                                         PREFILL_T, 64), 1, {"causal": True}),
+    ("seamless cross-attention, prefill", (PREFILL_B, 16, PREFILL_T, 1500,
+                                           64), 1, {"causal": False}),
+    ("seamless cross-attention, decode", (PREFILL_B, 16, 1, 1500, 64), 1,
+     {"causal": False}))
+#: phase 9's models and their flash_attention launches a prefill call
+#: (mamba2 has no attention; recurrentgemma one a third layer; seamless
+#: its encoder's 24, its decoder's 24 and 24 cross-attentions)
+NEW_ARCHS = {"mamba2-780m": 0, "recurrentgemma-2b": 8,
+             "seamless-m4t-large-v2": 72}
+#: their float32 cuts: decoder layers (recurrentgemma: one whole (rglru,
+#: rglru, attn) cycle), and seamless' encoder layers
+NEW_CUT_LAYERS = {"mamba2-780m": 4, "recurrentgemma-2b": 3,
+                  "seamless-m4t-large-v2": 2}
 #: serving: 4 requests, 64-token prompts, 32 generated, 128 cache slots
 SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 4, 64, 32, 128
 #: prefill/decode agreement: 2 sequences of 256 tokens
@@ -345,15 +398,17 @@ def bound_ms(n_bytes: float, flops: float,
 
 
 def attention_work(shape, dtype_bytes: int, causal: bool = True,
-                   dv: int = None):
+                   dv: int = None, hkv: int = None):
     """(bytes, flops) attention must move and do: q, k (head dim D), v
-    and o (head dim ``dv``, D by default) read and written once; 2 (D +
-    dv) flops (two multiply-adds) a valid (query, key) pair, causal over
-    Tq = Tk counting T (T + 1) / 2 pairs a head."""
+    and o (head dim ``dv``, D by default) read and written once, k and v
+    over ``hkv`` KV heads (H by default); 2 (D + dv) flops (two
+    multiply-adds) a valid (query, key) pair, causal over Tq = Tk
+    counting T (T + 1) / 2 pairs a head."""
     B, H, Tq, Tk, D = shape
     dv = D if dv is None else dv
+    hkv = H if hkv is None else hkv
     pairs = Tq * (Tq + 1) // 2 if causal else Tq * Tk
-    return (B * H * (Tq + Tk) * (D + dv) * dtype_bytes,
+    return ((B * H * Tq + B * hkv * Tk) * (D + dv) * dtype_bytes,
             2 * B * H * (D + dv) * pairs)
 
 
@@ -415,9 +470,12 @@ def tree_to(tree, to):
     return None if tree is None else tree.to(to)
 
 
-def device_profile(fn):
+def device_profile(fn, marks=()):
     """Run ``fn()`` once under ``torch.profiler`` and sum the card's kernel
-    time: (busy ms, kernel launches, {kernel name: ms})."""
+    time: (busy ms, kernel launches, {kernel name: ms}).  With ``marks``,
+    the names of ``record_function`` ranges (``marked``) inside ``fn``,
+    also {kernel name: ms} of the kernels launched inside them, and the
+    ranges' own device-side spans are left out of the sums."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -426,13 +484,36 @@ def device_profile(fn):
         torch.cuda.synchronize()
     per_kernel, launches = {}, 0
     for e in prof.key_averages():
-        if not str(e.device_type).endswith("CUDA"):
+        if not str(e.device_type).endswith("CUDA") or e.key in marks:
             continue
         us = getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0.0))
         per_kernel[e.key] = per_kernel.get(e.key, 0.0) + us / 1e3
         launches += e.count
-    return sum(per_kernel.values()), launches, per_kernel
+    if not marks:
+        return sum(per_kernel.values()), launches, per_kernel
+    inside = {}
+
+    def walk(ev):
+        for k_ in ev.kernels:
+            inside[k_.name] = inside.get(k_.name, 0.0) + k_.duration / 1e3
+        for ch_ in ev.cpu_children:
+            walk(ch_)
+    for e in prof.events():
+        if e.name in marks and str(e.device_type).endswith("CPU"):
+            walk(e)
+    return sum(per_kernel.values()), launches, per_kernel, inside
+
+
+def marked(fn, label: str):
+    """``fn`` run inside a ``torch.profiler.record_function`` range named
+    ``label``."""
+    from torch.profiler import record_function
+
+    def run(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+    return run
 
 
 def count_syncs(fn):
@@ -449,19 +530,22 @@ def count_syncs(fn):
     return sum("called a synchronizing" in str(w_.message) for w_ in caught)
 
 
-def prefill_and_decode(lm, params, cfg, tokens):
+def prefill_and_decode(lm, params, cfg, tokens, extra=None):
     """``forward``'s logits at every position of ``tokens`` (B, T) and
     ``decode_step``'s after the same tokens: the kernel's causal prefill
-    and the kernel-free decode path, (B, T, V) each."""
+    and the kernel-free decode path, (B, T, V) each.  ``extra`` (an
+    enc-dec's ``"frames"``) goes into every batch."""
     B, T = tokens.shape
-    full, _ = lm.forward(params, cfg, {"tokens": tokens})
+    extra = extra or {}
+    full, _ = lm.forward(params, cfg, {"tokens": tokens, **extra})
     cache = lm.init_cache(cfg, B, T, device=tokens.device)
     steps_ = []
     for t_ in range(T):
         step_logits, cache = lm.decode_step(
             params, cfg, {"token": tokens[:, t_],
                           "t": torch.full((B,), t_, dtype=torch.int32,
-                                          device=tokens.device)}, cache)
+                                          device=tokens.device), **extra},
+            cache)
         steps_.append(step_logits)
     return full, torch.stack(steps_, dim=1)
 
@@ -473,10 +557,12 @@ def logit_gap(a, b):
     return float(d.max()), float(d.mean()), same
 
 
-def sdpa_backends(q, k, v):
+def sdpa_backends(q, k, v, **kw):
     """The fused backends of ``F.scaled_dot_product_attention`` (flash,
-    memory-efficient, cuDNN) that take causal attention over q, k, v
-    (B, H, T, D); each refusal is the backend's own ``RuntimeError``."""
+    memory-efficient, cuDNN) that take attention over q, k, v (B, H, T,
+    D), causal unless ``kw`` says otherwise; each refusal is the
+    backend's own ``RuntimeError``."""
+    kw = {"is_causal": True, **kw}
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     ok = []
@@ -486,7 +572,7 @@ def sdpa_backends(q, k, v):
             warnings.simplefilter("ignore")
             try:
                 with sdpa_kernel([b]):
-                    F.scaled_dot_product_attention(q, k, v, is_causal=True)
+                    F.scaled_dot_product_attention(q, k, v, **kw)
             except RuntimeError:
                 continue
         ok.append(b.name)
@@ -520,6 +606,8 @@ def main() -> int:
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import model as lm
     from repro_torch.models import moe as moe_mod
+    from repro_torch.models import rglru as rglru_mod
+    from repro_torch.models import ssm as ssm_mod
     from repro_torch.models.attention import chunked_attention
     from repro_torch.models.cnn import init_cnn, reference_perm
     from repro_torch.topology import build_schedule
@@ -1039,6 +1127,40 @@ def main() -> int:
           f"{bthd_err[torch.bfloat16]:.3g} (tol 2e-2); at the prefill's "
           f"shape (tol {FA_PREFILL_TOL:g}, mean {FA_PREFILL_MEAN_TOL:g}) "
           f"|err| {'; '.join(bthd_prefill_err)}")
+
+    # phase 9's models as they launch the kernel: (B, T, H, D) views of
+    # one projection-shaped tensor, each model's own mask; bfloat16 at
+    # the prefill's bounds, float32 at 2e-5
+    new_err = []
+    with tf32_off():
+        for label, shape, group, kw in FA_NEW_SHAPES:
+            errs_ = []
+            for dtype in (torch.bfloat16, torch.float32):
+                q_, k_, v_ = fused_qkv(gen, dev, shape, group, dtype)
+                before = ops.launches["flash_attention"]
+                out = ops.flash_attention_bthd(q_, k_, v_, **kw)
+                assert ops.launches["flash_attention"] == before + 1
+                expect = ref.flash_attention_bthd_ref(q_, k_, v_, **kw)
+                assert out.shape == q_.shape and out.dtype == dtype
+                diff = (out.float() - expect.float()).abs()
+                err, mean = float(diff.max()), float(diff.mean())
+                if dtype == torch.bfloat16:
+                    assert err <= FA_PREFILL_TOL and \
+                        mean <= FA_PREFILL_MEAN_TOL, (label, err, mean)
+                    fa_prefill_max = max(fa_prefill_max, err)
+                else:
+                    torch.testing.assert_close(out, expect, atol=2e-5,
+                                               rtol=2e-5)
+                errs_.append(f"{str(dtype)[6:]} max {err:.3g}, mean "
+                             f"{mean:.3g}")
+                del q_, k_, v_, out, expect, diff
+            B_, H_, Tq_, Tk_, D_ = shape
+            new_err.append(f"{label} (B {B_}, Tq {Tq_}, Tk {Tk_}, "
+                           f"{H_ * group} over {H_} heads of {D_}, {kw}): "
+                           + ", ".join(errs_))
+    print("flash_attention_bthd at phase 9's model shapes, one launch each "
+          f"(bfloat16 tol {FA_PREFILL_TOL:g}, mean {FA_PREFILL_MEAN_TOL:g}; "
+          "float32 tol 2e-5): " + "; ".join(new_err))
 
     # every kernel of the bench (phase 6) on the bench's own operands
     b_in = kernels_bench.inputs("cuda")
@@ -1784,6 +1906,51 @@ def main() -> int:
               + f"; op against plain (tol {FA_PREFILL_TOL:g}, mean "
               f"{FA_PREFILL_MEAN_TOL:g}) |err| {'; '.join(errs_)}")
         del q_, k_, v_, o_, qs_, ks_, vs_
+    # phase 9's models' shapes, bfloat16, as the models launch them (views
+    # of one projection), beside the bound and SDPA on the same operands
+    # (a yardstick only: it rounds p to bfloat16; recurrentgemma's window
+    # of 2048 cuts no key at 2048 tokens, so causal SDPA computes the same
+    # function there; the 4096-token shape is checked in phase 3 only)
+    fa["new_models"] = {}
+    for label, shape, group, kw in FA_NEW_SHAPES:
+        B_, Hkv_, Tq_, Tk_, D_ = shape
+        if Tq_ > PREFILL_T:
+            continue
+        q_, k_, v_ = fused_qkv(gen, dev, shape, group, torch.bfloat16)
+        o_ = torch.empty(q_.shape, dtype=torch.bfloat16, device=dev)
+        ms_ = time_ms(lambda: ops.launch_flash_attention(
+            q_, k_, v_, o_, causal=kw["causal"], window=kw.get("window"),
+            logit_softcap=None, scale=D_ ** -0.5, layout="bthd"))
+        n_bytes, flops = attention_work((B_, Hkv_ * group, Tq_, Tk_, D_), 2,
+                                        causal=kw["causal"], hkv=Hkv_)
+        b_ms, b_by = bound_ms(n_bytes, flops, BF16_FLOPS_PER_S)
+        qs_, ks_, vs_ = (t_.transpose(1, 2) for t_ in (q_, k_, v_))
+        sdpa_kw = {"is_causal": kw["causal"], "enable_gqa": group > 1}
+        backends_ = sdpa_backends(qs_, ks_, vs_, **sdpa_kw)
+        lib_ = (time_ms(lambda: F.scaled_dot_product_attention(
+            qs_, ks_, vs_, **sdpa_kw)) if backends_ else None)
+        fa["new_models"][label] = {
+            "shape": [B_, Tq_, Tk_, Hkv_ * group, Hkv_, D_], "mask": kw,
+            "ms": ms_, "bound_ms": b_ms, "bound_by": b_by, "flops": flops,
+            "library_ms": lib_, "sdpa_backends": backends_}
+        print(f"flash_attention at {label} ((B, Tq, Tk) = ({B_}, {Tq_}, "
+              f"{Tk_}), {Hkv_ * group} query heads over {Hkv_} of {D_}, "
+              f"bfloat16, {kw}, as the model launches it): kernel "
+              f"{ms_:.4f} ms ({flops / ms_ / 1e9:.1f} TFLOP/s useful), bound "
+              f"{b_ms:.5f} ms ({b_by}: {flops:.4g} flops, {n_bytes:.4g} "
+              f"bytes), kernel / bound {ms_ / b_ms:.2f}; "
+              + (f"SDPA {lib_:.4f} ms (fused backends that take it: "
+                 f"{backends_})" if backends_ else
+                 "SDPA refuses: none of its fused backends takes it"))
+        del q_, k_, v_, o_, qs_, ks_, vs_
+    # the instances phase 9's models run: D 256 (recurrentgemma, gemma2)
+    # and D 64 (seamless) on the tensor cores
+    tc_lines = [l_ for l_ in ptxas_lines("flash_attention",
+                                        logs.get("flash_attention", ""))
+                if re.search(r"flash_attention_tc<(256|64),", l_)]
+    print("\n".join(tc_lines) if tc_lines else
+          "  flash_attention_tc<256>, <64>: no ptxas report (the library "
+          "was up to date)")
     sys.stdout.flush()
 
     # ---------------------------------------------------------------- 6
@@ -1947,6 +2114,10 @@ def main() -> int:
                 r_batch["patches"] = torch.from_numpy(rs.standard_normal(
                     (2, rcfg.modality.n_tokens,
                      rcfg.modality.feat_dim)).astype(np.float32))
+            if rcfg.encoder is not None:
+                r_batch["frames"] = torch.from_numpy(rs.standard_normal(
+                    (2, rcfg.encoder.n_frames,
+                     rcfg.modality.feat_dim)).astype(np.float32))
             cpu_logits, cpu_aux = lm.forward(p_cpu, rcfg, r_batch)
             card_logits, card_aux = lm.forward(
                 tree_to(p_cpu, dev), rcfg,
@@ -1961,8 +2132,12 @@ def main() -> int:
                   f"{rcfg.d_model}, {a_.kind}, windows "
                   f"{[rcfg.attn_window(i) for i in range(rcfg.n_layers)]}, "
                   f"softcap {a_.attn_softcap}, experts "
-                  f"{rcfg.moe.n_experts}, patches "
-                  f"{tuple(r_batch.get('patches', torch.empty(0)).shape)}"
+                  f"{rcfg.moe.n_experts}, mixers "
+                  f"{[rcfg.block_kind(i) for i in range(rcfg.n_layers)]}, "
+                  f"patches "
+                  f"{tuple(r_batch.get('patches', torch.empty(0)).shape)}, "
+                  f"frames "
+                  f"{tuple(r_batch.get('frames', torch.empty(0)).shape)}"
                   f"), 2 x 96 tokens: card and CPU logits agree (rtol 1e-3, "
                   f"atol 1e-3, TF32 off), max |diff| "
                   f"{float((card_logits.cpu() - cpu_logits).abs().max()):.3g}"
@@ -1994,9 +2169,15 @@ def main() -> int:
         a_ = cfg_.attention
         dims_ = ((a_.nope_head_dim + a_.rope_head_dim, a_.v_head_dim)
                  if a_.kind == "mla" else (a_.head_dim, a_.head_dim))
+        kinds_ = [cfg_.block_kind(i) for i in range(cfg_.n_layers)]
+        enc_ = (f", an encoder of {cfg_.encoder.n_layers} layers at d_model "
+                f"{cfg_.encoder.d_model}" if cfg_.encoder else "")
         print(f"{arch}: {cfg_.n_params()} parameters by the config's count, "
               f"{tree_numel(params_)} in the tree (norms included); "
-              f"{cfg_.n_layers} layers, d_model {cfg_.d_model}, {a_.kind} "
+              f"{cfg_.n_layers} layers ("
+              + ", ".join(f"{kinds_.count(k_)} {k_}"
+                          for k_ in dict.fromkeys(kinds_))
+              + f"{enc_}), d_model {cfg_.d_model}, {a_.kind} "
               f"attention of {a_.n_heads} heads at (Dk, Dv) = {dims_}, "
               f"{cfg_.moe.n_experts} routed experts (top {cfg_.moe.top_k}) "
               f"and {cfg_.moe.n_shared} shared, vocab {cfg_.vocab}, "
@@ -2007,10 +2188,12 @@ def main() -> int:
               flush=True)
         return cfg_, params_
 
-    def time_prefill(arch, cfg_, params_, batch_):
+    def time_prefill(arch, cfg_, params_, batch_, per_call=None):
         """``make_prefill_step`` on ``batch_``, the launch counts set to 0
-        just before the timed calls and read just after: one
-        ``flash_attention`` launch a layer, no other kernel of the port."""
+        just before the timed calls and read just after: ``per_call``
+        ``flash_attention`` launches a call (one a layer by default), no
+        other kernel of the port."""
+        per_call = cfg_.n_layers if per_call is None else per_call
         prefill_ = make_prefill_step(cfg_)
         with torch.inference_mode():
             prefill_(params_, batch_)           # warm-up: cuBLAS, allocator
@@ -2024,7 +2207,7 @@ def main() -> int:
                 torch.cuda.synchronize()
                 times_.append(time.perf_counter() - t0_)
             made_ = dict(ops.launches)
-        assert made_["flash_attention"] == cfg_.n_layers * PREFILL_CALLS, \
+        assert made_["flash_attention"] == per_call * PREFILL_CALLS, \
             (arch, made_)
         assert sum(made_.values()) == made_["flash_attention"], (arch, made_)
         assert nxt_.shape == (PREFILL_B, cfg_.vocab), nxt_.shape
@@ -2041,43 +2224,54 @@ def main() -> int:
                           "flash_attention_launches":
                               made_["flash_attention"]}
 
-    def time_decode(arch, cfg_, params_):
+    def time_decode(arch, cfg_, params_, frames_=None):
         """The ``serve_decode`` example's loop: SERVE_B requests, no kernel
-        launch; then one decode step's host syncs (PyTorch's sync debug
-        mode)."""
+        launch, but for an enc-dec the encoder's on ``frames_`` once and a
+        cross-attention launch a layer a step; then one decode step's host
+        syncs (PyTorch's sync debug mode)."""
         prompt_ = torch.from_numpy(rs.integers(
             0, cfg_.vocab, (SERVE_B, SERVE_PROMPT))).to(dev)
-        serve_decode.serve(params_, cfg_, prompt_[:, :4], 2, SERVE_CACHE)
+        serve_decode.serve(params_, cfg_, prompt_[:, :4], 2, SERVE_CACHE,
+                           frames_)
         for k_ in ops.launches:
             ops.launches[k_] = 0
         gen_, secs_ = serve_decode.serve(params_, cfg_, prompt_, SERVE_GEN,
-                                         SERVE_CACHE)
+                                         SERVE_CACHE, frames_)
+        made_ = dict(ops.launches)
         assert gen_.shape == (SERVE_B, SERVE_GEN)
         assert int(gen_.min()) >= 0 and int(gen_.max()) < cfg_.vocab
-        assert sum(ops.launches.values()) == 0, ops.launches
         n_steps_ = SERVE_PROMPT + SERVE_GEN - 1
+        want_ = (0 if cfg_.encoder is None else
+                 cfg_.encoder.n_layers + cfg_.n_layers * n_steps_)
+        assert made_["flash_attention"] == want_, (arch, made_)
+        assert sum(made_.values()) == want_, (arch, made_)
         cache_ = lm.init_cache(cfg_, SERVE_B, SERVE_CACHE, device=dev)
         batch_ = {"token": prompt_[:, 0],
                   "t": torch.zeros(SERVE_B, dtype=torch.int32, device=dev)}
+        if frames_ is not None:
+            batch_["frames"] = frames_
         with torch.inference_mode():
             syncs_ = count_syncs(
                 lambda: lm.decode_step(params_, cfg_, batch_, cache_))
         r_ = {"decode_tokens_per_s": SERVE_B * n_steps_ / secs_,
               "decode_step_ms": secs_ / n_steps_ * 1e3,
-              "decode_syncs_per_step": syncs_}
+              "decode_syncs_per_step": syncs_,
+              "decode_flash_attention_launches": want_}
         print(f"{arch} decode: {SERVE_B} requests x ({SERVE_PROMPT} prompt + "
               f"{SERVE_GEN - 1} generated) steps over {SERVE_CACHE} cache "
               f"slots in {secs_:.3f} s (wall), "
               f"{r_['decode_tokens_per_s']:.1f} tokens/s, "
               f"{r_['decode_step_ms']:.2f} ms a step, {syncs_} host syncs a "
-              f"step; request 0: {gen_[0, :8].tolist()} ...", flush=True)
+              f"step, {want_} flash_attention launches in the loop; request "
+              f"0: {gen_[0, :8].tolist()} ...", flush=True)
         return r_
 
-    def agreement(label, params_, cfg_, tokens_):
-        """Prefill against decode on ``tokens_``: the gaps printed and
-        returned."""
+    def agreement(label, params_, cfg_, tokens_, extra_=None):
+        """Prefill against decode on ``tokens_`` (and ``extra_``, an
+        enc-dec's frames): the gaps printed and returned."""
         with torch.inference_mode(), tf32_off():
-            full_, dec_ = prefill_and_decode(lm, params_, cfg_, tokens_)
+            full_, dec_ = prefill_and_decode(lm, params_, cfg_, tokens_,
+                                             extra_)
         mx_, mean_, same_ = logit_gap(full_, dec_)
         n_ = tokens_.numel()
         print(f"{label}, {tuple(tokens_.shape)} tokens: prefill vs decode "
@@ -2247,9 +2441,123 @@ def main() -> int:
         time_decode("phi-3-vision-4.2b", pv_cfg, pv_params))
     del pv_params
 
+    # ---------------------------------------------------------------- 9
+    phase(9, "LM serving of the SSM, RG-LRU and enc-dec families at full "
+             "width, bfloat16")
+    serving9 = {}
+
+    def frames_for(cfg_, B_, seed_):
+        """{"frames": an enc-dec's random (B_, n_frames, feat_dim) frames in
+        bfloat16, from a seeded generator on the card, as the reference's
+        serving specs have them}, or {} for another arch."""
+        if cfg_.encoder is None:
+            return {}
+        return {"frames": torch.randn(
+            B_, cfg_.encoder.n_frames, cfg_.modality.feat_dim, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(seed_)).to(
+                torch.bfloat16)}
+
+    def cut(cfg_, n_):
+        """``cfg_`` on its first ``n_`` layers, and an encoder's."""
+        enc_ = (dataclasses.replace(cfg_.encoder, n_layers=n_)
+                if cfg_.encoder else None)
+        return dataclasses.replace(cfg_, n_layers=n_, encoder=enc_)
+
+    for arch9, per_call9 in NEW_ARCHS.items():
+        cfg9, p9 = init_full(arch9)
+        r9 = serving9[arch9] = {
+            "init_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "params_by_config": cfg9.n_params(),
+            "params_in_tree": tree_numel(p9)}
+        batch9 = {"tokens": torch.from_numpy(rs.integers(
+            0, cfg9.vocab, (PREFILL_B, PREFILL_T))).to(dev),
+            **frames_for(cfg9, PREFILL_B, 3)}
+        _, r = time_prefill(arch9, cfg9, p9, batch9, per_call=per_call9)
+        r9.update(r)
+        r9.update(time_decode(arch9, cfg9, p9,
+                              frames_for(cfg9, SERVE_B, 5).get("frames")))
+        # prefill against decode at 1 x MOE_AGREE_T tokens: bfloat16 at
+        # full depth (reported), float32 on a depth cut (gated)
+        agree9 = torch.from_numpy(rs.integers(
+            0, cfg9.vocab, (1, MOE_AGREE_T))).to(dev)
+        extra9 = frames_for(cfg9, 1, 4)
+        r9["agree_bf16"] = list(agreement(
+            f"{arch9} bf16, {cfg9.n_layers} layers", p9, cfg9, agree9,
+            extra9))
+        del p9, batch9
+        n_cut = NEW_CUT_LAYERS[arch9]
+        cut_cfg9 = cut(cfg9, n_cut)
+        _, cut16 = init_full(f"{arch9}, first {n_cut} layers", cut_cfg9,
+                             seed=1)
+        r9["agree_bf16_cut"] = list(agreement(
+            f"{arch9} bf16, {n_cut}-layer cut", cut16, cut_cfg9, agree9,
+            extra9))
+        cut32 = tree_to(cut16, torch.float32)
+        del cut16
+        mx, mean, same, n_ = agreement(
+            f"{arch9} f32, {n_cut}-layer cut ("
+            f"{[cut_cfg9.block_kind(i) for i in range(n_cut)]})", cut32,
+            dataclasses.replace(cut_cfg9, dtype="float32"), agree9,
+            {k_: v_.float() for k_, v_ in extra9.items()})
+        r9["agree_f32_cut"] = [mx, mean, same, n_]
+        assert mx <= AGREE_TOL_F32 and same == n_, (arch9, mx, same)
+        del cut32
+        torch.cuda.empty_cache()
+        within = (r9["agree_bf16"][0] <= AGREE_TOL_BF16
+                  and r9["agree_bf16"][1] <= AGREE_MEAN_BF16)
+        print(f"{arch9} prefill/decode agreement holds: float32 max <= "
+              f"{AGREE_TOL_F32}, every greedy token equal; bfloat16 within "
+              f"qwen3's {AGREE_TOL_BF16} / {AGREE_MEAN_BF16}: {within} "
+              f"(reported, not gated)", flush=True)
+    # the scans alone at the models' shapes (CUDA events around one call):
+    # the SSD's chunked dual form at mamba2's (4, 2048) tokens, 48 heads
+    # of 64, d_state 128, chunk 256; the RG-LRU's log-depth scan at
+    # recurrentgemma's (4, 2048, 2560) float32.  ssd_chunked's ~120
+    # launches outlast time_ms' spin, so its figure holds host launch
+    # gaps too; the traces below read the device time inside the prefill
+    m_cfg = get_config("mamba2-780m")
+    sc = m_cfg.ssm
+    g9 = torch.Generator(device=dev).manual_seed(6)
+    x9 = torch.randn(PREFILL_B, PREFILL_T, sc.n_heads, sc.head_dim,
+                     device=dev, generator=g9).to(torch.bfloat16)
+    dt9 = torch.rand(PREFILL_B, PREFILL_T, sc.n_heads, device=dev,
+                     generator=g9) * 0.1
+    bc9 = torch.randn(PREFILL_B, PREFILL_T, 2 * sc.d_state, device=dev,
+                      generator=g9).to(torch.bfloat16)
+    h9 = torch.zeros(sc.n_heads, device=dev)
+    ssd_ms = time_ms(lambda: ssm_mod.ssd_chunked(
+        x9, dt9, h9, bc9[..., :sc.d_state], bc9[..., sc.d_state:],
+        h9 + 1, chunk=sc.chunk), reps=20)
+    r_cfg = get_config("recurrentgemma-2b")
+    w9 = r_cfg.rglru.lru_width
+    a9 = 0.9 + 0.1 * torch.rand(PREFILL_B, PREFILL_T, w9, device=dev,
+                                generator=g9)
+    b9 = torch.randn(PREFILL_B, PREFILL_T, w9, device=dev, generator=g9)
+    scan_ms = time_ms(lambda: rglru_mod.scan(a9, b9), reps=20)
+    n_rglru = sum(r_cfg.block_kind(i) == "rglru"
+                  for i in range(r_cfg.n_layers))
+    serving9["mamba2-780m"]["ssd_chunked_ms"] = ssd_ms
+    serving9["recurrentgemma-2b"]["rglru_scan_ms"] = scan_ms
+    m_wall, r_wall = (serving9[a_]["prefill_ms"] for a_ in
+                      ("mamba2-780m", "recurrentgemma-2b"))
+    print(f"ssd_chunked alone (CUDA events around one call, launch gaps "
+          f"included) at mamba2's shape ((4, 2048) tokens, "
+          f"{sc.n_heads} heads of {sc.head_dim}, d_state {sc.d_state}, chunk "
+          f"{sc.chunk}): {ssd_ms:.4f} ms a layer, x {m_cfg.n_layers} layers "
+          f"= {ssd_ms * m_cfg.n_layers:.2f} ms, "
+          f"{100 * ssd_ms * m_cfg.n_layers / m_wall:.1f}% of the "
+          f"{m_wall:.2f} ms prefill call; the RG-LRU scan alone at "
+          f"recurrentgemma's (4, 2048, {w9}) float32: {scan_ms:.4f} ms a "
+          f"layer, x {n_rglru} layers = {scan_ms * n_rglru:.2f} ms, "
+          f"{100 * scan_ms * n_rglru / r_wall:.1f}% of the {r_wall:.2f} ms "
+          f"call", flush=True)
+    del x9, dt9, bc9, a9, b9
+    torch.cuda.empty_cache()
+
     # deepseek-v2-lite-16b under torch.profiler, after every timing of
-    # phases 7 and 8: a prefill call split by kernel kind, and a decode
+    # phases 7 to 9: a prefill call split by kernel kind, and a decode
     # step's launches
+    phase(8, "continued: deepseek-v2-lite-16b under torch.profiler")
     with torch.inference_mode():
         busy, n_kern, per_kernel = device_profile(
             lambda: ds_prefill(ds_params, {"tokens": ds_tokens}))
@@ -2296,6 +2604,66 @@ def main() -> int:
     del ds_params, d_cache
     torch.cuda.empty_cache()
     print("serving (phase 8): " + json.dumps(serving8))
+    sys.stdout.flush()
+
+    # phase 9's models, one at a time, each drawn again: one prefill call
+    # under torch.profiler, split into GEMMs, flash_attention, the SSD or
+    # RG-LRU scan (the kernels launched inside ssd_chunked or scan, marked
+    # by a record_function range this script wraps around them) and the
+    # elementwise glue
+    phase(9, "continued: one prefill call of each model under "
+             "torch.profiler")
+    scans = ((ssm_mod, "ssd_chunked"), (rglru_mod, "scan"))
+    for arch9, per_call9 in NEW_ARCHS.items():
+        cfg9 = get_config(arch9)
+        p9 = lm.init_model(torch.Generator(device=dev).manual_seed(0), cfg9,
+                           dev)
+        batch9 = {"tokens": torch.from_numpy(rs.integers(
+            0, cfg9.vocab, (PREFILL_B, PREFILL_T))).to(dev),
+            **frames_for(cfg9, PREFILL_B, 3)}
+        prefill9 = make_prefill_step(cfg9)
+        with contextlib.ExitStack() as stack:
+            for mod_, fname_ in scans:
+                stack.enter_context(swapped(mod_, fname_, marked(
+                    getattr(mod_, fname_), fname_)))
+            with torch.inference_mode():
+                prefill9(p9, batch9)            # warm-up under the marks
+                busy, n_kern, per_kernel, in_scan = device_profile(
+                    lambda: prefill9(p9, batch9),
+                    marks=tuple(f_ for _, f_ in scans))
+        split = {"gemm": 0.0, "flash_attention": 0.0, "scan": 0.0,
+                 "elementwise": 0.0}
+        for k_, v_ in per_kernel.items():
+            low = k_.lower()
+            if "flash_attention" in low:
+                split["flash_attention"] += v_
+            elif any(w_ in low for w_ in GEMM_KEYS):
+                split["gemm"] += v_
+            else:
+                split["elementwise"] += v_
+        # the scan's kernels, GEMMs (the SSD's batched matmuls) included,
+        # move from their kind to the scan
+        for k_, v_ in in_scan.items():
+            low = k_.lower()
+            split["gemm" if any(w_ in low for w_ in GEMM_KEYS)
+                  else "elementwise"] -= v_
+            split["scan"] += v_
+        wall9 = serving9[arch9]["prefill_ms"]
+        serving9[arch9].update({
+            "prefill_kernels": n_kern, "prefill_busy_ms": busy,
+            "prefill_idle": 1 - busy / wall9, "prefill_split_ms": split})
+        print(f"{arch9} prefill call under torch.profiler: {n_kern} kernel "
+              f"launches, device busy {busy:.2f} ms of the unprofiled "
+              f"{wall9:.2f} ms wall (idle {100 * (1 - busy / wall9):.1f}%): "
+              + ", ".join(f"{k_} {v_:.2f} ms ({100 * v_ / busy:.1f}%)"
+                          for k_, v_ in split.items())
+              + "; top kernels " + json.dumps(
+                  {k_[:60]: round(v_, 3) for k_, v_ in sorted(
+                      per_kernel.items(), key=lambda kv: -kv[1])[:8]}),
+              flush=True)
+        del p9, batch9, prefill9
+        torch.cuda.empty_cache()
+    print("serving (phase 9): " + json.dumps(serving9))
     sys.stdout.flush()
 
     # phase 4's step profiles, traced after every host-bound timing of the
@@ -2407,18 +2775,20 @@ def main() -> int:
          # and by path beside it
          "launches": lm_launches["flash_attention"],
          "launches_all_paths": lm_launches["flash_attention"] + sum(
-             r_["flash_attention_launches"] for r_ in serving8.values()),
+             r_["flash_attention_launches"] for r_ in
+             list(serving8.values()) + list(serving9.values())),
          "launches_by_path": {
              "qwen3-0.6b": lm_launches["flash_attention"],
              **{a_: r_["flash_attention_launches"]
-                for a_, r_ in serving8.items()}},
+                for a_, r_ in {**serving8, **serving9}.items()}},
          "max_abs_err": fa_prefill_max,
          **{k_: fa["prefill_gqa"][k_] for k_ in (
              "ms", "op_ms", "chunked_ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms")},
          "mha_ms": fa["prefill"]["ms"],
          "mha_library_ms": fa["prefill"]["library_ms"],
-         "pairs": fa["pairs"], "model_shapes": fa["models"]},
+         "pairs": fa["pairs"], "model_shapes": fa["models"],
+         "phase9_model_shapes": fa["new_models"]},
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

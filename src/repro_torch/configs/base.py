@@ -3,9 +3,8 @@
 The LM model configs (``AttentionConfig``, ``MoEConfig``, ``SSMConfig``,
 ``RGLRUConfig``, ``EncoderConfig``, ``ModalityStub``, ``ModelConfig``,
 ``InputShape`` and ``INPUT_SHAPES``) are whole copies, so every arch of
-the reference can be expressed; the port's models run its dense GQA,
-MLA, MoE and VLM families so far (``repro_torch.models.transformer``;
-the SSM, RG-LRU and enc-dec ones are refused there).  The
+the reference can be expressed, and the port's models run every one
+of them (``repro_torch.models.model``).  The
 communication configs (``CommConfig``, ``FabricConfig``,
 ``LinkConfig``) of the decentralized trainer follow, without the
 deprecated flat-field properties.

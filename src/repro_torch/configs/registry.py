@@ -1,14 +1,12 @@
 """Architecture registry of the port: ``get_config("<arch-id>")`` and the
 list of the archs it runs.
 
-The archs of the reference's registry whose model families the port
-runs, in the reference's order: dense GQA (``qwen3-0.6b``,
-``gemma2-9b``, ``starcoder2-3b``), the VLM (``phi-3-vision-4.2b``), MLA
-over MoE (``deepseek-v2-236b``, ``deepseek-v2-lite-16b``) and dense MLA
-(``minicpm3-4b``).  The reference's other three (the SSM
-``mamba2-780m``, the RG-LRU hybrid ``recurrentgemma-2b`` and the enc-dec
-``seamless-m4t-large-v2``) join as their families are ported; until
-then their ids raise ``KeyError``, as an unknown one does in the
+The reference's ten LM archs, in the reference's order: dense GQA
+(``qwen3-0.6b``, ``gemma2-9b``, ``starcoder2-3b``), the VLM
+(``phi-3-vision-4.2b``), the RG-LRU hybrid (``recurrentgemma-2b``), the
+enc-dec ``seamless-m4t-large-v2``, MLA over MoE (``deepseek-v2-236b``,
+``deepseek-v2-lite-16b``), dense MLA (``minicpm3-4b``) and the SSM
+``mamba2-780m``.  An unknown id raises ``KeyError``, as in the
 reference.
 """
 from __future__ import annotations
@@ -19,13 +17,16 @@ from typing import Dict, List
 from repro_torch.configs.base import ModelConfig
 
 _MODULES = {
-    "qwen3-0.6b":           "repro_torch.configs.qwen3_0_6b",
-    "phi-3-vision-4.2b":    "repro_torch.configs.phi_3_vision_4_2b",
-    "gemma2-9b":            "repro_torch.configs.gemma2_9b",
-    "starcoder2-3b":        "repro_torch.configs.starcoder2_3b",
-    "deepseek-v2-236b":     "repro_torch.configs.deepseek_v2_236b",
-    "minicpm3-4b":          "repro_torch.configs.minicpm3_4b",
-    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "qwen3-0.6b":            "repro_torch.configs.qwen3_0_6b",
+    "phi-3-vision-4.2b":     "repro_torch.configs.phi_3_vision_4_2b",
+    "gemma2-9b":             "repro_torch.configs.gemma2_9b",
+    "recurrentgemma-2b":     "repro_torch.configs.recurrentgemma_2b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
+    "starcoder2-3b":         "repro_torch.configs.starcoder2_3b",
+    "deepseek-v2-236b":      "repro_torch.configs.deepseek_v2_236b",
+    "minicpm3-4b":           "repro_torch.configs.minicpm3_4b",
+    "mamba2-780m":           "repro_torch.configs.mamba2_780m",
+    "deepseek-v2-lite-16b":  "repro_torch.configs.deepseek_v2_lite_16b",
 }
 
 ARCH_IDS: List[str] = list(_MODULES)

@@ -1,0 +1,80 @@
+"""Encoder stack of the enc-dec archs (``repro.models.encdec``; the
+seamless-m4t backbone).
+
+The modality frontend (mel-spectrogram and conv feature extractor) is
+stubbed, as in the reference: the caller hands over precomputed frame
+embeddings (B, n_frames, feat_dim).  The encoder is the transformer
+stack that consumes them, bidirectional self-attention without RoPE
+through ``chunked_attention(causal=False)`` (on a CUDA tensor the
+hand-written ``flash_attention`` kernel) over the config's norm and the
+gated MLP; the decoder is ``transformer.py``'s stack with
+cross-attention to the encoder's output.  The layers' parameters are
+stacked on a leading axis, as the reference stacks them for its
+``lax.scan``, which becomes a Python loop over the layers here.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (NORM_APPLY, gated_mlp_apply,
+                                       init_gated_mlp, init_linear,
+                                       linear_apply, make_norm)
+from repro_torch.models.transformer import _cycle, _dtype, _stacked
+
+Params = Dict[str, object]
+
+
+def init_encoder_layer(gen: torch.Generator, cfg: ModelConfig,
+                       device=None) -> Params:
+    ed = cfg.encoder.d_model
+    a = cfg.attention
+    dt = _dtype(cfg)
+    norm_init, _ = make_norm(cfg.norm, ed, device)
+    hd = a.n_heads * a.head_dim
+    return {
+        "norm1": norm_init(), "norm2": norm_init(),
+        "wq": init_linear(gen, ed, hd, dt, device=device),
+        "wk": init_linear(gen, ed, hd, dt, device=device),
+        "wv": init_linear(gen, ed, hd, dt, device=device),
+        "wo": init_linear(gen, hd, ed, dt, device=device),
+        "ffn": init_gated_mlp(gen, ed, cfg.d_ff, dt, device),
+    }
+
+
+def init_encoder(gen: torch.Generator, cfg: ModelConfig,
+                 device=None) -> Params:
+    device = resolve_device(device)
+    e = cfg.encoder
+    norm_init, _ = make_norm(cfg.norm, e.d_model, device)
+    return {
+        "in_proj": init_linear(gen, cfg.modality.feat_dim, e.d_model,
+                               _dtype(cfg), device=device),
+        "layers": _stacked(e.n_layers,
+                           lambda _: init_encoder_layer(gen, cfg, device)),
+        "final_norm": norm_init(),
+    }
+
+
+def encoder_apply(p: Params, cfg: ModelConfig, frames: torch.Tensor
+                  ) -> torch.Tensor:
+    """frames: (B, S, feat_dim) -> memory (B, S, encoder d_model)."""
+    a = cfg.attention
+    h, hd = a.n_heads, a.head_dim
+    norm_apply = NORM_APPLY[cfg.norm]
+    x = linear_apply(p["in_proj"], frames.to(_dtype(cfg)))
+    B, S, _ = x.shape
+    for i in range(cfg.encoder.n_layers):
+        lp = _cycle(p["layers"], i)
+        hh = norm_apply(lp["norm1"], x)
+        q = linear_apply(lp["wq"], hh).reshape(B, S, h, hd)
+        k = linear_apply(lp["wk"], hh).reshape(B, S, h, hd)
+        v = linear_apply(lp["wv"], hh).reshape(B, S, h, hd)
+        y = attn.chunked_attention(q, k, v, causal=False)
+        x = x + linear_apply(lp["wo"], y.reshape(B, S, -1))
+        x = x + gated_mlp_apply(lp["ffn"], norm_apply(lp["norm2"], x))
+    return norm_apply(p["final_norm"], x)

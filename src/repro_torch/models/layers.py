@@ -233,6 +233,39 @@ def unembed_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
     return x @ p["table"].to(x.dtype).T
 
 
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                ) -> torch.Tensor:
+    """The SSM's and the RG-LRU's depthwise causal conv over time, before
+    any activation, in float32: x (B, T, Ch), w (K, Ch), ``w[0]``
+    multiplying the newest sample, as in the reference.  A sum of the K
+    taps, oldest first (``F.conv1d`` in its usual orientation would flip
+    them)."""
+    K, T = w.shape[0], x.shape[1]
+    pad = F.pad(x, (0, 0, K - 1, 0))
+    out = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for i in range(K):
+        out = out + pad[:, i:i + T].float() * w[K - 1 - i].float()
+    return out + b.float()
+
+
+def causal_conv_step(hist: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+                     ) -> torch.Tensor:
+    """``causal_conv``'s output at the newest of the K samples ``hist``
+    (B, K, Ch), oldest first: the decode step's conv, (B, Ch) float32."""
+    K = w.shape[0]
+    out = torch.zeros(hist[:, 0].shape, dtype=torch.float32,
+                      device=hist.device)
+    for i in range(K):
+        out = out + hist[:, i].float() * w[K - 1 - i].float()
+    return out + b.float()
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``log(exp(x) + 1)`` as ``logaddexp(x, 0)``
+    everywhere (``F.softplus`` returns x itself above its threshold)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x

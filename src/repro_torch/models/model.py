@@ -1,12 +1,17 @@
 """Top-level LM API of the port (``repro.models.model``): one entry point
-per operation, for the archs the port runs (dense GQA, MLA, MoE and the
-VLM; ``repro_torch.configs.registry``).
+per operation, for every arch of the registry (dense GQA, MLA, MoE, the
+VLM, the RG-LRU hybrid, the SSM and the enc-dec;
+``repro_torch.configs.registry``).
 
 ``batch`` layout:
 - prefill: {"tokens": (B, T_text) integer, ["patches": (B, n_vis,
-  feat_dim) float, for the VLM]}
-- decode: {"token": (B,) integer, "t": (B,) integer absolute positions},
-  with the cache from ``init_cache``.
+  feat_dim) float, for the VLM], ["frames": (B, n_frames, feat_dim)
+  float, for the enc-dec]}
+- decode: {"token": (B,) integer, "t": (B,) integer absolute positions,
+  ["frames": as above]}, with the cache from ``init_cache``.  As in the
+  reference, an enc-dec decode step runs the encoder on its frames
+  every step; a serving loop that computes the memory once calls
+  ``transformer.lm_decode(..., memory=)`` itself.
 
 ``lm_params_from_jax`` carries the reference's ``init_model`` parameters
 (as NumPy arrays) into the port, so both packages can run the same
@@ -18,14 +23,14 @@ CPU runs them only when the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 
 Params = Dict[str, Any]
 
@@ -33,8 +38,19 @@ Params = Dict[str, Any]
 def init_model(gen: torch.Generator, cfg: ModelConfig,
                device=None) -> Params:
     """Random parameters drawn from ``gen`` (on its device), every leaf
-    placed on ``device``."""
-    return transformer.init_lm(gen, cfg, device)
+    placed on ``device``; an enc-dec arch's encoder under
+    ``"encoder"``."""
+    p = transformer.init_lm(gen, cfg, device)
+    if cfg.encoder is not None:
+        p["encoder"] = encdec.init_encoder(gen, cfg, device)
+    return p
+
+
+def _memory(p: Params, cfg: ModelConfig, batch: Dict[str, Any]
+            ) -> Optional[torch.Tensor]:
+    if cfg.encoder is None:
+        return None
+    return encdec.encoder_apply(p["encoder"], cfg, batch["frames"])
 
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -43,7 +59,8 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     moe_aux), the MoE auxiliary loss summed over layers, a float32 zero
     for a dense arch."""
     return transformer.lm_apply(p, cfg, batch["tokens"],
-                                patches=batch.get("patches"), chunk=chunk)
+                                patches=batch.get("patches"),
+                                memory=_memory(p, cfg, batch), chunk=chunk)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
@@ -56,7 +73,8 @@ def decode_step(p: Params, cfg: ModelConfig, batch: Dict[str, Any],
                 cache: Params) -> Tuple[torch.Tensor, Params]:
     """One serve step: next-token logits (B, V) float32 and the cache,
     updated in place."""
-    return transformer.lm_decode(p, cfg, batch["token"], cache, batch["t"])
+    return transformer.lm_decode(p, cfg, batch["token"], cache, batch["t"],
+                                 memory=_memory(p, cfg, batch))
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -70,8 +88,12 @@ def _tensor(a, device) -> torch.Tensor:
 def lm_params_from_jax(tree: Any, device=None) -> Any:
     """The reference's ``init_model`` parameter tree, its leaves as NumPy
     arrays (``jax.tree_util.tree_map(np.asarray, params)``), as the
-    port's: the same dicts, lists and keys, the stacked ``"body"`` kept,
-    every leaf a tensor of the same dtype and bits on ``device``."""
+    port's: the same dicts, lists and keys, the stacked ``"body"`` and
+    the enc-dec's ``"encoder"`` (its stacked ``"layers"``) kept, every
+    leaf a tensor of the same dtype and bits on ``device``, also where
+    the dtypes of a tree mix (the SSM's float32 ``A_log``, ``dt_bias``
+    and ``D`` and the RG-LRU's float32 gates and ``lam`` in a bfloat16
+    model)."""
     return _from_jax(tree, resolve_device(device))
 
 

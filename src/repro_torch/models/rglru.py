@@ -1,0 +1,135 @@
+"""RG-LRU recurrent block (``repro.models.rglru``; RecurrentGemma /
+Griffin, arXiv:2402.19427).
+
+The recurrence  h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)  is a
+first-order linear recurrence.  Over a full sequence the reference
+evaluates it with ``jax.lax.associative_scan``; the port with ``scan``,
+a log-depth Hillis-Steele doubling of the same ``combine`` in float32
+tensor ops (11 rounds at T = 2048), since PyTorch has no associative
+scan outside ``torch.compile``.  At decode it is O(1) a token.  a_t =
+exp(-c * softplus(Lambda) * r_t) with recurrence gate r_t and input gate
+i_t.
+
+Plain tensor code, no kernel: the reference computes it outside any
+Pallas call.  The decode writes its new conv history and state into the
+cache's own tensors (``transformer.lm_decode`` keeps the cache it was
+given), and returns them.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import RGLRUConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.layers import (causal_conv, causal_conv_step,
+                                       init_linear, init_normal, linear_apply,
+                                       softplus)
+
+Params = Dict[str, object]
+
+_C = 8.0  # Griffin's fixed scaling constant
+
+
+def init_rglru(gen: torch.Generator, r: RGLRUConfig, d_model: int, dtype,
+               device=None) -> Params:
+    device = resolve_device(device)
+    w = r.lru_width or d_model
+    lam = torch.log(torch.expm1(-torch.log(torch.linspace(
+        0.9, 0.999, w, dtype=torch.float32)) / _C))
+    return {
+        # gated "recurrent unit" branch + linear gate branch (Griffin block)
+        "in_x": init_linear(gen, d_model, w, dtype, device=device),
+        "in_gate": init_linear(gen, d_model, w, dtype, device=device),
+        "conv_w": init_normal(gen, (r.d_conv, w), r.d_conv ** -0.5, dtype,
+                              device),
+        "conv_b": torch.zeros(w, dtype=dtype, device=device),
+        "w_a": init_linear(gen, w, w, torch.float32, bias=True,
+                           device=device),
+        "w_i": init_linear(gen, w, w, torch.float32, bias=True,
+                           device=device),
+        # Lambda init so a^c is in (0.9, 0.999) at r=1 (Griffin appendix)
+        "lam": lam.to(device),
+        "out": init_linear(gen, w, d_model, dtype, device=device),
+    }
+
+
+def _gates(p: Params, xw: torch.Tensor):
+    """(a, sqrt(1 - a^2) * i * x), float32."""
+    xf = xw.float()
+    r_g = torch.sigmoid(linear_apply(p["w_a"], xf))
+    i_g = torch.sigmoid(linear_apply(p["w_i"], xf))
+    log_a = -_C * softplus(p["lam"]) * r_g              # (..., w), <= 0
+    a = torch.exp(log_a)
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-12, 1.0))
+    return a, beta * i_g * xf
+
+
+def _conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time, no activation.  x: (B, T, w)."""
+    return causal_conv(x, w, b).to(x.dtype)
+
+
+def scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t from h_{-1} = 0 along axis 1: the
+    reference's ``associative_scan`` of ``combine((a1, b1), (a2, b2)) =
+    (a1 a2, a2 b1 + b2)``, as ceil(log2 T) rounds of Hillis-Steele
+    doubling (each position combined with the one ``s`` before it, s = 1,
+    2, 4, ...).  A round writes its (a, b) into one of two buffers of its
+    own (the first ``s`` positions copied, the rest one fused op each),
+    never into its inputs; the buffers alternate."""
+    T = a.shape[1]
+    a_buf = (torch.empty_like(a), torch.empty_like(a))
+    b_buf = (torch.empty_like(b), torch.empty_like(b))
+    s, r = 1, 0
+    while s < T:
+        a_new, b_new = a_buf[r % 2], b_buf[r % 2]
+        b_new[:, :s] = b[:, :s]
+        torch.addcmul(b[:, s:], a[:, s:], b[:, :-s], out=b_new[:, s:])
+        if 2 * s < T:               # the last round needs no new a
+            a_new[:, :s] = a[:, :s]
+            torch.mul(a[:, s:], a[:, :-s], out=a_new[:, s:])
+        a, b = a_new, b_new
+        s, r = 2 * s, r + 1
+    return b
+
+
+def rglru_apply(p: Params, r: RGLRUConfig, x: torch.Tensor) -> torch.Tensor:
+    """Full-sequence path.  x: (B, T, d_model)."""
+    gate = F.gelu(linear_apply(p["in_gate"], x), approximate="tanh")
+    xw = _conv(linear_apply(p["in_x"], x), p["conv_w"], p["conv_b"])
+    a, b = _gates(p, xw)                                 # (B,T,w) fp32
+    h = scan(a, b)
+    y = h.to(x.dtype) * gate
+    return linear_apply(p["out"], y)
+
+
+def rglru_init_state(r: RGLRUConfig, d_model: int, batch: int, dtype,
+                     device=None) -> Params:
+    """The conv history in the model's dtype, h in float32."""
+    device = resolve_device(device)
+    w = r.lru_width or d_model
+    return {
+        "conv": torch.zeros(batch, r.d_conv - 1, w, dtype=dtype,
+                            device=device),
+        "h": torch.zeros(batch, w, dtype=torch.float32, device=device),
+    }
+
+
+def rglru_decode(p: Params, r: RGLRUConfig, x: torch.Tensor, state: Params
+                 ) -> Tuple[torch.Tensor, Params]:
+    """One-token decode.  x: (B, 1, d_model).  The new conv history and h
+    are written into ``state``'s tensors, which are returned."""
+    gate = F.gelu(linear_apply(p["in_gate"], x[:, 0]), approximate="tanh")
+    xw_t = linear_apply(p["in_x"], x[:, 0])
+    hist = torch.cat([state["conv"], xw_t[:, None]], dim=1)
+    xw = causal_conv_step(hist, p["conv_w"], p["conv_b"]).to(x.dtype)
+    a, b = _gates(p, xw)
+    h = a * state["h"] + b
+    y = h.to(x.dtype) * gate
+    out = linear_apply(p["out"], y)[:, None]
+    state["conv"].copy_(hist[:, 1:])
+    state["h"].copy_(h)
+    return out, state

@@ -1,19 +1,19 @@
-"""Decoder-only LM composition (``repro.models.transformer``): RMSNorm or
-LayerNorm blocks of GQA attention (global or sliding-window layers,
-qk-norm, logit softcap) or MLA, over a gated MLP or, past the dense
-prefix, a MoE FFN; tied or separate embeddings and gemma2's final logit
-softcap; for the VLM, projected patch embeddings prepended to the text.
+"""LM composition (``repro.models.transformer``) covering every family
+of the reference: RMSNorm or LayerNorm blocks whose mixer is GQA
+attention (global or sliding-window layers, qk-norm, logit softcap),
+MLA, the RG-LRU (recurrentgemma's hybrid) or the Mamba-2 SSD (mamba2,
+which has no FFN); the FFN a gated MLP or, past the dense prefix, a MoE
+FFN; tied or separate embeddings and gemma2's final logit softcap; for
+the VLM, projected patch embeddings prepended to the text; for the
+enc-dec decoder (seamless), a cross-attention to the encoder's output
+(``memory``, from ``encdec.py``) in every layer.
 
 Layers are grouped into *cycles* (the smallest repeating structural
-unit, e.g. gemma2's (local, global)), and the body's parameters are
-stacked over cycles, each leaf with a leading ``n_cycles`` axis, as in
-the reference, whose ``lax.scan`` over that axis becomes a Python loop
-over the cycle index here.  Forward only: there is no remat.
-
-A layer whose mixer (SSM, RG-LRU) or stack (enc-dec) the port does not
-run yet raises ``ValueError`` naming ROADMAP A10.4–A10.6, where those
-slices are queued.  The check runs where parameters and caches are
-built, not on every forward or decode step.
+unit, e.g. gemma2's (local, global), recurrentgemma's (rglru, rglru,
+attn)), and the body's parameters are stacked over cycles, each leaf
+with a leading ``n_cycles`` axis, as in the reference, whose
+``lax.scan`` over that axis becomes a Python loop over the cycle index
+here.  Forward only: there is no remat.
 
 ``device`` defaults to CUDA, as at every entry point of the port.
 """
@@ -28,6 +28,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (NORM_APPLY, embedding_apply,
                                        gated_mlp_apply, init_embedding,
                                        init_gated_mlp, init_linear,
@@ -76,64 +78,112 @@ def layer_plan(cfg: ModelConfig) -> Tuple[List[int], int, int, List[int]]:
     return prefix, n_cycles, P, suffix
 
 
-def _require_ported(cfg: ModelConfig, sig: Tuple) -> None:
-    """Raise for a layer this slice of the port does not run."""
-    kind = sig[0]
-    what = None
-    if kind != "attn":
-        what = f"{kind} mixer"
-    elif cfg.encoder is not None:
-        what = "encoder-decoder stack"
-    if what is not None:
-        raise ValueError(f"{cfg.arch_id}: the {what} is not ported yet "
-                         "(ROADMAP A10.4-A10.6); the port runs GQA and MLA "
-                         "layers over dense and MoE FFNs")
-
-
 # ---------------------------------------------------------------------------
 # Single layer
 # ---------------------------------------------------------------------------
 
 def init_layer(gen: torch.Generator, cfg: ModelConfig, i: int,
                device=None) -> Params:
-    sig = layer_sig(cfg, i)
-    _require_ported(cfg, sig)
+    kind, _, is_moe = layer_sig(cfg, i)
     dt = _dtype(cfg)
-    a = cfg.attention
     norm_init, _ = make_norm(cfg.norm, cfg.d_model, device)
-    p: Params = {"norm1": norm_init(), "norm2": norm_init()}
-    if a.kind == "mla":
-        p["mixer"] = attn.init_mla(gen, a, cfg.d_model, dt, device)
+    p: Params = {"norm1": norm_init()}
+    if kind == "attn":
+        a = cfg.attention
+        if a.kind == "mla":
+            p["mixer"] = attn.init_mla(gen, a, cfg.d_model, dt, device)
+        else:
+            p["mixer"] = attn.init_gqa(gen, a, cfg.d_model, dt, device)
+    elif kind == "rglru":
+        p["mixer"] = rglru_mod.init_rglru(gen, cfg.rglru, cfg.d_model, dt,
+                                          device)
+    elif kind == "ssm":
+        p["mixer"] = ssm_mod.init_ssm(gen, cfg.ssm, cfg.d_model, dt, device)
     else:
-        p["mixer"] = attn.init_gqa(gen, a, cfg.d_model, dt, device)
-    if sig[2]:
-        p["ffn"] = moe_mod.init_moe(gen, cfg.moe, cfg.d_model, dt, device)
-    else:
-        p["ffn"] = init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dt, device)
+        raise ValueError(kind)
+    if cfg.family != "ssm":     # mamba2: one mixer a block, no FFN
+        p["norm2"] = norm_init()
+        if is_moe:
+            p["ffn"] = moe_mod.init_moe(gen, cfg.moe, cfg.d_model, dt,
+                                        device)
+        else:
+            p["ffn"] = init_gated_mlp(gen, cfg.d_model, cfg.d_ff, dt,
+                                      device)
+    if cfg.encoder is not None:
+        # enc-dec decoder layer: cross-attention to the encoder's memory
+        p["norm_x"] = norm_init()
+        p["xattn"] = _init_xattn(gen, cfg, dt, device)
     return p
 
 
-def layer_apply(p: Params, cfg: ModelConfig, sig: Tuple, x: torch.Tensor, *,
-                positions: torch.Tensor, chunk: int = 512
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Full-sequence layer (train/prefill).  Returns (x, the MoE
-    auxiliary loss, or None for a dense FFN)."""
-    _, window, is_moe = sig
+def _init_xattn(gen: torch.Generator, cfg: ModelConfig, dt,
+                device=None) -> Params:
     a = cfg.attention
+    ed = cfg.encoder.d_model
+    hd = a.n_heads * a.head_dim
+    return {
+        "wq": init_linear(gen, cfg.d_model, hd, dt, device=device),
+        "wk": init_linear(gen, ed, hd, dt, device=device),
+        "wv": init_linear(gen, ed, hd, dt, device=device),
+        "wo": init_linear(gen, hd, cfg.d_model, dt, device=device),
+    }
+
+
+def _xattn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
+                 memory: torch.Tensor) -> torch.Tensor:
+    """Cross-attention of x (B, T, d) to ``memory`` (B, S, encoder
+    d_model): no mask and no RoPE, any T and S (T = 1 at decode)."""
+    a = cfg.attention
+    B, T, _ = x.shape
+    S = memory.shape[1]
+    h, hd = a.n_heads, a.head_dim
+    q = linear_apply(p["wq"], x).reshape(B, T, h, hd)
+    k = linear_apply(p["wk"], memory).reshape(B, S, h, hd)
+    v = linear_apply(p["wv"], memory).reshape(B, S, h, hd)
+    out = attn.chunked_attention(q, k, v, causal=False)
+    return linear_apply(p["wo"], out.reshape(B, T, -1))
+
+
+def _xattn_and_ffn(p: Params, cfg: ModelConfig, sig: Tuple,
+                   x: torch.Tensor, memory: Optional[torch.Tensor]
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """What follows the mixer's residual: the cross-attention where the
+    layer has one and ``memory`` is given, then the FFN where the layer
+    has one.  Returns (x, the MoE auxiliary loss or None)."""
     norm_apply = NORM_APPLY[cfg.norm]
-    h = norm_apply(p["norm1"], x)
-    if a.kind == "mla":
-        y = attn.mla_apply(p["mixer"], a, h, positions=positions,
-                           window=window, chunk=chunk)
-    else:
-        y = attn.gqa_apply(p["mixer"], a, h, window=window,
-                           positions=positions, chunk=chunk)
-    x = x + y
+    if memory is not None and "xattn" in p:
+        x = x + _xattn_apply(p["xattn"], cfg, norm_apply(p["norm_x"], x),
+                             memory)
+    if "norm2" not in p:
+        return x, None
     h2 = norm_apply(p["norm2"], x)
-    if is_moe:
+    if sig[2]:
         y2, aux = moe_mod.moe_apply(p["ffn"], cfg.moe, h2)
         return x + y2, aux
     return x + gated_mlp_apply(p["ffn"], h2), None
+
+
+def layer_apply(p: Params, cfg: ModelConfig, sig: Tuple, x: torch.Tensor, *,
+                positions: torch.Tensor,
+                memory: Optional[torch.Tensor] = None, chunk: int = 512
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Full-sequence layer (train/prefill).  Returns (x, the MoE
+    auxiliary loss, or None where the layer's FFN is dense or absent)."""
+    kind, window, _ = sig
+    h = NORM_APPLY[cfg.norm](p["norm1"], x)
+    if kind == "attn":
+        a = cfg.attention
+        if a.kind == "mla":
+            y = attn.mla_apply(p["mixer"], a, h, positions=positions,
+                               window=window, chunk=chunk)
+        else:
+            y = attn.gqa_apply(p["mixer"], a, h, window=window,
+                               positions=positions, chunk=chunk)
+    elif kind == "rglru":
+        y = rglru_mod.rglru_apply(p["mixer"], cfg.rglru, h)
+    else:
+        y = ssm_mod.ssm_apply(p["mixer"], cfg.ssm, cfg.d_model, h)
+    return _xattn_and_ffn(p, cfg, sig, x + y, memory)
 
 
 # ---------------------------------------------------------------------------
@@ -142,9 +192,14 @@ def layer_apply(p: Params, cfg: ModelConfig, sig: Tuple, x: torch.Tensor, *,
 
 def layer_init_cache(cfg: ModelConfig, i: int, batch: int, cache_len: int,
                      long_mode: bool, device=None) -> Params:
-    sig = layer_sig(cfg, i)
-    _require_ported(cfg, sig)
-    _, window, _ = sig
+    kind, window, _ = layer_sig(cfg, i)
+    dt = _dtype(cfg)
+    if kind == "rglru":
+        return rglru_mod.rglru_init_state(cfg.rglru, cfg.d_model, batch, dt,
+                                          device)
+    if kind == "ssm":
+        return ssm_mod.ssm_init_state(cfg.ssm, cfg.d_model, batch, dt,
+                                      device)
     a = cfg.attention
     L = cache_len
     if window is not None:
@@ -152,27 +207,29 @@ def layer_init_cache(cfg: ModelConfig, i: int, batch: int, cache_len: int,
     if long_mode and cfg.long_context == "window":
         L = min(L, cfg.long_window)
     if a.kind == "mla":
-        return attn.mla_init_cache(a, batch, L, _dtype(cfg), device)
-    return attn.gqa_init_cache(a, batch, L, _dtype(cfg), device)
+        return attn.mla_init_cache(a, batch, L, dt, device)
+    return attn.gqa_init_cache(a, batch, L, dt, device)
 
 
 def layer_decode(p: Params, cfg: ModelConfig, sig: Tuple, x: torch.Tensor,
-                 cache: Params, t: torch.Tensor
+                 cache: Params, t: torch.Tensor,
+                 memory: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, Params]:
-    a = cfg.attention
-    norm_apply = NORM_APPLY[cfg.norm]
-    h = norm_apply(p["norm1"], x)
-    if a.kind == "mla":
-        y, cache = attn.mla_decode(p["mixer"], a, h, cache, t)
+    kind = sig[0]
+    h = NORM_APPLY[cfg.norm](p["norm1"], x)
+    if kind == "attn":
+        a = cfg.attention
+        if a.kind == "mla":
+            y, cache = attn.mla_decode(p["mixer"], a, h, cache, t)
+        else:
+            y, cache = attn.gqa_decode(p["mixer"], a, h, cache, t)
+    elif kind == "rglru":
+        y, cache = rglru_mod.rglru_decode(p["mixer"], cfg.rglru, h, cache)
     else:
-        y, cache = attn.gqa_decode(p["mixer"], a, h, cache, t)
-    x = x + y
-    h2 = norm_apply(p["norm2"], x)
-    if sig[2]:
-        y2, _ = moe_mod.moe_apply(p["ffn"], cfg.moe, h2)
-    else:
-        y2 = gated_mlp_apply(p["ffn"], h2)
-    return x + y2, cache
+        y, cache = ssm_mod.ssm_decode(p["mixer"], cfg.ssm, cfg.d_model, h,
+                                      cache)
+    x, _ = _xattn_and_ffn(p, cfg, sig, x + y, memory)
+    return x, cache
 
 
 # ---------------------------------------------------------------------------
@@ -273,14 +330,16 @@ def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
-             patches: Optional[torch.Tensor] = None, chunk: int = 512
+             patches: Optional[torch.Tensor] = None,
+             memory: Optional[torch.Tensor] = None, chunk: int = 512
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, T) integer.  Returns (the float32 logits (B, T, V) over
     the *text* positions, the MoE auxiliary loss summed over layers, a
     float32 zero where no layer is MoE).  For the VLM, ``patches``
     prepend ``cfg.modality.n_tokens`` positions, and the first that many
     positions' logits are dropped (as in the reference, also where no
-    patches were given)."""
+    patches were given).  For the enc-dec decoder, every layer attends to
+    ``memory`` (B, S, encoder d_model), the encoder's output."""
     prefix, n_cycles, P, suffix = layer_plan(cfg)
     x = embed_inputs(p, cfg, tokens, patches)
     B, T, _ = x.shape
@@ -288,7 +347,8 @@ def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def run(lp, sig, x, aux):
-        x, a = layer_apply(lp, cfg, sig, x, positions=positions, chunk=chunk)
+        x, a = layer_apply(lp, cfg, sig, x, positions=positions,
+                           memory=memory, chunk=chunk)
         return x, aux if a is None else aux + a
 
     for i, lp in zip(prefix, p["prefix"]):
@@ -329,23 +389,33 @@ def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 
 def lm_decode(p: Params, cfg: ModelConfig, token: torch.Tensor,
-              cache: Params, t: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+              cache: Params, t: torch.Tensor, *,
+              memory: Optional[torch.Tensor] = None
+              ) -> Tuple[torch.Tensor, Params]:
     """token: (B,) integer; t: (B,) absolute positions.  One decode step:
-    (float32 logits (B, V), the cache with this token written in place).
-    The VLM's patches take no part, as in the reference."""
+    (float32 logits (B, V), ``cache`` itself).  Every state is written in
+    place into the cache's own tensors, not returned anew as in the
+    reference: the attention layers' KV ring (k, v and the slot's
+    position; MLA's compressed c_kv), the SSD layers' conv history and
+    float32 state, the RG-LRU layers' conv history and float32 h; the
+    stacked body's per-cycle caches are views of the stack, so the
+    writes land there.  The enc-dec decoder attends to ``memory``, the
+    encoder's output; the VLM's patches take no part, as in the
+    reference."""
     prefix, n_cycles, P, suffix = layer_plan(cfg)
     dt = _dtype(cfg)
     x = embedding_apply(p["embed"], token[:, None], compute_dtype=dt)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
 
     for i, lp, lc in zip(prefix, p["prefix"], cache["prefix"]):
-        x, _ = layer_decode(lp, cfg, layer_sig(cfg, i), x, lc, t)
+        x, _ = layer_decode(lp, cfg, layer_sig(cfg, i), x, lc, t, memory)
     if p["body"] is not None:
         sigs = body_sigs(cfg)
         for c in range(n_cycles):
             cyc, cyc_cache = _cycle(p["body"], c), _cycle(cache["body"], c)
             for j in range(P):
-                x, _ = layer_decode(cyc[j], cfg, sigs[j], x, cyc_cache[j], t)
+                x, _ = layer_decode(cyc[j], cfg, sigs[j], x, cyc_cache[j], t,
+                                    memory)
     for i, lp, lc in zip(suffix, p["suffix"], cache["suffix"]):
-        x, _ = layer_decode(lp, cfg, layer_sig(cfg, i), x, lc, t)
+        x, _ = layer_decode(lp, cfg, layer_sig(cfg, i), x, lc, t, memory)
     return _logits(p, cfg, x)[:, 0], cache

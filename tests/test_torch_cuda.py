@@ -485,6 +485,45 @@ def test_flash_attention_bthd_kernel_at_the_prefill_shape(dev):
         assert float(diff.mean()) <= 1e-6, kw
 
 
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True,
+                                                      window=64),
+                                dict(causal=False)],
+                         ids=["causal", "window64", "full"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("T", [200, 300])
+def test_flash_attention_bthd_kernel_at_group_10_d256(dev, T, dtype, tol,
+                                                      kw):
+    """recurrentgemma's heads: 10 query heads over one KV head of 256."""
+    q, k, v = _fused_qkv((2, 1, T, T, 256), 10, dtype, dev)
+    launches = ops.launches["flash_attention"]
+    out = ops.flash_attention_bthd(q, k, v, **kw)
+    assert ops.launches["flash_attention"] == launches + 1
+    assert out.shape == (2, T, 10, 256)
+    torch.testing.assert_close(
+        out.float(), ref.flash_attention_bthd_ref(q, k, v, **kw).float(),
+        atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("tq", [1, 200, 1500])
+def test_flash_attention_non_causal_over_a_ragged_tk_of_1500(dev, tq, dtype,
+                                                             tol):
+    """seamless' encoder (Tq = Tk = 1500, off the kernel's 64-row tiles)
+    and its cross-attention (Tq 1 at decode, Tq != Tk at prefill): no
+    mask, 16 heads of 64, through ``chunked_attention`` at offset 0."""
+    q = _randn((2, tq, 16, 64), 4).to(dev, dtype)
+    k, v = (_randn((2, 1500, 16, 64), s).to(dev, dtype) for s in (5, 6))
+    launches = ops.launches["flash_attention"]
+    out = attention.chunked_attention(q, k, v, causal=False)
+    assert ops.launches["flash_attention"] == launches + 1
+    torch.testing.assert_close(
+        out.float(),
+        ref.flash_attention_bthd_ref(q, k, v, causal=False).float(),
+        atol=tol, rtol=tol)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_layouts_give_the_same_bits(dev, dtype):
     """The (B, H, T, D) op and the (B, T, H, D) op on the same data give
@@ -529,16 +568,28 @@ def test_flash_attention_bthd_refuses_what_it_cannot_take(dev):
     assert ops.launches == before
 
 
+def _attention_calls(cfg) -> int:
+    """``flash_attention`` launches of one forward: one an attention
+    layer; for the enc-dec, one an encoder layer and a cross-attention a
+    decoder layer besides."""
+    n = sum(cfg.block_kind(i) == "attn" for i in range(cfg.n_layers))
+    if cfg.encoder is not None:
+        n += cfg.encoder.n_layers + cfg.n_layers
+    return n
+
+
 @pytest.mark.parametrize("arch", ARCH_IDS)
 def test_reduced_lm_forward_on_card_matches_cpu(dev, arch):
     cfg = get_config(arch).reduced()
     p = model.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
     rs = np.random.default_rng(0)
     batch = {"tokens": torch.from_numpy(rs.integers(0, cfg.vocab, (2, 96)))}
-    if cfg.modality.kind == "vision":
-        batch["patches"] = torch.from_numpy(rs.standard_normal(
-            (2, cfg.modality.n_tokens, cfg.modality.feat_dim)).astype(
-                np.float32))
+    if cfg.modality.kind in ("vision", "audio"):
+        key = "patches" if cfg.modality.kind == "vision" else "frames"
+        n = (cfg.modality.n_tokens if key == "patches"
+             else cfg.encoder.n_frames)
+        batch[key] = torch.from_numpy(rs.standard_normal(
+            (2, n, cfg.modality.feat_dim)).astype(np.float32))
     cpu, cpu_aux = model.forward(p, cfg, batch)
     p_dev = _to(p, dev)                         # the same values, on the card
     launches = ops.launches["flash_attention"]
@@ -549,7 +600,7 @@ def test_reduced_lm_forward_on_card_matches_cpu(dev, arch):
             p_dev, cfg, {k: v.to(dev) for k, v in batch.items()})
     finally:
         torch.backends.cuda.matmul.allow_tf32 = flags
-    assert ops.launches["flash_attention"] == launches + cfg.n_layers
+    assert ops.launches["flash_attention"] == launches + _attention_calls(cfg)
     np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=1e-3,
                                atol=1e-3)
     np.testing.assert_allclose(float(card_aux), float(cpu_aux), rtol=1e-3,

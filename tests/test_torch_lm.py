@@ -15,6 +15,7 @@ which the port's kernel and plain version keep in float32); layers 1e-5
 in float32; whole reduced models (float32, two layers) 1e-4, for float32
 products summed in another order by XLA and ATen.
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -27,6 +28,7 @@ import pytest
 import torch
 
 from repro.configs.base import AttentionConfig as JaxAttentionConfig
+from repro.configs import registry as jax_registry
 from repro.configs.registry import get_config as jax_get_config
 from repro.kernels import ops as jax_ops
 from repro.kernels import ref as jax_ref
@@ -605,30 +607,38 @@ def test_lm_entry_points_default_to_cuda(monkeypatch):
     assert _leaf_devices(model.lm_params_from_jax(jp, "cpu")) == {cpu}
 
 
-def test_registry_and_unported_families():
+def test_registry_matches_reference():
+    """The reference's ten ids in its order, each with its parameter
+    count; an unknown id refused; the SSM, the RG-LRU hybrid and the
+    enc-dec built (parameters and caches) on the CPU like the rest."""
     assert registry.ARCH_IDS == [
-        "qwen3-0.6b", "phi-3-vision-4.2b", "gemma2-9b", "starcoder2-3b",
-        "deepseek-v2-236b", "minicpm3-4b", "deepseek-v2-lite-16b"]
+        "qwen3-0.6b", "phi-3-vision-4.2b", "gemma2-9b", "recurrentgemma-2b",
+        "seamless-m4t-large-v2", "starcoder2-3b", "deepseek-v2-236b",
+        "minicpm3-4b", "mamba2-780m", "deepseek-v2-lite-16b"]
+    assert registry.ARCH_IDS == jax_registry.ARCH_IDS
     with pytest.raises(KeyError, match="unknown arch"):
         registry.get_config("no-such-arch")
-    for arch in ("mamba2-780m", "recurrentgemma-2b", "seamless-m4t-large-v2"):
-        with pytest.raises(KeyError):
-            registry.get_config(arch)
     for arch, cfg in registry.all_configs().items():
         assert cfg.n_params() == jax_get_config(arch).n_params()
-    # the families still unported, as configs: an SSM, an RG-LRU hybrid and
-    # an enc-dec stack are refused where parameters and caches are built
+        # copied field for field
+        assert dataclasses.asdict(cfg) == dataclasses.asdict(
+            jax_get_config(arch))
+    cpu = torch.device("cpu")
     for arch in ("mamba2-780m", "recurrentgemma-2b", "seamless-m4t-large-v2"):
-        cfg = jax_get_config(arch).reduced()
-        with pytest.raises(ValueError, match="ROADMAP A10"):
-            model.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
-        with pytest.raises(ValueError, match="ROADMAP A10"):
-            model.init_cache(cfg, 1, 8, device="cpu")
+        cfg = registry.get_config(arch).reduced()
+        p = model.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+        cache = model.init_cache(cfg, 1, 8, device="cpu")
+        assert _leaf_devices(p) == _leaf_devices(cache) == {cpu}
+        assert ("encoder" in p) == (cfg.encoder is not None)
 
 
 @pytest.mark.parametrize("arch,cache_kind", [
-    (None, "ring-buffer KV"), ("deepseek-v2-lite-16b", "compressed MLA c_kv")],
-    ids=["default", "deepseek-v2-lite-16b"])
+    (None, "ring-buffer KV"), ("deepseek-v2-lite-16b", "compressed MLA c_kv"),
+    ("mamba2-780m", "constant SSM state"),
+    ("recurrentgemma-2b", "RG-LRU + ring KV"),
+    ("seamless-m4t-large-v2", "ring-buffer KV")],
+    ids=["default", "deepseek-v2-lite-16b", "mamba2-780m",
+         "recurrentgemma-2b", "seamless-m4t-large-v2"])
 def test_serve_decode_example_runs_on_cpu(arch, cache_kind):
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run(
