@@ -95,8 +95,13 @@ before the last line is printed:
    step (PyTorch's sync debug mode), the wall time a step (median of 40
    in two rounds, in turns), and one step of each under
    ``torch.profiler``: its kernels, device busy time, idle share and top
-   kernels (traced last, after phase 8, so that no profiling runs before
-   a host-bound timing of the script);
+   kernels (traced last, after phase 10, so that no profiling runs before
+   a host-bound timing of the script); and one step of each strategy the
+   paper benches run beside those (``BENCH_STEPS``): BSP, DGC top-k,
+   FedAvg at an averaging step and Gaia under SkewScout at a travel step
+   (five probes of 2 x 256 samples), each timed (median of 40) and traced
+   likewise, DGC top-k's threshold (``quantile_rows``, by ``kthvalue``)
+   marked to give its share of the step;
 5. kernel times: the median of 50 CUDA-event-timed launches at the main
    path's shapes (a whole training step's tensors in one launch for
    ``gaia_select`` and ``rand_k_select``, beside the earlier design's one
@@ -185,7 +190,21 @@ before the last line is printed:
    at the models' shapes; and, after every timing of phases 7-9,
    deepseek-v2-lite-16b's traces (phase 8) and one prefill call of each
    phase 9 model under ``torch.profiler`` (GEMMs, flash_attention, the
-   SSD / RG-LRU scan, the elementwise glue).
+   SSD / RG-LRU scan, the elementwise glue);
+10. the paper benches' path through the port's entry points, every
+   training run's launch counts set to 0 just before it and read just
+   after: (a) ``python -m repro_torch.benchmarks.run --only fig4 --json
+   build/bench_torch``'s ``main``, its CSV row and ``BENCH_fig4.json``
+   (this card's name and power limit), the non-IID mean μ_B divergence
+   above the IID one; (b) ``fig_topology.smoke_async()`` and
+   ``smoke_links()`` with their own assertions (AD-PSGD's simulated
+   wall-clock below D-PSGD's, the straggler chain fired), one
+   ``neighbor_mix`` launch a D-PSGD step and one ``neighbor_mix_src``
+   launch an AD-PSGD step and no other launch (evaluation launches
+   none); (c) ``smoke_scale()``, host only, 50 priced rounds on a
+   10k-node fabric within 10 s; (d) ``examples.quickstart`` (Gaia, IID
+   against non-IID, 300 steps each), one ``gaia_select`` launch a step,
+   both accuracies and the savings printed.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -331,6 +350,18 @@ RUNS = (("bsp", "bsp", {}), ("gaia", "gaia", {}), ("dpsgd", "dpsgd", {}),
         ("dgc-randk", "dgc", {"dgc_compressor": "randk"}),
         ("fedavg", "fedavg", {"iter_local": 5}),
         ("dpsgd-skewscout", "dpsgd", {"skewscout": True}))
+
+
+#: the strategies the paper benches run that phase 4's comparison of two
+#: designs leaves out, a step of each timed and traced: (label, strategy,
+#: CommConfig fields, step keywords, steps apart of the steps taken:
+#: FedAvg's averaging steps, every 5th; Gaia under SkewScout travels at
+#: every step it takes)
+BENCH_STEPS = (("bsp", "bsp", {}, {}, 1),
+               ("dgc-topk", "dgc", {}, {"sparsity": 0.999}, 1),
+               ("fedavg", "fedavg", {"iter_local": 5}, {"iter_local": 5}, 5),
+               ("gaia-skewscout", "gaia",
+                {"skewscout": True, "travel_every": 1}, {}, 1))
 
 
 def phase(n: int, title: str) -> None:
@@ -588,10 +619,164 @@ def tree_numel(tree) -> int:
     return 0 if tree is None else tree.numel()
 
 
+def sync(device: str) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def bench_step(algo_name, fields, kw, cfg, parts, batch, lr, device):
+    """One of ``BENCH_STEPS`` as the trainer makes it on ``device``: a step
+    function ``(state, t) -> state`` with the trainer's host read of the
+    step's floats, and the state to start from.  Gaia under SkewScout also
+    books each step with the scout and travels at ``travel_every``: one
+    probe a node, its model scored on 256 samples at home and 256 away."""
+    from repro_torch.configs.base import CommConfig, FabricConfig
+    from repro_torch.core import trainer
+    from repro_torch.core.algorithms.base import tree_size
+    from repro_torch.core.skewscout import SkewScout
+    from repro_torch.data.pipeline import DecentralizedLoader
+    from repro_torch.models.cnn import init_cnn
+    from repro_torch.topology import LINK_PROFILES, CommLedger, build_schedule
+    comm = CommConfig(fabric=FabricConfig(topology="ring"), **fields)
+    fns, eval_acc = trainer.make_cnn_fns(cfg)
+    algo = trainer.make_algorithm(algo_name, fns, K, comm)
+    p0, s0 = init_cnn(torch.Generator().manual_seed(0), cfg)
+    state = algo.init(tree_to(p0, device), tree_to(s0, device))
+    scout = loader = None
+    if comm.skewscout:
+        ledger = CommLedger(build_schedule("ring", K),
+                            LINK_PROFILES[comm.fabric.profile],
+                            config=comm.fabric)
+        scout = SkewScout(comm, algo_name, tree_size(p0), eval_acc,
+                          ledger=ledger)
+        loader = DecentralizedLoader(parts, 20, seed=0)
+
+    def step(state_, t_):
+        kw_ = dict(kw)
+        if scout is not None:
+            kw_["t0"] = torch.tensor(scout.theta, dtype=torch.float32,
+                                     device=device)
+        new, met = algo.step(state_, batch, lr, t_, **kw_)
+        cf = float(met["comm_floats"])
+        if scout is not None:
+            scout.record_step(cf)
+            scout.maybe_travel(t_, algo, new,
+                               lambda node: loader.sample_train_subset(
+                                   node, 256, seed=t_))
+        return new
+    return step, state, scout
+
+
+def drive_bench_path(device: str, out_dir: Path):
+    """Phase 10: the paper benches' path through the port's entry points on
+    ``device``, every training run's launch counts set to 0 just before it
+    and read just after: (a) ``benchmarks.run --only fig4 --json
+    out_dir``, its CSV captured; (b) ``fig_topology.smoke_async()`` and
+    ``smoke_links()``; (c) ``smoke_scale()`` on the host; (d)
+    ``examples.quickstart``.  Returns what ``check_bench_path`` holds to
+    the contract; the smokes' own assertions run inside them."""
+    import io
+    from repro_torch.benchmarks import fig_topology
+    from repro_torch.benchmarks import run as bench_run
+    from repro_torch.examples import quickstart
+    from repro_torch.kernels import ops
+    runs = []
+
+    def counted(train):
+        def run_counted(cfg_, algo_name, *args, **kwargs):
+            for k_ in ops.launches:
+                ops.launches[k_] = 0
+            sync(device)
+            t0 = time.perf_counter()
+            r = train(cfg_, algo_name, *args, **kwargs)
+            sync(device)
+            runs[-1][1].append({
+                "algo": algo_name, "steps": kwargs["steps"],
+                "wall_s": time.perf_counter() - t0,
+                "launches": {k_: c for k_, c in ops.launches.items() if c},
+                "val_acc": r.val_acc, "comm_savings": r.comm_savings,
+                "sim_time_s": r.sim_time_s})
+            return r
+        return run_counted
+
+    out = {}
+    for k_ in ops.launches:
+        ops.launches[k_] = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = bench_run.main(["--only", "fig4", "--json", str(out_dir),
+                             "--device", device])
+    sync(device)
+    out["fig4"] = {"rc": rc, "stdout": buf.getvalue(),
+                   "wall_s": time.perf_counter() - t0,
+                   "launches": {k_: c for k_, c in ops.launches.items() if c},
+                   "bench": json.loads((out_dir / "BENCH_fig4.json")
+                                       .read_text())}
+    print(buf.getvalue(), end="", flush=True)
+    with swapped(fig_topology, "train_decentralized",
+                 counted(fig_topology.train_decentralized)):
+        for smoke in ("smoke_async", "smoke_links"):
+            runs.append((smoke, []))
+            out[smoke] = getattr(fig_topology, smoke)(device=device)
+    out["smoke_scale"] = fig_topology.smoke_scale()
+    runs.append(("quickstart", []))
+    with swapped(quickstart, "train_decentralized",
+                 counted(quickstart.train_decentralized)):
+        out["quickstart_rc"] = quickstart.main(["--device", device])
+    out["runs"] = dict(runs)
+    return out
+
+
+def check_bench_path(b10, card_name: str, power_limit: str):
+    """Phase 10's checks on ``drive_bench_path``'s result: the fig4 CSV row
+    and ``BENCH_fig4.json`` (this card, non-IID μ_B above IID), one gossip
+    launch a D-PSGD or AD-PSGD step and none of the other kind, one
+    ``gaia_select`` launch a quickstart step.  Returns the phase's
+    summary."""
+    fig4 = b10["fig4"]
+    assert fig4["rc"] == 0, fig4
+    row = [ln for ln in fig4["stdout"].splitlines()
+           if ln.startswith("fig4,")]
+    assert len(row) == 1, fig4["stdout"]
+    _, us, derived = row[0].split(",", 2)
+    means = dict(part.split(":mean_div=") for part in derived.split(";"))
+    iid, noniid = float(means["iid"]), float(means["noniid"])
+    bench = fig4["bench"]
+    assert bench["device"] == card_name and \
+        bench["power_limit"] == power_limit, bench
+    assert bench["derived"] == derived and float(us) > 0
+    assert np.all(np.isfinite([r["mu_divergence"] for r in bench["rows"]]))
+    assert noniid > iid, (iid, noniid)
+    gossip = {"dpsgd": "neighbor_mix", "adpsgd": "neighbor_mix_src"}
+    for smoke in ("smoke_async", "smoke_links"):
+        runs = b10["runs"][smoke]
+        assert sorted(r["algo"] for r in runs) == ["adpsgd", "dpsgd"], runs
+        for r in runs:
+            want = {gossip[r["algo"]]: r["steps"]}
+            assert r["launches"] == want, (smoke, r)
+    qs = b10["runs"]["quickstart"]
+    assert b10["quickstart_rc"] == 0 and len(qs) == 2, qs
+    for r in qs:
+        assert r["launches"] == {"gaia_select": r["steps"]}, r
+    scale = b10["smoke_scale"][-1]
+    return {"fig4": {"iid_mean_mu_divergence": iid,
+                     "noniid_mean_mu_divergence": noniid,
+                     "ratio": noniid / iid, "wall_s": fig4["wall_s"],
+                     "launches": fig4["launches"]},
+            "smokes": {s: b10["runs"][s] for s in ("smoke_async",
+                                                   "smoke_links")},
+            "smoke_scale_10k": {k_: scale[k_] for k_ in (
+                "nodes", "edges", "active_edges", "wall_s",
+                "per_round_ms")},
+            "quickstart": qs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     import torch.nn.functional as F
     from repro_torch.configs.base import CommConfig, FabricConfig
     from repro_torch.configs.cnn_zoo import CNN_ZOO
@@ -602,7 +787,7 @@ def main() -> int:
     from repro_torch.data.synthetic import synth_images
     from repro_torch.benchmarks import kernels_bench
     from repro_torch.examples import serve_decode
-    from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import build, dgc_topk, ops, ref
     from repro_torch.launch.steps import make_prefill_step
     from repro_torch.models import model as lm
     from repro_torch.models import moe as moe_mod
@@ -1484,6 +1669,34 @@ def main() -> int:
           "(cuDNN deterministic, TF32 off); traced under torch.profiler "
           "after phase 8's timings")
     sys.stdout.flush()
+    # a step of each strategy the paper benches run beside those: its wall
+    # here (median of 40), its trace after every timing of the script
+    bench_runs = {}
+    for label, algo_name, fields, kw, every in BENCH_STEPS:
+        step, state, scout = bench_step(algo_name, fields, kw, cfg, parts,
+                                        step_batch, step_lr, "cuda")
+        ts = [every * i + every - 1 for i in range(4 + 2 * PROFILE_STEPS)]
+        for t_ in ts[:3]:                   # warm-up: cuDNN, the allocator
+            state = step(state, t_)
+        w_ = []
+        for t_ in ts[3:-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state = step(state, t_)
+            torch.cuda.synchronize()
+            w_.append((time.perf_counter() - t0) * 1e3)
+        bench_runs[label] = (step, state, ts[-1])
+        rounds = [float(np.median(w_[:PROFILE_STEPS])),
+                  float(np.median(w_[PROFILE_STEPS:]))]
+        profiles[label] = {"wall_ms": float(np.median(w_)),
+                           "wall_ms_rounds": rounds}
+        print(f"{label} step{' (averaging)' if every > 1 else ''}"
+              f"{' (travelling)' if scout else ''}: wall "
+              f"{np.median(w_):.4f} ms a step (median of "
+              f"{2 * PROFILE_STEPS}, rounds {rounds[0]:.4f} and "
+              f"{rounds[1]:.4f} ms)"
+              + (f"; SkewScout θ {thetas(scout.history)[-3:]}" if scout
+                 else ""), flush=True)
 
     # ---------------------------------------------------------------- 5
     phase(5, "kernel times (median of 50 CUDA-event-timed launches)")
@@ -2554,6 +2767,37 @@ def main() -> int:
     del x9, dt9, bc9, a9, b9
     torch.cuda.empty_cache()
 
+    # --------------------------------------------------------------- 10
+    phase(10, "the paper benches' path: benchmarks.run --only fig4, the "
+              "fig_topology smokes, examples.quickstart")
+    out10 = ROOT / "build" / "bench_torch"
+    t0 = time.perf_counter()
+    b10 = drive_bench_path("cuda", out10)
+    wall10 = time.perf_counter() - t0
+    bench10 = check_bench_path(b10, name, smi.rsplit(",", 1)[1].strip())
+    bench10["wall_s"] = wall10
+    f4 = bench10["fig4"]
+    print(f"fig4 through benchmarks.run (quick, BENCH_fig4.json on "
+          f"{name}, {smi.rsplit(',', 1)[1].strip()}): mean μ_B divergence "
+          f"IID {f4['iid_mean_mu_divergence']:.4f}, non-IID "
+          f"{f4['noniid_mean_mu_divergence']:.4f} ({f4['ratio']:.2f}x), "
+          f"{f4['wall_s']:.2f} s, launches {f4['launches']}")
+    for smoke, runs10 in bench10["smokes"].items():
+        for r in runs10:
+            print(f"{smoke} {r['algo']}: {r['steps']} steps in "
+                  f"{r['wall_s']:.3f} s (one evaluation included), "
+                  f"launches {r['launches']}, val_acc {r['val_acc']:.4f}, "
+                  f"sim_time_s {r['sim_time_s']:.4f}")
+    for r, tag in zip(bench10["quickstart"], ("IID", "non-IID")):
+        print(f"quickstart {tag}: {r['steps']} Gaia steps in "
+              f"{r['wall_s']:.3f} s ({r['steps'] / r['wall_s']:.2f} steps/s, "
+              f"3 evaluations included), launches {r['launches']}, val_acc "
+              f"{r['val_acc']:.4f}, comm_savings {r['comm_savings']:.4f}x")
+    print(f"smoke_scale at 10k nodes: {bench10['smoke_scale_10k']}")
+    print(f"phase 10: {wall10:.2f} s")
+    print("bench path: " + json.dumps(bench10))
+    sys.stdout.flush()
+
     # deepseek-v2-lite-16b under torch.profiler, after every timing of
     # phases 7 to 9: a prefill call split by kernel kind, and a decode
     # step's launches
@@ -2696,6 +2940,37 @@ def main() -> int:
                   + json.dumps({k_[:60]: round(v_, 4) for k_, v_ in sorted(
                       per_kernel.items(), key=lambda kv: -kv[1])[:6]}),
                   flush=True)
+    # the bench strategies' steps; DGC top-k's threshold (``quantile_rows``:
+    # two kthvalue calls a tensor) marked, to give its share of the step
+    for label, (step, state, t_) in bench_runs.items():
+        box = [state]
+        with swapped(dgc_topk, "quantile_rows",
+                     marked(dgc_topk.quantile_rows, "dgc_quantile")):
+            busy, n_kern, per_kernel, inside = device_profile(
+                lambda: box.__setitem__(0, step(box[0], t_)),
+                marks=("dgc_quantile",))
+        prof = profiles[label]
+        top = {k_[:60]: round(v_, 4) for k_, v_ in sorted(
+            per_kernel.items(), key=lambda kv: -kv[1])[:6]}
+        prof.update({"kernels": n_kern, "busy_ms": busy,
+                     "idle": 1 - busy / prof["wall_ms"], "top": top})
+        if label == "dgc-topk":
+            q_ms = sum(inside.values())
+            kth_ms = sum(v_ for k_, v_ in per_kernel.items()
+                         if "kth" in k_.lower())
+            prof.update({"threshold_ms": q_ms, "threshold_share": q_ms / busy,
+                         "kthvalue_ms": kth_ms, "threshold_kernels": {
+                             k_[:60]: round(v_, 4) for k_, v_ in
+                             inside.items()}})
+            assert q_ms > 0, inside
+        print(f"{label} step under torch.profiler: {n_kern} kernels, device "
+              f"busy {busy:.4f} ms of phase 4's {prof['wall_ms']:.4f} ms "
+              f"wall (idle {100 * prof['idle']:.1f}%)"
+              + (f", the threshold (kthvalue) {prof['threshold_ms']:.4f} ms "
+                 f"= {100 * prof['threshold_share']:.1f}% of busy, kernels "
+                 f"named kthvalue {prof['kthvalue_ms']:.4f} ms"
+                 if label == "dgc-topk" else "")
+              + "; top kernels " + json.dumps(top), flush=True)
     print("step profiles: " + json.dumps(profiles))
     sys.stdout.flush()
 
@@ -2703,7 +2978,10 @@ def main() -> int:
         {"name": "gaia_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gaia_select.cu",
          "replaces": "src/repro/kernels/gaia_select.py:22",
-         "launches": launches["gaia_select"], "max_abs_err": gaia_err,
+         "launches": launches["gaia_select"],
+         "bench_path_launches": sum(r_["launches"]["gaia_select"]
+                                    for r_ in bench10["quickstart"]),
+         "max_abs_err": gaia_err,
          "ms": g_ms, "op_ms": g_op, "per_tensor_ms": g_per,
          "plain_ms": g_plain, "bound_ms": g_bound, "bound_by": g_by,
          "library_ms": None},
@@ -2713,6 +2991,9 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/neighbor_mix.cu",
          "replaces": "src/repro/kernels/neighbor_mix.py:48",
          "launches": launches["neighbor_mix"],
+         "bench_path_launches": sum(
+             r_["launches"].get("neighbor_mix", 0)
+             for runs_ in bench10["smokes"].values() for r_ in runs_),
          "max_abs_err": gossip_err["neighbor_mix_many"],
          "ms": m_ms, "op_ms": m_op, "plain_ms": m_plain, "bound_ms": m_bound,
          "bound_by": m_by, "library_ms": m_lib,
@@ -2725,6 +3006,9 @@ def main() -> int:
          "source": "src/repro_torch/kernels/csrc/neighbor_mix.cu",
          "replaces": "src/repro/kernels/neighbor_mix.py:60",
          "launches": launches["neighbor_mix_src"],
+         "bench_path_launches": sum(
+             r_["launches"].get("neighbor_mix_src", 0)
+             for runs_ in bench10["smokes"].values() for r_ in runs_),
          "max_abs_err": gossip_err["neighbor_mix_push_many"],
          "ms": s_ms, "op_ms": s_op, "plain_ms": s_plain, "bound_ms": s_bound,
          "bound_by": s_by, "library_ms": s_lib,
@@ -2790,6 +3074,8 @@ def main() -> int:
          "pairs": fa["pairs"], "model_shapes": fa["models"],
          "phase9_model_shapes": fa["new_models"]},
     ]
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
+          "included")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

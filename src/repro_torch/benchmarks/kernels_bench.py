@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops, ref
 from repro_torch.models.attention import chunked_attention
 from repro_torch.topology import ring
@@ -116,10 +117,7 @@ def run(device: str = "cuda", *, n: int = 1 << 20, mix_cols: int = 1 << 17,
     ones, and the library rows, as (name, microseconds a call).
     ``device`` is where the tensors live: ``"cuda"`` (the default) raises
     without a card; the sizes default to the reference's."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("kernels_bench: no CUDA device (pass "
-                           "--device cpu to run the plain versions)")
+    dev = resolve_device(device)
     a = inputs(device, n=n, mix_cols=mix_cols, gn_shape=gn_shape,
                attn_shape=attn_shape)
     vv, ww, xs, mix_ops, W = a["v"], a["w"], a["xs"], a["mix_ops"], a["W"]

@@ -155,6 +155,13 @@ def train_decentralized(cnn_cfg: CNNConfig, algo_name: str,
                          "evaluates, but eval_every itself must be valid)")
     device = resolve_device(device)
     K = len(parts)
+    # a label past the model's classes would index past its logits: on a
+    # card a device-side assert that ends the process's CUDA context
+    top = max(int(np.max(y, initial=-1)) for y in [y for _, y in parts]
+              + [val[1]])
+    if top >= cnn_cfg.n_classes:
+        raise ValueError(f"labels reach {top}, but {cnn_cfg.name} has "
+                         f"{cnn_cfg.n_classes} classes")
     fns, eval_acc = make_cnn_fns(cnn_cfg)
     params, mstate = init_cnn(torch.Generator().manual_seed(seed), cnn_cfg)
     params = {n: t.to(device) for n, t in params.items()}

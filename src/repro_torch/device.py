@@ -6,12 +6,12 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a ``torch.device``; ``None`` means CUDA, and raises
-    where there is none rather than running on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: repro_torch runs on the GPU unless the "
-                "caller passes device='cpu'")
-        return torch.device("cuda")
-    return torch.device(device)
+    """``device`` as a ``torch.device``; ``None`` means CUDA.  CUDA, named
+    or by default, raises where there is none rather than running on the
+    CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: repro_torch runs on the GPU unless the "
+            "caller passes device='cpu'")
+    return dev

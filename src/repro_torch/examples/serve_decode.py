@@ -30,6 +30,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.registry import ARCH_IDS, get_config
+from repro_torch.device import resolve_device
 from repro_torch.launch.steps import make_serve_step
 from repro_torch.models import encdec
 from repro_torch.models.model import Params, init_cache, init_model
@@ -92,10 +93,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("serve_decode: no CUDA device (pass --device cpu "
-                           "to run on the CPU)")
+    device = resolve_device(args.device)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()

@@ -688,7 +688,11 @@ def test_port_import_loads_no_jax_or_repro():
             "repro_torch.kernels.dgc_topk, "
             "repro_torch.benchmarks.kernels_bench, "
             "repro_torch.models.model, repro_torch.launch.steps, "
-            "repro_torch.examples.serve_decode\n"
+            "repro_torch.examples.serve_decode, "
+            "repro_torch.benchmarks.run, "
+            "repro_torch.examples.quickstart, "
+            "repro_torch.examples.skewscout_adaptive, "
+            "repro_torch.examples.train_topology\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
