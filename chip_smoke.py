@@ -204,7 +204,35 @@ before the last line is printed:
    none); (c) ``smoke_scale()``, host only, 50 priced rounds on a
    10k-node fabric within 10 s; (d) ``examples.quickstart`` (Gaia, IID
    against non-IID, 300 steps each), one ``gaia_select`` launch a step,
-   both accuracies and the savings printed.
+   both accuracies and the savings printed;
+11. LM training (after every profile of the phases above, which the
+   full-width states need the memory of): (a) the attention's autograd
+   route (``ops.FlashAttention``: the kernel forward, the plain chunked
+   backward) against autograd through ``ref.flash_attention_bthd_ref``,
+   dq, dk and dv within 2e-2 (bfloat16) and 1e-4 (float32, TF32 off) of
+   the largest plain gradient, at qwen3's (2, 1024, 16 over 8 heads of
+   128) bfloat16 causal and at a float32 (2, 512, 8 over 2 of 64) with a
+   window of 256 and softcap 30; the forward kernel, the backward and
+   SDPA's forward plus backward timed on the same views; ``gaia_select``'s
+   float32-v, bfloat16-w instance bit-exact and timed at qwen3's stacked
+   bfloat16 leaves; (b) ``qwen3-0.6b`` at full width, bfloat16, random
+   weights, 2 pods of 2 x 1024 tokens, remat, through
+   ``launch.steps.make_train_step`` under bsp, gaia, fedavg, dgc, dpsgd
+   and adpsgd: one warm-up and 3 timed steps each, every launch count
+   set to 0 just before the timed steps and read just after (112
+   ``flash_attention`` launches a step, the forward run again under
+   remat; 2 ``gaia_select``, 26 ``dgc_sparsify``, 2 ``neighbor_mix``, 2
+   ``neighbor_mix_src`` launches a step of their strategy: one a dtype
+   group, one a (pod, leaf)), finite losses, wall ms a step, peak memory
+   and a fifth step's host syncs; (c) one bsp step through the kernel
+   route against the plain route (``ops.flash_attention_bthd`` swapped
+   for the plain version here): on a float32 4-layer cut at full width
+   (TF32 off) every leaf within 1e-3 of its largest update plus 2 ulps
+   of its largest weight, and at full width in bfloat16 reported; (d)
+   ``examples.train_lm_decentralized`` for gaia and dpsgd, 200 steps
+   each, its loss < 5.5; (e) (d)'s gaia state and (b)'s full-width pod
+   params saved in the reference's checkpoint format and restored bit
+   for bit.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -362,6 +390,43 @@ BENCH_STEPS = (("bsp", "bsp", {}, {}, 1),
                ("fedavg", "fedavg", {"iter_local": 5}, {"iter_local": 5}, 5),
                ("gaia-skewscout", "gaia",
                 {"skewscout": True, "travel_every": 1}, {}, 1))
+
+
+#: phase 11, LM training: qwen3-0.6b at full width, bfloat16, 2 pods of 2
+#: x 1024 tokens, remat, lr 1e-2; one warm-up step, 3 timed steps and one
+#: step under PyTorch's sync debug mode a strategy
+TRAIN_PODS, TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 2, 2, 1024, 3, 1e-2
+#: its strategies and their CommConfig fields (a ring fabric), and the
+#: AD-PSGD read's staleness slot
+TRAIN_RUNS = (("bsp", {}), ("gaia", {"gaia_t0": 0.05}),
+              ("fedavg", {"iter_local": 2}),
+              ("dgc", {"dgc_sparsity": 0.999}), ("dpsgd", {}),
+              ("adpsgd", {"max_staleness": 2}))
+TRAIN_STALENESS = 1
+#: (a) the attention's autograd route against autograd through the plain
+#: version, max |difference| of dq, dk, dv over max |plain's|: bfloat16
+#: 2e-2 (each side rounds its float32 gradient to bfloat16, and the plain
+#: version's expanded KV heads sum their bfloat16 gradients in bfloat16:
+#: a few ulps of the largest), float32 1e-4 (TF32 off; the sums over 512
+#: keys in another order)
+TRAIN_ATTN_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-4}
+#: (b) the exchange kernels on one step's own inputs against their plain
+#: versions: Gaia's and DGC's selections, counts and DGC's threshold, and
+#: AD-PSGD's pushed snapshot buffer bit for bit; the mixed leaves within
+#: these (atol and rtol: the kernel and the plain matmul both sum in
+#: float32 and round once, so they differ by a last bit at most)
+TRAIN_MIX_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+#: (c) the step's params through the kernel route against the plain
+#: route, on a float32 cut of qwen3 (TF32 off), per leaf: within 1e-3 of
+#: the largest update plus 2 float32 ulps of the largest weight (an update
+#: that differs by a last bit rounds the weight to its neighbour)
+TRAIN_ROUTE_TOL, TRAIN_ROUTE_CUT = 1e-3, 4
+#: (c) at full depth: in float32 (TF32 off) the two routes' velocities
+#: (-lr x the gradient) within 1e-3 relative L2; in bfloat16 the kernel
+#: route's velocity no further from the float32 plain route's than 1.25x
+#: the bfloat16 plain route's is (both round every GEMM to bfloat16, and
+#: 28 layers of random weights amplify a last-bit difference)
+TRAIN_ROUTE_GRAD_TOL, TRAIN_BF16_FROM_F32 = 1e-3, 1.25
 
 
 def phase(n: int, title: str) -> None:
@@ -770,6 +835,542 @@ def check_bench_path(b10, card_name: str, power_limit: str):
                 "nodes", "edges", "active_edges", "wall_s",
                 "per_round_ms")},
             "quickstart": qs}
+
+
+def lm_train_phase(dev: torch.device, out_dir: Path):
+    """Phase 11: LM training on the card.  (a) the attention's autograd
+    route (``ops.FlashAttention``: the kernel forward, the plain chunked
+    backward) against autograd through ``ref.flash_attention_bthd_ref``,
+    at qwen3's shape in bfloat16 and at a float32 shape with a window and
+    a softcap, timed beside SDPA's forward and backward; and Gaia's
+    float32-v, bfloat16-w ``gaia_select`` instance at qwen3's leaves,
+    bit-exact; (b) qwen3-0.6b at full width under the six strategies,
+    every launch count set to 0 just before a strategy's timed steps and
+    read just after, then each exchange op held against its plain
+    version on one more step's own inputs; (c) one bsp step through the
+    kernel route against the plain route, at full depth in float32 and
+    in bfloat16 (held against the float32 step) and on 4-layer cuts; (d)
+    the training example for gaia and dpsgd; (e) a checkpoint round
+    trip.  Returns (summary, the kernels' phase 11
+    figures by kernel name); a failed check raises."""
+    import shutil
+    import torch.nn.functional as F
+    from repro_torch import checkpointing as ckpt
+    from repro_torch import pytree
+    from repro_torch.configs.base import CommConfig, FabricConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.examples import train_lm_decentralized as lm_example
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models import model as lm
+    from repro_torch.topology.graphs import build_demo_schedule
+    t_phase = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    a = cfg.attention
+    gen = torch.Generator(device=dev).manual_seed(11)
+    summary, kern = {}, {}
+
+    def zero_counts():
+        for k_ in ops.launches:
+            ops.launches[k_] = 0
+
+    # (a) the attention's gradients, and its times
+    def views(f, H_, Hkv_, D_):
+        return (f[..., :H_ * D_].unflatten(2, (H_, D_)),
+                f[..., H_ * D_:(H_ + Hkv_) * D_].unflatten(2, (Hkv_, D_)),
+                f[..., (H_ + Hkv_) * D_:].unflatten(2, (Hkv_, D_)))
+
+    attn = {}
+    for label, (B_, T_, H_, Hkv_, D_), dtype, kw in (
+            ("qwen3 bf16 causal", (TRAIN_B, TRAIN_T, a.n_heads,
+                                   a.n_kv_heads, a.head_dim),
+             torch.bfloat16, {"causal": True}),
+            ("f32 window 256 softcap 30", (2, 512, 8, 2, 64), torch.float32,
+             {"causal": True, "window": 256, "logit_softcap": 30.0})):
+        fused = torch.randn(B_, T_, (H_ + 2 * Hkv_) * D_, device=dev,
+                            generator=gen).to(dtype)
+        dout = torch.randn(B_, T_, H_, D_, device=dev, generator=gen).to(
+            dtype)
+        grads = {}
+        with tf32_off():
+            for route, fn in (("function", ops.flash_attention_bthd),
+                              ("plain", ref.flash_attention_bthd_ref)):
+                f_ = fused.detach().requires_grad_()
+                zero_counts()
+                fn(*views(f_, H_, Hkv_, D_), **kw).backward(dout)
+                torch.cuda.synchronize()
+                assert ops.launches["flash_attention"] == (
+                    route == "function"), (label, route, ops.launches)
+                grads[route] = f_.grad
+        r = {}
+        for part, g_k, g_p in zip(("dq", "dk", "dv"),
+                                  views(grads["function"], H_, Hkv_, D_),
+                                  views(grads["plain"], H_, Hkv_, D_)):
+            scale_ = float(g_p.float().abs().max())
+            err = float((g_k.float() - g_p.float()).abs().max())
+            r[part] = {"max_abs_err": err, "max_abs": scale_,
+                       "mean_abs_err": float((g_k.float() - g_p.float())
+                                             .abs().mean())}
+            assert err <= TRAIN_ATTN_TOL[dtype] * scale_, (label, part, err,
+                                                          scale_)
+        print(f"(a) attention gradients, {label} (B {B_}, T {T_}, {H_} over "
+              f"{Hkv_} heads of {D_}): autograd route against autograd "
+              f"through the plain version " + ", ".join(
+                  f"{k_} max |err| {v_['max_abs_err']:.4g} of max "
+                  f"{v_['max_abs']:.4g} (mean {v_['mean_abs_err']:.3g})"
+                  for k_, v_ in r.items())
+              + f"; bound {TRAIN_ATTN_TOL[dtype]} x max", flush=True)
+        attn[label] = r
+        if dtype != torch.bfloat16:
+            continue
+        q, k, v = views(fused, H_, Hkv_, D_)
+        leaves_ = [t_.detach().requires_grad_() for t_ in (q, k, v)]
+        tl = [t_.detach().transpose(1, 2).requires_grad_() for t_ in (q, k, v)]
+        dt_ = dout.transpose(1, 2)
+        r.update({
+            "fwd_ms": time_ms(lambda: ops.flash_attention_bthd(q, k, v)),
+            "bwd_ms": time_ms(lambda: ref.flash_attention_bthd_bwd_ref(
+                q, k, v, dout), reps=20),
+            "fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                ops.flash_attention_bthd(*leaves_), leaves_, dout), reps=20),
+            "plain_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                ref.flash_attention_bthd_ref(*leaves_), leaves_, dout),
+                reps=20),
+            "sdpa_fwd_bwd_ms": time_ms(lambda: torch.autograd.grad(
+                F.scaled_dot_product_attention(*tl, is_causal=True,
+                                               enable_gqa=True), tl, dt_),
+                reps=20),
+            "sdpa_fwd_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                *(t_.detach() for t_ in tl), is_causal=True,
+                enable_gqa=True))})
+        pairs = T_ * (T_ + 1) // 2
+        q_bytes, kv_bytes = B_ * T_ * H_ * D_ * 2, B_ * T_ * Hkv_ * D_ * 2
+        r["fwd_bound_ms"], r["fwd_bound_by"] = bound_ms(
+            2 * q_bytes + 2 * kv_bytes, 4 * B_ * H_ * D_ * pairs,
+            BF16_FLOPS_PER_S)
+        # backward: q, k, v, dout read, dq, dk, dv written; five products
+        # a valid (query, key) pair (the scores again, dp, dq, dk, dv)
+        r["bwd_bound_ms"], r["bwd_bound_by"] = bound_ms(
+            4 * q_bytes + 4 * kv_bytes, 10 * B_ * H_ * D_ * pairs,
+            BF16_FLOPS_PER_S)
+        print(f"(a) times at {label}: forward kernel {r['fwd_ms']:.4f} ms "
+              f"(bound {r['fwd_bound_ms']:.5f}), backward (plain, chunked) "
+              f"{r['bwd_ms']:.4f} ms (bound {r['bwd_bound_ms']:.5f}, "
+              f"{r['bwd_bound_by']}; {r['bwd_ms'] / r['bwd_bound_ms']:.1f}x), "
+              f"autograd route forward + backward {r['fwd_bwd_ms']:.4f} ms, "
+              f"through the plain version {r['plain_fwd_bwd_ms']:.4f} ms; "
+              f"SDPA (enable_gqa, same views) forward {r['sdpa_fwd_ms']:.4f}"
+              f" ms, forward + backward {r['sdpa_fwd_bwd_ms']:.4f} ms "
+              f"(a yardstick: it rounds p to bfloat16)", flush=True)
+        del q, k, v, leaves_, tl, dt_
+        del fused, dout, grads
+    summary["attention"] = attn
+    kern["flash_attention"] = {k_: attn["qwen3 bf16 causal"][k_] for k_ in (
+        "fwd_ms", "bwd_ms", "fwd_bound_ms", "bwd_bound_ms", "fwd_bwd_ms",
+        "plain_fwd_bwd_ms", "sdpa_fwd_ms", "sdpa_fwd_bwd_ms")}
+
+    # (b) qwen3-0.6b at full width, every strategy
+    t0 = time.perf_counter()
+    base = lm.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                         dev)
+    torch.cuda.synchronize()
+    base_leaves = pytree.leaves(base)
+    groups = lsteps.dtype_groups(base_leaves)
+    n_param = sum(t_.numel() for t_ in base_leaves)
+    print(f"qwen3-0.6b: {n_param} parameters in {len(base_leaves)} leaves "
+          f"({', '.join(f'{len(i_)} {str(d_)[6:]}' for d_, i_ in groups.items())}"
+          f"), drawn in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # Gaia's mixed instance at the stacked bf16 leaves: float32 v, bf16 w
+    bf = [base_leaves[i] for i in groups[torch.bfloat16]]
+    ws = [w_.unsqueeze(0).repeat(TRAIN_PODS, *([1] * w_.dim())) for w_ in bf]
+    vs = [torch.randn(w_.shape, device=dev, generator=gen) * 1e-3
+          for w_ in ws]
+    thr = torch.full((), 0.05, device=dev)
+    outs, counts = ops.gaia_select_many(vs, ws, thr)
+    for v_, w_, o_, c_ in zip(vs, ws, outs, counts):
+        rsel, rcnt = ref.gaia_select_ref(v_, w_, thr)
+        assert o_.dtype == torch.float32 and torch.equal(o_, rsel)
+        assert int(c_) == int(rcnt)
+    n_el = sum(w_.numel() for w_ in ws)
+    outs_ = [torch.empty_like(v_) for v_ in vs]
+    cnt_ = torch.zeros(len(vs), dtype=torch.int32, device=dev)
+    g = {"ms": time_ms(lambda: ops.launch_gaia_select(
+             vs, ws, thr.reshape(1), outs_, cnt_), reps=20),
+         "f32_copy_ms": time_ms(lambda: ops.gaia_select_many(
+             vs, [w_.float() for w_ in ws], thr), reps=20),
+         "plain_ms": time_ms(lambda: ref.gaia_select_many_ref(vs, ws, thr),
+                             reps=5), "elements": n_el}
+    g["bound_ms"], g["bound_by"] = bound_ms(10 * n_el, 3 * n_el)
+    print(f"gaia_select float32 v over bfloat16 w at qwen3's {len(ws)} "
+          f"stacked bf16 leaves ({n_el} elements), bit-exact: one launch "
+          f"{g['ms']:.4f} ms (bound {g['bound_ms']:.4f}, {g['bound_by']}; "
+          f"{g['ms'] / g['bound_ms']:.2f}x), with a float32 copy of w "
+          f"instead {g['f32_copy_ms']:.4f} ms, plain {g['plain_ms']:.4f} ms",
+          flush=True)
+    kern["gaia_select"] = {"mixed_" + k_: v_ for k_, v_ in g.items()}
+    del ws, vs, outs, outs_, counts
+    torch.cuda.empty_cache()
+
+    rs = np.random.default_rng(11)
+    seqs = torch.from_numpy(rs.integers(
+        0, cfg.vocab, (TRAIN_STEPS + 2, TRAIN_PODS, TRAIN_B,
+                       TRAIN_T + 1))).to(dev)
+    batches = [{"tokens": s_[..., :-1], "labels": s_[..., 1:]}
+               for s_ in seqs]
+    sched = build_demo_schedule("ring", TRAIN_PODS)
+    n_attn = cfg.n_layers * TRAIN_PODS * 2      # and again under remat
+    want_kernel = {"bsp": {}, "fedavg": {},
+                   "gaia": {"gaia_select": len(groups)},
+                   "dgc": {"dgc_sparsify": TRAIN_PODS * len(base_leaves)},
+                   "dpsgd": {"neighbor_mix": len(groups)},
+                   "adpsgd": {"neighbor_mix_src": len(groups)}}
+    runs = {}
+    exchange_op = {"gaia": "gaia_select_many", "dgc": "dgc_sparsify",
+                   "dpsgd": "neighbor_mix_many",
+                   "adpsgd": "neighbor_mix_push_many"}
+
+    def exchange_against_plain(strategy, run_step):
+        """One more step with the strategy's exchange op recorded, then
+        each recorded call's plain version on the same inputs, gated as
+        ``TRAIN_MIX_TOL`` says: (max |err| of the mixed leaves, entries
+        checked, entries that differ)."""
+        name_, calls = exchange_op[strategy], []
+        op = getattr(ops, name_)
+
+        def recorded(*args):
+            out = op(*args)
+            calls.append((args, out))
+            return out
+        with swapped(ops, name_, recorded):
+            run_step()
+        torch.cuda.synchronize()
+        worst, n_el, differ = 0.0, 0, 0
+        with tf32_off():
+            for args, out in calls:
+                if strategy == "gaia":
+                    sel, cnt = ref.gaia_select_many_ref(*args)
+                    assert all(torch.equal(a_, b_)
+                               for a_, b_ in zip(out[0], sel)), strategy
+                    assert torch.equal(out[1], cnt), strategy
+                    n_el += sum(v_.numel() for v_ in args[0])
+                    continue
+                if strategy == "dgc":
+                    sel, cnt, t_ = ref.dgc_sparsify_ref(*args)
+                    assert float(out[2]) == float(t_), (float(out[2]),
+                                                        float(t_))
+                    assert int(out[1]) == int(cnt), (int(out[1]), int(cnt))
+                    assert torch.equal(out[0], sel), strategy
+                    n_el += args[0].numel()
+                    continue
+                xs, mix_ = args[0], args[-1]
+                if strategy == "dpsgd":
+                    got, want = out, ref.neighbor_mix_many_ref(
+                        xs, mix_.idx, mix_.w, mix_.self_w)
+                else:
+                    got = out[0]
+                    want, pushed = ref.neighbor_mix_push_many_ref(
+                        xs, args[1], mix_.idx, mix_.w, mix_.self_w)
+                    assert torch.equal(out[1], pushed), strategy
+                    del pushed
+                for o_, e_ in zip(got, want):
+                    d_ = (o_.float() - e_.float()).abs()
+                    worst = max(worst, float(d_.max()))
+                    differ += int((d_ > 0).sum())
+                    n_el += o_.numel()
+                    tol = TRAIN_MIX_TOL[o_.dtype]
+                    torch.testing.assert_close(o_.float(), e_.float(),
+                                               atol=tol, rtol=tol)
+                del want
+        del calls
+        torch.cuda.empty_cache()
+        return worst, n_el, differ
+
+    for strategy, fields in TRAIN_RUNS:
+        comm = CommConfig(strategy=strategy,
+                          fabric=FabricConfig(topology="ring"), **fields)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = lsteps.make_train_state(base, comm, TRAIN_PODS)
+        step = lsteps.make_train_step(cfg, comm, lr=TRAIN_LR, remat=True)
+        kw = {}
+        if strategy in lsteps.GOSSIP_STRATEGIES:
+            kw["mix"] = lsteps.gossip_operands(
+                sched, 0, device=dev, **({
+                    "staleness": TRAIN_STALENESS,
+                    "max_staleness": comm.max_staleness}
+                    if strategy == "adpsgd" else {}))
+        losses, times = [], []
+        state, m = step(state, batches[0], 0, **kw)      # warm-up
+        losses.append(m["loss"])
+        torch.cuda.synchronize()
+        zero_counts()
+        for i in range(1, TRAIN_STEPS + 1):
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i], i, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(m["loss"])
+        per_step = {k_: c_ / TRAIN_STEPS for k_, c_ in ops.launches.items()
+                    if c_}
+        box = [state]
+        syncs = count_syncs(lambda: box.__setitem__(0, step(
+            box[0], batches[-1], TRAIN_STEPS + 1, **kw)[0]))
+        state = box[0]
+        losses = [float(x_) for x_ in losses]
+        r = {"losses": losses, "wall_ms": times,
+             "median_ms": float(np.median(times)),
+             "tokens_per_s": TRAIN_PODS * TRAIN_B * TRAIN_T
+             / (float(np.median(times)) / 1e3),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "syncs_per_step": syncs, "launches_per_step": per_step,
+             "metrics": {k_: float(v_) for k_, v_ in m.items()}}
+        assert np.all(np.isfinite(losses)), (strategy, losses)
+        assert per_step == {"flash_attention": n_attn,
+                            **want_kernel[strategy]}, (strategy, per_step)
+        finite = all(bool(torch.isfinite(t_).all())
+                     for t_ in pytree.leaves(state["params"]))
+        assert finite, strategy
+        print(f"(b) {strategy}: losses {[round(x_, 4) for x_ in losses]}, "
+              f"{r['median_ms']:.1f} ms a step (median of {TRAIN_STEPS}: "
+              f"{[round(x_, 1) for x_ in times]}; "
+              f"{r['tokens_per_s']:.0f} tokens/s), peak "
+              f"{r['peak_gb']:.2f} GB, {syncs} host syncs a step, launches "
+              f"a step {per_step}, metrics {r['metrics']}", flush=True)
+        if strategy in exchange_op:
+            err, n_el, differ = exchange_against_plain(
+                strategy, lambda: box.__setitem__(0, step(
+                    box[0], batches[-1], TRAIN_STEPS + 2, **kw)[0]))
+            state = box[0]
+            r["exchange_check"] = {"max_abs_err": err, "elements": n_el,
+                                   "differ": differ}
+            print(f"(b) {strategy}: one more step's {exchange_op[strategy]} "
+                  f"calls against the plain version on the same inputs, "
+                  f"{n_el} entries: " + (
+                      "selections, counts and thresholds bit for bit"
+                      if strategy in ("gaia", "dgc") else
+                      f"mixed leaves max |err| {err:.4g} ({differ} entries "
+                      f"differ; tol {TRAIN_MIX_TOL[torch.bfloat16]} bf16, "
+                      f"{TRAIN_MIX_TOL[torch.float32]} f32)"
+                      + (", the pushed buffer bit for bit"
+                         if strategy == "adpsgd" else "")), flush=True)
+        if strategy == "bsp":
+            # one more step under torch.profiler, the attention's plain
+            # backward marked: device busy time by kind
+            with swapped(ref, "flash_attention_bthd_bwd_ref",
+                         marked(ref.flash_attention_bthd_bwd_ref,
+                                "attention_bwd")):
+                busy, n_kern, per_kernel, inside = device_profile(
+                    lambda: box.__setitem__(0, step(
+                        box[0], batches[-1], TRAIN_STEPS + 2)[0]),
+                    marks=("attention_bwd",))
+            state = box[0]
+            split = {"flash_attention": 0.0, "attention_bwd": 0.0,
+                     "gemm": 0.0, "other": 0.0}
+            for k_, v_ in per_kernel.items():
+                low = k_.lower()
+                split["flash_attention" if "flash_attention" in low else
+                      "gemm" if any(w_ in low for w_ in GEMM_KEYS) else
+                      "other"] += v_
+            for k_, v_ in inside.items():       # the backward's own kernels
+                split["gemm" if any(w_ in k_.lower() for w_ in GEMM_KEYS)
+                      else "other"] -= v_
+                split["attention_bwd"] += v_
+            r["profile"] = {"kernels": n_kern, "busy_ms": busy,
+                            "idle": 1 - busy / r["median_ms"],
+                            "split_ms": split, "top": {
+                                k_[:60]: round(v_, 3) for k_, v_ in sorted(
+                                    per_kernel.items(),
+                                    key=lambda kv: -kv[1])[:8]}}
+            print(f"(b) bsp step under torch.profiler: {n_kern} kernels, "
+                  f"device busy {busy:.1f} ms of the unprofiled "
+                  f"{r['median_ms']:.1f} ms wall (idle "
+                  f"{100 * r['profile']['idle']:.1f}%): " + ", ".join(
+                      f"{k_} {v_:.1f} ms ({100 * v_ / busy:.1f}%)"
+                      for k_, v_ in split.items())
+                  + "; top kernels " + json.dumps(r["profile"]["top"]),
+                  flush=True)
+            full_params = state["params"]
+        runs[strategy] = r
+        del state, step, m
+    summary["strategies"] = runs
+    for name_, strat in (("gaia_select", "gaia"), ("dgc_sparsify", "dgc"),
+                         ("neighbor_mix", "dpsgd"),
+                         ("neighbor_mix_src", "adpsgd"),
+                         ("flash_attention", "bsp")):
+        kern.setdefault(name_, {})["lm_train_launches_per_step"] = \
+            runs[strat]["launches_per_step"][name_]
+        if "exchange_check" in runs[strat]:
+            kern[name_]["lm_train_check"] = runs[strat]["exchange_check"]
+
+    # (c) the kernel route against the plain route, one bsp step from the
+    # same state: qwen3-0.6b at full depth in float32 (TF32 off; gated)
+    # and in bfloat16 (gated against float32), and 4-layer cuts of both
+    # (the float32 one gated)
+    route = {}
+    bsp = CommConfig(strategy="bsp", fabric=FabricConfig(topology="ring"))
+
+    def bsp_step(cfg_, p_, side):
+        """One bsp step of a fresh state of ``p_`` with the attention's
+        kernel route or its plain version swapped in: (params' leaves,
+        vel's leaves, loss)."""
+        step = lsteps.make_train_step(cfg_, bsp, lr=TRAIN_LR, remat=True)
+        with contextlib.ExitStack() as stack:
+            if cfg_.dtype == "float32":
+                stack.enter_context(tf32_off())
+            if side == "plain":
+                stack.enter_context(swapped(ops, "flash_attention_bthd",
+                                            ref.flash_attention_bthd_ref))
+            zero_counts()
+            st, m_ = step(lsteps.make_train_state(p_, bsp, TRAIN_PODS),
+                          batches[0], 0)
+            assert (ops.launches["flash_attention"] > 0) == \
+                (side == "kernel"), (cfg_.dtype, side, ops.launches)
+        return (pytree.leaves(st["params"]), pytree.leaves(st["vel"]),
+                float(m_["loss"]))
+
+    def rel_l2(xs, ys):
+        """||xs - ys|| / ||ys|| over the leaves, in float32."""
+        num = sum(float((x_.float() - y_.float()).square().sum())
+                  for x_, y_ in zip(xs, ys))
+        return (num / sum(float(y_.float().square().sum()) for y_ in ys)
+                ) ** 0.5
+
+    def routes(label, p_, kernel, plain):
+        """The two routes' steps from ``p_`` compared, printed, returned."""
+        worst, differ, total = 0.0, 0, 0
+        for o_, k_, q_ in zip(pytree.leaves(p_), kernel[0], plain[0]):
+            d_ = (k_.float() - q_.float()).abs()
+            upd = (q_.float() - o_.float())
+            bound = TRAIN_ROUTE_TOL * float(upd.abs().max()) + 2 * float(
+                torch.finfo(q_.dtype).eps) * float(q_.float().abs().max())
+            worst = max(worst, float(d_.max()) / bound)
+            differ += int((d_ > 0).sum())
+            total += d_.numel()
+        old = [o_.float() for o_ in pytree.leaves(p_)]
+        r = {"max_over_bound": worst, "share_differing": differ / total,
+             "update_rel_l2": rel_l2(
+                 [k_.float() - o_ for k_, o_ in zip(kernel[0], old)],
+                 [q_.float() - o_ for q_, o_ in zip(plain[0], old)]),
+             # the velocity, -lr times the float32 gradient: the
+             # gradients' agreement before the weights round the update
+             "vel_rel_l2": rel_l2(kernel[1], plain[1]),
+             "loss": {"kernel": kernel[2], "plain": plain[2]}}
+        print(f"(c) {label}: bsp step, kernel route against the plain "
+              f"route: loss {kernel[2]:.6f} and {plain[2]:.6f}; params: "
+              f"{100 * r['share_differing']:.3f}% of entries differ, the "
+              f"update's relative L2 difference {r['update_rel_l2']:.3g} "
+              f"(the velocity's, before the weights round it: "
+              f"{r['vel_rel_l2']:.3g}), the worst leaf at "
+              f"{r['max_over_bound']:.3g} of the bound (1e-3 of its largest "
+              f"update + 2 ulps of its largest weight)", flush=True)
+        route[label] = r
+        return r
+
+    full32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = pytree.tree_map(lambda t_: t_.float(), base)
+    anchor = bsp_step(full32, p32, "plain")
+    r = routes("float32 full depth", p32, bsp_step(full32, p32, "kernel"),
+               anchor)
+    print(f"(c) float32 full depth: the velocities' relative L2 difference "
+          f"{r['vel_rel_l2']:.3g}, gated at {TRAIN_ROUTE_GRAD_TOL}",
+          flush=True)
+    assert r["vel_rel_l2"] <= TRAIN_ROUTE_GRAD_TOL, r
+    del p32
+    torch.cuda.empty_cache()
+    kernel16, plain16 = (bsp_step(cfg, base, side_)
+                         for side_ in ("kernel", "plain"))
+    r = routes("bf16 full depth", base, kernel16, plain16)
+    r["kernel_from_f32"] = rel_l2(kernel16[1], anchor[1])
+    r["plain_from_f32"] = rel_l2(plain16[1], anchor[1])
+    print(f"(c) bf16 full depth against the float32 plain route's step "
+          f"from the same weights: the velocity's relative L2 distance "
+          f"{r['kernel_from_f32']:.4g} through the kernel route, "
+          f"{r['plain_from_f32']:.4g} through the plain route (gated: "
+          f"kernel <= {TRAIN_BF16_FROM_F32} x plain)", flush=True)
+    assert r["kernel_from_f32"] <= TRAIN_BF16_FROM_F32 * r["plain_from_f32"], r
+    del anchor, kernel16, plain16
+    torch.cuda.empty_cache()
+    for dtype_ in ("bfloat16", "float32"):
+        cfg_ = dataclasses.replace(cfg, n_layers=TRAIN_ROUTE_CUT,
+                                   dtype=dtype_)
+        p_ = lm.init_model(torch.Generator(device=dev).manual_seed(1), cfg_,
+                           dev)
+        r = routes(f"{dtype_}, first {TRAIN_ROUTE_CUT} layers", p_,
+                   *(bsp_step(cfg_, p_, side_)
+                     for side_ in ("kernel", "plain")))
+        if dtype_ == "float32":
+            assert r["max_over_bound"] <= 1.0, r
+        del p_
+    summary["routes"] = route
+    del base
+    torch.cuda.empty_cache()
+
+    # (d) the training example, gaia and dpsgd
+    examples = {}
+    for strategy in ("gaia", "dpsgd"):
+        zero_counts()
+        run = lm_example.train(lm_example.parse_args(
+            ["--strategy", strategy, "--device", "cuda"]))
+        made = {k_: c_ for k_, c_ in ops.launches.items() if c_}
+        n_steps = 200
+        n_layers = run["cfg"].n_layers
+        want = {"flash_attention": n_layers * lm_example.N_PODS * n_steps,
+                {"gaia": "gaia_select", "dpsgd": "neighbor_mix"}[strategy]:
+                n_steps}
+        assert made == want, (strategy, made, want)
+        assert run["final_loss"] < lm_example.TARGET_LOSS, run["losses"]
+        examples[strategy] = {"losses": run["losses"],
+                              "seconds": run["seconds"],
+                              "steps_per_s": n_steps / run["seconds"],
+                              "launches": made, "state": run["state"]}
+        print(f"(d) train_lm_decentralized --strategy {strategy}: final loss "
+              f"{run['final_loss']:.4f} < {lm_example.TARGET_LOSS} in "
+              f"{run['seconds']:.2f} s ({n_steps / run['seconds']:.1f} "
+              f"steps/s, the loss read every 20 steps), launches {made}",
+              flush=True)
+
+    # (e) checkpoints: (d)'s gaia state and (b)'s full-width pod params
+    ck_dir = out_dir / "ckpt_smoke"
+    ckr = {}
+    for label, tree, step_ in (("example state", examples["gaia"]["state"],
+                                200),
+                               ("qwen3-0.6b pod params", full_params, None)):
+        target = ck_dir / label.replace(" ", "_")
+        t0 = time.perf_counter()
+        ckpt.save(str(target), tree, step=step_)
+        t_save = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ckpt.restore(str(target), pytree.tree_map(torch.empty_like,
+                                                         tree), step=step_)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        for x_, y_ in zip(pytree.leaves(back), pytree.leaves(tree)):
+            assert x_.dtype == y_.dtype and x_.device == y_.device
+            bits = torch.int16 if x_.dtype == torch.bfloat16 else None
+            assert torch.equal(x_.view(bits) if bits else x_,
+                               y_.view(bits) if bits else y_), label
+        if step_ is not None:
+            assert ckpt.latest_step(str(target)) == step_
+        size = sum(f_.stat().st_size for f_ in target.rglob("*")
+                   if f_.is_file())
+        ckr[label] = {"leaves": len(pytree.leaves(tree)), "bytes": size,
+                      "save_s": t_save, "restore_s": t_restore}
+        print(f"(e) checkpoint of the {label}: {ckr[label]['leaves']} leaves, "
+              f"{size / 1e9:.3f} GB on disk, saved in {t_save:.2f} s, "
+              f"restored bit for bit in {t_restore:.2f} s", flush=True)
+        del back
+    shutil.rmtree(ck_dir)
+    summary["checkpoints"] = ckr
+    summary["examples"] = {k_: {x_: y_ for x_, y_ in v_.items()
+                                if x_ != "state"}
+                           for k_, v_ in examples.items()}
+    del examples, full_params
+    torch.cuda.empty_cache()
+    summary["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 11: {summary['wall_s']:.2f} s")
+    return summary, kern
 
 
 def main() -> int:
@@ -2974,6 +3575,16 @@ def main() -> int:
     print("step profiles: " + json.dumps(profiles))
     sys.stdout.flush()
 
+    # --------------------------------------------------------------- 11
+    # after every other phase: the full-width training states need the
+    # memory that phase 8's model held until its profile
+    phase(11, "LM training on the card: qwen3-0.6b at full width under the "
+              "six strategies, the attention's autograd route, the "
+              "training example, checkpoints")
+    train11, kern11 = lm_train_phase(dev, ROOT / "build")
+    print("lm training: " + json.dumps(train11))
+    sys.stdout.flush()
+
     kernels = [
         {"name": "gaia_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gaia_select.cu",
@@ -3074,6 +3685,12 @@ def main() -> int:
          "pairs": fa["pairs"], "model_shapes": fa["models"],
          "phase9_model_shapes": fa["new_models"]},
     ]
+    # phase 11's figures: launches a full-width train step, the attention
+    # route's times, Gaia's mixed-dtype instance
+    for entry in kernels:
+        key = entry.get("main_path_kernel", entry["name"])
+        if key in kern11:
+            entry["lm_train"] = kern11[key]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
           "included")
     print(smi)

@@ -1,0 +1,254 @@
+"""Parameter-tree checkpoints in the reference's on-disk format
+(``repro.checkpointing``): each package reads the other's files.
+
+``<path>/ckpt_<step>/`` (or ``<path>`` itself without a step) holds
+
+- ``payload.npz``: the tree's leaves as ``leaf_0``, ``leaf_1``, ... in
+  JAX's flatten order (``repro_torch.pytree``: dict keys sorted, ``None``
+  holds no leaf), each a NumPy array; a dtype NumPy lacks (bfloat16) is
+  stored as float32, as the reference's ``to_np`` does;
+- ``meta.msgpack``: a msgpack map {"treedef": the tree's
+  ``str(PyTreeDef)``, "n_leaves": int, "step": int or nil, "dtypes": the
+  leaves' dtype names}, byte for byte what ``msgpack.packb`` writes for
+  it.
+
+A save writes into a temporary directory beside the target and renames it
+into place.  The port encodes and decodes the msgpack subset that
+``meta`` uses (a map of str keys to str, int, nil and arrays of str)
+itself, so it needs no ``msgpack`` package.
+"""
+from __future__ import annotations
+
+import os
+import shutil
+import struct
+import tempfile
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import pytree
+
+Tree = Any
+
+#: torch dtypes NumPy holds as they are; any other (bfloat16) is stored
+#: as float32
+_NATIVE = {torch.float64, torch.float32, torch.float16, torch.int64,
+           torch.int32, torch.int16, torch.int8, torch.uint8, torch.bool}
+
+
+def _target(path: str, step: Optional[int]) -> str:
+    return os.path.join(path, f"ckpt_{step}") if step is not None else path
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype not in _NATIVE:
+        t = t.float()
+    return t.numpy()
+
+
+def save(path: str, tree: Tree, step: Optional[int] = None) -> str:
+    """Writes ``tree``'s leaves and meta to ``<path>/ckpt_<step>`` (or
+    ``path`` when ``step`` is None), replacing what was there; returns the
+    directory.  Leaves on the card are copied to the host."""
+    target = _target(path, step)
+    parent = os.path.dirname(target) or "."
+    os.makedirs(parent, exist_ok=True)
+    leaves = pytree.leaves(tree)
+    arrays = {f"leaf_{i}": _to_numpy(t) for i, t in enumerate(leaves)}
+    meta = packb({"treedef": pytree.treedef_str(tree),
+                  "n_leaves": len(leaves), "step": step,
+                  "dtypes": [pytree.dtype_name(t.dtype) for t in leaves]})
+    tmpdir = tempfile.mkdtemp(dir=parent)
+    try:
+        np.savez(os.path.join(tmpdir, "payload.npz"), **arrays)
+        with open(os.path.join(tmpdir, "meta.msgpack"), "wb") as f:
+            f.write(meta)
+        if os.path.isdir(target):
+            shutil.rmtree(target)
+        os.replace(tmpdir, target)
+    except BaseException:
+        shutil.rmtree(tmpdir, ignore_errors=True)
+        raise
+    return target
+
+
+def restore(path: str, like: Tree, step: Optional[int] = None) -> Tree:
+    """The checkpoint at ``<path>/ckpt_<step>`` (or ``path``) as a tree of
+    ``like``'s structure, each leaf cast to the dtype of ``like``'s leaf
+    at its place and put on that leaf's device.  Raises ``ValueError``
+    where the leaf count or a shape differs from ``like``'s."""
+    target = _target(path, step)
+    with np.load(os.path.join(target, "payload.npz")) as z:
+        got = [z[f"leaf_{i}"] for i in range(len(z.files))]
+    want = pytree.leaves(like)
+    if len(got) != len(want):
+        raise ValueError(f"checkpoint {target} has {len(got)} leaves, the "
+                         f"tree {len(want)}")
+    out = []
+    for i, (a, w) in enumerate(zip(got, want)):
+        if tuple(a.shape) != tuple(w.shape):
+            raise ValueError(f"checkpoint {target} leaf {i}: shape "
+                             f"{a.shape}, the tree's {tuple(w.shape)}")
+        out.append(torch.from_numpy(a).to(device=w.device, dtype=w.dtype))
+    return pytree.unflatten(like, out)
+
+
+def load_meta(path: str, step: Optional[int] = None) -> Dict[str, Any]:
+    """The ``meta.msgpack`` map of a checkpoint, decoded."""
+    with open(os.path.join(_target(path, step), "meta.msgpack"), "rb") as f:
+        return unpackb(f.read())
+
+
+def latest_step(path: str) -> Optional[int]:
+    """The largest step of the ``ckpt_<step>`` directories in ``path``,
+    None where there is none."""
+    if not os.path.isdir(path):
+        return None
+    steps = [int(d.split("_", 1)[1]) for d in os.listdir(path)
+             if d.startswith("ckpt_")]
+    return max(steps) if steps else None
+
+
+# ---------------------------------------------------------------------------
+# msgpack: the subset meta uses
+# ---------------------------------------------------------------------------
+
+def packb(obj: Any) -> bytes:
+    """``msgpack.packb(obj)``'s bytes for str, int (64-bit), None, lists
+    and tuples of these, and dicts with str keys (in their order)."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
+
+
+def _sized(out: bytearray, n: int, fix: Optional[Tuple[int, int]],
+           wide: Tuple[Tuple[int, int, str], ...]) -> None:
+    """A length header: the fix form (``fix``: (prefix, limit)) below its
+    limit, else the first wide form (code, limit, struct format) it
+    fits."""
+    if fix is not None and n < fix[1]:
+        out.append(fix[0] | n)
+        return
+    for code, limit, fmt in wide:
+        if n < limit:
+            out.append(code)
+            out += struct.pack(fmt, n)
+            return
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def _pack(obj: Any, out: bytearray) -> None:
+    if obj is None:
+        out.append(0xC0)
+    elif isinstance(obj, bool):
+        out.append(0xC3 if obj else 0xC2)
+    elif isinstance(obj, int):
+        _pack_int(obj, out)
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        _sized(out, len(b), (0xA0, 32), ((0xD9, 1 << 8, ">B"),
+                                         (0xDA, 1 << 16, ">H"),
+                                         (0xDB, 1 << 32, ">I")))
+        out += b
+    elif isinstance(obj, (list, tuple)):
+        _sized(out, len(obj), (0x90, 16), ((0xDC, 1 << 16, ">H"),
+                                           (0xDD, 1 << 32, ">I")))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, dict):
+        _sized(out, len(obj), (0x80, 16), ((0xDE, 1 << 16, ">H"),
+                                           (0xDF, 1 << 32, ">I")))
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise TypeError(f"msgpack: key {k!r} is not a str")
+            _pack(k, out)
+            _pack(v, out)
+    else:
+        raise TypeError(f"msgpack: cannot pack {type(obj).__name__}")
+
+
+def _pack_int(n: int, out: bytearray) -> None:
+    """The smallest form, as msgpack-python picks it: positive fixint,
+    else unsigned 8-64 bits for n >= 0; negative fixint, else signed 8-64
+    bits."""
+    if 0 <= n < 128:
+        out.append(n)
+    elif -32 <= n < 0:
+        out.append(n & 0xFF)
+    elif n >= 0:
+        for code, fmt, bits in ((0xCC, ">B", 8), (0xCD, ">H", 16),
+                                (0xCE, ">I", 32), (0xCF, ">Q", 64)):
+            if n < 1 << bits:
+                out.append(code)
+                out += struct.pack(fmt, n)
+                return
+        raise ValueError(f"msgpack: int {n} too large")
+    else:
+        for code, fmt, bits in ((0xD0, ">b", 8), (0xD1, ">h", 16),
+                                (0xD2, ">i", 32), (0xD3, ">q", 64)):
+            if n >= -(1 << (bits - 1)):
+                out.append(code)
+                out += struct.pack(fmt, n)
+                return
+        raise ValueError(f"msgpack: int {n} too small")
+
+
+def unpackb(data: bytes) -> Any:
+    """The object ``packb`` (or ``msgpack.packb``) wrote, for the same
+    subset: arrays come back as lists, maps as dicts."""
+    obj, end = _unpack(memoryview(data), 0)
+    if end != len(data):
+        raise ValueError(f"msgpack: {len(data) - end} trailing bytes")
+    return obj
+
+
+_FIXED = {0xCC: ">B", 0xCD: ">H", 0xCE: ">I", 0xCF: ">Q", 0xD0: ">b",
+          0xD1: ">h", 0xD2: ">i", 0xD3: ">q"}
+_LENGTHS = {0xD9: ("str", ">B"), 0xDA: ("str", ">H"), 0xDB: ("str", ">I"),
+            0xDC: ("array", ">H"), 0xDD: ("array", ">I"),
+            0xDE: ("map", ">H"), 0xDF: ("map", ">I")}
+
+
+def _unpack(buf: memoryview, i: int) -> Tuple[Any, int]:
+    code = buf[i]
+    i += 1
+    if code < 0x80:
+        return code, i
+    if code >= 0xE0:
+        return code - 0x100, i
+    if code == 0xC0:
+        return None, i
+    if code in (0xC2, 0xC3):
+        return code == 0xC3, i
+    if code in _FIXED:
+        fmt = _FIXED[code]
+        size = struct.calcsize(fmt)
+        return struct.unpack_from(fmt, buf, i)[0], i + size
+    if 0xA0 <= code < 0xC0:
+        kind, n = "str", code & 0x1F
+    elif 0x90 <= code < 0xA0:
+        kind, n = "array", code & 0x0F
+    elif 0x80 <= code < 0x90:
+        kind, n = "map", code & 0x0F
+    elif code in _LENGTHS:
+        kind, fmt = _LENGTHS[code]
+        n = struct.unpack_from(fmt, buf, i)[0]
+        i += struct.calcsize(fmt)
+    else:
+        raise ValueError(f"msgpack: type byte {code:#x} outside the subset")
+    if kind == "str":
+        return bytes(buf[i:i + n]).decode("utf-8"), i + n
+    if kind == "array":
+        items: List[Any] = []
+        for _ in range(n):
+            v, i = _unpack(buf, i)
+            items.append(v)
+        return items, i
+    out: Dict[Any, Any] = {}
+    for _ in range(n):
+        k, i = _unpack(buf, i)
+        out[k], i = _unpack(buf, i)
+    return out, i

@@ -17,7 +17,10 @@
 // wrapper.  In float32 each thread moves 16 bytes at a time where the
 // tensor's three pointers are 16-byte aligned, with a scalar tail past the
 // last whole vector; otherwise (and in bfloat16) one element at a time.
-// More tensors than a table holds take one launch per table.
+// More tensors than a table holds take one launch per table.  v and w may
+// differ in dtype: the float32-v, bfloat16-w instance reads a bf16 model's
+// weights as they lie against its float32 accumulated update (LM training's
+// Gaia step), where one dtype would need a float32 copy of the weights.
 //
 // Bound: bytes.  Each element reads v and w and writes out (3 * n * 4 bytes
 // in float32) for 3 flops, far below the card's ops-per-byte line.  At
@@ -65,8 +68,8 @@ __device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
   return __float2bfloat16(0.0f);
 }
 
-template <typename T>
-__device__ __forceinline__ T select(T vi, T wi, float t, int* local) {
+template <typename T, typename TW>
+__device__ __forceinline__ T select(T vi, TW wi, float t, int* local) {
   const bool keep = fabsf(to_f32(vi)) > t * fabsf(to_f32(wi));
   *local += keep ? 1 : 0;
   return keep ? vi : zero<T>();
@@ -98,13 +101,14 @@ __device__ __forceinline__ void block_count_add(int local, int* count) {
   }
 }
 
-template <typename T>
+// T: v's and out's dtype; TW: w's.
+template <typename T, typename TW>
 __global__ void __launch_bounds__(kThreads)
 gaia_select_kernel(const Table tab, const float* __restrict__ threshold,
                    int* __restrict__ counts) {
   const int j = tensor_of_block(tab);
   const T* __restrict__ v = static_cast<const T*>(tab.v[j]);
-  const T* __restrict__ w = static_cast<const T*>(tab.w[j]);
+  const TW* __restrict__ w = static_cast<const TW*>(tab.w[j]);
   T* __restrict__ out = static_cast<T*>(tab.out[j]);
   const long long n = tab.n[j];
   const long long base =
@@ -112,7 +116,8 @@ gaia_select_kernel(const Table tab, const float* __restrict__ threshold,
   const float t = *threshold;
   int local = 0;
   bool vec = false;
-  if constexpr (std::is_same<T, float>::value)
+  if constexpr (std::is_same<T, float>::value &&
+                std::is_same<TW, float>::value)
     vec = ((reinterpret_cast<unsigned long long>(v) |
             reinterpret_cast<unsigned long long>(w) |
             reinterpret_cast<unsigned long long>(out)) & 15) == 0;
@@ -144,7 +149,7 @@ gaia_select_kernel(const Table tab, const float* __restrict__ threshold,
   block_count_add(local, counts + j);
 }
 
-template <typename T>
+template <typename T, typename TW>
 int launch(const void* const* v, const void* const* w, void* const* out,
            const long long* n, int count, const void* threshold,
            void* counts, int device, void* stream, int* launches) {
@@ -168,8 +173,8 @@ int launch(const void* const* v, const void* const* w, void* const* out,
     }
     tab.tile0[tab.count] = static_cast<int>(tiles);
     if (tiles == 0) continue;
-    gaia_select_kernel<T><<<static_cast<unsigned>(tiles), kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+    gaia_select_kernel<T, TW><<<static_cast<unsigned>(tiles), kThreads, 0,
+                                static_cast<cudaStream_t>(stream)>>>(
         tab, static_cast<const float*>(threshold),
         static_cast<int*>(counts) + first);
     const cudaError_t err = cudaGetLastError();
@@ -187,8 +192,8 @@ extern "C" int gaia_select_f32(const void* const* v, const void* const* w,
                                void* const* out, const long long* n,
                                int count, const void* threshold, void* counts,
                                int device, void* stream, int* launches) {
-  return launch<float>(v, w, out, n, count, threshold, counts, device,
-                       stream, launches);
+  return launch<float, float>(v, w, out, n, count, threshold, counts,
+                              device, stream, launches);
 }
 
 extern "C" int gaia_select_bf16(const void* const* v, const void* const* w,
@@ -196,6 +201,18 @@ extern "C" int gaia_select_bf16(const void* const* v, const void* const* w,
                                 int count, const void* threshold,
                                 void* counts, int device, void* stream,
                                 int* launches) {
-  return launch<__nv_bfloat16>(v, w, out, n, count, threshold, counts,
-                               device, stream, launches);
+  return launch<__nv_bfloat16, __nv_bfloat16>(v, w, out, n, count,
+                                              threshold, counts, device,
+                                              stream, launches);
+}
+
+// v and out float32, w bfloat16.
+extern "C" int gaia_select_f32_bf16(const void* const* v,
+                                    const void* const* w, void* const* out,
+                                    const long long* n, int count,
+                                    const void* threshold, void* counts,
+                                    int device, void* stream,
+                                    int* launches) {
+  return launch<float, __nv_bfloat16>(v, w, out, n, count, threshold,
+                                      counts, device, stream, launches);
 }

@@ -24,7 +24,10 @@ sample outgrows shared memory, ``group_norm_route``); and attention
 forward as ``flash_attention`` (the reference's (B, H, T, D) layout) and
 ``flash_attention_bthd`` (the model's (B, T, H, D) layout, GQA heads read
 in place), one kernel under both, with k and v of their own head dims
-(``FLASH_HEAD_DIMS``).
+(``FLASH_HEAD_DIMS``); where grad mode is on and an input requires grad
+both go through ``FlashAttention``, whose forward is that kernel and
+whose backward is the plain ``ref.flash_attention_bthd_bwd_ref``; outside
+grad mode they run the forward on the inputs detached.
 
 ``launch_gaia_select``, ``launch_neighbor_mix_many``,
 ``launch_neighbor_mix_push_many``, ``launch_neighbor_mix``,
@@ -78,6 +81,11 @@ _GN_ARGS = [_I, _P, _P, _P, _P, _LL, _LL, _I, _I, ctypes.c_float, _I, _P]
 _FA_ARGS = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _PLL,
             ctypes.c_float, _I, _I, ctypes.c_float, _I, _P]
 
+#: the (v, w) dtypes ``gaia_select`` takes on the card, and the entry of
+#: ``csrc/gaia_select.cu`` that takes each pair
+GAIA_DTYPES = {(torch.float32, torch.float32): "gaia_select_f32",
+               (torch.bfloat16, torch.bfloat16): "gaia_select_bf16",
+               (torch.float32, torch.bfloat16): "gaia_select_f32_bf16"}
 #: the most shared memory a block of the ``neighbor_mix`` kernel takes (a
 #: Hopper block's 227 KB): bounds the rows it stages
 _MIX_MAX_SMEM = 232448
@@ -192,8 +200,11 @@ def gaia_select_many(vs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
                      threshold) -> Tuple[List[torch.Tensor], torch.Tensor]:
     """``gaia_select`` on each pair (v, w) of ``vs`` and ``ws`` with one
     threshold: ([v_j * (|v_j| > T|w_j|)], int32 (len(vs),) counts).  On
-    the card one launch covers every tensor (up to 32 a launch), all of
-    one dtype, each contiguous; on the CPU the plain version loops."""
+    the card one launch covers every tensor (up to 32 a launch), each
+    contiguous, the vs of one dtype and the ws of one, a pair of
+    ``GAIA_DTYPES`` (float32 v over bfloat16 w: a bf16 model's float32
+    accumulated update against its weights, read as they are); on the CPU
+    the plain version loops."""
     vs, ws = _lists("gaia_select", vs, ws)
     for v, w in zip(vs, ws):
         if v.shape != w.shape:
@@ -202,7 +213,11 @@ def gaia_select_many(vs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     t = torch.as_tensor(threshold, dtype=torch.float32, device=vs[0].device)
     if _on_cpu(*vs, *ws, t):
         return ref.gaia_select_many_ref(vs, ws, t)
-    _check_many("gaia_select", vs + ws)
+    _check_many("gaia_select", vs)
+    _check_many("gaia_select", ws)
+    if (vs[0].dtype, ws[0].dtype) not in GAIA_DTYPES:
+        raise TypeError(f"gaia_select: (v, w) dtypes ({vs[0].dtype}, "
+                        f"{ws[0].dtype}) not in {sorted(map(str, GAIA_DTYPES))}")
     outs = [torch.empty_like(v) for v in vs]
     counts = torch.zeros(len(vs), dtype=torch.int32, device=vs[0].device)
     launch_gaia_select(vs, ws, t.reshape(1).contiguous(), outs, counts)
@@ -213,10 +228,13 @@ def launch_gaia_select(vs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
                        t: torch.Tensor, outs: Sequence[torch.Tensor],
                        counts: torch.Tensor) -> None:
     """Launch the ``gaia_select`` kernel on CUDA operands that
-    ``gaia_select_many`` checked: ``t`` a (1,) float32 threshold, each of
-    ``outs`` like its v, ``counts`` int32 (len(vs),) the kernel adds each
+    ``gaia_select_many`` checked (the kernel's instance picked by the
+    pair of dtypes): ``t`` a (1,) float32 threshold, each of ``outs``
+    like its v, ``counts`` int32 (len(vs),) the kernel adds each
     tensor's count to.  One launch for up to 32 tensors."""
-    fn = _kernel("gaia_select", "gaia_select", vs[0].dtype, _GAIA_ARGS)
+    fn = getattr(build.load("gaia_select"),
+                 GAIA_DTYPES[(vs[0].dtype, ws[0].dtype)])
+    fn.argtypes, fn.restype = _GAIA_ARGS, ctypes.c_int
     dev = vs[0].device
     made = ctypes.c_int(0)
     err = fn(_pointers(vs), _pointers(ws), _pointers(outs),
@@ -835,9 +853,9 @@ def _flash_layout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def _flash_card_operands(q: torch.Tensor, k: torch.Tensor,
                          v: torch.Tensor, Tq: int) -> None:
-    """What the kernel takes beyond the layout: one dtype of two, no
-    gradient, a (Dk, Dv) pair it is built for; in bfloat16, operands
-    whose 16-byte rows cp.async can copy."""
+    """What the kernel takes beyond the layout: one dtype of two, a (Dk,
+    Dv) pair it is built for; in bfloat16, operands whose 16-byte rows
+    cp.async can copy."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in _SUFFIX:
             raise TypeError(f"flash_attention {name}: dtype {t.dtype} not "
@@ -845,9 +863,6 @@ def _flash_card_operands(q: torch.Tensor, k: torch.Tensor,
         if t.dtype != q.dtype:
             raise TypeError(f"flash_attention: {name} dtype {t.dtype} "
                             f"differs from q's {q.dtype}")
-        if t.requires_grad:
-            raise ValueError(f"flash_attention: {name} requires grad; the "
-                             "kernel has no backward")
         if q.dtype == torch.bfloat16 and (
                 t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3])):
             raise ValueError(f"flash_attention: bfloat16 {name} must be "
@@ -874,9 +889,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``causal`` and sliding-``window`` masks, ``logit_softcap``, scale
     ``Dk ** -0.5`` by default; the result (B, H, Tq, Dv) in q's dtype,
     contiguous.  On the card the kernel takes float32 or bfloat16 with
-    the head dims at unit stride (other strides are free), (Dk, Dv) in
-    ``FLASH_HEAD_DIMS``, and no input that requires a gradient (it has no
-    backward)."""
+    the head dims at unit stride (other strides are free) and (Dk, Dv) in
+    ``FLASH_HEAD_DIMS``.  Where an input requires grad and grad mode is
+    on, autograd differentiates it through ``FlashAttention``; outside
+    grad mode the forward runs on the inputs detached."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention: q, k, v must be (B, H, T, D), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -888,6 +904,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(v.shape)} must be ({B}, {H}, Tk, {D}) and "
                          f"({B}, {H}, Tk, Dv)")
     _flash_options(window, logit_softcap)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        _flash_layout(q, k, v)
+        return FlashAttention.apply(
+            *(t.transpose(1, 2) for t in (q, k, v)), causal, window,
+            logit_softcap, scale).transpose(1, 2).contiguous()
+    q, k, v = q.detach(), k.detach(), v.detach()     # no graph to record
     if _on_cpu(q, k, v):
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        logit_softcap=logit_softcap,
@@ -915,7 +938,9 @@ def flash_attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     copies a layout.  The plain version (``ref.flash_attention_bthd_ref``)
     expands the KV heads.  The layout and the grouping are checked on both
     routes; on the card the operands also as ``flash_attention`` checks
-    them."""
+    them.  Where an input requires grad and grad mode is on, the call
+    goes through ``FlashAttention``, which autograd differentiates;
+    outside grad mode the forward runs on the inputs detached."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention_bthd: q, k, v must be (B, T, H, "
                          f"D), got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -931,11 +956,25 @@ def flash_attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"group over {Hkv} KV heads")
     _flash_options(window, logit_softcap)
     _flash_layout(q, k, v)
+    opts = (causal, window, logit_softcap, scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, *opts)
+    return _flash_bthd_forward(q.detach(), k.detach(), v.detach(), *opts)
+
+
+def _flash_bthd_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, window: Optional[int],
+                        logit_softcap: Optional[float],
+                        scale: Optional[float]) -> torch.Tensor:
+    """``flash_attention_bthd``'s forward on operands it checked: the plain
+    version on the CPU, the kernel on the card."""
     if _on_cpu(q, k, v):
         return ref.flash_attention_bthd_ref(q, k, v, causal=causal,
                                             window=window,
                                             logit_softcap=logit_softcap,
                                             scale=scale)
+    B, Tq, H, D = q.shape
     _flash_card_operands(q, k, v, Tq)
     out = torch.empty((B, Tq, H, v.shape[3]), dtype=q.dtype, device=q.device)
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
@@ -943,6 +982,33 @@ def flash_attention_bthd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            scale=D ** -0.5 if scale is None else scale,
                            layout="bthd")
     return out
+
+
+class FlashAttention(torch.autograd.Function):
+    """Attention that autograd differentiates, on the model's (B, T, H, D)
+    layout: ``flash_attention_bthd`` takes it whenever an input requires
+    grad.  Forward: the kernel on the card (it runs again where
+    ``torch.utils.checkpoint`` recomputes a layer), the plain version on
+    the CPU, on the inputs detached, so the kernel sees no input that
+    requires grad.  Backward: ``ref.flash_attention_bthd_bwd_ref`` on both
+    devices, the exact gradient of the forward's function (float32 scores,
+    softmax and accumulator; the reference has no backward kernel), from
+    the saved q, k and v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, logit_softcap, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window,
+                        logit_softcap=logit_softcap, scale=scale)
+        return _flash_bthd_forward(q.detach(), k.detach(), v.detach(),
+                                   causal, window, logit_softcap, scale)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = ref.flash_attention_bthd_bwd_ref(q, k, v, dout,
+                                                      **ctx.opts)
+        return dq, dk, dv, None, None, None, None
 
 
 def launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
@@ -957,7 +1023,15 @@ def launch_flash_attention(q: torch.Tensor, k: torch.Tensor,
     ``"bthd"`` (B, T, H, D).  The kernel reads every tensor's batch, time
     and head strides and the KV heads' count from k; query head h reads KV
     head ``h // (H // Hkv)``.  It skips the k-blocks outside the causal
-    and window band when Tq <= Tk, where every row keeps a valid key."""
+    and window band when Tq <= Tk, where every row keeps a valid key.
+    An input that requires grad is refused: the kernel has no backward
+    (autograd goes through ``FlashAttention``, which passes it detached
+    inputs)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.requires_grad:
+            raise ValueError(f"launch_flash_attention: {name} requires grad;"
+                             " the kernel has no backward (autograd goes "
+                             "through FlashAttention)")
     if layout == "bhtd":
         q, k, v, out = (t.transpose(1, 2) for t in (q, k, v, out))
     elif layout != "bthd":

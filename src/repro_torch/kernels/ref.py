@@ -3,7 +3,9 @@
 ``ops.py`` takes them for tensors on the CPU, the CPU tests hold them
 against ``repro.kernels.ref`` and the Pallas kernels, and ``chip_smoke.py``
 holds each CUDA kernel against them on the card.  They run on any
-device."""
+device.  ``flash_attention_bthd_bwd_ref`` is the attention's backward,
+the one ``ops``' autograd route runs on both devices (the reference has
+no backward kernel)."""
 from __future__ import annotations
 
 from typing import Callable, List, Optional, Sequence, Tuple
@@ -63,6 +65,75 @@ def flash_attention_bthd_ref(q: torch.Tensor, k: torch.Tensor,
                               window=window, logit_softcap=logit_softcap,
                               scale=scale)
     return out.transpose(1, 2).contiguous()
+
+
+#: float32 elements of one (B, H, query chunk, Tk) score tensor in
+#: ``flash_attention_bthd_bwd_ref``: 64 MB, so no (B, H, Tq, Tk) tensor is
+#: held whole
+BWD_SCORE_ELEMS = 1 << 24
+
+
+def flash_attention_bthd_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                                 v: torch.Tensor, dout: torch.Tensor, *,
+                                 causal: bool = True,
+                                 window: Optional[int] = None,
+                                 logit_softcap: Optional[float] = None,
+                                 scale: Optional[float] = None
+                                 ) -> Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+    """The exact gradient (dq, dk, dv) of ``flash_attention_bthd_ref``'s
+    function at q (B, Tq, H, Dk), k (B, Tk, Hkv, Dk) and v (B, Tk, Hkv,
+    Dv) for the output's gradient ``dout`` (B, Tq, H, Dv), each in its
+    input's dtype.  Everything in float32: the scores are recomputed from
+    q and k a chunk of queries at a time (``BWD_SCORE_ELEMS`` bounds a
+    chunk's scores), then the softmax, ``ds = p (dp - rowsum(dp p))``
+    with ``dp = dout v^T``, the softcap's chain rule ``1 - tanh^2``, and
+    no gradient through a masked score (query row i at position ``i + Tk
+    - Tq``, as in the forward).  A query head's dk and dv are summed into
+    its KV head (h reads ``h // (H // Hkv)``)."""
+    B, Tq, H, Dk = q.shape
+    Tk, Hkv, Dv = k.shape[1], k.shape[2], v.shape[3]
+    g = H // Hkv
+    scale = Dk ** -0.5 if scale is None else scale
+    # query head h = kv * g + j: (B, Hkv, g, Tq, D), float32
+    qf = q.float().transpose(1, 2).reshape(B, Hkv, g, Tq, Dk)
+    dof = dout.float().transpose(1, 2).reshape(B, Hkv, g, Tq, Dv)
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)
+    kt, vt = kf.transpose(-1, -2), vf.transpose(-1, -2)
+    dq = torch.empty(B, Hkv, g, Tq, Dk, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(B, Hkv, Tk, Dk, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(B, Hkv, Tk, Dv, dtype=torch.float32, device=q.device)
+    k_pos = torch.arange(Tk, device=q.device)
+    neg = torch.full((), -1e30, device=q.device)
+    step = max(1, BWD_SCORE_ELEMS // (B * H * Tk))
+    for lo in range(0, Tq, step):
+        hi = min(Tq, lo + step)
+        c = hi - lo
+        qc = qf[:, :, :, lo:hi].reshape(B, Hkv, g * c, Dk)
+        doc = dof[:, :, :, lo:hi].reshape(B, Hkv, g * c, Dv)
+        s = (qc @ kt) * scale                            # (B,Hkv,g*c,Tk)
+        if logit_softcap is not None:
+            th = torch.tanh(s / logit_softcap)
+            s = logit_softcap * th
+        q_pos = torch.arange(lo, hi, device=q.device) + (Tk - Tq)
+        valid = torch.ones(c, Tk, dtype=torch.bool, device=q.device)
+        if causal:
+            valid &= k_pos[None, :] <= q_pos[:, None]
+        if window is not None:
+            valid &= k_pos[None, :] > q_pos[:, None] - window
+        valid = valid.repeat(g, 1)                       # (g*c, Tk)
+        p = torch.softmax(torch.where(valid, s, neg), dim=-1)
+        dp = doc @ vt
+        ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+        ds = torch.where(valid, ds, torch.zeros((), device=q.device))
+        if logit_softcap is not None:
+            ds = ds * (1.0 - th * th)
+        ds = ds * scale
+        dq[:, :, :, lo:hi] = (ds @ kf).view(B, Hkv, g, c, Dk)
+        dk += ds.transpose(-1, -2) @ qc
+        dv += p.transpose(-1, -2) @ doc
+    return (dq.reshape(B, H, Tq, Dk).transpose(1, 2).to(q.dtype),
+            dk.transpose(1, 2).to(k.dtype), dv.transpose(1, 2).to(v.dtype))
 
 
 def gaia_select_ref(v: torch.Tensor, w: torch.Tensor, threshold

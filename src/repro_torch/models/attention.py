@@ -6,7 +6,9 @@ minicpm3), with two paths:
   the port computes through ``kernels.ops.flash_attention_bthd`` on q, k
   and v as the projections leave them (no KV expansion, no layout copy):
   on a CUDA tensor the hand-written kernel
-  (``kernels/csrc/flash_attention.cu``), on the CPU its plain version.
+  (``kernels/csrc/flash_attention.cu``), on the CPU its plain version;
+  training differentiates it through ``ops.FlashAttention`` (that
+  forward, a plain float32 backward).
   The reference computes it with a jnp scan over key chunks and calls
   the Pallas kernel its TPU twin.
 - decode: one query token against a fixed-capacity KV cache, which may be
@@ -61,8 +63,10 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     neither (``causal=False``, ``window=None``: cross-attention) any
     offset and any Tq, Tk give the same result and are taken.  ``chunk``
     (the reference scan's key-chunk length) is kept for the signature and
-    not used: the kernel picks its own tiles.  On a CUDA device an input
-    that requires a gradient raises, as the kernel has no backward.
+    not used: the kernel picks its own tiles.  Under autograd (grad mode
+    on, an input that requires grad) the call goes through
+    ``ops.FlashAttention``: the same forward, and the exact float32
+    gradient of its function in the backward.
     """
     Tq, Tk = q.shape[1], k.shape[1]
     if (causal or window is not None) and q_offset != Tk - Tq:

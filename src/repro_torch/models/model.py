@@ -4,9 +4,10 @@ VLM, the RG-LRU hybrid, the SSM and the enc-dec;
 ``repro_torch.configs.registry``).
 
 ``batch`` layout:
-- prefill: {"tokens": (B, T_text) integer, ["patches": (B, n_vis,
-  feat_dim) float, for the VLM], ["frames": (B, n_frames, feat_dim)
-  float, for the enc-dec]}
+- train/prefill: {"tokens": (B, T_text) integer, ["labels": (B, T_text)
+  integer, for ``loss_fn``; a negative label is masked out], ["patches":
+  (B, n_vis, feat_dim) float, for the VLM], ["frames": (B, n_frames,
+  feat_dim) float, for the enc-dec]}
 - decode: {"token": (B,) integer, "t": (B,) integer absolute positions,
   ["frames": as above]}, with the cache from ``init_cache``.  As in the
   reference, an enc-dec decode step runs the encoder on its frames
@@ -15,7 +16,8 @@ VLM, the RG-LRU hybrid, the SSM and the enc-dec;
 
 ``lm_params_from_jax`` carries the reference's ``init_model`` parameters
 (as NumPy arrays) into the port, so both packages can run the same
-weights.  ``loss_fn`` comes with the training slice.
+weights.  ``loss_fn`` is the training loss (``launch.steps``' train step
+differentiates it).
 
 Parameters and caches go to ``device``, which defaults to CUDA and
 raises where there is none (``repro_torch.device.resolve_device``); the
@@ -54,13 +56,36 @@ def _memory(p: Params, cfg: ModelConfig, batch: Dict[str, Any]
 
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
-            chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+            remat: bool = True, chunk: int = 512
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B, T_text, V) float32,
     moe_aux), the MoE auxiliary loss summed over layers, a float32 zero
-    for a dense arch."""
+    for a dense arch.  ``remat``: ``transformer.lm_apply``'s (each cycle
+    recomputed in the backward; nothing changes without grad mode)."""
     return transformer.lm_apply(p, cfg, batch["tokens"],
                                 patches=batch.get("patches"),
-                                memory=_memory(p, cfg, batch), chunk=chunk)
+                                memory=_memory(p, cfg, batch), remat=remat,
+                                chunk=chunk)
+
+
+def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
+            remat: bool = True, chunk: int = 512
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The training loss: (ce + aux, {"ce": ce, "aux": aux}), float32 0-d.
+    ce is the mean over the positions with ``batch["labels"] >= 0`` of
+    the float32 ``log_softmax``'s negative log-likelihood of the label
+    (``max(count, 1)`` in the denominator); aux the MoE auxiliary loss.
+    A negative label is gathered at class 0 and masked out (the
+    reference gathers it at the last class; torch's gather refuses a
+    negative index), so the two give one loss and one gradient."""
+    logits, aux = forward(p, cfg, batch, remat=remat, chunk=chunk)
+    labels = batch["labels"]
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None].long()
+                        )[..., 0]
+    mask = (labels >= 0).float()
+    ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,

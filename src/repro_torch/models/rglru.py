@@ -77,10 +77,22 @@ def scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     reference's ``associative_scan`` of ``combine((a1, b1), (a2, b2)) =
     (a1 a2, a2 b1 + b2)``, as ceil(log2 T) rounds of Hillis-Steele
     doubling (each position combined with the one ``s`` before it, s = 1,
-    2, 4, ...).  A round writes its (a, b) into one of two buffers of its
-    own (the first ``s`` positions copied, the rest one fused op each),
-    never into its inputs; the buffers alternate."""
+    2, 4, ...).  Without autograd (prefill) a round writes its (a, b) into
+    one of two buffers of its own (the first ``s`` positions copied, the
+    rest one fused op each), never into its inputs; the buffers
+    alternate.  Where autograd records (grad mode on and an input that
+    requires grad), which ops with ``out=`` do not support, a round
+    concatenates the same ops' results instead: the same numbers."""
     T = a.shape[1]
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        s = 1
+        while s < T:
+            b = torch.cat([b[:, :s], torch.addcmul(b[:, s:], a[:, s:],
+                                                   b[:, :-s])], dim=1)
+            if 2 * s < T:
+                a = torch.cat([a[:, :s], a[:, s:] * a[:, :-s]], dim=1)
+            s *= 2
+        return b
     a_buf = (torch.empty_like(a), torch.empty_like(a))
     b_buf = (torch.empty_like(b), torch.empty_like(b))
     s, r = 1, 0

@@ -80,13 +80,19 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     x: (B, T, h, p); dt: (B, T, h) (post-softplus); B_in/C_in: (B, T,
     n); a_log: (h,) (A = -exp(a_log)).  Returns (y: (B, T, h, p), the
     final state (B, h, p, n)), float32.  T must be a multiple of the
-    chunk or below it, as in the reference."""
+    chunk or below it, as in the reference.  Where autograd records (grad
+    mode on and an input that requires grad) the dual form is built out
+    of place; otherwise (prefill) in place, which saves a (B, h, Q, Q)
+    tensor a chunk."""
     Bsz, T, h, p_dim = x.shape
     n = B_in.shape[-1]
     Q = min(chunk, T)
     if T % Q:
         raise ValueError(f"ssd_chunked: T={T} is not a multiple of the "
                          f"chunk {Q}")
+    grad = torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad
+        for t in (x, dt, a_log, B_in, C_in, D, init_state))
     A = -torch.exp(a_log)                                      # (h,) < 0
     xd = x.float() * dt[..., None]                             # x * dt
     # the decays head-major, (B, h, T): each chunk's cumsum runs along
@@ -105,10 +111,15 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         cum = torch.cumsum(dA[..., sl], dim=-1)                # (B,h,Q)
         total = cum[..., -1:]                                  # (B,h,1)
         # intra-chunk (dual quadratic form): the mask before the exp,
-        # then the scores, in place on the one (B, h, q, k) tensor
+        # then the scores; without autograd in place on the one (B, h, q,
+        # k) tensor, with it out of place (exp's backward reads its output)
         L = (cum[..., :, None] - cum[..., None, :]).masked_fill_(
-            future, float("-inf")).exp_()
-        L.mul_(torch.einsum("bqn,bkn->bqk", C_k, B_k)[:, None])
+            future, float("-inf"))
+        scores = torch.einsum("bqn,bkn->bqk", C_k, B_k)[:, None]
+        if grad:
+            L = L.exp() * scores
+        else:
+            L.exp_().mul_(scores)
         y = torch.matmul(L, xd_k)                              # (B,h,q,p)
         # inter-chunk: the carried state's contribution
         y += torch.einsum("bqn,bhpn->bhqp", C_k, S) * torch.exp(cum)[

@@ -13,7 +13,10 @@ unit, e.g. gemma2's (local, global), recurrentgemma's (rglru, rglru,
 attn)), and the body's parameters are stacked over cycles, each leaf
 with a leading ``n_cycles`` axis, as in the reference, whose
 ``lax.scan`` over that axis becomes a Python loop over the cycle index
-here.  Forward only: there is no remat.
+here.  ``lm_apply(..., remat=True)`` recomputes each cycle in the
+backward (``torch.utils.checkpoint``, non-reentrant), as the reference
+wraps its cycle in ``jax.checkpoint``; the prefix and suffix layers are
+not wrapped, as there.
 
 ``device`` defaults to CUDA, as at every entry point of the port.
 """
@@ -23,7 +26,9 @@ import math
 from typing import Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import attention as attn
@@ -236,14 +241,6 @@ def layer_decode(p: Params, cfg: ModelConfig, sig: Tuple, x: torch.Tensor,
 # Whole-model init
 # ---------------------------------------------------------------------------
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, list):
-        return [_tree_map(fn, v) for v in tree]
-    return fn(tree)
-
-
 def _stacked(n: int, make) -> Params:
     """The trees ``make(0)``, ..., ``make(n - 1)`` (same structure) stacked
     leaf by leaf on a new leading axis: each tree is made in turn and
@@ -254,24 +251,16 @@ def _stacked(n: int, make) -> Params:
     for c in range(n):
         tree = make(c)
         if out is None:
-            out = _tree_map(lambda t: t.new_empty((n,) + t.shape), tree)
-        for dst, src in zip(_leaves(out), _leaves(tree)):
+            out = pytree.tree_map(lambda t: t.new_empty((n,) + t.shape), tree)
+        for dst, src in zip(pytree.leaves(out), pytree.leaves(tree)):
             dst[c].copy_(src)
         del tree                # freed before the next tree is made
     return out
 
 
-def _leaves(tree) -> List[torch.Tensor]:
-    if isinstance(tree, dict):
-        return [t for v in tree.values() for t in _leaves(v)]
-    if isinstance(tree, list):
-        return [t for v in tree for t in _leaves(v)]
-    return [tree]
-
-
 def _cycle(body: Params, c: int) -> Params:
     """Cycle ``c`` of the stacked body: views, no copies."""
-    return _tree_map(lambda t: t[c], body)
+    return pytree.tree_map(lambda t: t[c], body)
 
 
 def init_lm(gen: torch.Generator, cfg: ModelConfig, device=None) -> Params:
@@ -331,15 +320,20 @@ def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
              patches: Optional[torch.Tensor] = None,
-             memory: Optional[torch.Tensor] = None, chunk: int = 512
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             memory: Optional[torch.Tensor] = None, remat: bool = True,
+             chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, T) integer.  Returns (the float32 logits (B, T, V) over
     the *text* positions, the MoE auxiliary loss summed over layers, a
     float32 zero where no layer is MoE).  For the VLM, ``patches``
     prepend ``cfg.modality.n_tokens`` positions, and the first that many
     positions' logits are dropped (as in the reference, also where no
     patches were given).  For the enc-dec decoder, every layer attends to
-    ``memory`` (B, S, encoder d_model), the encoder's output."""
+    ``memory`` (B, S, encoder d_model), the encoder's output.  With
+    ``remat``, where autograd records (grad mode on, and the body's
+    parameters or the embeddings require grad), each cycle of the body
+    keeps only its input for the backward, which runs the cycle again
+    (flash_attention's forward kernel included); elsewhere it changes
+    nothing."""
     prefix, n_cycles, P, suffix = layer_plan(cfg)
     x = embed_inputs(p, cfg, tokens, patches)
     B, T, _ = x.shape
@@ -355,10 +349,21 @@ def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         x, aux = run(lp, layer_sig(cfg, i), x, aux)
     if p["body"] is not None:
         sigs = body_sigs(cfg)
-        for c in range(n_cycles):
-            cyc = _cycle(p["body"], c)
+
+        def cycle(x, aux, cyc):
             for j in range(P):
                 x, aux = run(cyc[j], sigs[j], x, aux)
+            return x, aux
+
+        wrap = remat and torch.is_grad_enabled() and (
+            x.requires_grad or any(t.requires_grad
+                                   for t in pytree.leaves(p["body"])))
+        for c in range(n_cycles):
+            cyc = _cycle(p["body"], c)
+            if wrap:
+                x, aux = checkpoint(cycle, x, aux, cyc, use_reentrant=False)
+            else:
+                x, aux = cycle(x, aux, cyc)
     for i, lp in zip(suffix, p["suffix"]):
         x, aux = run(lp, layer_sig(cfg, i), x, aux)
     n_vis = cfg.modality.n_tokens if cfg.modality.kind == "vision" else 0

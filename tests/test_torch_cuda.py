@@ -435,10 +435,21 @@ def test_flash_attention_refuses_what_it_cannot_take(dev):
         ops.flash_attention(q80, q80, q80)
     with pytest.raises(ValueError, match="head dim"):      # a pair not built
         ops.flash_attention(q, q, q[..., :32])
-    g = torch.zeros(1, 16, 2, 64, device=dev, requires_grad=True)
+    # the raw launch refuses an input that requires grad: the kernel has
+    # no backward (the ops route such inputs through ops.FlashAttention
+    # in grad mode, and detach them outside it)
+    g = torch.zeros(1, 2, 16, 64, device=dev, requires_grad=True)
     with pytest.raises(ValueError, match="requires grad"):
-        attention.chunked_attention(g, g, g)
+        ops.launch_flash_attention(g, g, g, torch.empty_like(q),
+                                   causal=True, window=None,
+                                   logit_softcap=None, scale=0.125)
     assert ops.launches == before
+    with torch.no_grad():
+        out = attention.chunked_attention(*(g.transpose(1, 2),) * 3)
+    assert ops.launches["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert not out.requires_grad
+    torch.testing.assert_close(out, torch.zeros_like(out))
 
 
 def _fused_qkv(shape, group, dtype, dev):
@@ -564,8 +575,17 @@ def test_flash_attention_bthd_refuses_what_it_cannot_take(dev):
         ops.flash_attention_bthd(odd, odd, odd)
     g = torch.zeros(1, 16, 2, 64, device=dev, requires_grad=True)
     with pytest.raises(ValueError, match="requires grad"):
-        ops.flash_attention_bthd(g, g, g)
+        ops.launch_flash_attention(g, g, g, torch.empty_like(g),
+                                   causal=True, window=None,
+                                   logit_softcap=None, scale=0.125,
+                                   layout="bthd")
     assert ops.launches == before
+    with torch.no_grad():                 # detached, then the kernel
+        out = ops.flash_attention_bthd(g, g, g)
+    assert ops.launches["flash_attention"] == \
+        before["flash_attention"] + 1
+    assert not out.requires_grad
+    torch.testing.assert_close(out, torch.zeros_like(out))
 
 
 def _attention_calls(cfg) -> int:
@@ -950,3 +970,121 @@ def test_gossip_many_kernels_take_more_leaves_than_a_launch(dev):
     for got, exp in ((outs, expect), (pushed, expect_p)):
         for o, e in zip(got, exp):
             torch.testing.assert_close(o, e, atol=2e-5, rtol=2e-5)
+
+
+# ---------------------------------------------------------------------------
+# LM training: the attention's autograd route, Gaia's mixed dtypes, a step
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape", [(1,), (37,), (2, 1024, 3),
+                                   (1_000_003,)])
+def test_gaia_select_float32_v_over_bfloat16_w_bit_exact(dev, shape):
+    """The float32-v, bfloat16-w instance against the plain version, one
+    launch for the list; the reverse pair is refused."""
+    vs = [_randn(shape, 0, 0.01).to(dev), _randn((5,), 2, 0.01).to(dev)]
+    ws = [_randn(shape, 1, 0.3).to(dev, torch.bfloat16),
+          _randn((5,), 3, 0.3).to(dev, torch.bfloat16)]
+    launches = ops.launches["gaia_select"]
+    outs, counts = ops.gaia_select_many(vs, ws, 0.05)
+    assert ops.launches["gaia_select"] == launches + 1
+    for v, w, o, c in zip(vs, ws, outs, counts):
+        rsel, rcnt = ref.gaia_select_ref(v, w, 0.05)
+        assert o.dtype == torch.float32 and torch.equal(o, rsel)
+        assert int(c) == int(rcnt)
+    with pytest.raises(TypeError, match="dtypes"):
+        ops.gaia_select_many([w.bfloat16() for w in vs],
+                             [v.float() for v in ws], 0.05)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("kw", [dict(causal=True),
+                                dict(causal=True, window=64,
+                                     logit_softcap=30.0),
+                                dict(causal=False)],
+                         ids=["causal", "window_softcap", "full"])
+def test_flash_attention_autograd_route_matches_plain(dev, kw, dtype, tol):
+    """``ops.FlashAttention`` (the kernel forward, the plain chunked
+    backward) against autograd through the plain version on views of one
+    projection, 4 query heads over 2 KV heads of 128: dq, dk and dv
+    within ``tol`` of the largest plain gradient (TF32 off), one kernel
+    launch."""
+    B, T, H, Hkv, D = 2, 200, 4, 2, 128
+    g = torch.Generator().manual_seed(5)
+    fused = torch.randn(B, T, (H + 2 * Hkv) * D, generator=g).to(dev, dtype)
+    dout = torch.randn(B, T, H, D, generator=g).to(dev, dtype)
+
+    def views(f):
+        return (f[..., :H * D].unflatten(2, (H, D)),
+                f[..., H * D:(H + Hkv) * D].unflatten(2, (Hkv, D)),
+                f[..., (H + Hkv) * D:].unflatten(2, (Hkv, D)))
+    grads = []
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for fn in (ops.flash_attention_bthd, ref.flash_attention_bthd_ref):
+            f = fused.detach().requires_grad_()
+            before = ops.launches["flash_attention"]
+            fn(*views(f), **kw).backward(dout)
+            assert ops.launches["flash_attention"] - before == \
+                (fn is ops.flash_attention_bthd)
+            grads.append(f.grad.float())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags
+    for got, want in zip(views(grads[0]), views(grads[1])):
+        assert float((got - want).abs().max()) <= \
+            tol * float(want.abs().max())
+
+
+@pytest.mark.parametrize("strategy", ["bsp", "gaia", "fedavg", "dgc",
+                                      "dpsgd", "adpsgd"])
+def test_lm_train_step_on_card_matches_cpu(dev, strategy):
+    """One step of the reduced qwen3 (float32, 2 pods) on the card and on
+    the CPU from the same state, TF32 off: params, vel and acc within
+    1e-4; a Gaia or DGC entry within rounding of its threshold may flip
+    (at most 1e-3 of them)."""
+    from repro_torch import pytree
+    from repro_torch.launch import steps
+    cfg = get_config("qwen3-0.6b").reduced()
+    comm = CommConfig(strategy=strategy, fabric=FabricConfig(topology="ring"),
+                      gaia_t0=0.05, iter_local=1, dgc_sparsity=0.95)
+    p = model.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    rs = np.random.default_rng(0)
+    seqs = torch.from_numpy(rs.integers(0, cfg.vocab, (2, 2, 33)))
+    batch = {"tokens": seqs[..., :-1], "labels": seqs[..., 1:]}
+    sched = build_schedule("ring", 2)
+    out = {}
+    flags = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for d in ("cpu", dev):
+            kw = {}
+            if strategy in steps.GOSSIP_STRATEGIES:
+                kw["mix"] = steps.gossip_operands(
+                    sched, 0, device=d, **({"staleness": 1,
+                                            "max_staleness": 2}
+                                           if strategy == "adpsgd" else {}))
+            state = steps.make_train_state(_to(p, d), comm, 2)
+            step = steps.make_train_step(cfg, comm, lr=1e-2)
+            out[str(d)], _ = step(state, {k: v.to(d) for k, v in
+                                          batch.items()}, 0, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags
+    cpu, card = out["cpu"], out[str(dev)]
+    flip = None
+    if "acc" in cpu:
+        flip = [(a.cpu() == 0) != (b == 0) for a, b in
+                zip(pytree.leaves(card["acc"]), pytree.leaves(cpu["acc"]))]
+        assert sum(int(f.sum()) for f in flip) <= \
+            1e-3 * sum(f.numel() for f in flip)
+    for key in ("params", "vel", "acc"):
+        if key not in cpu:
+            continue
+        for i, (a, b) in enumerate(zip(pytree.leaves(card[key]),
+                                       pytree.leaves(cpu[key]))):
+            ok = torch.ones(b.shape, dtype=torch.bool)
+            if flip is not None:
+                ok = ~flip[i] if key != "params" else \
+                    (~flip[i].any(dim=0)).expand(b.shape)
+            torch.testing.assert_close(a.cpu()[ok], b[ok], rtol=0,
+                                       atol=1e-4)

@@ -35,6 +35,7 @@ from repro.models import model as jax_model
 from repro.models import rglru as jax_rglru
 from repro.models import ssm as jax_ssm
 from repro.models import transformer as jax_transformer
+from repro_torch import pytree
 from repro_torch.configs import registry
 from repro_torch.models import encdec, model, rglru, ssm, transformer
 
@@ -404,7 +405,7 @@ def test_seamless_decode_step_equals_lm_decode_with_memory():
         l2, c2 = transformer.lm_decode(p, cfg, toks[:, t], c2, tpos,
                                        memory=memory)
         np.testing.assert_array_equal(l1.numpy(), l2.numpy())
-    for a, b in zip(transformer._leaves(c1), transformer._leaves(c2)):
+    for a, b in zip(pytree.leaves(c1), pytree.leaves(c2)):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
