@@ -26,9 +26,11 @@ before the last line is printed:
    as the training path launches them, every leaf of GN-LeNet, resnet-s
    and alexnet-s in one launch (``neighbor_mix_many``; and
    ``neighbor_mix_push_many``, AD-PSGD's snapshot push and stale gather,
-   at staleness 0 and 2 over a 3-slot buffer, the pushed buffer exact)
-   at K=5 on a ring and on the random K=16 degree-4 graph, float32 2e-5
-   and bfloat16 2e-2, and an index of -1 or past the buffer refused when
+   at staleness 0 and 2 over a 3-slot buffer, the pushed buffer exact;
+   ``neighbor_mix_src_many``, phase 12's mix, every neighbour row from
+   a (2K, N) source) at K=5 on a ring and on the random K=16 degree-4
+   graph, float32 2e-5 and bfloat16 2e-2, and an index of -1 or past the
+   buffer refused when
    the operands are built (``mix_operands``), with no launch;
    DGC's histogram route bit-exact (``dgc_sparsify``'s selection, count
    and threshold against the bisection, one launch a call; its parts
@@ -232,7 +234,34 @@ before the last line is printed:
    ``examples.train_lm_decentralized`` for gaia and dpsgd, 200 steps
    each, its loss < 5.5; (e) (d)'s gaia state and (b)'s full-width pod
    params saved in the reference's checkpoint format and restored bit
-   for bit.
+   for bit;
+12. the pod axis across processes (``launch.procs.spawn``; the parent
+   built the kernels, the ranks only load them): (a) two gloo ranks on
+   the card, one phase 11 pod each (qwen3-0.6b at full width, bfloat16,
+   2 x 1024 tokens, remat), ``launch.mesh.make_mesh`` over them, under
+   the six strategies: one warm-up and 3 timed steps each, every launch
+   count set to 0 just before the timed steps and read just after in
+   each rank (56 ``flash_attention``, 2 ``gaia_select``, 13
+   ``dgc_sparsify``, 2 ``neighbor_mix_src`` launches a step a rank for
+   dpsgd and adpsgd: ``ops.neighbor_mix_src_many`` over the gathered or
+   received rows), ms a step, tokens/s, each rank's peak memory and the
+   last timed step's host syncs (the calling thread's; gloo stages CUDA
+   tensors through the host on its own threads); (b) that step's
+   exchange: its inputs all-gathered, each rank runs the one-card
+   exchange on the stacked inputs and holds its own rows of the result
+   against the two-rank exchange's, bit for bit for all six (row 2's
+   body also timed alone at the dpsgd shape, beside its bound, the plain
+   version and a dense W @ src, and held against the plain version bit
+   for bit); (c) a float32 2-layer cut at full
+   width (TF32 off), one step of each strategy, each rank's rows against
+   the one-card step it runs itself from the same seeded state and
+   batch: the velocity within 1e-3 relative L2, its worst leaf reported;
+   (d) NCCL at world size 1 through the same step (bsp and dpsgd, both
+   pods on the rank, a bf16 2-layer cut): ms a step, launches, 0 host
+   syncs a step; then dpsgd's and adpsgd's exchange on full-width inputs
+   through both routes on the one card (the one-card route's fused
+   kernels, the mesh route at world size 1), timed, bit for bit with
+   each other.  A rank's failure fails the phase.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -1373,6 +1402,483 @@ def lm_train_phase(dev: torch.device, out_dir: Path):
     return summary, kern
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the pod axis across processes
+# ---------------------------------------------------------------------------
+
+#: phase 12, the pod axis across processes: two gloo ranks on the one card,
+#: one phase 11 pod each (qwen3-0.6b at full width, bf16, 2 x 1024 tokens,
+#: remat, phase 11's lr and strategies); (c) a float32 cut of DIST_CUT
+#: layers at full width, its velocity gated at phase 11's 1e-3; (d) NCCL
+#: at world size 1 (the two pods on the one rank, a bf16 cut), its steps
+#: timed and one under the sync debug mode
+DIST_RANKS, DIST_CUT, DIST_VEL_TOL, DIST_NCCL_STEPS = 2, 2, 1e-3, 3
+#: the ranks' deadline (the process group's timeout and the parent's join)
+DIST_TIMEOUT = 900
+
+
+def _differ(a, b) -> int:
+    """Entries where ``a`` and ``b`` (one shape and dtype) differ, counted
+    2**26 at a time (a sum over a whole bool tensor would widen it to
+    int64: 8 bytes an entry)."""
+    assert a.shape == b.shape and a.dtype == b.dtype, (a.shape, b.shape,
+                                                      a.dtype, b.dtype)
+    if torch.equal(a, b):
+        return 0
+    return sum(int(torch.count_nonzero(x_ != y_)) for x_, y_ in zip(
+        a.reshape(-1).split(1 << 26), b.reshape(-1).split(1 << 26)))
+
+
+def _pod_axis(parts):
+    """(tensor, its pod axis) for every tensor of an exchange's parts in
+    ``pytree.leaves``' order: the leaves' axis 0, the snapshot buffers'
+    axis 1."""
+    from repro_torch import pytree
+    return [(t_, 1 if k_ == "snaps" else 0) for k_ in sorted(parts)
+            for t_ in pytree.leaves(parts[k_])]
+
+
+def _own_rows(t, axis, rank, rows):
+    """Rank ``rank``'s ``rows`` pods of a stacked tensor's pod ``axis``."""
+    return t.narrow(axis, rank * rows, rows)
+
+
+def _dist_batches(dev, n):
+    """``n`` global batches of phase 11's shape, made from the train spec
+    (``launch.specs``) and seed 12: the same on every rank."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.specs import train_batch_specs
+    (P, b, T), _ = train_batch_specs(
+        get_config("qwen3-0.6b"), InputShape("phase 12", TRAIN_T,
+                                             TRAIN_PODS * TRAIN_B, "train"),
+        n_pods=TRAIN_PODS)["tokens"]
+    seqs = torch.from_numpy(np.random.default_rng(12).integers(
+        0, get_config("qwen3-0.6b").vocab, (n, P, b, T + 1))).to(dev)
+    return [{"tokens": s_[..., :-1], "labels": s_[..., 1:]} for s_ in seqs]
+
+
+def dist_rank(rank: int, dev: torch.device) -> dict:
+    """One gloo rank of phase 12 (``procs.spawn``): (a) each strategy on
+    its pod; (b) the last timed step's exchange inputs all-gathered, the
+    one-card exchange run on them, and this rank's rows of its output
+    against the two-rank exchange's; (c) a float32 cut's step against
+    the one-card step that each rank runs itself (the same seeded state
+    and batch).  Returns host numbers; a failed check raises."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import CommConfig, FabricConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.topology.graphs import build_demo_schedule
+    mesh = make_mesh((DIST_RANKS, 1, 1), device=dev)
+    rows = TRAIN_PODS // DIST_RANKS
+    cfg = get_config("qwen3-0.6b")
+    base = lm.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                         dev)
+    batches = _dist_batches(dev, TRAIN_STEPS + 1)
+    sched = build_demo_schedule("ring", TRAIN_PODS)
+    out = {"rank": rank, "device": str(dev), "strategies": {}, "cut": {}}
+
+    def operands(comm, mesh_):
+        if comm.strategy not in lsteps.GOSSIP_STRATEGIES:
+            return {}
+        return {"mix": lsteps.gossip_operands(
+            sched, 0, device=dev, mesh=mesh_, **({
+                "staleness": TRAIN_STALENESS,
+                "max_staleness": comm.max_staleness}
+                if comm.strategy == "adpsgd" else {}))}
+
+    for strategy, fields in TRAIN_RUNS:
+        comm = CommConfig(strategy=strategy,
+                          fabric=FabricConfig(topology="ring"), **fields)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = lsteps.make_train_step(cfg, comm, mesh=mesh, lr=TRAIN_LR,
+                                      remat=True)
+        kw = operands(comm, mesh)
+        box = [lsteps.make_train_state(base, comm, TRAIN_PODS, mesh=mesh),
+               None]
+
+        def one(i):
+            box[0], box[1] = step(box[0], batches[i], i, **kw)
+            losses.append(box[1]["loss"])
+        losses = []
+        one(0)                                               # warm-up
+        torch.cuda.synchronize()
+        for k_ in ops.launches:
+            ops.launches[k_] = 0
+        # the last timed step (where fedavg syncs) also counts its host
+        # syncs and records its exchange for (b)
+        ex, calls, times, syncs = step.exchange, [], [], None
+        for i in range(1, TRAIN_STEPS + 1):
+            t0 = time.perf_counter()
+            if i < TRAIN_STEPS:
+                one(i)
+            else:
+                def recorded(parts, **kw_):
+                    got_ = ex(parts, **kw_)
+                    calls.append((parts, kw_, got_))
+                    return got_
+                step.exchange = recorded
+                syncs = count_syncs(lambda: one(i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_step = {k_: c_ / TRAIN_STEPS for k_, c_ in ops.launches.items()
+                    if c_}
+        if rank == 0:
+            print(f"phase 12 rank 0: {strategy} timed", flush=True)
+        r = {"losses": [float(x_) for x_ in losses], "wall_ms": times,
+             "median_ms": float(np.median(times)),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "syncs_per_step": syncs, "launches_per_step": per_step,
+             "finite": all(bool(torch.isfinite(t_).all())
+                           for t_ in pytree.leaves(box[0]["params"])),
+             "metrics": {k_: float(v_) for k_, v_ in box[1].items()}}
+        del box, step
+        (parts, kw_, got), = calls
+        del calls
+        torch.cuda.empty_cache()        # (a)'s blocks, for the other rank
+        # (b): every pod's inputs, the one-card exchange on them
+        full = [mesh.all_gather(t_.movedim(ax_, 0).contiguous()).movedim(
+            0, ax_).contiguous() for t_, ax_ in _pod_axis(parts)]
+        full = pytree.unflatten(parts, full)
+        del parts
+        n_el, differ = 0, 0
+        for turn in range(DIST_RANKS):      # one rank's one-card exchange
+            if turn == rank:                # on the card at a time
+                want = lsteps.make_exchange(comm, lr=TRAIN_LR)(
+                    full, **{**kw_, **operands(comm, None)})
+                del full
+                for (g_, ax_), (w_, _) in zip(_pod_axis(got),
+                                              _pod_axis(want)):
+                    w_ = _own_rows(w_, ax_, rank, rows)
+                    n_el += w_.numel()
+                    differ += _differ(g_, w_.contiguous())
+                del got, want
+                torch.cuda.empty_cache()
+            mesh.barrier()
+        r["exchange_check"] = {"elements": n_el, "differ": differ}
+        out["strategies"][strategy] = r
+        torch.cuda.empty_cache()
+    del base
+    torch.cuda.empty_cache()
+
+    # (c) a float32 cut at full width, one step each way (TF32 off)
+    cfg32 = dataclasses.replace(cfg, n_layers=DIST_CUT, dtype="float32")
+    p32 = lm.init_model(torch.Generator(device=dev).manual_seed(1), cfg32,
+                        dev)
+    with tf32_off():
+        for strategy, fields in TRAIN_RUNS:
+            comm = CommConfig(strategy=strategy,
+                              fabric=FabricConfig(topology="ring"), **fields)
+            mine, _ = lsteps.make_train_step(
+                cfg32, comm, mesh=mesh, lr=TRAIN_LR, remat=True)(
+                lsteps.make_train_state(p32, comm, TRAIN_PODS, mesh=mesh),
+                batches[0], 1, **operands(comm, mesh))
+            one_card, _ = lsteps.make_train_step(
+                cfg32, comm, lr=TRAIN_LR, remat=True)(
+                lsteps.make_train_state(p32, comm, TRAIN_PODS),
+                batches[0], 1, **operands(comm, None))
+            r, num, den = {"vel_worst": 0.0, "worst_leaf": 0}, 0.0, 0.0
+            for i_, (g_, w_) in enumerate(zip(
+                    pytree.leaves(mine["vel"]),
+                    pytree.leaves(one_card["vel"]))):
+                w_ = _own_rows(w_, 0, rank, rows).double()
+                d_ = g_.double() - w_
+                num += float(d_.square().sum())
+                den += float(w_.square().sum())
+                rel = float(d_.abs().max()) / max(float(w_.abs().max()),
+                                                  1e-30)
+                if rel > r["vel_worst"]:
+                    r["vel_worst"], r["worst_leaf"] = rel, i_
+            r["vel_rel_l2"] = (num / max(den, 1e-300)) ** 0.5
+            out["cut"][strategy] = r
+            del mine, one_card
+            torch.cuda.empty_cache()
+    return out
+
+
+def dist_nccl_rank(rank: int, dev: torch.device) -> dict:
+    """Phase 12 (d): a world-size-1 NCCL group through the same step, bsp
+    and dpsgd on a bf16 cut (both pods on the rank): wall ms a step,
+    launches, and one step's host syncs; then ``gossip_route_times``."""
+    from repro_torch.configs.base import CommConfig, FabricConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.topology.graphs import build_demo_schedule
+    import torch.distributed as dist
+    mesh = make_mesh((1, 1, 1), device=dev)
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=DIST_CUT)
+    p = lm.init_model(torch.Generator(device=dev).manual_seed(0), cfg, dev)
+    batches = _dist_batches(dev, DIST_NCCL_STEPS + 2)
+    out = {"backend": dist.get_backend(), "strategies": {}}
+    for strategy in ("bsp", "dpsgd"):
+        comm = CommConfig(strategy=strategy,
+                          fabric=FabricConfig(topology="ring"))
+        state = lsteps.make_train_state(p, comm, TRAIN_PODS, mesh=mesh)
+        step = lsteps.make_train_step(cfg, comm, mesh=mesh, lr=TRAIN_LR)
+        kw = ({"mix": lsteps.gossip_operands(
+            build_demo_schedule("ring", TRAIN_PODS), 0, device=dev,
+            mesh=mesh)} if strategy == "dpsgd" else {})
+        state, m = step(state, batches[0], 0, **kw)
+        torch.cuda.synchronize()
+        for k_ in ops.launches:
+            ops.launches[k_] = 0
+        times = []
+        for i in range(1, DIST_NCCL_STEPS + 1):
+            t0 = time.perf_counter()
+            state, m = step(state, batches[i], i, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_step = {k_: c_ / DIST_NCCL_STEPS
+                    for k_, c_ in ops.launches.items() if c_}
+        box = [state]
+        syncs = count_syncs(lambda: box.__setitem__(0, step(
+            box[0], batches[-1], DIST_NCCL_STEPS + 1, **kw)[0]))
+        out["strategies"][strategy] = {
+            "loss": float(m["loss"]), "median_ms": float(np.median(times)),
+            "wall_ms": times, "syncs_per_step": syncs,
+            "launches_per_step": per_step}
+        del state, box, step
+    del p
+    torch.cuda.empty_cache()
+    out["routes"] = gossip_route_times(dev, mesh)
+    return out
+
+
+def gossip_route_times(dev: torch.device, mesh) -> dict:
+    """Phase 12 (d): the gossip exchanges of both routes on one card, on one
+    set of full-width inputs (qwen3-0.6b, bf16, both pods on the rank; pod
+    1's rows negated, and AD-PSGD's slot 1 halved, so that rows differ):
+    the one-card route's fused kernels (``neighbor_mix_many``;
+    ``neighbor_mix_push_many``) against the mesh route at world size 1
+    (the rows gathered, or pushed and picked, NCCL's collective to itself,
+    then ``neighbor_mix_src_many``).  Each exchange's median device ms
+    over CUDA-event-timed calls, and the entries where the two differ."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import CommConfig, FabricConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models import model as lm
+    from repro_torch.topology.graphs import build_demo_schedule
+    params = lm.init_model(torch.Generator(device=dev).manual_seed(0),
+                           get_config("qwen3-0.6b"), dev)
+    sched = build_demo_schedule("ring", TRAIN_PODS)
+    out = {}
+    for strategy, fields in TRAIN_RUNS:
+        if strategy not in lsteps.GOSSIP_STRATEGIES:
+            continue
+        comm = CommConfig(strategy=strategy,
+                          fabric=FabricConfig(topology="ring"), **fields)
+        state = lsteps.make_train_state(params, comm, TRAIN_PODS)
+        parts = {"params": pytree.leaves(state["params"])}
+        for t_ in parts["params"]:
+            t_[1].neg_()
+        kw = {}
+        if strategy == "adpsgd":
+            parts["snaps"] = state["snaps"]
+            for v_ in parts["snaps"].values():
+                v_[:, 1].neg_()
+                v_[1].mul_(0.5)
+            kw = {"staleness": TRAIN_STALENESS,
+                  "max_staleness": comm.max_staleness}
+        del state
+        routes = {"one_card": (lsteps.make_exchange(comm),
+                               lsteps.gossip_operands(sched, 0, device=dev,
+                                                      **kw)),
+                  "mesh": (lsteps.make_exchange(comm, mesh=mesh),
+                           lsteps.gossip_operands(sched, 0, device=dev,
+                                                  mesh=mesh, **kw))}
+        a_, b_ = (ex_(parts, mix=m_) for ex_, m_ in routes.values())
+        r = {"elements": sum(t_.numel() for t_ in pytree.leaves(a_)),
+             "differ": sum(_differ(x_, y_) for x_, y_ in zip(
+                 pytree.leaves(a_), pytree.leaves(b_)))}
+        del a_, b_
+        for name_, (ex_, m_) in routes.items():
+            r[f"{name_}_ms"] = time_ms(lambda: ex_(parts, mix=m_), reps=10)
+        out[strategy] = r
+        del parts, routes
+        torch.cuda.empty_cache()
+    return out
+
+
+def src_many_times(dev: torch.device) -> dict:
+    """Row 2's body as phase 12's dpsgd step launches it on rank 0: the
+    rank's qwen3-0.6b pod (its bf16 leaves, L = 1) mixed with both pods'
+    gathered rows as the source.  The kernel alone, the op, the plain
+    version and a dense W @ src (the neighbour term alone; a yardstick),
+    each the median of CUDA-event-timed calls, the bound (x, src and the
+    output moved once), and the kernel against the plain version: bit for
+    bit (both accumulate in float32 and round once; with the ring's
+    weights of 1/2 every product is exact)."""
+    from repro_torch import pytree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch.mesh import AXES, Mesh
+    from repro_torch.models import model as lm
+    from repro_torch.topology.graphs import build_demo_schedule
+    leaves = pytree.leaves(lm.init_model(
+        torch.Generator(device=dev).manual_seed(0), get_config("qwen3-0.6b"),
+        dev))
+    xs = [leaves[i].unsqueeze(0) for i in
+          lsteps.dtype_groups(leaves)[torch.bfloat16]]
+    flat = torch.cat([x_.reshape(1, -1) for x_ in xs], dim=1)
+    src = torch.cat([flat, flat.roll(1, dims=1)])       # both pods' rows
+    rank0 = Mesh((TRAIN_PODS, 1, 1), AXES, coords=(0, 0, 0))
+    mix = lsteps.gossip_operands(build_demo_schedule("ring", TRAIN_PODS), 0,
+                                 device=dev, mesh=rank0).mix
+    outs = [torch.empty_like(x_) for x_ in xs]
+    W = torch.zeros(1, TRAIN_PODS, dtype=torch.bfloat16, device=dev)
+    W[0].index_add_(0, mix.idx[0].long(), mix.w[0].to(torch.bfloat16))
+    with tf32_off():
+        got = ops.neighbor_mix_src_many(xs, src, mix)
+        want = ref.neighbor_mix_src_many_ref(xs, src, mix.idx, mix.w,
+                                             mix.self_w)
+    err = max(float((g_.float() - w_.float()).abs().max())
+              for g_, w_ in zip(got, want))
+    differ = sum(_differ(g_, w_) for g_, w_ in zip(got, want))
+    del got, want
+    n_el = flat.numel()
+    r = {"elements": n_el, "max_abs_err": err, "differ": differ,
+         "ms": time_ms(lambda: ops.launch_neighbor_mix_src_many(
+             xs, src, mix, outs), reps=20),
+         "op_ms": time_ms(lambda: ops.neighbor_mix_src_many(xs, src, mix),
+                          reps=20),
+         "plain_ms": time_ms(lambda: ref.neighbor_mix_src_many_ref(
+             xs, src, mix.idx, mix.w, mix.self_w), reps=5),
+         "library_ms": time_ms(lambda: W @ src, reps=20)}
+    # x, src (2 rows) read and the output written, bf16; 2 float32 flops
+    # an entry a term (self and one neighbour)
+    r["bound_ms"], r["bound_by"] = bound_ms(4 * 2 * n_el, 4 * n_el)
+    assert differ == 0, r
+    return r
+
+
+def dist_phase(dev: torch.device):
+    """Phase 12: the pod axis across processes.  The kernels are built (the
+    parent built them in phase 2); the parent empties its CUDA cache, then
+    ``procs.spawn`` starts two gloo ranks on the card (``dist_rank``) and
+    one NCCL rank (``dist_nccl_rank``); every check is gated here.
+    Returns (summary, the kernels' phase 12 figures by kernel name)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import procs
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    n_layers = get_config("qwen3-0.6b").n_layers
+    parent_gb = torch.cuda.memory_allocated() / 1e9
+    mix_t = src_many_times(dev)
+    print(f"neighbor_mix_src_many at phase 12's dpsgd shape (one pod's "
+          f"{mix_t['elements']} bf16 entries, 2 gathered rows): kernel "
+          f"{mix_t['ms']:.4f} ms (bound {mix_t['bound_ms']:.4f}, "
+          f"{mix_t['bound_by']}; {mix_t['ms'] / mix_t['bound_ms']:.2f}x), op "
+          f"{mix_t['op_ms']:.4f}, plain {mix_t['plain_ms']:.4f}, dense W @ src "
+          f"{mix_t['library_ms']:.4f} (the neighbour term alone); against the "
+          f"plain version max |err| {mix_t['max_abs_err']:.3g}, "
+          f"{mix_t['differ']} entries differ (gate: bit for bit)", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = procs.spawn(dist_rank, DIST_RANKS, backend="gloo", device=dev,
+                        timeout=DIST_TIMEOUT)
+    t_gloo = time.perf_counter() - t0
+    want_kernel = {"bsp": {}, "fedavg": {}, "gaia": {"gaia_select": 2},
+                   "dgc": {"dgc_sparsify": 13},
+                   "dpsgd": {"neighbor_mix_src": 2},
+                   "adpsgd": {"neighbor_mix_src": 2}}
+    summary = {"ranks": DIST_RANKS, "backend": "gloo", "strategies": {},
+               "cut_by_rank": [r_["cut"] for r_ in ranks],
+               "gloo_spawn_s": t_gloo, "parent_allocated_gb": parent_gb}
+    tokens = TRAIN_PODS * TRAIN_B * TRAIN_T
+    for strategy, _ in TRAIN_RUNS:
+        rs = [r_["strategies"][strategy] for r_ in ranks]
+        slow = max(r_["median_ms"] for r_ in rs)
+        s = {"median_ms_by_rank": [r_["median_ms"] for r_ in rs],
+             "wall_ms_by_rank": [r_["wall_ms"] for r_ in rs],
+             "tokens_per_s": tokens / (slow / 1e3),
+             "peak_gb_by_rank": [r_["peak_gb"] for r_ in rs],
+             "syncs_per_step_by_rank": [r_["syncs_per_step"] for r_ in rs],
+             "launches_per_step": rs[0]["launches_per_step"],
+             "losses": rs[0]["losses"], "metrics": rs[0]["metrics"],
+             "exchange_check": {k_: sum(r_["exchange_check"][k_]
+                                        for r_ in rs)
+                                for k_ in ("elements", "differ")}}
+        summary["strategies"][strategy] = s
+        print(f"(a) {strategy}, {DIST_RANKS} gloo ranks on the card, one "
+              f"pod each: {slow:.1f} ms a step (the slower rank's median "
+              f"of {TRAIN_STEPS}; by rank "
+              f"{[round(x_, 1) for x_ in s['median_ms_by_rank']]}), "
+              f"{s['tokens_per_s']:.0f} tokens/s, peak "
+              f"{[round(x_, 2) for x_ in s['peak_gb_by_rank']]} GB a rank, "
+              f"{s['syncs_per_step_by_rank']} host syncs a step (the calling "
+              f"thread's; gloo stages CUDA tensors through the host on its "
+              f"own threads), launches a step a rank {s['launches_per_step']}"
+              f", losses {[round(x_, 4) for x_ in s['losses']]}", flush=True)
+        ec = s["exchange_check"]
+        print(f"(b) {strategy}: the two-rank exchange against the one-card "
+              f"exchange on the same inputs (all-gathered), each rank its "
+              f"rows: {ec['differ']} of {ec['elements']} entries differ",
+              flush=True)
+        for r_ in rs:
+            assert r_["finite"] and np.all(np.isfinite(r_["losses"])), (
+                strategy, r_["losses"])
+            assert r_["launches_per_step"] == {
+                "flash_attention": 2 * n_layers, **want_kernel[strategy]}, (
+                strategy, r_["launches_per_step"])
+        assert rs[0]["losses"] == rs[1]["losses"], (strategy, "loss")
+        assert ec["elements"] > 0 and ec["differ"] == 0, (strategy, ec)
+    for strategy, _ in TRAIN_RUNS:
+        l2 = [c_[strategy]["vel_rel_l2"] for c_ in summary["cut_by_rank"]]
+        worst = [(c_[strategy]["vel_worst"], c_[strategy]["worst_leaf"])
+                 for c_ in summary["cut_by_rank"]]
+        print(f"(c) {strategy}, float32 {DIST_CUT}-layer cut (TF32 off): the "
+              f"two-rank step against the one-card step, each rank its rows: "
+              f"the velocity's relative L2 difference {l2} (gate "
+              f"{DIST_VEL_TOL}); the worst velocity leaf by rank (max |err| "
+              f"over its largest entry, leaf) {worst}", flush=True)
+        assert max(l2) <= DIST_VEL_TOL, (strategy, l2)
+    t0 = time.perf_counter()
+    nccl = procs.spawn(dist_nccl_rank, 1, backend="nccl", device=dev,
+                       timeout=DIST_TIMEOUT)[0]
+    summary["nccl"] = {**nccl, "spawn_s": time.perf_counter() - t0}
+    for strategy, r_ in nccl["strategies"].items():
+        print(f"(d) {strategy}, NCCL at world size 1 ({nccl['backend']}), "
+              f"both pods on the rank, a bf16 {DIST_CUT}-layer cut: "
+              f"{r_['median_ms']:.1f} ms a step, {r_['syncs_per_step']} host "
+              f"syncs a step, launches {r_['launches_per_step']}, loss "
+              f"{r_['loss']:.4f}", flush=True)
+        assert nccl["backend"] == "nccl" and r_["syncs_per_step"] == 0, r_
+        assert np.isfinite(r_["loss"]), r_
+    for strategy, r_ in nccl["routes"].items():
+        print(f"(d) {strategy}'s exchange on one card, qwen3-0.6b at full "
+              f"width, both pods on the rank: the one-card route (fused "
+              f"kernels) {r_['one_card_ms']:.4f} ms, the mesh route at world "
+              f"size 1 {r_['mesh_ms']:.4f} ms "
+              f"({r_['mesh_ms'] / r_['one_card_ms']:.2f}x); {r_['differ']} of "
+              f"{r_['elements']} entries differ", flush=True)
+        assert r_["differ"] == 0, (strategy, r_)
+    kern = {}
+    for name_, strat in (("gaia_select", "gaia"), ("dgc_sparsify", "dgc"),
+                         ("neighbor_mix_src", "adpsgd"),
+                         ("flash_attention", "bsp")):
+        kern[name_] = {"dist_launches_per_step_a_rank": summary[
+            "strategies"][strat]["launches_per_step"][name_]}
+    kern["neighbor_mix_src"]["dist_dpsgd_launches_per_step_a_rank"] = \
+        summary["strategies"]["dpsgd"]["launches_per_step"]["neighbor_mix_src"]
+    kern["neighbor_mix_src"]["dist_src_many"] = mix_t
+    summary["src_many"] = mix_t
+    summary["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 12: {summary['wall_s']:.2f} s")
+    return summary, kern
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1547,7 +2053,8 @@ def main() -> int:
     # the training path's gossip: every leaf of a zoo model in one launch,
     # D-PSGD's round (neighbor_mix_many) and AD-PSGD's push and stale
     # gather (neighbor_mix_push_many), against their plain versions
-    gossip_err = {"neighbor_mix_many": 0.0, "neighbor_mix_push_many": 0.0}
+    gossip_err = {"neighbor_mix_many": 0.0, "neighbor_mix_push_many": 0.0,
+                  "neighbor_mix_src_many": 0.0}
     gossip_checks = 0
     for cfg_name in GOSSIP_CFGS:
         zoo_p, _ = init_cnn(torch.Generator().manual_seed(0),
@@ -1575,6 +2082,15 @@ def main() -> int:
                             xs, snaps, smix),
                         lambda smix=smix: ref.neighbor_mix_push_many_ref(
                             xs, snaps, smix.idx, smix.w, smix.self_w)))
+                # phase 12's gossip: every neighbour row from an (M, N)
+                # source (the rows gathered or received from other ranks)
+                src = randn(2 * k, n_cols).to(dtype)
+                gmix = ops.mix_operands(idx_np + k, w_np, sw_np, 2 * k, dev)
+                runs.append((
+                    "neighbor_mix_src_many", "neighbor_mix_src", None,
+                    lambda: ops.neighbor_mix_src_many(xs, src, gmix),
+                    lambda: (ref.neighbor_mix_src_many_ref(
+                        xs, src, gmix.idx, gmix.w, gmix.self_w), None)))
                 for op_name, kname, stale, call, plain in runs:
                     before = dict(ops.launches)
                     got = call()
@@ -1601,12 +2117,12 @@ def main() -> int:
                     print(f"{op_name} {cfg_name} ({len(xs)} leaves, "
                           f"{n_cols} columns) {topo} K={k} "
                           f"{str(dtype)[6:]}"
-                          + (f" staleness {stale}" if kname ==
-                             "neighbor_mix_src" else "")
+                          + (f" staleness {stale}" if stale is not None
+                             and kname == "neighbor_mix_src" else "")
                           + f", one launch: max |err| {err:.3g} (tol {tol})"
                           + ("; pushed buffer exact"
                              if expect_snaps is not None else ""))
-                del xs, snaps
+                del xs, snaps, src
     before = dict(ops.launches)
     bad = np.where(w_np > 0, 2, 0) * 16 + idx_np
     for b_ in (-1, 3 * 16):
@@ -1617,7 +2133,8 @@ def main() -> int:
         except ValueError as e:
             assert "outside" in str(e), e
     assert ops.launches == before, (ops.launches, before)
-    print(f"neighbor_mix_many, neighbor_mix_push_many: {gossip_checks} checks "
+    print(f"neighbor_mix_many, neighbor_mix_push_many, neighbor_mix_src_many: "
+          f"{gossip_checks} checks "
           f"in one launch each on {GOSSIP_CFGS}'s leaves; an index of -1 or "
           "past the buffer refused when the operands are built, no launch")
 
@@ -3585,6 +4102,13 @@ def main() -> int:
     print("lm training: " + json.dumps(train11))
     sys.stdout.flush()
 
+    # --------------------------------------------------------------- 12
+    phase(12, "the pod axis across processes: qwen3-0.6b, one pod a rank, "
+              "two gloo ranks on the card and NCCL at world size 1")
+    dist12, kern12 = dist_phase(dev)
+    print("pod axis across processes: " + json.dumps(dist12))
+    sys.stdout.flush()
+
     kernels = [
         {"name": "gaia_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gaia_select.cu",
@@ -3621,6 +4145,7 @@ def main() -> int:
              r_["launches"].get("neighbor_mix_src", 0)
              for runs_ in bench10["smokes"].values() for r_ in runs_),
          "max_abs_err": gossip_err["neighbor_mix_push_many"],
+         "src_many_max_abs_err": gossip_err["neighbor_mix_src_many"],
          "ms": s_ms, "op_ms": s_op, "plain_ms": s_plain, "bound_ms": s_bound,
          "bound_by": s_by, "library_ms": s_lib,
          "library": "dense W' @ src: the gather alone, not the push",
@@ -3691,6 +4216,8 @@ def main() -> int:
         key = entry.get("main_path_kernel", entry["name"])
         if key in kern11:
             entry["lm_train"] = kern11[key]
+        if key in kern12:
+            entry["dist_train"] = kern12[key]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
           "included")
     print(smi)

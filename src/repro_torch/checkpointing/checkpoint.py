@@ -12,23 +12,32 @@
   leaves' dtype names}, byte for byte what ``msgpack.packb`` writes for
   it.
 
-A save writes into a temporary directory beside the target and renames it
-into place.  The port encodes and decodes the msgpack subset that
-``meta`` uses (a map of str keys to str, int, nil and arrays of str)
-itself, so it needs no ``msgpack`` package.
+A save writes into a temporary directory beside the target, one leaf at a
+time, and renames it into place.  With a ``mesh`` (``launch.mesh``), each
+rank holds its block of a pod-stacked tree: ``save`` gathers each leaf's
+blocks to the pod group's first rank, which writes the stacked leaf
+before the next is gathered, so a checkpoint written by P ranks is, array
+for array, the one-card checkpoint of the same stacked state; ``restore``
+hands each rank its block, reading only those bytes of each array.  The
+port encodes and decodes the msgpack subset that ``meta`` uses (a map of
+str keys to str, int, nil and arrays of str) itself, so it needs no
+``msgpack`` package.
 """
 from __future__ import annotations
 
+import math
 import os
 import shutil
 import struct
 import tempfile
-from typing import Any, Dict, List, Optional, Tuple
+import zipfile
+from typing import Any, Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch import pytree
+from repro_torch.launch.sharding import local_slices
 
 Tree = Any
 
@@ -49,21 +58,66 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def save(path: str, tree: Tree, step: Optional[int] = None) -> str:
+def _pod_axes(tree: Tree, specs: Optional[Tree]) -> List[Optional[int]]:
+    """Each leaf's pod-sharded axis (None: not sharded) by ``specs`` (a
+    tree of ``sharding`` specs like ``tree``'s), axis 0 of every leaf
+    without them."""
+    if specs is None:
+        return [0] * len(pytree.leaves(tree))
+    return [spec.index("pod") if "pod" in spec else None
+            for spec in pytree.leaves_like(specs, tree)]
+
+
+def save(path: str, tree: Tree, step: Optional[int] = None, *,
+         mesh=None, specs: Optional[Tree] = None) -> str:
     """Writes ``tree``'s leaves and meta to ``<path>/ckpt_<step>`` (or
     ``path`` when ``step`` is None), replacing what was there; returns the
-    directory.  Leaves on the card are copied to the host."""
+    directory.  Leaves on the card are copied to the host one at a time.
+
+    With ``mesh`` every rank of its pod group calls this with its block
+    of the tree: each leaf's blocks along its pod axis (axis 0, or where
+    ``specs``, e.g. ``sharding.train_state_shardings``' tree, puts
+    ``"pod"``) are gathered to the pod group's first rank, which writes
+    the stacked leaf; every rank returns once all are written."""
     target = _target(path, step)
-    parent = os.path.dirname(target) or "."
-    os.makedirs(parent, exist_ok=True)
     leaves = pytree.leaves(tree)
-    arrays = {f"leaf_{i}": _to_numpy(t) for i, t in enumerate(leaves)}
     meta = packb({"treedef": pytree.treedef_str(tree),
                   "n_leaves": len(leaves), "step": step,
                   "dtypes": [pytree.dtype_name(t.dtype) for t in leaves]})
+    if mesh is None:
+        _write(target, leaves, meta)
+        return target
+
+    def gathered():
+        """The stacked leaves, gathered one at a time (None off the first
+        rank)."""
+        for t, ax in zip(leaves, _pod_axes(tree, specs)):
+            g = t if ax is None else mesh.gather(t.movedim(ax, 0))
+            yield g if ax is None or g is None else g.movedim(0, ax)
+    if mesh.pod_rank == 0:
+        _write(target, gathered(), meta)
+    else:
+        for _ in gathered():
+            pass
+    mesh.barrier()
+    return target
+
+
+def _write(target: str, leaves: Iterable[torch.Tensor], meta: bytes
+           ) -> None:
+    """``payload.npz`` as ``np.savez`` writes it (stored, zip64 members),
+    each leaf converted and written before the next is taken, then
+    ``meta.msgpack``."""
+    parent = os.path.dirname(target) or "."
+    os.makedirs(parent, exist_ok=True)
     tmpdir = tempfile.mkdtemp(dir=parent)
     try:
-        np.savez(os.path.join(tmpdir, "payload.npz"), **arrays)
+        with zipfile.ZipFile(os.path.join(tmpdir, "payload.npz"), "w",
+                             zipfile.ZIP_STORED, allowZip64=True) as zf:
+            for i, t in enumerate(leaves):
+                with zf.open(f"leaf_{i}.npy", "w", force_zip64=True) as f:
+                    np.lib.format.write_array(f, _to_numpy(t),
+                                              allow_pickle=False)
         with open(os.path.join(tmpdir, "meta.msgpack"), "wb") as f:
             f.write(meta)
         if os.path.isdir(target):
@@ -72,28 +126,61 @@ def save(path: str, tree: Tree, step: Optional[int] = None) -> str:
     except BaseException:
         shutil.rmtree(tmpdir, ignore_errors=True)
         raise
-    return target
 
 
-def restore(path: str, like: Tree, step: Optional[int] = None) -> Tree:
+def restore(path: str, like: Tree, step: Optional[int] = None, *,
+            mesh=None, specs: Optional[Tree] = None) -> Tree:
     """The checkpoint at ``<path>/ckpt_<step>`` (or ``path``) as a tree of
     ``like``'s structure, each leaf cast to the dtype of ``like``'s leaf
-    at its place and put on that leaf's device.  Raises ``ValueError``
-    where the leaf count or a shape differs from ``like``'s."""
+    at its place and put on that leaf's device.  With ``mesh``, ``like``
+    holds this rank's blocks, and of each leaf only the rank's block of
+    its pod axis (as ``save`` takes ``specs``) is read.  Raises
+    ``ValueError`` where the leaf count or a shape differs from
+    ``like``'s."""
     target = _target(path, step)
-    with np.load(os.path.join(target, "payload.npz")) as z:
-        got = [z[f"leaf_{i}"] for i in range(len(z.files))]
     want = pytree.leaves(like)
-    if len(got) != len(want):
-        raise ValueError(f"checkpoint {target} has {len(got)} leaves, the "
-                         f"tree {len(want)}")
+    axes = ([None] * len(want) if mesh is None else _pod_axes(like, specs))
     out = []
-    for i, (a, w) in enumerate(zip(got, want)):
-        if tuple(a.shape) != tuple(w.shape):
-            raise ValueError(f"checkpoint {target} leaf {i}: shape "
-                             f"{a.shape}, the tree's {tuple(w.shape)}")
-        out.append(torch.from_numpy(a).to(device=w.device, dtype=w.dtype))
+    with zipfile.ZipFile(os.path.join(target, "payload.npz")) as zf:
+        n = sum(name.endswith(".npy") for name in zf.namelist())
+        if n != len(want):
+            raise ValueError(f"checkpoint {target} has {n} leaves, the "
+                             f"tree {len(want)}")
+        for i, (w, ax) in enumerate(zip(want, axes)):
+            with zf.open(f"leaf_{i}.npy") as f:
+                a = _read_block(f, ax, mesh)
+            if tuple(a.shape) != tuple(w.shape):
+                raise ValueError(f"checkpoint {target} leaf {i}: shape "
+                                 f"{a.shape}, the tree's {tuple(w.shape)}")
+            out.append(torch.from_numpy(a).to(device=w.device,
+                                              dtype=w.dtype))
     return pytree.unflatten(like, out)
+
+
+def _read_block(f, axis: Optional[int], mesh) -> np.ndarray:
+    """The ``.npy`` array in ``f``, or (``axis`` given) this rank's block
+    of that axis (``sharding.local_slices``): a C-ordered array's block is
+    prod(shape[:axis]) runs of bytes, each read after a seek past the
+    rest."""
+    if axis is None:
+        return np.lib.format.read_array(f, allow_pickle=False)
+    version = np.lib.format.read_magic(f)
+    shape, fortran, dtype = {
+        (1, 0): np.lib.format.read_array_header_1_0,
+        (2, 0): np.lib.format.read_array_header_2_0}[version](f)
+    (rows,) = local_slices(("pod",), (shape[axis],), mesh)
+    if fortran:
+        f.seek(0)
+        a = np.lib.format.read_array(f, allow_pickle=False)
+        return a[(slice(None),) * axis + (rows,)]
+    n = rows.stop - rows.start
+    out = np.empty(shape[:axis] + (n,) + shape[axis + 1:], dtype)
+    run = n * math.prod(shape[axis + 1:]) * dtype.itemsize
+    dst, start = memoryview(out.reshape(-1).view(np.uint8)), f.tell()
+    for o in range(math.prod(shape[:axis])):
+        f.seek(start + (o * shape[axis] + rows.start) * (run // n))
+        dst[o * run:(o + 1) * run] = f.read(run)
+    return out
 
 
 def load_meta(path: str, step: Optional[int] = None) -> Dict[str, Any]:

@@ -2,24 +2,27 @@
 port's train step (``repro_torch.launch.steps``), the twin of the
 reference's ``examples/train_lm_decentralized.py``.
 
-Two pods, stacked on one device (the reference spreads them over a
-(pod, data, model) mesh of 8 host devices); the configured strategy
-controls the cross-pod exchange: Gaia's significance filter, FedAvg,
-DGC, BSP, or the D-PSGD/AD-PSGD gossip over a topology fabric (the
-round's operands built on the host, so a step reads nothing back).
-Trains a qwen3-family model cut to d_model 256, 4 layers, vocab 512
-(~10M parameters, float32) on synthetic Markov token streams for a few
-hundred steps and asserts that the loss falls below 5.5 (ln 512 = 6.24
-at random).
+Two pods: stacked on one device, or with ``--procs P`` held by P ranks
+of a process group (``launch.procs.spawn``, one pod a rank at P = 2:
+the reference example's two-pod mesh), whose exchanges are collectives;
+the configured strategy controls the cross-pod exchange: Gaia's
+significance filter, FedAvg, DGC, BSP, or the D-PSGD/AD-PSGD gossip over
+a topology fabric (the round's operands built on the host, so a step
+reads nothing back).  Trains a qwen3-family model cut to d_model 256, 4
+layers, vocab 512 (~10M parameters, float32) on synthetic Markov token
+streams for a few hundred steps and asserts that the loss falls below
+5.5 (ln 512 = 6.24 at random).
 
     python -m repro_torch.examples.train_lm_decentralized [--steps 200]
         [--strategy gaia|bsp|fedavg|dgc|dpsgd|adpsgd] [--topology ring]
         [--staleness 1] [--d-model 256] [--layers 4] [--ckpt DIR]
-        [--device cuda|cpu]
+        [--device cuda|cpu] [--procs P [--backend nccl|gloo]]
 
 The default device is CUDA; ``--device cpu`` runs on the CPU.  With
-``--ckpt`` the pods' params are saved at the end in the reference's
-format (``repro_torch.checkpointing``).
+``--procs`` the ranks use NCCL on the card (one card a rank) and gloo on
+the CPU unless ``--backend`` says otherwise.  With ``--ckpt`` the pods'
+params are saved at the end in the reference's format
+(``repro_torch.checkpointing``; from the ranks, gathered to the first).
 """
 from __future__ import annotations
 
@@ -33,10 +36,14 @@ import numpy as np
 import torch
 
 from repro_torch.checkpointing import save
-from repro_torch.configs.base import CommConfig, FabricConfig, ModelConfig
+from repro_torch.configs.base import (CommConfig, FabricConfig, InputShape,
+                                      ModelConfig)
 from repro_torch.configs.registry import get_config
 from repro_torch.data.synthetic import synth_tokens
 from repro_torch.device import resolve_device
+from repro_torch.launch import procs
+from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.specs import train_batch_specs
 from repro_torch.launch.steps import (GOSSIP_STRATEGIES, STRATEGIES,
                                       gossip_operands, make_train_state,
                                       make_train_step)
@@ -64,6 +71,12 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu")
+    ap.add_argument("--procs", type=int, default=None,
+                    help=f"ranks holding the {N_PODS} pods (default: one "
+                         "process, the pods stacked)")
+    ap.add_argument("--backend", default=None, choices=list(procs.BACKENDS),
+                    help="the ranks' backend: nccl on the card, gloo on the "
+                         "CPU by default")
     return ap.parse_args(argv)
 
 
@@ -79,25 +92,44 @@ def model_config(d_model: int, layers: int) -> ModelConfig:
 
 
 def train(args: argparse.Namespace) -> Dict:
-    """The run: returns {"state", "losses" (host floats, every 20th step
-    and the last), "final_loss", "seconds", "cfg", "comm"}."""
+    """The run: returns {"state" (None from ``--procs`` ranks), "losses"
+    (host floats, every 20th step and the last), "final_loss",
+    "seconds", "cfg", "comm"}."""
     device = resolve_device(args.device)
+    if not args.procs:
+        return _run(args, device)
+    backend = args.backend or ("nccl" if device.type == "cuda" else "gloo")
+    return procs.spawn(_rank, args.procs, backend=backend, device=device,
+                       args=(args,))[0]
+
+
+def _rank(rank: int, device: torch.device, args: argparse.Namespace
+          ) -> Dict:
+    mesh = make_mesh((args.procs, 1, 1), device=device)
+    return {**_run(args, device, mesh), "state": None}
+
+
+def _run(args: argparse.Namespace, device: torch.device, mesh=None) -> Dict:
     cfg = model_config(args.d_model, args.layers)
     comm = CommConfig(strategy=args.strategy,
                       fabric=FabricConfig(topology=args.topology),
                       gaia_t0=0.05, iter_local=10, dgc_sparsity=0.95)
     params = init_model(torch.Generator().manual_seed(0), cfg, device)
-    state = make_train_state(params, comm, N_PODS)
-    data = synth_tokens(512, args.seq + 1, vocab=cfg.vocab, seed=0)
+    state = make_train_state(params, comm, N_PODS, mesh=mesh)
+    # the global batch (every rank draws it; the step takes its rows)
+    (pods, b, T), _ = train_batch_specs(
+        cfg, InputShape("example", args.seq, N_PODS * args.batch_per_pod,
+                        "train"), n_pods=N_PODS)["tokens"]
+    data = synth_tokens(512, T + 1, vocab=cfg.vocab, seed=0)
     rng = np.random.default_rng(0)
 
     def next_batch():
-        idx = rng.integers(0, data.tokens.shape[0],
-                           size=(N_PODS, args.batch_per_pod))
+        idx = rng.integers(0, data.tokens.shape[0], size=(pods, b))
         seqs = torch.from_numpy(data.tokens[idx]).to(device).long()
         return {"tokens": seqs[..., :-1], "labels": seqs[..., 1:]}
 
-    step_fn = make_train_step(cfg, comm, lr=args.lr, remat=False, chunk=64)
+    step_fn = make_train_step(cfg, comm, mesh=mesh, lr=args.lr, remat=False,
+                              chunk=64)
     gossip = args.strategy in GOSSIP_STRATEGIES
     sched = build_demo_schedule(args.topology, N_PODS) if gossip else None
     rounds = {}                 # the period's operands, uploaded once each
@@ -108,9 +140,10 @@ def train(args: argparse.Namespace) -> Dict:
             rounds[key] = gossip_operands(
                 sched, t, staleness=args.staleness
                 if args.strategy == "adpsgd" else None,
-                max_staleness=comm.max_staleness, device=device)
+                max_staleness=comm.max_staleness, device=device, mesh=mesh)
         return rounds[key]
 
+    talk = mesh is None or mesh.pod_rank == 0
     losses = []
     t0 = time.perf_counter()
     for t in range(args.steps):
@@ -118,10 +151,14 @@ def train(args: argparse.Namespace) -> Dict:
         state, metrics = step_fn(state, next_batch(), t, **extra)
         if t % 20 == 0 or t == args.steps - 1:
             losses.append((t, float(metrics["loss"])))
-            print(f"step {t:4d}  loss={losses[-1][1]:.4f}  "
-                  f"({time.perf_counter() - t0:.1f}s)", flush=True)
+            if talk:
+                print(f"step {t:4d}  loss={losses[-1][1]:.4f}  "
+                      f"({time.perf_counter() - t0:.1f}s)", flush=True)
+    seconds = time.perf_counter() - t0
+    if args.ckpt:
+        save(args.ckpt, state["params"], step=args.steps, mesh=mesh)
     return {"state": state, "losses": losses, "final_loss": losses[-1][1],
-            "seconds": time.perf_counter() - t0, "cfg": cfg, "comm": comm}
+            "seconds": seconds, "cfg": cfg, "comm": comm}
 
 
 def main(argv: Optional[Sequence[str]] = None) -> int:
@@ -131,12 +168,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     name = (torch.cuda.get_device_name(device) if device.type == "cuda"
             else "cpu")
     print(f"arch=qwen3-family reduced  params~{cfg.n_params() / 1e6:.1f}M  "
-          f"strategy={args.strategy}  device={name}")
+          f"strategy={args.strategy}  device={name}  "
+          f"ranks={args.procs or 1}")
     run = train(args)
     final = run["final_loss"]
     print(f"done: loss {final:.4f} (random = ln(512) = 6.24)")
     if args.ckpt:
-        save(args.ckpt, run["state"]["params"], step=args.steps)
         print(f"checkpoint written to {args.ckpt}")
     if not final < TARGET_LOSS:
         raise AssertionError(f"LM failed to learn Markov structure: loss "

@@ -93,3 +93,16 @@ def load(name: str) -> ctypes.CDLL:
         build([name])
         lib = _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return lib
+
+
+def load_built() -> None:
+    """Load every kernel's library, built beforehand (by another process:
+    a training rank loads what its parent built rather than compiling a
+    copy beside the others); raises ``RuntimeError`` where one is
+    missing."""
+    missing = [n for n in KERNELS if not library_path(n).exists()]
+    if missing:
+        raise RuntimeError(f"kernel libraries not built: {missing}; run "
+                           "kernels.build.build() before starting the ranks")
+    for n in KERNELS:
+        load(n)

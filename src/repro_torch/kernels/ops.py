@@ -10,7 +10,9 @@ routes, so a bad operand raises on the card as it does on the CPU.
 The ops: ``gaia_select`` and ``gaia_select_many`` (one launch for a list
 of tensors); gossip averaging as ``neighbor_mix_many`` (D-PSGD: every
 leaf of a model in one launch) and ``neighbor_mix_push_many`` (AD-PSGD:
-the stale gather and the snapshot push in one launch), both on
+the stale gather and the snapshot push in one launch), and
+``neighbor_mix_src_many`` (the cross-process gossip: every neighbour row
+from a gathered or received source), all on
 ``MixOperands`` that ``mix_operands`` range-checks once on the host, and
 as the raw one-matrix ``neighbor_mix`` (and its ``src=`` gather), which
 checks its index on the device (one sync a call);
@@ -30,7 +32,8 @@ whose backward is the plain ``ref.flash_attention_bthd_bwd_ref``; outside
 grad mode they run the forward on the inputs detached.
 
 ``launch_gaia_select``, ``launch_neighbor_mix_many``,
-``launch_neighbor_mix_push_many``, ``launch_neighbor_mix``,
+``launch_neighbor_mix_push_many``, ``launch_neighbor_mix_src_many``,
+``launch_neighbor_mix``,
 ``launch_neighbor_mix_src``, ``launch_rand_k_select``,
 ``launch_dgc_topk``, ``launch_group_norm`` and ``launch_flash_attention``
 launch a kernel alone, on operands the op has checked and allocated; the
@@ -118,7 +121,8 @@ _FLASH_BLOCK_Q = 64
 #: launches of each kernel since the count was last set to 0 (the gossip
 #: kernel counts as ``neighbor_mix`` where it gathers from the leaves
 #: themselves, as ``neighbor_mix_src`` where it gathers from a source
-#: buffer: AD-PSGD's push, the raw op's ``src=``)
+#: buffer: AD-PSGD's push, the cross-process gossip's gathered or
+#: received rows, the raw op's ``src=``)
 launches = {"gaia_select": 0, "neighbor_mix": 0, "neighbor_mix_src": 0,
             "rand_k_select": 0, "dgc_sparsify": 0, "abs_histogram_fused": 0,
             "abs_histogram": 0, "dgc_select": 0, "group_norm": 0,
@@ -177,13 +181,20 @@ def _lists(op: str, *lists: Sequence) -> List[list]:
     return out
 
 
-def _check_many(op: str, tensors: Sequence[torch.Tensor]) -> None:
-    """One dtype the kernel takes, every tensor contiguous."""
+def _one_dtype(op: str, tensors: Sequence[torch.Tensor]) -> None:
+    """One dtype across a list a launch takes: checked on both routes, so
+    a list the card would refuse is refused on the CPU too."""
     for t in tensors:
-        _check(op, t, _SUFFIX)
         if t.dtype != tensors[0].dtype:
             raise TypeError(f"{op}: dtypes differ {tensors[0].dtype} vs "
                             f"{t.dtype}")
+
+
+def _check_many(op: str, tensors: Sequence[torch.Tensor]) -> None:
+    """One dtype the kernel takes, every tensor contiguous."""
+    _one_dtype(op, tensors)
+    for t in tensors:
+        _check(op, t, _SUFFIX)
 
 
 def gaia_select(v: torch.Tensor, w: torch.Tensor, threshold
@@ -210,6 +221,8 @@ def gaia_select_many(vs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
         if v.shape != w.shape:
             raise ValueError(f"gaia_select: shapes differ {v.shape} vs "
                              f"{w.shape}")
+    _one_dtype("gaia_select", vs)
+    _one_dtype("gaia_select", ws)
     t = torch.as_tensor(threshold, dtype=torch.float32, device=vs[0].device)
     if _on_cpu(*vs, *ws, t):
         return ref.gaia_select_many_ref(vs, ws, t)
@@ -273,7 +286,9 @@ def mix_operands(nbr_idx: np.ndarray, nbr_w: np.ndarray,
     its snapshot buffer): ``0 <= nbr_idx < n_src`` is checked on these
     arrays, and a failure raises ``ValueError`` before anything reaches
     ``device``; then the arrays are uploaded once, as int32, float32 and
-    float32."""
+    float32.  An empty source (``n_src`` 0: pods that read no neighbour
+    this round) takes only zero weights over padding index 0; the kernel
+    then reads no row and each pod keeps its self term."""
     nbr_idx, nbr_w, self_w = (np.asarray(a) for a in (nbr_idx, nbr_w,
                                                       self_w))
     if nbr_idx.ndim != 2 or nbr_w.shape != nbr_idx.shape or \
@@ -282,10 +297,14 @@ def mix_operands(nbr_idx: np.ndarray, nbr_w: np.ndarray,
             f"mix_operands: shapes nbr_idx {nbr_idx.shape}, nbr_w "
             f"{nbr_w.shape}, self_w {self_w.shape}; want (K, D), (K, D), "
             "(K,)")
-    if nbr_idx.size and (nbr_idx.min() < 0 or nbr_idx.max() >= n_src):
+    if nbr_idx.size and (nbr_idx.min() < 0 or
+                         nbr_idx.max() >= max(n_src, 1)):
         raise ValueError(f"mix_operands: neighbor index outside [0, "
                          f"{n_src}): range [{nbr_idx.min()}, "
                          f"{nbr_idx.max()}]")
+    if n_src == 0 and np.any(nbr_w != 0):
+        raise ValueError("mix_operands: no source rows, but a neighbour "
+                         "weight is not 0")
     idx_t, w_t, sw_t = (
         torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
         for a, dtype in ((nbr_idx, np.int32), (nbr_w, np.float32),
@@ -359,6 +378,7 @@ def neighbor_mix_many(xs: Sequence[torch.Tensor], operands: MixOperands
     if operands.n_src != K:
         raise ValueError(f"neighbor_mix_many: operands index {operands.n_src}"
                          f" source rows, the leaves have {K}")
+    _one_dtype("neighbor_mix_many", xs)
     if _on_cpu(*xs, operands.idx, operands.w, operands.self_w):
         return ref.neighbor_mix_many_ref(xs, operands.idx, operands.w,
                                          operands.self_w)
@@ -397,6 +417,7 @@ def neighbor_mix_push_many(xs: Sequence[torch.Tensor], snaps: torch.Tensor,
     if snaps.dtype != xs[0].dtype:
         raise TypeError(f"neighbor_mix_push_many: snaps dtype {snaps.dtype} "
                         f"differs from the leaves' {xs[0].dtype}")
+    _one_dtype("neighbor_mix_push_many", xs)
     if _on_cpu(*xs, snaps, operands.idx, operands.w, operands.self_w):
         return ref.neighbor_mix_push_many_ref(xs, snaps, operands.idx,
                                               operands.w, operands.self_w)
@@ -406,6 +427,43 @@ def neighbor_mix_push_many(xs: Sequence[torch.Tensor], snaps: torch.Tensor,
     new_snaps = torch.empty_like(snaps)
     launch_neighbor_mix_push_many(xs, snaps, operands, outs, new_snaps)
     return outs, new_snaps
+
+
+def neighbor_mix_src_many(xs: Sequence[torch.Tensor], src: torch.Tensor,
+                          operands: MixOperands) -> List[torch.Tensor]:
+    """Gossip averaging of a list of stacked (K, ...) leaves, one dtype,
+    with every neighbour row from ``src`` (M, N): the leaves' per-node
+    entries side by side in list order (N their sizes summed), so leaf j
+    reads its own columns of src.  Each leaf is mixed as
+    ``neighbor_mix(x_j, operands.idx, operands.w, operands.self_w,
+    src=src[:, off_j:off_j + n_j])``: the self term on x, ``idx`` rows of
+    src, ``operands.n_src`` = M; float32 accumulate, one cast.  This is
+    the cross-process gossip's mix (the rows gathered or received from
+    the other ranks as src).  On the card one launch of the
+    ``neighbor_mix`` kernel (up to 32 leaves a launch), counted as
+    ``neighbor_mix_src``, with no device value read back; on the CPU the
+    plain version loops."""
+    xs, K = _mix_leaves("neighbor_mix_src_many", xs, operands)
+    N = sum(x[0].numel() for x in xs)
+    if src.dim() != 2 or src.shape[1] != N:
+        raise ValueError(f"neighbor_mix_src_many: src {tuple(src.shape)} "
+                         f"must be (M, {N})")
+    if operands.n_src != src.shape[0]:
+        raise ValueError(f"neighbor_mix_src_many: operands index "
+                         f"{operands.n_src} source rows, src has "
+                         f"{src.shape[0]}")
+    if src.dtype != xs[0].dtype:
+        raise TypeError(f"neighbor_mix_src_many: src dtype {src.dtype} "
+                        f"differs from the leaves' {xs[0].dtype}")
+    _one_dtype("neighbor_mix_src_many", xs)
+    if _on_cpu(*xs, src, operands.idx, operands.w, operands.self_w):
+        return ref.neighbor_mix_src_many_ref(xs, src, operands.idx,
+                                             operands.w, operands.self_w)
+    _check_many("neighbor_mix_src_many", xs + [src])
+    _check_mix_operands(operands.idx, operands.w, operands.self_w)
+    outs = [torch.empty_like(x) for x in xs]
+    launch_neighbor_mix_src_many(xs, src, operands, outs)
+    return outs
 
 
 def _mix_leaves(op: str, xs: Sequence[torch.Tensor], operands: MixOperands
@@ -482,6 +540,19 @@ def launch_neighbor_mix_push_many(xs: Sequence[torch.Tensor],
                 snaps=new_snaps)
 
 
+def launch_neighbor_mix_src_many(xs: Sequence[torch.Tensor],
+                                 src: torch.Tensor, operands: MixOperands,
+                                 outs: Sequence[torch.Tensor]) -> None:
+    """Launch the ``neighbor_mix`` kernel as ``neighbor_mix_src_many``
+    does, on operands it checked: every row of ``src`` staged after the
+    leaves' own, each leaf at its column offset."""
+    K = operands.idx.shape[0]
+    offs = np.cumsum([0] + [x.numel() // K for x in xs[:-1]]).tolist()
+    _launch_mix("neighbor_mix_src", xs, outs, offs, operands.idx, operands.w,
+                operands.self_w, src=src, extra=src.shape[0], base=K,
+                n_src=src.shape[0])
+
+
 def launch_neighbor_mix(x: torch.Tensor, nbr_idx: torch.Tensor,
                         nbr_w: torch.Tensor, self_w: torch.Tensor,
                         out: torch.Tensor) -> None:
@@ -552,6 +623,7 @@ def rand_k_sparsify_many(accs: Sequence[torch.Tensor],
         _counter_layout(tuple(a.shape), perm)         # raises on a bad perm
     p = float(np.float32(keep_prob))
     keys = [int(s_) & 0xFFFFFFFF for s_ in seeds]
+    _one_dtype("rand_k_sparsify", accs + vels)
     if _on_cpu(*accs, *vels):
         return ref.rand_k_sparsify_many_ref(accs, vels, p, keys, perms)
     _check_many("rand_k_sparsify", accs + vels)

@@ -216,11 +216,13 @@ def neighbor_mix_padded_ref(x: torch.Tensor, nbr_idx: torch.Tensor,
     matrix and applied as one float32 matmul (padding entries carry
     weight 0, so they scatter nothing).  Neighbour rows come from ``src``
     (M, N) when it is given, else from ``x`` (M = K); the self term is
-    always on ``x``."""
+    always on ``x``; an empty ``src`` (M = 0, every weight 0) adds
+    nothing."""
     rows = x if src is None else src
     W = torch.zeros((x.shape[0], rows.shape[0]), dtype=torch.float32,
                     device=x.device)
-    W.scatter_add_(1, nbr_idx.long(), nbr_w.float())
+    if rows.shape[0]:
+        W.scatter_add_(1, nbr_idx.long(), nbr_w.float())
     out = W @ rows.float() + self_w.float()[:, None] * x.float()
     return out.to(x.dtype)
 
@@ -247,7 +249,17 @@ def neighbor_mix_push_many_ref(xs: Sequence[torch.Tensor],
     K = nbr_idx.shape[0]
     flat = torch.cat([x.reshape(K, -1) for x in xs], dim=1)
     new_snaps = torch.cat([flat[None], snaps[:-1]])
-    src = new_snaps.reshape(-1, flat.shape[1])
+    return (neighbor_mix_src_many_ref(xs, new_snaps.reshape(-1, flat.shape[1]),
+                                      nbr_idx, nbr_w, self_w), new_snaps)
+
+
+def neighbor_mix_src_many_ref(xs: Sequence[torch.Tensor], src: torch.Tensor,
+                              nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
+                              self_w: torch.Tensor) -> List[torch.Tensor]:
+    """``neighbor_mix_padded_ref`` on each stacked (K, ...) leaf with its
+    neighbour rows from its own columns of ``src`` (M, N), the leaves'
+    per-node entries side by side in list order."""
+    K = nbr_idx.shape[0]
     outs, off = [], 0
     for x in xs:
         n = x[0].numel()
@@ -255,7 +267,7 @@ def neighbor_mix_push_many_ref(xs: Sequence[torch.Tensor],
             x.reshape(K, -1), nbr_idx, nbr_w, self_w,
             src[:, off:off + n]).reshape(x.shape))
         off += n
-    return outs, new_snaps
+    return outs
 
 
 def neighbor_mix_ref(x: torch.Tensor, mixing: torch.Tensor) -> torch.Tensor:

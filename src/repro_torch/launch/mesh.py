@@ -1,0 +1,225 @@
+"""The device mesh (``repro.launch.mesh``) over ``torch.distributed``.
+
+The reference's production mesh is (data=16, model=16) on one pod, or
+(pod=2, data=16, model=16) over two.  The ``pod`` axis is the
+decentralized-learning *site* axis: the paper's algorithms control the
+traffic across it, and data and tensor parallelism run inside a pod.
+
+Here a mesh is the default process group (made by
+``torch.distributed.init_process_group`` under ``torchrun``, or by
+``procs.spawn``) laid out pod-major over named axes, one rank a device,
+with one process group along the ``pod`` axis for each (data, model)
+position.  The train step's cross-pod exchanges are collectives on that
+group (``all_reduce``, ``all_gather``, ``all_to_all``), and a checkpoint
+``gather``s the rows to the group's first rank; nothing else is sent.
+Only ``data == model == 1`` is built so far: applying ``sharding.py``'s
+FSDP and TP placements inside a pod is ROADMAP A11b.
+
+``make_production_mesh`` describes the reference's layout without a
+process group (what ``sharding``'s rules read); ``make_mesh`` builds one
+on the running group.
+"""
+from __future__ import annotations
+
+import math
+import socket
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+#: mesh axes, outermost first
+AXES = ("pod", "data", "model")
+
+
+class Mesh:
+    """A named (pod, data, model) layout of ranks: ``shape`` {axis: size}
+    in ``axis_names``' order, this rank's ``coords`` on each axis, its
+    ``device``, and ``pod_group``, the process group of the ranks that
+    share this rank's (data, model) position (None where the mesh only
+    describes a layout, or has no ``pod`` axis)."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
+                 coords: Optional[Sequence[int]] = None, device=None,
+                 pod_group=None):
+        if len(shape) != len(axis_names) or len(set(axis_names)) != len(
+                axis_names) or not set(axis_names) <= set(AXES):
+            raise ValueError(f"mesh axes {tuple(axis_names)} of shape "
+                             f"{tuple(shape)}: want distinct names of {AXES}, "
+                             "one size each")
+        self.axis_names = tuple(axis_names)
+        self.shape = {a: int(n) for a, n in zip(axis_names, shape)}
+        self.coords = dict(zip(self.axis_names, coords or
+                               (0,) * len(self.axis_names)))
+        self.device = None if device is None else torch.device(device)
+        self.pod_group = pod_group
+
+    def __repr__(self) -> str:
+        return (f"Mesh({self.shape}, coords={self.coords}, "
+                f"device={self.device})")
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape.values())
+
+    @property
+    def pod_rank(self) -> int:
+        """This rank's index on the ``pod`` axis (0 without one)."""
+        return self.coords.get("pod", 0)
+
+    # -- the pod group's collectives: the backend takes the tensors where
+    # they lie (gloo stages CUDA tensors through the host itself)
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the pod group, in place; returned."""
+        dist.all_reduce(x, group=self.pod_group)
+        return x
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The pod group's ``x`` (each (L, ...), contiguous) stacked in pod
+        order: (pod size x L, ...), a new tensor."""
+        out = x.new_empty((n_pods(self) * x.shape[0],) + tuple(x.shape[1:]))
+        _all_gather_single()(out, x, group=self.pod_group)
+        return out
+
+    def gather(self, x: torch.Tensor) -> Optional[torch.Tensor]:
+        """The pod group's ``x`` (each (L, ...)) stacked in pod order on the
+        group's first rank, a new tensor there; None on the others.  Gloo
+        gathers host tensors, so under gloo ``x`` is copied to the host
+        first and the result lies there."""
+        if dist.get_backend(self.pod_group) == "gloo":
+            x = x.cpu()
+        x = x.contiguous()
+        first = self.pod_rank == 0
+        parts = ([torch.empty_like(x) for _ in range(n_pods(self))]
+                 if first else None)
+        dist.gather(x, parts, dst=dist.get_global_rank(self.pod_group, 0),
+                    group=self.pod_group)
+        return torch.cat(parts) if first else None
+
+    def all_to_all(self, x: torch.Tensor, in_splits: Sequence[int],
+                   out_splits: Sequence[int]) -> torch.Tensor:
+        """Rows of ``x`` (contiguous; its first ``in_splits[0]`` rows to pod
+        rank 0, the next ``in_splits[1]`` to 1, ...) exchanged over the pod
+        group: the rows each rank sent here, in rank order,
+        ``sum(out_splits)`` of them."""
+        out = x.new_empty((sum(out_splits),) + tuple(x.shape[1:]))
+        dist.all_to_all_single(out, x, list(out_splits), list(in_splits),
+                               group=self.pod_group)
+        return out
+
+    def barrier(self) -> None:
+        """Returns once every rank of the pod group has reached it (a
+        one-element all-reduce on the mesh's device)."""
+        self.all_reduce(torch.zeros(1, device=self.device))
+
+
+def _all_gather_single():
+    """``all_gather_single`` where this PyTorch has it (2.13 names
+    ``all_gather_into_tensor`` so), else ``all_gather_into_tensor``."""
+    return getattr(dist, "all_gather_single", None) or \
+        dist.all_gather_into_tensor
+
+
+# ---------------------------------------------------------------------------
+# The reference's names
+# ---------------------------------------------------------------------------
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The reference's production layout, (2, 16, 16) over (pod, data,
+    model) or (16, 16) over (data, model), as a description: no process
+    group (``sharding``'s rules read its shape)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return Mesh(shape, axes)
+
+
+def mesh_axes(mesh: Mesh) -> tuple:
+    return tuple(mesh.axis_names)
+
+
+def n_pods(mesh: Mesh) -> int:
+    return mesh.shape.get("pod", 1)
+
+
+def devices_per_pod(mesh: Mesh) -> int:
+    """Devices inside one pod: the rank stride of the ``pod`` axis (axes
+    are ordered pod-major)."""
+    return mesh.size // n_pods(mesh)
+
+
+def batch_axes(mesh: Mesh) -> tuple:
+    """Mesh axes the global batch shards over (the data axis; the pod axis
+    is the explicit site dimension)."""
+    return ("data",)
+
+
+# ---------------------------------------------------------------------------
+# A mesh over the running process group
+# ---------------------------------------------------------------------------
+
+def make_mesh(shape: Sequence[int], axes: Sequence[str] = AXES, *,
+              device) -> Mesh:
+    """The mesh of ``shape`` over ``axes`` on the default process group,
+    which must be initialized with ``prod(shape)`` ranks; this rank's
+    coordinates are its rank unravelled pod-major.  Every rank calls it
+    (it makes the pod groups).  ``device`` is this rank's.
+
+    Raises ``ValueError`` for a ``data`` or ``model`` axis above 1 (the
+    intra-pod placements are ROADMAP A11b) and, under NCCL, where two
+    ranks hold one device (NCCL would abort at the first collective)."""
+    if not dist.is_initialized():
+        raise RuntimeError("make_mesh: no process group; call "
+                           "torch.distributed.init_process_group (or run "
+                           "under repro_torch.launch.procs.spawn) first")
+    mesh = Mesh(shape, axes, device=device)
+    inner = {a: n for a, n in mesh.shape.items() if a != "pod" and n > 1}
+    if inner:
+        raise ValueError(f"make_mesh: {inner}: only the pod axis spans "
+                         "ranks so far; the data and model axes (FSDP and "
+                         "TP inside a pod) are ROADMAP A11b")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if mesh.size != world:
+        raise ValueError(f"make_mesh: shape {tuple(shape)} holds {mesh.size} "
+                         f"ranks, the process group {world}")
+    if dist.get_backend() == "nccl":
+        check_devices(_device_ids(mesh.device), "nccl")
+    coords = np.unravel_index(rank, tuple(mesh.shape.values()))
+    mesh.coords = dict(zip(mesh.axis_names, (int(c) for c in coords)))
+    if "pod" in mesh.axis_names:
+        # one group a (data, model) position, every rank making each
+        grid = np.arange(world).reshape(tuple(mesh.shape.values()))
+        pod_axis = mesh.axis_names.index("pod")
+        lines = np.moveaxis(grid, pod_axis, -1).reshape(-1, n_pods(mesh))
+        for line in lines:
+            group = dist.new_group([int(r) for r in line])
+            if rank in line:
+                mesh.pod_group = group
+    return mesh
+
+
+def check_devices(ids: Sequence[Tuple[str, str]], backend: str) -> None:
+    """Raises ``ValueError`` where ``backend`` is NCCL and two ranks'
+    (host, device) identities in ``ids`` (one a rank) are one: NCCL takes
+    one device a rank."""
+    if backend != "nccl":
+        return
+    seen: Dict[Tuple[str, str], int] = {}
+    for r, key in enumerate(ids):
+        if key in seen:
+            raise ValueError(
+                f"NCCL takes one device a rank: ranks {seen[key]} and {r} "
+                f"share {key[1]} on {key[0]}; run one rank a card, or "
+                "choose the gloo backend")
+        seen[key] = r
+
+
+def _device_ids(device) -> List[Tuple[str, str]]:
+    """Every rank's (host, device UUID), gathered over a gloo group."""
+    dev = torch.device(device)
+    props = torch.cuda.get_device_properties(dev)
+    mine = (socket.gethostname(), str(getattr(props, "uuid", dev.index)))
+    out: List = [None] * dist.get_world_size()
+    dist.all_gather_object(out, mine, group=dist.new_group(backend="gloo"))
+    return [tuple(x) for x in out]

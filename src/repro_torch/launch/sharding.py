@@ -1,0 +1,216 @@
+"""Parameter, state, cache and batch placement rules
+(``repro.launch.sharding``), as pure functions.
+
+2D scheme inside each pod: FSDP-style sharding over ``data`` + tensor and
+expert parallelism over ``model``:
+
+- in-projections (d -> heads*hd / ff):     (data, model)   [out-dim TP]
+- out-projections (heads*hd / ff -> d):    (model, data)   [in-dim TP]
+- embedding (vocab, d):                    (model, data)   [vocab TP]
+- MoE stacked experts (E, d, ff):          (model, data, None)  [expert par.]
+- norms / biases / small vectors:          replicated
+- the decentralized-site axis ``pod`` shards the *stacked replica*
+  dimension that ``steps.make_train_state`` prepends.
+
+A spec is what the reference's ``PartitionSpec`` holds: a tuple with one
+entry a dimension (fewer for ``rule_spec``), each a mesh-axis name or
+None.  Rules match on the leaf's path string (``"body/mixer/wq/w"``, the
+reference's ``_path_str``) and rank, so they cover every arch family
+without per-model tables.  The ``*_shardings`` functions return a tree of
+specs shaped like their input.
+
+So far the train step reads the ``pod`` entries alone (which rows of the
+stacked state and batch a rank holds: ``local_slices``); applying the
+``data`` and ``model`` entries is ROADMAP A11b.
+"""
+from __future__ import annotations
+
+import math
+import re
+from typing import Any, Optional, Tuple
+
+import torch
+
+from repro_torch import pytree
+from repro_torch.launch.mesh import Mesh
+
+Spec = Tuple[Optional[str], ...]
+Tree = Any
+
+_OUT_PROJ = r"(wo|down|out_proj|out)"
+
+
+def rule_spec(path: str, shape: Tuple[int, ...]) -> Spec:
+    """The spec of an unstacked leaf at ``path`` of ``shape``: the first
+    rule that matches."""
+    ndim = len(shape)
+    if ndim <= 1 or min(shape) == 1:
+        return ()                                    # scalars/vectors/norms
+    if re.search(r"embed/table$|table$", path):      # embedding / unembed
+        return ("model", "data")
+    if re.search(r"unembed/w$", path):
+        return ("data", "model")
+    # MoE stacked experts (E, d, ff) / (E, ff, d)
+    if re.search(r"ffn/w_(gate|up|down)$", path) and ndim == 3:
+        return ("model", "data", None)
+    # MLA 3D up-projection (r, h, nope+v): shard heads
+    if re.search(r"wukv$", path) and ndim == 3:
+        return (None, "model", None)
+    if re.search(r"conv_w$", path) and ndim == 2:    # conv (K, Ch): channels
+        return (None, "model")
+    # output projections: TP on the input dim
+    if re.search(_OUT_PROJ + r"/w$", path) and ndim == 2:
+        return ("model", "data")
+    # input projections and everything else 2D: TP on the output dim
+    if ndim == 2:
+        return ("data", "model")
+    return ()
+
+
+def _axis_size(mesh: Mesh, ax) -> int:
+    return math.prod(mesh.shape[a] for a in
+                     (ax if isinstance(ax, tuple) else (ax,)))
+
+
+def _clamp_spec(spec: Spec, shape, mesh: Mesh) -> Spec:
+    """Drop sharding on dims the mesh can't divide (tiny reduced configs):
+    one entry a dimension of ``shape``."""
+    out = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape)
+                                                     - len(spec))):
+        if ax is None:
+            out.append(None)
+            continue
+        size = _axis_size(mesh, ax)
+        out.append(ax if dim % size == 0 and dim >= size else None)
+    return tuple(out)
+
+
+def param_shardings(params_shape: Tree, mesh: Mesh, *,
+                    stacked: bool = False,
+                    snap_stacked: bool = False) -> Tree:
+    """The spec tree of a params(-shaped) tree (tensors, ``meta`` ones
+    included).  ``stacked``: the tree has a prepended replica dimension
+    (pod-site stacking in the train state), sharded over ``pod`` when the
+    mesh has that axis.  ``snap_stacked``: a staleness-slot dimension
+    before it as well (AD-PSGD's snapshot buffer), never sharded."""
+    stack_axis = "pod" if (stacked and "pod" in mesh.axis_names) else None
+    out = []
+    for ps, leaf in pytree.leaves_with_paths(params_shape):
+        shape = tuple(leaf.shape)
+        segs = ps.split("/")
+        # scan-stacked layer cycles carry a leading cycle axis
+        cycle_stacked = "body" in segs or "layers" in segs
+        lead: Tuple = ()
+        if snap_stacked:
+            lead += (None,)
+            shape = shape[1:]
+        if stacked:
+            lead += (stack_axis,)
+            shape = shape[1:]
+        if cycle_stacked:
+            lead += (None,)
+            shape = shape[1:]
+        spec = lead + rule_spec(ps, shape)
+        out.append(_clamp_spec(spec, tuple(leaf.shape), mesh))
+    return pytree.unflatten(params_shape, out)
+
+
+def train_state_shardings(state_shape: Tree, mesh: Mesh) -> Tree:
+    """Specs of the launch train state: every entry pod-stacked; AD-PSGD's
+    ``snaps`` carries an unsharded snapshot-slot axis in front."""
+    return {k: param_shardings(v, mesh, stacked=True,
+                               snap_stacked=(k == "snaps"))
+            for k, v in state_shape.items()}
+
+
+def cache_shardings(cache_shape: Tree, mesh: Mesh, *, batch_sharded: bool,
+                    baseline_decode: bool = False) -> Tree:
+    """Decode-cache specs.  KV caches are (B, L, H, hd) (+ an optional
+    leading stacked-cycle axis).  When the batch is big enough it shards
+    over ``data``; for global_batch=1 (long_500k) the cache *length* dim
+    shards over ``data`` instead (sequence sharding).  Attention caches
+    shard their length over ``model`` (flash-decode) unless
+    ``baseline_decode`` (the reference's ``REPRO_BASELINE_DECODE``)."""
+    def spec_for(path: str, shape) -> Spec:
+        nd = len(shape)
+        stacked = path.startswith("body")        # leading cycle axis
+        off = 1 if stacked else 0
+        dims: list = [None] * nd
+        if "pos" in path:                        # (B, L) int positions
+            if batch_sharded:
+                dims[off] = "data"
+            elif nd - off >= 2:
+                dims[off + 1] = "data"
+            return tuple(dims)
+        if nd - off >= 3:                        # kv / ckv / conv / ssd
+            if batch_sharded:
+                dims[off] = "data"
+                if not baseline_decode and any(
+                        t in path for t in ("/k", "/v", "ckv", "krope")):
+                    dims[off + 1] = "model"
+                elif nd - off >= 4:
+                    dims[off + 2] = "model"
+            else:
+                dims[off + 1] = "data"           # shard length/heads dim
+                if nd - off >= 4:
+                    dims[off + 2] = "model"
+        elif nd - off == 2:                      # (B, w) rglru h state
+            if batch_sharded:
+                dims[off] = "data"
+            else:
+                dims[off + 1] = "model"
+        return tuple(dims)
+
+    return pytree.unflatten(cache_shape, [
+        _clamp_spec(spec_for(ps, tuple(leaf.shape)), tuple(leaf.shape), mesh)
+        for ps, leaf in pytree.leaves_with_paths(cache_shape)])
+
+
+def batch_shardings(batch_shape: Tree, mesh: Mesh, *,
+                    pod_stacked: bool) -> Tree:
+    """Input batches: leading (pod?, batch) dims shard over (pod?, data)."""
+    def spec_for(shape) -> Spec:
+        nd = len(shape)
+        dims: list = [None] * nd
+        i = 0
+        if pod_stacked:
+            dims[0] = "pod" if "pod" in mesh.axis_names else None
+            i = 1
+        if nd > i and shape[i] > 1:
+            dims[i] = "data"
+        return tuple(dims)
+    return pytree.tree_map(
+        lambda t: _clamp_spec(spec_for(tuple(t.shape)), tuple(t.shape), mesh),
+        batch_shape)
+
+
+# ---------------------------------------------------------------------------
+# A rank's block
+# ---------------------------------------------------------------------------
+
+def local_slices(spec: Spec, shape, mesh: Mesh) -> Tuple[slice, ...]:
+    """The block of each dimension of a ``shape`` tensor placed by ``spec``
+    that this rank (``mesh.coords``) holds: a dimension sharded over axes
+    of total size n is cut into n equal blocks, the rank's index on those
+    axes (row-major) picking one."""
+    out = []
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape)
+                                                     - len(spec))):
+        if ax is None:
+            out.append(slice(0, dim))
+            continue
+        names = ax if isinstance(ax, tuple) else (ax,)
+        n, i = 1, 0
+        for a in names:
+            n, i = n * mesh.shape[a], i * mesh.shape[a] + mesh.coords[a]
+        if dim % n:
+            raise ValueError(f"dimension {dim} does not split over {names} "
+                             f"({n} ranks)")
+        out.append(slice(i * dim // n, (i + 1) * dim // n))
+    return tuple(out)
+
+
+def local_block(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """This rank's block of ``t`` (a view) as ``spec`` places it."""
+    return t[local_slices(spec, tuple(t.shape), mesh)]

@@ -1,32 +1,54 @@
 """Train and serve steps of the LM (``repro.launch.steps``), with the
 paper's communication strategies as a stage of the train step.
 
-On one card the decentralized sites ("pods") are the train state's
-stacked leading axis, as the reference's state is pod-stacked: each pod
-trains its own replica on its own batch, and the cross-pod exchange is a
-reduction over axis 0, or a gossip kernel over its rows:
+The decentralized sites ("pods") are the train state's stacked leading
+axis, as the reference's state is pod-stacked: each pod trains its own
+replica on its own batch.  Without a mesh every pod lies on one card.
+With a ``mesh`` (``launch.mesh.make_mesh``, one or more ranks along its
+``pod`` axis) a rank holds its own block of L = n_pods / (pod-axis size)
+pods, the block the ``pod`` entry of ``sharding.train_state_shardings``
+and ``batch_shardings`` places on it, and every cross-pod exchange is
+local work on those rows plus a collective on the pod group
+(``make_exchange``):
 
-  bsp:    grads averaged across pods every step
-  gaia:   |accumulated update| > T |weight| (``ops.gaia_select_many``),
-          the selections summed across pods; T = t0 * lr / lr0 (lr0
-          defaults to the construction-time lr)
+  bsp:    grads averaged across pods every step: a float32 sum of the
+          local rows, ``all_reduce`` of the sum, / n_pods, one cast
+  gaia:   |accumulated update| > T |weight| (``ops.gaia_select_many`` on
+          the local rows), the selections summed across pods the same
+          way; T = t0 * lr / lr0 (lr0 defaults to the construction-time
+          lr)
   fedavg: params averaged across pods every ``iter_local`` steps
   dgc:    per-pod global-norm clip, momentum correction, then the
           256-bin histogram top-s% of each pod's accumulated update
-          (``ops.dgc_sparsify``, one launch a (pod, leaf)), summed
+          (``ops.dgc_sparsify``, one launch a (local pod, leaf)), summed
           across pods
-  dpsgd:  gossip over a ``TopologySchedule`` fabric
-          (``ops.neighbor_mix_many``: self weight plus weighted
-          neighbours, float32 accumulate, one cast)
+  dpsgd:  gossip over a ``TopologySchedule`` fabric: self weight plus
+          weighted neighbours, float32 accumulate, one cast.  On one
+          card ``ops.neighbor_mix_many`` over the stacked rows; on a mesh
+          every pod's rows of a dtype group gathered (``all_gather``:
+          P - 1 models in, as the reference's ring ships P - 1
+          rotations), then ``ops.neighbor_mix_src_many`` with the self
+          term on the local rows and the neighbours from the gathered
+          ones
   adpsgd: the same, each neighbour read from a bounded-staleness
-          snapshot buffer that the same launch pushes
-          (``ops.neighbor_mix_push_many``)
+          snapshot buffer.  On one card ``ops.neighbor_mix_push_many``
+          pushes and gathers in one launch; on a mesh each rank pushes
+          its own rows, ships each reading rank the rows that rank reads
+          of it (``all_to_all``: one model a (source, destination) pair,
+          the reference's wire volume) and mixes the received rows with
+          ``ops.neighbor_mix_src_many``
 
-The step reads nothing back from the card: ``step_idx``, ``lr`` and
-``sparsity`` are host numbers, the gossip operands are checked on the
-host when ``gossip_operands`` builds them, and every metric is a tensor.
-The reference's mesh (``pod`` axis, shard_map and ppermute ring) waits
-for the port's distributed backend (ROADMAP A11).
+The two routes compute one function: the same float32 sums (the
+reduction's order aside: with two pods each sum is one addition) and the
+same kernel arithmetic on the same rows.  Without a mesh the gossip keeps
+its fused one-card kernels: the mesh route over a group of one would add
+the flatten and gather, or the pick and all-to-all, copies to the same
+function (``chip_smoke.py`` phase 12(d) times both).  The step reads
+nothing back from the card: ``step_idx``, ``lr`` and ``sparsity`` are
+host numbers, the gossip operands (the all-to-all's routing too) are
+built and checked on the host by ``gossip_operands``, and every metric is
+a tensor.  The reference's intra-pod ``data`` and ``model`` placements
+wait for ROADMAP A11b.
 
 The kernels take leaves of one dtype a launch, so a model whose leaves
 mix dtypes (bf16 weights, float32 norms) gets one launch a dtype group:
@@ -35,7 +57,8 @@ of ``csrc/gaia_select.cu``, against float32 weights the other.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Union
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -44,7 +67,10 @@ from repro_torch import pytree
 from repro_torch.configs.base import CommConfig, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import dgc_topk, ops
-from repro_torch.models.model import decode_step, forward, loss_fn
+from repro_torch.launch import sharding
+from repro_torch.launch.mesh import Mesh, n_pods as mesh_pods
+from repro_torch.models.model import (decode_step, forward, init_cache,
+                                      init_model, loss_fn)
 from repro_torch.models.transformer import lm_decode
 from repro_torch.topology.graphs import Topology, TopologySchedule, as_schedule
 
@@ -67,20 +93,34 @@ def dtype_groups(leaves: List[torch.Tensor]) -> Dict[torch.dtype, List[int]]:
     return groups
 
 
-def make_train_state(params, comm: CommConfig, n_pods: int) -> Dict:
-    """The pod-stacked train state of ``params`` (one replica's tree):
-    ``"params"``, every leaf copied to (n_pods, ...); ``"vel"``, float32
-    zeros of that shape; ``"acc"`` (gaia, dgc), the same; for adpsgd
-    ``"snaps"``, the bounded-staleness snapshot buffer: for each dtype of
-    the leaves (``"bfloat16"``, ``"float32"``) one (max_staleness + 1,
-    n_pods, N) tensor of that dtype, the pod's leaves of the dtype
-    flattened side by side in the reference's leaf order (N their sizes
-    summed), every slot the stacked params.  The reference keeps one
-    (max_staleness + 1, n_pods, ...) buffer a leaf; this is the layout
-    ``ops.neighbor_mix_push_many`` pushes and gathers in one launch.  Slot
-    0 holds the newest round."""
-    stack = lambda t: t.unsqueeze(0).repeat((n_pods,) + (1,) * t.dim())
-    zeros = lambda t: torch.zeros((n_pods,) + tuple(t.shape),
+def local_pods(n_pods: int, mesh: Optional[Mesh] = None) -> range:
+    """The pods this rank holds: the block of a pod-stacked axis of
+    ``n_pods`` that the ``pod`` entry of the state's and the batch's
+    shardings places on it (every pod without a mesh).  Raises
+    ``ValueError`` where the pod axis does not split ``n_pods``."""
+    if mesh is None:
+        return range(n_pods)
+    (rows,) = sharding.local_slices(("pod",), (n_pods,), mesh)
+    return range(rows.start, rows.stop)
+
+
+def make_train_state(params, comm: CommConfig, n_pods: int, *,
+                     mesh: Optional[Mesh] = None) -> Dict:
+    """The pod-stacked train state of ``params`` (one replica's tree), the
+    rank's L = ``len(local_pods(n_pods, mesh))`` rows of it (all n_pods
+    without a mesh): ``"params"``, every leaf copied to (L, ...);
+    ``"vel"``, float32 zeros of that shape; ``"acc"`` (gaia, dgc), the
+    same; for adpsgd ``"snaps"``, the bounded-staleness snapshot buffer:
+    for each dtype of the leaves (``"bfloat16"``, ``"float32"``) one
+    (max_staleness + 1, L, N) tensor of that dtype, the pod's leaves of
+    the dtype flattened side by side in the reference's leaf order (N
+    their sizes summed), every slot the stacked params.  The reference
+    keeps one (max_staleness + 1, n_pods, ...) buffer a leaf; this is the
+    layout the gossip kernel pushes and gathers in one launch.  Slot 0
+    holds the newest round."""
+    rows = len(local_pods(n_pods, mesh))
+    stack = lambda t: t.unsqueeze(0).repeat((rows,) + (1,) * t.dim())
+    zeros = lambda t: torch.zeros((rows,) + tuple(t.shape),
                                   dtype=torch.float32, device=t.device)
     state = {"params": pytree.tree_map(stack, params),
              "vel": pytree.tree_map(zeros, params)}
@@ -90,46 +130,92 @@ def make_train_state(params, comm: CommConfig, n_pods: int) -> Dict:
         leaves = pytree.leaves(state["params"])
         state["snaps"] = {
             pytree.dtype_name(dt): torch.cat(
-                [leaves[i].reshape(n_pods, -1) for i in idx], dim=1
+                [leaves[i].reshape(rows, -1) for i in idx], dim=1
             )[None].repeat(comm.max_staleness + 1, 1, 1)
             for dt, idx in dtype_groups(leaves).items()}
     return state
+
+
+def param_shape(cfg: ModelConfig):
+    """The parameter tree of ``cfg`` as ``meta`` tensors (shapes and
+    dtypes, nothing allocated): what ``sharding``'s rules read."""
+    return init_model(None, cfg, "meta")
+
+
+def cache_shape(cfg: ModelConfig, global_batch: int, seq_len: int,
+                long_mode: bool = False):
+    """The decode cache of ``make_serve_step`` as ``meta`` tensors."""
+    return init_cache(cfg, global_batch, seq_len, long_mode, device="meta")
+
+
+def train_state_shape(cfg: ModelConfig, comm: CommConfig, n_pods: int
+                      ) -> Dict:
+    """The whole pod-stacked train state as ``meta`` tensors."""
+    return make_train_state(param_shape(cfg), comm, n_pods)
 
 
 # ---------------------------------------------------------------------------
 # Gossip fabric plumbing
 # ---------------------------------------------------------------------------
 
-class GossipOperands(NamedTuple):
-    """A gossip round's operands on the device: ``mix``, what the gossip
-    kernel reads, range-checked on the host: the reference's padded
-    ``nbr_idx`` (dpsgd), or ``stale * K + nbr_idx`` into the ((S + 1) K)
-    rows of the snapshot buffer (adpsgd), with its ``nbr_w`` and
-    ``self_w``; and for adpsgd ``stale``, (K, D) int32, the staleness slot
-    of each read (0 on padding)."""
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """AD-PSGD's all-to-all on a mesh, built on the host: ``send`` (int64,
+    on the device), the rows of this rank's pushed snapshot buffer,
+    viewed ((S + 1) L, N), that it ships, grouped by destination pod rank
+    (``in_splits[r]`` rows to rank r); ``out_splits[r]`` rows come from
+    rank r, in rank order."""
+    send: torch.Tensor
+    in_splits: Tuple[int, ...]
+    out_splits: Tuple[int, ...]
+
+
+@dataclasses.dataclass(frozen=True)
+class GossipOperands:
+    """A gossip round's operands on the device.  ``mix``, what the gossip
+    kernel reads for this rank's pods, range-checked on the host: the
+    reference's padded ``nbr_idx`` into the stacked rows (dpsgd), or
+    ``stale * K + nbr_idx`` into the ((S + 1) K) rows of the snapshot
+    buffer (adpsgd), with its ``nbr_w`` and ``self_w``; on a mesh the
+    index names rows of the gathered pods (dpsgd) or of the received rows
+    (adpsgd).  ``mean_degree``: active neighbours a pod over every pod,
+    float32 0-d; for adpsgd (None for dpsgd) ``mean_staleness``, the
+    reads' mean staleness slot, and on a mesh ``route``, its
+    all-to-all."""
     mix: ops.MixOperands
-    stale: Optional[torch.Tensor] = None
+    mean_degree: torch.Tensor
+    mean_staleness: Optional[torch.Tensor] = None
+    route: Optional[Route] = None
 
 
 def gossip_operands(fabric: Union[Topology, TopologySchedule], t: int, *,
                     pad_degree: Optional[int] = None,
                     staleness: Optional[int] = None,
                     max_staleness: Optional[int] = None,
-                    device=None) -> GossipOperands:
+                    device=None, mesh: Optional[Mesh] = None
+                    ) -> GossipOperands:
     """Round ``t``'s mix operands for the gossip train step, on ``device``
     (CUDA by default), padded to the schedule-wide max degree (or
     ``pad_degree``), so every round of a rotating schedule has one shape.
     With ``staleness`` (adpsgd) the reads of slot ``staleness`` of a
     buffer of ``max_staleness + 1`` slots; a staleness outside [0,
     max_staleness], or none given with it, raises ``ValueError``, as a
-    slot outside the buffer cannot be read.  Built and checked on the
-    host, uploaded once: a step that takes them reads nothing back."""
+    slot outside the buffer cannot be read.  With ``mesh``, this rank's
+    pods' operands (``local_pods``) and, for adpsgd, the all-to-all's
+    routing.  Built and checked on the host, uploaded once: a step that
+    takes them reads nothing back."""
     device = resolve_device(device)
     sched = as_schedule(fabric)
     idx, w, sw = sched.neighbor_arrays(int(t), pad_degree=pad_degree)
     K = idx.shape[0]
+    on = w > 0
+    f32 = lambda x: torch.tensor(x, dtype=torch.float32, device=device)
+    degree = f32(on.sum() / K)
+    rows = np.asarray(local_pods(K, mesh))
     if staleness is None:
-        return GossipOperands(ops.mix_operands(idx, w, sw, K, device))
+        # dpsgd: the index names stacked rows, on a mesh the gathered ones
+        return GossipOperands(ops.mix_operands(idx[rows], w[rows], sw[rows],
+                                               K, device), degree)
     if max_staleness is None:
         raise ValueError(
             "staleness needs max_staleness (= comm.max_staleness, the "
@@ -139,10 +225,55 @@ def gossip_operands(fabric: Union[Topology, TopologySchedule], t: int, *,
             f"staleness {staleness} outside the snapshot buffer bound "
             f"[0, {max_staleness}] fixed at construction "
             "(comm.max_staleness)")
-    stale = np.where(w > 0, int(staleness), 0).astype(np.int32)
+    stale = np.where(on, int(staleness), 0).astype(np.int32)
+    common = dict(mean_degree=degree,
+                  mean_staleness=f32((stale * on).sum() / max(on.sum(), 1)))
+    if mesh is None:
+        return GossipOperands(
+            ops.mix_operands(stale * K + idx, w, sw, (max_staleness + 1) * K,
+                             device), **common)
+    route, recv_idx, n_recv = _adpsgd_route(idx, on, stale, mesh)
     return GossipOperands(
-        ops.mix_operands(stale * K + idx, w, sw, (max_staleness + 1) * K,
-                         device), torch.from_numpy(stale).to(device))
+        ops.mix_operands(recv_idx, w[rows], sw[rows], n_recv, device),
+        route=Route(torch.from_numpy(route[0]).to(device), route[1],
+                    route[2]), **common)
+
+
+def _adpsgd_route(idx: np.ndarray, on: np.ndarray, stale: np.ndarray,
+                  mesh: Mesh):
+    """AD-PSGD's exchange on a mesh, from the round's (K, D) operands:
+    every rank reads, for its pods, the rows (source pod j, slot s) of
+    its active entries, each pair once; the rank holding pod j sends
+    them, rank by rank, in (j, s) order.  Returns ((send rows into this
+    rank's pushed ((S + 1) L, N) buffer, in_splits, out_splits), this
+    rank's (L, D) index into the rows it receives, their count).  A rank
+    whose pods read no neighbour this round (the odd pod out of a random
+    matching) receives no row: its count is 0, and it still takes part
+    in the all-to-all."""
+    K = idx.shape[0]
+    G = mesh_pods(mesh)
+    L, me = K // G, mesh.pod_rank
+    reads = [sorted({(int(idx[k, d]), int(stale[k, d]))
+                     for k in range(r * L, (r + 1) * L)
+                     for d in range(idx.shape[1]) if on[k, d]})
+             for r in range(G)]
+    send, in_splits = [], []
+    for dest in range(G):
+        mine = [s * L + j - me * L for j, s in reads[dest] if j // L == me]
+        send += mine
+        in_splits.append(len(mine))
+    at, out_splits = {}, []
+    for src in range(G):
+        got = [(j, s) for j, s in reads[me] if j // L == src]
+        for pair in got:
+            at[pair] = len(at)
+        out_splits.append(len(got))
+    rows = range(me * L, (me + 1) * L)
+    recv_idx = np.array([[at[(int(idx[k, d]), int(stale[k, d]))]
+                          if on[k, d] else 0 for d in range(idx.shape[1])]
+                         for k in rows], dtype=np.int32)
+    return ((np.array(send, dtype=np.int64), tuple(in_splits),
+             tuple(out_splits)), recv_idx, len(at))
 
 
 # ---------------------------------------------------------------------------
@@ -174,51 +305,181 @@ def hist_threshold(v: torch.Tensor, sparsity, n_bins: int = 256
 
 
 # ---------------------------------------------------------------------------
+# The cross-pod exchange
+# ---------------------------------------------------------------------------
+
+def make_exchange(comm: CommConfig, *, mesh: Optional[Mesh] = None,
+                  lr: float = 1e-3, lr0: Optional[float] = None
+                  ) -> Callable:
+    """Returns ``exchange(parts, step_idx=0, mix=None, lr=None,
+    sparsity=None) -> parts``, the train step's cross-pod exchange on
+    this rank's rows (every pod's without a mesh).  ``parts`` maps names
+    to lists of stacked (L, ...) leaves in ``pytree.leaves``' order, as
+    the strategy takes them after the local momentum step (bsp: before
+    it), and the result holds the new lists:
+
+      bsp     {"grads"} -> the pods' mean gradient, each row
+      fedavg  {"params"} -> the pods' mean at a sync step, else as given
+      gaia    {"params", "acc"} -> params plus the other pods' selected
+              updates, acc with the selection taken out
+      dgc     {"params", "acc", "vel"} (params before the step) -> params
+              plus every pod's selection, acc and vel masked
+      dpsgd   {"params"} -> mixed
+      adpsgd  {"params", "snaps"} -> mixed, and the pushed buffer
+
+    Sums across pods are float32: the local rows' sum, then (on a mesh)
+    one ``all_reduce`` of every leaf's sum in one buffer; the gossip
+    reads the gathered or received rows (module docstring).  ``lr``
+    drives Gaia's threshold (T = t0 lr / lr0), ``sparsity`` overrides
+    ``comm.dgc_sparsity``, ``mix`` is the round's ``gossip_operands``."""
+    if comm.strategy not in STRATEGIES:
+        raise ValueError(f"unknown strategy {comm.strategy!r}; known: "
+                         f"{STRATEGIES}")
+    group = 1 if mesh is None else mesh_pods(mesh)
+    lr_static, lr_ref = lr, (lr if lr0 is None else lr0)
+
+    def pod_sum(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each float32 (L, ...) tensor summed over every pod: (1, ...)."""
+        sums = [x.sum(0, keepdim=True) for x in xs]
+        if mesh is None:
+            return sums
+        flat = mesh.all_reduce(torch.cat([x.reshape(-1) for x in sums]))
+        return [f.view(x.shape) for f, x in
+                zip(flat.split([x.numel() for x in sums]), sums)]
+
+    def mean(xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        n = xs[0].shape[0] * group
+        return [(m / n).to(x.dtype).expand_as(x) for m, x in
+                zip(pod_sum([x.float() for x in xs]), xs)]
+
+    def by_dtype(fn, xs, *rest):
+        """``fn`` on each dtype group of ``xs`` (and the same leaves of
+        ``rest``), its per-leaf results back in leaf order."""
+        out = [None] * len(xs)
+        for idx in dtype_groups(xs).values():
+            for i, y in zip(idx, fn([xs[i] for i in idx],
+                                    *([r[i] for i in idx] for r in rest))):
+                out[i] = y
+        return out
+
+    def flat_rows(xs, out=None):
+        """The (L, ...) leaves' rows side by side: (L, N), into ``out``."""
+        return torch.cat([x.reshape(x.shape[0], -1) for x in xs], dim=1,
+                         out=out)
+
+    def exchange(parts, step_idx=0, mix=None, lr=None, sparsity=None):
+        strategy = comm.strategy
+        if strategy == "bsp":
+            return {"grads": mean(parts["grads"])}
+        params = parts["params"]
+        if strategy == "fedavg":
+            il = comm.iter_local
+            if int(step_idx) % il != il - 1:
+                return {"params": params}
+            return {"params": [m.contiguous() for m in mean(params)]}
+        if strategy == "gaia":
+            acc = parts["acc"]
+            # a fill on the device, not a copy from the host, which would
+            # wait for the card
+            lr_t = lr_static if lr is None else lr
+            thresh = torch.full((), comm.gaia_t0 * (lr_t / lr_ref),
+                                dtype=torch.float32, device=params[0].device)
+            sel = by_dtype(lambda w, a: ops.gaia_select_many(a, w, thresh)[0],
+                           params, acc)
+            return {"params": [(w.float() + (t - s_)).to(w.dtype) for w, t, s_
+                               in zip(params, pod_sum(sel), sel)],
+                    "acc": [a * (s_ == 0) for a, s_ in zip(acc, sel)]}
+        if strategy == "dgc":
+            acc, vel = parts["acc"], parts["vel"]
+            s = comm.dgc_sparsity if sparsity is None else sparsity
+            sel = [torch.stack([ops.dgc_sparsify(a[i], s)[0]
+                                for i in range(a.shape[0])]) for a in acc]
+            keep = [s_ == 0 for s_ in sel]
+            return {"params": [(w.float() + t).to(w.dtype) for w, t in
+                               zip(params, pod_sum(sel))],
+                    "acc": [a * k for a, k in zip(acc, keep)],
+                    "vel": [u * k for u, k in zip(vel, keep)]}
+        if strategy == "dpsgd":
+            if mesh is None:
+                return {"params": by_dtype(
+                    lambda xs: ops.neighbor_mix_many(xs, mix.mix), params)}
+            return {"params": by_dtype(lambda xs: ops.neighbor_mix_src_many(
+                xs, mesh.all_gather(flat_rows(xs)), mix.mix), params)}
+        snaps, out = {}, [None] * len(params)
+        for dt, idx in dtype_groups(params).items():
+            name = pytree.dtype_name(dt)
+            xs = [params[i] for i in idx]
+            if mesh is None:
+                ys, snaps[name] = ops.neighbor_mix_push_many(
+                    xs, parts["snaps"][name], mix.mix)
+            else:
+                # the push into a new buffer, the fused kernel's traffic:
+                # slot 0 this round's rows, slot s the old slot s - 1
+                old = parts["snaps"][name]
+                snaps[name] = new = torch.empty_like(old)
+                new[1:].copy_(old[:-1])
+                flat_rows(xs, out=new[0])
+                r = mix.route
+                sent = snaps[name].flatten(0, 1).index_select(0, r.send)
+                ys = ops.neighbor_mix_src_many(
+                    xs, mesh.all_to_all(sent, r.in_splits, r.out_splits),
+                    mix.mix)
+            for i, y in zip(idx, ys):
+                out[i] = y
+        return {"params": out, "snaps": snaps}
+
+    return exchange
+
+
+# ---------------------------------------------------------------------------
 # Train step
 # ---------------------------------------------------------------------------
 
 def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
-                    lr: float = 1e-3, lr0: Optional[float] = None,
-                    momentum: float = 0.9, weight_decay: float = 0.0,
-                    remat: bool = True, chunk: int = 512) -> Callable:
+                    mesh: Optional[Mesh] = None, lr: float = 1e-3,
+                    lr0: Optional[float] = None, momentum: float = 0.9,
+                    weight_decay: float = 0.0, remat: bool = True,
+                    chunk: int = 512) -> Callable:
     """Returns ``train_step(state, batch, step_idx, mix=None, lr=None,
     sparsity=None) -> (state, metrics)``, a new state (the old one is not
-    written).  ``batch`` leaves are (n_pods, b, ...) (``"tokens"``,
-    ``"labels"``, and ``"patches"`` or ``"frames"`` where the arch reads
-    them).
+    written).  ``state`` holds this rank's L pods (``make_train_state``
+    with the same ``mesh``); ``batch`` leaves are the global (n_pods, b,
+    ...) ones (``"tokens"``, ``"labels"``, and ``"patches"`` or
+    ``"frames"`` where the arch reads them), of which the step takes the
+    rank's rows.
 
-    The pods' forwards run in turn, each pod's ``loss_fn`` on its own
-    views of the stacked leaves, and one ``torch.autograd.grad`` of the
-    summed losses lands each pod's gradient in its own row.  Then a
+    The local pods' forwards run in turn, each pod's ``loss_fn`` on its
+    own views of the stacked leaves, and one ``torch.autograd.grad`` of
+    the summed losses lands each pod's gradient in its own row.  Then a
     per-pod momentum step (float32 velocity) and the strategy's exchange
-    (the module docstring).  ``metrics``: ``"loss"`` (the mean over
-    pods), and for dpsgd and adpsgd ``"mean_degree"`` and
-    ``"comm_floats"`` (per-pod floats sent: one model a neighbour), for
-    adpsgd ``"mean_staleness"``; each a float32 0-d tensor.
+    (``make_exchange``; the step calls ``train_step.exchange``, which a
+    check may wrap).  ``metrics``: ``"loss"`` (the mean over every pod,
+    the same on every rank), and for dpsgd and adpsgd ``"mean_degree"``
+    and ``"comm_floats"`` (per-pod floats sent: one model a neighbour),
+    for adpsgd ``"mean_staleness"``; each a float32 0-d tensor.
 
     Runtime operands: ``step_idx`` an int (fedavg's sync step); ``mix``
-    the round's ``gossip_operands`` (dpsgd, adpsgd: required); ``lr`` a
-    host number overriding the static ``lr`` (it drives Gaia's threshold
-    decay); ``sparsity`` a host number overriding ``comm.dgc_sparsity``.
+    the round's ``gossip_operands`` for this mesh (dpsgd, adpsgd:
+    required); ``lr`` a host number overriding the static ``lr`` (it
+    drives Gaia's threshold decay); ``sparsity`` a host number
+    overriding ``comm.dgc_sparsity``.
     """
-    if comm.strategy not in STRATEGIES:
-        raise ValueError(f"unknown strategy {comm.strategy!r}; known: "
-                         f"{STRATEGIES}")
+    exchange = make_exchange(comm, mesh=mesh, lr=lr, lr0=lr0)
     lr_static = lr
     gossip = comm.strategy in GOSSIP_STRATEGIES
+    group = 1 if mesh is None else mesh_pods(mesh)
 
-    def pod_grads(state, batch):
-        """(losses (n_pods,), grads): each leaf's gradient (n_pods, ...)
-        in its dtype, in ``pytree.leaves``' order."""
+    def pod_grads(params, batch):
+        """(losses (L,), grads): each leaf's gradient (L, ...) in its
+        dtype, in ``pytree.leaves``' order."""
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_()
-                      for t in pytree.leaves(state["params"])]
-            params = pytree.unflatten(state["params"], leaves)
-            n_pods = leaves[0].shape[0]
+                      for t in pytree.leaves(params)]
+            tree = pytree.unflatten(params, leaves)
             losses = torch.stack([
-                loss_fn(pytree.tree_map(lambda t: t[i], params), cfg,
+                loss_fn(pytree.tree_map(lambda t: t[i], tree), cfg,
                         {k: v[i] for k, v in batch.items()}, remat=remat,
-                        chunk=chunk)[0] for i in range(n_pods)])
+                        chunk=chunk)[0] for i in range(leaves[0].shape[0])])
             grads = torch.autograd.grad(losses.sum(), leaves)
         return losses.detach(), list(grads)
 
@@ -233,11 +494,23 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
         return ([(w.float() + u).to(w.dtype) for w, u in zip(params, vel)],
                 vel)
 
-    def check_mix(mix, n_pods):
+    def local_batch(batch, n_pods):
+        """The rank's rows of the global batch, by ``batch_shardings``."""
+        got = {k: v.shape[0] for k, v in batch.items()}
+        if set(got.values()) != {n_pods}:
+            raise ValueError(f"batch leaves {got} must lead with the "
+                             f"{n_pods} pods (the global batch)")
+        if mesh is None:
+            return batch
+        specs = sharding.batch_shardings(batch, mesh, pod_stacked=True)
+        return {k: sharding.local_block(v, specs[k], mesh)
+                for k, v in batch.items()}
+
+    def check_mix(mix, rows):
         if mix is None:
             raise ValueError(f"{comm.strategy} needs the round's "
                              "gossip_operands(...) as the mix argument")
-        if (mix.stale is None) != (comm.strategy == "dpsgd"):
+        if (mix.mean_staleness is None) != (comm.strategy == "dpsgd"):
             raise ValueError(
                 f"{comm.strategy} takes " + (
                     "gossip_operands(..., staleness=, max_staleness=), the "
@@ -245,58 +518,49 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
                     if comm.strategy == "adpsgd" else
                     "gossip_operands(...) without staleness (dpsgd reads "
                     "are fresh)"))
-        if mix.mix.idx.shape[0] != n_pods:
+        if mix.mix.idx.shape[0] != rows or (
+                comm.strategy == "adpsgd" and (mix.route is None) != (
+                    mesh is None)):
             raise ValueError(
-                f"gossip operands are for {mix.mix.idx.shape[0]} nodes but "
-                f"the state has {n_pods} pods: build the schedule over the "
-                "pod count")
+                f"gossip operands are for {mix.mix.idx.shape[0]} pods "
+                f"{'with' if mix.route is not None else 'without'} a route, "
+                f"the state has {rows}: build them over the pod count, with "
+                "the step's mesh")
 
     def train_step(state, batch, step_idx, mix=None, lr=None,
                    sparsity=None):
         lr_t = lr_static if lr is None else lr
         p0 = pytree.leaves(state["params"])
-        n_pods = p0[0].shape[0]
+        rows = p0[0].shape[0]
+        n_pods = rows * group
+        batch = local_batch(batch, n_pods)
         if gossip:
-            check_mix(mix, n_pods)
+            check_mix(mix, rows)
         vel0 = pytree.leaves(state["vel"])
-        losses, grads = pod_grads(state, batch)
-        metrics = {"loss": losses.mean()}
+        losses, grads = pod_grads(state["params"], batch)
+        loss = losses.sum(0, keepdim=True)
+        if mesh is not None:
+            mesh.all_reduce(loss)
+        metrics = {"loss": loss.reshape(()) / n_pods}
         out = lambda leaves: pytree.unflatten(state["params"], leaves)
+        ex = train_step.exchange
 
         if comm.strategy == "bsp":
-            g = [x.float().mean(0, keepdim=True).to(x.dtype).expand_as(x)
-                 for x in grads]
+            g = ex({"grads": grads})["grads"]
             params, vel = local_sgd(p0, g, vel0, lr_t)
             return {"params": out(params), "vel": out(vel)}, metrics
 
         if comm.strategy == "fedavg":
             params, vel = local_sgd(p0, grads, vel0, lr_t)
-            il = comm.iter_local
-            if int(step_idx) % il == il - 1:
-                params = [t.float().mean(0, keepdim=True).to(t.dtype)
-                          .expand_as(t).contiguous() for t in params]
+            params = ex({"params": params}, step_idx=step_idx)["params"]
             return {"params": out(params), "vel": out(vel)}, metrics
 
         if comm.strategy == "gaia":
             params, vel = local_sgd(p0, grads, vel0, lr_t)
             acc = [a + u for a, u in zip(pytree.leaves(state["acc"]), vel)]
-            # a fill on the device, not a copy from the host, which would
-            # wait for the card
-            thresh = torch.full((), comm.gaia_t0 * (
-                lr_t / (lr_static if lr0 is None else lr0)),
-                dtype=torch.float32, device=p0[0].device)
-            sel = [None] * len(acc)
-            for idx in dtype_groups(params).values():
-                outs, _ = ops.gaia_select_many([acc[i] for i in idx],
-                                               [params[i] for i in idx],
-                                               thresh)
-                for i, s_ in zip(idx, outs):
-                    sel[i] = s_
-            new_p = [(w.float() + (s_.sum(0, keepdim=True) - s_)
-                      ).to(w.dtype) for w, s_ in zip(params, sel)]
-            acc = [a * (s_ == 0) for a, s_ in zip(acc, sel)]
-            return {"params": out(new_p), "vel": out(vel),
-                    "acc": out(acc)}, metrics
+            new = ex({"params": params, "acc": acc}, lr=lr_t)
+            return {"params": out(new["params"]), "vel": out(vel),
+                    "acc": out(new["acc"])}, metrics
 
         if comm.strategy == "dgc":
             sq = 0
@@ -314,47 +578,26 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
                     g = g + weight_decay * w.float()
                 vel.append(momentum * u + (-lr_t) * g)
             acc = [a + u for a, u in zip(pytree.leaves(state["acc"]), vel)]
-            s = comm.dgc_sparsity if sparsity is None else sparsity
-            new_p, new_acc, new_vel = [], [], []
-            for w, a, u in zip(p0, acc, vel):
-                sel = torch.stack([ops.dgc_sparsify(a[i], s)[0]
-                                   for i in range(n_pods)])
-                keep = sel == 0
-                new_p.append((w.float() + sel.sum(0, keepdim=True)
-                              ).to(w.dtype))
-                new_acc.append(a * keep)
-                new_vel.append(u * keep)
-            return {"params": out(new_p), "vel": out(new_vel),
-                    "acc": out(new_acc)}, metrics
+            new = ex({"params": p0, "acc": acc, "vel": vel},
+                     sparsity=sparsity)
+            return {"params": out(new["params"]), "vel": out(new["vel"]),
+                    "acc": out(new["acc"])}, metrics
 
         # gossip: the per-pod price is one model an active neighbour this
         # round (padding entries carry weight 0)
         params, vel = local_sgd(p0, grads, vel0, lr_t)
-        nbr_on = (mix.mix.w > 0).float()
-        mean_degree = nbr_on.sum() / n_pods
-        metrics["mean_degree"] = mean_degree
-        metrics["comm_floats"] = mean_degree * (
-            float(sum(t.numel() for t in p0)) / n_pods)
-        groups = dtype_groups(params)
-        mixed = [None] * len(params)
+        metrics["mean_degree"] = mix.mean_degree
+        metrics["comm_floats"] = mix.mean_degree * (
+            float(sum(t.numel() for t in p0)) / rows)
         if comm.strategy == "dpsgd":
-            for idx in groups.values():
-                for i, y in zip(idx, ops.neighbor_mix_many(
-                        [params[i] for i in idx], mix.mix)):
-                    mixed[i] = y
-            return {"params": out(mixed), "vel": out(vel)}, metrics
-        snaps = {}
-        for dt, idx in groups.items():
-            name = pytree.dtype_name(dt)
-            ys, snaps[name] = ops.neighbor_mix_push_many(
-                [params[i] for i in idx], state["snaps"][name], mix.mix)
-            for i, y in zip(idx, ys):
-                mixed[i] = y
-        metrics["mean_staleness"] = (mix.stale * nbr_on).sum() / \
-            nbr_on.sum().clamp_min(1.0)
-        return {"params": out(mixed), "vel": out(vel), "snaps": snaps}, \
-            metrics
+            new = ex({"params": params}, mix=mix)
+            return {"params": out(new["params"]), "vel": out(vel)}, metrics
+        new = ex({"params": params, "snaps": state["snaps"]}, mix=mix)
+        metrics["mean_staleness"] = mix.mean_staleness
+        return {"params": out(new["params"]), "vel": out(vel),
+                "snaps": new["snaps"]}, metrics
 
+    train_step.exchange = exchange
     return train_step
 
 

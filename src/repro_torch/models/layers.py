@@ -176,7 +176,10 @@ def make_norm(kind: str, dim: int, device=None):
 def init_normal(gen: torch.Generator, shape, std: float, dtype, device
                 ) -> torch.Tensor:
     """float32 normals of ``std`` drawn on the generator's device, then
-    cast to ``dtype`` on ``device``."""
+    cast to ``dtype`` on ``device``; on the ``meta`` device, the shape
+    and dtype alone, nothing drawn."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=gen, device=gen.device) * std
     return w.to(device=resolve_device(device), dtype=dtype)
 

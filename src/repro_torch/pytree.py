@@ -10,7 +10,7 @@ cycle views come out in the same order.
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, List
+from typing import Any, Callable, Iterator, List, Tuple
 
 import torch
 
@@ -20,6 +20,48 @@ Tree = Any
 def leaves(tree: Tree) -> List[torch.Tensor]:
     """The leaves of ``tree`` in ``jax.tree_util.tree_leaves``' order."""
     return list(_walk(tree))
+
+
+def leaves_with_paths(tree: Tree) -> List[Tuple[str, torch.Tensor]]:
+    """(path, leaf) pairs in ``leaves``' order, each path the dict keys
+    and list or tuple indices from the root joined by ``/`` (the
+    reference's ``sharding._path_str`` of
+    ``jax.tree_util.tree_flatten_with_path``'s path)."""
+    return list(_walk_paths(tree, ()))
+
+
+def _walk_paths(tree: Tree, path: Tuple[str, ...]
+                ) -> Iterator[Tuple[str, torch.Tensor]]:
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk_paths(tree[k], path + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _walk_paths(v, path + (str(i),))
+    else:
+        yield "/".join(path), tree
+
+
+def leaves_like(tree: Tree, like: Tree) -> List[Any]:
+    """The entries of ``tree`` at the places of ``like``'s leaves, in
+    ``leaves``' order: the leaves of a tree whose own leaves may be
+    containers (``sharding``'s spec tuples) by its tensor twin."""
+    return list(_walk_like(tree, like))
+
+
+def _walk_like(tree: Tree, like: Tree) -> Iterator[Any]:
+    if like is None:
+        return
+    if isinstance(like, dict):
+        for k in sorted(like):
+            yield from _walk_like(tree[k], like[k])
+    elif isinstance(like, (list, tuple)):
+        for t, v in zip(tree, like):
+            yield from _walk_like(t, v)
+    else:
+        yield tree
 
 
 def _walk(tree: Tree) -> Iterator[torch.Tensor]:

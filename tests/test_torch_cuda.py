@@ -1088,3 +1088,208 @@ def test_lm_train_step_on_card_matches_cpu(dev, strategy):
                     (~flip[i].any(dim=0)).expand(b.shape)
             torch.testing.assert_close(a.cpu()[ok], b[ok], rtol=0,
                                        atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("topology,K", [("ring", 5), ("random", 16)])
+@pytest.mark.parametrize("cfg_name", GOSSIP_CFGS)
+def test_neighbor_mix_src_many_kernel_matches_ref(dev, cfg_name, topology, K,
+                                                  dtype, tol):
+    """The cross-process gossip's mix: every neighbour row from a (2K, N)
+    source, one launch counted as ``neighbor_mix_src``."""
+    xs = _zoo_leaves(cfg_name, K, dev, dtype, 0)
+    N = sum(x[0].numel() for x in xs)
+    src = _randn((2 * K, N), 98).to(dev, dtype)
+    mix = _gossip_operands(topology, K, 1, 2 * K, dev)
+    before = ops.launches["neighbor_mix_src"]
+    outs = ops.neighbor_mix_src_many(xs, src, mix)
+    assert ops.launches["neighbor_mix_src"] == before + 1
+    expect = ref.neighbor_mix_src_many_ref(xs, src, mix.idx, mix.w,
+                                           mix.self_w)
+    for o, e, x in zip(outs, expect, xs):
+        assert o.dtype == dtype and o.shape == x.shape
+        torch.testing.assert_close(o.float(), e.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_neighbor_mix_src_many_kernel_with_no_source_row(dev, dtype):
+    """Pods that read no neighbour (an empty (0, N) source, every weight
+    0, as AD-PSGD's receiver whose pod a random matching left out): one
+    launch, each leaf its self term, bit for bit with the plain version."""
+    xs = _zoo_leaves("gn-lenet", 1, dev, dtype, 5)
+    N = sum(x[0].numel() for x in xs)
+    mix = ops.mix_operands(np.zeros((1, 1)), np.zeros((1, 1)), np.ones(1),
+                           0, dev)
+    src = torch.empty((0, N), device=dev, dtype=dtype)
+    before = ops.launches["neighbor_mix_src"]
+    outs = ops.neighbor_mix_src_many(xs, src, mix)
+    assert ops.launches["neighbor_mix_src"] == before + 1
+    expect = ref.neighbor_mix_src_many_ref(xs, src, mix.idx, mix.w,
+                                           mix.self_w)
+    for o, e, x in zip(outs, expect, xs):
+        assert torch.equal(o, e) and torch.equal(o, x)
+
+
+def _three_rank_matching(rank, dev, dtype):
+    """One gloo rank of three on the card: AD-PSGD's and D-PSGD's exchange
+    over every round of a random matching of the 3 pods (one pod left out
+    a round: its rank receives no row) against the one-card exchange;
+    True where every round's row is the same bit for bit."""
+    import dataclasses
+    from repro_torch import pytree
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((3, 1, 1), device=dev)
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                              dtype=dtype)
+    like = pytree.leaves(model.init_model(torch.Generator().manual_seed(0),
+                                          cfg, "cpu"))
+    rs = np.random.default_rng(4)
+    params = [torch.from_numpy(rs.standard_normal((3,) + tuple(t.shape))
+                               .astype(np.float32) * 0.1).to(dev, t.dtype)
+              for t in like]
+    sched = build_schedule("random-matching", 3)
+    same = True
+    for strategy in steps.GOSSIP_STRATEGIES:
+        comm = CommConfig(strategy=strategy,
+                          fabric=FabricConfig(topology="random-matching"))
+        S1 = comm.max_staleness + 1
+        snaps = {pytree.dtype_name(dt): torch.from_numpy(rs.standard_normal(
+                     (S1, 3, sum(like[i].numel() for i in idx))).astype(
+                     np.float32)).to(dev, dt)
+                 for dt, idx in steps.dtype_groups(like).items()}
+        kw = ({"staleness": 1, "max_staleness": comm.max_staleness}
+              if strategy == "adpsgd" else {})
+        for t in range(sched.period):
+            full = {"params": params}
+            mine = {"params": [p[rank:rank + 1] for p in params]}
+            if strategy == "adpsgd":
+                full["snaps"] = snaps
+                mine["snaps"] = {k: v[:, rank:rank + 1].contiguous()
+                                 for k, v in snaps.items()}
+            want = steps.make_exchange(comm)(full, mix=steps.gossip_operands(
+                sched, t, device=dev, **kw))
+            got = steps.make_exchange(comm, mesh=mesh)(
+                mine, mix=steps.gossip_operands(sched, t, device=dev,
+                                                mesh=mesh, **kw))
+            same = same and all(
+                torch.equal(g, w[rank:rank + 1]) for g, w in
+                zip(got["params"], want["params"]))
+            if strategy == "adpsgd":
+                same = same and all(torch.equal(got["snaps"][k], v[:, rank:
+                                                                  rank + 1])
+                                    for k, v in want["snaps"].items())
+    return same
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_three_gloo_ranks_on_the_card_gossip_with_a_pod_left_out(dev, dtype):
+    """Three gloo ranks on the card over a random matching: every round one
+    rank's pod reads no neighbour (AD-PSGD's all-to-all hands it no row,
+    its mix launches over an empty source) and every rank's rows equal the
+    one-card exchange's, bit for bit."""
+    from repro_torch.launch import procs
+    assert all(procs.spawn(_three_rank_matching, 3, backend="gloo",
+                           device=dev, timeout=300, args=(dtype,)))
+
+
+def _two_rank_checkpoint(rank, dev, path):
+    """One gloo rank of two on the card: an AD-PSGD train state of seeded
+    values on the card, this rank's rows saved through the mesh (each
+    leaf gathered to rank 0 through the host) and restored; True where
+    the restore is the rank's rows and rank 0's checkpoint equals the
+    one-card checkpoint of the whole state, array for array."""
+    import dataclasses
+    import os
+    from repro_torch import checkpointing as ckpt
+    from repro_torch import pytree
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2, 1, 1), device=dev)
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                              dtype="bfloat16")
+    comm = CommConfig(strategy="adpsgd")
+    shape = steps.train_state_shape(cfg, comm, 2)
+    specs = sharding.train_state_shardings(shape, mesh)
+    g = torch.Generator().manual_seed(6)
+    full = pytree.tree_map(lambda t: torch.randn(
+        tuple(t.shape), generator=g).to(dev, t.dtype), shape)
+    axes = [s.index("pod") for s in pytree.leaves_like(specs, full)]
+    mine = pytree.unflatten(full, [
+        t.narrow(ax, rank, 1).contiguous()
+        for t, ax in zip(pytree.leaves(full), axes)])
+    ckpt.save(os.path.join(path, "ranks"), mine, step=1, mesh=mesh,
+              specs=specs)
+    back = ckpt.restore(os.path.join(path, "ranks"),
+                        pytree.tree_map(torch.empty_like, mine), step=1,
+                        mesh=mesh, specs=specs)
+    ok = all(x.device == y.device and torch.equal(x, y) for x, y in
+             zip(pytree.leaves(back), pytree.leaves(mine)))
+    if rank == 0:
+        one = ckpt.restore(ckpt.save(os.path.join(path, "one_card"), full,
+                                     step=1), pytree.tree_map(
+            torch.empty_like, full))
+        both = ckpt.restore(os.path.join(path, "ranks"), pytree.tree_map(
+            torch.empty_like, full), step=1)
+        ok = ok and all(torch.equal(x, y) for x, y in zip(
+            pytree.leaves(one), pytree.leaves(both)))
+    return ok
+
+
+def test_two_gloo_ranks_on_the_card_checkpoint(dev, tmp_path):
+    """A checkpoint of CUDA rows written by two gloo ranks on the card is
+    the one-card checkpoint of the stacked state, and each rank restores
+    its own rows."""
+    from repro_torch.launch import procs
+    assert all(procs.spawn(_two_rank_checkpoint, 2, backend="gloo",
+                           device=dev, timeout=300, args=(str(tmp_path),)))
+
+
+def _two_rank_exchange(rank, dev, strategy, dtype):
+    """One gloo rank of two on the card: the exchange of ``strategy`` on
+    its row of seeded stacked inputs (the reduced qwen3's leaves) against
+    the one-card exchange of all the rows; True where its row is the same
+    bit for bit."""
+    import dataclasses
+    from repro_torch import pytree
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2, 1, 1), device=dev)
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                              dtype=dtype)
+    like = pytree.leaves(model.init_model(torch.Generator().manual_seed(0),
+                                          cfg, "cpu"))
+    rs = np.random.default_rng(3)
+    full = [torch.from_numpy(rs.standard_normal((2,) + tuple(t.shape))
+                             .astype(np.float32) * 0.1).to(dev, t.dtype)
+            for t in like]
+    key = "grads" if strategy == "bsp" else "params"
+    comm = CommConfig(strategy=strategy, fabric=FabricConfig(topology="ring"))
+    mix = {}
+    if strategy == "dpsgd":
+        sched = build_schedule("ring", 2)
+        mix = {"mix": steps.gossip_operands(sched, 0, device=dev)}
+        mine = {"mix": steps.gossip_operands(sched, 0, device=dev,
+                                             mesh=mesh)}
+    want = steps.make_exchange(comm)({key: full}, **mix)[key]
+    launches = ops.launches["neighbor_mix_src"]
+    got = steps.make_exchange(comm, mesh=mesh)(
+        {key: [t[rank:rank + 1] for t in full]},
+        **(mine if strategy == "dpsgd" else {}))[key]
+    assert ops.launches["neighbor_mix_src"] == launches + (
+        strategy == "dpsgd") * len(steps.dtype_groups(like))
+    return all(torch.equal(g, w[rank:rank + 1]) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("strategy", ["bsp", "dpsgd"])
+def test_two_gloo_ranks_on_the_card_exchange_bit_for_bit(dev, strategy,
+                                                         dtype):
+    """Two gloo ranks on the one card (``procs.spawn``): bsp's float32
+    all-reduce and dpsgd's gather and ``neighbor_mix_src_many`` launch
+    give each rank its rows of the one-card exchange (``neighbor_mix_many``
+    for dpsgd), bit for bit."""
+    from repro_torch.launch import procs
+    assert all(procs.spawn(_two_rank_exchange, 2, backend="gloo",
+                           device=dev, timeout=300, args=(strategy, dtype)))
