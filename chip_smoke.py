@@ -261,7 +261,27 @@ before the last line is printed:
    syncs a step; then dpsgd's and adpsgd's exchange on full-width inputs
    through both routes on the one card (the one-card route's fused
    kernels, the mesh route at world size 1), timed, bit for bit with
-   each other.  A rank's failure fails the phase.
+   each other.  A rank's failure fails the phase;
+13. the intra-pod axes (``launch.procs.spawn``, eight gloo ranks on the
+   card, one CUDA context each, ``launch.mesh.make_mesh`` over (pod,
+   data, model) = (2, 2, 2): each pod over 2 data ranks (FSDP) and 2
+   model ranks (tensor parallelism)): (a) a float32 4-layer cut of
+   qwen3-0.6b at full width (TF32 off), one step of each strategy on
+   phase 12's global batch against the one-card step that each rank runs
+   in turn: the gathered params and velocities within 1e-5 relative L2
+   (for gaia and dgc, whose selections may flip an entry at the
+   threshold, the exchange's inputs), the mesh exchange on the one-card
+   step's own inputs bit for bit (DGC's sharded leaves through
+   ``abs_histogram`` summed over the ranks and ``dgc_select``), 0 host
+   syncs, the launches a rank (8 ``flash_attention``, 8 ``abs_histogram``
+   and 8 ``dgc_select`` beside 5 ``dgc_sparsify`` for dgc); (b) full
+   depth, bf16, remat, bsp and dpsgd, 2 x 1024 tokens a pod, one warm-up
+   and 3 timed steps: the slower rank's ms a step, tokens/s, peak memory
+   a rank, host syncs, launches a step a rank (56 ``flash_attention`` at
+   (1, 1024, 8 over 4, 128)); (c) (b)'s bsp params saved on the mesh,
+   each rank's blocks restored on the mesh, and the checkpoint restored
+   on one device, each rank's blocks of it equal to that rank's state
+   (SHA-256 of the bytes).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -274,6 +294,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -1876,6 +1897,501 @@ def dist_phase(dev: torch.device):
     summary["src_many"] = mix_t
     summary["wall_s"] = time.perf_counter() - t_phase
     print(f"phase 12: {summary['wall_s']:.2f} s")
+    return summary, kern
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: the intra-pod axes
+# ---------------------------------------------------------------------------
+
+#: phase 13, a pod split over a data x model grid of ranks: eight gloo
+#: ranks on the one card, mesh (pod, data, model) = (2, 2, 2), one CUDA
+#: context each.  (a) a float32 INTRA_CUT-layer cut at full width, one
+#: step of each strategy against the one-card step (relative L2 of the
+#: gathered params and velocities within INTRA_L2_TOL; the exchange on the
+#: one-card step's own inputs bit for bit); (b) full depth, bf16, remat,
+#: INTRA_TIMED strategies, 2 x 1024 tokens a pod, one warm-up and
+#: TRAIN_STEPS timed steps; (c) (b)'s bsp params saved on the mesh and
+#: restored on one device
+INTRA_MESH, INTRA_CUT, INTRA_L2_TOL = (2, 2, 2), 4, 1e-5
+#: strategies whose exchange selects entries by a threshold: an entry at
+#: it may fall either side where the sharded sums round otherwise, so
+#: their state after the step is reported, and the step held by its
+#: exchange's inputs (within INTRA_L2_TOL) and by the exchange on the
+#: one-card inputs (bit for bit); the others by the state (bsp's inputs
+#: are gradients, whose relative L2 is the rounding of their own sums)
+INTRA_SELECTS = ("gaia", "dgc")
+INTRA_TIMED = ("bsp", "dpsgd")
+INTRA_TIMEOUT = 900
+
+
+def _sha(t) -> str:
+    """The SHA-256 of a tensor's bytes (bf16 as its 16-bit patterns)."""
+    import hashlib
+    t = t.detach().contiguous().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.numpy().tobytes()).hexdigest()
+
+
+def _intra_blocks(tree_leaves, specs, mesh, rows):
+    """This rank's blocks of stacked one-card leaves: its pods' ``rows``
+    and its ``data`` and ``model`` blocks (``specs``: the unstacked
+    leaves'), contiguous copies."""
+    from repro_torch.launch import sharding
+    return [sharding.local_block(t_[rows], (None,) + tuple(s_), mesh)
+            .contiguous() for t_, s_ in zip(tree_leaves, specs)]
+
+
+def intra_rank(rank: int, dev: torch.device, ckpt_dir: str) -> dict:
+    """One gloo rank of phase 13 (``procs.spawn``).  Returns host numbers;
+    a failed check raises."""
+    from repro_torch import checkpointing as ckpt
+    from repro_torch import pytree
+    from repro_torch.configs.base import CommConfig, FabricConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.topology.graphs import build_demo_schedule
+    import torch.distributed as dist
+    t_rank = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    mesh = make_mesh(INTRA_MESH, device=dev, cfg=cfg)
+    world = dist.get_world_size()
+    pods = lsteps.local_pods(TRAIN_PODS, mesh)
+    rows = slice(pods.start, pods.stop)
+    sched = build_demo_schedule("ring", TRAIN_PODS)
+    batches = _dist_batches(dev, TRAIN_STEPS + 1)
+    out = {"rank": rank, "coords": mesh.coords, "cut": {}, "timed": {}}
+
+    def comm_of(strategy):
+        return CommConfig(strategy=strategy,
+                          fabric=FabricConfig(topology="ring"),
+                          **dict(TRAIN_RUNS)[strategy])
+
+    def operands(comm, mesh_):
+        if comm.strategy not in lsteps.GOSSIP_STRATEGIES:
+            return {}
+        return {"mix": lsteps.gossip_operands(
+            sched, 0, device=dev, mesh=mesh_, **({
+                "staleness": TRAIN_STALENESS,
+                "max_staleness": comm.max_staleness}
+                if comm.strategy == "adpsgd" else {}))}
+
+    def recording(step):
+        """``step`` with its exchange's (parts, kwargs, result) kept."""
+        calls, ex = [], step.exchange
+
+        def recorded(parts, **kw_):
+            got_ = ex(parts, **kw_)
+            calls.append((parts, kw_, got_))
+            return got_
+        step.exchange = recorded
+        return calls
+
+    # (a) a float32 cut at full width (TF32 off), one step each way
+    cfg32 = dataclasses.replace(cfg, n_layers=INTRA_CUT, dtype="float32")
+    p32 = lm.init_model(torch.Generator(device=dev).manual_seed(0), cfg32,
+                        dev)
+    specs = sharding.leaf_specs(p32, mesh)
+    like = pytree.leaves(p32)
+    with tf32_off():
+        for strategy, _ in TRAIN_RUNS:
+            comm = comm_of(strategy)
+            # the one-card step, one rank at a time on the card: this
+            # rank keeps its blocks of the new state and of the step's
+            # exchange (inputs and result)
+            for turn in range(world):
+                if turn == rank:
+                    step = lsteps.make_train_step(cfg32, comm, lr=TRAIN_LR,
+                                                  remat=True)
+                    calls = recording(step)
+                    new, _ = step(lsteps.make_train_state(p32, comm,
+                                                          TRAIN_PODS),
+                                  batches[0], 1, **operands(comm, None))
+                    (parts, kw_, got), = calls
+                    want = {k_: _intra_blocks(pytree.leaves(new[k_]), specs,
+                                              mesh, rows)
+                            for k_ in ("params", "vel")}
+                    ex_in = {k_: _intra_blocks(v_, specs, mesh, rows)
+                             for k_, v_ in parts.items() if k_ != "snaps"}
+                    ex_out = {k_: _intra_blocks(v_, specs, mesh, rows)
+                              for k_, v_ in got.items() if k_ != "snaps"}
+                    if "snaps" in parts:
+                        ex_in["snaps"] = _intra_snaps(parts["snaps"], like,
+                                                      specs, mesh, rows)
+                        ex_out["snaps"] = _intra_snaps(got["snaps"], like,
+                                                       specs, mesh, rows)
+                    # held on the host through the other ranks' turns: a
+                    # block kept on the card would pin the segment of the
+                    # one-card step's memory it was cut from
+                    kept = pytree.tree_map(lambda t_: t_.cpu(),
+                                           (want, ex_in, ex_out))
+                    # the step refers to itself (its closure reads
+                    # ``train_step.exchange``), so only the collector
+                    # frees it and the recorded tensors
+                    calls.clear()
+                    del step, calls, new, parts, got, want, ex_in, ex_out
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                dist.barrier()
+            want, ex_in, ex_out = pytree.tree_map(lambda t_: t_.to(dev),
+                                                  kept)
+            del kept
+            # the mesh step on the same weights and batch
+            for k_ in ops.launches:
+                ops.launches[k_] = 0
+            step = lsteps.make_train_step(cfg32, comm, mesh=mesh,
+                                          lr=TRAIN_LR, remat=True)
+            exchange = step.exchange
+            calls = recording(step)
+            kw_mesh = operands(comm, mesh)
+            box = [lsteps.make_train_state(p32, comm, TRAIN_PODS, mesh=mesh)]
+            syncs = count_syncs(lambda: box.append(step(
+                box.pop(), batches[0], 1, **kw_mesh)))
+            mine, _ = box[0]
+            launches = {k_: c_ for k_, c_ in ops.launches.items() if c_}
+            # the state after the step, and the exchange's inputs (what
+            # the forward, backward and local step computed), each rank's
+            # blocks against the one-card step's: sums of squares
+            sums = {"state": _sq_diff(
+                [t_ for k_ in ("params", "vel")
+                 for t_ in pytree.leaves(mine[k_])],
+                [t_ for k_ in ("params", "vel") for t_ in want[k_]]),
+                "inputs": _sq_diff(pytree.leaves(calls[0][0]),
+                                   pytree.leaves(ex_in))}
+            calls.clear()
+            del step, box, mine, want, calls
+            gc.collect()
+            torch.cuda.empty_cache()
+            # the mesh exchange on the one-card step's own inputs
+            got = exchange(ex_in, **{**kw_, **kw_mesh})
+            n_el, differ = 0, 0
+            for g_, w_ in zip(pytree.leaves(got), pytree.leaves(ex_out)):
+                n_el += w_.numel()
+                differ += _differ(g_.contiguous(), w_)
+            out["cut"][strategy] = {
+                "sums": sums, "syncs": syncs, "launches": launches,
+                "elements": n_el, "differ": differ}
+            del ex_in, ex_out, got, exchange
+            gc.collect()
+            torch.cuda.empty_cache()
+            if rank == 0:
+                print(f"phase 13 rank 0: (a) {strategy} done at "
+                      f"{time.perf_counter() - t_rank:.1f} s", flush=True)
+    del p32
+    torch.cuda.empty_cache()
+
+    # (b) full depth, bf16, remat: timed steps
+    base = lm.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                         dev)
+    for strategy in INTRA_TIMED:
+        comm = comm_of(strategy)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = lsteps.make_train_step(cfg, comm, mesh=mesh, lr=TRAIN_LR,
+                                      remat=True)
+        kw = operands(comm, mesh)
+        box = [lsteps.make_train_state(base, comm, TRAIN_PODS, mesh=mesh),
+               None]
+        losses = []
+
+        def one(i):
+            box[0], box[1] = step(box[0], batches[i], i, **kw)
+            losses.append(box[1]["loss"])
+        one(0)
+        torch.cuda.synchronize()
+        for k_ in ops.launches:
+            ops.launches[k_] = 0
+        times, syncs, blocked = [], None, None
+        for i in range(1, TRAIN_STEPS + 1):
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            if i == 1:              # the first timed step: its collectives
+                with _timed_collectives() as blocked:
+                    one(i)
+            elif i < TRAIN_STEPS:
+                one(i)
+            else:
+                syncs = count_syncs(lambda: one(i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_step = {k_: c_ / TRAIN_STEPS for k_, c_ in ops.launches.items()
+                    if c_}
+        r = {"losses": [float(x_) for x_ in losses], "wall_ms": times,
+             "median_ms": float(np.median(times)),
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "syncs_per_step": syncs, "launches_per_step": per_step,
+             "collectives": blocked,
+             "finite": all(bool(torch.isfinite(t_).all())
+                           for t_ in pytree.leaves(box[0]["params"]))}
+        if strategy == "bsp":
+            # (c) the params saved on the mesh, each rank's blocks
+            # restored bit for bit and fingerprinted for the parent's
+            # one-device restore
+            state = box[0]["params"]
+            pspecs = sharding.train_state_shardings(
+                lsteps.train_state_shape(cfg, comm, TRAIN_PODS),
+                mesh)["params"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ckpt.save(ckpt_dir, state, step=TRAIN_STEPS, mesh=mesh,
+                      specs=pspecs)
+            r["save_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            back = ckpt.restore(ckpt_dir, pytree.tree_map(torch.empty_like,
+                                                          state),
+                                step=TRAIN_STEPS, mesh=mesh, specs=pspecs)
+            torch.cuda.synchronize()
+            r["restore_s"] = time.perf_counter() - t0
+            r["restored_equal"] = all(torch.equal(x_, y_) for x_, y_ in zip(
+                pytree.leaves(back), pytree.leaves(state)))
+            r["sha"] = [_sha(t_) for t_ in pytree.leaves(state)]
+            del back, state
+        out["timed"][strategy] = r
+        del box, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            print(f"phase 13 rank 0: (b) {strategy} timed at "
+                  f"{time.perf_counter() - t_rank:.1f} s", flush=True)
+    return out
+
+
+def _sq_diff(got, want):
+    """(sum of squared differences, sum of squares of ``want``) over
+    pairs of tensors, in float64, 2**24 entries at a time (eight ranks
+    share the card)."""
+    num, den = 0.0, 0.0
+    for g_, w_ in zip(got, want, strict=True):
+        for a_, b_ in zip(g_.reshape(-1).split(1 << 24),
+                          w_.reshape(-1).split(1 << 24), strict=True):
+            b_ = b_.double()
+            num += float((a_.double() - b_).square().sum())
+            den += float(b_.square().sum())
+    return num, den
+
+
+@contextlib.contextmanager
+def _timed_collectives():
+    """``torch.distributed``'s collectives wrapped for the block: a dict
+    of the calls made (``calls``), the bytes of their input tensors
+    (``bytes``) and the host's wall ms inside them (``ms``), summed over
+    every thread (the backward's run on the autograd engine's).  Gloo
+    returns from a call once its transfer is done, so ``ms`` is the time
+    the rank waits on the wire and on its slower peers."""
+    import threading
+    import torch.distributed as dist
+    out, lock, saved = {"calls": 0, "bytes": 0, "ms": 0.0}, \
+        threading.Lock(), {}
+    names = ("all_reduce", "all_gather_into_tensor", "all_gather_single",
+             "reduce_scatter_tensor", "reduce_scatter_single",
+             "all_to_all_single")
+    for name_ in names:
+        fn_ = getattr(dist, name_, None)
+        if fn_ is None:
+            continue
+        saved[name_] = fn_
+
+        def timed(*args, _fn=fn_, **kw):
+            x_ = args[1] if len(args) > 1 and isinstance(
+                args[1], torch.Tensor) else args[0]     # the input
+            n_ = x_.numel() * x_.element_size()
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                with lock:
+                    out["calls"] += 1
+                    out["bytes"] += n_
+                    out["ms"] += (time.perf_counter() - t0) * 1e3
+        setattr(dist, name_, timed)
+    try:
+        yield out
+    finally:
+        for name_, fn_ in saved.items():
+            setattr(dist, name_, fn_)
+
+
+def _intra_snaps(snaps, like, specs, mesh, rows):
+    """This rank's layout of one-card snapshot buffers: each dtype
+    group's (S + 1, n_pods, N) buffer cut back into the leaves ``like``
+    (whole, unstacked), each leaf's pods and blocks taken, and laid side
+    by side again (``steps.make_train_state``'s layout on a mesh)."""
+    from repro_torch import pytree
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as lsteps
+    out = {}
+    for dt_, idx in lsteps.dtype_groups(like).items():
+        buf = snaps[pytree.dtype_name(dt_)][:, rows]
+        parts = buf.split([like[i].numel() for i in idx], dim=2)
+        out[pytree.dtype_name(dt_)] = torch.cat([
+            sharding.local_block(p_.reshape(p_.shape[:2] + like[i].shape),
+                                 (None, None) + tuple(specs[i]), mesh)
+            .reshape(p_.shape[0], p_.shape[1], -1)
+            for p_, i in zip(parts, idx)], dim=2)
+    return out
+
+
+def intra_phase(dev: torch.device):
+    """Phase 13: the intra-pod axes.  The parent empties its CUDA cache,
+    ``procs.spawn`` starts eight gloo ranks on the card (``intra_rank``),
+    then the parent restores (c)'s checkpoint on the one device and
+    checks each rank's blocks of it; every check is gated here.  Returns
+    (summary, the kernels' phase 13 figures by kernel name)."""
+    from repro_torch import checkpointing as ckpt
+    from repro_torch import pytree
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import procs, sharding
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch.mesh import AXES, Mesh
+    import shutil
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cfg = get_config("qwen3-0.6b")
+    ckpt_dir = str(ROOT / "build" / "intra_ckpt")
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    n_ranks = int(np.prod(INTRA_MESH))
+    t0 = time.perf_counter()
+    ranks = procs.spawn(intra_rank, n_ranks, backend="gloo", device=dev,
+                        timeout=INTRA_TIMEOUT, args=(ckpt_dir,))
+    summary = {"mesh": INTRA_MESH, "backend": "gloo",
+               "spawn_s": time.perf_counter() - t0, "cut": {}, "timed": {}}
+    # (a)
+    n_sharded = 8               # embed, wq, wk, wv, wo, gate, up, down
+    want_cut = {"bsp": {}, "fedavg": {}, "gaia": {"gaia_select": 1},
+                "dgc": {"dgc_sparsify": 5, "abs_histogram": n_sharded,
+                        "dgc_select": n_sharded},
+                "dpsgd": {"neighbor_mix_src": 1},
+                "adpsgd": {"neighbor_mix_src": 1}}
+    for strategy, _ in TRAIN_RUNS:
+        rs = [r_["cut"][strategy] for r_ in ranks]
+        l2 = {k_: (sum(r_["sums"][k_][0] for r_ in rs) / max(sum(
+            r_["sums"][k_][1] for r_ in rs), 1e-300)) ** 0.5
+              for k_ in ("state", "inputs")}
+        s = {"params_vel_rel_l2": l2["state"],
+             "exchange_inputs_rel_l2": l2["inputs"],
+             "syncs_by_rank": [r_["syncs"] for r_ in rs],
+             "launches": rs[0]["launches"],
+             "exchange_elements": sum(r_["elements"] for r_ in rs),
+             "exchange_differ": sum(r_["differ"] for r_ in rs)}
+        summary["cut"][strategy] = s
+        print(f"(a) {strategy}, float32 {INTRA_CUT}-layer cut at full width "
+              f"(TF32 off), mesh {INTRA_MESH} of gloo ranks on the card, "
+              f"against the one-card step: the gathered params and "
+              f"velocities, relative L2 {l2['state']:.3g}; the exchange's "
+              f"inputs {l2['inputs']:.3g} (gate {INTRA_L2_TOL} on the "
+              f"state, on the inputs where a selection decides: "
+              f"{INTRA_SELECTS}); the exchange on the one-card step's "
+              f"inputs: {s['exchange_differ']} of {s['exchange_elements']} "
+              f"entries differ (gate: bit for bit); host syncs a step by rank "
+              f"{s['syncs_by_rank']}; launches a rank {s['launches']}",
+              flush=True)
+        gated = "inputs" if strategy in INTRA_SELECTS else "state"
+        assert l2[gated] <= INTRA_L2_TOL, (strategy, l2)
+        assert s["exchange_elements"] > 0 and s["exchange_differ"] == 0, s
+        assert all(x_ == 0 for x_ in s["syncs_by_rank"]), s
+        for r_ in rs:
+            assert r_["launches"] == {"flash_attention": 2 * INTRA_CUT,
+                                      **want_cut[strategy]}, (strategy, r_)
+    # (b)
+    tokens = TRAIN_PODS * TRAIN_B * TRAIN_T
+    for strategy in INTRA_TIMED:
+        rs = [r_["timed"][strategy] for r_ in ranks]
+        slow = max(r_["median_ms"] for r_ in rs)
+        s = {"median_ms_by_rank": [r_["median_ms"] for r_ in rs],
+             "wall_ms_by_rank": [r_["wall_ms"] for r_ in rs],
+             "tokens_per_s": tokens / (slow / 1e3),
+             "peak_gb_by_rank": [r_["peak_gb"] for r_ in rs],
+             "syncs_per_step_by_rank": [r_["syncs_per_step"] for r_ in rs],
+             "launches_per_step": rs[0]["launches_per_step"],
+             "collectives_by_rank": [r_["collectives"] for r_ in rs],
+             "losses": rs[0]["losses"]}
+        summary["timed"][strategy] = s
+        blocked = [c_["ms"] / r_["wall_ms"][0]
+                   for c_, r_ in zip(s["collectives_by_rank"], rs)]
+        c0 = s["collectives_by_rank"][0]
+        print(f"(b) {strategy}: the first timed step's collectives, rank 0: "
+              f"{c0['calls']} calls handed {c0['bytes'] / 1e9:.3f} GB, "
+              f"{c0['ms']:.1f} ms of the host's wall inside them; the share "
+              f"of the step's wall by rank "
+              f"{[round(x_, 3) for x_ in blocked]}", flush=True)
+        print(f"(b) {strategy}, full depth, bf16, remat, mesh {INTRA_MESH} "
+              f"of gloo ranks on the card: {slow:.1f} ms a step (the slower "
+              f"rank's median of {TRAIN_STEPS}), {s['tokens_per_s']:.0f} "
+              f"tokens/s, peak {max(s['peak_gb_by_rank']):.2f} GB a rank "
+              f"(by rank {[round(x_, 2) for x_ in s['peak_gb_by_rank']]}), "
+              f"{s['syncs_per_step_by_rank']} host syncs a step (the calling "
+              f"thread's), launches a step a rank {s['launches_per_step']}, "
+              f"losses {[round(x_, 4) for x_ in s['losses']]}", flush=True)
+        want = {"flash_attention": 2 * cfg.n_layers}
+        if strategy == "dpsgd":
+            want["neighbor_mix_src"] = 2
+        for r_ in rs:
+            assert r_["finite"] and np.all(np.isfinite(r_["losses"])), r_
+            assert r_["launches_per_step"] == want, (strategy, r_)
+            assert r_["syncs_per_step"] == 0, (strategy, r_)
+        assert len({tuple(r_["losses"]) for r_ in rs}) == 1, strategy
+    # (c) the mesh's checkpoint restored on the one device: each rank's
+    # blocks of it are that rank's state, bit for bit
+    comm = CommConfig(strategy="bsp")
+    like = pytree.tree_map(lambda t_: torch.empty(
+        tuple(t_.shape), dtype=t_.dtype, device=dev),
+        lsteps.train_state_shape(cfg, comm, TRAIN_PODS)["params"])
+    t0 = time.perf_counter()
+    whole = ckpt.restore(ckpt_dir, like, step=TRAIN_STEPS)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    desc = Mesh(INTRA_MESH, AXES)
+    specs = pytree.leaves_like(sharding.train_state_shardings(
+        lsteps.train_state_shape(cfg, comm, TRAIN_PODS), desc)["params"],
+        whole)
+    equal = 0
+    for r_ in ranks:
+        desc.coords = dict(r_["coords"])
+        shas = [_sha(sharding.local_block(t_, s_, desc))
+                for t_, s_ in zip(pytree.leaves(whole), specs)]
+        equal += shas == r_["timed"]["bsp"]["sha"]
+    b = ranks[0]["timed"]["bsp"]
+    summary["ckpt"] = {"bytes": sum(t_.numel() * t_.element_size()
+                                    for t_ in pytree.leaves(whole)),
+                       "save_s": b["save_s"], "mesh_restore_s":
+                       b["restore_s"], "one_device_restore_s": restore_s,
+                       "ranks_equal": equal,
+                       "ranks_restore_equal": sum(
+                           r_["timed"]["bsp"]["restored_equal"]
+                           for r_ in ranks)}
+    c = summary["ckpt"]
+    print(f"(c) (b)'s bsp params ({c['bytes'] / 1e9:.3f} GB) saved on the "
+          f"mesh in {c['save_s']:.2f} s, each rank's blocks restored on the "
+          f"mesh in {c['mesh_restore_s']:.2f} s (equal on "
+          f"{c['ranks_restore_equal']} of {n_ranks} ranks), restored on one "
+          f"device in {restore_s:.2f} s: {equal} of {n_ranks} ranks' blocks "
+          "of it equal the rank's state bit for bit", flush=True)
+    assert equal == n_ranks and c["ranks_restore_equal"] == n_ranks, c
+    del whole, like
+    torch.cuda.empty_cache()
+    kern = {
+        "flash_attention": {
+            "intra_launches_per_step_a_rank": summary["timed"]["bsp"][
+                "launches_per_step"]["flash_attention"],
+            "intra_cut_launches_a_rank": 2 * INTRA_CUT},
+        "gaia_select": {"intra_cut_launches_a_rank": 1},
+        "dgc_sparsify": {"intra_cut_launches_a_rank": 5},
+        "abs_histogram": {"intra_cut_launches_a_rank": n_sharded},
+        "dgc_select": {"intra_cut_launches_a_rank": n_sharded},
+        "neighbor_mix_src": {
+            "intra_launches_per_step_a_rank": summary["timed"]["dpsgd"][
+                "launches_per_step"]["neighbor_mix_src"]}}
+    summary["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 13: {summary['wall_s']:.2f} s")
     return summary, kern
 
 
@@ -4109,6 +4625,13 @@ def main() -> int:
     print("pod axis across processes: " + json.dumps(dist12))
     sys.stdout.flush()
 
+    # --------------------------------------------------------------- 13
+    phase(13, "the intra-pod axes: qwen3-0.6b over a (pod, data, model) = "
+              "(2, 2, 2) mesh of eight gloo ranks on the card")
+    intra13, kern13 = intra_phase(dev)
+    print("intra-pod axes: " + json.dumps(intra13))
+    sys.stdout.flush()
+
     kernels = [
         {"name": "gaia_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gaia_select.cu",
@@ -4218,6 +4741,8 @@ def main() -> int:
             entry["lm_train"] = kern11[key]
         if key in kern12:
             entry["dist_train"] = kern12[key]
+        if entry["name"] in kern13:
+            entry["intra_train"] = kern13[entry["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
           "included")
     print(smi)

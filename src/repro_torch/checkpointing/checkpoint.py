@@ -14,11 +14,13 @@
 
 A save writes into a temporary directory beside the target, one leaf at a
 time, and renames it into place.  With a ``mesh`` (``launch.mesh``), each
-rank holds its block of a pod-stacked tree: ``save`` gathers each leaf's
-blocks to the pod group's first rank, which writes the stacked leaf
-before the next is gathered, so a checkpoint written by P ranks is, array
-for array, the one-card checkpoint of the same stacked state; ``restore``
-hands each rank its block, reading only those bytes of each array.  The
+rank holds its block of a pod-stacked tree: ``save`` gathers each leaf
+whole, first over the pod's ``data`` and ``model`` ranks where the mesh
+has such axes (``sharding.gather_leaf``), then over the pod group to its
+first rank, which writes the stacked leaf before the next is gathered,
+so a checkpoint written by many ranks is, array for array, the one-card
+checkpoint of the same stacked state; ``restore`` hands each rank its
+block, reading only its pods' bytes of each array.  The
 port encodes and decodes the msgpack subset that ``meta`` uses (a map of
 str keys to str, int, nil and arrays of str) itself, so it needs no
 ``msgpack`` package.
@@ -37,7 +39,8 @@ import numpy as np
 import torch
 
 from repro_torch import pytree
-from repro_torch.launch.sharding import local_slices
+from repro_torch.launch.mesh import INTRA
+from repro_torch.launch.sharding import gather_leaf, intra_pod, local_slices
 
 Tree = Any
 
@@ -58,14 +61,30 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _pod_axes(tree: Tree, specs: Optional[Tree]) -> List[Optional[int]]:
-    """Each leaf's pod-sharded axis (None: not sharded) by ``specs`` (a
-    tree of ``sharding`` specs like ``tree``'s), axis 0 of every leaf
-    without them."""
+def _leaf_specs(tree: Tree, specs: Optional[Tree], mesh) -> List[tuple]:
+    """Each leaf's spec by ``specs`` (a tree of ``sharding`` specs like
+    ``tree``'s), ``("pod",)`` for every leaf without them.  Raises
+    ``ValueError`` on a mesh with a ``data`` or ``model`` axis above 1
+    without ``specs``, or with a leaf whose pod axis is not its first
+    (AD-PSGD's snapshot buffers: their blocks lie side by side, not as a
+    block of one array)."""
     if specs is None:
-        return [0] * len(pytree.leaves(tree))
-    return [spec.index("pod") if "pod" in spec else None
-            for spec in pytree.leaves_like(specs, tree)]
+        if intra_pod(mesh):
+            raise ValueError("a checkpoint on a mesh with data or model "
+                             "axes needs the tree's specs (sharding."
+                             "train_state_shardings or param_shardings)")
+        return [("pod",)] * len(pytree.leaves(tree))
+    out = [tuple(s) for s in pytree.leaves_like(specs, tree)]
+    if intra_pod(mesh) and any("pod" in s and s.index("pod") for s in out):
+        raise ValueError("a leaf whose pod axis is not its first (the "
+                         "snapshot buffers) holds rank blocks side by side "
+                         "on a mesh with data or model axes; checkpoint "
+                         "params, vel and acc")
+    return out
+
+
+def _pod_axis(spec: tuple) -> Optional[int]:
+    return spec.index("pod") if "pod" in spec else None
 
 
 def save(path: str, tree: Tree, step: Optional[int] = None, *,
@@ -74,11 +93,13 @@ def save(path: str, tree: Tree, step: Optional[int] = None, *,
     ``path`` when ``step`` is None), replacing what was there; returns the
     directory.  Leaves on the card are copied to the host one at a time.
 
-    With ``mesh`` every rank of its pod group calls this with its block
-    of the tree: each leaf's blocks along its pod axis (axis 0, or where
-    ``specs``, e.g. ``sharding.train_state_shardings``' tree, puts
-    ``"pod"``) are gathered to the pod group's first rank, which writes
-    the stacked leaf; every rank returns once all are written."""
+    With ``mesh`` every rank calls this with its block of the tree: each
+    leaf's blocks along its pod axis (axis 0, or where ``specs``, e.g.
+    ``sharding.train_state_shardings``' tree, puts ``"pod"``) are
+    gathered to the pod group's first rank, which writes the stacked
+    leaf; on a mesh with a ``data`` or ``model`` axis above 1 (``specs``
+    required) the pod's blocks are all-gathered over those axes first.
+    Every rank returns once all are written."""
     target = _target(path, step)
     leaves = pytree.leaves(tree)
     meta = packb({"treedef": pytree.treedef_str(tree),
@@ -88,13 +109,22 @@ def save(path: str, tree: Tree, step: Optional[int] = None, *,
         _write(target, leaves, meta)
         return target
 
+    intra = intra_pod(mesh)
+    writes_pod = all(mesh.coords.get(a, 0) == 0 for a in INTRA)
+
     def gathered():
         """The stacked leaves, gathered one at a time (None off the first
         rank)."""
-        for t, ax in zip(leaves, _pod_axes(tree, specs)):
-            g = t if ax is None else mesh.gather(t.movedim(ax, 0))
-            yield g if ax is None or g is None else g.movedim(0, ax)
-    if mesh.pod_rank == 0:
+        for t, spec in zip(leaves, _leaf_specs(tree, specs, mesh)):
+            if intra:
+                t = gather_leaf(t, spec, mesh)
+            ax = _pod_axis(spec)
+            if not writes_pod or ax is None:
+                yield t
+                continue
+            g = mesh.gather(t.movedim(ax, 0))
+            yield None if g is None else g.movedim(0, ax)
+    if mesh.pod_rank == 0 and writes_pod:
         _write(target, gathered(), meta)
     else:
         for _ in gathered():
@@ -134,21 +164,29 @@ def restore(path: str, like: Tree, step: Optional[int] = None, *,
     ``like``'s structure, each leaf cast to the dtype of ``like``'s leaf
     at its place and put on that leaf's device.  With ``mesh``, ``like``
     holds this rank's blocks, and of each leaf only the rank's block of
-    its pod axis (as ``save`` takes ``specs``) is read.  Raises
+    its pod axis (as ``save`` takes ``specs``) is read; on a mesh with a
+    ``data`` or ``model`` axis above 1 the rank's block of those
+    dimensions is then cut from it.  Raises
     ``ValueError`` where the leaf count or a shape differs from
     ``like``'s."""
     target = _target(path, step)
     want = pytree.leaves(like)
-    axes = ([None] * len(want) if mesh is None else _pod_axes(like, specs))
+    leaf_specs = ([()] * len(want) if mesh is None
+                  else _leaf_specs(like, specs, mesh))
     out = []
     with zipfile.ZipFile(os.path.join(target, "payload.npz")) as zf:
         n = sum(name.endswith(".npy") for name in zf.namelist())
         if n != len(want):
             raise ValueError(f"checkpoint {target} has {n} leaves, the "
                              f"tree {len(want)}")
-        for i, (w, ax) in enumerate(zip(want, axes)):
+        for i, (w, spec) in enumerate(zip(want, leaf_specs)):
             with zf.open(f"leaf_{i}.npy") as f:
-                a = _read_block(f, ax, mesh)
+                a = _read_block(f, _pod_axis(spec), mesh)
+            if intra_pod(mesh):
+                inner = tuple(ax if ax in ("data", "model") else None
+                              for ax in spec)
+                a = np.ascontiguousarray(
+                    a[local_slices(inner, a.shape, mesh)])
             if tuple(a.shape) != tuple(w.shape):
                 raise ValueError(f"checkpoint {target} leaf {i}: shape "
                                  f"{a.shape}, the tree's {tuple(w.shape)}")

@@ -5,6 +5,10 @@ reference's ``examples/train_lm_decentralized.py``.
 Two pods: stacked on one device, or with ``--procs P`` held by P ranks
 of a process group (``launch.procs.spawn``, one pod a rank at P = 2:
 the reference example's two-pod mesh), whose exchanges are collectives;
+with ``--mesh P,D,M`` each of the P pod ranks is split further over a
+``data`` axis of D ranks (FSDP: each holds its block of every weight and
+its share of the pod's sequences) and a ``model`` axis of M (tensor
+parallelism: heads, FFN columns and vocabulary), P x D x M ranks in all;
 the configured strategy controls the cross-pod exchange: Gaia's
 significance filter, FedAvg, DGC, BSP, or the D-PSGD/AD-PSGD gossip over
 a topology fabric (the round's operands built on the host, so a step
@@ -17,6 +21,7 @@ streams for a few hundred steps and asserts that the loss falls below
         [--strategy gaia|bsp|fedavg|dgc|dpsgd|adpsgd] [--topology ring]
         [--staleness 1] [--d-model 256] [--layers 4] [--ckpt DIR]
         [--device cuda|cpu] [--procs P [--backend nccl|gloo]]
+        [--mesh P,D,M]
 
 The default device is CUDA; ``--device cpu`` runs on the CPU.  With
 ``--procs`` the ranks use NCCL on the card (one card a rank) and gloo on
@@ -43,10 +48,11 @@ from repro_torch.data.synthetic import synth_tokens
 from repro_torch.device import resolve_device
 from repro_torch.launch import procs
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.launch.sharding import train_state_shardings
 from repro_torch.launch.specs import train_batch_specs
 from repro_torch.launch.steps import (GOSSIP_STRATEGIES, STRATEGIES,
                                       gossip_operands, make_train_state,
-                                      make_train_step)
+                                      make_train_step, train_state_shape)
 from repro_torch.models.model import init_model
 from repro_torch.topology.graphs import build_demo_schedule
 
@@ -74,6 +80,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--procs", type=int, default=None,
                     help=f"ranks holding the {N_PODS} pods (default: one "
                          "process, the pods stacked)")
+    ap.add_argument("--mesh", default=None,
+                    help="P,D,M: pod, data and model axes of the ranks "
+                         "(P divides the pods; --procs, if given, must be "
+                         "P x D x M; default: P = --procs, D = M = 1)")
     ap.add_argument("--backend", default=None, choices=list(procs.BACKENDS),
                     help="the ranks' backend: nccl on the card, gloo on the "
                          "CPU by default")
@@ -96,16 +106,32 @@ def train(args: argparse.Namespace) -> Dict:
     (host floats, every 20th step and the last), "final_loss",
     "seconds", "cfg", "comm"}."""
     device = resolve_device(args.device)
-    if not args.procs:
+    shape = mesh_shape(args)
+    if shape is None:
         return _run(args, device)
     backend = args.backend or ("nccl" if device.type == "cuda" else "gloo")
-    return procs.spawn(_rank, args.procs, backend=backend, device=device,
-                       args=(args,))[0]
+    return procs.spawn(_rank, int(np.prod(shape)), backend=backend,
+                       device=device, args=(args, shape))[0]
 
 
-def _rank(rank: int, device: torch.device, args: argparse.Namespace
-          ) -> Dict:
-    mesh = make_mesh((args.procs, 1, 1), device=device)
+def mesh_shape(args: argparse.Namespace):
+    """The ranks' (pod, data, model) shape from ``--mesh`` and ``--procs``,
+    None for one process; ``ValueError`` where they disagree."""
+    if args.mesh is None:
+        return None if not args.procs else (args.procs, 1, 1)
+    shape = tuple(int(x) for x in args.mesh.split(","))
+    if len(shape) != 3 or min(shape) < 1:
+        raise ValueError(f"--mesh {args.mesh}: want P,D,M, each >= 1")
+    if args.procs and args.procs != int(np.prod(shape)):
+        raise ValueError(f"--procs {args.procs} but --mesh {args.mesh} holds "
+                         f"{int(np.prod(shape))} ranks")
+    return shape
+
+
+def _rank(rank: int, device: torch.device, args: argparse.Namespace,
+          shape) -> Dict:
+    mesh = make_mesh(shape, device=device,
+                     cfg=model_config(args.d_model, args.layers))
     return {**_run(args, device, mesh), "state": None}
 
 
@@ -143,7 +169,7 @@ def _run(args: argparse.Namespace, device: torch.device, mesh=None) -> Dict:
                 max_staleness=comm.max_staleness, device=device, mesh=mesh)
         return rounds[key]
 
-    talk = mesh is None or mesh.pod_rank == 0
+    talk = mesh is None or mesh.coords == {a: 0 for a in mesh.coords}
     losses = []
     t0 = time.perf_counter()
     for t in range(args.steps):
@@ -156,7 +182,10 @@ def _run(args: argparse.Namespace, device: torch.device, mesh=None) -> Dict:
                       f"({time.perf_counter() - t0:.1f}s)", flush=True)
     seconds = time.perf_counter() - t0
     if args.ckpt:
-        save(args.ckpt, state["params"], step=args.steps, mesh=mesh)
+        specs = None if mesh is None else train_state_shardings(
+            train_state_shape(cfg, comm, N_PODS), mesh)["params"]
+        save(args.ckpt, state["params"], step=args.steps, mesh=mesh,
+             specs=specs)
     return {"state": state, "losses": losses, "final_loss": losses[-1][1],
             "seconds": seconds, "cfg": cfg, "comm": comm}
 
@@ -169,7 +198,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             else "cpu")
     print(f"arch=qwen3-family reduced  params~{cfg.n_params() / 1e6:.1f}M  "
           f"strategy={args.strategy}  device={name}  "
-          f"ranks={args.procs or 1}")
+          f"ranks={int(np.prod(mesh_shape(args) or (1,)))}")
     run = train(args)
     final = run["final_loss"]
     print(f"done: loss {final:.4f} (random = ln(512) = 6.24)")

@@ -1,0 +1,87 @@
+"""The intra-pod collectives of the train step as autograd functions: what
+GSPMD inserts for the reference under ``sharding.py``'s placements.
+
+- ``gather_data(w, dim, mesh)``: FSDP.  Forward: the pod's ``data``
+  ranks' blocks of ``w`` all-gathered along ``dim``; backward: the
+  gradient reduce-scattered back to the rank's block, summed over the
+  ``data`` ranks (each holds its share of the pod's batch).
+- ``copy_to_model(x, mesh)``: Megatron-LM's *f*, before a column-parallel
+  projection.  Forward: the identity (``x`` is the same on every
+  ``model`` rank); backward: the gradient all-reduced over ``model``
+  (each rank's columns give a part of it).
+- ``reduce_from_model(x, mesh)``: Megatron-LM's *g*, after a row-parallel
+  projection (and in the vocabulary-parallel loss).  Forward: the
+  partial sums all-reduced over ``model``; backward: the identity (the
+  computation after it is the same on every ``model`` rank).
+- ``reduce_from_data(x, mesh)``: *g* over ``data``, for the loss's
+  numerator (each ``data`` rank sums its own sequences; the pod's loss
+  is the same on every rank).
+
+Each is the identity, with no collective, where its axis has one rank.
+Every rank of a pod runs the same model code, so the collectives come in
+one order on every rank, also where a checkpointed cycle runs again in
+the backward.
+"""
+from __future__ import annotations
+
+import torch
+
+
+class _GatherData(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return mesh.all_gather_dim(x, dim, "data")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.reduce_scatter_dim(grad, ctx.dim, "data"), None, None
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce(grad.clone(), ctx.axis), None, None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return mesh.all_reduce(x.clone(), axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def gather_data(w: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The rank's ``data`` block of ``w`` gathered along ``dim``."""
+    if mesh.size_of("data") == 1:
+        return w
+    return _GatherData.apply(w, dim, mesh)
+
+
+def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """*f*: ``x``; its gradient summed over ``model``."""
+    if mesh.size_of("model") == 1:
+        return x
+    return _Copy.apply(x, "model", mesh)
+
+
+def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """*g*: ``x`` summed over ``model``; its gradient passed as it is."""
+    if mesh.size_of("model") == 1:
+        return x
+    return _Reduce.apply(x, "model", mesh)
+
+
+def reduce_from_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """*g* over ``data``: ``x`` summed over the pod's ``data`` ranks."""
+    if mesh.size_of("data") == 1:
+        return x
+    return _Reduce.apply(x, "data", mesh)

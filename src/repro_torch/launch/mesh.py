@@ -7,13 +7,20 @@ traffic across it, and data and tensor parallelism run inside a pod.
 
 Here a mesh is the default process group (made by
 ``torch.distributed.init_process_group`` under ``torchrun``, or by
-``procs.spawn``) laid out pod-major over named axes, one rank a device,
-with one process group along the ``pod`` axis for each (data, model)
-position.  The train step's cross-pod exchanges are collectives on that
-group (``all_reduce``, ``all_gather``, ``all_to_all``), and a checkpoint
-``gather``s the rows to the group's first rank; nothing else is sent.
-Only ``data == model == 1`` is built so far: applying ``sharding.py``'s
-FSDP and TP placements inside a pod is ROADMAP A11b.
+``procs.spawn``) laid out pod-major over named axes, one rank a device.
+Each rank belongs to one process group along each axis of size above 1:
+the ``pod`` group (the ranks of its (data, model) position, one a pod),
+the ``data`` group (its pod and model position), the ``model`` group
+(its pod and data position), and the pod's ``("data", "model")`` group
+(every rank of its pod).  The train step's cross-pod exchanges are
+collectives on the pod group (``all_reduce``, ``all_gather``,
+``all_to_all``), and a checkpoint ``gather``s the rows to the group's
+first rank.  Inside a pod (``sharding.py``'s FSDP over ``data`` and
+tensor parallelism over ``model``, dense GQA models only: ROADMAP A11c
+takes the other families) weights are gathered and their gradients
+reduce-scattered along a dimension over ``data`` (``all_gather_dim``,
+``reduce_scatter_dim``), and activations summed over ``model``
+(``all_reduce(..., axis="model")``).
 
 ``make_production_mesh`` describes the reference's layout without a
 process group (what ``sharding``'s rules read); ``make_mesh`` builds one
@@ -23,7 +30,7 @@ from __future__ import annotations
 
 import math
 import socket
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -33,12 +40,22 @@ import torch.distributed as dist
 AXES = ("pod", "data", "model")
 
 
+#: an axis of a collective: a mesh axis name, or ``INTRA``, every rank of
+#: one pod
+Axis = Union[str, Tuple[str, ...]]
+INTRA = ("data", "model")
+
+
 class Mesh:
     """A named (pod, data, model) layout of ranks: ``shape`` {axis: size}
     in ``axis_names``' order, this rank's ``coords`` on each axis, its
-    ``device``, and ``pod_group``, the process group of the ranks that
-    share this rank's (data, model) position (None where the mesh only
-    describes a layout, or has no ``pod`` axis)."""
+    ``device``, ``pod_group``, the process group of the ranks that share
+    this rank's (data, model) position (None where the mesh only
+    describes a layout, or has no ``pod`` axis), and ``groups``, this
+    rank's process group along ``("data",)``, ``("model",)`` and
+    ``INTRA`` where that axis spans more than one rank.  A collective along an
+    axis of size 1 sends nothing and returns its input (the pod axis
+    excepted: its group always exists on a mesh made by ``make_mesh``)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
                  coords: Optional[Sequence[int]] = None, device=None,
@@ -54,6 +71,7 @@ class Mesh:
                                (0,) * len(self.axis_names)))
         self.device = None if device is None else torch.device(device)
         self.pod_group = pod_group
+        self.groups: Dict[Tuple[str, ...], Any] = {}
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, coords={self.coords}, "
@@ -68,13 +86,54 @@ class Mesh:
         """This rank's index on the ``pod`` axis (0 without one)."""
         return self.coords.get("pod", 0)
 
-    # -- the pod group's collectives: the backend takes the tensors where
-    # they lie (gloo stages CUDA tensors through the host itself)
+    def size_of(self, axis: Axis) -> int:
+        """Ranks along ``axis`` (a name or a tuple of names)."""
+        return math.prod(self.shape.get(a, 1) for a in _names(axis))
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` summed over the pod group, in place; returned."""
-        dist.all_reduce(x, group=self.pod_group)
+    def group(self, axis: Axis):
+        """The process group along ``axis``."""
+        return self.pod_group if axis == "pod" else self.groups[
+            _names(axis)]
+
+    # -- collectives: the backend takes the tensors where they lie (gloo
+    # stages CUDA tensors through the host itself)
+
+    def all_reduce(self, x: torch.Tensor, axis: Axis = "pod",
+                   op=dist.ReduceOp.SUM) -> torch.Tensor:
+        """``x`` reduced by ``op`` (a sum by default) over the group along
+        ``axis`` (the pod group by default), in place; returned."""
+        if axis != "pod" and self.size_of(axis) == 1:
+            return x
+        dist.all_reduce(x, op=op, group=self.group(axis))
         return x
+
+    def all_gather_dim(self, x: torch.Tensor, dim: int,
+                       axis: Axis) -> torch.Tensor:
+        """The blocks of the group along ``axis`` concatenated along
+        ``dim`` in rank order: a new tensor, ``dim`` n times as long."""
+        n = self.size_of(axis)
+        if n == 1:
+            return x
+        out = x.new_empty((n * x.shape[0],) + tuple(x.shape[1:]))
+        _all_gather_single()(out, x.contiguous(), group=self.group(axis))
+        return out.view((n,) + tuple(x.shape)).movedim(0, dim).flatten(
+            dim, dim + 1)
+
+    def reduce_scatter_dim(self, x: torch.Tensor, dim: int,
+                           axis: Axis) -> torch.Tensor:
+        """``x`` summed over the group along ``axis``, of which this rank
+        keeps its block of ``dim`` (cut into n equal blocks, rank order):
+        a new tensor, ``dim`` n times as short.  The inverse of
+        ``all_gather_dim``'s layout."""
+        n = self.size_of(axis)
+        if n == 1:
+            return x
+        blocks = x.unflatten(dim, (n, x.shape[dim] // n)).movedim(
+            dim, 0).contiguous()
+        out = blocks.new_empty(blocks.shape[1:])
+        _reduce_scatter_single()(out, blocks.flatten(0, 1),
+                                 group=self.group(axis))
+        return out
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """The pod group's ``x`` (each (L, ...), contiguous) stacked in pod
@@ -110,9 +169,16 @@ class Mesh:
         return out
 
     def barrier(self) -> None:
-        """Returns once every rank of the pod group has reached it (a
-        one-element all-reduce on the mesh's device)."""
+        """Returns once every rank of the mesh has reached it: a
+        one-element all-reduce on the mesh's device over the pod group,
+        then over the pod's ranks (each rank of a pod waits for a rank
+        that waited for every pod)."""
         self.all_reduce(torch.zeros(1, device=self.device))
+        self.all_reduce(torch.zeros(1, device=self.device), INTRA)
+
+
+def _names(axis: Axis) -> Tuple[str, ...]:
+    return axis if isinstance(axis, tuple) else (axis,)
 
 
 def _all_gather_single():
@@ -120,6 +186,13 @@ def _all_gather_single():
     ``all_gather_into_tensor`` so), else ``all_gather_into_tensor``."""
     return getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
+
+
+def _reduce_scatter_single():
+    """``reduce_scatter_single`` where this PyTorch has it (2.13 names
+    ``reduce_scatter_tensor`` so), else ``reduce_scatter_tensor``."""
+    return getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
 
 
 # ---------------------------------------------------------------------------
@@ -160,25 +233,27 @@ def batch_axes(mesh: Mesh) -> tuple:
 # ---------------------------------------------------------------------------
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str] = AXES, *,
-              device) -> Mesh:
+              device, cfg=None) -> Mesh:
     """The mesh of ``shape`` over ``axes`` on the default process group,
     which must be initialized with ``prod(shape)`` ranks; this rank's
     coordinates are its rank unravelled pod-major.  Every rank calls it
-    (it makes the pod groups).  ``device`` is this rank's.
+    (it makes the groups).  ``device`` is this rank's.  With ``cfg`` (a
+    ``ModelConfig``), the model is checked against the data and model
+    axes first (``sharding.check_layout``).
 
-    Raises ``ValueError`` for a ``data`` or ``model`` axis above 1 (the
-    intra-pod placements are ROADMAP A11b) and, under NCCL, where two
-    ranks hold one device (NCCL would abort at the first collective)."""
+    Raises ``ValueError``, before any collective, where ``cfg`` cannot be
+    placed on a ``data`` or ``model`` axis above 1 (a family other than
+    the dense GQA one: ROADMAP A11c; a width the axis does not divide)
+    and, under NCCL, where two ranks hold one device (NCCL would abort
+    at the first collective)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "torch.distributed.init_process_group (or run "
                            "under repro_torch.launch.procs.spawn) first")
     mesh = Mesh(shape, axes, device=device)
-    inner = {a: n for a, n in mesh.shape.items() if a != "pod" and n > 1}
-    if inner:
-        raise ValueError(f"make_mesh: {inner}: only the pod axis spans "
-                         "ranks so far; the data and model axes (FSDP and "
-                         "TP inside a pod) are ROADMAP A11b")
+    if cfg is not None:
+        from repro_torch.launch.sharding import check_layout
+        check_layout(cfg, mesh)
     world, rank = dist.get_world_size(), dist.get_rank()
     if mesh.size != world:
         raise ValueError(f"make_mesh: shape {tuple(shape)} holds {mesh.size} "
@@ -187,15 +262,22 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str] = AXES, *,
         check_devices(_device_ids(mesh.device), "nccl")
     coords = np.unravel_index(rank, tuple(mesh.shape.values()))
     mesh.coords = dict(zip(mesh.axis_names, (int(c) for c in coords)))
-    if "pod" in mesh.axis_names:
-        # one group a (data, model) position, every rank making each
-        grid = np.arange(world).reshape(tuple(mesh.shape.values()))
-        pod_axis = mesh.axis_names.index("pod")
-        lines = np.moveaxis(grid, pod_axis, -1).reshape(-1, n_pods(mesh))
+    grid = np.arange(world).reshape(tuple(mesh.shape.values()))
+    for axis in ("pod", "data", "model", INTRA):
+        names = [a for a in _names(axis) if a in mesh.axis_names]
+        if not names or (axis != "pod" and mesh.size_of(axis) == 1):
+            continue
+        # one group a position on the other axes, every rank making each
+        idx = [mesh.axis_names.index(a) for a in names]
+        lines = np.moveaxis(grid, idx, list(range(-len(idx), 0))).reshape(
+            -1, mesh.size_of(axis))
         for line in lines:
             group = dist.new_group([int(r) for r in line])
             if rank in line:
-                mesh.pod_group = group
+                if axis == "pod":
+                    mesh.pod_group = group
+                else:
+                    mesh.groups[tuple(names)] = group
     return mesh
 
 

@@ -19,9 +19,16 @@ reference's ``_path_str``) and rank, so they cover every arch family
 without per-model tables.  The ``*_shardings`` functions return a tree of
 specs shaped like their input.
 
-So far the train step reads the ``pod`` entries alone (which rows of the
-stacked state and batch a rank holds: ``local_slices``); applying the
-``data`` and ``model`` entries is ROADMAP A11b.
+The train step applies them (``local_slices``, ``local_block``): the
+``pod`` entries say which rows of the stacked state and batch a rank
+holds; on a mesh with a ``data`` or ``model`` axis above 1 (dense GQA
+models: ``check_layout``) the ``data`` and ``model`` entries say which
+block of each leaf (``local_params``) and which of the pod's sequences.
+``gather_leaf`` is the inverse, for checkpoints and checks.  Where an
+axis does not divide a dimension the reference's ``_clamp_spec`` keeps
+the dimension whole; under the port's explicit tensor parallelism model
+code would read a whole ``wk`` as the rank's heads, so ``check_layout``
+refuses such a mesh instead.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from repro_torch import pytree
-from repro_torch.launch.mesh import Mesh
+from repro_torch.launch.mesh import INTRA, Mesh
 
 Spec = Tuple[Optional[str], ...]
 Tree = Any
@@ -214,3 +221,92 @@ def local_slices(spec: Spec, shape, mesh: Mesh) -> Tuple[slice, ...]:
 def local_block(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     """This rank's block of ``t`` (a view) as ``spec`` places it."""
     return t[local_slices(spec, tuple(t.shape), mesh)]
+
+
+# ---------------------------------------------------------------------------
+# The intra-pod axes
+# ---------------------------------------------------------------------------
+
+def intra_pod(mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` splits a pod over more than one rank (a ``data`` or
+    ``model`` axis above 1)."""
+    return mesh is not None and mesh.size_of(INTRA) > 1
+
+
+def check_layout(cfg, mesh: Optional[Mesh]) -> None:
+    """Raises ``ValueError`` where ``cfg`` (a ``ModelConfig``) cannot be
+    placed on ``mesh``'s ``data`` and ``model`` axes: a family other than
+    the dense GQA one (ROADMAP A11c), or a ``model`` axis that does not
+    divide n_heads, n_kv_heads, d_ff and vocab, or a ``data`` axis that
+    does not divide d_model.  Nothing to check without an axis above 1."""
+    if not intra_pod(mesh):
+        return
+    a = cfg.attention
+    D, M = mesh.size_of("data"), mesh.size_of("model")
+    if (cfg.family != "dense" or a.kind != "gqa" or cfg.moe.n_experts
+            or cfg.encoder is not None or cfg.modality.kind != "none"):
+        raise ValueError(
+            f"{cfg.arch_id} ({cfg.family}, {a.kind} attention) on data={D}, "
+            f"model={M}: only the dense GQA family is placed inside a pod "
+            "so far; MoE expert parallelism and tensor parallelism for the "
+            "MLA, SSM, RG-LRU, enc-dec and VLM families are ROADMAP A11c")
+    bad = [f"{k}={n} over model={M}" for k, n in (
+        ("n_heads", a.n_heads), ("n_kv_heads", a.n_kv_heads),
+        ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)) if n % M]
+    if cfg.d_model % D:
+        bad.append(f"d_model={cfg.d_model} over data={D}")
+    if bad:
+        raise ValueError(
+            f"{cfg.arch_id}: {', '.join(bad)} does not divide; a dimension "
+            "left whole would be read as the rank's block (a model axis "
+            "wider than n_kv_heads is ROADMAP A11c)")
+
+
+def leaf_specs(params: Tree, mesh: Mesh) -> list:
+    """The spec of each leaf of an unstacked params(-shaped) tree, in
+    ``pytree.leaves``' order (``param_shardings``' entries)."""
+    return pytree.leaves_like(param_shardings(params, mesh), params)
+
+
+def local_params(params: Tree, mesh: Mesh) -> Tree:
+    """This rank's block of every leaf of one replica's ``params`` (views),
+    as ``param_shardings`` places them on ``mesh``."""
+    return pytree.unflatten(params, [
+        local_block(t, spec, mesh)
+        for t, spec in zip(pytree.leaves(params), leaf_specs(params, mesh))])
+
+
+def gather_leaf(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
+    """The pod's whole leaf from this rank's block ``t`` placed by
+    ``spec``: every ``data`` and ``model`` dimension all-gathered (the
+    ``pod`` dimension left as it is), on every rank of the pod."""
+    for dim, ax in enumerate(spec):
+        if ax in ("data", "model"):
+            t = mesh.all_gather_dim(t, dim, ax)
+    return t
+
+
+#: replicated leaves that act on a rank's own heads or columns under tensor
+#: parallelism, so each ``model`` rank holds a part of their gradient:
+#: qk-norm scales, and the bias of a column-parallel projection
+_MODEL_PARTIAL = re.compile(r"(^|/)(q_norm|k_norm)/scale$")
+
+
+def grad_sync_axis(path: str, spec: Spec, mesh: Mesh):
+    """The axis over which the gradient of the leaf at ``path`` (placed
+    by ``spec``) is summed after the backward, None where the backward
+    left it whole: a leaf sharded over ``data`` got its sum from the
+    reduce-scatter of its gather; any other leaf is summed over ``data``
+    (each rank saw its share of the pod's sequences) and, where it acts
+    on the rank's heads or columns, over ``model`` too."""
+    axes = []
+    if "data" not in spec:
+        axes.append("data")
+        partial = _MODEL_PARTIAL.search(path) or (
+            path.endswith("/b") and not re.search(_OUT_PROJ + r"/b$", path))
+        if partial and "model" not in spec:
+            axes.append("model")
+    axes = tuple(a for a in axes if mesh.size_of(a) > 1)
+    if not axes:
+        return None
+    return axes if len(axes) > 1 else axes[0]

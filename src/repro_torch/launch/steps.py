@@ -47,8 +47,25 @@ function (``chip_smoke.py`` phase 12(d) times both).  The step reads
 nothing back from the card: ``step_idx``, ``lr`` and ``sparsity`` are
 host numbers, the gossip operands (the all-to-all's routing too) are
 built and checked on the host by ``gossip_operands``, and every metric is
-a tensor.  The reference's intra-pod ``data`` and ``model`` placements
-wait for ROADMAP A11b.
+a tensor.
+
+Inside a pod (a mesh whose ``data`` or ``model`` axis is above 1; the
+dense GQA family, ``sharding.check_layout``) a rank holds its block of
+every leaf of its pods, FSDP over ``data`` and tensor parallelism over
+``model`` as ``sharding.param_shardings`` places them, and its ``data``
+share of each pod's sequences.  The model runs under
+``shard_hints.activation_sharding`` (weights gathered over ``data`` and
+their gradients reduce-scattered, heads, FFN columns and vocabulary split
+over ``model``: ``launch.collectives``); the replicated leaves' gradients
+are summed after the backward (``sharding.grad_sync_axis``).  Every
+exchange above then runs unchanged on the rank's blocks over its pod
+group (the ranks of its (data, model) position), but DGC's threshold,
+which needs the whole leaf: for a sharded leaf max|v| is all-reduced
+(MAX) over the ranks that hold its blocks, each rank's
+``ops.abs_histogram`` over [0, that max] is summed there (integers: the
+whole leaf's histogram, bit for bit), and ``ops.dgc_select`` keeps what
+passes the threshold ``dgc_topk.threshold_by_count`` reads from it, the
+one-card selection.  The function computed is the one-card step's.
 
 The kernels take leaves of one dtype a launch, so a model whose leaves
 mix dtypes (bf16 weights, float32 norms) gets one launch a dtype group:
@@ -57,11 +74,13 @@ of ``csrc/gaia_select.cu``, against float32 weights the other.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import pytree
 from repro_torch.configs.base import CommConfig, ModelConfig
@@ -71,6 +90,7 @@ from repro_torch.launch import sharding
 from repro_torch.launch.mesh import Mesh, n_pods as mesh_pods
 from repro_torch.models.model import (decode_step, forward, init_cache,
                                       init_model, loss_fn)
+from repro_torch.models.shard_hints import activation_sharding
 from repro_torch.models.transformer import lm_decode
 from repro_torch.topology.graphs import Topology, TopologySchedule, as_schedule
 
@@ -117,8 +137,12 @@ def make_train_state(params, comm: CommConfig, n_pods: int, *,
     their sizes summed), every slot the stacked params.  The reference
     keeps one (max_staleness + 1, n_pods, ...) buffer a leaf; this is the
     layout the gossip kernel pushes and gathers in one launch.  Slot 0
-    holds the newest round."""
+    holds the newest round.  On a mesh with a ``data`` or ``model`` axis
+    above 1 every leaf is the rank's block (``sharding.local_params``),
+    the snapshot buffers those blocks side by side."""
     rows = len(local_pods(n_pods, mesh))
+    if sharding.intra_pod(mesh):
+        params = sharding.local_params(params, mesh)
     stack = lambda t: t.unsqueeze(0).repeat((rows,) + (1,) * t.dim())
     zeros = lambda t: torch.zeros((rows,) + tuple(t.shape),
                                   dtype=torch.float32, device=t.device)
@@ -309,8 +333,8 @@ def hist_threshold(v: torch.Tensor, sparsity, n_bins: int = 256
 # ---------------------------------------------------------------------------
 
 def make_exchange(comm: CommConfig, *, mesh: Optional[Mesh] = None,
-                  lr: float = 1e-3, lr0: Optional[float] = None
-                  ) -> Callable:
+                  lr: float = 1e-3, lr0: Optional[float] = None,
+                  specs: Optional[List] = None) -> Callable:
     """Returns ``exchange(parts, step_idx=0, mix=None, lr=None,
     sparsity=None) -> parts``, the train step's cross-pod exchange on
     this rank's rows (every pod's without a mesh).  ``parts`` maps names
@@ -331,12 +355,17 @@ def make_exchange(comm: CommConfig, *, mesh: Optional[Mesh] = None,
     one ``all_reduce`` of every leaf's sum in one buffer; the gossip
     reads the gathered or received rows (module docstring).  ``lr``
     drives Gaia's threshold (T = t0 lr / lr0), ``sparsity`` overrides
-    ``comm.dgc_sparsity``, ``mix`` is the round's ``gossip_operands``."""
+    ``comm.dgc_sparsity``, ``mix`` is the round's ``gossip_operands``.
+    ``specs``: each leaf's spec (``sharding.leaf_specs``) where the leaves
+    are the rank's blocks on a mesh with a ``data`` or ``model`` axis
+    (DGC's threshold then reads the whole leaf: module docstring); every
+    leaf is whole without."""
     if comm.strategy not in STRATEGIES:
         raise ValueError(f"unknown strategy {comm.strategy!r}; known: "
                          f"{STRATEGIES}")
     group = 1 if mesh is None else mesh_pods(mesh)
     lr_static, lr_ref = lr, (lr if lr0 is None else lr0)
+    split = shard_axes(specs, mesh)
 
     def pod_sum(xs: List[torch.Tensor]) -> List[torch.Tensor]:
         """Each float32 (L, ...) tensor summed over every pod: (1, ...)."""
@@ -367,6 +396,33 @@ def make_exchange(comm: CommConfig, *, mesh: Optional[Mesh] = None,
         return torch.cat([x.reshape(x.shape[0], -1) for x in xs], dim=1,
                          out=out)
 
+    def dgc_selections(acc, s):
+        """Each (L, ...) leaf's rows' top-s% selections: one
+        ``ops.dgc_sparsify`` a whole row; a sharded row's threshold from
+        the whole leaf's histogram, summed over the ranks of its
+        blocks."""
+        axes = [None] * len(acc) if split is None else split
+        sel = [None if ax else torch.stack([ops.dgc_sparsify(a[i], s)[0]
+                                            for i in range(a.shape[0])])
+               for a, ax in zip(acc, axes, strict=True)]
+        for axis in dict.fromkeys(ax for ax in axes if ax):
+            rows = [(j, i) for j, ax in enumerate(axes) if ax == axis
+                    for i in range(acc[j].shape[0])]
+            vmax = torch.stack([acc[j][i].abs().amax().float()
+                                for j, i in rows])
+            mesh.all_reduce(vmax, axis, op=dist.ReduceOp.MAX)
+            hist = torch.stack([ops.abs_histogram(acc[j][i], vmax[k])
+                                for k, (j, i) in enumerate(rows)])
+            mesh.all_reduce(hist, axis)
+            picked = {}
+            for k, (j, i) in enumerate(rows):
+                t = dgc_topk.threshold_by_count(hist[k], vmax[k], s)
+                picked[j, i] = ops.dgc_select(acc[j][i], t)[0]
+            for j in {j for j, _ in rows}:
+                sel[j] = torch.stack([picked[j, i]
+                                      for i in range(acc[j].shape[0])])
+        return sel
+
     def exchange(parts, step_idx=0, mix=None, lr=None, sparsity=None):
         strategy = comm.strategy
         if strategy == "bsp":
@@ -392,8 +448,7 @@ def make_exchange(comm: CommConfig, *, mesh: Optional[Mesh] = None,
         if strategy == "dgc":
             acc, vel = parts["acc"], parts["vel"]
             s = comm.dgc_sparsity if sparsity is None else sparsity
-            sel = [torch.stack([ops.dgc_sparsify(a[i], s)[0]
-                                for i in range(a.shape[0])]) for a in acc]
+            sel = dgc_selections(acc, s)
             keep = [s_ == 0 for s_ in sel]
             return {"params": [(w.float() + t).to(w.dtype) for w, t in
                                zip(params, pod_sum(sel))],
@@ -431,6 +486,22 @@ def make_exchange(comm: CommConfig, *, mesh: Optional[Mesh] = None,
     return exchange
 
 
+def shard_axes(specs: Optional[List], mesh: Optional[Mesh]) -> List:
+    """For each leaf placed by ``specs`` on ``mesh``: the axis over which
+    its blocks lie (``"data"``, ``"model"`` or ``mesh.INTRA``; axes of one rank
+    left out), None for a whole leaf.  None without ``specs`` (every leaf
+    whole)."""
+    if specs is None or mesh is None:
+        return None
+    out = []
+    for spec in specs:
+        axes = tuple(a for a in ("data", "model")
+                     if a in spec and mesh.size_of(a) > 1)
+        out.append(None if not axes else axes if len(axes) > 1
+                   else axes[0])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Train step
 # ---------------------------------------------------------------------------
@@ -453,10 +524,18 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
     the summed losses lands each pod's gradient in its own row.  Then a
     per-pod momentum step (float32 velocity) and the strategy's exchange
     (``make_exchange``; the step calls ``train_step.exchange``, which a
-    check may wrap).  ``metrics``: ``"loss"`` (the mean over every pod,
+    check may wrap; ``train_step.pod_grads(params, batch)`` is the
+    forward and backward alone, on the rank's stacked params and its rows
+    of the batch).  ``metrics``: ``"loss"`` (the mean over every pod,
     the same on every rank), and for dpsgd and adpsgd ``"mean_degree"``
     and ``"comm_floats"`` (per-pod floats sent: one model a neighbour),
     for adpsgd ``"mean_staleness"``; each a float32 0-d tensor.
+
+    On a mesh with a ``data`` or ``model`` axis above 1 (``sharding.
+    check_layout`` refuses any model but a dense GQA one, and shapes the
+    axes do not divide, with ``ValueError`` here, before any collective)
+    the state holds the rank's blocks and each pod's sequences split over
+    ``data``: the module docstring.
 
     Runtime operands: ``step_idx`` an int (fedavg's sync step); ``mix``
     the round's ``gossip_operands`` for this mesh (dpsgd, adpsgd:
@@ -464,15 +543,32 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
     drives Gaia's threshold decay); ``sparsity`` a host number
     overriding ``comm.dgc_sparsity``.
     """
-    exchange = make_exchange(comm, mesh=mesh, lr=lr, lr0=lr0)
+    sharding.check_layout(cfg, mesh)
+    shape = param_shape(cfg)
+    n_model = float(sum(t.numel() for t in pytree.leaves(shape)))
+    intra = sharding.intra_pod(mesh)
+    specs = sharding.leaf_specs(shape, mesh) if intra else None
+    split = shard_axes(specs, mesh)
+    # the replicated leaves' gradient sums after the backward, by axis
+    syncs: Dict = {}
+    if intra:
+        for i, ((path, _), spec) in enumerate(zip(
+                pytree.leaves_with_paths(shape), specs)):
+            axis = sharding.grad_sync_axis(path, spec, mesh)
+            if axis is not None:
+                syncs.setdefault(axis, []).append(i)
+    exchange = make_exchange(comm, mesh=mesh, lr=lr, lr0=lr0, specs=specs)
     lr_static = lr
     gossip = comm.strategy in GOSSIP_STRATEGIES
     group = 1 if mesh is None else mesh_pods(mesh)
 
     def pod_grads(params, batch):
         """(losses (L,), grads): each leaf's gradient (L, ...) in its
-        dtype, in ``pytree.leaves``' order."""
-        with torch.enable_grad():
+        dtype, in ``pytree.leaves``' order; inside a pod the rank's blocks
+        of the pod's gradient."""
+        layout = activation_sharding(mesh) if intra else \
+            contextlib.nullcontext()
+        with torch.enable_grad(), layout:
             leaves = [t.detach().requires_grad_()
                       for t in pytree.leaves(params)]
             tree = pytree.unflatten(params, leaves)
@@ -480,8 +576,16 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
                 loss_fn(pytree.tree_map(lambda t: t[i], tree), cfg,
                         {k: v[i] for k, v in batch.items()}, remat=remat,
                         chunk=chunk)[0] for i in range(leaves[0].shape[0])])
-            grads = torch.autograd.grad(losses.sum(), leaves)
-        return losses.detach(), list(grads)
+            grads = list(torch.autograd.grad(losses.sum(), leaves))
+        for axis, idx in syncs.items():     # one all-reduce a dtype group
+            for group_ in dtype_groups([grads[i] for i in idx]).values():
+                ids = [idx[k] for k in group_]
+                flat = mesh.all_reduce(torch.cat(
+                    [grads[i].reshape(-1) for i in ids]), axis)
+                for i, f in zip(ids, flat.split(
+                        [grads[i].numel() for i in ids])):
+                    grads[i] = f.view(grads[i].shape)
+        return losses.detach(), grads
 
     def local_sgd(params, grads, vel, lr_t):
         """Per-pod momentum step: (params, vel) as lists of leaves."""
@@ -502,8 +606,13 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
                              f"{n_pods} pods (the global batch)")
         if mesh is None:
             return batch
-        specs = sharding.batch_shardings(batch, mesh, pod_stacked=True)
-        return {k: sharding.local_block(v, specs[k], mesh)
+        D = mesh.size_of("data")
+        b = {k: v.shape[1] for k, v in batch.items() if v.dim() > 1}
+        if D > 1 and any(n % D for n in b.values()):
+            raise ValueError(f"batch leaves {b}: a pod's sequences must "
+                             f"split over the data axis of {D}")
+        specs_ = sharding.batch_shardings(batch, mesh, pod_stacked=True)
+        return {k: sharding.local_block(v, specs_[k], mesh)
                 for k, v in batch.items()}
 
     def check_mix(mix, rows):
@@ -563,9 +672,17 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
                     "acc": out(new["acc"])}, metrics
 
         if comm.strategy == "dgc":
-            sq = 0
-            for x in grads:         # per-pod global norm, leaves in order
-                sq = sq + x.float().square().sum(dim=tuple(range(1, x.dim())))
+            # per-pod global norm, leaves in order; a leaf split over ranks
+            # summed over them, a whole (replicated) one counted once
+            sq, parts_sq = 0, {}
+            for x, ax in zip(grads, split or [None] * len(grads)):
+                x2 = x.float().square().sum(dim=tuple(range(1, x.dim())))
+                if ax is None:
+                    sq = sq + x2
+                else:
+                    parts_sq[ax] = parts_sq.get(ax, 0) + x2
+            for ax, x2 in parts_sq.items():
+                sq = sq + mesh.all_reduce(x2, ax)
             scale = torch.clamp(comm.dgc_clip / torch.clamp(sq.sqrt(),
                                                             min=1e-12),
                                 max=1.0)
@@ -587,8 +704,7 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
         # round (padding entries carry weight 0)
         params, vel = local_sgd(p0, grads, vel0, lr_t)
         metrics["mean_degree"] = mix.mean_degree
-        metrics["comm_floats"] = mix.mean_degree * (
-            float(sum(t.numel() for t in p0)) / rows)
+        metrics["comm_floats"] = mix.mean_degree * n_model
         if comm.strategy == "dpsgd":
             new = ex({"params": params}, mix=mix)
             return {"params": out(new["params"]), "vel": out(vel)}, metrics
@@ -598,6 +714,7 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
                 "snaps": new["snaps"]}, metrics
 
     train_step.exchange = exchange
+    train_step.pod_grads = pod_grads
     return train_step
 
 

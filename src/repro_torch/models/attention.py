@@ -15,6 +15,11 @@ minicpm3), with two paths:
   a *ring buffer* of ``window`` slots (the cache positions say which slot
   holds which token).  Plain tensor code, no kernel.
 
+Under ``shard_hints.activation_sharding(mesh)`` (the train step on a mesh
+with a ``model`` axis) GQA runs on the rank's heads: n_heads / M query
+heads over n_kv_heads / M KV heads (the column blocks of wq, wk, wv,
+whole heads each), the kernel on those, and wo row-parallel.
+
 MLA's prefill expands K and V from the latent and hands the kernel k and
 v of their own head dims, v a view of the expansion; its decode takes
 the *absorbed* form in float32, scores against the compressed ``ckv``
@@ -29,9 +34,11 @@ import torch
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.launch.collectives import copy_to_model
 from repro_torch.models.layers import (init_linear, init_normal, init_rmsnorm,
                                        linear_apply, rmsnorm_apply, softcap)
 from repro_torch.models.rope import apply_rope
+from repro_torch.models.shard_hints import axis_env_size, current_mesh
 
 Params = Dict[str, object]
 
@@ -130,10 +137,20 @@ def init_gqa(gen: torch.Generator, a: AttentionConfig, d_model: int, dtype,
 
 def gqa_qkv(p: Params, a: AttentionConfig, x: torch.Tensor,
             positions: torch.Tensor):
+    """(q, k, v) after qk-norm and RoPE: (B, T, heads, head_dim), the
+    rank's n_heads / M and n_kv_heads / M heads under a mesh (M its
+    ``model`` size, 1 without one)."""
     B, T, _ = x.shape
-    q = linear_apply(p["wq"], x).reshape(B, T, a.n_heads, a.head_dim)
-    k = linear_apply(p["wk"], x).reshape(B, T, a.n_kv_heads, a.head_dim)
-    v = linear_apply(p["wv"], x).reshape(B, T, a.n_kv_heads, a.head_dim)
+    m = axis_env_size("model")
+    mesh = current_mesh()
+    if mesh is not None:
+        x = copy_to_model(x, mesh)
+    q = linear_apply(p["wq"], x, "col").reshape(B, T, a.n_heads // m,
+                                                 a.head_dim)
+    k = linear_apply(p["wk"], x, "col").reshape(B, T, a.n_kv_heads // m,
+                                                 a.head_dim)
+    v = linear_apply(p["wv"], x, "col").reshape(B, T, a.n_kv_heads // m,
+                                                 a.head_dim)
     if a.qk_norm:
         q = rmsnorm_apply(p["q_norm"], q)
         k = rmsnorm_apply(p["k_norm"], k)
@@ -145,12 +162,13 @@ def gqa_qkv(p: Params, a: AttentionConfig, x: torch.Tensor,
 def gqa_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
               window: Optional[int], positions: torch.Tensor,
               chunk: int = 512) -> torch.Tensor:
-    """Train/prefill path (full sequence)."""
+    """Train/prefill path (full sequence): under a mesh on the rank's
+    heads, wo's partial products summed over ``model``."""
     q, k, v = gqa_qkv(p, a, x, positions)
     out = chunked_attention(q, k, v, causal=True, window=window,
                             logit_softcap=a.attn_softcap, chunk=chunk)
     B, T = x.shape[:2]
-    return linear_apply(p["wo"], out.reshape(B, T, -1))
+    return linear_apply(p["wo"], out.reshape(B, T, -1), "row")
 
 
 def gqa_init_cache(a: AttentionConfig, batch: int, length: int, dtype,

@@ -11,6 +11,16 @@ device, then move the result to ``device``.  The LM initialisers place
 every leaf on ``device``, which defaults to CUDA as the port's entry
 points do (``repro_torch.device.resolve_device``).
 
+Under ``shard_hints.activation_sharding(mesh)`` (the train step on a mesh
+with a ``data`` or ``model`` axis) the LM layers take the rank's blocks
+of their weights, as ``launch.sharding``'s rules place them: a weight is
+gathered over ``data`` before use (``collectives.gather_data``); an
+in-projection is column-parallel (the rank's output columns), an
+out-projection row-parallel (its input rows, the partial products summed
+over ``model``), the embedding vocabulary-parallel (the rank's rows of
+the table).  The caller of a column-parallel group applies
+``collectives.copy_to_model`` to its input once.
+
 BatchNorm carries its running statistics explicitly (returned as the new
 state) and updates them with the *biased* minibatch variance as
 ``0.9 * old + 0.1 * batch`` — the reference's convention, which
@@ -27,6 +37,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.launch import collectives as coll
+from repro_torch.models.shard_hints import current_mesh
 
 Params = Dict[str, torch.Tensor]
 
@@ -195,8 +207,32 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
     return p
 
 
-def linear_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p["w"].to(x.dtype)
+def linear_apply(p: Params, x: torch.Tensor, tp: Optional[str] = None
+                 ) -> torch.Tensor:
+    """``x @ w (+ b)``.  Under a mesh (``current_mesh()``), ``tp`` says how
+    ``sharding.rule_spec`` places the weight: ``"col"``, an in-projection
+    (d_in over ``data``, d_out over ``model``): the rank's output columns,
+    its slice of a bias; ``"row"``, an out-projection (d_in over
+    ``model``, d_out over ``data``): the partial product summed over
+    ``model``, then the whole bias.  Without a mesh (or ``tp``) the
+    weight is whole."""
+    mesh = current_mesh() if tp else None
+    if mesh is None:
+        y = x @ p["w"].to(x.dtype)
+        if "b" in p:
+            y = y + p["b"].to(x.dtype)
+        return y
+    if tp == "col":
+        y = x @ coll.gather_data(p["w"], 0, mesh).to(x.dtype)
+        if "b" in p:
+            n = y.shape[-1]
+            i = mesh.coords.get("model", 0)
+            y = y + p["b"][i * n:(i + 1) * n].to(x.dtype)
+        return y
+    if tp != "row":
+        raise ValueError(f"linear_apply: tp={tp!r}; want 'col' or 'row'")
+    y = coll.reduce_from_model(x @ coll.gather_data(p["w"], 1, mesh).to(
+        x.dtype), mesh)
     if "b" in p:
         y = y + p["b"].to(x.dtype)
     return y
@@ -212,9 +248,14 @@ def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int,
 
 
 def gated_mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    g = F.silu(linear_apply(p["gate"], x))
-    u = linear_apply(p["up"], x)
-    return linear_apply(p["down"], g * u)
+    """``down(silu(gate(x)) * up(x))``; under a mesh the rank's d_ff
+    columns (gate and up column-parallel, down row-parallel)."""
+    mesh = current_mesh()
+    if mesh is not None:
+        x = coll.copy_to_model(x, mesh)
+    g = F.silu(linear_apply(p["gate"], x, "col"))
+    u = linear_apply(p["up"], x, "col")
+    return linear_apply(p["down"], g * u, "row")
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
@@ -226,14 +267,39 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
 
 def embedding_apply(p: Params, tokens: torch.Tensor,
                     compute_dtype=None) -> torch.Tensor:
+    """The table's rows at ``tokens``.  Under a mesh, vocabulary-parallel:
+    the table's rank block (vocab over ``model``, d over ``data``) is
+    gathered over ``data``, the rank looks up the tokens of its
+    vocabulary rows and zeros the rest, and the lookups are summed over
+    ``model`` (one nonzero term each: the one-device rows, bit for
+    bit)."""
+    mesh = current_mesh()
     t = p["table"]
+    if mesh is None:
+        if compute_dtype is not None:
+            t = t.to(compute_dtype)
+        return t[tokens]
+    t = coll.gather_data(t, 1, mesh)
     if compute_dtype is not None:
         t = t.to(compute_dtype)
-    return t[tokens]
+    n = t.shape[0]
+    local = tokens - mesh.coords.get("model", 0) * n
+    mine = (local >= 0) & (local < n)
+    rows = t[local.clamp(0, n - 1)]
+    rows = torch.where(mine[..., None], rows,
+                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return coll.reduce_from_model(rows, mesh)
 
 
 def unembed_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    return x @ p["table"].to(x.dtype).T
+    """``x @ table.T``; under a mesh the rank's vocabulary columns of the
+    logits (the table gathered over ``data``, ``x``'s gradient summed
+    over ``model``)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x @ p["table"].to(x.dtype).T
+    x = coll.copy_to_model(x, mesh)
+    return x @ coll.gather_data(p["table"], 1, mesh).to(x.dtype).T
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor

@@ -29,10 +29,13 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import collectives as coll
 from repro_torch.models import encdec, transformer
+from repro_torch.models.shard_hints import current_mesh
 
 Params = Dict[str, Any]
 
@@ -77,15 +80,52 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     (``max(count, 1)`` in the denominator); aux the MoE auxiliary loss.
     A negative label is gathered at class 0 and masked out (the
     reference gathers it at the last class; torch's gather refuses a
-    negative index), so the two give one loss and one gradient."""
+    negative index), so the two give one loss and one gradient.
+
+    Under ``shard_hints.activation_sharding(mesh)`` ``p`` holds the rank's
+    blocks and ``batch`` its ``data`` share of the pod's sequences, and
+    the loss is the pod's (``_sharded_ce``), the same on every rank of
+    the pod."""
     logits, aux = forward(p, cfg, batch, remat=remat, chunk=chunk)
     labels = batch["labels"]
+    mesh = current_mesh()
+    if mesh is not None:
+        ce = _sharded_ce(logits, labels, mesh)
+        return ce + aux, {"ce": ce, "aux": aux}
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None].long()
                         )[..., 0]
     mask = (labels >= 0).float()
     ce = (nll * mask).sum() / mask.sum().clamp_min(1.0)
     return ce + aux, {"ce": ce, "aux": aux}
+
+
+def _sharded_ce(logits: torch.Tensor, labels: torch.Tensor, mesh
+                ) -> torch.Tensor:
+    """The vocabulary-parallel cross-entropy of a pod, from the rank's
+    (B / D, T, V / M) logits: the row max all-reduced (MAX) over
+    ``model`` and held constant (the log-sum-exp does not depend on it);
+    the sum of exp and the label's shifted logit (from the rank that owns
+    the label's column, zero elsewhere) summed over ``model``; the
+    negative log-likelihood's masked sum and the count of labels >= 0
+    summed over ``data``, so the mean is over the pod's labels, not the
+    rank's."""
+    n = logits.shape[-1]
+    top = logits.detach().amax(dim=-1, keepdim=True)
+    mesh.all_reduce(top, "model", op=dist.ReduceOp.MAX)
+    z = logits - top
+    local = labels.long() - mesh.coords.get("model", 0) * n
+    mine = (local >= 0) & (local < n) & (labels >= 0)
+    picked = torch.gather(z, -1, local.clamp(0, n - 1)[..., None])[..., 0]
+    picked = torch.where(mine, picked, torch.zeros((), dtype=z.dtype,
+                                                   device=z.device))
+    sums = coll.reduce_from_model(torch.stack([z.exp().sum(dim=-1), picked]),
+                                  mesh)
+    nll = sums[0].log() - sums[1]
+    mask = (labels >= 0).float()
+    num_count = coll.reduce_from_data(torch.stack([(nll * mask).sum(),
+                                                   mask.sum()]), mesh)
+    return num_count[0] / num_count[1].clamp_min(1.0)
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,

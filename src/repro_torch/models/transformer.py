@@ -18,6 +18,15 @@ backward (``torch.utils.checkpoint``, non-reentrant), as the reference
 wraps its cycle in ``jax.checkpoint``; the prefix and suffix layers are
 not wrapped, as there.
 
+Under ``shard_hints.activation_sharding(mesh)`` (the train step on a mesh
+with a ``data`` or ``model`` axis; dense GQA models) every rank of a pod
+runs the same layers on its blocks (``layers.py``, ``attention.py``) and
+its share of the pod's sequences, and ``lm_apply`` returns the rank's
+vocabulary columns of the logits.  A checkpointed cycle re-enters the
+context with the forward's mesh, so its recompute in the backward (on
+the autograd engine's thread, which does not inherit the context) takes
+the same blocks and issues the same collectives in the same order.
+
 ``device`` defaults to CUDA, as at every entry point of the port.
 """
 from __future__ import annotations
@@ -31,10 +40,12 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch.collectives import copy_to_model
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.shard_hints import activation_sharding, current_mesh
 from repro_torch.models.layers import (NORM_APPLY, embedding_apply,
                                        gated_mlp_apply, init_embedding,
                                        init_gated_mlp, init_linear,
@@ -310,11 +321,16 @@ def embed_inputs(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """float32 logits, softcapped; under a mesh the rank's vocabulary
+    columns (the softcap is elementwise)."""
     x = NORM_APPLY[cfg.norm](p["final_norm"], x)
     if cfg.tie_embeddings:
         logits = unembed_apply(p["embed"], x)
     else:
-        logits = linear_apply(p["unembed"], x)
+        mesh = current_mesh()
+        if mesh is not None:
+            x = copy_to_model(x, mesh)
+        logits = linear_apply(p["unembed"], x, "col")
     return softcap(logits.float(), cfg.final_softcap)
 
 
@@ -323,8 +339,9 @@ def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
              memory: Optional[torch.Tensor] = None, remat: bool = True,
              chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, T) integer.  Returns (the float32 logits (B, T, V) over
-    the *text* positions, the MoE auxiliary loss summed over layers, a
-    float32 zero where no layer is MoE).  For the VLM, ``patches``
+    the *text* positions (under a mesh, the rank's vocabulary columns),
+    the MoE auxiliary loss summed over layers, a float32 zero where no
+    layer is MoE).  For the VLM, ``patches``
     prepend ``cfg.modality.n_tokens`` positions, and the first that many
     positions' logits are dropped (as in the reference, also where no
     patches were given).  For the enc-dec decoder, every layer attends to
@@ -349,10 +366,12 @@ def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         x, aux = run(lp, layer_sig(cfg, i), x, aux)
     if p["body"] is not None:
         sigs = body_sigs(cfg)
+        mesh = current_mesh()
 
         def cycle(x, aux, cyc):
-            for j in range(P):
-                x, aux = run(cyc[j], sigs[j], x, aux)
+            with activation_sharding(mesh):     # also in the recompute
+                for j in range(P):
+                    x, aux = run(cyc[j], sigs[j], x, aux)
             return x, aux
 
         wrap = remat and torch.is_grad_enabled() and (

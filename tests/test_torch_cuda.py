@@ -1293,3 +1293,80 @@ def test_two_gloo_ranks_on_the_card_exchange_bit_for_bit(dev, strategy,
     from repro_torch.launch import procs
     assert all(procs.spawn(_two_rank_exchange, 2, backend="gloo",
                            device=dev, timeout=300, args=(strategy, dtype)))
+
+
+def _four_rank_intrapod(rank, dev, shape, strategy, dtype):
+    """One gloo rank of four on the card, mesh ``shape`` (a pod over data
+    and model ranks): the exchange of ``strategy`` on its blocks of seeded
+    stacked inputs (the reduced qwen3's leaves) against the one-card
+    exchange (True where bit for bit), and one float32 train step (TF32
+    off) against the one-card step: the relative L2 of its blocks of
+    params and vel."""
+    import dataclasses
+    from repro_torch import pytree
+    from repro_torch.launch import sharding, steps
+    from repro_torch.launch.mesh import make_mesh
+    cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
+                              dtype=dtype)
+    mesh = make_mesh(shape, device=dev, cfg=cfg)
+    p = model.init_model(torch.Generator().manual_seed(0), cfg, dev)
+    like, specs = pytree.leaves(p), sharding.leaf_specs(p, mesh)
+    rows = steps.local_pods(2, mesh)
+
+    def blocks(ts):
+        return [sharding.local_block(t[rows.start:rows.stop],
+                                     (None,) + tuple(s), mesh).contiguous()
+                for t, s in zip(ts, specs)]
+    rs = np.random.default_rng(5)
+    draw = lambda scale, dt=None: [torch.from_numpy(rs.standard_normal(
+        (2,) + tuple(t.shape)).astype(np.float32) * scale).to(
+        dev, dt or t.dtype) for t in like]
+    comm = CommConfig(strategy=strategy, fabric=FabricConfig(topology="ring"),
+                      dgc_sparsity=0.95)
+    full = {"grads": draw(0.01)} if strategy == "bsp" else {
+        "params": draw(0.1)}
+    if strategy == "dgc":
+        full.update(acc=draw(0.01, torch.float32),
+                    vel=draw(0.01, torch.float32))
+    sched = build_schedule("ring", 2)
+    mix = ({"mix": steps.gossip_operands(sched, 0, device=dev)},
+           {"mix": steps.gossip_operands(sched, 0, device=dev, mesh=mesh)}
+           ) if strategy == "dpsgd" else ({}, {})
+    want = steps.make_exchange(comm)(full, **mix[0])
+    got = steps.make_exchange(comm, mesh=mesh, specs=specs)(
+        {k: blocks(v) for k, v in full.items()}, **mix[1])
+    same = all(torch.equal(g, w) for k in want
+               for g, w in zip(got[k], blocks(want[k])))
+    tokens = torch.from_numpy(np.random.default_rng(6).integers(
+        0, cfg.vocab, (2, 2, 17))).to(dev)
+    batch = {"tokens": tokens[..., :-1], "labels": tokens[..., 1:]}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    one, _ = steps.make_train_step(cfg, comm, lr=1e-2)(
+        steps.make_train_state(p, comm, 2), batch, 1, **mix[0])
+    mine, _ = steps.make_train_step(cfg, comm, mesh=mesh, lr=1e-2)(
+        steps.make_train_state(p, comm, 2, mesh=mesh), batch, 1, **mix[1])
+    num = den = 0.0
+    for k in ("params", "vel"):
+        for g, w in zip(pytree.leaves(mine[k]),
+                        blocks(pytree.leaves(one[k]))):
+            num += float((g.double() - w.double()).square().sum())
+            den += float(w.double().square().sum())
+    return same, (num / den) ** 0.5
+
+
+@pytest.mark.parametrize("strategy", ["bsp", "dgc", "dpsgd"])
+@pytest.mark.parametrize("shape", [(2, 2, 1), (2, 1, 2), (1, 2, 2)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_four_gloo_ranks_on_the_card_intrapod(dev, shape, strategy):
+    """Four gloo ranks on the one card, a pod split over data and model
+    ranks: each rank's blocks of the exchange equal the one-card
+    exchange's bit for bit (DGC's sharded leaves through
+    ``abs_histogram`` and ``dgc_select``, the gossip through
+    ``neighbor_mix_src_many``), and a float32 step's blocks lie within
+    1e-5 relative L2 of the one-card step's (``test_torch_intrapod.py``'s
+    bounds)."""
+    from repro_torch.launch import procs
+    for same, l2 in procs.spawn(_four_rank_intrapod, 4, backend="gloo",
+                                device=dev, timeout=300,
+                                args=(shape, strategy, "float32")):
+        assert same and l2 <= 1e-5, (same, l2)

@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro.kernels import dgc_topk as jax_dgc
 from repro.kernels import ops as jax_ops

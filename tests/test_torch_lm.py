@@ -26,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro.configs.base import AttentionConfig as JaxAttentionConfig
 from repro.configs import registry as jax_registry

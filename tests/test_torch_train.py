@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 import torch.nn.functional as F
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 import repro.core.divergence as jax_divergence
 import repro.core.trainer as jax_trainer
