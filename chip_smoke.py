@@ -237,11 +237,12 @@ before the last line is printed:
    for bit;
 12. the pod axis across processes (``launch.procs.spawn``; the parent
    built the kernels, the ranks only load them): (a) two gloo ranks on
-   the card, one phase 11 pod each (qwen3-0.6b at full width, bfloat16,
-   2 x 1024 tokens, remat), ``launch.mesh.make_mesh`` over them, under
+   the card, one phase 11 pod each (qwen3-0.6b at full width cut to its
+   first 7 layers, bfloat16, 2 x 1024 tokens, remat),
+   ``launch.mesh.make_mesh`` over them, under
    the six strategies: one warm-up and 3 timed steps each, every launch
    count set to 0 just before the timed steps and read just after in
-   each rank (56 ``flash_attention``, 2 ``gaia_select``, 13
+   each rank (14 ``flash_attention``, 2 ``gaia_select``, 13
    ``dgc_sparsify``, 2 ``neighbor_mix_src`` launches a step a rank for
    dpsgd and adpsgd: ``ops.neighbor_mix_src_many`` over the gathered or
    received rows), ms a step, tokens/s, each rank's peak memory and the
@@ -274,14 +275,49 @@ before the last line is printed:
    step's own inputs bit for bit (DGC's sharded leaves through
    ``abs_histogram`` summed over the ranks and ``dgc_select``), 0 host
    syncs, the launches a rank (8 ``flash_attention``, 8 ``abs_histogram``
-   and 8 ``dgc_select`` beside 5 ``dgc_sparsify`` for dgc); (b) full
-   depth, bf16, remat, bsp and dpsgd, 2 x 1024 tokens a pod, one warm-up
-   and 3 timed steps: the slower rank's ms a step, tokens/s, peak memory
-   a rank, host syncs, launches a step a rank (56 ``flash_attention`` at
-   (1, 1024, 8 over 4, 128)); (c) (b)'s bsp params saved on the mesh,
-   each rank's blocks restored on the mesh, and the checkpoint restored
-   on one device, each rank's blocks of it equal to that rank's state
-   (SHA-256 of the bytes).
+   and 8 ``dgc_select`` beside 5 ``dgc_sparsify`` for dgc); (b) the
+   first 7 layers at full width, bf16, remat, bsp and dpsgd, 2 x 1024
+   tokens a pod, one warm-up and 3 timed steps: the slower rank's ms a
+   step, tokens/s, peak memory a rank, host syncs, launches a step a rank
+   (14 ``flash_attention`` at (1, 1024, 8 over 4, 128)); (c) (b)'s bsp
+   params saved on the mesh, each rank's blocks restored on the mesh,
+   and the checkpoint restored on one device, each rank's blocks of it
+   equal to that rank's state (SHA-256 of the bytes).  (Phases 12 (a)
+   and 13 (b) ran the full 28 layers until phase 14 needed the time.)
+14. serving under a mesh (``launch.steps.make_prefill_step`` and
+   ``make_serve_step`` with ``mesh=``; four gloo ranks on the card, one
+   site of a (1, D, M) mesh: each rank holds its blocks of the weights
+   (FSDP over data, tensor and expert parallelism over model), of the
+   decode cache and its rows of the requests): ``flash_attention`` at
+   each rank's prefill shape against its plain version (bf16 causal,
+   max |err| 8e-3, mean 1e-6): qwen3-0.6b's (2, 2048, 8 over 4, 128) and
+   deepseek-v2-lite-16b's (4, 2048, 4 over 4, (192, 128)); the one-card
+   serves the ranks are held against (run first, each model freed before
+   the next); (a) float32 (TF32 off): qwen3-0.6b at full depth over
+   (1, 2, 2), the 4 x 2048 prefill and 8 requests' teacher-forced decode
+   (a 64-token prompt, then the one-card greedy tokens; 128 slots) for
+   its first 16 steps, under both cache placements (the length over
+   model: flash-decode; and the KV heads over model, the reference's
+   ``REPRO_BASELINE_DECODE``); a 4-layer cut of deepseek-v2-lite-16b at
+   full width over (1, 1, 4) (1 dense and 3 MoE layers), the same
+   prefill and all 95 decode steps under both placements, the EP
+   route's prefill (reported) and 8 of its decode steps (the dense
+   route's function at one token, by the reference's rule), and the EP
+   route's first MoE layer against ``moe_apply_ep_ref`` on the one-card
+   run's own input: every logit row, and that layer's output, within
+   1e-5 relative L2; (b) bf16 at full width and depth, the weights drawn
+   by the ranks in turns (each keeps clones of its blocks): qwen3-0.6b
+   over (1, 2, 2), deepseek-v2-lite-16b over (1, 1, 4) with the dense
+   and the EP route: one warm-up and 3 timed prefill calls and decode
+   steps, the slowest rank's median, tokens/s, peak memory a rank, 0 host
+   syncs a decode step, the launches (28 and 27 ``flash_attention`` a
+   prefill call a rank, none a decode step), one decode step's
+   collectives (calls, bytes handed, ms inside them); qwen3's logits no
+   farther from the float32 one-card logits than 1.25x the one-card bf16
+   logits are (gated), deepseek's relative L2 to the one-card bf16
+   logits and greedy agreement (reported); (c) NCCL at world size 1: the
+   serve steps on a (1, 1, 1) mesh equal the steps without one, 0 host
+   syncs a decode step.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -1428,12 +1464,18 @@ def lm_train_phase(dev: torch.device, out_dir: Path):
 # ---------------------------------------------------------------------------
 
 #: phase 12, the pod axis across processes: two gloo ranks on the one card,
-#: one phase 11 pod each (qwen3-0.6b at full width, bf16, 2 x 1024 tokens,
+#: one phase 11 pod each (qwen3-0.6b at full width, DIST_TIMED_LAYERS
+#: deep, bf16, 2 x 1024 tokens,
 #: remat, phase 11's lr and strategies); (c) a float32 cut of DIST_CUT
 #: layers at full width, its velocity gated at phase 11's 1e-3; (d) NCCL
 #: at world size 1 (the two pods on the one rank, a bf16 cut), its steps
 #: timed and one under the sync debug mode
 DIST_RANKS, DIST_CUT, DIST_VEL_TOL, DIST_NCCL_STEPS = 2, 2, 1e-3, 3
+#: the depth of (a)'s timed steps and (b)'s exchange, at full width: a
+#: quarter of qwen3-0.6b's 28 layers (full depth until phase 14 needed the
+#: script's time; the exchange's leaves, and so its launches, are the
+#: full model's in number)
+DIST_TIMED_LAYERS = 7
 #: the ranks' deadline (the process group's timeout and the parent's join)
 DIST_TIMEOUT = 900
 
@@ -1496,7 +1538,8 @@ def dist_rank(rank: int, dev: torch.device) -> dict:
     from repro_torch.topology.graphs import build_demo_schedule
     mesh = make_mesh((DIST_RANKS, 1, 1), device=dev)
     rows = TRAIN_PODS // DIST_RANKS
-    cfg = get_config("qwen3-0.6b")
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                              n_layers=DIST_TIMED_LAYERS)
     base = lm.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
                          dev)
     batches = _dist_batches(dev, TRAIN_STEPS + 1)
@@ -1794,7 +1837,7 @@ def dist_phase(dev: torch.device):
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    n_layers = get_config("qwen3-0.6b").n_layers
+    n_layers = DIST_TIMED_LAYERS
     parent_gb = torch.cuda.memory_allocated() / 1e9
     mix_t = src_many_times(dev)
     print(f"neighbor_mix_src_many at phase 12's dpsgd shape (one pod's "
@@ -1909,8 +1952,9 @@ def dist_phase(dev: torch.device):
 #: context each.  (a) a float32 INTRA_CUT-layer cut at full width, one
 #: step of each strategy against the one-card step (relative L2 of the
 #: gathered params and velocities within INTRA_L2_TOL; the exchange on the
-#: one-card step's own inputs bit for bit); (b) full depth, bf16, remat,
-#: INTRA_TIMED strategies, 2 x 1024 tokens a pod, one warm-up and
+#: one-card step's own inputs bit for bit); (b) a cut of
+#: INTRA_TIMED_LAYERS at full width, bf16, remat, INTRA_TIMED
+#: strategies, 2 x 1024 tokens a pod, one warm-up and
 #: TRAIN_STEPS timed steps; (c) (b)'s bsp params saved on the mesh and
 #: restored on one device
 INTRA_MESH, INTRA_CUT, INTRA_L2_TOL = (2, 2, 2), 4, 1e-5
@@ -1922,6 +1966,9 @@ INTRA_MESH, INTRA_CUT, INTRA_L2_TOL = (2, 2, 2), 4, 1e-5
 #: are gradients, whose relative L2 is the rounding of their own sums)
 INTRA_SELECTS = ("gaia", "dgc")
 INTRA_TIMED = ("bsp", "dpsgd")
+#: (b)'s depth at full width: a quarter of qwen3-0.6b's 28 layers (full
+#: depth until phase 14 needed the script's time)
+INTRA_TIMED_LAYERS = 7
 INTRA_TIMEOUT = 900
 
 
@@ -2085,7 +2132,9 @@ def intra_rank(rank: int, dev: torch.device, ckpt_dir: str) -> dict:
     del p32
     torch.cuda.empty_cache()
 
-    # (b) full depth, bf16, remat: timed steps
+    # (b) a cut of INTRA_TIMED_LAYERS at full width, bf16, remat: timed
+    # steps
+    cfg = dataclasses.replace(cfg, n_layers=INTRA_TIMED_LAYERS)
     base = lm.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
                          dev)
     for strategy in INTRA_TIMED:
@@ -2255,7 +2304,8 @@ def intra_phase(dev: torch.device):
     t_phase = time.perf_counter()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    cfg = get_config("qwen3-0.6b")
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                              n_layers=INTRA_TIMED_LAYERS)
     ckpt_dir = str(ROOT / "build" / "intra_ckpt")
     shutil.rmtree(ckpt_dir, ignore_errors=True)
     n_ranks = int(np.prod(INTRA_MESH))
@@ -2323,7 +2373,8 @@ def intra_phase(dev: torch.device):
               f"{c0['ms']:.1f} ms of the host's wall inside them; the share "
               f"of the step's wall by rank "
               f"{[round(x_, 3) for x_ in blocked]}", flush=True)
-        print(f"(b) {strategy}, full depth, bf16, remat, mesh {INTRA_MESH} "
+        print(f"(b) {strategy}, {INTRA_TIMED_LAYERS} layers at full width, "
+              f"bf16, remat, mesh {INTRA_MESH} "
               f"of gloo ranks on the card: {slow:.1f} ms a step (the slower "
               f"rank's median of {TRAIN_STEPS}), {s['tokens_per_s']:.0f} "
               f"tokens/s, peak {max(s['peak_gb_by_rank']):.2f} GB a rank "
@@ -2393,6 +2444,710 @@ def intra_phase(dev: torch.device):
     summary["wall_s"] = time.perf_counter() - t_phase
     print(f"phase 13: {summary['wall_s']:.2f} s")
     return summary, kern
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: serving under a mesh
+# ---------------------------------------------------------------------------
+
+#: phase 14, the serve steps on a (1, D, M) mesh of gloo ranks sharing the
+#: one card: each model's mesh
+MESH_SHAPES = {"qwen3-0.6b": (1, 2, 2), "deepseek-v2-lite-16b": (1, 1, 4)}
+#: 8 requests (the reference's batch_sharded rule: B >= 8), a 64-token
+#: prompt fed through the serve step, 31 generated, 128 slots
+MESH_B, MESH_PROMPT, MESH_GEN, MESH_CACHE = 8, SERVE_PROMPT, SERVE_GEN - 1, \
+    SERVE_CACHE
+#: (a)'s float32 parity (TF32 off): deepseek-v2-lite-16b on a MESH_CUT-layer
+#: cut (1 dense and 3 MoE layers) over the whole decode under the
+#: flash-decode placement and its first MESH_BASE_STEPS under the heads
+#: placement; qwen3-0.6b at full depth over its first MESH_QWEN_F32_STEPS
+#: steps under each (a float32 decode step on (1, 2, 2) gathers half the
+#: weights over data through gloo's host staging: ~2.5 s).  Every logit
+#: row within MESH_F32_TOL relative L2 of the one-card serve, or within
+#: MESH_WITNESS_X times the model's own rounding floor where that is
+#: higher: the largest row distance of the one-card serve with every
+#: weight moved by a relative 2**-24 normal (two draws), which at these
+#: depths and 2048 positions lies above 1e-5 (PERF.md, PR 25)
+MESH_CUT, MESH_QWEN_F32_STEPS, MESH_BASE_STEPS = 4, 8, 32
+MESH_F32_TOL, MESH_WITNESS_X = 1e-5, 1.25
+#: the EP route's decode steps in (a): the dense route's function at one
+#: token a step (the reference's rule), run to show the route takes it
+MESH_EP_STEPS = 8
+#: (b)'s timing: one warm-up call or step, then MESH_TIMED timed
+MESH_TIMED = 3
+MESH_TIMEOUT = 900
+#: flash_attention at each rank's prefill shape: (B, T, Hq, Hkv, Dk, Dv)
+MESH_FA_SHAPES = {"qwen3-0.6b": (2, PREFILL_T, 8, 4, 128, 128),
+                  "deepseek-v2-lite-16b": (PREFILL_B, PREFILL_T, 4, 4, 192,
+                                           128)}
+
+
+def _mesh_tokens(vocab):
+    """(the prefill's PREFILL_B x PREFILL_T prompts, the decode's MESH_B x
+    MESH_PROMPT prompts), from seeds 140 and 141."""
+    return (torch.from_numpy(np.random.default_rng(140).integers(
+        0, vocab, (PREFILL_B, PREFILL_T))),
+            torch.from_numpy(np.random.default_rng(141).integers(
+                0, vocab, (MESH_B, MESH_PROMPT))))
+
+
+def _decode_batch(fed, t, dev):
+    return {"token": fed[:, t].to(dev),
+            "t": torch.full((fed.shape[0],), t, dtype=torch.int32,
+                            device=dev)}
+
+
+def _one_card_serve(cfg, params, dev, n_steps, fed=None):
+    """The one-card serve of ``params``: (the prefill's next-token logits
+    (PREFILL_B, V), each decode step's logits (n_steps, MESH_B, V), the
+    tokens fed (MESH_B, n_steps): the prompt, then the greedy tokens of
+    the step before, unless ``fed`` gives them), float32 on the host."""
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models import model as lm
+    pre_tok, prompt = _mesh_tokens(cfg.vocab)
+    with torch.inference_mode():
+        pre = lsteps.make_prefill_step(cfg)(params,
+                                            {"tokens": pre_tok.to(dev)})
+        cache = lm.init_cache(cfg, MESH_B, MESH_CACHE, device=dev)
+        step = lsteps.make_serve_step(cfg)
+        toks = torch.zeros(MESH_B, n_steps, dtype=torch.long)
+        out = []
+        for t in range(n_steps):
+            if fed is not None:
+                toks[:, t] = fed[:, t]
+            elif t < MESH_PROMPT:
+                toks[:, t] = prompt[:, t]
+            else:
+                toks[:, t] = out[-1].argmax(dim=-1)
+            logits, cache = step.logits(params, cache,
+                                        _decode_batch(toks, t, dev))
+            out.append(logits.float().cpu())
+    return pre.float().cpu(), torch.stack(out), toks
+
+
+def _rounding_witness(cfg, params, dev, n_steps, fed, pre, dec):
+    """How far the model carries differences of rounding size: the
+    one-card float32 serve of ``params`` with every float weight moved by
+    a relative 2**-24 normal (float32's half ulp), against the unmoved
+    serve's ``pre`` and ``dec``: the largest logit row's relative L2 at
+    prefill and over the decode steps, the larger of two draws."""
+    from repro_torch import pytree
+    out = {"prefill": 0.0, "decode": 0.0}
+    for seed in (7, 8):
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        moved = pytree.tree_map(lambda t_: t_ * (1 + 2 ** -24 * torch.randn(
+            t_.shape, generator=gen, device=dev)) if t_.is_floating_point()
+            else t_, params)
+        pre_w, dec_w, _ = _one_card_serve(cfg, moved, dev, n_steps, fed)
+        del moved
+        out = {"prefill": max(out["prefill"], _row_rel(pre_w, pre)),
+               "decode": max(out["decode"], _row_rel(dec_w, dec))}
+    return out
+
+
+def _row_rel(got, want):
+    """The largest relative L2 difference of a logit row (last dim)."""
+    d = (got.double() - want.double()).square().sum(-1).sqrt()
+    n = want.double().square().sum(-1).sqrt().clamp_min(1e-300)
+    return float((d / n).max())
+
+
+def _sq(got, want):
+    """(sum of squared differences, sum of squares of ``want``)."""
+    g, w = got.double(), want.double()
+    return float((g - w).square().sum()), float(w.square().sum())
+
+
+def serve_mesh_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
+    """One gloo rank of phase 14 (``procs.spawn``): (a) float32 parity
+    against the one-card serve of the parent (``ref_path``), (b) bf16 at
+    full width and depth, timed.  Returns host numbers."""
+    from repro_torch import pytree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.shard_hints import activation_sharding
+    import torch.distributed as dist
+    t_rank = time.perf_counter()
+    ref = torch.load(ref_path, mmap=True, weights_only=True)
+    world = dist.get_world_size()
+    out = {"rank": rank}
+
+    def blocks(cfg_, mesh_):
+        """This rank's blocks of the model drawn from seed 0, the ranks
+        drawing the whole model in turns (kept: clones of the blocks)."""
+        kept = None
+        for turn in range(world):
+            if turn == rank:
+                whole = lm.init_model(torch.Generator(device=dev)
+                                      .manual_seed(0), cfg_, dev)
+                kept = pytree.tree_map(lambda t_: t_.clone(),
+                                       sharding.local_params(whole, mesh_))
+                del whole
+                torch.cuda.empty_cache()
+            mesh_.barrier()
+        return kept
+
+    def rows_of(t_, mesh_):
+        """This rank's rows of a (B, ...) or (S, B, ...) host tensor."""
+        D, i = mesh_.size_of("data"), mesh_.coords["data"]
+        n = t_.shape[-2] // D
+        return t_.narrow(t_.dim() - 2, i * n, n).to(dev)
+
+    def timed(fn, mesh_):
+        """MESH_TIMED timed calls of ``fn`` with no warm-up apart: their
+        median leaves a slow first call (cuBLAS, the allocator) out."""
+        torch.cuda.synchronize()
+        for k_ in ops.launches:
+            ops.launches[k_] = 0
+        times, res = [], None
+        for _ in range(MESH_TIMED):
+            torch.cuda.synchronize()
+            mesh_.barrier()
+            t0 = time.perf_counter()
+            res = fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return res, times, {k_: c_ / MESH_TIMED
+                            for k_, c_ in ops.launches.items() if c_}
+
+    def parity(cfg_, mesh_, params, key, placements, routes):
+        """(a): the prefill's rows and every decode step's rows against the
+        one-card float32 logits: the largest row's relative L2.
+        ``placements``: (moe route, batch_sharded, baseline_decode, decode
+        steps) of each decode loop."""
+        pre_tok, _ = _mesh_tokens(cfg_.vocab)
+        fed = ref[key + "/fed"]
+        res = {}
+        with torch.inference_mode():
+            for route in routes:
+                pre = lsteps.make_prefill_step(cfg_, mesh=mesh_,
+                                               moe_route=route)(
+                    params, {"tokens": pre_tok.to(dev)})
+                res[f"prefill_{route}"] = _row_rel(
+                    pre, rows_of(ref[key + "/prefill"], mesh_))
+            for route, bs, base, n_steps in placements:
+                cache = lm.init_cache(cfg_, MESH_B, MESH_CACHE, device=dev,
+                                      mesh=mesh_, batch_sharded=bs,
+                                      baseline_decode=base)
+                step = lsteps.make_serve_step(cfg_, mesh=mesh_,
+                                              moe_route=route,
+                                              batch_sharded=bs,
+                                              baseline_decode=base)
+                worst = 0.0
+                for t in range(n_steps):
+                    logits, cache = step.logits(params, cache,
+                                                _decode_batch(fed, t, dev))
+                    worst = max(worst, _row_rel(
+                        logits, rows_of(ref[key + "/decode"][t], mesh_)))
+                res[f"decode_{route}_bs{int(bs)}_base{int(base)}"] = worst
+                res[f"steps_{route}_bs{int(bs)}_base{int(base)}"] = n_steps
+                del cache
+        return res
+
+    def full(cfg_, mesh_, params, key, routes):
+        """(b): timed prefill calls and decode steps, their launches, host
+        syncs and collectives, and their logits against the one-card
+        ones (sums of squares; greedy agreement)."""
+        pre_tok, _ = _mesh_tokens(cfg_.vocab)
+        fed = ref[key + "/fed"]
+        res = {}
+        with torch.inference_mode():
+            for route in routes:
+                prefill = lsteps.make_prefill_step(cfg_, mesh=mesh_,
+                                                   moe_route=route)
+                batch = {"tokens": pre_tok.to(dev)}
+                pre, times, launches = timed(lambda: prefill(params, batch),
+                                             mesh_)
+                r = {"prefill_ms": times, "prefill_launches": launches,
+                     "prefill_finite": bool(torch.isfinite(pre).all())}
+                for what in ("bf16", "f32"):
+                    want = rows_of(ref[f"{key}/prefill_{what}"], mesh_)
+                    r[f"prefill_sq_{what}"] = _sq(pre, want)
+                r["prefill_agree_bf16"] = [int((pre.argmax(-1) == rows_of(
+                    ref[f"{key}/prefill_bf16"], mesh_).argmax(-1)).sum()),
+                    pre.shape[0]]
+                res[route] = r
+            route = routes[0]
+            cache = lm.init_cache(cfg_, MESH_B, MESH_CACHE, device=dev,
+                                  mesh=mesh_)
+            step = lsteps.make_serve_step(cfg_, mesh=mesh_, moe_route=route)
+            r = res[route]
+            r.update(decode_ms=[], decode_sq_bf16=[0.0, 0.0],
+                     decode_sq_f32=[0.0, 0.0], decode_agree_bf16=[0, 0])
+            for t in range(MESH_TIMED + 1):
+                batch = _decode_batch(fed, t, dev)
+                if t == 1:
+                    for k_ in ops.launches:
+                        ops.launches[k_] = 0
+                torch.cuda.synchronize()
+                mesh_.barrier()
+                t0 = time.perf_counter()
+                if t == 1:
+                    with _timed_collectives() as coll_:
+                        tok, cache = step(params, cache, batch)
+                elif t == MESH_TIMED:
+                    box = []
+                    r["decode_syncs"] = count_syncs(lambda: box.append(
+                        step(params, cache, batch)))
+                    tok, cache = box[0]
+                else:
+                    tok, cache = step(params, cache, batch)
+                torch.cuda.synchronize()
+                if t:
+                    r["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+                # the step's logits for the comparison: the same step
+                # again, which writes the same entries to the same slots
+                logits, cache = step.logits(params, cache, batch)
+                for what in ("bf16", "f32"):
+                    want = rows_of(ref[f"{key}/decode_{what}"][t], mesh_)
+                    a_, b_ = _sq(logits, want)
+                    r[f"decode_sq_{what}"][0] += a_
+                    r[f"decode_sq_{what}"][1] += b_
+                r["decode_agree_bf16"][0] += int((logits.argmax(-1) == rows_of(
+                    ref[f"{key}/decode_bf16"][t], mesh_).argmax(-1)).sum())
+                r["decode_agree_bf16"][1] += logits.shape[0]
+                r["decode_tokens_in_range"] = bool(
+                    (tok >= 0).all() and (tok < cfg_.vocab).all())
+            r["decode_launches"] = {k_: c_ for k_, c_ in
+                                    ops.launches.items() if c_}
+            r["decode_collectives"] = coll_
+            del cache
+        return res
+
+    walls, last = {}, [time.perf_counter()]
+
+    def mark(label):
+        """The wall since the last mark, under ``label`` (rank 0 prints)."""
+        now = time.perf_counter()
+        walls[label] = now - last[0]
+        last[0] = now
+        if rank == 0:
+            print(f"phase 14 rank 0: {label} {walls[label]:.1f} s (at "
+                  f"{now - t_rank:.1f} s)", flush=True)
+
+    # qwen3-0.6b over (1, 2, 2)
+    qcfg = get_config("qwen3-0.6b")
+    mesh = make_mesh(MESH_SHAPES["qwen3-0.6b"], device=dev, cfg=qcfg,
+                     mode="serve")
+    out["qwen3_coords"] = mesh.coords
+    q32 = dataclasses.replace(qcfg, dtype="float32")
+    mark("start")
+    with tf32_off():
+        params = blocks(q32, mesh)
+        mark("(a) qwen3 float32 draw")
+        out["qwen3_f32"] = parity(
+            q32, mesh, params, "qwen3_f32",
+            (("dense", True, False, MESH_QWEN_F32_STEPS),
+             ("dense", True, True, MESH_QWEN_F32_STEPS)), ("dense",))
+    del params
+    torch.cuda.empty_cache()
+    mark("(a) qwen3 float32 prefill and decode")
+    params = blocks(qcfg, mesh)
+    mark("(b) qwen3 bf16 draw")
+    torch.cuda.reset_peak_memory_stats()
+    out["qwen3_bf16"] = full(qcfg, mesh, params, "qwen3", ("dense",))
+    out["qwen3_bf16"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    mark("(b) qwen3 bf16 prefill and decode")
+
+    # deepseek-v2-lite-16b over (1, 1, 4)
+    dcfg = get_config("deepseek-v2-lite-16b")
+    mesh = make_mesh(MESH_SHAPES["deepseek-v2-lite-16b"], device=dev,
+                     cfg=dcfg, mode="serve")
+    out["deepseek_coords"] = mesh.coords
+    cut = dataclasses.replace(dcfg, n_layers=MESH_CUT, dtype="float32")
+    with tf32_off():
+        params = blocks(cut, mesh)
+        mark("(a) deepseek float32 cut draw")
+        out["deepseek_f32"] = parity(
+            cut, mesh, params, "deepseek_f32",
+            (("dense", True, False, MESH_PROMPT + MESH_GEN),
+             ("dense", True, True, min(MESH_BASE_STEPS,
+                                       MESH_PROMPT + MESH_GEN)),
+             ("ep", True, False, MESH_EP_STEPS)), moe_mod.ROUTES)
+        # the EP route's first MoE layer on the one-card run's own input,
+        # against moe_apply_ep_ref (and the shared experts) there
+        x = ref["deepseek_f32/ep_x"].to(dev)
+        with torch.inference_mode(), activation_sharding(mesh):
+            y, aux = moe_mod.moe_apply(pytree_first_moe(params), cut.moe, x,
+                                       "ep")
+        y_ref = ref["deepseek_f32/ep_y"].to(dev)
+        num, den = _sq(y, y_ref)
+        out["deepseek_f32"]["ep_layer_rel_l2"] = (num / max(den, 1e-300)
+                                                  ) ** 0.5
+        out["deepseek_f32"]["ep_layer_aux"] = (
+            float(aux), float(ref["deepseek_f32/ep_aux"]))
+        del x, y, y_ref
+    del params
+    torch.cuda.empty_cache()
+    mark("(a) deepseek float32 cut prefill and decode")
+    params = blocks(dcfg, mesh)
+    mark("(b) deepseek bf16 draw in turns")
+    torch.cuda.reset_peak_memory_stats()
+    out["deepseek_bf16"] = full(dcfg, mesh, params, "deepseek",
+                                moe_mod.ROUTES)
+    out["deepseek_bf16"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    del params
+    torch.cuda.empty_cache()
+    mark("(b) deepseek bf16 prefill and decode")
+    out["walls_s"] = walls
+    return out
+
+
+def serve_mesh_nccl_rank(rank: int, dev: torch.device) -> dict:
+    """Phase 14 (c): the serve steps on a world-size-1 NCCL mesh (a
+    qwen3-0.6b bf16 2-layer cut): the logits against the steps without a
+    mesh, bit for bit, ms a decode step and its host syncs."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    import torch.distributed as dist
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2)
+    mesh = make_mesh((1, 1, 1), device=dev, cfg=cfg, mode="serve")
+    params = lm.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
+                           dev)
+    pre_tok, prompt = _mesh_tokens(cfg.vocab)
+    with torch.inference_mode():
+        pre = lsteps.make_prefill_step(cfg, mesh=mesh)(
+            params, {"tokens": pre_tok.to(dev)})
+        pre1 = lsteps.make_prefill_step(cfg)(params,
+                                             {"tokens": pre_tok.to(dev)})
+        caches = [lm.init_cache(cfg, MESH_B, MESH_CACHE, device=dev,
+                                mesh=mesh),
+                  lm.init_cache(cfg, MESH_B, MESH_CACHE, device=dev)]
+        step = lsteps.make_serve_step(cfg, mesh=mesh)
+        step1 = lsteps.make_serve_step(cfg)
+        same, times, syncs = torch.equal(pre, pre1), [], None
+        for t in range(MESH_TIMED + 1):
+            batch = _decode_batch(prompt, t, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if t == MESH_TIMED:
+                box = []
+                syncs = count_syncs(lambda: box.append(
+                    step(params, caches[0], batch)))
+                tok, caches[0] = box[0]
+            else:
+                tok, caches[0] = step(params, caches[0], batch)
+            torch.cuda.synchronize()
+            if t:
+                times.append((time.perf_counter() - t0) * 1e3)
+            tok1, caches[1] = step1(params, caches[1], batch)
+            same = same and torch.equal(tok, tok1)
+    return {"backend": dist.get_backend(), "same": same, "syncs": syncs,
+            "decode_ms": times}
+
+
+def serve_mesh_phase(dev: torch.device):
+    """Phase 14: serving under a mesh.  The parent checks the kernel at
+    the ranks' prefill shapes, runs the one-card serves the ranks are
+    held against (float32 and bf16; each model freed before the next),
+    saves their logits, then ``procs.spawn`` starts four gloo ranks on
+    the card (``serve_mesh_rank``) and one NCCL rank
+    (``serve_mesh_nccl_rank``); every check is gated here.  Returns
+    (summary, the kernels' phase 14 figures by kernel name)."""
+    import shutil
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops, ref as kref
+    from repro_torch.launch import procs
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import moe_ep
+    from repro_torch.models.layers import gated_mlp_apply
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary = {"parent_allocated_gb": torch.cuda.memory_allocated() / 1e9,
+               "fa": {}}
+    failures = []
+
+    def check(ok, what):
+        """A failed gate, kept so that every number is printed first."""
+        if not ok:
+            failures.append(what)
+            print(f"phase 14 FAILED: {what}", flush=True)
+    # the kernel at each rank's prefill shape against its plain version
+    gen = torch.Generator(device=dev).manual_seed(14)
+    for arch, (b_, t_, hq, hkv, dk, dv) in MESH_FA_SHAPES.items():
+        q = torch.randn(b_, t_, hq, dk, generator=gen, device=dev).to(
+            torch.bfloat16)
+        k = torch.randn(b_, t_, hkv, dk, generator=gen, device=dev).to(
+            torch.bfloat16)
+        v = torch.randn(b_, t_, hkv, dv, generator=gen, device=dev).to(
+            torch.bfloat16)
+        scale = (192 ** -0.5) if dk == 192 else None
+        got = ops.flash_attention_bthd(q, k, v, causal=True, scale=scale)
+        want = kref.flash_attention_bthd_ref(q, k, v, causal=True,
+                                             scale=scale)
+        err = (got.float() - want.float()).abs()
+        summary["fa"][arch] = {"shape": [b_, t_, hq, hkv, dk, dv],
+                               "max_abs_err": float(err.max()),
+                               "mean_abs_err": float(err.mean())}
+        print(f"flash_attention at {arch}'s rank prefill shape (B {b_}, T "
+              f"{t_}, {hq} over {hkv} heads, (Dk, Dv) = ({dk}, {dv})), bf16 "
+              f"causal, against the plain version: max |err| "
+              f"{summary['fa'][arch]['max_abs_err']:.3g} (tol "
+              f"{FA_PREFILL_TOL}), mean {summary['fa'][arch]['mean_abs_err']:.3g}"
+              f" (tol {FA_PREFILL_MEAN_TOL})", flush=True)
+        assert summary["fa"][arch]["max_abs_err"] <= FA_PREFILL_TOL
+        assert summary["fa"][arch]["mean_abs_err"] <= FA_PREFILL_MEAN_TOL
+        del q, k, v, got, want, err
+
+    # the one-card serves
+    saved = {}
+    t0 = time.perf_counter()
+    qcfg = get_config("qwen3-0.6b")
+    with tf32_off():
+        p = lm.init_model(torch.Generator(device=dev).manual_seed(0),
+                          dataclasses.replace(qcfg, dtype="float32"), dev)
+        q32 = dataclasses.replace(qcfg, dtype="float32")
+        n_q = max(MESH_QWEN_F32_STEPS, MESH_TIMED + 1)
+        pre, dec, fed = _one_card_serve(q32, p, dev, n_q)
+        witness = {"qwen3_f32": _rounding_witness(q32, p, dev, n_q, fed, pre,
+                                                  dec)}
+    saved.update({"qwen3_f32/prefill": pre, "qwen3_f32/decode": dec,
+                  "qwen3_f32/fed": fed, "qwen3/fed": fed,
+                  "qwen3/prefill_f32": pre,
+                  "qwen3/decode_f32": dec[:MESH_TIMED + 1]})
+    del p
+    torch.cuda.empty_cache()
+    p = lm.init_model(torch.Generator(device=dev).manual_seed(0), qcfg, dev)
+    pre, dec, _ = _one_card_serve(qcfg, p, dev, MESH_TIMED + 1, fed)
+    saved.update({"qwen3/prefill_bf16": pre, "qwen3/decode_bf16": dec})
+    del p
+    torch.cuda.empty_cache()
+    dcfg = get_config("deepseek-v2-lite-16b")
+    cut = dataclasses.replace(dcfg, n_layers=MESH_CUT, dtype="float32")
+    D, M = MESH_SHAPES["deepseek-v2-lite-16b"][1:]
+    with tf32_off():
+        p = lm.init_model(torch.Generator(device=dev).manual_seed(0), cut,
+                          dev)
+        seen = []
+        dense = moe_mod.moe_apply
+
+        def record(p_, m_, x_, route="dense"):
+            if not seen:
+                seen.append(x_.clone())
+            return dense(p_, m_, x_, route)
+        with swapped(moe_mod, "moe_apply", record):
+            pre, dec, fed = _one_card_serve(cut, p, dev,
+                                            MESH_PROMPT + MESH_GEN)
+        witness["deepseek_f32"] = _rounding_witness(
+            cut, p, dev, MESH_PROMPT + MESH_GEN, fed, pre, dec)
+        ffn = pytree_first_moe(p)
+        with torch.inference_mode():
+            y, aux = moe_ep.moe_apply_ep_ref(ffn, cut.moe, seen[0], D, M)
+            y = y + gated_mlp_apply(ffn["shared"], seen[0])
+    saved.update({"deepseek_f32/prefill": pre, "deepseek_f32/decode": dec,
+                  "deepseek_f32/fed": fed, "deepseek/fed": fed,
+                  "deepseek/prefill_f32": pre,
+                  "deepseek/decode_f32": dec[:MESH_TIMED + 1],
+                  "deepseek_f32/ep_x": seen[0].cpu(),
+                  "deepseek_f32/ep_y": y.cpu(),
+                  "deepseek_f32/ep_aux": aux.cpu()})
+    del p, seen, y, ffn
+    torch.cuda.empty_cache()
+    p = lm.init_model(torch.Generator(device=dev).manual_seed(0), dcfg, dev)
+    pre, dec, _ = _one_card_serve(dcfg, p, dev, MESH_TIMED + 1, fed)
+    saved.update({"deepseek/prefill_bf16": pre, "deepseek/decode_bf16": dec})
+    # the cut's float32 logits are not the full model's: (b)'s deepseek
+    # distances are taken to the one-card bf16 run only
+    del p
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary["one_card_s"] = time.perf_counter() - t0
+    summary["rounding_witness"] = witness
+    mesh_dir = ROOT / "build" / "serve_mesh"
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    mesh_dir.mkdir(parents=True)
+    ref_path = str(mesh_dir / "one_card.pt")
+    torch.save({k_: v_.contiguous() for k_, v_ in saved.items()}, ref_path)
+    # the one-card bf16 logits' distance to the float32 ones (qwen3): the
+    # 1.25x rule's yardstick
+    one_sq = {w_: _sq(saved[f"qwen3/{w_}_bf16"], saved[f"qwen3/{w_}_f32"])
+              for w_ in ("prefill", "decode")}
+    del saved
+    print(f"phase 14: the one-card serves in {summary['one_card_s']:.1f} s",
+          flush=True)
+
+    t0 = time.perf_counter()
+    ranks = procs.spawn(serve_mesh_rank, 4, backend="gloo", device=dev,
+                        timeout=MESH_TIMEOUT, args=(ref_path,))
+    summary["spawn_s"] = time.perf_counter() - t0
+    # (a) float32 parity
+    for key, arch in (("qwen3_f32", "qwen3-0.6b"),
+                      ("deepseek_f32", "deepseek-v2-lite-16b")):
+        worst = {k_: max(r_[key][k_] for r_ in ranks)
+                 for k_ in ranks[0][key] if k_.startswith(("prefill",
+                                                             "decode"))}
+        summary[key + "_steps"] = {k_: v_ for k_, v_ in ranks[0][key].items()
+                                   if k_.startswith("steps")}
+        summary[key] = worst
+        print(f"(a) {arch}, float32 ({'full depth' if arch == 'qwen3-0.6b' else f'{MESH_CUT}-layer cut'}, "
+              f"TF32 off) on {MESH_SHAPES[arch]} against the one-card serve: "
+              f"the largest logit row's relative L2 over the ranks, prefill "
+              f"{PREFILL_B} x {PREFILL_T} and teacher-forced decode steps of "
+              f"{MESH_B} requests ({summary[key + '_steps']}): "
+              + json.dumps({k_: float(f"{v_:.3g}") for k_, v_ in
+                            worst.items()})
+              + "; the EP route's prefill is another function "
+              "(reported); the rounding floor, the one-card serve with "
+              "every weight moved by a relative 2**-24 normal, against the "
+              "unmoved one (the larger of two draws): "
+              + json.dumps({k_: float(f"{v_:.3g}") for k_, v_ in
+                            witness[key].items()}), flush=True)
+        gates = {k_: max(MESH_F32_TOL, MESH_WITNESS_X * witness[key][
+            k_.split("_")[0]]) for k_ in worst if k_ != "prefill_ep"}
+        summary[key + "_gates"] = gates
+        print(f"(a) {arch}: the gates, each max({MESH_F32_TOL}, "
+              f"{MESH_WITNESS_X} x the rounding floor): "
+              + json.dumps({k_: float(f"{v_:.3g}") for k_, v_ in
+                            gates.items()}), flush=True)
+        for k_, g_ in gates.items():
+            check(worst[k_] <= g_, (arch, k_, worst[k_], g_))
+    ep_l2 = max(r_["deepseek_f32"]["ep_layer_rel_l2"] for r_ in ranks)
+    aux = ranks[0]["deepseek_f32"]["ep_layer_aux"]
+    summary["deepseek_f32"]["ep_layer_rel_l2"] = ep_l2
+    summary["deepseek_f32"]["ep_layer_aux"] = aux
+    print(f"(a) the EP route's first MoE layer on the one-card run's input "
+          f"({PREFILL_B} x {PREFILL_T} tokens, float32): against "
+          f"moe_apply_ep_ref, relative L2 "
+          f"{ep_l2:.3g} (gate {MESH_F32_TOL}); aux {aux[0]:.6g} against "
+          f"{aux[1]:.6g}", flush=True)
+    check(ep_l2 <= MESH_F32_TOL and abs(aux[0] - aux[1]) <=
+          MESH_F32_TOL * abs(aux[1]), ("ep layer", ep_l2, aux))
+    # (b) bf16 at full width and depth
+    kern_launches = {}
+    for key, arch in (("qwen3_bf16", "qwen3-0.6b"),
+                      ("deepseek_bf16", "deepseek-v2-lite-16b")):
+        cfg_ = get_config(arch)
+        s = {"peak_gb_by_rank": [r_[key]["peak_gb"] for r_ in ranks]}
+        for route, r0 in ranks[0][key].items():
+            if not isinstance(r0, dict):
+                continue
+            rs = [r_[key][route] for r_ in ranks]
+            pre_ms = max(float(np.median(r_["prefill_ms"])) for r_ in rs)
+            sq = {w_: [sum(r_[f"prefill_sq_{w_}"][j] for r_ in rs)
+                       for j in (0, 1)] for w_ in ("bf16", "f32")}
+            e = {"prefill_ms": pre_ms,
+                 "prefill_tokens_per_s": PREFILL_B * PREFILL_T / (
+                     pre_ms / 1e3),
+                 "prefill_launches_a_rank": r0["prefill_launches"],
+                 "prefill_rel_l2_to_one_card_bf16": (
+                     sq["bf16"][0] / sq["bf16"][1]) ** 0.5,
+                 "prefill_rel_l2_to_one_card_f32": (
+                     sq["f32"][0] / sq["f32"][1]) ** 0.5,
+                 "prefill_greedy_agree_bf16": sum(
+                     r_["prefill_agree_bf16"][0] for r_ in rs) / sum(
+                     r_["prefill_agree_bf16"][1] for r_ in rs)}
+            for r_ in rs:
+                check(r_["prefill_finite"], (arch, route, "finite"))
+                check(r_["prefill_launches"] == {
+                    "flash_attention": cfg_.n_layers}, (arch, route, r_[
+                        "prefill_launches"]))
+            kern_launches[f"{arch} {route}"] = r0["prefill_launches"][
+                "flash_attention"]
+            if "decode_ms" in r0:
+                dec_ms = max(float(np.median(r_["decode_ms"])) for r_ in rs)
+                dsq = {w_: [sum(r_[f"decode_sq_{w_}"][j] for r_ in rs)
+                            for j in (0, 1)] for w_ in ("bf16", "f32")}
+                e.update({
+                    "decode_ms": dec_ms,
+                    "decode_tokens_per_s": MESH_B / (dec_ms / 1e3),
+                    "decode_ms_by_rank": [r_["decode_ms"] for r_ in rs],
+                    "decode_syncs_by_rank": [r_["decode_syncs"] for r_ in rs],
+                    "decode_launches_a_rank": r0["decode_launches"],
+                    "decode_collectives_by_rank": [r_["decode_collectives"]
+                                                   for r_ in rs],
+                    "decode_rel_l2_to_one_card_bf16": (
+                        dsq["bf16"][0] / dsq["bf16"][1]) ** 0.5,
+                    "decode_rel_l2_to_one_card_f32": (
+                        dsq["f32"][0] / dsq["f32"][1]) ** 0.5,
+                    "decode_greedy_agree_bf16": sum(
+                        r_["decode_agree_bf16"][0] for r_ in rs) / sum(
+                        r_["decode_agree_bf16"][1] for r_ in rs)})
+                for r_ in rs:
+                    check(r_["decode_syncs"] == 0, (arch, r_["decode_syncs"]))
+                    check(r_["decode_tokens_in_range"], (arch, "tokens"))
+                    check(r_["decode_launches"] == {}, (arch, r_[
+                        "decode_launches"]))
+            s[route] = e
+        summary[key] = s
+        for route, e in s.items():
+            if not isinstance(e, dict):
+                continue
+            c0 = e.get("decode_collectives_by_rank", [{}])[0]
+            print(f"(b) {arch}, bf16, full width and depth, {route} route, "
+                  f"{MESH_SHAPES[arch]} of gloo ranks on the card: prefill "
+                  f"{PREFILL_B} x {PREFILL_T} {e['prefill_ms']:.1f} ms a call "
+                  f"(the slowest rank's median of {MESH_TIMED}), "
+                  f"{e['prefill_tokens_per_s']:.0f} tokens/s, launches a call "
+                  f"a rank {e['prefill_launches_a_rank']}; relative L2 to the "
+                  f"one-card bf16 logits {e['prefill_rel_l2_to_one_card_bf16']:.4g}"
+                  f", greedy tokens equal {e['prefill_greedy_agree_bf16']:.3f}"
+                  + (f"; decode {e['decode_ms']:.1f} ms a step, "
+                     f"{e['decode_tokens_per_s']:.1f} tokens/s, host syncs a "
+                     f"step {e['decode_syncs_by_rank']}, launches "
+                     f"{e['decode_launches_a_rank']}, one step's collectives "
+                     f"(rank 0) {c0.get('calls')} calls handed "
+                     f"{c0.get('bytes', 0) / 1e6:.1f} MB, "
+                     f"{c0.get('ms', 0.0):.1f} ms inside them; relative L2 "
+                     f"to the one-card bf16 logits "
+                     f"{e['decode_rel_l2_to_one_card_bf16']:.4g}, greedy "
+                     f"equal {e['decode_greedy_agree_bf16']:.3f}"
+                     if "decode_ms" in e else "")
+                  + f"; peak {max(s['peak_gb_by_rank']):.2f} GB a rank",
+                  flush=True)
+    # qwen3's bf16 rule: the mesh no farther from the float32 one-card
+    # logits than 1.25x the one-card bf16 logits are
+    q = summary["qwen3_bf16"]["dense"]
+    for what in ("prefill", "decode"):
+        one = (one_sq[what][0] / one_sq[what][1]) ** 0.5
+        got = q[f"{what}_rel_l2_to_one_card_f32"]
+        q[f"{what}_one_card_bf16_rel_l2_to_f32"] = one
+        print(f"(b) qwen3-0.6b bf16 {what}: the mesh's logits {got:.4g} from "
+              f"the float32 one-card logits, the one-card bf16 logits "
+              f"{one:.4g} (gate: mesh <= {TRAIN_BF16_FROM_F32} x one card)",
+              flush=True)
+        check(got <= TRAIN_BF16_FROM_F32 * one, (what, got, one))
+    # (c) NCCL at world size 1
+    t0 = time.perf_counter()
+    nccl = procs.spawn(serve_mesh_nccl_rank, 1, backend="nccl", device=dev,
+                       timeout=MESH_TIMEOUT)[0]
+    summary["nccl"] = {**nccl, "spawn_s": time.perf_counter() - t0}
+    print(f"(c) NCCL at world size 1 ({nccl['backend']}), qwen3-0.6b bf16 "
+          f"2-layer cut: the serve steps on the (1, 1, 1) mesh equal the "
+          f"steps without one: {nccl['same']}; decode "
+          f"{float(np.median(nccl['decode_ms'])):.2f} ms a step, "
+          f"{nccl['syncs']} host syncs a step", flush=True)
+    check(nccl["backend"] == "nccl" and nccl["same"] and nccl["syncs"] == 0,
+          ("nccl", nccl))
+    shutil.rmtree(mesh_dir, ignore_errors=True)
+    summary["rank_walls_s"] = ranks[0]["walls_s"]
+    summary["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 14: {summary['wall_s']:.2f} s (rank 0's parts: "
+          f"{json.dumps(summary['rank_walls_s'])})")
+    assert not failures, failures
+    kern = {"flash_attention": {
+        "serve_mesh_launches_per_call_a_rank": kern_launches,
+        "serve_mesh_shapes": summary["fa"]}}
+    return summary, kern
+
+
+def pytree_first_moe(p):
+    """The first MoE layer's FFN of an LM's params (the stacked body's
+    first cycle)."""
+    from repro_torch import pytree
+    cyc = pytree.tree_map(lambda t_: t_[0], p["body"])
+    return next(layer["ffn"] for layer in cyc if "router" in layer["ffn"])
+
 
 
 def main() -> int:
@@ -4632,6 +5387,14 @@ def main() -> int:
     print("intra-pod axes: " + json.dumps(intra13))
     sys.stdout.flush()
 
+    # --------------------------------------------------------------- 14
+    phase(14, "serving under a mesh: qwen3-0.6b over (1, 2, 2) and "
+              "deepseek-v2-lite-16b over (1, 1, 4), four gloo ranks on the "
+              "card, and NCCL at world size 1")
+    serve14, kern14 = serve_mesh_phase(dev)
+    print("serving under a mesh: " + json.dumps(serve14))
+    sys.stdout.flush()
+
     kernels = [
         {"name": "gaia_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gaia_select.cu",
@@ -4743,6 +5506,8 @@ def main() -> int:
             entry["dist_train"] = kern12[key]
         if entry["name"] in kern13:
             entry["intra_train"] = kern13[entry["name"]]
+        if entry["name"] in kern14:
+            entry["mesh_serve"] = kern14[entry["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
           "included")
     print(smi)

@@ -16,6 +16,21 @@ GSPMD inserts for the reference under ``sharding.py``'s placements.
 - ``reduce_from_data(x, mesh)``: *g* over ``data``, for the loss's
   numerator (each ``data`` rank sums its own sequences; the pod's loss
   is the same on every rank).
+- ``gather_model(x, dim, mesh)``: the ``model`` ranks' blocks of ``x``
+  all-gathered along ``dim`` (MLA's latent columns before its norm, the
+  router's logit columns, the heads of a flash-decode); backward: the
+  gradient reduce-scattered back to the rank's block, summed over
+  ``model`` (the computation after the gather, on the rank's heads or
+  experts, gives each rank a part of it).
+- ``gather_from_model(x, dim, mesh)``: the same gather where the
+  computation after it is the same on every ``model`` rank (the EP
+  route's output, each rank's span of the sequences); backward: the
+  rank's block of the gradient.
+- ``all_to_all_model(x, mesh)``: the expert-parallel MoE's exchange, the
+  rows of ``x`` cut into M equal blocks, block j sent to ``model`` rank
+  j, the blocks received stacked in rank order; backward: the same
+  exchange of the gradient, which sends each block back where it came
+  from.
 
 Each is the identity, with no collective, where its axis has one rank.
 Every rank of a pod runs the same model code, so the collectives come in
@@ -36,6 +51,52 @@ class _GatherData(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return ctx.mesh.reduce_scatter_dim(grad, ctx.dim, "data"), None, None
+
+
+class _GatherModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return mesh.all_gather_dim(x, dim, "model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (ctx.mesh.reduce_scatter_dim(grad.contiguous(), ctx.dim,
+                                            "model"), None, None)
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, mesh):
+        ctx.dim, ctx.mesh = dim, mesh
+        return mesh.all_gather_dim(x, dim, "model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = grad.shape[ctx.dim] // ctx.mesh.size_of("model")
+        return (grad.narrow(ctx.dim, ctx.mesh.coords["model"] * n, n),
+                None, None)
+
+
+class _AllToAllModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _exchange(x, mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange(grad, ctx.mesh), None
+
+
+def _exchange(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The tiled all-to-all over ``model``: equal blocks of rows."""
+    n = mesh.size_of("model")
+    if x.shape[0] % n:
+        raise ValueError(f"all_to_all_model: {x.shape[0]} rows do not split "
+                         f"into {n} equal blocks")
+    splits = [x.shape[0] // n] * n
+    return mesh.all_to_all(x.contiguous(), splits, splits, axis="model")
 
 
 class _Copy(torch.autograd.Function):
@@ -85,3 +146,29 @@ def reduce_from_data(x: torch.Tensor, mesh) -> torch.Tensor:
     if mesh.size_of("data") == 1:
         return x
     return _Reduce.apply(x, "data", mesh)
+
+
+def gather_model(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The ``model`` ranks' blocks of ``x`` gathered along ``dim``; the
+    gradient reduce-scattered back (summed over ``model``)."""
+    if mesh.size_of("model") == 1:
+        return x
+    return _GatherModel.apply(x, dim, mesh)
+
+
+def gather_from_model(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+    """The ``model`` ranks' blocks of ``x`` gathered along ``dim``; the
+    rank's block of the gradient (the computation after it is the same
+    on every ``model`` rank)."""
+    if mesh.size_of("model") == 1:
+        return x
+    return _GatherFromModel.apply(x, dim, mesh)
+
+
+def all_to_all_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Rows of ``x`` in M equal blocks, block j to ``model`` rank j; the
+    blocks received, in rank order.  Its gradient goes back the same
+    way."""
+    if mesh.size_of("model") == 1:
+        return x
+    return _AllToAllModel.apply(x, mesh)

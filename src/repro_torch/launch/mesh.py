@@ -16,11 +16,14 @@ the ``data`` group (its pod and model position), the ``model`` group
 collectives on the pod group (``all_reduce``, ``all_gather``,
 ``all_to_all``), and a checkpoint ``gather``s the rows to the group's
 first rank.  Inside a pod (``sharding.py``'s FSDP over ``data`` and
-tensor parallelism over ``model``, dense GQA models only: ROADMAP A11c
-takes the other families) weights are gathered and their gradients
+tensor and expert parallelism over ``model``; ``sharding.check_layout``
+says which families) weights are gathered and their gradients
 reduce-scattered along a dimension over ``data`` (``all_gather_dim``,
-``reduce_scatter_dim``), and activations summed over ``model``
-(``all_reduce(..., axis="model")``).
+``reduce_scatter_dim``), activations summed over ``model``
+(``all_reduce(..., axis="model")``) or gathered along a dimension over
+it (``all_gather_dim(..., "model")``: MLA's latent, the router's logits,
+the heads of a flash-decode), and the expert-parallel MoE's tokens
+exchanged over ``model`` (``all_to_all(..., axis="model")``).
 
 ``make_production_mesh`` describes the reference's layout without a
 process group (what ``sharding``'s rules read); ``make_mesh`` builds one
@@ -158,14 +161,16 @@ class Mesh:
         return torch.cat(parts) if first else None
 
     def all_to_all(self, x: torch.Tensor, in_splits: Sequence[int],
-                   out_splits: Sequence[int]) -> torch.Tensor:
-        """Rows of ``x`` (contiguous; its first ``in_splits[0]`` rows to pod
-        rank 0, the next ``in_splits[1]`` to 1, ...) exchanged over the pod
-        group: the rows each rank sent here, in rank order,
-        ``sum(out_splits)`` of them."""
+                   out_splits: Sequence[int],
+                   axis: Axis = "pod") -> torch.Tensor:
+        """Rows of ``x`` (contiguous; its first ``in_splits[0]`` rows to
+        rank 0 of the group along ``axis``, the pod group by default, the
+        next ``in_splits[1]`` to 1, ...) exchanged over that group: the
+        rows each rank sent here, in rank order, ``sum(out_splits)`` of
+        them."""
         out = x.new_empty((sum(out_splits),) + tuple(x.shape[1:]))
         dist.all_to_all_single(out, x, list(out_splits), list(in_splits),
-                               group=self.pod_group)
+                               group=self.group(axis))
         return out
 
     def barrier(self) -> None:
@@ -233,19 +238,20 @@ def batch_axes(mesh: Mesh) -> tuple:
 # ---------------------------------------------------------------------------
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str] = AXES, *,
-              device, cfg=None) -> Mesh:
+              device, cfg=None, mode: str = "train") -> Mesh:
     """The mesh of ``shape`` over ``axes`` on the default process group,
     which must be initialized with ``prod(shape)`` ranks; this rank's
     coordinates are its rank unravelled pod-major.  Every rank calls it
     (it makes the groups).  ``device`` is this rank's.  With ``cfg`` (a
     ``ModelConfig``), the model is checked against the data and model
-    axes first (``sharding.check_layout``).
+    axes first (``sharding.check_layout(cfg, mesh, mode=mode)``: ``mode``
+    is ``"train"`` or ``"serve"``).
 
     Raises ``ValueError``, before any collective, where ``cfg`` cannot be
-    placed on a ``data`` or ``model`` axis above 1 (a family other than
-    the dense GQA one: ROADMAP A11c; a width the axis does not divide)
-    and, under NCCL, where two ranks hold one device (NCCL would abort
-    at the first collective)."""
+    placed on a ``data`` or ``model`` axis above 1 for ``mode`` (a family
+    the port does not place there yet: ROADMAP A11c; a width the axis
+    does not divide) and, under NCCL, where two ranks hold one device
+    (NCCL would abort at the first collective)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "torch.distributed.init_process_group (or run "
@@ -253,7 +259,7 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str] = AXES, *,
     mesh = Mesh(shape, axes, device=device)
     if cfg is not None:
         from repro_torch.launch.sharding import check_layout
-        check_layout(cfg, mesh)
+        check_layout(cfg, mesh, mode=mode)
     world, rank = dist.get_world_size(), dist.get_rank()
     if mesh.size != world:
         raise ValueError(f"make_mesh: shape {tuple(shape)} holds {mesh.size} "

@@ -19,11 +19,13 @@ reference's ``_path_str``) and rank, so they cover every arch family
 without per-model tables.  The ``*_shardings`` functions return a tree of
 specs shaped like their input.
 
-The train step applies them (``local_slices``, ``local_block``): the
-``pod`` entries say which rows of the stacked state and batch a rank
-holds; on a mesh with a ``data`` or ``model`` axis above 1 (dense GQA
-models: ``check_layout``) the ``data`` and ``model`` entries say which
-block of each leaf (``local_params``) and which of the pod's sequences.
+The train and serve steps apply them (``local_slices``, ``local_block``):
+the ``pod`` entries say which rows of the stacked state and batch a rank
+holds; on a mesh with a ``data`` or ``model`` axis above 1 (the families
+``check_layout`` takes for training or serving) the ``data`` and
+``model`` entries say which block of each leaf (``local_params``), of
+each decode-cache leaf (``local_cache``; ``cache_split`` names the axis
+its length is split over) and which of the pod's sequences.
 ``gather_leaf`` is the inverse, for checkpoints and checks.  Where an
 axis does not divide a dimension the reference's ``_clamp_spec`` keeps
 the dimension whole; under the port's explicit tensor parallelism model
@@ -131,6 +133,40 @@ def train_state_shardings(state_shape: Tree, mesh: Mesh) -> Tree:
             for k, v in state_shape.items()}
 
 
+def _cache_spec(path: str, shape, batch_sharded: bool,
+                baseline_decode: bool) -> Spec:
+    """``cache_shardings``' entry for the leaf at ``path`` before the
+    clamp: one entry a dimension."""
+    nd = len(shape)
+    stacked = path.startswith("body")        # leading cycle axis
+    off = 1 if stacked else 0
+    dims: list = [None] * nd
+    if "pos" in path:                        # (B, L) int positions
+        if batch_sharded:
+            dims[off] = "data"
+        elif nd - off >= 2:
+            dims[off + 1] = "data"
+        return tuple(dims)
+    if nd - off >= 3:                        # kv / ckv / conv / ssd
+        if batch_sharded:
+            dims[off] = "data"
+            if not baseline_decode and any(
+                    t in path for t in ("/k", "/v", "ckv", "krope")):
+                dims[off + 1] = "model"
+            elif nd - off >= 4:
+                dims[off + 2] = "model"
+        else:
+            dims[off + 1] = "data"           # shard length/heads dim
+            if nd - off >= 4:
+                dims[off + 2] = "model"
+    elif nd - off == 2:                      # (B, w) rglru h state
+        if batch_sharded:
+            dims[off] = "data"
+        else:
+            dims[off + 1] = "model"
+    return tuple(dims)
+
+
 def cache_shardings(cache_shape: Tree, mesh: Mesh, *, batch_sharded: bool,
                     baseline_decode: bool = False) -> Tree:
     """Decode-cache specs.  KV caches are (B, L, H, hd) (+ an optional
@@ -139,38 +175,9 @@ def cache_shardings(cache_shape: Tree, mesh: Mesh, *, batch_sharded: bool,
     shards over ``data`` instead (sequence sharding).  Attention caches
     shard their length over ``model`` (flash-decode) unless
     ``baseline_decode`` (the reference's ``REPRO_BASELINE_DECODE``)."""
-    def spec_for(path: str, shape) -> Spec:
-        nd = len(shape)
-        stacked = path.startswith("body")        # leading cycle axis
-        off = 1 if stacked else 0
-        dims: list = [None] * nd
-        if "pos" in path:                        # (B, L) int positions
-            if batch_sharded:
-                dims[off] = "data"
-            elif nd - off >= 2:
-                dims[off + 1] = "data"
-            return tuple(dims)
-        if nd - off >= 3:                        # kv / ckv / conv / ssd
-            if batch_sharded:
-                dims[off] = "data"
-                if not baseline_decode and any(
-                        t in path for t in ("/k", "/v", "ckv", "krope")):
-                    dims[off + 1] = "model"
-                elif nd - off >= 4:
-                    dims[off + 2] = "model"
-            else:
-                dims[off + 1] = "data"           # shard length/heads dim
-                if nd - off >= 4:
-                    dims[off + 2] = "model"
-        elif nd - off == 2:                      # (B, w) rglru h state
-            if batch_sharded:
-                dims[off] = "data"
-            else:
-                dims[off + 1] = "model"
-        return tuple(dims)
-
     return pytree.unflatten(cache_shape, [
-        _clamp_spec(spec_for(ps, tuple(leaf.shape)), tuple(leaf.shape), mesh)
+        _clamp_spec(_cache_spec(ps, tuple(leaf.shape), batch_sharded,
+                                baseline_decode), tuple(leaf.shape), mesh)
         for ps, leaf in pytree.leaves_with_paths(cache_shape)])
 
 
@@ -233,33 +240,107 @@ def intra_pod(mesh: Optional[Mesh]) -> bool:
     return mesh is not None and mesh.size_of(INTRA) > 1
 
 
-def check_layout(cfg, mesh: Optional[Mesh]) -> None:
+#: the (attention kind, MoE) of the families each mode places on a pod's
+#: data and model axes: training the dense GQA family (PR 24); serving it
+#: and the MLA family, with or without MoE experts
+PLACED = {"train": {("gqa", False)},
+          "serve": {("gqa", False), ("mla", False), ("mla", True)}}
+
+
+def check_layout(cfg, mesh: Optional[Mesh], mode: str = "train") -> None:
     """Raises ``ValueError`` where ``cfg`` (a ``ModelConfig``) cannot be
-    placed on ``mesh``'s ``data`` and ``model`` axes: a family other than
-    the dense GQA one (ROADMAP A11c), or a ``model`` axis that does not
-    divide n_heads, n_kv_heads, d_ff and vocab, or a ``data`` axis that
-    does not divide d_model.  Nothing to check without an axis above 1."""
+    placed on ``mesh``'s ``data`` and ``model`` axes for ``mode``
+    (``"train"`` or ``"serve"``): a family ``PLACED`` does not name for
+    the mode (ROADMAP A11c: training MLA or MoE, and the SSM, RG-LRU,
+    enc-dec and VLM families), or an axis that does not divide a
+    dimension it shards: over ``model`` n_heads, n_kv_heads (GQA), the
+    latent and k_rope columns of ``wdkv`` and MLA's q_lora rank, d_ff (a
+    dense FFN), vocab, the routed experts and the shared experts' width;
+    over ``data`` d_model, the q_lora rank and the experts' d_ff (the rows
+    of ``w_down``).  Nothing to check without an axis above 1."""
+    if mode not in PLACED:
+        raise ValueError(f"check_layout: mode={mode!r}; want one of "
+                         f"{sorted(PLACED)}")
     if not intra_pod(mesh):
         return
-    a = cfg.attention
+    a, m = cfg.attention, cfg.moe
     D, M = mesh.size_of("data"), mesh.size_of("model")
-    if (cfg.family != "dense" or a.kind != "gqa" or cfg.moe.n_experts
-            or cfg.encoder is not None or cfg.modality.kind != "none"):
+    plain = (cfg.family in ("dense", "moe") and cfg.encoder is None
+             and cfg.modality.kind == "none")
+    if not plain or (a.kind, bool(m.n_experts)) not in PLACED[mode]:
         raise ValueError(
-            f"{cfg.arch_id} ({cfg.family}, {a.kind} attention) on data={D}, "
-            f"model={M}: only the dense GQA family is placed inside a pod "
-            "so far; MoE expert parallelism and tensor parallelism for the "
-            "MLA, SSM, RG-LRU, enc-dec and VLM families are ROADMAP A11c")
-    bad = [f"{k}={n} over model={M}" for k, n in (
-        ("n_heads", a.n_heads), ("n_kv_heads", a.n_kv_heads),
-        ("d_ff", cfg.d_ff), ("vocab", cfg.vocab)) if n % M]
-    if cfg.d_model % D:
-        bad.append(f"d_model={cfg.d_model} over data={D}")
+            f"{cfg.arch_id} ({cfg.family}, {a.kind} attention"
+            f"{', MoE' if m.n_experts else ''}) on data={D}, model={M} to "
+            f"{mode}: inside a pod the port trains the dense GQA family and "
+            "serves it and the MLA and MoE families so far; training MLA or "
+            "MoE, and tensor parallelism for the SSM, RG-LRU, enc-dec and "
+            "VLM families, are ROADMAP A11c")
+    over_m = [("n_heads", a.n_heads), ("vocab", cfg.vocab)]
+    over_d = [("d_model", cfg.d_model)]
+    if a.kind == "gqa":
+        over_m.append(("n_kv_heads", a.n_kv_heads))
+    else:
+        over_m.append(("kv_lora_rank + rope_head_dim",
+                       a.kv_lora_rank + a.rope_head_dim))
+        if a.q_lora_rank:
+            over_m.append(("q_lora_rank", a.q_lora_rank))
+            over_d.append(("q_lora_rank", a.q_lora_rank))
+    if not m.n_experts or m.first_dense_layers:
+        over_m.append(("d_ff", cfg.d_ff))
+    if m.n_experts:
+        over_m.append(("n_experts", m.n_experts))
+        over_d.append(("d_ff_expert", m.d_ff_expert))
+        if m.n_shared:
+            over_m.append(("n_shared * d_ff_expert",
+                           m.n_shared * m.d_ff_expert))
+    bad = [f"{k}={n} over model={M}" for k, n in over_m if n % M]
+    bad += [f"{k}={n} over data={D}" for k, n in over_d if n % D]
     if bad:
         raise ValueError(
             f"{cfg.arch_id}: {', '.join(bad)} does not divide; a dimension "
             "left whole would be read as the rank's block (a model axis "
             "wider than n_kv_heads is ROADMAP A11c)")
+
+
+def cache_split(mesh: Optional[Mesh], *, batch_sharded: bool,
+                baseline_decode: bool) -> Optional[str]:
+    """The mesh axis over which ``cache_shardings`` splits the attention
+    caches' *length* for these flags, None where every rank holds its
+    rows' whole length: ``"model"`` (the batch over ``data``, the length
+    over ``model``: flash-decode), None (``baseline_decode``: the batch
+    over ``data``, the KV heads over ``model``), ``"data"`` (a batch
+    below 8: the length over ``data``, the heads over ``model``).
+    Without an intra-pod mesh, None."""
+    if not intra_pod(mesh):
+        return None
+    if not batch_sharded:
+        return "data" if mesh.size_of("data") > 1 else None
+    if baseline_decode:
+        return None
+    return "model" if mesh.size_of("model") > 1 else None
+
+
+def local_cache(cache: Tree, mesh: Mesh, *, batch_sharded: bool,
+                baseline_decode: bool = False) -> Tree:
+    """This rank's block of every leaf of a whole decode ``cache`` (views),
+    as ``cache_shardings`` places them: the counterpart of
+    ``local_params``.  Raises ``ValueError`` where an axis does not split
+    a dimension the placement shards (the reference's ``_clamp_spec``
+    would leave it whole, which the decode would read as the rank's
+    block)."""
+    out = []
+    for path, t in pytree.leaves_with_paths(cache):
+        shape = tuple(t.shape)
+        want = _cache_spec(path, shape, batch_sharded, baseline_decode)
+        spec = _clamp_spec(want, shape, mesh)
+        if spec != want:
+            raise ValueError(
+                f"cache leaf {path} of shape {shape}: the mesh "
+                f"{mesh.shape} does not split it as the placement {want} "
+                "asks (a batch the data axis divides; a length the axis it "
+                "is split over divides)")
+        out.append(local_block(t, spec, mesh))
+    return pytree.unflatten(cache, out)
 
 
 def leaf_specs(params: Tree, mesh: Mesh) -> list:

@@ -67,6 +67,11 @@ whole leaf's histogram, bit for bit), and ``ops.dgc_select`` keeps what
 passes the threshold ``dgc_topk.threshold_by_count`` reads from it, the
 one-card selection.  The function computed is the one-card step's.
 
+The serve steps take the same mesh for one site (pod axis 1): the rank's
+blocks of the weights, of the decode cache (``sharding.cache_shardings``)
+and its rows of the requests, for the dense GQA family and the MLA
+family with or without MoE (``make_prefill_step``, ``make_serve_step``).
+
 The kernels take leaves of one dtype a launch, so a model whose leaves
 mix dtypes (bf16 weights, float32 norms) gets one launch a dtype group:
 Gaia's float32 accumulated update against bf16 weights is one instance
@@ -90,6 +95,7 @@ from repro_torch.launch import sharding
 from repro_torch.launch.mesh import Mesh, n_pods as mesh_pods
 from repro_torch.models.model import (decode_step, forward, init_cache,
                                       init_model, loss_fn)
+from repro_torch.models.moe import ROUTES
 from repro_torch.models.shard_hints import activation_sharding
 from repro_torch.models.transformer import lm_decode
 from repro_torch.topology.graphs import Topology, TopologySchedule, as_schedule
@@ -722,31 +728,172 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
 # Serve steps
 # ---------------------------------------------------------------------------
 
-def make_prefill_step(cfg: ModelConfig, *, chunk: int = 512) -> Callable:
+def _serve_layout(cfg: ModelConfig, mesh: Optional[Mesh],
+                  moe_route: str) -> bool:
+    """Whether the serve steps run inside a pod's ranks (an intra-pod
+    ``mesh``); raises ``ValueError``, before any collective, for an
+    unknown ``moe_route``, a mesh of more than one pod (one site serves)
+    or a model ``sharding.check_layout`` does not place for serving."""
+    if moe_route not in ROUTES:
+        raise ValueError(f"moe_route {moe_route!r}; known: {ROUTES}")
+    if mesh is None:
+        return False
+    if mesh_pods(mesh) > 1:
+        raise ValueError(f"serving on a mesh of {mesh_pods(mesh)} pods: one "
+                         "decentralized site serves (pod axis 1)")
+    sharding.check_layout(cfg, mesh, mode="serve")
+    return sharding.intra_pod(mesh)
+
+
+def _serve_rows(batch: Dict, mesh: Mesh) -> Tuple[Dict, int]:
+    """(The rank's rows of a serve batch by ``batch_shardings``, the
+    global request count B); raises ``ValueError`` where the leaves'
+    request counts differ or the ``data`` axis does not split B."""
+    got = {k: v.shape[0] for k, v in batch.items()}
+    if len(set(got.values())) != 1:
+        raise ValueError(f"serve batch leaves {got}: want one request count")
+    B, D = next(iter(got.values())), mesh.size_of("data")
+    if B % D:
+        raise ValueError(f"{B} requests must split over the data axis of "
+                         f"{D}")
+    specs = sharding.batch_shardings(batch, mesh, pod_stacked=False)
+    return {k: sharding.local_block(v, specs[k], mesh)
+            for k, v in batch.items()}, B
+
+
+def _check_cache(cfg: ModelConfig, cache, mesh: Mesh, rows: int,
+                 split: Optional[str]) -> None:
+    """Raises ``ValueError`` where an attention cache's block is not the
+    one ``init_cache(..., mesh=)`` makes for the step's placement: ``rows``
+    requests, its length split by ``split`` (the whole ``pos`` beside a
+    length split over ``model``), GQA's KV heads over ``model`` unless the
+    length is."""
+    leaves = dict(pytree.leaves_with_paths(cache))
+    M = mesh.size_of("model")
+    for path, pos in leaves.items():
+        if not path.endswith("/pos"):
+            continue
+        off = 1 if path.startswith("body") else 0
+        kv = leaves.get(path[:-3] + "k", leaves.get(path[:-3] + "ckv"))
+        if kv is None:
+            continue
+        want_len = pos.shape[off + 1] // (M if split == "model" else 1)
+        heads = cfg.attention.n_kv_heads // (1 if split == "model" else M)
+        if (pos.shape[off] != rows or kv.shape[off] != rows
+                or kv.shape[off + 1] != want_len
+                or (kv.dim() - off == 4 and kv.shape[off + 2] != heads)):
+            raise ValueError(
+                f"cache block {path[:-4]}: pos {tuple(pos.shape)}, "
+                f"{tuple(kv.shape)}, not the block of {rows} requests with "
+                f"the length split over {split}; make the cache with "
+                "init_cache(..., mesh=, batch_sharded=, baseline_decode=) "
+                "as the serve step's")
+
+
+def _vocab_argmax(logits: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The greedy token of the rank's vocabulary columns ``logits`` (B, V /
+    M): each rank's max and its first index, the max all-reduced (MAX)
+    over ``model``, then the smallest global index among the ranks that
+    hold it (MIN): ``torch.argmax`` of the whole row, ties included."""
+    n = logits.shape[-1]
+    top, idx = logits.max(dim=-1)
+    best = top.clone()
+    mesh.all_reduce(best, "model", op=dist.ReduceOp.MAX)
+    cand = torch.where(top == best, idx + mesh.coords["model"] * n,
+                       torch.full_like(idx, n * mesh.size_of("model")))
+    mesh.all_reduce(cand, "model", op=dist.ReduceOp.MIN)
+    return cand.to(torch.int32)
+
+
+def make_prefill_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None,
+                      chunk: int = 512, moe_route: str = "dense"
+                      ) -> Callable:
     """``prefill_step(params, batch)``: the next-token logits (B, V)
     float32 of a full-sequence forward of ``batch`` (its ``"tokens"``;
     for the VLM its ``"patches"``, which ``forward`` prepends; for the
-    enc-dec its ``"frames"``, which the encoder reads)."""
+    enc-dec its ``"frames"``, which the encoder reads).  ``moe_route``:
+    the MoE layers' function (``moe.moe_apply``: ``"dense"``, the
+    reference's default, or ``"ep"``, its ``REPRO_MOE_EP`` route).
+
+    On a ``mesh`` (``launch.mesh.make_mesh``, pod axis 1) with a ``data``
+    or ``model`` axis above 1, ``params`` are the rank's blocks
+    (``sharding.local_params``), ``batch`` the global batch, of which the
+    rank runs its rows (``batch_shardings``: over ``data``); it returns
+    the rank's rows' (B / D, V) logits, whole: the rank's vocabulary
+    columns gathered over ``model``.  ``sharding.check_layout(mode=
+    "serve")`` refuses the families not placed there (ROADMAP A11c)."""
+    intra = _serve_layout(cfg, mesh, moe_route)
+
     def prefill_step(params, batch):
-        logits, _ = forward(params, cfg, batch, remat=False, chunk=chunk)
-        return logits[:, -1]
+        if not intra:
+            logits, _ = forward(params, cfg, batch, remat=False, chunk=chunk,
+                                moe_route=moe_route)
+            return logits[:, -1]
+        rows, _ = _serve_rows(batch, mesh)
+        with activation_sharding(mesh):
+            logits, _ = forward(params, cfg, rows, remat=False, chunk=chunk,
+                                moe_route=moe_route)
+        return mesh.all_gather_dim(logits[:, -1].contiguous(), 1, "model")
     return prefill_step
 
 
 def make_serve_step(cfg: ModelConfig,
-                    memory: Optional[torch.Tensor] = None) -> Callable:
+                    memory: Optional[torch.Tensor] = None, *,
+                    mesh: Optional[Mesh] = None, moe_route: str = "dense",
+                    batch_sharded: Optional[bool] = None,
+                    baseline_decode: bool = False) -> Callable:
     """``serve_step(params, cache, batch)``: one decode step and its greedy
     next token, (int32 (B,), cache).  For an enc-dec arch, ``memory``
     (the encoder's output on the requests' frames, computed once) is
     read by every step through ``transformer.lm_decode``, where
     ``decode_step`` would run the encoder on ``batch["frames"]`` each
-    step."""
+    step.  ``serve_step.logits(params, cache, batch)`` is the same step
+    returning its float32 logits instead of the token.
+
+    On a ``mesh`` as ``make_prefill_step``'s: ``params`` the rank's blocks,
+    ``batch`` the global batch (the rank decodes its rows), ``cache`` the
+    rank's block of the decode cache as ``sharding.cache_shardings``
+    places it: ``model.init_cache(..., mesh=, batch_sharded=,
+    baseline_decode=)`` with this step's flags.  ``batch_sharded``
+    (default: the reference's B >= 8) puts the requests over ``data``,
+    else every row's cache length; ``baseline_decode`` (the reference's
+    ``REPRO_BASELINE_DECODE`` placement) keeps the attention caches' KV
+    heads over ``model``, else their length (flash-decode).  The
+    function is the one-device step's either way.  The token is the
+    vocabulary-parallel argmax of the rank's rows, gathered over
+    ``data``: every rank returns the whole batch's (B,) tokens;
+    ``.logits`` returns the rank's rows' (B / D, V), whole."""
+    intra = _serve_layout(cfg, mesh, moe_route)
+
+    def decode(params, cache, batch):
+        if not intra:
+            if memory is None:
+                return decode_step(params, cfg, batch, cache,
+                                   moe_route=moe_route)
+            return lm_decode(params, cfg, batch["token"], cache, batch["t"],
+                             memory=memory, moe_route=moe_route)
+        rows, B = _serve_rows(batch, mesh)
+        placed = B >= 8 if batch_sharded is None else batch_sharded
+        split = sharding.cache_split(mesh, batch_sharded=placed,
+                                     baseline_decode=baseline_decode)
+        _check_cache(cfg, cache, mesh,
+                     B // mesh.size_of("data") if placed else B, split)
+        with activation_sharding(mesh):
+            return decode_step(params, cfg, rows, cache, moe_route=moe_route,
+                               split=split)
+
     def serve_step(params, cache, batch):
-        if memory is None:
-            logits, new_cache = decode_step(params, cfg, batch, cache)
-        else:
-            logits, new_cache = lm_decode(params, cfg, batch["token"], cache,
-                                          batch["t"], memory=memory)
-        next_tok = torch.argmax(logits, dim=-1).to(torch.int32)
-        return next_tok, new_cache
+        logits, new_cache = decode(params, cache, batch)
+        if not intra:
+            return torch.argmax(logits, dim=-1).to(torch.int32), new_cache
+        return (mesh.all_gather_dim(_vocab_argmax(logits, mesh), 0, "data"),
+                new_cache)
+
+    def logits_of(params, cache, batch):
+        logits, new_cache = decode(params, cache, batch)
+        if intra:
+            logits = mesh.all_gather_dim(logits.contiguous(), 1, "model")
+        return logits, new_cache
+
+    serve_step.logits = logits_of
     return serve_step

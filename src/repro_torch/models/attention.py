@@ -15,10 +15,25 @@ minicpm3), with two paths:
   a *ring buffer* of ``window`` slots (the cache positions say which slot
   holds which token).  Plain tensor code, no kernel.
 
-Under ``shard_hints.activation_sharding(mesh)`` (the train step on a mesh
-with a ``model`` axis) GQA runs on the rank's heads: n_heads / M query
-heads over n_kv_heads / M KV heads (the column blocks of wq, wk, wv,
-whole heads each), the kernel on those, and wo row-parallel.
+Under ``shard_hints.activation_sharding(mesh)`` (the train and serve
+steps on a mesh with a ``data`` or ``model`` axis) attention runs on the
+rank's heads: GQA's n_heads / M query heads over n_kv_heads / M KV heads
+(the column blocks of wq, wk, wv, whole heads each), MLA's n_heads / M
+heads (the column blocks of wq or wuq and the rank's heads of wukv; the
+latent columns of wdkv and wdq are gathered over ``model`` first, since
+the RMSNorm reads the whole latent), the kernel on those, and wo
+row-parallel.  The decode step reads the rank's block of the cache, as
+``launch.sharding.cache_shardings`` places it; its ``split`` argument
+(``sharding.cache_split``) names the axis the cache's length is split
+over.  Where it is split (``"model"``: flash-decode; ``"data"``: a batch
+below 8, every row's length over ``data``) each rank scores the query
+against its own slots (over ``model``: every head, q gathered; over
+``data``: every row, q gathered), the slot's owner writes the new token,
+and the softmax is combined: the max of the partial scores all-reduced,
+then the sum of their exponentials, p normalised by both before it is
+rounded to the cache's dtype (as ``decode_attention`` rounds it on one
+device), the partial outputs summed; the rank then keeps its heads (or
+rows) for wo.  The function is the one-device decode's.
 
 MLA's prefill expands K and V from the latent and hands the kernel k and
 v of their own head dims, v a view of the expansion; its decode takes
@@ -34,6 +49,9 @@ import torch
 from repro_torch.configs.base import AttentionConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
+import torch.distributed as dist
+
+from repro_torch.launch import collectives as coll
 from repro_torch.launch.collectives import copy_to_model
 from repro_torch.models.layers import (init_linear, init_normal, init_rmsnorm,
                                        linear_apply, rmsnorm_apply, softcap)
@@ -89,13 +107,17 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      q_pos: torch.Tensor,
                      cache_positions: torch.Tensor,
                      logit_softcap: Optional[float] = None,
-                     scale: Optional[float] = None) -> torch.Tensor:
+                     scale: Optional[float] = None,
+                     split: Optional[str] = None, mesh=None) -> torch.Tensor:
     """One-token decode.  q: (B, 1, Hq, D); caches: (B, L, Hkv, D).
     ``cache_positions``: (B, L) absolute position of each cache slot, -1
     for empty (ring-buffer semantics fall out of position bookkeeping).
     Grouped layout, no KV expansion: float32 scores, the probabilities
     rounded to the cache's dtype before the float32 product with v, as
-    the reference's operands are."""
+    the reference's operands are.  With ``split`` (a mesh axis) the
+    caches are this rank's slots of a length split over that axis of
+    ``mesh``: the softmax and the output are combined over it
+    (``_softmax``), p normalised before it is rounded."""
     B, _, Hq, D = q.shape
     scale = D ** -0.5 if scale is None else scale
     Hkv = k_cache.shape[2]
@@ -107,10 +129,72 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     valid = (cache_positions >= 0) & (cache_positions <= q_pos[:, None])
     s = torch.where(valid[:, None, None], s,
                     torch.full((), NEG_INF, device=s.device))
-    p = torch.softmax(s, dim=-1)
+    p = _softmax(s, split, mesh)
     out = torch.einsum("bhgl,blhd->bhgd", p.to(v_cache.dtype).float(),
                        v_cache.float())
+    if split is not None:
+        mesh.all_reduce(out, split)
     return out.reshape(B, 1, Hq, Dv).to(q.dtype)
+
+
+def _softmax(s: torch.Tensor, split: Optional[str], mesh) -> torch.Tensor:
+    """The float32 softmax over the last dimension of ``s``, whose entries
+    lie split over the mesh axis ``split`` (this rank's share in ``s``):
+    the max all-reduced, then the sum of the exponentials; ``torch.
+    softmax`` over the local entries where ``split`` is None."""
+    if split is None:
+        return torch.softmax(s, dim=-1)
+    top = s.amax(dim=-1, keepdim=True)
+    mesh.all_reduce(top, split, op=dist.ReduceOp.MAX)
+    e = torch.exp(s - top)
+    total = e.sum(dim=-1, keepdim=True)
+    mesh.all_reduce(total, split)
+    return e / total
+
+
+def _write_token(cache: Params, new: Dict[str, torch.Tensor],
+                 t: torch.Tensor, split: Optional[str], mesh
+                 ) -> torch.Tensor:
+    """Writes the token at positions ``t`` (B,) into the ring buffer
+    ``cache`` in place: each ``new[name]`` (B, ...) into ``cache[name]``
+    (B, L_r, ...), and ``t`` into ``cache["pos"]``, at slot ``t mod L``.
+    Where the length is split over ``split`` (L = n L_r), only the rank
+    that owns the slot (rank i owns [i L_r, (i + 1) L_r)) writes it; a
+    whole-length ``pos`` (the flash-decode placement keeps it on every
+    rank) is written everywhere.  No host sync: the others write the old
+    value back.  Returns the positions of this rank's slots (B, L_r)."""
+    L_r = cache[next(iter(new))].shape[1]
+    n = 1 if split is None else mesh.size_of(split)
+    L = L_r * n
+    slot = (t % L).long()
+    b_idx = torch.arange(t.shape[0], device=t.device)
+    pos = cache["pos"]
+    if n == 1:
+        for name, val in new.items():
+            cache[name][b_idx, slot] = val.to(cache[name].dtype)
+        pos[b_idx, slot] = t.to(torch.int32)
+        return pos
+    lo = mesh.coords[split] * L_r
+    local = slot - lo
+    mine = (local >= 0) & (local < L_r)
+    local = local.clamp(0, L_r - 1)
+    for name, val in new.items():
+        buf = cache[name]
+        keep = mine.view((-1,) + (1,) * (val.dim() - 1))
+        buf[b_idx, local] = torch.where(keep, val.to(buf.dtype),
+                                        buf[b_idx, local])
+    if pos.shape[1] == L:
+        pos[b_idx, slot] = t.to(torch.int32)
+        return pos[:, lo:lo + L_r]
+    pos[b_idx, local] = torch.where(mine, t.to(torch.int32), pos[b_idx, local])
+    return pos
+
+
+def _own_block(x: torch.Tensor, dim: int, axis: str, mesh) -> torch.Tensor:
+    """This rank's block of ``x`` along ``dim`` (cut into equal blocks over
+    ``axis``): the rank's heads or rows after a combined decode."""
+    n = x.shape[dim] // mesh.size_of(axis)
+    return x.narrow(dim, mesh.coords[axis] * n, n)
 
 
 # ---------------------------------------------------------------------------
@@ -185,24 +269,32 @@ def gqa_init_cache(a: AttentionConfig, batch: int, length: int, dtype,
 
 
 def gqa_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
-               cache: Params, t: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+               cache: Params, t: torch.Tensor, split: Optional[str] = None
+               ) -> Tuple[torch.Tensor, Params]:
     """x: (B, 1, d).  t: (B,) absolute position of this token.  The cache
     is a ring buffer of ``L`` slots; slot = t mod L (sliding window when
     L < full context).  Unlike the reference, which returns a new cache,
     this writes the token's k, v and position into ``cache`` in place
-    (no copy of the cache a step) and returns it."""
+    (no copy of the cache a step) and returns it.  Under a mesh ``cache``
+    is the rank's block and ``split`` the axis its length is split over
+    (the module docstring)."""
     B = x.shape[0]
-    L = cache["k"].shape[1]
+    mesh = current_mesh()
     q, k, v = gqa_qkv(p, a, x, t[:, None])
-    slot = (t % L).long()
-    b_idx = torch.arange(B, device=x.device)
-    cache["k"][b_idx, slot] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][b_idx, slot] = v[:, 0].to(cache["v"].dtype)
-    cache["pos"][b_idx, slot] = t.to(torch.int32)
+    if split == "model":                     # every head on the rank's slots
+        q, k, v = (coll.gather_model(u, 2, mesh) for u in (q, k, v))
+    elif split == "data":                    # every row on the rank's slots
+        q, k, v = (coll.gather_data(u, 0, mesh) for u in (q, k, v))
+        t = mesh.all_gather_dim(t, 0, "data")
+    pos = _write_token(cache, {"k": k[:, 0], "v": v[:, 0]}, t, split, mesh)
     out = decode_attention(q, cache["k"], cache["v"], q_pos=t,
-                           cache_positions=cache["pos"],
-                           logit_softcap=a.attn_softcap)
-    return linear_apply(p["wo"], out.reshape(B, 1, -1)), cache
+                           cache_positions=pos, logit_softcap=a.attn_softcap,
+                           split=split, mesh=mesh)
+    if split == "model":
+        out = _own_block(out, 2, "model", mesh)
+    elif split == "data":
+        out = _own_block(out, 0, "data", mesh)
+    return linear_apply(p["wo"], out.reshape(B, 1, -1), "row"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -236,13 +328,21 @@ def init_mla(gen: torch.Generator, a: AttentionConfig, d_model: int, dtype,
 
 def _mla_q(p: Params, a: AttentionConfig, x: torch.Tensor,
            positions: torch.Tensor):
+    """(q_nope, q_rope) on the rank's n_heads / M heads (M its ``model``
+    size, 1 without a mesh); the caller applied ``copy_to_model`` to
+    ``x``.  With a q_lora rank, wdq's latent columns are gathered over
+    ``model`` before ``q_norm``."""
     B, T, _ = x.shape
+    mesh = current_mesh()
     if a.q_lora_rank:
-        cq = rmsnorm_apply(p["q_norm"], linear_apply(p["wdq"], x))
-        q = linear_apply(p["wuq"], cq)
+        cq = linear_apply(p["wdq"], x, "col")
+        if mesh is not None:
+            cq = coll.gather_model(cq, cq.dim() - 1, mesh)
+        q = linear_apply(p["wuq"], rmsnorm_apply(p["q_norm"], cq), "col")
     else:
-        q = linear_apply(p["wq"], x)
-    q = q.reshape(B, T, a.n_heads, a.nope_head_dim + a.rope_head_dim)
+        q = linear_apply(p["wq"], x, "col")
+    q = q.reshape(B, T, a.n_heads // axis_env_size("model"),
+                  a.nope_head_dim + a.rope_head_dim)
     q_nope = q[..., :a.nope_head_dim]
     q_rope = apply_rope(q[..., a.nope_head_dim:], positions, a.rope_theta)
     return q_nope, q_rope
@@ -250,11 +350,23 @@ def _mla_q(p: Params, a: AttentionConfig, x: torch.Tensor,
 
 def _mla_ckv(p: Params, a: AttentionConfig, x: torch.Tensor,
              positions: torch.Tensor):
-    ckv_kr = linear_apply(p["wdkv"], x)
+    """(c_kv (B, T, r) after kv_norm, k_rope (B, T, rope_dim)): whole on
+    every rank, wdkv's columns gathered over ``model`` under a mesh."""
+    ckv_kr = linear_apply(p["wdkv"], x, "col")
+    mesh = current_mesh()
+    if mesh is not None:
+        ckv_kr = coll.gather_model(ckv_kr, ckv_kr.dim() - 1, mesh)
     c_kv = rmsnorm_apply(p["kv_norm"], ckv_kr[..., :a.kv_lora_rank])
     k_rope = ckv_kr[..., a.kv_lora_rank:][:, :, None, :]   # (B,T,1,rope_dim)
     k_rope = apply_rope(k_rope, positions, a.rope_theta)[:, :, 0]
     return c_kv, k_rope
+
+
+def _mla_in(x: torch.Tensor) -> torch.Tensor:
+    """*f* on MLA's input under a mesh (its projections are
+    column-parallel)."""
+    mesh = current_mesh()
+    return x if mesh is None else copy_to_model(x, mesh)
 
 
 def mla_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
@@ -264,12 +376,14 @@ def mla_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
     ``chunked_attention`` at scale (nope + rope) ** -0.5.  v is the view
     ``kv[..., nope:]`` of the expansion, which the kernel reads in place
     (at both full widths its rows start 16-byte aligned, its strides
-    multiples of 8)."""
+    multiples of 8).  Under a mesh on the rank's heads (wukv's), wo
+    row-parallel."""
     B, T, _ = x.shape
-    h = a.n_heads
+    x = _mla_in(x)
     q_nope, q_rope = _mla_q(p, a, x, positions)
     c_kv, k_rope = _mla_ckv(p, a, x, positions)
     wukv = p["wukv"].to(x.dtype)
+    h = wukv.shape[1]
     kv = (c_kv @ wukv.flatten(1)).unflatten(-1, wukv.shape[1:])  # (B,T,h,·)
     k_nope = kv[..., :a.nope_head_dim]
     v = kv[..., a.nope_head_dim:]
@@ -279,7 +393,7 @@ def mla_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
     scale = (a.nope_head_dim + a.rope_head_dim) ** -0.5
     out = chunked_attention(q, k, v, causal=True, window=window,
                             scale=scale, chunk=chunk)
-    return linear_apply(p["wo"], out.reshape(B, T, -1))
+    return linear_apply(p["wo"], out.reshape(B, T, -1), "row")
 
 
 def mla_init_cache(a: AttentionConfig, batch: int, length: int, dtype,
@@ -296,36 +410,50 @@ def mla_init_cache(a: AttentionConfig, batch: int, length: int, dtype,
 
 
 def mla_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
-               cache: Params, t: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+               cache: Params, t: torch.Tensor, split: Optional[str] = None
+               ) -> Tuple[torch.Tensor, Params]:
     """Absorbed decode, in float32: W_uk folded into q, scores taken
     against the compressed cache, W_uv applied to the weighted latent.
     The cache is a ring buffer of ``L`` slots (slot = t mod L); this
     writes the token's c_kv, k_rope and position into it in place, as
-    ``gqa_decode`` does, and returns it."""
+    ``gqa_decode`` does, and returns it.  Under a mesh on the rank's
+    heads; where the cache's length is split (``split``), the absorbed
+    queries of every head (over ``model``) or of every row (over
+    ``data``) score the rank's slots and the softmax and the weighted
+    latent are combined over that axis, as ``gqa_decode`` combines."""
     B = x.shape[0]
-    L = cache["ckv"].shape[1]
+    mesh = current_mesh()
+    x = _mla_in(x)
     q_nope, q_rope = _mla_q(p, a, x, t[:, None])           # (B,1,h,*)
     c_kv, k_rope = _mla_ckv(p, a, x, t[:, None])           # (B,1,r),(B,1,rd)
-    slot = (t % L).long()
-    b_idx = torch.arange(B, device=x.device)
-    cache["ckv"][b_idx, slot] = c_kv[:, 0].to(cache["ckv"].dtype)
-    cache["krope"][b_idx, slot] = k_rope[:, 0].to(cache["krope"].dtype)
-    cache["pos"][b_idx, slot] = t.to(torch.int32)
     wukv = p["wukv"].float()
     w_uk = wukv[..., :a.nope_head_dim]                     # (r,h,nope)
     w_uv = wukv[..., a.nope_head_dim:]                     # (r,h,v)
     q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_uk)
+    q_rope = q_rope[:, 0].float()
+    if split == "model":
+        q_abs, q_rope = (coll.gather_model(u, 1, mesh)
+                         for u in (q_abs, q_rope))
+    elif split == "data":
+        q_abs, q_rope, c_kv, k_rope = (coll.gather_data(u, 0, mesh) for u in
+                                       (q_abs, q_rope, c_kv, k_rope))
+        t = mesh.all_gather_dim(t, 0, "data")
+    pos = _write_token(cache, {"ckv": c_kv[:, 0], "krope": k_rope[:, 0]}, t,
+                       split, mesh)
     ckv_f = cache["ckv"].float()                           # (B,L,r)
     s_nope = torch.einsum("bhr,blr->bhl", q_abs, ckv_f)
-    s_rope = torch.einsum("bhd,bld->bhl", q_rope[:, 0].float(),
-                          cache["krope"].float())
+    s_rope = torch.einsum("bhd,bld->bhl", q_rope, cache["krope"].float())
     scale = (a.nope_head_dim + a.rope_head_dim) ** -0.5
     s = (s_nope + s_rope) * scale
-    valid = (cache["pos"] >= 0) & (cache["pos"] <= t[:, None])
+    valid = (pos >= 0) & (pos <= t[:, None])
     s = torch.where(valid[:, None], s,
                     torch.full((), NEG_INF, device=s.device))
-    pr = torch.softmax(s, dim=-1)
+    pr = _softmax(s, split, mesh)
     out_c = torch.einsum("bhl,blr->bhr", pr, ckv_f)        # (B,h,r)
+    if split == "model":
+        out_c = _own_block(mesh.all_reduce(out_c, split), 1, "model", mesh)
+    elif split == "data":
+        out_c = _own_block(mesh.all_reduce(out_c, split), 0, "data", mesh)
     out = torch.einsum("bhr,rhv->bhv", out_c, w_uv)        # (B,h,v)
-    out = out.reshape(B, 1, a.n_heads * a.v_head_dim).to(x.dtype)
-    return linear_apply(p["wo"], out), cache
+    out = out.reshape(B, 1, -1).to(x.dtype)
+    return linear_apply(p["wo"], out, "row"), cache

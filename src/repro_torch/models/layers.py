@@ -11,9 +11,10 @@ device, then move the result to ``device``.  The LM initialisers place
 every leaf on ``device``, which defaults to CUDA as the port's entry
 points do (``repro_torch.device.resolve_device``).
 
-Under ``shard_hints.activation_sharding(mesh)`` (the train step on a mesh
-with a ``data`` or ``model`` axis) the LM layers take the rank's blocks
-of their weights, as ``launch.sharding``'s rules place them: a weight is
+Under ``shard_hints.activation_sharding(mesh)`` (the train and serve
+steps on a mesh with a ``data`` or ``model`` axis) the LM layers take the
+rank's blocks of their weights, as ``launch.sharding``'s rules place
+them: a weight is
 gathered over ``data`` before use (``collectives.gather_data``); an
 in-projection is column-parallel (the rank's output columns), an
 out-projection row-parallel (its input rows, the partial products summed

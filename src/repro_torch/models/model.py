@@ -59,16 +59,18 @@ def _memory(p: Params, cfg: ModelConfig, batch: Dict[str, Any]
 
 
 def forward(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
-            remat: bool = True, chunk: int = 512
+            remat: bool = True, chunk: int = 512, moe_route: str = "dense"
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B, T_text, V) float32,
     moe_aux), the MoE auxiliary loss summed over layers, a float32 zero
     for a dense arch.  ``remat``: ``transformer.lm_apply``'s (each cycle
-    recomputed in the backward; nothing changes without grad mode)."""
+    recomputed in the backward; nothing changes without grad mode).
+    ``moe_route``: the MoE layers' function, ``"dense"`` or ``"ep"``
+    (``moe.moe_apply``)."""
     return transformer.lm_apply(p, cfg, batch["tokens"],
                                 patches=batch.get("patches"),
                                 memory=_memory(p, cfg, batch), remat=remat,
-                                chunk=chunk)
+                                chunk=chunk, moe_route=moe_route)
 
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
@@ -129,17 +131,26 @@ def _sharded_ce(logits: torch.Tensor, labels: torch.Tensor, mesh
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-               long_mode: bool = False, device=None) -> Params:
+               long_mode: bool = False, device=None, *, mesh=None,
+               batch_sharded: Optional[bool] = None,
+               baseline_decode: bool = False) -> Params:
+    """The decode cache of ``batch`` requests; on an intra-pod ``mesh``
+    the rank's block of it (``transformer.lm_init_cache``)."""
     return transformer.lm_init_cache(cfg, batch, cache_len, long_mode,
-                                     device)
+                                     device, mesh=mesh,
+                                     batch_sharded=batch_sharded,
+                                     baseline_decode=baseline_decode)
 
 
 def decode_step(p: Params, cfg: ModelConfig, batch: Dict[str, Any],
-                cache: Params) -> Tuple[torch.Tensor, Params]:
+                cache: Params, *, moe_route: str = "dense",
+                split: Optional[str] = None) -> Tuple[torch.Tensor, Params]:
     """One serve step: next-token logits (B, V) float32 and the cache,
-    updated in place."""
+    updated in place.  Under a mesh, ``transformer.lm_decode``'s blocks
+    and ``split``."""
     return transformer.lm_decode(p, cfg, batch["token"], cache, batch["t"],
-                                 memory=_memory(p, cfg, batch))
+                                 memory=_memory(p, cfg, batch),
+                                 moe_route=moe_route, split=split)
 
 
 def _tensor(a, device) -> torch.Tensor:

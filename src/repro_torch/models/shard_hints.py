@@ -1,14 +1,15 @@
 """Where model code learns the intra-pod layout
 (``repro.models.shard_hints``).
 
-The train step runs the model inside ``activation_sharding(mesh)``: a
-rank of a ``launch.mesh.Mesh`` whose ``data`` or ``model`` axis spans
-more than one rank.  The model functions read ``current_mesh()`` there
-and compute on the rank's blocks: weights gathered over ``data`` before
-use (FSDP), heads, FFN columns and vocabulary split over ``model``
-(tensor parallelism, ``launch.collectives``).  Outside the context
+The train and serve steps run the model inside
+``activation_sharding(mesh)``: a rank of a ``launch.mesh.Mesh`` whose
+``data`` or ``model`` axis spans more than one rank.  The model
+functions read ``current_mesh()`` there and compute on the rank's
+blocks: weights gathered over ``data`` before use (FSDP), heads, FFN
+columns, experts and vocabulary split over ``model`` (tensor and expert
+parallelism, ``launch.collectives``).  Outside the context
 ``current_mesh()`` is None and ``axis_env_size`` is 1, so the one-device
-paths (serving, the CPU tests, a mesh of pods alone) are untouched.
+paths (the CPU tests, a mesh of pods alone) are untouched.
 Nothing here reads an environment variable.
 
 The reference also has ``hint(x, *axes)``, a ``with_sharding_constraint``

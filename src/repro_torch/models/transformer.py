@@ -18,11 +18,13 @@ backward (``torch.utils.checkpoint``, non-reentrant), as the reference
 wraps its cycle in ``jax.checkpoint``; the prefix and suffix layers are
 not wrapped, as there.
 
-Under ``shard_hints.activation_sharding(mesh)`` (the train step on a mesh
-with a ``data`` or ``model`` axis; dense GQA models) every rank of a pod
-runs the same layers on its blocks (``layers.py``, ``attention.py``) and
-its share of the pod's sequences, and ``lm_apply`` returns the rank's
-vocabulary columns of the logits.  A checkpointed cycle re-enters the
+Under ``shard_hints.activation_sharding(mesh)`` (the train and serve
+steps on a mesh with a ``data`` or ``model`` axis; the families
+``launch.sharding.check_layout`` takes) every rank of a pod runs the
+same layers on its blocks (``layers.py``, ``attention.py``, ``moe.py``)
+and its share of the pod's sequences, and ``lm_apply`` and ``lm_decode``
+return the rank's vocabulary columns of the logits; ``lm_init_cache``
+makes the rank's block of the decode cache.  A checkpointed cycle re-enters the
 context with the forward's mesh, so its recompute in the backward (on
 the autograd engine's thread, which does not inherit the context) takes
 the same blocks and issues the same collectives in the same order.
@@ -40,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import sharding
 from repro_torch.launch.collectives import copy_to_model
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
@@ -161,11 +164,13 @@ def _xattn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _xattn_and_ffn(p: Params, cfg: ModelConfig, sig: Tuple,
-                   x: torch.Tensor, memory: Optional[torch.Tensor]
+                   x: torch.Tensor, memory: Optional[torch.Tensor],
+                   moe_route: str = "dense"
                    ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """What follows the mixer's residual: the cross-attention where the
     layer has one and ``memory`` is given, then the FFN where the layer
-    has one.  Returns (x, the MoE auxiliary loss or None)."""
+    has one (a MoE FFN by ``moe_route``, ``moe.moe_apply``'s).  Returns
+    (x, the MoE auxiliary loss or None)."""
     norm_apply = NORM_APPLY[cfg.norm]
     if memory is not None and "xattn" in p:
         x = x + _xattn_apply(p["xattn"], cfg, norm_apply(p["norm_x"], x),
@@ -174,14 +179,15 @@ def _xattn_and_ffn(p: Params, cfg: ModelConfig, sig: Tuple,
         return x, None
     h2 = norm_apply(p["norm2"], x)
     if sig[2]:
-        y2, aux = moe_mod.moe_apply(p["ffn"], cfg.moe, h2)
+        y2, aux = moe_mod.moe_apply(p["ffn"], cfg.moe, h2, moe_route)
         return x + y2, aux
     return x + gated_mlp_apply(p["ffn"], h2), None
 
 
 def layer_apply(p: Params, cfg: ModelConfig, sig: Tuple, x: torch.Tensor, *,
                 positions: torch.Tensor,
-                memory: Optional[torch.Tensor] = None, chunk: int = 512
+                memory: Optional[torch.Tensor] = None, chunk: int = 512,
+                moe_route: str = "dense"
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Full-sequence layer (train/prefill).  Returns (x, the MoE
     auxiliary loss, or None where the layer's FFN is dense or absent)."""
@@ -199,7 +205,7 @@ def layer_apply(p: Params, cfg: ModelConfig, sig: Tuple, x: torch.Tensor, *,
         y = rglru_mod.rglru_apply(p["mixer"], cfg.rglru, h)
     else:
         y = ssm_mod.ssm_apply(p["mixer"], cfg.ssm, cfg.d_model, h)
-    return _xattn_and_ffn(p, cfg, sig, x + y, memory)
+    return _xattn_and_ffn(p, cfg, sig, x + y, memory, moe_route)
 
 
 # ---------------------------------------------------------------------------
@@ -229,22 +235,26 @@ def layer_init_cache(cfg: ModelConfig, i: int, batch: int, cache_len: int,
 
 def layer_decode(p: Params, cfg: ModelConfig, sig: Tuple, x: torch.Tensor,
                  cache: Params, t: torch.Tensor,
-                 memory: Optional[torch.Tensor] = None
+                 memory: Optional[torch.Tensor] = None, *,
+                 moe_route: str = "dense", split: Optional[str] = None
                  ) -> Tuple[torch.Tensor, Params]:
+    """One token through layer ``sig``; under a mesh ``cache`` is the
+    rank's block and ``split`` the axis its length is split over
+    (``attention``'s decode)."""
     kind = sig[0]
     h = NORM_APPLY[cfg.norm](p["norm1"], x)
     if kind == "attn":
         a = cfg.attention
         if a.kind == "mla":
-            y, cache = attn.mla_decode(p["mixer"], a, h, cache, t)
+            y, cache = attn.mla_decode(p["mixer"], a, h, cache, t, split)
         else:
-            y, cache = attn.gqa_decode(p["mixer"], a, h, cache, t)
+            y, cache = attn.gqa_decode(p["mixer"], a, h, cache, t, split)
     elif kind == "rglru":
         y, cache = rglru_mod.rglru_decode(p["mixer"], cfg.rglru, h, cache)
     else:
         y, cache = ssm_mod.ssm_decode(p["mixer"], cfg.ssm, cfg.d_model, h,
                                       cache)
-    x, _ = _xattn_and_ffn(p, cfg, sig, x + y, memory)
+    x, _ = _xattn_and_ffn(p, cfg, sig, x + y, memory, moe_route)
     return x, cache
 
 
@@ -337,7 +347,8 @@ def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
              patches: Optional[torch.Tensor] = None,
              memory: Optional[torch.Tensor] = None, remat: bool = True,
-             chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+             chunk: int = 512, moe_route: str = "dense"
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens: (B, T) integer.  Returns (the float32 logits (B, T, V) over
     the *text* positions (under a mesh, the rank's vocabulary columns),
     the MoE auxiliary loss summed over layers, a float32 zero where no
@@ -345,7 +356,8 @@ def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     prepend ``cfg.modality.n_tokens`` positions, and the first that many
     positions' logits are dropped (as in the reference, also where no
     patches were given).  For the enc-dec decoder, every layer attends to
-    ``memory`` (B, S, encoder d_model), the encoder's output.  With
+    ``memory`` (B, S, encoder d_model), the encoder's output.  A MoE
+    layer runs ``moe.moe_apply``'s ``moe_route``.  With
     ``remat``, where autograd records (grad mode on, and the body's
     parameters or the embeddings require grad), each cycle of the body
     keeps only its input for the backward, which runs the cycle again
@@ -359,7 +371,7 @@ def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 
     def run(lp, sig, x, aux):
         x, a = layer_apply(lp, cfg, sig, x, positions=positions,
-                           memory=memory, chunk=chunk)
+                           memory=memory, chunk=chunk, moe_route=moe_route)
         return x, aux if a is None else aux + a
 
     for i, lp in zip(prefix, p["prefix"]):
@@ -396,8 +408,26 @@ def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
 # ---------------------------------------------------------------------------
 
 def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
-                  long_mode: bool = False, device=None) -> Params:
+                  long_mode: bool = False, device=None, *, mesh=None,
+                  batch_sharded: Optional[bool] = None,
+                  baseline_decode: bool = False) -> Params:
+    """The decode cache of ``batch`` requests, ``cache_len`` slots a layer
+    (a window's layer fewer).  On a ``mesh`` with a ``data`` or ``model``
+    axis above 1, only this rank's block of it, as
+    ``sharding.cache_shardings`` places it (``batch_sharded`` defaults to
+    the reference's ``batch >= 8``): empty slots (position -1) and zeros,
+    allocated at the block's shape."""
     device = resolve_device(device)
+    if sharding.intra_pod(mesh):
+        whole = lm_init_cache(cfg, batch, cache_len, long_mode, "meta")
+        if batch_sharded is None:
+            batch_sharded = batch >= 8
+        return pytree.tree_map(
+            lambda t: torch.full(tuple(t.shape), -1 if t.dtype ==
+                                 torch.int32 else 0, dtype=t.dtype,
+                                 device=device),
+            sharding.local_cache(whole, mesh, batch_sharded=batch_sharded,
+                                 baseline_decode=baseline_decode))
     prefix, n_cycles, P, suffix = layer_plan(cfg)
     base = len(prefix)
     cache: Params = {
@@ -414,7 +444,8 @@ def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
 
 def lm_decode(p: Params, cfg: ModelConfig, token: torch.Tensor,
               cache: Params, t: torch.Tensor, *,
-              memory: Optional[torch.Tensor] = None
+              memory: Optional[torch.Tensor] = None,
+              moe_route: str = "dense", split: Optional[str] = None
               ) -> Tuple[torch.Tensor, Params]:
     """token: (B,) integer; t: (B,) absolute positions.  One decode step:
     (float32 logits (B, V), ``cache`` itself).  Every state is written in
@@ -425,21 +456,28 @@ def lm_decode(p: Params, cfg: ModelConfig, token: torch.Tensor,
     stacked body's per-cycle caches are views of the stack, so the
     writes land there.  The enc-dec decoder attends to ``memory``, the
     encoder's output; the VLM's patches take no part, as in the
-    reference."""
+    reference.  Under ``shard_hints.activation_sharding(mesh)`` the
+    tokens are the rank's rows, ``cache`` its block (``lm_init_cache(...,
+    mesh=)``), ``split`` the axis its attention caches' length is split
+    over (``sharding.cache_split``), and the logits the rank's vocabulary
+    columns."""
     prefix, n_cycles, P, suffix = layer_plan(cfg)
     dt = _dtype(cfg)
     x = embedding_apply(p["embed"], token[:, None], compute_dtype=dt)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
+    kw = {"moe_route": moe_route, "split": split}
 
     for i, lp, lc in zip(prefix, p["prefix"], cache["prefix"]):
-        x, _ = layer_decode(lp, cfg, layer_sig(cfg, i), x, lc, t, memory)
+        x, _ = layer_decode(lp, cfg, layer_sig(cfg, i), x, lc, t, memory,
+                            **kw)
     if p["body"] is not None:
         sigs = body_sigs(cfg)
         for c in range(n_cycles):
             cyc, cyc_cache = _cycle(p["body"], c), _cycle(cache["body"], c)
             for j in range(P):
                 x, _ = layer_decode(cyc[j], cfg, sigs[j], x, cyc_cache[j], t,
-                                    memory)
+                                    memory, **kw)
     for i, lp, lc in zip(suffix, p["suffix"], cache["suffix"]):
-        x, _ = layer_decode(lp, cfg, layer_sig(cfg, i), x, lc, t, memory)
+        x, _ = layer_decode(lp, cfg, layer_sig(cfg, i), x, lc, t, memory,
+                            **kw)
     return _logits(p, cfg, x)[:, 0], cache
