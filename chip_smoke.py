@@ -238,11 +238,11 @@ before the last line is printed:
 12. the pod axis across processes (``launch.procs.spawn``; the parent
    built the kernels, the ranks only load them): (a) two gloo ranks on
    the card, one phase 11 pod each (qwen3-0.6b at full width cut to its
-   first 7 layers, bfloat16, 2 x 1024 tokens, remat),
+   first 4 layers, bfloat16, 2 x 1024 tokens, remat),
    ``launch.mesh.make_mesh`` over them, under
    the six strategies: one warm-up and 3 timed steps each, every launch
    count set to 0 just before the timed steps and read just after in
-   each rank (14 ``flash_attention``, 2 ``gaia_select``, 13
+   each rank (8 ``flash_attention``, 2 ``gaia_select``, 13
    ``dgc_sparsify``, 2 ``neighbor_mix_src`` launches a step a rank for
    dpsgd and adpsgd: ``ops.neighbor_mix_src_many`` over the gathered or
    received rows), ms a step, tokens/s, each rank's peak memory and the
@@ -266,7 +266,7 @@ before the last line is printed:
 13. the intra-pod axes (``launch.procs.spawn``, eight gloo ranks on the
    card, one CUDA context each, ``launch.mesh.make_mesh`` over (pod,
    data, model) = (2, 2, 2): each pod over 2 data ranks (FSDP) and 2
-   model ranks (tensor parallelism)): (a) a float32 4-layer cut of
+   model ranks (tensor parallelism)): (a) a float32 2-layer cut of
    qwen3-0.6b at full width (TF32 off), one step of each strategy on
    phase 12's global batch against the one-card step that each rank runs
    in turn: the gathered params and velocities within 1e-5 relative L2
@@ -274,16 +274,17 @@ before the last line is printed:
    threshold, the exchange's inputs), the mesh exchange on the one-card
    step's own inputs bit for bit (DGC's sharded leaves through
    ``abs_histogram`` summed over the ranks and ``dgc_select``), 0 host
-   syncs, the launches a rank (8 ``flash_attention``, 8 ``abs_histogram``
+   syncs, the launches a rank (4 ``flash_attention``, 8 ``abs_histogram``
    and 8 ``dgc_select`` beside 5 ``dgc_sparsify`` for dgc); (b) the
-   first 7 layers at full width, bf16, remat, bsp and dpsgd, 2 x 1024
+   first 4 layers at full width, bf16, remat, bsp and dpsgd, 2 x 1024
    tokens a pod, one warm-up and 3 timed steps: the slower rank's ms a
    step, tokens/s, peak memory a rank, host syncs, launches a step a rank
-   (14 ``flash_attention`` at (1, 1024, 8 over 4, 128)); (c) (b)'s bsp
+   (8 ``flash_attention`` at (1, 1024, 8 over 4, 128)); (c) (b)'s bsp
    params saved on the mesh, each rank's blocks restored on the mesh,
    and the checkpoint restored on one device, each rank's blocks of it
    equal to that rank's state (SHA-256 of the bytes).  (Phases 12 (a)
-   and 13 (b) ran the full 28 layers until phase 14 needed the time.)
+   and 13 (b) ran the full 28 layers until phase 14 needed the time, 7
+   until phase 15 did; 13 (a) ran 4 layers until then.)
 14. serving under a mesh (``launch.steps.make_prefill_step`` and
    ``make_serve_step`` with ``mesh=``; four gloo ranks on the card, one
    site of a (1, D, M) mesh: each rank holds its blocks of the weights
@@ -296,28 +297,65 @@ before the last line is printed:
    the next); (a) float32 (TF32 off): qwen3-0.6b at full depth over
    (1, 2, 2), the 4 x 2048 prefill and 8 requests' teacher-forced decode
    (a 64-token prompt, then the one-card greedy tokens; 128 slots) for
-   its first 16 steps, under both cache placements (the length over
+   its first 4 steps, under both cache placements (the length over
    model: flash-decode; and the KV heads over model, the reference's
    ``REPRO_BASELINE_DECODE``); a 4-layer cut of deepseek-v2-lite-16b at
    full width over (1, 1, 4) (1 dense and 3 MoE layers), the same
-   prefill and all 95 decode steps under both placements, the EP
+   prefill and its first 32 decode steps under the length placement and
+   16 under the heads placement, the EP
    route's prefill (reported) and 8 of its decode steps (the dense
    route's function at one token, by the reference's rule), and the EP
    route's first MoE layer against ``moe_apply_ep_ref`` on the one-card
    run's own input: every logit row, and that layer's output, within
-   1e-5 relative L2; (b) bf16 at full width and depth, the weights drawn
-   by the ranks in turns (each keeps clones of its blocks): qwen3-0.6b
-   over (1, 2, 2), deepseek-v2-lite-16b over (1, 1, 4) with the dense
+   1e-5 relative L2; (b) bf16 at full width, the weights drawn by the
+   ranks in turns (each keeps clones of its blocks): qwen3-0.6b at full
+   depth over (1, 2, 2), deepseek-v2-lite-16b's first 14 layers (1 dense,
+   13 MoE) over (1, 1, 4) with the dense
    and the EP route: one warm-up and 3 timed prefill calls and decode
    steps, the slowest rank's median, tokens/s, peak memory a rank, 0 host
-   syncs a decode step, the launches (28 and 27 ``flash_attention`` a
+   syncs a decode step, the launches (28 and 14 ``flash_attention`` a
    prefill call a rank, none a decode step), one decode step's
    collectives (calls, bytes handed, ms inside them); qwen3's logits no
    farther from the float32 one-card logits than 1.25x the one-card bf16
    logits are (gated), deepseek's relative L2 to the one-card bf16
    logits and greedy agreement (reported); (c) NCCL at world size 1: the
    serve steps on a (1, 1, 1) mesh equal the steps without one, 0 host
-   syncs a decode step.
+   syncs a decode step.  (Until phase 15 needed the script's time, (a)
+   decoded qwen3 for 8 steps and the deepseek cut for all 95 (32 under
+   the heads placement), and (b) served deepseek at its full 27 layers.)
+15. training MLA + MoE inside a pod, and a model axis wider than
+   n_kv_heads (``launch.procs.spawn``, four gloo ranks on the card, one
+   spawn, a deadline): (a) deepseek-v2-lite-16b at full width, float32
+   (TF32 off), a 2-layer cut (layer 0 dense, layer 1 MoE: 64 experts, 16
+   a rank) over (1, 1, 4), a pod batch of 2 x 256 tokens, one bsp step
+   with each MoE route: the dense route's gathered params and velocities
+   within 1e-5 relative L2 of the one-card step each rank runs in turn,
+   its loss within 1e-6 relative, every (token, k) pair's expert equal to
+   the one-card router's unless that token's top-k margin is below 1e-5
+   relative (the flips and margins printed), the remat recompute routing
+   as the forward; the EP route's step distance to the one-card step and
+   its dropped pairs reported, and its MoE layer on seeded tokens (y,
+   the gradients of x, the router, the experts and the shared experts)
+   within 1e-5 relative L2 of ``moe_apply_ep_ref``'s autograd; (b) that
+   cut in bf16 over (2, 1, 2), each strategy's exchange on seeded inputs,
+   each rank's blocks against the one-card exchange's, bit for bit (rank
+   0 runs the one-card exchange and checks every rank's blocks by their
+   bits' fingerprints); (c) a 3-layer cut (1 dense, 2 MoE) in bf16,
+   remat, 2 x 1024 tokens, bsp, both routes, one warm-up and 3 timed
+   steps: the slowest rank's ms a step, tokens/s, peak memory a rank,
+   the first timed step's collectives by kind, the warm-up step's plain
+   attention backward, 0 host syncs a step, 5 ``flash_attention``
+   launches a step a rank (3 forward, 2 recomputed: the dense first
+   layer is not checkpointed, as in the reference); (d) starcoder2-3b at
+   full width
+   (24 heads over 2 KV heads: each KV head serves two model ranks),
+   float32, a 2-layer cut over (1, 1, 4): one bsp step against the
+   one-card step (1e-5 relative L2), a 4 x 512 prefill and 8
+   teacher-forced decode steps of 8 requests under the flash-decode and
+   the heads placements against the one-card serve by phase 14's float32
+   gate; (e) starcoder2-3b bf16, remat, a 4-layer cut, 1 x 1024 tokens,
+   bsp, one warm-up and 2 timed steps, as (c) (8 launches a step a
+   rank).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -1471,11 +1509,11 @@ def lm_train_phase(dev: torch.device, out_dir: Path):
 #: at world size 1 (the two pods on the one rank, a bf16 cut), its steps
 #: timed and one under the sync debug mode
 DIST_RANKS, DIST_CUT, DIST_VEL_TOL, DIST_NCCL_STEPS = 2, 2, 1e-3, 3
-#: the depth of (a)'s timed steps and (b)'s exchange, at full width: a
-#: quarter of qwen3-0.6b's 28 layers (full depth until phase 14 needed the
-#: script's time; the exchange's leaves, and so its launches, are the
-#: full model's in number)
-DIST_TIMED_LAYERS = 7
+#: the depth of (a)'s timed steps and (b)'s exchange, at full width: 4 of
+#: qwen3-0.6b's 28 layers (full depth until phase 14 needed the script's
+#: time, 7 until phase 15 did; the exchange's leaves, and so its
+#: launches, are the full model's in number)
+DIST_TIMED_LAYERS = 4
 #: the ranks' deadline (the process group's timeout and the parent's join)
 DIST_TIMEOUT = 900
 
@@ -1957,7 +1995,7 @@ def dist_phase(dev: torch.device):
 #: strategies, 2 x 1024 tokens a pod, one warm-up and
 #: TRAIN_STEPS timed steps; (c) (b)'s bsp params saved on the mesh and
 #: restored on one device
-INTRA_MESH, INTRA_CUT, INTRA_L2_TOL = (2, 2, 2), 4, 1e-5
+INTRA_MESH, INTRA_CUT, INTRA_L2_TOL = (2, 2, 2), 2, 1e-5
 #: strategies whose exchange selects entries by a threshold: an entry at
 #: it may fall either side where the sharded sums round otherwise, so
 #: their state after the step is reported, and the step held by its
@@ -1966,9 +2004,10 @@ INTRA_MESH, INTRA_CUT, INTRA_L2_TOL = (2, 2, 2), 4, 1e-5
 #: are gradients, whose relative L2 is the rounding of their own sums)
 INTRA_SELECTS = ("gaia", "dgc")
 INTRA_TIMED = ("bsp", "dpsgd")
-#: (b)'s depth at full width: a quarter of qwen3-0.6b's 28 layers (full
-#: depth until phase 14 needed the script's time)
-INTRA_TIMED_LAYERS = 7
+#: (b)'s depth at full width: 4 of qwen3-0.6b's 28 layers (full depth
+#: until phase 14 needed the script's time, 7 until phase 15 did; (a)'s
+#: float32 cut was 4 layers until then)
+INTRA_TIMED_LAYERS = 4
 INTRA_TIMEOUT = 900
 
 
@@ -2046,6 +2085,21 @@ def intra_rank(rank: int, dev: torch.device, ckpt_dir: str) -> dict:
     specs = sharding.leaf_specs(p32, mesh)
     like = pytree.leaves(p32)
     with tf32_off():
+        # every rank's first step at once, on the reduced config: the
+        # kernels, handles and workspaces a process loads on its first
+        # step would otherwise load in the one-card turns, one rank after
+        # another
+        small = dataclasses.replace(cfg32.reduced(), dtype="float32")
+        lsteps.make_train_step(small, comm_of("bsp"), lr=TRAIN_LR,
+                               remat=True)(
+            lsteps.make_train_state(lm.init_model(
+                torch.Generator(device=dev).manual_seed(0), small, dev),
+                comm_of("bsp"), TRAIN_PODS),
+            {k_: v_[..., :16] % small.vocab for k_, v_ in batches[0].items()},
+            1)
+        torch.cuda.synchronize()
+        del small
+        dist.barrier()
         for strategy, _ in TRAIN_RUNS:
             comm = comm_of(strategy)
             # the one-card step, one rank at a time on the card: this
@@ -2231,12 +2285,13 @@ def _timed_collectives():
     """``torch.distributed``'s collectives wrapped for the block: a dict
     of the calls made (``calls``), the bytes of their input tensors
     (``bytes``) and the host's wall ms inside them (``ms``), summed over
-    every thread (the backward's run on the autograd engine's).  Gloo
-    returns from a call once its transfer is done, so ``ms`` is the time
-    the rank waits on the wire and on its slower peers."""
+    every thread (the backward's run on the autograd engine's), and the
+    same three by collective (``by_name``).  Gloo returns from a call
+    once its transfer is done, so ``ms`` is the time the rank waits on
+    the wire and on its slower peers."""
     import threading
     import torch.distributed as dist
-    out, lock, saved = {"calls": 0, "bytes": 0, "ms": 0.0}, \
+    out, lock, saved = {"calls": 0, "bytes": 0, "ms": 0.0, "by_name": {}}, \
         threading.Lock(), {}
     names = ("all_reduce", "all_gather_into_tensor", "all_gather_single",
              "reduce_scatter_tensor", "reduce_scatter_single",
@@ -2247,7 +2302,7 @@ def _timed_collectives():
             continue
         saved[name_] = fn_
 
-        def timed(*args, _fn=fn_, **kw):
+        def timed(*args, _fn=fn_, _name=name_, **kw):
             x_ = args[1] if len(args) > 1 and isinstance(
                 args[1], torch.Tensor) else args[0]     # the input
             n_ = x_.numel() * x_.element_size()
@@ -2255,10 +2310,16 @@ def _timed_collectives():
             try:
                 return _fn(*args, **kw)
             finally:
+                ms_ = (time.perf_counter() - t0) * 1e3
                 with lock:
                     out["calls"] += 1
                     out["bytes"] += n_
-                    out["ms"] += (time.perf_counter() - t0) * 1e3
+                    out["ms"] += ms_
+                    e_ = out["by_name"].setdefault(
+                        _name, {"calls": 0, "bytes": 0, "ms": 0.0})
+                    e_["calls"] += 1
+                    e_["bytes"] += n_
+                    e_["ms"] += ms_
         setattr(dist, name_, timed)
     try:
         yield out
@@ -2458,9 +2519,10 @@ MESH_SHAPES = {"qwen3-0.6b": (1, 2, 2), "deepseek-v2-lite-16b": (1, 1, 4)}
 MESH_B, MESH_PROMPT, MESH_GEN, MESH_CACHE = 8, SERVE_PROMPT, SERVE_GEN - 1, \
     SERVE_CACHE
 #: (a)'s float32 parity (TF32 off): deepseek-v2-lite-16b on a MESH_CUT-layer
-#: cut (1 dense and 3 MoE layers) over the whole decode under the
-#: flash-decode placement and its first MESH_BASE_STEPS under the heads
-#: placement; qwen3-0.6b at full depth over its first MESH_QWEN_F32_STEPS
+#: cut (1 dense and 3 MoE layers) over its first MESH_DS_F32_STEPS decode
+#: steps under the flash-decode placement and its first MESH_BASE_STEPS
+#: under the heads placement; qwen3-0.6b at full depth over its first
+#: MESH_QWEN_F32_STEPS
 #: steps under each (a float32 decode step on (1, 2, 2) gathers half the
 #: weights over data through gloo's host staging: ~2.5 s).  Every logit
 #: row within MESH_F32_TOL relative L2 of the one-card serve, or within
@@ -2468,7 +2530,15 @@ MESH_B, MESH_PROMPT, MESH_GEN, MESH_CACHE = 8, SERVE_PROMPT, SERVE_GEN - 1, \
 #: higher: the largest row distance of the one-card serve with every
 #: weight moved by a relative 2**-24 normal (two draws), which at these
 #: depths and 2048 positions lies above 1e-5 (PERF.md, PR 25)
-MESH_CUT, MESH_QWEN_F32_STEPS, MESH_BASE_STEPS = 4, 8, 32
+MESH_CUT, MESH_QWEN_F32_STEPS, MESH_BASE_STEPS = 4, 4, 16
+#: the deepseek cut's decode steps under the flash-decode placement (all
+#: 95 of the prompt and the generated tokens until phase 15 needed the
+#: script's time; 8 qwen3 steps and 32 deepseek steps under the heads
+#: placement until then)
+MESH_DS_F32_STEPS = 32
+#: (b)'s deepseek-v2-lite-16b depth: 14 of its 27 layers (1 dense, 13
+#: MoE; full depth until phase 15 needed the script's time)
+MESH_DS_LAYERS = 14
 MESH_F32_TOL, MESH_WITNESS_X = 1e-5, 1.25
 #: the EP route's decode steps in (a): the dense route's function at one
 #: token a step (the reference's rule), run to show the route takes it
@@ -2561,7 +2631,7 @@ def _sq(got, want):
 def serve_mesh_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
     """One gloo rank of phase 14 (``procs.spawn``): (a) float32 parity
     against the one-card serve of the parent (``ref_path``), (b) bf16 at
-    full width and depth, timed.  Returns host numbers."""
+    full width (deepseek on a depth cut), timed.  Returns host numbers."""
     from repro_torch import pytree
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
@@ -2767,9 +2837,8 @@ def serve_mesh_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
         mark("(a) deepseek float32 cut draw")
         out["deepseek_f32"] = parity(
             cut, mesh, params, "deepseek_f32",
-            (("dense", True, False, MESH_PROMPT + MESH_GEN),
-             ("dense", True, True, min(MESH_BASE_STEPS,
-                                       MESH_PROMPT + MESH_GEN)),
+            (("dense", True, False, MESH_DS_F32_STEPS),
+             ("dense", True, True, MESH_BASE_STEPS),
              ("ep", True, False, MESH_EP_STEPS)), moe_mod.ROUTES)
         # the EP route's first MoE layer on the one-card run's own input,
         # against moe_apply_ep_ref (and the shared experts) there
@@ -2787,10 +2856,11 @@ def serve_mesh_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
     del params
     torch.cuda.empty_cache()
     mark("(a) deepseek float32 cut prefill and decode")
-    params = blocks(dcfg, mesh)
+    dcut = dataclasses.replace(dcfg, n_layers=MESH_DS_LAYERS)
+    params = blocks(dcut, mesh)
     mark("(b) deepseek bf16 draw in turns")
     torch.cuda.reset_peak_memory_stats()
-    out["deepseek_bf16"] = full(dcfg, mesh, params, "deepseek",
+    out["deepseek_bf16"] = full(dcut, mesh, params, "deepseek",
                                 moe_mod.ROUTES)
     out["deepseek_bf16"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del params
@@ -2937,10 +3007,9 @@ def serve_mesh_phase(dev: torch.device):
                 seen.append(x_.clone())
             return dense(p_, m_, x_, route)
         with swapped(moe_mod, "moe_apply", record):
-            pre, dec, fed = _one_card_serve(cut, p, dev,
-                                            MESH_PROMPT + MESH_GEN)
+            pre, dec, fed = _one_card_serve(cut, p, dev, MESH_DS_F32_STEPS)
         witness["deepseek_f32"] = _rounding_witness(
-            cut, p, dev, MESH_PROMPT + MESH_GEN, fed, pre, dec)
+            cut, p, dev, MESH_DS_F32_STEPS, fed, pre, dec)
         ffn = pytree_first_moe(p)
         with torch.inference_mode():
             y, aux = moe_ep.moe_apply_ep_ref(ffn, cut.moe, seen[0], D, M)
@@ -2954,8 +3023,9 @@ def serve_mesh_phase(dev: torch.device):
                   "deepseek_f32/ep_aux": aux.cpu()})
     del p, seen, y, ffn
     torch.cuda.empty_cache()
-    p = lm.init_model(torch.Generator(device=dev).manual_seed(0), dcfg, dev)
-    pre, dec, _ = _one_card_serve(dcfg, p, dev, MESH_TIMED + 1, fed)
+    dcut = dataclasses.replace(dcfg, n_layers=MESH_DS_LAYERS)
+    p = lm.init_model(torch.Generator(device=dev).manual_seed(0), dcut, dev)
+    pre, dec, _ = _one_card_serve(dcut, p, dev, MESH_TIMED + 1, fed)
     saved.update({"deepseek/prefill_bf16": pre, "deepseek/decode_bf16": dec})
     # the cut's float32 logits are not the full model's: (b)'s deepseek
     # distances are taken to the one-card bf16 run only
@@ -3023,11 +3093,13 @@ def serve_mesh_phase(dev: torch.device):
           f"{aux[1]:.6g}", flush=True)
     check(ep_l2 <= MESH_F32_TOL and abs(aux[0] - aux[1]) <=
           MESH_F32_TOL * abs(aux[1]), ("ep layer", ep_l2, aux))
-    # (b) bf16 at full width and depth
+    # (b) bf16 at full width, qwen3 at full depth, deepseek cut
     kern_launches = {}
     for key, arch in (("qwen3_bf16", "qwen3-0.6b"),
                       ("deepseek_bf16", "deepseek-v2-lite-16b")):
         cfg_ = get_config(arch)
+        if arch != "qwen3-0.6b":
+            cfg_ = dataclasses.replace(cfg_, n_layers=MESH_DS_LAYERS)
         s = {"peak_gb_by_rank": [r_[key]["peak_gb"] for r_ in ranks]}
         for route, r0 in ranks[0][key].items():
             if not isinstance(r0, dict):
@@ -3084,7 +3156,8 @@ def serve_mesh_phase(dev: torch.device):
             if not isinstance(e, dict):
                 continue
             c0 = e.get("decode_collectives_by_rank", [{}])[0]
-            print(f"(b) {arch}, bf16, full width and depth, {route} route, "
+            print(f"(b) {arch}, bf16, full width, {cfg_.n_layers} layers, "
+                  f"{route} route, "
                   f"{MESH_SHAPES[arch]} of gloo ranks on the card: prefill "
                   f"{PREFILL_B} x {PREFILL_T} {e['prefill_ms']:.1f} ms a call "
                   f"(the slowest rank's median of {MESH_TIMED}), "
@@ -3138,6 +3211,854 @@ def serve_mesh_phase(dev: torch.device):
     kern = {"flash_attention": {
         "serve_mesh_launches_per_call_a_rank": kern_launches,
         "serve_mesh_shapes": summary["fa"]}}
+    return summary, kern
+
+
+# ---------------------------------------------------------------------------
+# Phase 15: training MLA + MoE inside a pod, and a model axis wider than
+# n_kv_heads
+# ---------------------------------------------------------------------------
+
+#: phase 15, four gloo ranks sharing the card, one spawn.  (a)
+#: deepseek-v2-lite-16b at full width, float32 (TF32 off), its first
+#: MOE_CUT layers (layer 0 dense, layer 1 MoE: 64 experts, 16 a rank) over
+#: (1, 1, 4), a pod batch of MOE_B x MOE_T tokens: one bsp step with each
+#: MoE route against the one-card step (the dense route gated at phase
+#: 13's INTRA_L2_TOL, its loss at 1e-6 relative; the EP route, another
+#: function, reported), every (token, k) pair's expert against the
+#: one-card router's (a flip allowed only where the one-card top-k margin
+#: is below MOE_FLIP_MARGIN relative), and the EP route's MoE layer on
+#: seeded tokens: its gradients against ``moe_apply_ep_ref``'s autograd
+MOE_MESH, MOE_CUT, MOE_B, MOE_T = (1, 1, 4), 2, 2, 256
+MOE_FLIP_MARGIN, MOE_LOSS_TOL, MOE_AUX_WEIGHT = 1e-5, 1e-6, 100.0
+#: (b) (a)'s cut in bf16 (float32 norms) over (2, 1, 2): each strategy's
+#: exchange on seeded inputs, each rank's blocks against the one-card
+#: exchange's, bit for bit by ``_fingerprint``: rank 0 runs the one-card
+#: exchange once (at this cut it needs most of the card), the ranks keep
+#: fingerprints
+MOE_EX_MESH = (2, 1, 2)
+#: (c) deepseek-v2-lite-16b bf16, remat, MOE_TIMED_CUT layers (1 dense, 2
+#: MoE; 4 until the script's time asked for the cut) over (1, 1, 4), 2 x
+#: 1024 tokens, bsp, both routes: one warm-up and PHASE15_TIMED timed
+#: steps
+MOE_TIMED_CUT, PHASE15_TIMED = 3, 3
+#: (d) starcoder2-3b at full width (24 heads over 2 KV heads: each KV head
+#: serves two of the four model ranks), float32, KV_CUT layers over (1, 1,
+#: 4): one bsp step against one card (INTRA_L2_TOL); a prefill of KV_PRE_B
+#: x KV_PRE_T and KV_DECODE teacher-forced decode steps of MESH_B requests
+#: over MESH_CACHE slots under each cache placement, against the one-card
+#: serve by phase 14's float32 gate (C12)
+KV_CUT, KV_PRE_B, KV_PRE_T, KV_DECODE = 2, 4, 512, 8
+#: (e) starcoder2-3b bf16, remat, KV_TIMED_CUT layers (8 until the
+#: script's time asked for the cut), 1 x 1024 tokens, bsp: one warm-up and
+#: KV_TIMED timed steps
+KV_TIMED_CUT, KV_TIMED = 4, 2
+PHASE15_TIMEOUT = 600
+
+
+def _p15_tokens(vocab, B, T, seed, dev):
+    """A train batch of one pod: tokens and next-token labels (1, B, T)."""
+    seqs = torch.from_numpy(np.random.default_rng(seed).integers(
+        0, vocab, (1, B, T + 1))).to(dev)
+    return {"tokens": seqs[..., :-1], "labels": seqs[..., 1:]}
+
+
+def _replicas(spec, mesh) -> int:
+    """The ranks that hold one block of a leaf placed by ``spec``: the
+    pod's ranks along the axes it is not split over."""
+    return int(np.prod([mesh.size_of(a) for a in ("data", "model")
+                        if a not in spec]))
+
+
+def _p15_sq(got, want, specs, mesh):
+    """(sum of squared differences, sum of squares of ``want``) over this
+    rank's blocks, each leaf weighted by 1 / its replicas: summed over the
+    ranks, the whole leaves' (float64)."""
+    num, den = 0.0, 0.0
+    for g_, w_, s_ in zip(got, want, specs, strict=True):
+        n_, d_ = _sq_diff([g_], [w_])
+        r_ = _replicas(s_, mesh)
+        num, den = num + n_ / r_, den + d_ / r_
+    return num, den
+
+
+def _fingerprint(t, chunk: int = 1 << 26) -> torch.Tensor:
+    """Two int64 sums of a tensor's bit patterns on its device, plain and
+    weighted by each entry's index (wrapping): one entry that differs
+    changes the plain sum, two that trade places the weighted one."""
+    bits = t.contiguous().reshape(-1).view(
+        {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            t.element_size()])
+    out = torch.zeros(2, dtype=torch.int64, device=t.device)
+    for lo in range(0, bits.numel(), chunk):
+        b_ = bits[lo:lo + chunk].long()
+        idx = torch.arange(lo + 1, lo + 1 + b_.numel(), device=t.device)
+        out[0] += b_.sum()
+        out[1] += (b_ * idx).sum()
+    return out
+
+
+def _top_margin(probs, k):
+    """Each token's smallest relative gap among its k + 1 largest router
+    probabilities: (p_j - p_(j+1)) / p_j, the least over j < k + 1."""
+    top = torch.topk(probs.double(), k + 1, dim=-1).values
+    return ((top[:, :-1] - top[:, 1:]) / top[:, :-1]).amin(dim=-1)
+
+
+def _draw_inputs(strategy, like, n_pods, gen, comm, specs=None,
+                 mesh=None):
+    """The exchange's seeded inputs of ``strategy`` over stacked (n_pods,
+    ...) leaves of ``like``'s shapes and dtypes, each leaf drawn in turn
+    from ``gen``; with ``specs`` and ``mesh`` each leaf cut to this rank's
+    block (its pods, its data and model blocks) as soon as it is drawn.
+    AD-PSGD's snapshot buffers are drawn a leaf's (S + 1, n_pods, ...)
+    slab at a time, laid side by side by dtype group."""
+    from repro_torch import pytree
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as lsteps
+    dev = gen.device
+    if mesh is None:
+        pods, cut = range(n_pods), lambda t_, i_, lead: t_
+    else:
+        pods = lsteps.local_pods(n_pods, mesh)
+
+        def cut(t_, i_, lead):
+            return sharding.local_block(
+                t_.narrow(lead, pods.start, len(pods)),
+                (None,) * (lead + 1) + tuple(specs[i_]), mesh).clone()
+
+    def draw(scale, dtype=None):
+        out = []
+        for i_, t_ in enumerate(like):
+            w_ = torch.randn((n_pods,) + tuple(t_.shape), generator=gen,
+                             device=dev).mul_(scale).to(dtype or t_.dtype)
+            out.append(cut(w_, i_, 0))
+            del w_
+        return out
+    if strategy == "bsp":
+        return {"grads": draw(0.01)}
+    parts = {"params": draw(0.1)}
+    if strategy in ("gaia", "dgc"):
+        parts["acc"] = draw(0.01, torch.float32)
+    if strategy == "dgc":
+        parts["vel"] = draw(0.01, torch.float32)
+    if strategy == "adpsgd":
+        S1 = comm.max_staleness + 1
+        parts["snaps"] = {}
+        for dt_, idx in lsteps.dtype_groups(like).items():
+            slabs = []
+            for i_ in idx:
+                w_ = torch.randn((S1, n_pods) + tuple(like[i_].shape),
+                                 generator=gen, device=dev).mul_(0.1).to(dt_)
+                slabs.append(cut(w_, i_, 1).reshape(S1, len(pods), -1))
+                del w_
+            parts["snaps"][pytree.dtype_name(dt_)] = torch.cat(slabs, dim=2)
+            del slabs
+    return parts
+
+
+def moe_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
+    """One gloo rank of phase 15 (``procs.spawn``).  Returns host numbers;
+    the parent gates them."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import CommConfig, FabricConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch.mesh import AXES, Mesh, make_mesh
+    from repro_torch.models import model as lm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import moe_ep
+    from repro_torch.models.layers import gated_mlp_apply
+    from repro_torch.models.shard_hints import activation_sharding
+    from repro_torch.topology.graphs import build_demo_schedule
+    import torch.distributed as dist
+    t_rank = time.perf_counter()
+    world = dist.get_world_size()
+    ref = torch.load(ref_path, weights_only=True)
+    out = {"rank": rank, "walls_s": {}}
+    last = [time.perf_counter()]
+    bsp = CommConfig(strategy="bsp")
+
+    def mark(label):
+        now = time.perf_counter()
+        out["walls_s"][label] = now - last[0]
+        last[0] = now
+        if rank == 0:
+            print(f"phase 15 rank 0: {label} {out['walls_s'][label]:.1f} s "
+                  f"(at {now - t_rank:.1f} s)", flush=True)
+
+    def turns(fn):
+        """``fn()`` on each rank in turn (the one-card runs: one whole
+        model on the card at a time), every rank's cached blocks given
+        back first."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        for turn in range(world):
+            if turn == rank:
+                fn()
+                gc.collect()
+                torch.cuda.empty_cache()
+            dist.barrier()
+
+    def draw(cfg_):
+        return lm.init_model(torch.Generator(device=dev).manual_seed(0),
+                             cfg_, dev)
+
+    def reset():
+        for k_ in ops.launches:
+            ops.launches[k_] = 0
+
+    def launched():
+        return {k_: c_ for k_, c_ in ops.launches.items() if c_}
+
+    def recorder(calls, probs=False):
+        """``moe.route_logits`` recording each call's experts (and
+        probabilities)."""
+        orig = moe_mod.route_logits
+
+        def rec(m_, logits_):
+            p_, g_, e_ = orig(m_, logits_)
+            calls.append((e_.detach().clone(),
+                          p_.detach().clone() if probs else None))
+            return p_, g_, e_
+        return rec
+
+    # ----------------------------------------------------------------- (a)
+    dcfg = get_config("deepseek-v2-lite-16b")
+    cut = dataclasses.replace(dcfg, n_layers=MOE_CUT, dtype="float32")
+    mesh = make_mesh(MOE_MESH, device=dev, cfg=cut)
+    out["coords"] = mesh.coords
+    specs = sharding.leaf_specs(lsteps.param_shape(cut), mesh)
+    batch = _p15_tokens(cut.vocab, MOE_B, MOE_T, 150, dev)
+    a = {}
+    with tf32_off():
+        whole = draw(cut)
+        state = lsteps.make_train_state(whole, bsp, 1, mesh=mesh)
+        del whole
+        torch.cuda.empty_cache()
+        mine = {}
+        for route in moe_mod.ROUTES:
+            step = lsteps.make_train_step(cut, bsp, mesh=mesh, lr=TRAIN_LR,
+                                          remat=True, moe_route=route)
+            calls, drops = [], []
+
+            def dispatch(*args, _orig=moe_ep._dispatch):
+                res = _orig(*args)
+                keep = res[2][1]
+                drops.append(((~keep).sum(), keep.numel()))
+                return res
+            reset()
+            box = []
+            with swapped(moe_mod, "route_logits", recorder(calls)), \
+                    swapped(moe_ep, "_dispatch", dispatch):
+                syncs = count_syncs(lambda: box.append(step(state, batch,
+                                                            1)))
+            new, metrics = box[0]
+            mine[route] = [t_ for k_ in ("params", "vel")
+                           for t_ in pytree.leaves(new[k_])]
+            a[route] = {"loss": float(metrics["loss"]), "syncs": syncs,
+                        "launches": launched()}
+            if route == "dense":
+                # the forward's routing, and the remat recompute's again
+                fwd, again = calls[0][0], calls[-1][0]
+                a[route]["recompute_routes_alike"] = len(calls) == 2 and \
+                    torch.equal(fwd, again)
+                mine["experts"] = fwd
+            else:
+                # the forward's dispatch (the recompute's repeats it)
+                a[route]["dropped_pairs"] = [int(drops[0][0]), drops[0][1]]
+                a[route]["dispatch_calls"] = len(drops)
+            del step, box, new, calls, drops
+            gc.collect()
+            torch.cuda.empty_cache()
+        mark("(a) the mesh steps")
+        # the EP route's MoE layer on seeded tokens, its gradient blocks
+        gen = torch.Generator(device=dev).manual_seed(151)
+        x = torch.randn(MOE_B, MOE_T, cut.d_model, generator=gen, device=dev)
+        wy = torch.randn(MOE_B, MOE_T, cut.d_model, generator=gen,
+                         device=dev)
+        ffn = pytree_first_moe(pytree.tree_map(lambda t_: t_[0],
+                                               state["params"]))
+        ffn = pytree.tree_map(lambda t_: t_.detach().clone()
+                              .requires_grad_(), ffn)
+        xr = x.clone().requires_grad_()
+        reset()
+        with activation_sharding(mesh):
+            y, aux = moe_mod.moe_apply(ffn, cut.moe, xr, "ep")
+        layer_grads = torch.autograd.grad(
+            (y * wy).sum() + MOE_AUX_WEIGHT * aux, [xr] + pytree.leaves(ffn))
+        ffn_shape = {"ffn": pytree_first_moe(lsteps.param_shape(cut))}
+        ffn_specs = sharding.leaf_specs(ffn_shape, mesh)
+        a["ep_layer_names"] = ["y", "x"] + [
+            p_ for p_, _ in pytree.leaves_with_paths(ffn_shape)]
+        a["ep_layer_aux_mesh"] = float(aux.detach())
+        layer_y = y.detach()
+        del state, ffn, y, aux, xr
+        gc.collect()
+        torch.cuda.empty_cache()
+        mark("(a) the EP layer on the mesh")
+
+        def one_card():
+            whole_ = draw(cut)
+            calls = []
+            step = lsteps.make_train_step(cut, bsp, lr=TRAIN_LR, remat=True)
+            with swapped(moe_mod, "route_logits", recorder(calls, True)):
+                new, metrics = step(lsteps.make_train_state(whole_, bsp, 1),
+                                    batch, 1)
+            want = [t_ for k_ in ("params", "vel")
+                    for t_ in pytree.leaves(new[k_])]
+            stacked = [(None,) + tuple(s_) for s_ in specs] * 2
+            blocks = _intra_blocks(want, list(specs) * 2, mesh, slice(0, 1))
+            for route in moe_mod.ROUTES:
+                a[route]["sq"] = _p15_sq(mine[route], blocks, stacked, mesh)
+            a["one_card_loss"] = float(metrics["loss"])
+            e1, p1 = calls[0]
+            differ = (e1 != mine["experts"]).any(dim=-1)
+            margin = _top_margin(p1, cut.moe.top_k)
+            a["pairs"] = e1.numel()
+            a["flipped_tokens"] = int(differ.sum())
+            a["flip_margins"] = margin[differ].tolist()
+            a["least_margin"] = float(margin.min())
+            del new, want, blocks, calls, step, mine["experts"]
+            # the EP layer in one process, whole weights, autograd
+            f_ = pytree.tree_map(lambda t_: t_.detach().clone()
+                                 .requires_grad_(), pytree_first_moe(whole_))
+            del whole_
+            xw = x.clone().requires_grad_()
+            y_, aux_ = moe_ep.moe_apply_ep_ref(f_, cut.moe, xw, *MOE_MESH[1:])
+            y_ = y_ + gated_mlp_apply(f_["shared"], xw)
+            g_ = torch.autograd.grad((y_ * wy).sum() + MOE_AUX_WEIGHT * aux_,
+                                     [xw] + pytree.leaves(f_))
+            # per leaf: y, x's gradient (whole on every rank), each
+            # leaf's gradient block
+            a["ep_layer_sq"] = [_p15_sq([g1], [w1], [s1], mesh) for g1, w1, s1
+                                in zip([layer_y] + list(layer_grads),
+                                       [y_.detach(), g_[0]] + [
+                                           sharding.local_block(t_, s_, mesh)
+                                           for t_, s_ in zip(g_[1:],
+                                                             ffn_specs)],
+                                       [(), ()] + list(ffn_specs),
+                                       strict=True)]
+            a["ep_layer_aux"] = float(aux_)
+        turns(one_card)
+        del mine, layer_grads, layer_y
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["a"] = a
+    mark("(a) the one-card steps in turns")
+
+    # ----------------------------------------------------------------- (b)
+    cut16 = dataclasses.replace(cut, dtype="bfloat16")
+    ex_mesh = make_mesh(MOE_EX_MESH, device=dev, cfg=cut16)
+    like16 = pytree.leaves(lsteps.param_shape(cut16))
+    ex_specs = sharding.leaf_specs(lsteps.param_shape(cut16), ex_mesh)
+    sched = build_demo_schedule("ring", TRAIN_PODS)
+    b = {}
+    for n_, (strategy, kw) in enumerate(TRAIN_RUNS):
+        comm = CommConfig(strategy=strategy,
+                          fabric=FabricConfig(topology="ring"), **kw)
+
+        def operands(mesh_):
+            if strategy not in lsteps.GOSSIP_STRATEGIES:
+                return {}
+            return {"mix": lsteps.gossip_operands(
+                sched, 0, device=dev, mesh=mesh_, **(
+                    {"staleness": TRAIN_STALENESS,
+                     "max_staleness": comm.max_staleness}
+                    if strategy == "adpsgd" else {}))}
+
+        def inputs(**blocks_kw):
+            return _draw_inputs(strategy, like16, TRAIN_PODS,
+                                torch.Generator(device=dev).manual_seed(
+                                    160 + n_), comm, **blocks_kw)
+        parts = inputs(specs=ex_specs, mesh=ex_mesh)
+        ex = lsteps.make_exchange(comm, mesh=ex_mesh, lr=TRAIN_LR,
+                                  specs=ex_specs)
+        kw_mesh = operands(ex_mesh)     # built and checked on the host
+        reset()
+        box = []
+        syncs = count_syncs(lambda: box.append(ex(parts, step_idx=1,
+                                                  **kw_mesh)))
+        # each result leaf's fingerprint, in place of the leaf: the
+        # one-card exchange of this cut needs most of the card; rank 0
+        # runs it once and checks every rank's blocks of it
+        r_ = {"launches": launched(), "syncs": syncs, "differ": 0,
+              "elements": sum(t_.numel() for t_ in pytree.leaves(box[0]))}
+        fps = [None] * world
+        dist.all_gather_object(fps, [_fingerprint(t_).tolist()
+                                     for t_ in pytree.leaves(box[0])])
+        del parts, box
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        if rank == 0:
+            want = lsteps.make_exchange(comm, lr=TRAIN_LR)(
+                inputs(), step_idx=1, **operands(None))
+            desc = Mesh(MOE_EX_MESH, AXES)
+            for r in range(world):
+                desc.coords = dict(zip(AXES, map(int, np.unravel_index(
+                    r, MOE_EX_MESH))))
+                rows_r = lsteps.local_pods(TRAIN_PODS, desc)
+                rows_r = slice(rows_r.start, rows_r.stop)
+                for g_, w_ in zip(fps[r], pytree.leaves({
+                        k_: _intra_snaps(v_, like16, ex_specs, desc, rows_r)
+                        if k_ == "snaps" else
+                        _intra_blocks(v_, ex_specs, desc, rows_r)
+                        for k_, v_ in want.items()}), strict=True):
+                    r_["differ"] += int(_fingerprint(w_).tolist() != g_)
+            del want
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+        b[strategy] = r_
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            print(f"phase 15 rank 0: (b) {strategy} at "
+                  f"{time.perf_counter() - t_rank:.1f} s", flush=True)
+    out["b"] = b
+    mark("(b) the exchanges")
+
+    # ------------------------------------------------------- (c) and (e)
+    def timed_run(cfg_, mesh_, batch_, route, n_timed):
+        """One warm-up and ``n_timed`` timed bsp steps: walls, launches a
+        step, host syncs, collectives of the first timed step, losses,
+        peak memory."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        whole_ = draw(cfg_)
+        box = [lsteps.make_train_state(whole_, bsp, 1, mesh=mesh_), None]
+        del whole_
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        step = lsteps.make_train_step(cfg_, bsp, mesh=mesh_, lr=TRAIN_LR,
+                                      remat=True, moe_route=route)
+        losses, bwd_ms = [], []
+        orig_bwd = kref.flash_attention_bthd_bwd_ref
+
+        def bwd(*args, **kw):
+            # the warm-up step's plain attention backward, synchronised
+            # around each call (the timed steps are not)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = orig_bwd(*args, **kw)
+            torch.cuda.synchronize()
+            bwd_ms.append((time.perf_counter() - t0) * 1e3)
+            return res
+
+        def one(i):
+            box[0], box[1] = step(box[0], batch_, i)
+            losses.append(box[1]["loss"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with swapped(kref, "flash_attention_bthd_bwd_ref", bwd):
+            one(0)
+        torch.cuda.synchronize()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        reset()
+        times, syncs, blocked = [], None, None
+        for i in range(1, n_timed + 1):
+            torch.cuda.synchronize()
+            mesh_.barrier()
+            t0 = time.perf_counter()
+            if i == 1:
+                with _timed_collectives() as blocked:
+                    one(i)
+            elif i < n_timed:
+                one(i)
+            else:
+                syncs = count_syncs(lambda: one(i))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        r_ = {"wall_ms": times, "median_ms": float(np.median(times)),
+              "launches_per_step": {k_: c_ / n_timed for k_, c_ in
+                                    ops.launches.items() if c_},
+              "syncs_per_step": syncs, "collectives": blocked,
+              "losses": [float(x_) for x_ in losses],
+              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "warmup_ms": warm_ms, "warmup_attn_bwd_ms": sum(bwd_ms),
+              "warmup_attn_bwd_calls": len(bwd_ms),
+              "finite": all(bool(torch.isfinite(t_).all())
+                            for t_ in pytree.leaves(box[0]["params"]))}
+        del box, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        return r_
+
+    tcfg = dataclasses.replace(dcfg, n_layers=MOE_TIMED_CUT)
+    tbatch = _p15_tokens(tcfg.vocab, TRAIN_B, TRAIN_T, 152, dev)
+    out["c"] = {route: timed_run(tcfg, mesh, tbatch, route, PHASE15_TIMED)
+                for route in moe_mod.ROUTES}
+    mark("(c) deepseek-lite bf16 timed")
+
+    # ----------------------------------------------------------------- (d)
+    scfg = get_config("starcoder2-3b")
+    s32 = dataclasses.replace(scfg, n_layers=KV_CUT, dtype="float32")
+    kv_mesh = make_mesh(MOE_MESH, device=dev, cfg=s32)
+    s_specs = sharding.leaf_specs(lsteps.param_shape(s32), kv_mesh)
+    d = {}
+    with tf32_off():
+        whole = draw(s32)
+        state = lsteps.make_train_state(whole, bsp, 1, mesh=kv_mesh)
+        params = pytree.tree_map(lambda t_: t_.clone(),
+                                 sharding.local_params(whole, kv_mesh))
+        del whole
+        torch.cuda.empty_cache()
+        sbatch = _p15_tokens(s32.vocab, MOE_B, MOE_T, 153, dev)
+        reset()
+        box = []
+        d["syncs"] = count_syncs(lambda: box.append(lsteps.make_train_step(
+            s32, bsp, mesh=kv_mesh, lr=TRAIN_LR, remat=True)(state, sbatch,
+                                                             1)))
+        new, metrics = box[0]
+        d["launches"] = launched()
+        d["loss"] = float(metrics["loss"])
+        got = [t_ for k_ in ("params", "vel") for t_ in pytree.leaves(new[k_])]
+        del state, box, new
+        # the serve under each placement, against the parent's one-card run
+        pre_tok = ref["kv/prefill_tokens"].to(dev)
+        fed = ref["kv/fed"]
+        with torch.inference_mode():
+            pre = lsteps.make_prefill_step(s32, mesh=kv_mesh)(
+                params, {"tokens": pre_tok})
+            d["prefill"] = _row_rel(pre, ref["kv/prefill"].to(dev))
+            for bs, base in ((True, False), (True, True)):
+                cache = lm.init_cache(s32, MESH_B, MESH_CACHE, device=dev,
+                                      mesh=kv_mesh, batch_sharded=bs,
+                                      baseline_decode=base)
+                step = lsteps.make_serve_step(s32, mesh=kv_mesh,
+                                              batch_sharded=bs,
+                                              baseline_decode=base)
+                worst = 0.0
+                for t in range(KV_DECODE):
+                    logits, cache = step.logits(params, cache,
+                                                _decode_batch(fed, t, dev))
+                    worst = max(worst, _row_rel(logits,
+                                                ref["kv/decode"][t].to(dev)))
+                d[f"decode_base{int(base)}"] = worst
+                del cache
+        del params, pre
+        mark("(d) starcoder2 the mesh step and serve")
+
+        def one_card():
+            whole_ = draw(s32)
+            new_, m_ = lsteps.make_train_step(s32, bsp, lr=TRAIN_LR,
+                                              remat=True)(
+                lsteps.make_train_state(whole_, bsp, 1), sbatch, 1)
+            del whole_
+            want = [t_ for k_ in ("params", "vel")
+                    for t_ in pytree.leaves(new_[k_])]
+            d["sq"] = _p15_sq(got, _intra_blocks(want, list(s_specs) * 2,
+                                                 kv_mesh, slice(0, 1)),
+                              [(None,) + tuple(s_) for s_ in s_specs] * 2,
+                              kv_mesh)
+            d["one_card_loss"] = float(m_["loss"])
+            del new_, want
+        turns(one_card)
+        del got
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["d"] = d
+    mark("(d) starcoder2 the one-card steps in turns")
+
+    # ----------------------------------------------------------------- (e)
+    ecfg = dataclasses.replace(scfg, n_layers=KV_TIMED_CUT)
+    ebatch = _p15_tokens(ecfg.vocab, 1, TRAIN_T, 154, dev)
+    out["e"] = timed_run(ecfg, kv_mesh, ebatch, "dense", KV_TIMED)
+    mark("(e) starcoder2 bf16 timed")
+    return out
+
+
+def _kv_serve(cfg, params, dev, fed):
+    """The one-card float32 serve of phase 15 (d): the prefill's last
+    logits of KV_PRE_B x KV_PRE_T seeded prompts, and each of KV_DECODE
+    teacher-forced decode steps' logits of ``fed`` (MESH_B, KV_DECODE),
+    on the host."""
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models import model as lm
+    toks = torch.from_numpy(np.random.default_rng(155).integers(
+        0, cfg.vocab, (KV_PRE_B, KV_PRE_T)))
+    with torch.inference_mode():
+        pre = lsteps.make_prefill_step(cfg)(params, {"tokens": toks.to(dev)})
+        cache = lm.init_cache(cfg, MESH_B, MESH_CACHE, device=dev)
+        step = lsteps.make_serve_step(cfg)
+        dec = []
+        for t in range(KV_DECODE):
+            logits, cache = step.logits(params, cache,
+                                        _decode_batch(fed, t, dev))
+            dec.append(logits.float().cpu())
+    return toks, pre.float().cpu(), torch.stack(dec)
+
+
+def moe_phase(dev: torch.device):
+    """Phase 15: training MLA + MoE inside a pod, and a model axis wider
+    than n_kv_heads.  The parent runs (d)'s one-card serve and its
+    rounding floor, then ``procs.spawn`` starts four gloo ranks on the
+    card (``moe_rank``); every check is gated here, after every number is
+    printed.  Returns (summary, the kernels' phase 15 figures by kernel
+    name)."""
+    import shutil
+    from repro_torch import pytree
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import procs
+    from repro_torch.models import model as lm
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary, failures = {}, []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+            print(f"phase 15 FAILED: {what}", flush=True)
+
+    def rel(num_den):
+        return (num_den[0] / max(num_den[1], 1e-300)) ** 0.5
+
+    # (d)'s one-card serve, and the model's rounding floor (phase 14's)
+    s32 = dataclasses.replace(get_config("starcoder2-3b"), n_layers=KV_CUT,
+                              dtype="float32")
+    fed = torch.from_numpy(np.random.default_rng(156).integers(
+        0, s32.vocab, (MESH_B, KV_DECODE)))
+    with tf32_off():
+        p = lm.init_model(torch.Generator(device=dev).manual_seed(0), s32,
+                          dev)
+        toks, pre, dec = _kv_serve(s32, p, dev, fed)
+        witness = {"prefill": 0.0, "decode": 0.0}
+        for seed in (7, 8):
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            moved = pytree.tree_map(lambda t_: t_ * (
+                1 + 2 ** -24 * torch.randn(t_.shape, generator=gen,
+                                           device=dev)), p)
+            _, pre_w, dec_w = _kv_serve(s32, moved, dev, fed)
+            del moved
+            witness = {"prefill": max(witness["prefill"],
+                                      _row_rel(pre_w, pre)),
+                       "decode": max(witness["decode"], _row_rel(dec_w, dec))}
+    del p
+    torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "phase15"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ref_path = str(out_dir / "one_card.pt")
+    torch.save({"kv/prefill_tokens": toks, "kv/prefill": pre,
+                "kv/decode": dec, "kv/fed": fed}, ref_path)
+    summary["one_card_s"] = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    ranks = procs.spawn(moe_rank, 4, backend="gloo", device=dev,
+                        timeout=PHASE15_TIMEOUT, args=(ref_path,))
+    summary["spawn_s"] = time.perf_counter() - t0
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # (a)
+    dcfg = get_config("deepseek-v2-lite-16b")
+    n_fa = lambda cfg_, n_: n_ + n_ - (cfg_.moe.first_dense_layers
+                                       if cfg_.moe.n_experts else 0)
+    a0 = ranks[0]["a"]
+    a = {"mesh": MOE_MESH, "layers": MOE_CUT, "tokens": MOE_B * MOE_T}
+    for route in ("dense", "ep"):
+        sq = [sum(r_["a"][route]["sq"][j] for r_ in ranks) for j in (0, 1)]
+        a[route] = {"params_vel_rel_l2": rel(sq),
+                    "loss": a0[route]["loss"],
+                    "syncs_by_rank": [r_["a"][route]["syncs"] for r_ in ranks],
+                    "launches": a0[route]["launches"]}
+    a["one_card_loss"] = a0["one_card_loss"]
+    a["loss_rel_diff"] = abs(a["dense"]["loss"] - a0["one_card_loss"]) / abs(
+        a0["one_card_loss"])
+    a["pairs"] = a0["pairs"]
+    a["flipped_tokens_by_rank"] = [r_["a"]["flipped_tokens"] for r_ in ranks]
+    a["flip_margins"] = sorted({m_ for r_ in ranks
+                                for m_ in r_["a"]["flip_margins"]})
+    a["least_margin"] = a0["least_margin"]
+    a["recompute_routes_alike"] = all(
+        r_["a"]["dense"]["recompute_routes_alike"] for r_ in ranks)
+    a["ep"]["dropped_pairs"] = a0["ep"]["dropped_pairs"]
+    a["ep"]["dropped_pairs_by_rank"] = [r_["a"]["ep"]["dropped_pairs"]
+                                        for r_ in ranks]
+    names = a0["ep_layer_names"]
+    a["ep_layer_rel_l2"] = {
+        name_: rel([sum(r_["a"]["ep_layer_sq"][j][i] for r_ in ranks)
+                    for i in (0, 1)]) for j, name_ in enumerate(names)}
+    a["ep_layer_aux"] = (a0["ep_layer_aux_mesh"], a0["ep_layer_aux"])
+    summary["a"] = a
+    print(f"(a) deepseek-v2-lite-16b, float32 (TF32 off), full width, "
+          f"{MOE_CUT}-layer cut (1 dense, 1 MoE: 64 experts, 16 a rank), "
+          f"{MOE_MESH} of gloo ranks on the card, a pod batch of {MOE_B} x "
+          f"{MOE_T}, one bsp step: dense route against the one-card step, "
+          f"the gathered params and velocities' relative L2 "
+          f"{a['dense']['params_vel_rel_l2']:.3g} (gate {INTRA_L2_TOL}), loss "
+          f"{a['dense']['loss']:.9g} against {a['one_card_loss']:.9g} "
+          f"(relative {a['loss_rel_diff']:.3g}, gate {MOE_LOSS_TOL}); "
+          f"routing: {a['pairs']} pairs, tokens with a flipped expert by "
+          f"rank {a['flipped_tokens_by_rank']}, their one-card top-k "
+          f"margins {a['flip_margins']} (allowed below {MOE_FLIP_MARGIN}; "
+          f"the least margin of any token {a['least_margin']:.3g}); the "
+          f"remat recompute routes as the forward: "
+          f"{a['recompute_routes_alike']}; host syncs by rank "
+          f"{a['dense']['syncs_by_rank']}; launches a rank "
+          f"{a['dense']['launches']}", flush=True)
+    print(f"(a) EP route: the step's distance to the one-card (dense) step, "
+          f"relative L2 {a['ep']['params_vel_rel_l2']:.3g} (another "
+          f"function: reported), loss {a['ep']['loss']:.9g}; pairs dropped "
+          f"(dropped, pairs) by rank {a['ep']['dropped_pairs_by_rank']}; "
+          f"host syncs by rank {a['ep']['syncs_by_rank']}; the MoE layer on "
+          f"seeded tokens against moe_apply_ep_ref's autograd, relative L2 "
+          "by leaf " + json.dumps({k_: float(f"{v_:.3g}") for k_, v_ in
+                                   a["ep_layer_rel_l2"].items()})
+          + f" (gate {INTRA_L2_TOL}); aux {a['ep_layer_aux'][0]:.9g} "
+          f"against {a['ep_layer_aux'][1]:.9g}", flush=True)
+    check(a["dense"]["params_vel_rel_l2"] <= INTRA_L2_TOL, ("(a) dense", a))
+    check(a["loss_rel_diff"] <= MOE_LOSS_TOL, ("(a) loss", a))
+    check(all(m_ < MOE_FLIP_MARGIN for m_ in a["flip_margins"]),
+          ("(a) routing flips", a["flip_margins"]))
+    check(a["recompute_routes_alike"], "(a) the recompute's routing")
+    check(all(v_ <= INTRA_L2_TOL for v_ in a["ep_layer_rel_l2"].values()),
+          ("(a) EP layer", a["ep_layer_rel_l2"]))
+    check(abs(a["ep_layer_aux"][0] - a["ep_layer_aux"][1]) <= INTRA_L2_TOL *
+          abs(a["ep_layer_aux"][1]), ("(a) EP aux", a["ep_layer_aux"]))
+    for route in ("dense", "ep"):
+        check(a[route]["launches"].get("flash_attention") ==
+              n_fa(dcfg, MOE_CUT), ("(a) launches", route, a[route]))
+    # (b)
+    b = {}
+    for strategy, _ in TRAIN_RUNS:
+        rs = [r_["b"][strategy] for r_ in ranks]
+        b[strategy] = {"leaves_differ": sum(r_["differ"] for r_ in rs),
+                       "elements": sum(r_["elements"] for r_ in rs),
+                       "syncs_by_rank": [r_["syncs"] for r_ in rs],
+                       "launches": rs[0]["launches"]}
+        check(b[strategy]["elements"] > 0 and
+              b[strategy]["leaves_differ"] == 0, ("(b)", strategy,
+                                                   b[strategy]))
+        check(all(x_ == 0 for x_ in b[strategy]["syncs_by_rank"]),
+              ("(b) syncs", strategy, b[strategy]))
+    summary["b"] = b
+    print(f"(b) (a)'s cut in bf16 over {MOE_EX_MESH}, each strategy's "
+          "exchange on seeded inputs against the one-card exchange, each "
+          "rank's blocks by their bits' fingerprints (two int64 sums a "
+          "leaf): (blocks differing, entries compared), host syncs by rank, "
+          "launches a rank: " + json.dumps(
+              {k_: [[v_["leaves_differ"], v_["elements"]],
+                    v_["syncs_by_rank"], v_["launches"]]
+               for k_, v_ in b.items()}), flush=True)
+
+    # (c) and (e)
+    def timed(key, cfg_, tokens, route=None):
+        rs = [r_[key][route] if route else r_[key] for r_ in ranks]
+        slow = max(r_["median_ms"] for r_ in rs)
+        c0 = rs[0]["collectives"]
+        s = {"median_ms_by_rank": [r_["median_ms"] for r_ in rs],
+             "wall_ms_by_rank": [r_["wall_ms"] for r_ in rs],
+             "slowest_median_ms": slow, "tokens_per_s": tokens / (slow / 1e3),
+             "peak_gb_by_rank": [r_["peak_gb"] for r_ in rs],
+             "syncs_per_step_by_rank": [r_["syncs_per_step"] for r_ in rs],
+             "launches_per_step": rs[0]["launches_per_step"],
+             "collectives_rank0": c0, "losses": rs[0]["losses"],
+             "warmup_ms_rank0": rs[0]["warmup_ms"],
+             "warmup_attn_bwd_ms_rank0": rs[0]["warmup_attn_bwd_ms"],
+             "warmup_attn_bwd_calls": rs[0]["warmup_attn_bwd_calls"]}
+        by = {k_: [v_["calls"], round(v_["bytes"] / 1e6, 1),
+                   round(v_["ms"], 1)] for k_, v_ in c0["by_name"].items()}
+        print(f"({key}) {cfg_.arch_id}, bf16, full width, "
+              f"{cfg_.n_layers}-layer cut, remat, {MOE_MESH} of gloo ranks "
+              f"on the card, "
+              f"{tokens} tokens a step, bsp"
+              + (f", {route} route" if route else "")
+              + f": {slow:.1f} ms a step (the slowest rank's median of "
+              f"{len(rs[0]['wall_ms'])}), {s['tokens_per_s']:.0f} tokens/s, "
+              f"peak {max(s['peak_gb_by_rank']):.2f} GB a rank, host syncs a "
+              f"step {s['syncs_per_step_by_rank']}, launches a step a rank "
+              f"{s['launches_per_step']}; the first timed step's collectives "
+              f"(rank 0): {c0['calls']} calls handed {c0['bytes'] / 1e9:.3f} "
+              f"GB, {c0['ms']:.1f} ms of the host's wall inside them "
+              f"({c0['ms'] / rs[0]['wall_ms'][0]:.3f} of the step), by "
+              f"collective [calls, MB, ms] {json.dumps(by)}; the warm-up "
+              f"step (rank 0) {s['warmup_ms_rank0']:.1f} ms, of it the plain "
+              f"attention backward {s['warmup_attn_bwd_ms_rank0']:.1f} ms in "
+              f"{s['warmup_attn_bwd_calls']} calls (synchronised around "
+              f"each); losses {[round(x_, 4) for x_ in s['losses']]}",
+              flush=True)
+        for r_ in rs:
+            check(r_["finite"] and np.all(np.isfinite(r_["losses"])),
+                  (key, route, "finite"))
+            check(r_["syncs_per_step"] == 0, (key, route, "syncs"))
+            check(r_["launches_per_step"].get("flash_attention") ==
+                  n_fa(cfg_, cfg_.n_layers), (key, route,
+                                              r_["launches_per_step"]))
+        return s
+    tcfg = dataclasses.replace(dcfg, n_layers=MOE_TIMED_CUT)
+    summary["c"] = {route: timed("c", tcfg, TRAIN_B * TRAIN_T, route)
+                    for route in ("dense", "ep")}
+    # (d)
+    d0 = ranks[0]["d"]
+    d = {"params_vel_rel_l2": rel([sum(r_["d"]["sq"][j] for r_ in ranks)
+                                   for j in (0, 1)]),
+         "loss": d0["loss"], "one_card_loss": d0["one_card_loss"],
+         "syncs_by_rank": [r_["d"]["syncs"] for r_ in ranks],
+         "launches": d0["launches"], "rounding_floor": witness,
+         **{k_: max(r_["d"][k_] for r_ in ranks)
+            for k_ in ("prefill", "decode_base0", "decode_base1")}}
+    d["loss_rel_diff"] = abs(d["loss"] - d["one_card_loss"]) / abs(
+        d["one_card_loss"])
+    gates = {k_: max(MESH_F32_TOL, MESH_WITNESS_X * witness[
+        "prefill" if k_ == "prefill" else "decode"])
+        for k_ in ("prefill", "decode_base0", "decode_base1")}
+    d["gates"] = gates
+    summary["d"] = d
+    print(f"(d) starcoder2-3b, float32 (TF32 off), full width (24 heads over "
+          f"2 KV heads, each KV head serving two of the four model ranks), "
+          f"{KV_CUT}-layer cut, {MOE_MESH}: one bsp step against the "
+          f"one-card step, relative L2 {d['params_vel_rel_l2']:.3g} (gate "
+          f"{INTRA_L2_TOL}), loss relative {d['loss_rel_diff']:.3g}; host "
+          f"syncs by rank {d['syncs_by_rank']}, launches a rank "
+          f"{d['launches']}; the serve against the one-card serve, the "
+          f"largest logit row's relative L2 over the ranks: prefill "
+          f"{KV_PRE_B} x {KV_PRE_T} {d['prefill']:.3g}, {KV_DECODE} decode "
+          f"steps of {MESH_B} requests, flash-decode placement "
+          f"{d['decode_base0']:.3g}, heads placement {d['decode_base1']:.3g}"
+          f" (gates max({MESH_F32_TOL}, {MESH_WITNESS_X} x the rounding "
+          "floor): " + json.dumps({k_: float(f"{v_:.3g}") for k_, v_ in
+                                  gates.items()}) + "; the floor "
+          + json.dumps({k_: float(f"{v_:.3g}") for k_, v_ in
+                        witness.items()}) + ")", flush=True)
+    check(d["params_vel_rel_l2"] <= INTRA_L2_TOL, ("(d) step", d))
+    check(d["loss_rel_diff"] <= MOE_LOSS_TOL, ("(d) loss", d))
+    check(d["launches"].get("flash_attention") == n_fa(s32, KV_CUT),
+          ("(d) launches", d["launches"]))
+    for k_, g_ in gates.items():
+        check(d[k_] <= g_, ("(d) serve", k_, d[k_], g_))
+    # (e)
+    ecfg = dataclasses.replace(get_config("starcoder2-3b"),
+                               n_layers=KV_TIMED_CUT)
+    summary["e"] = timed("e", ecfg, TRAIN_T)
+    summary["rank_walls_s"] = ranks[0]["walls_s"]
+    summary["wall_s"] = time.perf_counter() - t_phase
+    walls = {k_: round(v_, 1) for k_, v_ in summary["rank_walls_s"].items()}
+    print(f"phase 15: {summary['wall_s']:.2f} s (the one-card serve "
+          f"{summary['one_card_s']:.1f} s; rank 0's parts: "
+          f"{json.dumps(walls)})", flush=True)
+    assert not failures, failures
+    kern = {"flash_attention": {
+        "intrapod_moe_launches_per_step_a_rank": {
+            "deepseek-v2-lite-16b dense": summary["c"]["dense"][
+                "launches_per_step"]["flash_attention"],
+            "deepseek-v2-lite-16b ep": summary["c"]["ep"][
+                "launches_per_step"]["flash_attention"],
+            "starcoder2-3b": summary["e"]["launches_per_step"][
+                "flash_attention"]}}}
+    for name_, key_ in (("gaia_select", "gaia_select"),
+                        ("abs_histogram", "abs_histogram"),
+                        ("dgc_select", "dgc_select"),
+                        ("abs_histogram_fused", "dgc_sparsify"),
+                        ("neighbor_mix_src", "neighbor_mix_src")):
+        kern[name_] = {"intrapod_moe_exchange_launches_a_rank": {
+            s_: v_["launches"][key_] for s_, v_ in b.items()
+            if key_ in v_["launches"]}}
     return summary, kern
 
 
@@ -5395,6 +6316,14 @@ def main() -> int:
     print("serving under a mesh: " + json.dumps(serve14))
     sys.stdout.flush()
 
+    # --------------------------------------------------------------- 15
+    phase(15, "training MLA + MoE inside a pod, and a model axis wider than "
+              "n_kv_heads: deepseek-v2-lite-16b and starcoder2-3b over four "
+              "gloo ranks on the card")
+    moe15, kern15 = moe_phase(dev)
+    print("training MLA + MoE inside a pod: " + json.dumps(moe15))
+    sys.stdout.flush()
+
     kernels = [
         {"name": "gaia_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gaia_select.cu",
@@ -5508,6 +6437,8 @@ def main() -> int:
             entry["intra_train"] = kern13[entry["name"]]
         if entry["name"] in kern14:
             entry["mesh_serve"] = kern14[entry["name"]]
+        if entry["name"] in kern15:
+            entry["intrapod_moe_train"] = kern15[entry["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
           "included")
     print(smi)

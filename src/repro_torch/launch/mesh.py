@@ -248,10 +248,12 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str] = AXES, *,
     is ``"train"`` or ``"serve"``).
 
     Raises ``ValueError``, before any collective, where ``cfg`` cannot be
-    placed on a ``data`` or ``model`` axis above 1 for ``mode`` (a family
-    the port does not place there yet: ROADMAP A11c; a width the axis
-    does not divide) and, under NCCL, where two ranks hold one device
-    (NCCL would abort at the first collective)."""
+    placed on a ``data`` or ``model`` axis above 1 (the same for both
+    modes: the SSM, RG-LRU, enc-dec and VLM families, which the port does
+    not place there yet, ROADMAP A11c.2; a width the axis does not divide,
+    or a ``model`` axis wider than n_kv_heads that is not a multiple of
+    it) and, under NCCL, where two ranks hold one device (NCCL would
+    abort at the first collective)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "torch.distributed.init_process_group (or run "

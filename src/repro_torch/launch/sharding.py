@@ -29,8 +29,12 @@ its length is split over) and which of the pod's sequences.
 ``gather_leaf`` is the inverse, for checkpoints and checks.  Where an
 axis does not divide a dimension the reference's ``_clamp_spec`` keeps
 the dimension whole; under the port's explicit tensor parallelism model
-code would read a whole ``wk`` as the rank's heads, so ``check_layout``
-refuses such a mesh instead.
+code would read a whole weight as the rank's block, so ``check_layout``
+refuses such a mesh instead.  The one whole dimension the port takes is
+a GQA decode cache's KV heads on a ``model`` axis that is a multiple of
+n_kv_heads (each KV head shared by M / n_kv_heads ranks): ``wk`` and
+``wv`` stay split by columns, and the cache keeps every head on every
+``model`` rank, as the clamp leaves it.
 """
 from __future__ import annotations
 
@@ -240,44 +244,63 @@ def intra_pod(mesh: Optional[Mesh]) -> bool:
     return mesh is not None and mesh.size_of(INTRA) > 1
 
 
-#: the (attention kind, MoE) of the families each mode places on a pod's
-#: data and model axes: training the dense GQA family (PR 24); serving it
-#: and the MLA family, with or without MoE experts
-PLACED = {"train": {("gqa", False)},
-          "serve": {("gqa", False), ("mla", False), ("mla", True)}}
+#: the (attention kind, MoE) of the families placed on a pod's data and
+#: model axes, for training and for serving: the dense GQA family and the
+#: MLA family, with or without MoE experts
+PLACED = {("gqa", False), ("mla", False), ("mla", True)}
+MODES = ("train", "serve")
+
+
+def kv_shared(a, M: int) -> bool:
+    """Whether a ``model`` axis of ``M`` ranks is wider than the GQA
+    attention ``a``'s n_kv_heads (``check_layout`` takes it where M is a
+    multiple of n_kv_heads): each KV head then serves M / n_kv_heads
+    ranks, every rank computes its column block of ``wk`` and ``wv``,
+    gathers k and v whole and keeps the head its query heads read."""
+    return a.kind == "gqa" and M > a.n_kv_heads
 
 
 def check_layout(cfg, mesh: Optional[Mesh], mode: str = "train") -> None:
     """Raises ``ValueError`` where ``cfg`` (a ``ModelConfig``) cannot be
     placed on ``mesh``'s ``data`` and ``model`` axes for ``mode``
-    (``"train"`` or ``"serve"``): a family ``PLACED`` does not name for
-    the mode (ROADMAP A11c: training MLA or MoE, and the SSM, RG-LRU,
-    enc-dec and VLM families), or an axis that does not divide a
-    dimension it shards: over ``model`` n_heads, n_kv_heads (GQA), the
-    latent and k_rope columns of ``wdkv`` and MLA's q_lora rank, d_ff (a
-    dense FFN), vocab, the routed experts and the shared experts' width;
-    over ``data`` d_model, the q_lora rank and the experts' d_ff (the rows
-    of ``w_down``).  Nothing to check without an axis above 1."""
-    if mode not in PLACED:
+    (``"train"`` or ``"serve"``; both place the same families and widths):
+    a family ``PLACED`` does not name (ROADMAP A11c.2: the SSM, RG-LRU,
+    enc-dec and VLM families), or an axis that
+    does not divide a dimension it shards: over ``model`` n_heads,
+    n_kv_heads (GQA; above it, a ``model`` axis that is not a multiple of
+    n_kv_heads, or that does not split ``wk``'s n_kv_heads x head_dim
+    columns: ``kv_shared``), the latent and k_rope columns of ``wdkv`` and
+    MLA's q_lora rank, d_ff (a dense FFN), vocab, the routed experts and
+    the shared experts' width; over ``data`` d_model, the q_lora rank and
+    the experts' d_ff (the rows of ``w_down``).  Nothing to check without
+    an axis above 1."""
+    if mode not in MODES:
         raise ValueError(f"check_layout: mode={mode!r}; want one of "
-                         f"{sorted(PLACED)}")
+                         f"{MODES}")
     if not intra_pod(mesh):
         return
     a, m = cfg.attention, cfg.moe
     D, M = mesh.size_of("data"), mesh.size_of("model")
     plain = (cfg.family in ("dense", "moe") and cfg.encoder is None
              and cfg.modality.kind == "none")
-    if not plain or (a.kind, bool(m.n_experts)) not in PLACED[mode]:
+    if not plain or (a.kind, bool(m.n_experts)) not in PLACED:
         raise ValueError(
             f"{cfg.arch_id} ({cfg.family}, {a.kind} attention"
             f"{', MoE' if m.n_experts else ''}) on data={D}, model={M} to "
-            f"{mode}: inside a pod the port trains the dense GQA family and "
-            "serves it and the MLA and MoE families so far; training MLA or "
-            "MoE, and tensor parallelism for the SSM, RG-LRU, enc-dec and "
-            "VLM families, are ROADMAP A11c")
+            f"{mode}: inside a pod the port trains and serves the dense GQA "
+            "family and the MLA and MoE families so far; tensor parallelism "
+            "for the SSM, RG-LRU, enc-dec and VLM families is ROADMAP "
+            "A11c.2")
     over_m = [("n_heads", a.n_heads), ("vocab", cfg.vocab)]
     over_d = [("d_model", cfg.d_model)]
-    if a.kind == "gqa":
+    bad = []
+    if kv_shared(a, M):
+        if M % a.n_kv_heads:
+            bad.append(f"model={M} over n_kv_heads={a.n_kv_heads} (a "
+                       "model axis wider than n_kv_heads must be a multiple "
+                       "of it)")
+        over_m.append(("n_kv_heads * head_dim", a.n_kv_heads * a.head_dim))
+    elif a.kind == "gqa":
         over_m.append(("n_kv_heads", a.n_kv_heads))
     else:
         over_m.append(("kv_lora_rank + rope_head_dim",
@@ -293,13 +316,12 @@ def check_layout(cfg, mesh: Optional[Mesh], mode: str = "train") -> None:
         if m.n_shared:
             over_m.append(("n_shared * d_ff_expert",
                            m.n_shared * m.d_ff_expert))
-    bad = [f"{k}={n} over model={M}" for k, n in over_m if n % M]
+    bad += [f"{k}={n} over model={M}" for k, n in over_m if n % M]
     bad += [f"{k}={n} over data={D}" for k, n in over_d if n % D]
     if bad:
         raise ValueError(
             f"{cfg.arch_id}: {', '.join(bad)} does not divide; a dimension "
-            "left whole would be read as the rank's block (a model axis "
-            "wider than n_kv_heads is ROADMAP A11c)")
+            "left whole would be read as the rank's block")
 
 
 def cache_split(mesh: Optional[Mesh], *, batch_sharded: bool,
@@ -327,13 +349,19 @@ def local_cache(cache: Tree, mesh: Mesh, *, batch_sharded: bool,
     ``local_params``.  Raises ``ValueError`` where an axis does not split
     a dimension the placement shards (the reference's ``_clamp_spec``
     would leave it whole, which the decode would read as the rank's
-    block)."""
+    block), but a GQA cache's KV heads on a ``model`` axis that is a
+    multiple of their count: every ``model`` rank holds them all, and the
+    decode reads its own (``kv_shared``)."""
     out = []
+    M = mesh.size_of("model")
     for path, t in pytree.leaves_with_paths(cache):
         shape = tuple(t.shape)
         want = _cache_spec(path, shape, batch_sharded, baseline_decode)
         spec = _clamp_spec(want, shape, mesh)
-        if spec != want:
+        shared = path.endswith(("/k", "/v")) and all(
+            w == s_ or (w == "model" and M % n == 0)
+            for w, s_, n in zip(want, spec, shape))
+        if spec != want and not shared:
             raise ValueError(
                 f"cache leaf {path} of shape {shape}: the mesh "
                 f"{mesh.shape} does not split it as the placement {want} "
@@ -369,8 +397,11 @@ def gather_leaf(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
 
 #: replicated leaves that act on a rank's own heads or columns under tensor
 #: parallelism, so each ``model`` rank holds a part of their gradient:
-#: qk-norm scales, and the bias of a column-parallel projection
-_MODEL_PARTIAL = re.compile(r"(^|/)(q_norm|k_norm)/scale$")
+#: GQA's qk-norm scales (on the rank's heads), MLA's latent norms
+#: ``q_norm`` and ``kv_norm`` (on the latent gathered whole, then read by
+#: the rank's columns of ``wuq`` and heads of ``wukv``), and the bias of a
+#: column-parallel projection
+_MODEL_PARTIAL = re.compile(r"(^|/)(q_norm|k_norm|kv_norm)/scale$")
 
 
 def grad_sync_axis(path: str, spec: Spec, mesh: Mesh):

@@ -50,14 +50,17 @@ built and checked on the host by ``gossip_operands``, and every metric is
 a tensor.
 
 Inside a pod (a mesh whose ``data`` or ``model`` axis is above 1; the
-dense GQA family, ``sharding.check_layout``) a rank holds its block of
-every leaf of its pods, FSDP over ``data`` and tensor parallelism over
-``model`` as ``sharding.param_shardings`` places them, and its ``data``
-share of each pod's sequences.  The model runs under
+dense GQA family and the MLA family with or without MoE experts,
+``sharding.check_layout``) a rank holds its block of every leaf of its
+pods, FSDP over ``data``, tensor parallelism over ``model`` and the
+experts over ``model`` as ``sharding.param_shardings`` places them, and
+its ``data`` share of each pod's sequences.  The model runs under
 ``shard_hints.activation_sharding`` (weights gathered over ``data`` and
-their gradients reduce-scattered, heads, FFN columns and vocabulary split
-over ``model``: ``launch.collectives``); the replicated leaves' gradients
-are summed after the backward (``sharding.grad_sync_axis``).  Every
+their gradients reduce-scattered, heads, FFN columns, experts and
+vocabulary split over ``model``: ``launch.collectives``; a MoE layer by
+the step's ``moe_route``); the replicated leaves' gradients are summed
+after the backward (``sharding.grad_sync_axis``: over ``data``, and over
+``model`` too for the norms that act on the rank's heads).  Every
 exchange above then runs unchanged on the rank's blocks over its pod
 group (the ranks of its (data, model) position), but DGC's threshold,
 which needs the whole leaf: for a sharded leaf max|v| is all-reduced
@@ -516,7 +519,7 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
                     mesh: Optional[Mesh] = None, lr: float = 1e-3,
                     lr0: Optional[float] = None, momentum: float = 0.9,
                     weight_decay: float = 0.0, remat: bool = True,
-                    chunk: int = 512) -> Callable:
+                    chunk: int = 512, moe_route: str = "dense") -> Callable:
     """Returns ``train_step(state, batch, step_idx, mix=None, lr=None,
     sparsity=None) -> (state, metrics)``, a new state (the old one is not
     written).  ``state`` holds this rank's L pods (``make_train_state``
@@ -538,10 +541,18 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
     for adpsgd ``"mean_staleness"``; each a float32 0-d tensor.
 
     On a mesh with a ``data`` or ``model`` axis above 1 (``sharding.
-    check_layout`` refuses any model but a dense GQA one, and shapes the
-    axes do not divide, with ``ValueError`` here, before any collective)
-    the state holds the rank's blocks and each pod's sequences split over
-    ``data``: the module docstring.
+    check_layout`` refuses the SSM, RG-LRU, enc-dec and VLM families, and
+    shapes the axes do not divide, with ``ValueError`` here, before any
+    collective) the state holds the rank's blocks and each pod's
+    sequences split over ``data``: the module docstring.
+
+    ``moe_route``: the MoE layers' function (``moe.moe_apply``):
+    ``"dense"``, the reference's default, or ``"ep"``, its
+    ``REPRO_MOE_EP`` route (ROADMAP C11), which runs where a pod's
+    tokens split over its ranks (``moe_ep.ep_applicable_seq``) and the
+    dense route elsewhere, as in the reference.  Under ``remat`` a
+    checkpointed cycle routes again in the backward, on the same inputs:
+    the same collectives in the same order, the same experts.
 
     Runtime operands: ``step_idx`` an int (fedavg's sync step); ``mix``
     the round's ``gossip_operands`` for this mesh (dpsgd, adpsgd:
@@ -549,6 +560,8 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
     drives Gaia's threshold decay); ``sparsity`` a host number
     overriding ``comm.dgc_sparsity``.
     """
+    if moe_route not in ROUTES:
+        raise ValueError(f"moe_route {moe_route!r}; known: {ROUTES}")
     sharding.check_layout(cfg, mesh)
     shape = param_shape(cfg)
     n_model = float(sum(t.numel() for t in pytree.leaves(shape)))
@@ -581,7 +594,8 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
             losses = torch.stack([
                 loss_fn(pytree.tree_map(lambda t: t[i], tree), cfg,
                         {k: v[i] for k, v in batch.items()}, remat=remat,
-                        chunk=chunk)[0] for i in range(leaves[0].shape[0])])
+                        chunk=chunk, moe_route=moe_route)[0]
+                for i in range(leaves[0].shape[0])])
             grads = list(torch.autograd.grad(losses.sum(), leaves))
         for axis, idx in syncs.items():     # one all-reduce a dtype group
             for group_ in dtype_groups([grads[i] for i in idx]).values():
@@ -767,7 +781,7 @@ def _check_cache(cfg: ModelConfig, cache, mesh: Mesh, rows: int,
     one ``init_cache(..., mesh=)`` makes for the step's placement: ``rows``
     requests, its length split by ``split`` (the whole ``pos`` beside a
     length split over ``model``), GQA's KV heads over ``model`` unless the
-    length is."""
+    length is, or the axis is wider than n_kv_heads."""
     leaves = dict(pytree.leaves_with_paths(cache))
     M = mesh.size_of("model")
     for path, pos in leaves.items():
@@ -778,7 +792,9 @@ def _check_cache(cfg: ModelConfig, cache, mesh: Mesh, rows: int,
         if kv is None:
             continue
         want_len = pos.shape[off + 1] // (M if split == "model" else 1)
-        heads = cfg.attention.n_kv_heads // (1 if split == "model" else M)
+        heads = cfg.attention.n_kv_heads
+        if split != "model" and not sharding.kv_shared(cfg.attention, M):
+            heads //= M
         if (pos.shape[off] != rows or kv.shape[off] != rows
                 or kv.shape[off + 1] != want_len
                 or (kv.dim() - off == 4 and kv.shape[off + 2] != heads)):
@@ -821,7 +837,7 @@ def make_prefill_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None,
     rank runs its rows (``batch_shardings``: over ``data``); it returns
     the rank's rows' (B / D, V) logits, whole: the rank's vocabulary
     columns gathered over ``model``.  ``sharding.check_layout(mode=
-    "serve")`` refuses the families not placed there (ROADMAP A11c)."""
+    "serve")`` refuses the families not placed there (ROADMAP A11c.2)."""
     intra = _serve_layout(cfg, mesh, moe_route)
 
     def prefill_step(params, batch):

@@ -18,8 +18,11 @@ minicpm3), with two paths:
 Under ``shard_hints.activation_sharding(mesh)`` (the train and serve
 steps on a mesh with a ``data`` or ``model`` axis) attention runs on the
 rank's heads: GQA's n_heads / M query heads over n_kv_heads / M KV heads
-(the column blocks of wq, wk, wv, whole heads each), MLA's n_heads / M
-heads (the column blocks of wq or wuq and the rank's heads of wukv; the
+(the column blocks of wq, wk, wv, whole heads each; where M is a multiple
+of n_kv_heads above it, ``sharding.kv_shared``, the rank's column block
+of wk and wv is a part of one KV head, so k and v are gathered whole over
+``model`` and the rank keeps the one KV head its query heads read), MLA's
+n_heads / M heads (the column blocks of wq or wuq and the rank's heads of wukv; the
 latent columns of wdkv and wdq are gathered over ``model`` first, since
 the RMSNorm reads the whole latent), the kernel on those, and wo
 row-parallel.  The decode step reads the rank's block of the cache, as
@@ -53,6 +56,7 @@ import torch.distributed as dist
 
 from repro_torch.launch import collectives as coll
 from repro_torch.launch.collectives import copy_to_model
+from repro_torch.launch.sharding import kv_shared
 from repro_torch.models.layers import (init_linear, init_normal, init_rmsnorm,
                                        linear_apply, rmsnorm_apply, softcap)
 from repro_torch.models.rope import apply_rope
@@ -219,11 +223,22 @@ def init_gqa(gen: torch.Generator, a: AttentionConfig, d_model: int, dtype,
     return p
 
 
+def _kv_head(a: AttentionConfig, mesh) -> int:
+    """The KV head that this ``model`` rank's query heads read where the
+    axis is wider than n_kv_heads: the head of its first query head."""
+    return (mesh.coords["model"] * (a.n_heads // mesh.size_of("model"))
+            // (a.n_heads // a.n_kv_heads))
+
+
 def gqa_qkv(p: Params, a: AttentionConfig, x: torch.Tensor,
-            positions: torch.Tensor):
+            positions: torch.Tensor, every_kv: bool = False):
     """(q, k, v) after qk-norm and RoPE: (B, T, heads, head_dim), the
     rank's n_heads / M and n_kv_heads / M heads under a mesh (M its
-    ``model`` size, 1 without one)."""
+    ``model`` size, 1 without one).  Where M is wider than n_kv_heads
+    (``sharding.kv_shared``) the rank's column blocks of k and v are
+    gathered whole over ``model`` (whose backward sums each rank's part
+    of a head's gradient), and the rank keeps the one KV head its query
+    heads read, or all n_kv_heads with ``every_kv``."""
     B, T, _ = x.shape
     m = axis_env_size("model")
     mesh = current_mesh()
@@ -231,10 +246,15 @@ def gqa_qkv(p: Params, a: AttentionConfig, x: torch.Tensor,
         x = copy_to_model(x, mesh)
     q = linear_apply(p["wq"], x, "col").reshape(B, T, a.n_heads // m,
                                                  a.head_dim)
-    k = linear_apply(p["wk"], x, "col").reshape(B, T, a.n_kv_heads // m,
-                                                 a.head_dim)
-    v = linear_apply(p["wv"], x, "col").reshape(B, T, a.n_kv_heads // m,
-                                                 a.head_dim)
+    k = linear_apply(p["wk"], x, "col")
+    v = linear_apply(p["wv"], x, "col")
+    if kv_shared(a, m):
+        k, v = (coll.gather_model(u, 2, mesh) for u in (k, v))
+        if not every_kv:
+            lo = _kv_head(a, mesh) * a.head_dim
+            k, v = (u[..., lo:lo + a.head_dim] for u in (k, v))
+    k = k.reshape(B, T, -1, a.head_dim)
+    v = v.reshape(B, T, -1, a.head_dim)
     if a.qk_norm:
         q = rmsnorm_apply(p["q_norm"], q)
         k = rmsnorm_apply(p["k_norm"], k)
@@ -277,17 +297,27 @@ def gqa_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
     this writes the token's k, v and position into ``cache`` in place
     (no copy of the cache a step) and returns it.  Under a mesh ``cache``
     is the rank's block and ``split`` the axis its length is split over
-    (the module docstring)."""
+    (the module docstring).  Where the ``model`` axis is wider than
+    n_kv_heads the cache holds every KV head on every ``model`` rank: each
+    rank writes them all and reads the one its query heads read (every
+    head, over its own slots, under flash-decode)."""
     B = x.shape[0]
     mesh = current_mesh()
-    q, k, v = gqa_qkv(p, a, x, t[:, None])
+    shared = kv_shared(a, axis_env_size("model"))
+    q, k, v = gqa_qkv(p, a, x, t[:, None], every_kv=shared)
     if split == "model":                     # every head on the rank's slots
-        q, k, v = (coll.gather_model(u, 2, mesh) for u in (q, k, v))
+        q = coll.gather_model(q, 2, mesh)
+        if not shared:
+            k, v = (coll.gather_model(u, 2, mesh) for u in (k, v))
     elif split == "data":                    # every row on the rank's slots
         q, k, v = (coll.gather_data(u, 0, mesh) for u in (q, k, v))
         t = mesh.all_gather_dim(t, 0, "data")
     pos = _write_token(cache, {"k": k[:, 0], "v": v[:, 0]}, t, split, mesh)
-    out = decode_attention(q, cache["k"], cache["v"], q_pos=t,
+    k_c, v_c = cache["k"], cache["v"]
+    if shared and split != "model":
+        h = _kv_head(a, mesh)
+        k_c, v_c = k_c[:, :, h:h + 1], v_c[:, :, h:h + 1]
+    out = decode_attention(q, k_c, v_c, q_pos=t,
                            cache_positions=pos, logit_softcap=a.attn_softcap,
                            split=split, mesh=mesh)
     if split == "model":

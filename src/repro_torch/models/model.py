@@ -74,7 +74,7 @@ def forward(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
 
 
 def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
-            remat: bool = True, chunk: int = 512
+            remat: bool = True, chunk: int = 512, moe_route: str = "dense"
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The training loss: (ce + aux, {"ce": ce, "aux": aux}), float32 0-d.
     ce is the mean over the positions with ``batch["labels"] >= 0`` of
@@ -83,12 +83,14 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     A negative label is gathered at class 0 and masked out (the
     reference gathers it at the last class; torch's gather refuses a
     negative index), so the two give one loss and one gradient.
+    ``moe_route``: the MoE layers' function (``forward``'s).
 
     Under ``shard_hints.activation_sharding(mesh)`` ``p`` holds the rank's
     blocks and ``batch`` its ``data`` share of the pod's sequences, and
     the loss is the pod's (``_sharded_ce``), the same on every rank of
     the pod."""
-    logits, aux = forward(p, cfg, batch, remat=remat, chunk=chunk)
+    logits, aux = forward(p, cfg, batch, remat=remat, chunk=chunk,
+                          moe_route=moe_route)
     labels = batch["labels"]
     mesh = current_mesh()
     if mesh is not None:

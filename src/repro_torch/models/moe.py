@@ -23,7 +23,8 @@ columns (``router/w`` is placed (data, model)) gathered over ``model``,
 every token routed with the global capacity ``moe_capacity(m, N)`` (N
 the pod's tokens: a token's rank in its expert counts the tokens of the
 ``data`` ranks before it, from their per-expert counts), the auxiliary
-loss from the routing statistics summed over ``data``, only the pairs of
+loss from the routing statistics summed over ``data`` (its gradient
+reaches each rank's router columns once), only the pairs of
 the rank's E / M experts dispatched and computed (the expert weights are
 placed (model, data, None): gathered over ``data``), and each token's
 partial combine summed over ``model``.  The EP route is its own function
@@ -196,10 +197,15 @@ def _moe_apply_mesh(p: Params, m: MoEConfig, x: torch.Tensor, mesh
     e0 = mesh.coords["model"] * E_r
     xf = coll.copy_to_model(x.reshape(N, d), mesh)
     logits = linear_apply(p["router"], xf.float(), "col")     # (N, E / M)
-    probs, gate_w, expert_idx = route_logits(
+    _, gate_w, expert_idx = route_logits(
         m, coll.gather_model(logits, 1, mesh))
 
-    # the auxiliary loss from the pod's routing statistics
+    # the auxiliary loss from the pod's routing statistics, the same on
+    # every model rank: its logits gathered by ``gather_from_model``, whose
+    # backward keeps the rank's columns (``gather_model``'s would sum the
+    # M equal gradients); the dispatch's, of the rank's experts alone,
+    # are summed
+    probs = torch.softmax(coll.gather_from_model(logits, 1, mesh), dim=-1)
     top1 = expert_idx[:, :1] == torch.arange(E, device=x.device)
     stats = coll.reduce_from_data(torch.stack([probs.sum(dim=0),
                                                top1.float().sum(dim=0)]),

@@ -25,6 +25,16 @@ plain version in one process on the whole batch and weights: it loops
 over the D x M ranks and emulates each all-to-all by permuting the send
 buffers.  Routed experts only: ``moe.moe_apply`` adds the shared
 experts' MLP on the whole tokens, as the reference does.
+
+Training differentiates both.  On the ranks the all-to-alls send each
+gradient block back where its rows came from
+(``collectives.all_to_all_model``), the router's and the experts'
+gradients are summed over the ranks that read them (their gathers'
+reduce-scatters), and the mean of the auxiliary losses passes each rank
+the gradient of its own; ``moe_apply_ep_ref``'s autograd (index writes
+into fresh buffers, no in-place write to an input) is the plain version
+of that gradient, which the tests and ``chip_smoke.py`` hold the ranks
+to.
 """
 from __future__ import annotations
 
@@ -74,6 +84,14 @@ def ep_capacities(m: MoEConfig, n_local: int, M: int) -> Tuple[int, int]:
     return c_send, c_exp
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` as int32 by a comparison: the same entries,
+    without the range check that reads ``idx`` back to the host on the
+    card (``idx`` is in [0, n) by construction)."""
+    return (idx[:, None] == torch.arange(n, device=idx.device)).to(
+        torch.int32)
+
+
 def _slot_rank(onehot: torch.Tensor) -> torch.Tensor:
     """Each row's rank among the earlier rows of its one-hot column:
     (R, n) int one-hot -> (R,)."""
@@ -93,12 +111,12 @@ def _dispatch(m: MoEConfig, xb: torch.Tensor, rw: torch.Tensor, M: int,
     probs = torch.softmax(xb.float() @ rw.float(), dim=-1)     # (N, E)
     gate_w, eidx = torch.topk(probs, k, dim=-1)
     gate_w = gate_w / gate_w.sum(dim=-1, keepdim=True).clamp_min(1e-9)
-    ce = F.one_hot(eidx[:, 0], E).float().mean(dim=0)
+    ce = _one_hot(eidx[:, 0], E).float().mean(dim=0)
     aux = m.router_aux_weight * E * (probs.mean(dim=0) * ce).sum()
 
     flat_e = eidx.reshape(-1)                                  # (N k,)
     dest = flat_e // E_r                                       # owner peer
-    pos = _slot_rank(F.one_hot(dest, M).to(torch.int32))
+    pos = _slot_rank(_one_hot(dest, M))
     keep = pos < c_send
     send_slot = torch.where(keep, dest * c_send + pos,
                             torch.full_like(dest, M * c_send))
@@ -119,7 +137,7 @@ def _experts(recv_x: torch.Tensor, recv_el: torch.Tensor, wg, wu, wd,
     E_r, d = wg.shape[0], recv_x.shape[1]
     valid = recv_el >= 0
     el = recv_el.clamp(0, E_r - 1).long()
-    pos = _slot_rank(F.one_hot(el, E_r).to(torch.int32)
+    pos = _slot_rank(_one_hot(el, E_r)
                      * valid[:, None].to(torch.int32))
     keep = valid & (pos < c_exp)
     slot = torch.where(keep, el * c_exp + pos,

@@ -289,7 +289,7 @@ def _rank_checks(rank, dev, P, out_dir):
     for shape in ((P // 2, 2, 1), (P // 2, 1, 2)):
         try:
             mesh_lib.make_mesh(shape, device=dev, cfg=get_config(
-                "deepseek-v2-lite-16b").reduced())
+                "recurrentgemma-2b").reduced())
         except ValueError as e:
             refused.append("A11c" in str(e))
     res["refused"] = refused
@@ -445,9 +445,10 @@ def test_checkpoint_of_ranks_is_the_one_card_checkpoint(ranks, strategy):
 
 
 def test_mesh_refuses_data_and_model_axes(ranks):
-    """A data or model axis above 1 takes the dense GQA family only (the
-    intra-pod axes: ``test_torch_intrapod.py``); the MoE family raises,
-    naming ROADMAP A11c."""
+    """A data or model axis above 1 takes the dense GQA and the MLA (and
+    MoE) families (``test_torch_intrapod.py``,
+    ``test_torch_intrapod_moe.py``); the RG-LRU family raises, naming
+    ROADMAP A11c."""
     _, _, results = ranks
     assert all(r["refused"] == [True, True] for r in results)
 

@@ -220,8 +220,8 @@ def _refused(fn):
 
 
 #: configs no mesh with a data or model axis takes: (case, config)
-BAD = {"moe": lambda: get_config("deepseek-v2-lite-16b").reduced(),
-       "mla": lambda: get_config("minicpm3-4b").reduced(),
+BAD = {"rglru": lambda: get_config("recurrentgemma-2b").reduced(),
+       "encdec": lambda: get_config("seamless-m4t-large-v2").reduced(),
        "ssm": lambda: get_config("mamba2-780m").reduced(),
        "kv_heads": lambda: dataclasses.replace(_cfg(), attention=dataclasses.
                                                replace(_cfg().attention,
@@ -573,15 +573,15 @@ def test_checkpoint_on_the_mesh_is_the_one_card_checkpoint(ref, ranks):
 @pytest.mark.parametrize("where", ["make_mesh", "make_train_step"])
 @pytest.mark.parametrize("case", list(BAD))
 def test_refusals_come_before_any_collective(four, case, where):
-    """A family other than the dense GQA one (naming ROADMAP A11c), KV
-    heads or a width the axes do not divide: ``ValueError`` from
-    ``make_mesh(..., cfg=)`` and from ``make_train_step`` before any
-    collective or process group."""
+    """A family the port does not place inside a pod yet (the SSM, RG-LRU
+    and enc-dec, naming ROADMAP A11c), KV heads or a width the axes do not
+    divide: ``ValueError`` from ``make_mesh(..., cfg=)`` and from
+    ``make_train_step`` before any collective or process group."""
     _, results = four
     for r in results:
         text, calls = r["refused"][case, where]
         assert text is not None and calls == [], (text, calls)
-        if case in ("moe", "mla", "ssm"):
+        if case in ("rglru", "encdec", "ssm"):
             assert "A11c" in text, text
         else:
             assert case in text, text
@@ -618,13 +618,17 @@ def test_check_layout_takes_the_dense_archs(arch):
 
 def test_check_layout_at_the_production_width():
     """qwen3-0.6b on (pod, data, model) = (2, 16, 8): 8 KV heads over 8
-    model ranks; the production (2, 16, 16) puts 8 KV heads on a 16-way
-    model axis (ROADMAP A11c)."""
+    model ranks; the production (2, 16, 16) puts its 8 KV heads on a
+    16-way model axis, each head shared by two ranks, and deepseek-v2-
+    lite-16b's 16 heads and 64 experts on 16 model ranks: both taken,
+    for training and for serving."""
     sharding.check_layout(get_config("qwen3-0.6b"), mesh_lib.Mesh(
         (2, 16, 8), mesh_lib.AXES))
-    with pytest.raises(ValueError, match="n_kv_heads"):
-        sharding.check_layout(get_config("qwen3-0.6b"),
-                              mesh_lib.make_production_mesh(multi_pod=True))
+    for arch in ("qwen3-0.6b", "deepseek-v2-lite-16b"):
+        for mode in ("train", "serve"):
+            sharding.check_layout(
+                get_config(arch),
+                mesh_lib.make_production_mesh(multi_pod=True), mode=mode)
 
 
 # ---------------------------------------------------------------------------

@@ -364,25 +364,41 @@ def test_other_families_are_refused_naming_a11c(arch, mode):
 
 
 @pytest.mark.parametrize("arch", MLA)
-def test_mla_and_moe_training_is_refused_naming_a11c(arch):
+def test_mla_and_moe_training_is_taken(arch):
+    """The MLA family, with or without MoE experts, is placed for training
+    as for serving (``tests/test_torch_intrapod_moe.py`` trains it)."""
     mesh = Mesh((1, 2, 2), AXES)
-    sharding.check_layout(_cfg(arch), mesh, mode="serve")
-    with pytest.raises(ValueError, match="A11c"):
-        sharding.check_layout(_cfg(arch), mesh, mode="train")
-    with pytest.raises(ValueError, match="A11c"):
-        steps.make_train_step(_cfg(arch), CommConfig(strategy="bsp"),
-                              mesh=mesh)
+    for mode in ("serve", "train"):
+        sharding.check_layout(_cfg(arch), mesh, mode=mode)
+    for route in moe.ROUTES:
+        step = steps.make_train_step(_cfg(arch), CommConfig(strategy="bsp"),
+                                     mesh=mesh, moe_route=route)
+        assert callable(step.pod_grads)
+
+
+#: 3 KV heads (of 12 query heads) on a model axis of 4: wider than
+#: n_kv_heads, not a multiple of it
+KV3 = "starcoder2-3b@kv3"
+
+
+def _layout_cfg(arch):
+    if arch != KV3:
+        return _cfg(arch)
+    cfg = _cfg("starcoder2-3b")
+    return dataclasses.replace(cfg, attention=dataclasses.replace(
+        cfg.attention, n_heads=12, n_kv_heads=3))
 
 
 @pytest.mark.parametrize("arch,shape,what", [
-    ("starcoder2-3b", (1, 1, 4), "n_kv_heads"),
+    (KV3, (1, 1, 4), "n_kv_heads"),
     ("deepseek-v2-lite-16b", (1, 1, 8), "n_experts"),
     ("deepseek-v2-lite-16b", (1, 1, 3), "kv_lora_rank"),
     ("minicpm3-4b", (1, 3, 1), "q_lora_rank"),
     ("qwen3-0.6b", (1, 3, 1), "d_model")], ids=_id)
 def test_axes_that_do_not_divide_are_refused(arch, shape, what):
     with pytest.raises(ValueError, match=what):
-        sharding.check_layout(_cfg(arch), Mesh(shape, AXES), mode="serve")
+        sharding.check_layout(_layout_cfg(arch), Mesh(shape, AXES),
+                              mode="serve")
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v2-lite-16b"])
