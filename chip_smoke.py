@@ -356,6 +356,37 @@ before the last line is printed:
    gate; (e) starcoder2-3b bf16, remat, a 4-layer cut, 1 x 1024 tokens,
    bsp, one warm-up and 2 timed steps, as (c) (8 launches a step a
    rank).
+16. training and serving the SSM, RG-LRU hybrid, enc-dec and VLM
+   families inside a pod (``launch.procs.spawn``, four gloo ranks on the
+   card over (1, 2, 2), one spawn, a deadline): mamba2-780m,
+   recurrentgemma-2b, seamless-m4t-large-v2 (1500 frames a request)
+   and phi-3-vision-4.2b (576 patches a sequence) at full width on depth
+   cuts (2 layers; recurrentgemma one (rglru, rglru, attn) cycle;
+   seamless 2 encoder and 2 decoder layers): (a) float32 (TF32 off), one
+   bsp step on 2 x 256 tokens against the one-card step each rank runs
+   in turn (1e-5 relative L2, the loss within 1e-6 relative), a 2 x 512
+   prefill and 4 teacher-forced decode steps of 8 requests over 128
+   slots (the enc-dec's memory encoded once on the rank's requests)
+   against the parent's one-card serve by phase 14's gate (C12), and the
+   cache gathered whole (the SSD state's head_dim blocks, the conv
+   histories and RG-LRU states whole on every model rank) within the
+   decode gate of the one-card cache; (b) bf16, remat, 2 x 1024 tokens
+   (and the frames or patches), bsp, one warm-up and 2 timed steps: the
+   slowest rank's ms a step, tokens/s, peak memory a rank, the first
+   timed step's collectives by kind, 0 host syncs a step, the
+   ``flash_attention`` launches of the layer plan (0, 2, 10 and 4 a
+   step a rank: every attention of the forward, the body cycles'
+   again); (c) mamba2 and recurrentgemma served in bf16: a 4 x 2048
+   prefill (one warm-up call, one timed) and 8 decode steps of 4
+   requests over 128 slots, 0 host syncs a decode step.  The ranks
+   record every shape, dtype and mask (a), (b) and (c) call
+   ``flash_attention`` at (recurrentgemma's 5 query heads over one KV
+   head of 256 with its window, seamless' encoder, decoder and
+   cross-attention on 8 heads of 64, phi-3-vision's 16 heads of 96 over
+   a sequence of text and patches, seamless' cross-attention at a decode
+   step); the parent then holds the kernel at each against its plain
+   version: bf16 within max |err| 8e-3 and mean 1e-6, float32 within
+   2e-5 + 2e-5 |plain| an output.
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -3357,6 +3388,99 @@ def _draw_inputs(strategy, like, n_pods, gen, comm, specs=None,
     return parts
 
 
+def _turns(fn, rank: int, world: int) -> None:
+    """``fn()`` on each rank of the process group in turn (the one-card
+    runs: one whole model on the card at a time), every rank's cached
+    blocks given back first."""
+    import torch.distributed as dist
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    for turn in range(world):
+        if turn == rank:
+            fn()
+            gc.collect()
+            torch.cuda.empty_cache()
+        dist.barrier()
+
+
+def _timed_train(cfg_, mesh_, batch_, route, n_timed, dev):
+    """One warm-up and ``n_timed`` (2 or more) timed bsp steps of
+    ``cfg_`` on this rank of ``mesh_``, the weights drawn from seed 0:
+    walls, launches a step, host syncs (the last step), collectives of
+    the first timed step, losses, peak memory, the warm-up step's plain
+    attention backward."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models import model as lm
+    bsp = CommConfig(strategy="bsp")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    whole_ = lm.init_model(torch.Generator(device=dev).manual_seed(0), cfg_,
+                           dev)
+    box = [lsteps.make_train_state(whole_, bsp, 1, mesh=mesh_), None]
+    del whole_
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step = lsteps.make_train_step(cfg_, bsp, mesh=mesh_, lr=TRAIN_LR,
+                                  remat=True, moe_route=route)
+    losses, bwd_ms = [], []
+    orig_bwd = kref.flash_attention_bthd_bwd_ref
+
+    def bwd(*args, **kw):
+        # the warm-up step's plain attention backward, synchronised
+        # around each call (the timed steps are not)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = orig_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        bwd_ms.append((time.perf_counter() - t0) * 1e3)
+        return res
+
+    def one(i):
+        box[0], box[1] = step(box[0], batch_, i)
+        losses.append(box[1]["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with swapped(kref, "flash_attention_bthd_bwd_ref", bwd):
+        one(0)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    for k_ in ops.launches:
+        ops.launches[k_] = 0
+    times, syncs, blocked = [], None, None
+    for i in range(1, n_timed + 1):
+        torch.cuda.synchronize()
+        mesh_.barrier()
+        t0 = time.perf_counter()
+        if i == 1:
+            with _timed_collectives() as blocked:
+                one(i)
+        elif i < n_timed:
+            one(i)
+        else:
+            syncs = count_syncs(lambda: one(i))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    r_ = {"wall_ms": times, "median_ms": float(np.median(times)),
+          "launches_per_step": {k_: c_ / n_timed for k_, c_ in
+                                ops.launches.items() if c_},
+          "syncs_per_step": syncs, "collectives": blocked,
+          "losses": [float(x_) for x_ in losses],
+          "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "warmup_ms": warm_ms, "warmup_attn_bwd_ms": sum(bwd_ms),
+          "warmup_attn_bwd_calls": len(bwd_ms),
+          "finite": all(bool(torch.isfinite(t_).all())
+                        for t_ in pytree.leaves(box[0]["params"]))}
+    del box, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return r_
+
+
 def moe_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
     """One gloo rank of phase 15 (``procs.spawn``).  Returns host numbers;
     the parent gates them."""
@@ -3364,7 +3488,6 @@ def moe_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
     from repro_torch.configs.base import CommConfig, FabricConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
-    from repro_torch.kernels import ref as kref
     from repro_torch.launch import sharding
     from repro_torch.launch import steps as lsteps
     from repro_torch.launch.mesh import AXES, Mesh, make_mesh
@@ -3389,20 +3512,6 @@ def moe_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
         if rank == 0:
             print(f"phase 15 rank 0: {label} {out['walls_s'][label]:.1f} s "
                   f"(at {now - t_rank:.1f} s)", flush=True)
-
-    def turns(fn):
-        """``fn()`` on each rank in turn (the one-card runs: one whole
-        model on the card at a time), every rank's cached blocks given
-        back first."""
-        gc.collect()
-        torch.cuda.empty_cache()
-        dist.barrier()
-        for turn in range(world):
-            if turn == rank:
-                fn()
-                gc.collect()
-                torch.cuda.empty_cache()
-            dist.barrier()
 
     def draw(cfg_):
         return lm.init_model(torch.Generator(device=dev).manual_seed(0),
@@ -3544,7 +3653,7 @@ def moe_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
                                        [(), ()] + list(ffn_specs),
                                        strict=True)]
             a["ep_layer_aux"] = float(aux_)
-        turns(one_card)
+        _turns(one_card, rank, world)
         del mine, layer_grads, layer_y
         gc.collect()
         torch.cuda.empty_cache()
@@ -3624,74 +3733,10 @@ def moe_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
     mark("(b) the exchanges")
 
     # ------------------------------------------------------- (c) and (e)
-    def timed_run(cfg_, mesh_, batch_, route, n_timed):
-        """One warm-up and ``n_timed`` timed bsp steps: walls, launches a
-        step, host syncs, collectives of the first timed step, losses,
-        peak memory."""
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        whole_ = draw(cfg_)
-        box = [lsteps.make_train_state(whole_, bsp, 1, mesh=mesh_), None]
-        del whole_
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        step = lsteps.make_train_step(cfg_, bsp, mesh=mesh_, lr=TRAIN_LR,
-                                      remat=True, moe_route=route)
-        losses, bwd_ms = [], []
-        orig_bwd = kref.flash_attention_bthd_bwd_ref
-
-        def bwd(*args, **kw):
-            # the warm-up step's plain attention backward, synchronised
-            # around each call (the timed steps are not)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = orig_bwd(*args, **kw)
-            torch.cuda.synchronize()
-            bwd_ms.append((time.perf_counter() - t0) * 1e3)
-            return res
-
-        def one(i):
-            box[0], box[1] = step(box[0], batch_, i)
-            losses.append(box[1]["loss"])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with swapped(kref, "flash_attention_bthd_bwd_ref", bwd):
-            one(0)
-        torch.cuda.synchronize()
-        warm_ms = (time.perf_counter() - t0) * 1e3
-        reset()
-        times, syncs, blocked = [], None, None
-        for i in range(1, n_timed + 1):
-            torch.cuda.synchronize()
-            mesh_.barrier()
-            t0 = time.perf_counter()
-            if i == 1:
-                with _timed_collectives() as blocked:
-                    one(i)
-            elif i < n_timed:
-                one(i)
-            else:
-                syncs = count_syncs(lambda: one(i))
-            torch.cuda.synchronize()
-            times.append((time.perf_counter() - t0) * 1e3)
-        r_ = {"wall_ms": times, "median_ms": float(np.median(times)),
-              "launches_per_step": {k_: c_ / n_timed for k_, c_ in
-                                    ops.launches.items() if c_},
-              "syncs_per_step": syncs, "collectives": blocked,
-              "losses": [float(x_) for x_ in losses],
-              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
-              "warmup_ms": warm_ms, "warmup_attn_bwd_ms": sum(bwd_ms),
-              "warmup_attn_bwd_calls": len(bwd_ms),
-              "finite": all(bool(torch.isfinite(t_).all())
-                            for t_ in pytree.leaves(box[0]["params"]))}
-        del box, step
-        gc.collect()
-        torch.cuda.empty_cache()
-        return r_
-
     tcfg = dataclasses.replace(dcfg, n_layers=MOE_TIMED_CUT)
     tbatch = _p15_tokens(tcfg.vocab, TRAIN_B, TRAIN_T, 152, dev)
-    out["c"] = {route: timed_run(tcfg, mesh, tbatch, route, PHASE15_TIMED)
+    out["c"] = {route: _timed_train(tcfg, mesh, tbatch, route, PHASE15_TIMED,
+                                    dev)
                 for route in moe_mod.ROUTES}
     mark("(c) deepseek-lite bf16 timed")
 
@@ -3758,7 +3803,7 @@ def moe_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
                               kv_mesh)
             d["one_card_loss"] = float(m_["loss"])
             del new_, want
-        turns(one_card)
+        _turns(one_card, rank, world)
         del got
         gc.collect()
         torch.cuda.empty_cache()
@@ -3768,7 +3813,7 @@ def moe_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
     # ----------------------------------------------------------------- (e)
     ecfg = dataclasses.replace(scfg, n_layers=KV_TIMED_CUT)
     ebatch = _p15_tokens(ecfg.vocab, 1, TRAIN_T, 154, dev)
-    out["e"] = timed_run(ecfg, kv_mesh, ebatch, "dense", KV_TIMED)
+    out["e"] = _timed_train(ecfg, kv_mesh, ebatch, "dense", KV_TIMED, dev)
     mark("(e) starcoder2 bf16 timed")
     return out
 
@@ -4068,6 +4113,582 @@ def pytree_first_moe(p):
     from repro_torch import pytree
     cyc = pytree.tree_map(lambda t_: t_[0], p["body"])
     return next(layer["ffn"] for layer in cyc if "router" in layer["ffn"])
+
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the SSM, RG-LRU hybrid, enc-dec and VLM families inside a pod
+# ---------------------------------------------------------------------------
+
+#: phase 16: four gloo ranks sharing the card, one site of a (1, 2, 2)
+#: mesh (``data`` and ``model`` of 2 divide every width of the four)
+FAM_MESH = (1, 2, 2)
+FAM_ARCHS = ("mamba2-780m", "recurrentgemma-2b", "seamless-m4t-large-v2",
+             "phi-3-vision-4.2b")
+#: their depth cuts at full width, for the script's time: decoder layers
+#: (recurrentgemma's one (rglru, rglru, attn) cycle), and seamless'
+#: encoder layers as many
+FAM_LAYERS = {"mamba2-780m": 2, "recurrentgemma-2b": 3,
+              "seamless-m4t-large-v2": 2, "phi-3-vision-4.2b": 2}
+#: (a) float32 (TF32 off): one bsp step on a pod batch of FAM_B x FAM_T
+#: tokens (and 576 patches or 1500 frames a sequence) against the one-card
+#: step each rank runs in turn; a prefill of FAM_PRE_B x FAM_PRE_T (and
+#: patches or frames), then FAM_DECODE teacher-forced decode steps of
+#: MESH_B requests over MESH_CACHE slots (the enc-dec's memory encoded
+#: once), against the parent's one-card serve by phase 14's gate (C12),
+#: and the cache gathered whole against the one-card cache
+FAM_B, FAM_T = 2, 256
+FAM_PRE_B, FAM_PRE_T, FAM_DECODE = 2, 512, 4
+#: (b) bf16, remat, TRAIN_B x TRAIN_T tokens a pod (and patches or
+#: frames), bsp: one warm-up and FAM_TIMED timed steps
+FAM_TIMED = 2
+#: (c) bf16 serving of the two families whose decode caches are new to a
+#: mesh: a FAM_SERVE_B x PREFILL_T prefill (one warm-up call, one timed),
+#: then FAM_SERVE_STEPS decode steps of FAM_SERVE_B requests over
+#: MESH_CACHE slots (the first a warm-up, the last's host syncs counted)
+FAM_SERVE = ("mamba2-780m", "recurrentgemma-2b")
+FAM_SERVE_B, FAM_SERVE_STEPS = 4, 8
+FAM_TIMEOUT = 600
+#: flash_attention's float32 bound at the shapes the ranks launch it at:
+#: |err| <= FAM_FA_F32_TOL * (1 + |plain|) an output (phase 5's allclose)
+FAM_FA_F32_TOL = 2e-5
+
+
+def _fam_cut(arch: str, dtype: str):
+    """``arch`` at full width, cut to FAM_LAYERS decoder layers (and as
+    many encoder layers), in ``dtype``."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    kw = {"n_layers": FAM_LAYERS[arch], "dtype": dtype}
+    if cfg.encoder is not None:
+        kw["encoder"] = dataclasses.replace(cfg.encoder,
+                                            n_layers=FAM_LAYERS[arch])
+    return dataclasses.replace(cfg, **kw)
+
+
+def _fam_extras(cfg, B: int, seed: int, dev, dtype=torch.float32) -> dict:
+    """The seeded frames (enc-dec: n_frames a request) or patches (VLM:
+    n_tokens) of ``B`` requests on ``dev``, or none."""
+    if cfg.encoder is not None:
+        key, n = "frames", cfg.encoder.n_frames
+    elif cfg.modality.kind == "vision":
+        key, n = "patches", cfg.modality.n_tokens
+    else:
+        return {}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return {key: torch.randn(B, n, cfg.modality.feat_dim, generator=gen,
+                             device=dev).to(dtype)}
+
+
+def _fam_batch(cfg, B: int, T: int, seed: int, dev, dtype=torch.float32):
+    """A train batch of one pod: (1, B, T) tokens and labels, and the
+    arch's frames or patches (1, B, ...)."""
+    batch = _p15_tokens(cfg.vocab, B, T, seed, dev)
+    batch.update({k: v[None] for k, v in
+                  _fam_extras(cfg, B, seed + 1, dev, dtype).items()})
+    return batch
+
+
+def _fa_per_step(cfg) -> int:
+    """``flash_attention`` launches of one pod's remat train step, by the
+    layer plan: every attention of the forward (the encoder's layers, the
+    decoder's self- and cross-attention), and again those of the
+    checkpointed body cycles (C14's rule)."""
+    from repro_torch.models.transformer import layer_plan, layer_sig
+    prefix, n_cycles, P, _ = layer_plan(cfg)
+    per = [(layer_sig(cfg, i)[0] == "attn") + (cfg.encoder is not None)
+           for i in range(cfg.n_layers)]
+    body = per[len(prefix):len(prefix) + n_cycles * P]
+    return sum(per) + sum(body) + (cfg.encoder.n_layers if cfg.encoder
+                                   else 0)
+
+
+def _fam_serve(cfg, params, dev, mesh=None):
+    """Phase 16 (a)'s serve on the card (on ``mesh``: the rank's blocks,
+    rows and cache block): the prefill's last logits of FAM_PRE_B x
+    FAM_PRE_T seeded prompts (with their frames or patches), each of
+    FAM_DECODE teacher-forced decode steps' logits of MESH_B requests
+    (the enc-dec's memory encoded once), float32, and the cache after
+    them."""
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models import model as lm
+    toks = torch.from_numpy(np.random.default_rng(160).integers(
+        0, cfg.vocab, (FAM_PRE_B, FAM_PRE_T))).to(dev)
+    fed = torch.from_numpy(np.random.default_rng(161).integers(
+        0, cfg.vocab, (MESH_B, FAM_DECODE)))
+    with torch.inference_mode():
+        pre = lsteps.make_prefill_step(cfg, mesh=mesh)(
+            params, {"tokens": toks, **_fam_extras(cfg, FAM_PRE_B, 162,
+                                                   dev)})
+        memory = None
+        if cfg.encoder is not None:
+            memory = lsteps.make_encode_step(cfg, mesh=mesh)(
+                params, _fam_extras(cfg, MESH_B, 163, dev))
+        cache = lm.init_cache(cfg, MESH_B, MESH_CACHE, device=dev,
+                              mesh=mesh)
+        step = lsteps.make_serve_step(cfg, memory, mesh=mesh)
+        dec = []
+        for t in range(FAM_DECODE):
+            logits, cache = step.logits(params, cache,
+                                        _decode_batch(fed, t, dev))
+            dec.append(logits.float())
+    return pre.float(), torch.stack(dec), cache
+
+
+def _rel(got, want) -> float:
+    """Relative L2 of two tensors, in float64."""
+    num, den = _sq(got, want)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def families_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
+    """One gloo rank of phase 16 (``procs.spawn``).  Returns host numbers;
+    the parent gates them."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    import torch.distributed as dist
+    t_rank = time.perf_counter()
+    world = dist.get_world_size()
+    ref = torch.load(ref_path, weights_only=True)
+    out = {"rank": rank, "walls_s": {}, "a": {}, "b": {}, "c": {}}
+    last = [time.perf_counter()]
+    bsp = CommConfig(strategy="bsp")
+
+    def mark(label):
+        now = time.perf_counter()
+        out["walls_s"][label] = now - last[0]
+        last[0] = now
+        if rank == 0:
+            print(f"phase 16 rank 0: {label} {out['walls_s'][label]:.1f} s "
+                  f"(at {now - t_rank:.1f} s)", flush=True)
+
+    def draw(cfg_):
+        return lm.init_model(torch.Generator(device=dev).manual_seed(0),
+                             cfg_, dev)
+
+    def reset():
+        for k_ in ops.launches:
+            ops.launches[k_] = 0
+
+    def launched():
+        return {k_: c_ for k_, c_ in ops.launches.items() if c_}
+
+    def own(t_, n_):
+        """This rank's data block of ``n_`` requests' rows of ``t_``."""
+        b_ = n_ // mesh.size_of("data")
+        return t_[mesh.coords["data"] * b_:(mesh.coords["data"] + 1) * b_]
+
+    fa_calls = {}
+    fa_kernel = ops.flash_attention_bthd
+
+    def fa_recorded(q, k, v, **kw):
+        """``ops.flash_attention_bthd`` as the models call it, each call's
+        shapes, dtype and mask counted for the parent's check."""
+        key = (tuple(q.shape), tuple(k.shape), tuple(v.shape),
+               str(q.dtype).removeprefix("torch."),
+               tuple(sorted((k_, v_) for k_, v_ in kw.items()
+                            if v_ is not None)))
+        fa_calls[key] = fa_calls.get(key, 0) + 1
+        return fa_kernel(q, k, v, **kw)
+    ops.flash_attention_bthd = fa_recorded
+
+    mesh = make_mesh(FAM_MESH, device=dev)
+    out["coords"] = mesh.coords
+    # ----------------------------------------------------------------- (a)
+    with tf32_off():
+        for arch in FAM_ARCHS:
+            cut = _fam_cut(arch, "float32")
+            for mode in ("train", "serve"):
+                sharding.check_layout(cut, mesh, mode=mode)
+            specs = sharding.leaf_specs(lsteps.param_shape(cut), mesh)
+            batch = _fam_batch(cut, FAM_B, FAM_T, 170, dev)
+            whole = draw(cut)
+            state = lsteps.make_train_state(whole, bsp, 1, mesh=mesh)
+            params = pytree.tree_map(lambda t_: t_.clone(),
+                                     sharding.local_params(whole, mesh))
+            del whole
+            torch.cuda.empty_cache()
+            reset()
+            box = []
+            syncs = count_syncs(lambda: box.append(lsteps.make_train_step(
+                cut, bsp, mesh=mesh, lr=TRAIN_LR, remat=True)(state, batch,
+                                                             1)))
+            new, metrics = box[0]
+            a = {"loss": float(metrics["loss"]), "syncs": syncs,
+                 "launches": launched()}
+            mine = [t_ for k_ in ("params", "vel")
+                    for t_ in pytree.leaves(new[k_])]
+            del state, box, new
+            mark(f"(a) {arch} the mesh step")
+            # the serve against the parent's one-card serve
+            pre, dec, cache = _fam_serve(cut, params, dev, mesh)
+            a["prefill"] = _row_rel(pre, own(ref[f"{arch}/prefill"],
+                                             FAM_PRE_B).to(dev))
+            a["decode"] = max(_row_rel(dec[t], own(
+                ref[f"{arch}/decode"][t], MESH_B).to(dev))
+                for t in range(FAM_DECODE))
+            whole_c = lm.init_cache(cut, MESH_B, MESH_CACHE, device="meta")
+            c_specs = pytree.leaves_like(sharding.cache_shardings(
+                whole_c, mesh, batch_sharded=True), whole_c)
+            a["cache"] = {}
+            for (path, t_), s_, w_ in zip(
+                    pytree.leaves_with_paths(cache), c_specs,
+                    ref[f"{arch}/cache"], strict=True):
+                g_ = sharding.gather_leaf(t_, s_, mesh)
+                a["cache"][path] = (bool(torch.equal(g_.cpu(), w_))
+                                    if w_.dtype == torch.int32 else
+                                    _rel(g_, w_.to(dev)))
+            del params, pre, dec, cache
+            mark(f"(a) {arch} the mesh serve")
+
+            def one_card():
+                whole_ = draw(cut)
+                ops.flash_attention_bthd = fa_kernel   # not the mesh's
+                new_, m_ = lsteps.make_train_step(cut, bsp, lr=TRAIN_LR,
+                                                  remat=True)(
+                    lsteps.make_train_state(whole_, bsp, 1), batch, 1)
+                ops.flash_attention_bthd = fa_recorded
+                del whole_
+                want = [t_ for k_ in ("params", "vel")
+                        for t_ in pytree.leaves(new_[k_])]
+                a["sq"] = _p15_sq(mine, _intra_blocks(
+                    want, list(specs) * 2, mesh, slice(0, 1)),
+                    [(None,) + tuple(s_) for s_ in specs] * 2, mesh)
+                a["one_card_loss"] = float(m_["loss"])
+                del new_, want
+            _turns(one_card, rank, world)
+            del mine
+            out["a"][arch] = a
+            mark(f"(a) {arch} the one-card step in turns")
+    # ----------------------------------------------------------------- (b)
+    for arch in FAM_ARCHS:
+        cfg = _fam_cut(arch, "bfloat16")
+        batch = _fam_batch(cfg, TRAIN_B, TRAIN_T, 171, dev, torch.bfloat16)
+        out["b"][arch] = _timed_train(cfg, mesh, batch, "dense", FAM_TIMED,
+                                      dev)
+        mark(f"(b) {arch} bf16 timed")
+    # ----------------------------------------------------------------- (c)
+    for arch in FAM_SERVE:
+        cfg = _fam_cut(arch, "bfloat16")
+        torch.cuda.empty_cache()
+        whole = draw(cfg)
+        params = pytree.tree_map(lambda t_: t_.clone(),
+                                 sharding.local_params(whole, mesh))
+        del whole
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        toks = torch.from_numpy(np.random.default_rng(172).integers(
+            0, cfg.vocab, (FAM_SERVE_B, PREFILL_T))).to(dev)
+        fed = torch.from_numpy(np.random.default_rng(173).integers(
+            0, cfg.vocab, (FAM_SERVE_B, FAM_SERVE_STEPS + 1)))
+        prefill = lsteps.make_prefill_step(cfg, mesh=mesh)
+        step = lsteps.make_serve_step(cfg, mesh=mesh)
+        c = {"prefill_ms": [], "decode_ms": []}
+        with torch.inference_mode():
+            for i in range(2):               # a warm-up call, a timed one
+                reset()
+                torch.cuda.synchronize()
+                mesh.barrier()
+                t0 = time.perf_counter()
+                logits = prefill(params, {"tokens": toks})
+                torch.cuda.synchronize()
+                c["prefill_ms"].append((time.perf_counter() - t0) * 1e3)
+            c["prefill_launches"] = launched()
+            c["prefill_finite"] = bool(torch.isfinite(logits).all())
+            cache = lm.init_cache(cfg, FAM_SERVE_B, MESH_CACHE, device=dev,
+                                  mesh=mesh)
+            reset()
+            for t in range(FAM_SERVE_STEPS):
+                batch = _decode_batch(fed, t, dev)
+                torch.cuda.synchronize()
+                mesh.barrier()
+                t0 = time.perf_counter()
+                if t < FAM_SERVE_STEPS - 1:
+                    tok, cache = step(params, cache, batch)
+                else:                        # the last step's host syncs
+                    box = []
+                    c["decode_syncs"] = count_syncs(lambda: box.append(
+                        step(params, cache, batch)))
+                    tok, cache = box[0]
+                torch.cuda.synchronize()
+                c["decode_ms"].append((time.perf_counter() - t0) * 1e3)
+            c["decode_launches"] = launched()
+            c["decode_tokens_in_vocab"] = bool(((tok >= 0) & (
+                tok < cfg.vocab)).all())
+        c["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del params, cache, box, logits, tok
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["c"][arch] = c
+        mark(f"(c) {arch} bf16 serving")
+    ops.flash_attention_bthd = fa_kernel
+    out["fa_calls"] = sorted(fa_calls.items())
+    return out
+
+
+def families_phase(dev: torch.device):
+    """Phase 16: the SSM, RG-LRU hybrid, enc-dec and VLM families trained
+    and served inside a pod.  The parent runs (a)'s one-card serves and
+    their rounding floors, then ``procs.spawn`` starts four gloo ranks on
+    the card (``families_rank``), then holds ``flash_attention`` at every
+    shape, dtype and mask the ranks called it at against its plain
+    version; every check is gated here, after every number is printed.
+    Returns (summary, the kernels' phase 16 figures by kernel name)."""
+    import shutil
+    from repro_torch import pytree
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import procs
+    from repro_torch.models import model as lm
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary, failures = {}, []
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+            print(f"phase 16 FAILED: {what}", flush=True)
+
+    # (a)'s one-card serves and each model's rounding floor (phase 14's)
+    saved, floors = {}, {}
+    with tf32_off():
+        for arch in FAM_ARCHS:
+            cut = _fam_cut(arch, "float32")
+            p = lm.init_model(torch.Generator(device=dev).manual_seed(0),
+                              cut, dev)
+            pre, dec, cache = _fam_serve(cut, p, dev)
+            saved[f"{arch}/prefill"] = pre.cpu()
+            saved[f"{arch}/decode"] = dec.cpu()
+            saved[f"{arch}/cache"] = [t_.cpu() for t_ in
+                                      pytree.leaves(cache)]
+            del cache
+            floor = {"prefill": 0.0, "decode": 0.0}
+            for seed in (7, 8):
+                g_ = torch.Generator(device=dev).manual_seed(seed)
+                moved = pytree.tree_map(lambda t_: t_ * (
+                    1 + 2 ** -24 * torch.randn(t_.shape, generator=g_,
+                                               device=dev)), p)
+                pre_w, dec_w, _ = _fam_serve(cut, moved, dev)
+                del moved
+                floor = {"prefill": max(floor["prefill"],
+                                        _row_rel(pre_w, pre)),
+                         "decode": max(floor["decode"],
+                                       _row_rel(dec_w, dec))}
+            floors[arch] = floor
+            del p, pre, dec
+            torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "phase16"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ref_path = str(out_dir / "one_card.pt")
+    torch.save(saved, ref_path)
+    del saved
+    summary["one_card_s"] = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    ranks = procs.spawn(families_rank, 4, backend="gloo", device=dev,
+                        timeout=FAM_TIMEOUT, args=(ref_path,))
+    summary["spawn_s"] = time.perf_counter() - t0
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    # the kernel at every shape, dtype and mask the ranks called it at,
+    # against its plain version on the same inputs
+    calls = {}
+    for r_ in ranks:
+        for key, n_ in r_["fa_calls"]:
+            calls[key] = calls.get(key, 0) + n_
+    gen = torch.Generator(device=dev).manual_seed(16)
+    summary["fa"] = []
+    for (qs, ks, vs, dt, kw), n_ in sorted(calls.items()):
+        dtype, kw = getattr(torch, dt), dict(kw)
+        q, k, v = (torch.randn(s_, generator=gen, device=dev).to(dtype)
+                   for s_ in (qs, ks, vs))
+        with tf32_off():
+            want = kref.flash_attention_bthd_ref(q, k, v, **kw).float()
+        err = (ops.flash_attention_bthd(q, k, v, **kw).float()
+               - want).abs()
+        f = {"q": list(qs), "k": list(ks), "dtype": dt, "mask": kw,
+             "calls_by_the_ranks": n_, "max_abs_err": float(err.max()),
+             "mean_abs_err": float(err.mean())}
+        if dtype == torch.bfloat16:
+            ok = (f["max_abs_err"] <= FA_PREFILL_TOL
+                  and f["mean_abs_err"] <= FA_PREFILL_MEAN_TOL)
+            tol = f"max {FA_PREFILL_TOL}, mean {FA_PREFILL_MEAN_TOL}"
+        else:
+            ok = bool((err <= FAM_FA_F32_TOL * (1 + want.abs())).all())
+            tol = f"{FAM_FA_F32_TOL} (1 + |plain|)"
+        summary["fa"].append(f)
+        print(f"flash_attention at q {qs}, k {ks} (B, T, heads, D), {dt}, "
+              f"{kw}, as the ranks called it {n_} times: against the plain "
+              f"version max |err| {f['max_abs_err']:.3g}, mean "
+              f"{f['mean_abs_err']:.3g} (tol {tol})", flush=True)
+        check(ok, ("flash_attention", f))
+        del q, k, v, want, err
+    check({f["dtype"] for f in summary["fa"]} == {"float32", "bfloat16"},
+          ("flash_attention: the ranks' calls", summary["fa"]))
+
+    def rel(num_den):
+        return (num_den[0] / max(num_den[1], 1e-300)) ** 0.5
+
+    # (a)
+    summary["a"] = {}
+    for arch in FAM_ARCHS:
+        cut = _fam_cut(arch, "float32")
+        rs = [r_["a"][arch] for r_ in ranks]
+        a0 = rs[0]
+        gate = {k_: max(MESH_F32_TOL, MESH_WITNESS_X * floors[arch][k_])
+                for k_ in ("prefill", "decode")}
+        a = {"params_vel_rel_l2": rel([sum(r_["sq"][j] for r_ in rs)
+                                       for j in (0, 1)]),
+             "loss": a0["loss"], "one_card_loss": a0["one_card_loss"],
+             "syncs_by_rank": [r_["syncs"] for r_ in rs],
+             "launches": a0["launches"],
+             "prefill": max(r_["prefill"] for r_ in rs),
+             "decode": max(r_["decode"] for r_ in rs),
+             "cache": a0["cache"], "rounding_floor": floors[arch],
+             "gates": gate}
+        a["loss_rel_diff"] = abs(a["loss"] - a["one_card_loss"]) / abs(
+            a["one_card_loss"])
+        summary["a"][arch] = a
+        floats = {k_: v_ for k_, v_ in a["cache"].items()
+                  if not isinstance(v_, bool)}
+        print(f"(a) {arch}, float32 (TF32 off), full width, "
+              f"{FAM_LAYERS[arch]}-layer cut"
+              + (f" ({FAM_LAYERS[arch]} encoder layers)" if cut.encoder
+                 else "")
+              + f", {FAM_MESH} of gloo ranks on the card: one bsp step on "
+              f"{FAM_B} x {FAM_T} tokens against the one-card step, the "
+              f"gathered params and velocities' relative L2 "
+              f"{a['params_vel_rel_l2']:.3g} (gate {INTRA_L2_TOL}), loss "
+              f"{a['loss']:.9g} against {a['one_card_loss']:.9g} (relative "
+              f"{a['loss_rel_diff']:.3g}, gate {MOE_LOSS_TOL}); host syncs "
+              f"by rank {a['syncs_by_rank']}, launches a rank "
+              f"{a['launches']}; the serve, the largest logit row's "
+              f"relative L2 over the ranks: prefill {FAM_PRE_B} x "
+              f"{FAM_PRE_T} {a['prefill']:.3g}, {FAM_DECODE} decode steps "
+              f"of {MESH_B} requests {a['decode']:.3g} (gates "
+              + json.dumps({k_: float(f"{v_:.3g}") for k_, v_ in
+                            gate.items()}) + ", the floor "
+              + json.dumps({k_: float(f"{v_:.3g}") for k_, v_ in
+                            floors[arch].items()})
+              + "); the cache gathered whole, relative L2 by leaf (the "
+              "largest) " + f"{max(floats.values()):.3g}, positions equal: "
+              + str(all(v_ for v_ in a["cache"].values()
+                        if isinstance(v_, bool))), flush=True)
+        check(a["params_vel_rel_l2"] <= INTRA_L2_TOL, ("(a) step", arch, a))
+        check(a["loss_rel_diff"] <= MOE_LOSS_TOL, ("(a) loss", arch, a))
+        check(a["launches"].get("flash_attention", 0) == _fa_per_step(cut),
+              ("(a) launches", arch, a["launches"]))
+        check(a["prefill"] <= gate["prefill"], ("(a) prefill", arch, a))
+        check(a["decode"] <= gate["decode"], ("(a) decode", arch, a))
+        check(all(v_ is True if isinstance(v_, bool) else
+                  v_ <= gate["decode"] for v_ in a["cache"].values()),
+              ("(a) cache", arch, a["cache"]))
+
+    # (b)
+    summary["b"] = {}
+    for arch in FAM_ARCHS:
+        cfg = _fam_cut(arch, "bfloat16")
+        rs = [r_["b"][arch] for r_ in ranks]
+        slow = max(r_["median_ms"] for r_ in rs)
+        c0 = rs[0]["collectives"]
+        extra = (cfg.encoder.n_frames if cfg.encoder else
+                 cfg.modality.n_tokens if cfg.modality.kind == "vision"
+                 else 0)
+        s = {"median_ms_by_rank": [r_["median_ms"] for r_ in rs],
+             "wall_ms_by_rank": [r_["wall_ms"] for r_ in rs],
+             "slowest_median_ms": slow,
+             "tokens_per_s": TRAIN_B * TRAIN_T / (slow / 1e3),
+             "peak_gb_by_rank": [r_["peak_gb"] for r_ in rs],
+             "syncs_per_step_by_rank": [r_["syncs_per_step"] for r_ in rs],
+             "launches_per_step": rs[0]["launches_per_step"],
+             "fa_plan": _fa_per_step(cfg), "collectives_rank0": c0,
+             "losses": rs[0]["losses"], "warmup_ms_rank0": rs[0][
+                 "warmup_ms"],
+             "warmup_attn_bwd_ms_rank0": rs[0]["warmup_attn_bwd_ms"]}
+        summary["b"][arch] = s
+        by = {k_: [v_["calls"], round(v_["bytes"] / 1e6, 1),
+                   round(v_["ms"], 1)] for k_, v_ in c0["by_name"].items()}
+        print(f"(b) {arch}, bf16, full width, {FAM_LAYERS[arch]}-layer "
+              f"cut, remat, {FAM_MESH} of gloo ranks on the card, "
+              f"{TRAIN_B} x {TRAIN_T} tokens a step"
+              + (f" (and {extra} {'frames' if cfg.encoder else 'patches'} "
+                 "a sequence)" if extra else "")
+              + f", bsp: {slow:.1f} ms a step (the slowest rank's median of "
+              f"{FAM_TIMED}), {s['tokens_per_s']:.0f} tokens/s, peak "
+              f"{max(s['peak_gb_by_rank']):.2f} GB a rank, host syncs a "
+              f"step {s['syncs_per_step_by_rank']}, launches a step a rank "
+              f"{s['launches_per_step']} (flash_attention by the layer "
+              f"plan {s['fa_plan']}); the first timed step's collectives "
+              f"(rank 0): {c0['calls']} calls handed {c0['bytes'] / 1e9:.3f}"
+              f" GB, {c0['ms']:.1f} ms of the host's wall inside them "
+              f"({c0['ms'] / rs[0]['wall_ms'][0]:.3f} of the step), by "
+              f"collective [calls, MB, ms] {json.dumps(by)}; the warm-up "
+              f"step (rank 0) {s['warmup_ms_rank0']:.1f} ms, of it the "
+              f"plain attention backward {s['warmup_attn_bwd_ms_rank0']:.1f}"
+              f" ms; losses {[round(x_, 4) for x_ in s['losses']]}",
+              flush=True)
+        for r_ in rs:
+            check(r_["finite"] and np.all(np.isfinite(r_["losses"])),
+                  ("(b)", arch, "finite"))
+            check(r_["syncs_per_step"] == 0, ("(b)", arch, "syncs"))
+            check(r_["launches_per_step"].get("flash_attention", 0) ==
+                  s["fa_plan"], ("(b)", arch, r_["launches_per_step"]))
+
+    # (c)
+    summary["c"] = {}
+    for arch in FAM_SERVE:
+        rs = [r_["c"][arch] for r_ in ranks]
+        pre_ms = max(r_["prefill_ms"][1] for r_ in rs)
+        dec_ms = max(float(np.median(r_["decode_ms"][1:-1])) for r_ in rs)
+        s = {"prefill_ms_by_rank": [r_["prefill_ms"] for r_ in rs],
+             "decode_ms_by_rank": [r_["decode_ms"] for r_ in rs],
+             "prefill_ms": pre_ms, "decode_ms": dec_ms,
+             "prefill_tokens_per_s": FAM_SERVE_B * PREFILL_T / (pre_ms /
+                                                                1e3),
+             "decode_tokens_per_s": FAM_SERVE_B / (dec_ms / 1e3),
+             "decode_syncs_by_rank": [r_["decode_syncs"] for r_ in rs],
+             "prefill_launches": rs[0]["prefill_launches"],
+             "peak_gb_by_rank": [r_["peak_gb"] for r_ in rs]}
+        summary["c"][arch] = s
+        print(f"(c) {arch}, bf16, full width, {FAM_LAYERS[arch]}-layer cut, "
+              f"served on {FAM_MESH}: a {FAM_SERVE_B} x {PREFILL_T} prefill "
+              f"{pre_ms:.1f} ms a call (the slowest rank's, after a "
+              "warm-up), "
+              f"{s['prefill_tokens_per_s']:.0f} tokens/s, launches a call a "
+              f"rank {s['prefill_launches']}; decode of {FAM_SERVE_B} "
+              f"requests over {MESH_CACHE} slots {dec_ms:.1f} ms a step "
+              f"(the slowest rank's median of {FAM_SERVE_STEPS - 2} after a "
+              "warm-up), "
+              f"{s['decode_tokens_per_s']:.1f} tokens/s, host syncs a "
+              f"decode step by rank {s['decode_syncs_by_rank']}; peak "
+              f"{max(s['peak_gb_by_rank']):.2f} GB a rank", flush=True)
+        for r_ in rs:
+            check(r_["decode_syncs"] == 0, ("(c)", arch, "syncs"))
+            check(r_["prefill_finite"] and r_["decode_tokens_in_vocab"],
+                  ("(c)", arch, "finite"))
+    summary["rank_walls_s"] = ranks[0]["walls_s"]
+    summary["wall_s"] = time.perf_counter() - t_phase
+    walls = {k_: round(v_, 1) for k_, v_ in summary["rank_walls_s"].items()}
+    print(f"phase 16: {summary['wall_s']:.2f} s (the kernel checks and "
+          f"one-card serves {summary['one_card_s']:.1f} s; rank 0's parts: "
+          f"{json.dumps(walls)})", flush=True)
+    assert not failures, failures
+    kern = {"flash_attention": {
+        "intrapod_families_launches_per_step_a_rank": {
+            arch: summary["b"][arch]["launches_per_step"].get(
+                "flash_attention", 0) for arch in FAM_ARCHS},
+        "intrapod_families_prefill_launches_a_rank": {
+            arch: summary["c"][arch]["prefill_launches"].get(
+                "flash_attention", 0) for arch in FAM_SERVE},
+        "intrapod_families_shapes": summary["fa"]}}
+    return summary, kern
 
 
 
@@ -6324,6 +6945,14 @@ def main() -> int:
     print("training MLA + MoE inside a pod: " + json.dumps(moe15))
     sys.stdout.flush()
 
+    # --------------------------------------------------------------- 16
+    phase(16, "training and serving the SSM, RG-LRU hybrid, enc-dec and "
+              "VLM families inside a pod: four gloo ranks on the card over "
+              "(1, 2, 2)")
+    fam16, kern16 = families_phase(dev)
+    print("the four families inside a pod: " + json.dumps(fam16))
+    sys.stdout.flush()
+
     kernels = [
         {"name": "gaia_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gaia_select.cu",
@@ -6439,6 +7068,8 @@ def main() -> int:
             entry["mesh_serve"] = kern14[entry["name"]]
         if entry["name"] in kern15:
             entry["intrapod_moe_train"] = kern15[entry["name"]]
+        if entry["name"] in kern16:
+            entry["intrapod_families"] = kern16[entry["name"]]
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
           "included")
     print(smi)

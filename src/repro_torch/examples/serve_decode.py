@@ -23,9 +23,11 @@ ranks of a process group (``launch.procs.spawn``; ``--procs``, if
 given, must be D x M), one site of a ``(1, D, M)`` mesh: each rank holds
 its blocks of the weights (FSDP over ``data``, tensor and expert
 parallelism over ``model``) and of the decode cache (the reference's
-placement: the requests over ``data`` from a batch of 8, the
-attention caches' length over ``model``), and decodes its requests; the
-dense GQA and the MLA and MoE families only (``sharding.check_layout``).
+placement: the requests over ``data`` from a batch of 8, and for the SSM
+and the RG-LRU hybrid from any batch, the attention caches' length over
+``model``), and decodes its requests; every family, at the widths the
+axes split (``sharding.check_layout``); the enc-dec's encoder runs on
+the rank's requests (``make_encode_step``).
 The ranks use NCCL on the card (one card a rank) and gloo on the CPU
 unless ``--backend`` says otherwise.  ``--moe-route`` picks the MoE
 layers' function (the reference's dense one, or its expert-parallel
@@ -48,8 +50,7 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import procs
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.sharding import local_params
-from repro_torch.launch.steps import make_serve_step
-from repro_torch.models import encdec
+from repro_torch.launch.steps import make_encode_step, make_serve_step
 from repro_torch.models.model import Params, init_cache, init_model
 from repro_torch.models.moe import ROUTES
 
@@ -68,8 +69,9 @@ def serve(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
     then generate ``gen_len`` tokens greedily (the first from the prompt's
     last step).  For an enc-dec arch, the encoder runs once on ``frames``
     (B, n_frames, feat_dim) first, inside the loop's time.  On an
-    intra-pod ``mesh`` ``params`` are the rank's blocks and the cache the
-    rank's block; every rank returns the whole batch's tokens.  Returns
+    intra-pod ``mesh`` ``params`` are the rank's blocks, the cache the
+    rank's block and the encoder's output the rank's requests'; every
+    rank returns the whole batch's tokens.  Returns
     (int32 (B, gen_len) tokens, seconds of the whole loop, ending in a
     synchronise on a card)."""
     B, P = prompt.shape
@@ -80,7 +82,8 @@ def serve(params: Params, cfg: ModelConfig, prompt: torch.Tensor,
     t0 = time.perf_counter()
     with torch.inference_mode():
         memory = (None if cfg.encoder is None else
-                  encdec.encoder_apply(params["encoder"], cfg, frames))
+                  make_encode_step(cfg, mesh=mesh)(params,
+                                                   {"frames": frames}))
         serve_step = make_serve_step(cfg, memory, mesh=mesh,
                                      moe_route=moe_route)
         for t in range(P):

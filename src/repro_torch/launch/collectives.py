@@ -26,11 +26,19 @@ GSPMD inserts for the reference under ``sharding.py``'s placements.
   computation after it is the same on every ``model`` rank (the EP
   route's output, each rank's span of the sequences); backward: the
   rank's block of the gradient.
+- ``sum_over_model(x, mesh)``: a statistic summed over ``model`` where
+  every rank's own part of the activation reads the total (the SSM's
+  gated RMSNorm over all of d_inner, whose channels lie split by heads);
+  backward: the gradient summed over ``model`` too (each rank's part
+  gives a share of the total's gradient).  ``reduce_from_model``, whose
+  backward is the identity, would leave each rank its own share.
 - ``all_to_all_model(x, mesh)``: the expert-parallel MoE's exchange, the
   rows of ``x`` cut into M equal blocks, block j sent to ``model`` rank
   j, the blocks received stacked in rank order; backward: the same
   exchange of the gradient, which sends each block back where it came
-  from.
+  from.  ``all_to_all_data(x, mesh)``: the same over ``data`` (the
+  embedding's lookups: each rank's columns of every ``data`` rank's
+  tokens' rows, sent to the rank that holds those tokens).
 
 Each is the identity, with no collective, where its axis has one rank.
 Every rank of a pod runs the same model code, so the collectives come in
@@ -78,25 +86,25 @@ class _GatherFromModel(torch.autograd.Function):
                 None, None)
 
 
-class _AllToAllModel(torch.autograd.Function):
+class _AllToAll(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, mesh):
-        ctx.mesh = mesh
-        return _exchange(x, mesh)
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return _exchange(x, axis, mesh)
 
     @staticmethod
     def backward(ctx, grad):
-        return _exchange(grad, ctx.mesh), None
+        return _exchange(grad, ctx.axis, ctx.mesh), None, None
 
 
-def _exchange(x: torch.Tensor, mesh) -> torch.Tensor:
-    """The tiled all-to-all over ``model``: equal blocks of rows."""
-    n = mesh.size_of("model")
+def _exchange(x: torch.Tensor, axis: str, mesh) -> torch.Tensor:
+    """The tiled all-to-all over ``axis``: equal blocks of rows."""
+    n = mesh.size_of(axis)
     if x.shape[0] % n:
-        raise ValueError(f"all_to_all_model: {x.shape[0]} rows do not split "
-                         f"into {n} equal blocks")
+        raise ValueError(f"all_to_all over {axis}: {x.shape[0]} rows do not "
+                         f"split into {n} equal blocks")
     splits = [x.shape[0] // n] * n
-    return mesh.all_to_all(x.contiguous(), splits, splits, axis="model")
+    return mesh.all_to_all(x.contiguous(), splits, splits, axis=axis)
 
 
 class _Copy(torch.autograd.Function):
@@ -108,6 +116,17 @@ class _Copy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return ctx.mesh.all_reduce(grad.clone(), ctx.axis), None, None
+
+
+class _SumBoth(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return mesh.all_reduce(x.clone(), "model")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.mesh.all_reduce(grad.clone(), "model"), None
 
 
 class _Reduce(torch.autograd.Function):
@@ -141,6 +160,14 @@ def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
     return _Reduce.apply(x, "model", mesh)
 
 
+def sum_over_model(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over ``model``; its gradient summed over ``model``
+    too."""
+    if mesh.size_of("model") == 1:
+        return x
+    return _SumBoth.apply(x, mesh)
+
+
 def reduce_from_data(x: torch.Tensor, mesh) -> torch.Tensor:
     """*g* over ``data``: ``x`` summed over the pod's ``data`` ranks."""
     if mesh.size_of("data") == 1:
@@ -171,4 +198,11 @@ def all_to_all_model(x: torch.Tensor, mesh) -> torch.Tensor:
     way."""
     if mesh.size_of("model") == 1:
         return x
-    return _AllToAllModel.apply(x, mesh)
+    return _AllToAll.apply(x, "model", mesh)
+
+
+def all_to_all_data(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``all_to_all_model`` over ``data``."""
+    if mesh.size_of("data") == 1:
+        return x
+    return _AllToAll.apply(x, "data", mesh)

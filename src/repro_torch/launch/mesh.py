@@ -17,13 +17,14 @@ collectives on the pod group (``all_reduce``, ``all_gather``,
 ``all_to_all``), and a checkpoint ``gather``s the rows to the group's
 first rank.  Inside a pod (``sharding.py``'s FSDP over ``data`` and
 tensor and expert parallelism over ``model``; ``sharding.check_layout``
-says which families) weights are gathered and their gradients
+says which widths) weights are gathered and their gradients
 reduce-scattered along a dimension over ``data`` (``all_gather_dim``,
 ``reduce_scatter_dim``), activations summed over ``model``
 (``all_reduce(..., axis="model")``) or gathered along a dimension over
 it (``all_gather_dim(..., "model")``: MLA's latent, the router's logits,
-the heads of a flash-decode), and the expert-parallel MoE's tokens
-exchanged over ``model`` (``all_to_all(..., axis="model")``).
+the heads of a flash-decode, the SSM's in-projection, the RG-LRU's gate
+input), and the expert-parallel MoE's tokens exchanged over ``model``
+(``all_to_all(..., axis="model")``).
 
 ``make_production_mesh`` describes the reference's layout without a
 process group (what ``sharding``'s rules read); ``make_mesh`` builds one
@@ -248,12 +249,11 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str] = AXES, *,
     is ``"train"`` or ``"serve"``).
 
     Raises ``ValueError``, before any collective, where ``cfg`` cannot be
-    placed on a ``data`` or ``model`` axis above 1 (the same for both
-    modes: the SSM, RG-LRU, enc-dec and VLM families, which the port does
-    not place there yet, ROADMAP A11c.2; a width the axis does not divide,
-    or a ``model`` axis wider than n_kv_heads that is not a multiple of
-    it) and, under NCCL, where two ranks hold one device (NCCL would
-    abort at the first collective)."""
+    placed on a ``data`` or ``model`` axis above 1 (a width the axis does
+    not divide, named, or a ``model`` axis wider than n_kv_heads that is
+    not a multiple of it; every family is placed) and, under NCCL, where
+    two ranks hold one device (NCCL would abort at the first
+    collective)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "torch.distributed.init_process_group (or run "

@@ -21,8 +21,8 @@ specs shaped like their input.
 
 The train and serve steps apply them (``local_slices``, ``local_block``):
 the ``pod`` entries say which rows of the stacked state and batch a rank
-holds; on a mesh with a ``data`` or ``model`` axis above 1 (the families
-``check_layout`` takes for training or serving) the ``data`` and
+holds; on a mesh with a ``data`` or ``model`` axis above 1 (every family, at
+the widths ``check_layout`` takes for training or serving) the ``data`` and
 ``model`` entries say which block of each leaf (``local_params``), of
 each decode-cache leaf (``local_cache``; ``cache_split`` names the axis
 its length is split over) and which of the pod's sequences.
@@ -30,11 +30,17 @@ its length is split over) and which of the pod's sequences.
 axis does not divide a dimension the reference's ``_clamp_spec`` keeps
 the dimension whole; under the port's explicit tensor parallelism model
 code would read a whole weight as the rank's block, so ``check_layout``
-refuses such a mesh instead.  The one whole dimension the port takes is
+refuses such a mesh instead.  The whole dimensions the port takes are
 a GQA decode cache's KV heads on a ``model`` axis that is a multiple of
 n_kv_heads (each KV head shared by M / n_kv_heads ranks): ``wk`` and
 ``wv`` stay split by columns, and the cache keeps every head on every
-``model`` rank, as the clamp leaves it.
+``model`` rank, as the clamp leaves it; and the dimensions the placement
+itself leaves whole: the SSM's and the RG-LRU's conv history and the
+RG-LRU's state on every ``model`` rank (the requests over ``data``).
+Where the placement does not follow a model's structure (the SSM's
+``in_proj`` and ``conv_w`` blocks cut across its heads; its SSD state's
+head_dim over ``model``) the model code computes around it
+(``models/ssm.py``); the placements stay the reference's.
 """
 from __future__ import annotations
 
@@ -244,10 +250,6 @@ def intra_pod(mesh: Optional[Mesh]) -> bool:
     return mesh is not None and mesh.size_of(INTRA) > 1
 
 
-#: the (attention kind, MoE) of the families placed on a pod's data and
-#: model axes, for training and for serving: the dense GQA family and the
-#: MLA family, with or without MoE experts
-PLACED = {("gqa", False), ("mla", False), ("mla", True)}
 MODES = ("train", "serve")
 
 
@@ -260,68 +262,187 @@ def kv_shared(a, M: int) -> bool:
     return a.kind == "gqa" and M > a.n_kv_heads
 
 
+def recurrent(cfg) -> bool:
+    """Whether ``cfg`` keeps an SSM or RG-LRU state in its decode cache."""
+    return cfg.ssm is not None or cfg.rglru is not None
+
+
+def default_batch_sharded(cfg, batch: int, mesh: Optional[Mesh]) -> bool:
+    """The decode cache's placement for ``batch`` requests where the
+    caller names none: the requests over ``data`` from 8 of them (the
+    reference's rule), and always for a model with an SSM or RG-LRU state
+    on a ``data`` axis above 1 (``check_cache_placement``)."""
+    return batch >= 8 or (recurrent(cfg) and mesh is not None
+                          and mesh.size_of("data") > 1)
+
+
+def check_cache_placement(cfg, mesh: Optional[Mesh],
+                          batch_sharded: bool) -> None:
+    """Raises ``ValueError`` where the decode cache of ``cfg`` cannot take
+    ``batch_sharded`` on ``mesh``: with the requests whole
+    (``batch_sharded=False``) the reference places the SSM's and the
+    RG-LRU's conv history's K - 1 slots over ``data``, which no data axis
+    above 1 splits (its clamp keeps them whole on every rank, beside an
+    SSD state split over the heads), so the port serves those models
+    with the requests over ``data`` (ROADMAP C16)."""
+    if (intra_pod(mesh) and not batch_sharded and recurrent(cfg)
+            and mesh.size_of("data") > 1):
+        raise ValueError(
+            f"{cfg.arch_id} on data={mesh.size_of('data')}: the SSM and "
+            "RG-LRU decode caches are served with the requests over data "
+            "(batch_sharded=True); the placement of a whole batch puts the "
+            "conv history's slots over data, which it does not split")
+
+
+def _alignment(cfg, M: int) -> list:
+    """The refusals no leaf's clamp can see: a ``model`` axis that cuts
+    across a head (the attention's query and KV heads, the SSM's heads,
+    whose rows of ``out_proj`` and SSD state the rank computes), and a
+    ``model`` axis wider than n_kv_heads that is not a multiple of it
+    (``kv_shared``)."""
+    a, bad = cfg.attention, []
+    widths = []
+    if cfg.encoder is not None or any(
+            cfg.block_kind(i) == "attn" for i in range(cfg.n_layers)):
+        widths.append(("n_heads", a.n_heads))
+        if kv_shared(a, M):
+            if M % a.n_kv_heads:
+                bad.append(f"model={M} over n_kv_heads={a.n_kv_heads} (a "
+                           "model axis wider than n_kv_heads must be a "
+                           "multiple of it)")
+        elif a.kind == "gqa":
+            widths.append(("n_kv_heads", a.n_kv_heads))
+    if cfg.ssm is not None:
+        widths.append(("ssm n_heads", cfg.ssm.n_heads))
+    return bad + [f"{k}={n} over model={M}" for k, n in widths if n % M]
+
+
+#: the names of a leaf's dimensions (the last ones; a stacked cycle axis
+#: goes before them), by its path, the first pattern that matches: what a
+#: refusal calls a dimension the clamp would keep whole
+_DIM_NAMES = (
+    (r"encoder/in_proj/w$", ("feat_dim", "encoder d_model")),
+    (r"encoder/layers/w[qkv]/w$|xattn/w[kv]/w$",
+     ("encoder d_model", "n_heads * head_dim")),
+    (r"encoder/layers/wo/w$", ("n_heads * head_dim", "encoder d_model")),
+    (r"encoder/layers/ffn/(gate|up)/w$", ("encoder d_model", "d_ff")),
+    (r"encoder/layers/ffn/down/w$", ("d_ff", "encoder d_model")),
+    (r"table$", ("vocab", "d_model")),
+    (r"unembed/w$", ("d_model", "vocab")),
+    (r"projector/w$", ("feat_dim", "d_model")),
+    (r"router/w$", ("d_model", "n_experts")),
+    (r"ffn/w_(gate|up)$", ("n_experts", "d_model", "d_ff_expert")),
+    (r"ffn/w_down$", ("n_experts", "d_ff_expert", "d_model")),
+    (r"shared/(gate|up)/w$", ("d_model", "n_shared * d_ff_expert")),
+    (r"shared/down/w$", ("n_shared * d_ff_expert", "d_model")),
+    (r"ffn/(gate|up)/w$", ("d_model", "d_ff")),
+    (r"ffn/down/w$", ("d_ff", "d_model")),
+    (r"wq/w$", ("d_model", "n_heads * head_dim")),
+    (r"w[kv]/w$", ("d_model", "n_kv_heads * head_dim")),
+    (r"wo/w$", ("n_heads * head_dim", "d_model")),
+    (r"wdq/w$", ("d_model", "q_lora_rank")),
+    (r"wuq/w$", ("q_lora_rank", "n_heads * qk_head_dim")),
+    (r"wdkv/w$", ("d_model", "kv_lora_rank + rope_head_dim")),
+    (r"wukv$", ("kv_lora_rank", "n_heads", "qk_nope_head_dim + v_head_dim")),
+    (r"in_proj/w$", ("d_model", "ssm in_proj width")),
+    (r"out_proj/w$", ("d_inner", "d_model")),
+    (r"(in_x|in_gate)/w$", ("d_model", "lru_width")),
+    (r"(w_a|w_i)/w$", ("lru_width", "lru_width")),
+    (r"out/w$", ("lru_width", "d_model")),
+    (r"conv_w$", ("d_conv", "conv channels")),
+    (r"ssd$", ("requests", "ssm n_heads", "ssm head_dim", "d_state")),
+    (r"/[kv]$", ("requests", "cache length", "n_kv_heads", "head_dim")),
+    (r"conv$", ("requests", "d_conv - 1", "conv channels")),
+    (r"(ckv|krope)$", ("requests", "cache length", "latent width")),
+    (r"/h$", ("requests", "lru_width")),
+    (r"pos$", ("requests", "cache length")))
+
+
+def _clamped(path: str, shape, want: Spec, mesh: Mesh) -> list:
+    """Where the clamp drops an axis that ``want`` (one entry a dimension
+    of ``shape``) names: (what, ``path``) for each dimension the axis does
+    not split, what as "name=n over axis=k" (``_DIM_NAMES``)."""
+    got = _clamp_spec(want, shape, mesh)
+    names = next((n for pat, n in _DIM_NAMES if re.search(pat, path)), ())
+    out = []
+    for i, (n, w, g) in enumerate(zip(shape, want, got)):
+        if w is not None and g is None:
+            j = i - (len(shape) - len(names))
+            name = names[j] if j >= 0 else f"dimension {i}"
+            out.append((f"{name}={n} over {w}={_axis_size(mesh, w)}", path))
+    return out
+
+
+def _param_refusals(cfg, mesh: Mesh) -> list:
+    """``_clamped`` over every parameter leaf of ``cfg``, by the rules of
+    ``param_shardings``."""
+    from repro_torch.models.model import init_model
+    out = []
+    for ps, leaf in pytree.leaves_with_paths(init_model(None, cfg, "meta")):
+        shape = tuple(leaf.shape)
+        segs = ps.split("/")
+        lead = (None,) if ("body" in segs or "layers" in segs) else ()
+        out += _clamped(ps, shape, lead + rule_spec(ps, shape[len(lead):]),
+                        mesh)
+    return out
+
+
+def cache_refusals(cache: Tree, mesh: Mesh, *, batch_sharded: bool,
+                   baseline_decode: bool) -> list:
+    """The leaves of a whole decode ``cache`` that ``mesh`` does not split
+    as ``cache_shardings`` places them (a dimension the reference's clamp
+    would keep whole, which the decode would read as the rank's block),
+    as ``_clamped`` gives them; a GQA cache's KV heads on a ``model`` axis
+    that is a multiple of their count are taken (every ``model`` rank
+    holds them all, and the decode reads its own: ``kv_shared``)."""
+    M = mesh.size_of("model")
+    out = []
+    for path, t in pytree.leaves_with_paths(cache):
+        shape = tuple(t.shape)
+        want = _cache_spec(path, shape, batch_sharded, baseline_decode)
+        if path.endswith(("/k", "/v")):
+            want = tuple(None if w == "model" and M % n == 0 else w
+                         for w, n in zip(want, shape))
+        out += _clamped(path, shape, want, mesh)
+    return out
+
+
 def check_layout(cfg, mesh: Optional[Mesh], mode: str = "train") -> None:
     """Raises ``ValueError`` where ``cfg`` (a ``ModelConfig``) cannot be
     placed on ``mesh``'s ``data`` and ``model`` axes for ``mode``
-    (``"train"`` or ``"serve"``; both place the same families and widths):
-    a family ``PLACED`` does not name (ROADMAP A11c.2: the SSM, RG-LRU,
-    enc-dec and VLM families), or an axis that
-    does not divide a dimension it shards: over ``model`` n_heads,
-    n_kv_heads (GQA; above it, a ``model`` axis that is not a multiple of
-    n_kv_heads, or that does not split ``wk``'s n_kv_heads x head_dim
-    columns: ``kv_shared``), the latent and k_rope columns of ``wdkv`` and
-    MLA's q_lora rank, d_ff (a dense FFN), vocab, the routed experts and
-    the shared experts' width; over ``data`` d_model, the q_lora rank and
-    the experts' d_ff (the rows of ``w_down``).  Nothing to check without
-    an axis above 1."""
+    (``"train"`` or ``"serve"``): every family is placed for both, so the
+    refusals are widths an axis does not split, each named.  By the
+    placements: every parameter leaf where ``param_shardings``' clamp
+    would drop an axis its rule names, and, to serve, every leaf of the
+    decode cache (the requests over ``data``) that ``cache_shardings``
+    would leave whole so (the SSD state's head_dim over ``model``), each
+    dimension named by ``_DIM_NAMES``.  By alignment, which no clamp
+    sees (``_alignment``): the query heads, the KV heads (or a ``model``
+    axis a multiple of them) and the SSM's heads over ``model``.  Nothing
+    to check without an axis above 1."""
     if mode not in MODES:
         raise ValueError(f"check_layout: mode={mode!r}; want one of "
                          f"{MODES}")
     if not intra_pod(mesh):
         return
-    a, m = cfg.attention, cfg.moe
-    D, M = mesh.size_of("data"), mesh.size_of("model")
-    plain = (cfg.family in ("dense", "moe") and cfg.encoder is None
-             and cfg.modality.kind == "none")
-    if not plain or (a.kind, bool(m.n_experts)) not in PLACED:
-        raise ValueError(
-            f"{cfg.arch_id} ({cfg.family}, {a.kind} attention"
-            f"{', MoE' if m.n_experts else ''}) on data={D}, model={M} to "
-            f"{mode}: inside a pod the port trains and serves the dense GQA "
-            "family and the MLA and MoE families so far; tensor parallelism "
-            "for the SSM, RG-LRU, enc-dec and VLM families is ROADMAP "
-            "A11c.2")
-    over_m = [("n_heads", a.n_heads), ("vocab", cfg.vocab)]
-    over_d = [("d_model", cfg.d_model)]
-    bad = []
-    if kv_shared(a, M):
-        if M % a.n_kv_heads:
-            bad.append(f"model={M} over n_kv_heads={a.n_kv_heads} (a "
-                       "model axis wider than n_kv_heads must be a multiple "
-                       "of it)")
-        over_m.append(("n_kv_heads * head_dim", a.n_kv_heads * a.head_dim))
-    elif a.kind == "gqa":
-        over_m.append(("n_kv_heads", a.n_kv_heads))
-    else:
-        over_m.append(("kv_lora_rank + rope_head_dim",
-                       a.kv_lora_rank + a.rope_head_dim))
-        if a.q_lora_rank:
-            over_m.append(("q_lora_rank", a.q_lora_rank))
-            over_d.append(("q_lora_rank", a.q_lora_rank))
-    if not m.n_experts or m.first_dense_layers:
-        over_m.append(("d_ff", cfg.d_ff))
-    if m.n_experts:
-        over_m.append(("n_experts", m.n_experts))
-        over_d.append(("d_ff_expert", m.d_ff_expert))
-        if m.n_shared:
-            over_m.append(("n_shared * d_ff_expert",
-                           m.n_shared * m.d_ff_expert))
-    bad += [f"{k}={n} over model={M}" for k, n in over_m if n % M]
-    bad += [f"{k}={n} over data={D}" for k, n in over_d if n % D]
+    leaves = _param_refusals(cfg, mesh)
+    if mode == "serve":
+        from repro_torch.models.model import init_cache
+        whole = init_cache(cfg, mesh.size_of("data"), mesh.size_of("model"),
+                           device="meta")
+        for base in (False, True):
+            leaves += cache_refusals(whole, mesh, batch_sharded=True,
+                                     baseline_decode=base)
+    first = {}
+    for what, path in leaves:
+        first.setdefault(what, path)
+    bad = _alignment(cfg, mesh.size_of("model")) + [
+        f"{what} ({path})" for what, path in first.items()]
     if bad:
         raise ValueError(
-            f"{cfg.arch_id}: {', '.join(bad)} does not divide; a dimension "
-            "left whole would be read as the rank's block")
+            f"{cfg.arch_id}: {'; '.join(bad)}: the axis does not divide the "
+            "dimension; a dimension left whole would be read as the rank's "
+            "block")
 
 
 def cache_split(mesh: Optional[Mesh], *, batch_sharded: bool,
@@ -352,23 +473,18 @@ def local_cache(cache: Tree, mesh: Mesh, *, batch_sharded: bool,
     block), but a GQA cache's KV heads on a ``model`` axis that is a
     multiple of their count: every ``model`` rank holds them all, and the
     decode reads its own (``kv_shared``)."""
-    out = []
-    M = mesh.size_of("model")
-    for path, t in pytree.leaves_with_paths(cache):
-        shape = tuple(t.shape)
-        want = _cache_spec(path, shape, batch_sharded, baseline_decode)
-        spec = _clamp_spec(want, shape, mesh)
-        shared = path.endswith(("/k", "/v")) and all(
-            w == s_ or (w == "model" and M % n == 0)
-            for w, s_, n in zip(want, spec, shape))
-        if spec != want and not shared:
-            raise ValueError(
-                f"cache leaf {path} of shape {shape}: the mesh "
-                f"{mesh.shape} does not split it as the placement {want} "
-                "asks (a batch the data axis divides; a length the axis it "
-                "is split over divides)")
-        out.append(local_block(t, spec, mesh))
-    return pytree.unflatten(cache, out)
+    bad = cache_refusals(cache, mesh, batch_sharded=batch_sharded,
+                         baseline_decode=baseline_decode)
+    if bad:
+        raise ValueError(
+            f"cache leaves: the mesh {mesh.shape} does not split "
+            f"{', '.join(f'{w} ({p})' for w, p in bad)} as the placement asks (a batch the data axis "
+            "divides; a length the axis it is split over divides)")
+    return pytree.unflatten(cache, [
+        local_block(t, _clamp_spec(_cache_spec(
+            path, tuple(t.shape), batch_sharded, baseline_decode),
+            tuple(t.shape), mesh), mesh)
+        for path, t in pytree.leaves_with_paths(cache)])
 
 
 def leaf_specs(params: Tree, mesh: Mesh) -> list:
@@ -395,13 +511,18 @@ def gather_leaf(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
     return t
 
 
-#: replicated leaves that act on a rank's own heads or columns under tensor
-#: parallelism, so each ``model`` rank holds a part of their gradient:
-#: GQA's qk-norm scales (on the rank's heads), MLA's latent norms
+#: replicated leaves that act on a rank's own heads, columns or channels
+#: under tensor parallelism, so each ``model`` rank holds a part of their
+#: gradient: GQA's qk-norm scales (on the rank's heads), MLA's latent norms
 #: ``q_norm`` and ``kv_norm`` (on the latent gathered whole, then read by
-#: the rank's columns of ``wuq`` and heads of ``wukv``), and the bias of a
+#: the rank's columns of ``wuq`` and heads of ``wukv``), the SSM's
+#: per-head ``A_log``, ``dt_bias`` and ``D`` and its gated norm's scale
+#: (the rank's heads and channels), the conv biases of the SSM and the
+#: RG-LRU and the RG-LRU's ``lam`` (the rank's channels; the SSM's B and C
+#: channels read by every rank's heads, each a part), and the bias of a
 #: column-parallel projection
-_MODEL_PARTIAL = re.compile(r"(^|/)(q_norm|k_norm|kv_norm)/scale$")
+_MODEL_PARTIAL = re.compile(r"(^|/)(q_norm|k_norm|kv_norm)/scale$"
+                            r"|mixer/(A_log|dt_bias|D|conv_b|lam|norm/scale)$")
 
 
 def grad_sync_axis(path: str, spec: Spec, mesh: Mesh):

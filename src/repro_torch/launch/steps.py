@@ -49,9 +49,9 @@ host numbers, the gossip operands (the all-to-all's routing too) are
 built and checked on the host by ``gossip_operands``, and every metric is
 a tensor.
 
-Inside a pod (a mesh whose ``data`` or ``model`` axis is above 1; the
-dense GQA family and the MLA family with or without MoE experts,
-``sharding.check_layout``) a rank holds its block of every leaf of its
+Inside a pod (a mesh whose ``data`` or ``model`` axis is above 1; every
+family, at the widths ``sharding.check_layout`` takes) a rank holds its
+block of every leaf of its
 pods, FSDP over ``data``, tensor parallelism over ``model`` and the
 experts over ``model`` as ``sharding.param_shardings`` places them, and
 its ``data`` share of each pod's sequences.  The model runs under
@@ -60,7 +60,8 @@ their gradients reduce-scattered, heads, FFN columns, experts and
 vocabulary split over ``model``: ``launch.collectives``; a MoE layer by
 the step's ``moe_route``); the replicated leaves' gradients are summed
 after the backward (``sharding.grad_sync_axis``: over ``data``, and over
-``model`` too for the norms that act on the rank's heads).  Every
+``model`` too for the leaves that act on the rank's heads or
+channels).  Every
 exchange above then runs unchanged on the rank's blocks over its pod
 group (the ranks of its (data, model) position), but DGC's threshold,
 which needs the whole leaf: for a sharded leaf max|v| is all-reduced
@@ -72,8 +73,8 @@ one-card selection.  The function computed is the one-card step's.
 
 The serve steps take the same mesh for one site (pod axis 1): the rank's
 blocks of the weights, of the decode cache (``sharding.cache_shardings``)
-and its rows of the requests, for the dense GQA family and the MLA
-family with or without MoE (``make_prefill_step``, ``make_serve_step``).
+and its rows of the requests, for every family (``make_prefill_step``,
+``make_encode_step``, ``make_serve_step``).
 
 The kernels take leaves of one dtype a launch, so a model whose leaves
 mix dtypes (bf16 weights, float32 norms) gets one launch a dtype group:
@@ -98,6 +99,7 @@ from repro_torch.launch import sharding
 from repro_torch.launch.mesh import Mesh, n_pods as mesh_pods
 from repro_torch.models.model import (decode_step, forward, init_cache,
                                       init_model, loss_fn)
+from repro_torch.models.encdec import encoder_apply
 from repro_torch.models.moe import ROUTES
 from repro_torch.models.shard_hints import activation_sharding
 from repro_torch.models.transformer import lm_decode
@@ -360,8 +362,9 @@ def make_exchange(comm: CommConfig, *, mesh: Optional[Mesh] = None,
       dpsgd   {"params"} -> mixed
       adpsgd  {"params", "snaps"} -> mixed, and the pushed buffer
 
-    Sums across pods are float32: the local rows' sum, then (on a mesh)
-    one ``all_reduce`` of every leaf's sum in one buffer; the gossip
+    Sums across pods are float32: the local rows' sum, then (on a mesh of
+    more than one pod) one ``all_reduce`` of every leaf's sum in one
+    buffer; the gossip
     reads the gathered or received rows (module docstring).  ``lr``
     drives Gaia's threshold (T = t0 lr / lr0), ``sparsity`` overrides
     ``comm.dgc_sparsity``, ``mix`` is the round's ``gossip_operands``.
@@ -377,9 +380,11 @@ def make_exchange(comm: CommConfig, *, mesh: Optional[Mesh] = None,
     split = shard_axes(specs, mesh)
 
     def pod_sum(xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Each float32 (L, ...) tensor summed over every pod: (1, ...)."""
+        """Each float32 (L, ...) tensor summed over every pod: (1, ...)
+        (the local rows' sum, all-reduced where the pod axis has more
+        than one rank)."""
         sums = [x.sum(0, keepdim=True) for x in xs]
-        if mesh is None:
+        if group == 1:
             return sums
         flat = mesh.all_reduce(torch.cat([x.reshape(-1) for x in sums]))
         return [f.view(x.shape) for f, x in
@@ -541,10 +546,10 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
     for adpsgd ``"mean_staleness"``; each a float32 0-d tensor.
 
     On a mesh with a ``data`` or ``model`` axis above 1 (``sharding.
-    check_layout`` refuses the SSM, RG-LRU, enc-dec and VLM families, and
-    shapes the axes do not divide, with ``ValueError`` here, before any
-    collective) the state holds the rank's blocks and each pod's
-    sequences split over ``data``: the module docstring.
+    check_layout`` refuses the widths the axes do not divide with
+    ``ValueError`` here, before any collective) the state holds the
+    rank's blocks and each pod's sequences split over ``data``: the module
+    docstring.
 
     ``moe_route``: the MoE layers' function (``moe.moe_apply``):
     ``"dense"``, the reference's default, or ``"ep"``, its
@@ -668,7 +673,7 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
         vel0 = pytree.leaves(state["vel"])
         losses, grads = pod_grads(state["params"], batch)
         loss = losses.sum(0, keepdim=True)
-        if mesh is not None:
+        if group > 1:
             mesh.all_reduce(loss)
         metrics = {"loss": loss.reshape(()) / n_pods}
         out = lambda leaves: pytree.unflatten(state["params"], leaves)
@@ -776,14 +781,24 @@ def _serve_rows(batch: Dict, mesh: Mesh) -> Tuple[Dict, int]:
 
 
 def _check_cache(cfg: ModelConfig, cache, mesh: Mesh, rows: int,
-                 split: Optional[str]) -> None:
-    """Raises ``ValueError`` where an attention cache's block is not the
-    one ``init_cache(..., mesh=)`` makes for the step's placement: ``rows``
-    requests, its length split by ``split`` (the whole ``pos`` beside a
-    length split over ``model``), GQA's KV heads over ``model`` unless the
-    length is, or the axis is wider than n_kv_heads."""
+                 split: Optional[str], states: Dict[str, Tuple]) -> None:
+    """Raises ``ValueError`` where a cache leaf's block is not the one
+    ``init_cache(..., mesh=)`` makes for the step's placement: an
+    attention cache's ``rows`` requests, its length split by ``split``
+    (the whole ``pos`` beside a length split over ``model``), GQA's KV
+    heads over ``model`` unless the length is, or the axis is wider than
+    n_kv_heads; an SSM or RG-LRU state's block of the shape ``states``
+    names by path (``_state_blocks``)."""
     leaves = dict(pytree.leaves_with_paths(cache))
     M = mesh.size_of("model")
+    for path, want in states.items():
+        got = leaves.get(path)
+        got = None if got is None else tuple(got.shape)
+        if got != want:
+            raise ValueError(
+                f"cache block {path}: {got}, not the placement's {want}; "
+                "make the cache with init_cache(..., mesh=, batch_sharded=) "
+                "as the serve step's")
     for path, pos in leaves.items():
         if not path.endswith("/pos"):
             continue
@@ -804,6 +819,18 @@ def _check_cache(cfg: ModelConfig, cache, mesh: Mesh, rows: int,
                 f"the length split over {split}; make the cache with "
                 "init_cache(..., mesh=, batch_sharded=, baseline_decode=) "
                 "as the serve step's")
+
+
+def _state_blocks(cfg: ModelConfig, mesh: Mesh, B: int,
+                  batch_sharded: bool) -> Dict[str, Tuple]:
+    """The shape of the rank's block of each SSM and RG-LRU state leaf of
+    a decode cache of ``B`` requests (``sharding.local_cache``), by
+    path."""
+    whole = {path: t for path, t in pytree.leaves_with_paths(
+        cache_shape(cfg, B, 1)) if path.rsplit("/", 1)[-1] in
+        ("ssd", "conv", "h")}
+    return {path: tuple(t.shape) for path, t in sharding.local_cache(
+        whole, mesh, batch_sharded=batch_sharded).items()}
 
 
 def _vocab_argmax(logits: torch.Tensor, mesh: Mesh) -> torch.Tensor:
@@ -837,7 +864,7 @@ def make_prefill_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None,
     rank runs its rows (``batch_shardings``: over ``data``); it returns
     the rank's rows' (B / D, V) logits, whole: the rank's vocabulary
     columns gathered over ``model``.  ``sharding.check_layout(mode=
-    "serve")`` refuses the families not placed there (ROADMAP A11c.2)."""
+    "serve")`` refuses the widths the axes do not divide."""
     intra = _serve_layout(cfg, mesh, moe_route)
 
     def prefill_step(params, batch):
@@ -853,6 +880,28 @@ def make_prefill_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None,
     return prefill_step
 
 
+def make_encode_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None
+                     ) -> Callable:
+    """``encode_step(params, batch)``: the enc-dec encoder's output on
+    ``batch["frames"]`` (B, S, feat_dim), the ``memory`` a serve loop
+    computes once and hands ``make_serve_step``.  On a ``mesh`` as
+    ``make_prefill_step``'s: ``params`` the rank's blocks, ``batch`` the
+    global batch; it returns the memory of the rank's rows of the
+    requests (B / D, S, encoder d_model), whole, what the rank's serve
+    step reads."""
+    if cfg.encoder is None:
+        raise ValueError(f"{cfg.arch_id} has no encoder")
+    intra = _serve_layout(cfg, mesh, "dense")
+
+    def encode_step(params, batch):
+        if not intra:
+            return encoder_apply(params["encoder"], cfg, batch["frames"])
+        rows, _ = _serve_rows({"frames": batch["frames"]}, mesh)
+        with activation_sharding(mesh):
+            return encoder_apply(params["encoder"], cfg, rows["frames"])
+    return encode_step
+
+
 def make_serve_step(cfg: ModelConfig,
                     memory: Optional[torch.Tensor] = None, *,
                     mesh: Optional[Mesh] = None, moe_route: str = "dense",
@@ -860,10 +909,11 @@ def make_serve_step(cfg: ModelConfig,
                     baseline_decode: bool = False) -> Callable:
     """``serve_step(params, cache, batch)``: one decode step and its greedy
     next token, (int32 (B,), cache).  For an enc-dec arch, ``memory``
-    (the encoder's output on the requests' frames, computed once) is
-    read by every step through ``transformer.lm_decode``, where
-    ``decode_step`` would run the encoder on ``batch["frames"]`` each
-    step.  ``serve_step.logits(params, cache, batch)`` is the same step
+    (the encoder's output on the requests' frames, computed once:
+    ``make_encode_step``; on a mesh the rank's rows of it) is read by
+    every step through ``transformer.lm_decode``, where ``decode_step``
+    would run the encoder on ``batch["frames"]`` each step.
+    ``serve_step.logits(params, cache, batch)`` is the same step
     returning its float32 logits instead of the token.
 
     On a ``mesh`` as ``make_prefill_step``'s: ``params`` the rank's blocks,
@@ -871,15 +921,18 @@ def make_serve_step(cfg: ModelConfig,
     rank's block of the decode cache as ``sharding.cache_shardings``
     places it: ``model.init_cache(..., mesh=, batch_sharded=,
     baseline_decode=)`` with this step's flags.  ``batch_sharded``
-    (default: the reference's B >= 8) puts the requests over ``data``,
-    else every row's cache length; ``baseline_decode`` (the reference's
-    ``REPRO_BASELINE_DECODE`` placement) keeps the attention caches' KV
-    heads over ``model``, else their length (flash-decode).  The
-    function is the one-device step's either way.  The token is the
+    (default: the reference's B >= 8, and always for an SSM or RG-LRU
+    model on a ``data`` axis above 1: ``sharding.default_batch_sharded``)
+    puts the requests over ``data``, else every row's cache length;
+    ``baseline_decode`` (the reference's ``REPRO_BASELINE_DECODE``
+    placement) keeps the attention caches' KV heads over ``model``, else
+    their length (flash-decode).  The function is the one-device step's
+    either way.  The token is the
     vocabulary-parallel argmax of the rank's rows, gathered over
     ``data``: every rank returns the whole batch's (B,) tokens;
     ``.logits`` returns the rank's rows' (B / D, V), whole."""
     intra = _serve_layout(cfg, mesh, moe_route)
+    states: Dict = {}                # (B, batch_sharded): _state_blocks
 
     def decode(params, cache, batch):
         if not intra:
@@ -889,14 +942,22 @@ def make_serve_step(cfg: ModelConfig,
             return lm_decode(params, cfg, batch["token"], cache, batch["t"],
                              memory=memory, moe_route=moe_route)
         rows, B = _serve_rows(batch, mesh)
-        placed = B >= 8 if batch_sharded is None else batch_sharded
+        placed = (sharding.default_batch_sharded(cfg, B, mesh)
+                  if batch_sharded is None else batch_sharded)
+        sharding.check_cache_placement(cfg, mesh, placed)
         split = sharding.cache_split(mesh, batch_sharded=placed,
                                      baseline_decode=baseline_decode)
+        if (B, placed) not in states:
+            states[B, placed] = _state_blocks(cfg, mesh, B, placed)
         _check_cache(cfg, cache, mesh,
-                     B // mesh.size_of("data") if placed else B, split)
+                     B // mesh.size_of("data") if placed else B, split,
+                     states[B, placed])
         with activation_sharding(mesh):
-            return decode_step(params, cfg, rows, cache, moe_route=moe_route,
-                               split=split)
+            if memory is None:
+                return decode_step(params, cfg, rows, cache,
+                                   moe_route=moe_route, split=split)
+            return lm_decode(params, cfg, rows["token"], cache, rows["t"],
+                             memory=memory, moe_route=moe_route, split=split)
 
     def serve_step(params, cache, batch):
         logits, new_cache = decode(params, cache, batch)

@@ -11,6 +11,14 @@ gated MLP; the decoder is ``transformer.py``'s stack with
 cross-attention to the encoder's output.  The layers' parameters are
 stacked on a leading axis, as the reference stacks them for its
 ``lax.scan``, which becomes a Python loop over the layers here.
+
+Under ``shard_hints.activation_sharding(mesh)`` (the train and serve
+steps inside a pod) ``in_proj`` is column-parallel and its output is
+gathered whole over ``model`` (the residual stream is whole on every
+``model`` rank; the backward keeps the rank's block of the gradient),
+and each layer runs the GQA column and row routes on the rank's n_heads
+/ M heads, non-causal, and the gated MLP on its d_ff columns; the
+LayerNorms are replicated.
 """
 from __future__ import annotations
 
@@ -20,10 +28,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import collectives as coll
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (NORM_APPLY, gated_mlp_apply,
                                        init_gated_mlp, init_linear,
                                        linear_apply, make_norm)
+from repro_torch.models.shard_hints import axis_env_size, current_mesh
 from repro_torch.models.transformer import _cycle, _dtype, _stacked
 
 Params = Dict[str, object]
@@ -62,19 +72,25 @@ def init_encoder(gen: torch.Generator, cfg: ModelConfig,
 
 def encoder_apply(p: Params, cfg: ModelConfig, frames: torch.Tensor
                   ) -> torch.Tensor:
-    """frames: (B, S, feat_dim) -> memory (B, S, encoder d_model)."""
+    """frames: (B, S, feat_dim) -> memory (B, S, encoder d_model); under a
+    mesh the rank's rows, whole (the module docstring)."""
     a = cfg.attention
-    h, hd = a.n_heads, a.head_dim
+    h, hd = a.n_heads // axis_env_size("model"), a.head_dim
     norm_apply = NORM_APPLY[cfg.norm]
-    x = linear_apply(p["in_proj"], frames.to(_dtype(cfg)))
+    mesh = current_mesh()
+    x = linear_apply(p["in_proj"], frames.to(_dtype(cfg)), "col")
+    if mesh is not None:
+        x = coll.gather_from_model(x, x.dim() - 1, mesh)
     B, S, _ = x.shape
     for i in range(cfg.encoder.n_layers):
         lp = _cycle(p["layers"], i)
         hh = norm_apply(lp["norm1"], x)
-        q = linear_apply(lp["wq"], hh).reshape(B, S, h, hd)
-        k = linear_apply(lp["wk"], hh).reshape(B, S, h, hd)
-        v = linear_apply(lp["wv"], hh).reshape(B, S, h, hd)
+        if mesh is not None:
+            hh = coll.copy_to_model(hh, mesh)
+        q = linear_apply(lp["wq"], hh, "col").reshape(B, S, h, hd)
+        k = linear_apply(lp["wk"], hh, "col").reshape(B, S, h, hd)
+        v = linear_apply(lp["wv"], hh, "col").reshape(B, S, h, hd)
         y = attn.chunked_attention(q, k, v, causal=False)
-        x = x + linear_apply(lp["wo"], y.reshape(B, S, -1))
+        x = x + linear_apply(lp["wo"], y.reshape(B, S, -1), "row")
         x = x + gated_mlp_apply(lp["ffn"], norm_apply(lp["norm2"], x))
     return norm_apply(p["final_norm"], x)

@@ -19,8 +19,10 @@ gathered over ``data`` before use (``collectives.gather_data``); an
 in-projection is column-parallel (the rank's output columns), an
 out-projection row-parallel (its input rows, the partial products summed
 over ``model``), the embedding vocabulary-parallel (the rank's rows of
-the table).  The caller of a column-parallel group applies
-``collectives.copy_to_model`` to its input once.
+the table, looked up in its block without a gather; the tied
+unembedding gathers the block over ``data``).  The caller of a
+column-parallel group applies ``collectives.copy_to_model`` to its input
+once.
 
 BatchNorm carries its running statistics explicitly (returned as the new
 state) and updates them with the *biased* minibatch variance as
@@ -32,7 +34,7 @@ running estimates match none of them: the paper's non-IID pathology.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -146,12 +148,20 @@ def init_rmsnorm(dim: int, dtype=torch.float32, device=None) -> Params:
                                 device=resolve_device(device))}
 
 
-def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6
-                  ) -> torch.Tensor:
+def rmsnorm_apply(p: Params, x: torch.Tensor, eps: float = 1e-6, *,
+                  total: Optional[Callable] = None,
+                  width: Optional[int] = None) -> torch.Tensor:
     """RMSNorm over the last axis with float32 statistics, the scale
-    applied as ``1 + scale`` (zero-initialised scales are the identity)."""
+    applied as ``1 + scale`` (zero-initialised scales are the identity).
+    Where ``x`` holds a part of the normalised axis (a rank's channels)
+    and ``p`` the scale of that part, ``total`` sums the part's float32
+    sum of squares over the parts and ``width`` is the whole axis's
+    length."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
+    if total is None:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+    else:
+        var = total((xf * xf).sum(dim=-1, keepdim=True)) / width
     y = xf * torch.rsqrt(var + eps)
     return (y * (1.0 + p["scale"].float())).to(x.dtype)
 
@@ -268,28 +278,36 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
 
 def embedding_apply(p: Params, tokens: torch.Tensor,
                     compute_dtype=None) -> torch.Tensor:
-    """The table's rows at ``tokens``.  Under a mesh, vocabulary-parallel:
-    the table's rank block (vocab over ``model``, d over ``data``) is
-    gathered over ``data``, the rank looks up the tokens of its
-    vocabulary rows and zeros the rest, and the lookups are summed over
-    ``model`` (one nonzero term each: the one-device rows, bit for
-    bit)."""
+    """The table's rows at ``tokens``.  Under a mesh, vocabulary-parallel,
+    on the rank's block of the table (vocab over ``model``, d over
+    ``data``), never gathered: every ``data`` rank's tokens are gathered
+    (integers), the rank looks up its d / D columns of each token's row
+    in its vocabulary rows (zeros for the rest) and sends each ``data``
+    rank its tokens' lookups (``all_to_all_data``: the rank receives its
+    tokens' rows, every rank's columns), and the rows are summed over
+    ``model`` (one nonzero term each: the one-device rows, bit for bit).
+    The backward sends each lookup's gradient back to the rank whose
+    columns it read, which adds it to its block's rows."""
     mesh = current_mesh()
     t = p["table"]
-    if mesh is None:
-        if compute_dtype is not None:
-            t = t.to(compute_dtype)
-        return t[tokens]
-    t = coll.gather_data(t, 1, mesh)
     if compute_dtype is not None:
         t = t.to(compute_dtype)
-    n = t.shape[0]
-    local = tokens - mesh.coords.get("model", 0) * n
+    if mesh is None:
+        return t[tokens]
+    n, c = t.shape
+    D = mesh.size_of("data")
+    every = mesh.all_gather_dim(tokens.contiguous(), 0, "data")
+    local = every - mesh.coords.get("model", 0) * n
     mine = (local >= 0) & (local < n)
     rows = t[local.clamp(0, n - 1)]
     rows = torch.where(mine[..., None], rows,
                        torch.zeros((), dtype=rows.dtype, device=rows.device))
-    return coll.reduce_from_model(rows, mesh)
+    # rows (D B, T, c), data rank j's tokens in block j: to their rank,
+    # then the D column blocks received side by side
+    got = coll.all_to_all_data(rows.reshape(-1, c), mesh)
+    got = got.reshape(D, -1, c).transpose(0, 1).reshape(
+        tuple(tokens.shape) + (D * c,))
+    return coll.reduce_from_model(got, mesh)
 
 
 def unembed_apply(p: Params, x: torch.Tensor) -> torch.Tensor:

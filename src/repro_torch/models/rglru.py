@@ -14,6 +14,20 @@ Plain tensor code, no kernel: the reference computes it outside any
 Pallas call.  The decode writes its new conv history and state into the
 cache's own tensors (``transformer.lm_decode`` keeps the cache it was
 given), and returns them.
+
+Under ``shard_hints.activation_sharding(mesh)`` (the train and serve
+steps inside a pod) a ``model`` rank runs its block of the width's
+channels, as the reference places the weights: ``in_x``, ``in_gate``
+and ``conv_w`` split by channel (column-parallel), the scan channel-wise
+and so local, ``out`` row-parallel.  The gates ``w_a`` and ``w_i`` are
+dense (w, w) matrices placed (data, model): the rank's columns of them
+read the conv's output whole, gathered over ``model`` (its gradient
+reduce-scattered back).  The decode cache stays where the reference
+places it: the conv history whole on every ``model`` rank (each rank
+gathers the new row of ``in_x`` over ``model`` and writes it), and h
+whole too where the placement keeps it so (the requests over ``data``:
+the rank's new channels gathered and written), else the rank's
+channels.
 """
 from __future__ import annotations
 
@@ -24,9 +38,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import RGLRUConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import collectives as coll
 from repro_torch.models.layers import (causal_conv, causal_conv_step,
                                        init_linear, init_normal, linear_apply,
                                        softplus)
+from repro_torch.models.shard_hints import current_mesh
 
 Params = Dict[str, object]
 
@@ -56,12 +72,23 @@ def init_rglru(gen: torch.Generator, r: RGLRUConfig, d_model: int, dtype,
     }
 
 
-def _gates(p: Params, xw: torch.Tensor):
-    """(a, sqrt(1 - a^2) * i * x), float32."""
+def _cols(n_local: int, mesh) -> slice:
+    """The ``model`` rank's channels of the width, ``n_local`` of them
+    (every channel without a mesh)."""
+    lo = 0 if mesh is None else mesh.coords.get("model", 0) * n_local
+    return slice(lo, lo + n_local)
+
+
+def _gates(p: Params, xw: torch.Tensor, mesh=None):
+    """(a, sqrt(1 - a^2) * i * x), float32, on the channels of ``xw``;
+    under a mesh the rank's, the gates' input ``xw`` gathered whole."""
     xf = xw.float()
-    r_g = torch.sigmoid(linear_apply(p["w_a"], xf))
-    i_g = torch.sigmoid(linear_apply(p["w_i"], xf))
-    log_a = -_C * softplus(p["lam"]) * r_g              # (..., w), <= 0
+    xin = xf if mesh is None else coll.gather_model(
+        xw, xw.dim() - 1, mesh).float()
+    r_g = torch.sigmoid(linear_apply(p["w_a"], xin, "col"))
+    i_g = torch.sigmoid(linear_apply(p["w_i"], xin, "col"))
+    lam = p["lam"][_cols(xw.shape[-1], mesh)]
+    log_a = -_C * softplus(lam) * r_g                   # (..., w), <= 0
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-12, 1.0))
     return a, beta * i_g * xf
@@ -108,14 +135,24 @@ def scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
+def _in(x: torch.Tensor, mesh) -> torch.Tensor:
+    """*f* on the block's input under a mesh (in_x and in_gate are
+    column-parallel)."""
+    return x if mesh is None else coll.copy_to_model(x, mesh)
+
+
 def rglru_apply(p: Params, r: RGLRUConfig, x: torch.Tensor) -> torch.Tensor:
-    """Full-sequence path.  x: (B, T, d_model)."""
-    gate = F.gelu(linear_apply(p["in_gate"], x), approximate="tanh")
-    xw = _conv(linear_apply(p["in_x"], x), p["conv_w"], p["conv_b"])
-    a, b = _gates(p, xw)                                 # (B,T,w) fp32
+    """Full-sequence path.  x: (B, T, d_model); under a mesh on the rank's
+    channels, ``out`` row-parallel."""
+    mesh = current_mesh()
+    x = _in(x, mesh)
+    gate = F.gelu(linear_apply(p["in_gate"], x, "col"), approximate="tanh")
+    xw = linear_apply(p["in_x"], x, "col")
+    xw = _conv(xw, p["conv_w"], p["conv_b"][_cols(xw.shape[-1], mesh)])
+    a, b = _gates(p, xw, mesh)                           # (B,T,w) fp32
     h = scan(a, b)
     y = h.to(x.dtype) * gate
-    return linear_apply(p["out"], y)
+    return linear_apply(p["out"], y, "row")
 
 
 def rglru_init_state(r: RGLRUConfig, d_model: int, batch: int, dtype,
@@ -133,15 +170,23 @@ def rglru_init_state(r: RGLRUConfig, d_model: int, batch: int, dtype,
 def rglru_decode(p: Params, r: RGLRUConfig, x: torch.Tensor, state: Params
                  ) -> Tuple[torch.Tensor, Params]:
     """One-token decode.  x: (B, 1, d_model).  The new conv history and h
-    are written into ``state``'s tensors, which are returned."""
-    gate = F.gelu(linear_apply(p["in_gate"], x[:, 0]), approximate="tanh")
-    xw_t = linear_apply(p["in_x"], x[:, 0])
-    hist = torch.cat([state["conv"], xw_t[:, None]], dim=1)
-    xw = causal_conv_step(hist, p["conv_w"], p["conv_b"]).to(x.dtype)
-    a, b = _gates(p, xw)
-    h = a * state["h"] + b
+    are written into ``state``'s tensors, which are returned.  Under a
+    mesh ``state`` is the rank's block: the conv history whole, h whole
+    or the rank's channels (the module docstring)."""
+    mesh = current_mesh()
+    x0 = _in(x[:, 0], mesh)
+    gate = F.gelu(linear_apply(p["in_gate"], x0, "col"), approximate="tanh")
+    xw_t = linear_apply(p["in_x"], x0, "col")
+    cols = _cols(xw_t.shape[-1], mesh)
+    row = xw_t if mesh is None else coll.gather_model(xw_t, 1, mesh)
+    hist = torch.cat([state["conv"], row[:, None]], dim=1)
+    xw = causal_conv_step(hist[..., cols], p["conv_w"],
+                          p["conv_b"][cols]).to(x.dtype)
+    a, b = _gates(p, xw, mesh)
+    whole = state["h"].shape[-1] != xw.shape[-1]
+    h = a * (state["h"][:, cols] if whole else state["h"]) + b
     y = h.to(x.dtype) * gate
-    out = linear_apply(p["out"], y)[:, None]
+    out = linear_apply(p["out"], y, "row")[:, None]
     state["conv"].copy_(hist[:, 1:])
-    state["h"].copy_(h)
+    state["h"].copy_(coll.gather_model(h, 1, mesh) if whole else h)
     return out, state

@@ -11,6 +11,25 @@ Plain tensor code, no kernel: the reference computes it outside any
 Pallas call.  The decode writes its new conv history and SSD state into
 the cache's own tensors (``transformer.lm_decode`` keeps the cache it
 was given), and returns them.
+
+Under ``shard_hints.activation_sharding(mesh)`` (the train and serve
+steps inside a pod) the weights are the reference's blocks, which do not
+follow the heads: ``in_proj``'s columns [z | x | B | C | dt] and
+``conv_w``'s channels [x | B | C] are cut into M contiguous blocks over
+``model``.  So the rank computes its column block of ``in_proj`` and
+gathers that activation whole over ``model`` (tokens x its width a
+layer, against d_model x its width for the weight), takes its n_heads /
+M heads' z, x and dt and all of B and C from it, runs the conv on those
+channels with ``conv_w`` gathered whole (K x channels), the SSD on its
+heads, and ``out_proj`` row-parallel (its rows are the rank's heads'
+channels where M divides n_heads).  The gated RMSNorm is taken over all
+of d_inner: its sum of squares is summed over ``model``, and so is that
+sum's gradient (``collectives.sum_over_model``).  The decode keeps the
+reference's cache placement: the conv history whole on every ``model``
+rank, the SSD state's head_dim split over ``model``; the update and
+the readout are elementwise in head_dim, so the rank updates its
+head_dim block of every head (the conv runs on every channel, whole),
+and the readout's blocks are gathered over ``model`` before the norm.
 """
 from __future__ import annotations
 
@@ -21,9 +40,11 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.device import resolve_device
+from repro_torch.launch import collectives as coll
 from repro_torch.models.layers import (causal_conv, causal_conv_step,
                                        init_linear, init_normal, init_rmsnorm,
                                        linear_apply, rmsnorm_apply, softplus)
+from repro_torch.models.shard_hints import current_mesh
 
 Params = Dict[str, object]
 
@@ -133,23 +154,67 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y, S
 
 
+def _rank_heads(s: SSMConfig, mesh) -> Tuple[int, int]:
+    """(the heads this ``model`` rank runs, its first head): every head
+    without a mesh."""
+    if mesh is None:
+        return s.n_heads, 0
+    hl = s.n_heads // mesh.size_of("model")
+    return hl, mesh.coords.get("model", 0) * hl
+
+
+def _whole_proj(p: Params, x: torch.Tensor, mesh) -> torch.Tensor:
+    """``in_proj``'s output, whole: under a mesh the rank's column block
+    gathered over ``model`` (its gradient reduce-scattered back)."""
+    if mesh is None:
+        return linear_apply(p["in_proj"], x)
+    proj = linear_apply(p["in_proj"], coll.copy_to_model(x, mesh), "col")
+    return coll.gather_model(proj, proj.dim() - 1, mesh)
+
+
+def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor, di: int,
+                mesh, c0: int) -> torch.Tensor:
+    """``rmsnorm_apply(p["norm"], y * silu(z))`` over all d_inner ``di``
+    channels, of which ``y`` and ``z`` hold the ``model`` rank's from
+    channel ``c0`` on: the float32 sum of squares summed over ``model``,
+    its gradient as well."""
+    g = y * F.silu(z)
+    if mesh is None:
+        return rmsnorm_apply(p["norm"], g)
+    scale = p["norm"]["scale"][c0:c0 + g.shape[-1]]
+    return rmsnorm_apply({"scale": scale}, g, width=di,
+                         total=lambda v: coll.sum_over_model(v, mesh))
+
+
 def ssm_apply(p: Params, s: SSMConfig, d_model: int, x: torch.Tensor
               ) -> torch.Tensor:
-    """Full-sequence (train/prefill) path.  x: (B, T, d_model)."""
+    """Full-sequence (train/prefill) path.  x: (B, T, d_model); under a
+    mesh on the rank's heads (the module docstring)."""
     Bsz, T, _ = x.shape
     di = d_inner(s, d_model)
-    proj = linear_apply(p["in_proj"], x)
+    mesh = current_mesh()
+    hl, h0 = _rank_heads(s, mesh)
+    c0, cl = h0 * s.head_dim, hl * s.head_dim
+    proj = _whole_proj(p, x, mesh)
     z, xbc, dt = _split_proj(s, proj, d_model)
-    xbc = _causal_conv(xbc, p["conv_w"], p["conv_b"])
-    xs = xbc[..., :di].reshape(Bsz, T, s.n_heads, s.head_dim)
-    B_in = xbc[..., di:di + s.d_state]
-    C_in = xbc[..., di + s.d_state:]
-    dt = softplus(dt.float() + p["dt_bias"])
-    y, _ = ssd_chunked(xs, dt, p["A_log"], B_in, C_in, p["D"],
+    conv_w, conv_b = p["conv_w"], p["conv_b"]
+    if mesh is not None:
+        # the rank's heads' z, x and dt, and all of B and C
+        conv_w = coll.gather_model(conv_w, 1, mesh)
+        pick = lambda t: torch.cat([t[..., c0:c0 + cl], t[..., di:]], -1)
+        z, dt = z[..., c0:c0 + cl], dt[..., h0:h0 + hl]
+        xbc, conv_w, conv_b = pick(xbc), pick(conv_w), pick(conv_b)
+    xbc = _causal_conv(xbc, conv_w, conv_b)
+    xs = xbc[..., :cl].reshape(Bsz, T, hl, s.head_dim)
+    B_in = xbc[..., cl:cl + s.d_state]
+    C_in = xbc[..., cl + s.d_state:]
+    heads = slice(h0, h0 + hl)
+    dt = softplus(dt.float() + p["dt_bias"][heads])
+    y, _ = ssd_chunked(xs, dt, p["A_log"][heads], B_in, C_in, p["D"][heads],
                        chunk=s.chunk)
-    y = y.reshape(Bsz, T, di).to(x.dtype)
-    y = rmsnorm_apply(p["norm"], y * F.silu(z))
-    return linear_apply(p["out_proj"], y)
+    y = y.reshape(Bsz, T, cl).to(x.dtype)
+    y = _gated_norm(p, y, z, di, mesh, c0)
+    return linear_apply(p["out_proj"], y, "row")
 
 
 def ssm_init_state(s: SSMConfig, d_model: int, batch: int, dtype,
@@ -168,27 +233,42 @@ def ssm_init_state(s: SSMConfig, d_model: int, batch: int, dtype,
 def ssm_decode(p: Params, s: SSMConfig, d_model: int, x: torch.Tensor,
                state: Params) -> Tuple[torch.Tensor, Params]:
     """One-token decode.  x: (B, 1, d_model).  The new conv history and
-    SSD state are written into ``state``'s tensors, which are returned."""
+    SSD state are written into ``state``'s tensors, which are returned.
+    Under a mesh ``state`` is the rank's block: the conv history whole,
+    the SSD state (B, n_heads, head_dim / M, d_state) (the module
+    docstring)."""
     Bsz = x.shape[0]
     di = d_inner(s, d_model)
-    proj = linear_apply(p["in_proj"], x[:, 0])
+    mesh = current_mesh()
+    proj = _whole_proj(p, x[:, 0], mesh)
     z, xbc, dt = _split_proj(s, proj, d_model)
     hist = torch.cat([state["conv"], xbc[:, None]], dim=1)    # (B,K,Ch)
-    xbc_t = F.silu(causal_conv_step(hist, p["conv_w"], p["conv_b"])
+    conv_w = p["conv_w"] if mesh is None else coll.gather_model(
+        p["conv_w"], 1, mesh)
+    xbc_t = F.silu(causal_conv_step(hist, conv_w, p["conv_b"])
                    ).to(x.dtype)
     xs = xbc_t[..., :di].reshape(Bsz, s.n_heads, s.head_dim)
     B_in = xbc_t[..., di:di + s.d_state].float()
     C_in = xbc_t[..., di + s.d_state:].float()
     dt_t = softplus(dt.float() + p["dt_bias"])                 # (B,h)
     decay = torch.exp(dt_t * -torch.exp(p["A_log"]))           # (B,h)
+    # the rank's head_dim block of every head (all of it without a mesh)
+    pl = state["ssd"].shape[2]
+    lo = 0 if pl == s.head_dim else mesh.coords["model"] * pl
+    xs = xs[..., lo:lo + pl]
     xd = xs.float() * dt_t[..., None]
     S = decay[:, :, None, None] * state["ssd"] + torch.einsum(
         "bn,bhp->bhpn", B_in, xd)
     y = torch.einsum("bn,bhpn->bhp", C_in, S)
     y = y + xs.float() * p["D"][None, :, None]
+    if pl != s.head_dim:
+        y = coll.gather_model(y, 2, mesh)
     y = y.reshape(Bsz, di).to(x.dtype)
     y = rmsnorm_apply(p["norm"], y * F.silu(z))
-    out = linear_apply(p["out_proj"], y)[:, None]
+    if mesh is not None:                  # the rank's heads, out_proj's rows
+        hl, h0 = _rank_heads(s, mesh)
+        y = y[:, h0 * s.head_dim:(h0 + hl) * s.head_dim]
+    out = linear_apply(p["out_proj"], y, "row")[:, None]
     state["conv"].copy_(hist[:, 1:])
     state["ssd"].copy_(S)
     return out, state

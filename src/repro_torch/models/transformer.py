@@ -43,12 +43,13 @@ from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import sharding
-from repro_torch.launch.collectives import copy_to_model
+from repro_torch.launch.collectives import copy_to_model, gather_from_model
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.shard_hints import activation_sharding, current_mesh
+from repro_torch.models.shard_hints import (activation_sharding,
+                                            axis_env_size, current_mesh)
 from repro_torch.models.layers import (NORM_APPLY, embedding_apply,
                                        gated_mlp_apply, init_embedding,
                                        init_gated_mlp, init_linear,
@@ -151,16 +152,22 @@ def _init_xattn(gen: torch.Generator, cfg: ModelConfig, dt,
 def _xattn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  memory: torch.Tensor) -> torch.Tensor:
     """Cross-attention of x (B, T, d) to ``memory`` (B, S, encoder
-    d_model): no mask and no RoPE, any T and S (T = 1 at decode)."""
+    d_model): no mask and no RoPE, any T and S (T = 1 at decode).  Under a
+    mesh on the rank's n_heads / M heads: ``wq`` reads the residual, ``wk``
+    and ``wv`` the memory (to which ``lm_apply`` applied *f* once), each
+    column-parallel, ``wo`` row-parallel."""
     a = cfg.attention
     B, T, _ = x.shape
     S = memory.shape[1]
-    h, hd = a.n_heads, a.head_dim
-    q = linear_apply(p["wq"], x).reshape(B, T, h, hd)
-    k = linear_apply(p["wk"], memory).reshape(B, S, h, hd)
-    v = linear_apply(p["wv"], memory).reshape(B, S, h, hd)
+    h, hd = a.n_heads // axis_env_size("model"), a.head_dim
+    mesh = current_mesh()
+    if mesh is not None:
+        x = copy_to_model(x, mesh)
+    q = linear_apply(p["wq"], x, "col").reshape(B, T, h, hd)
+    k = linear_apply(p["wk"], memory, "col").reshape(B, S, h, hd)
+    v = linear_apply(p["wv"], memory, "col").reshape(B, S, h, hd)
     out = attn.chunked_attention(q, k, v, causal=False)
-    return linear_apply(p["wo"], out.reshape(B, T, -1))
+    return linear_apply(p["wo"], out.reshape(B, T, -1), "row")
 
 
 def _xattn_and_ffn(p: Params, cfg: ModelConfig, sig: Tuple,
@@ -320,12 +327,18 @@ def body_sigs(cfg: ModelConfig) -> List[Tuple]:
 def embed_inputs(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  patches: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The text's embeddings scaled by √d_model; for the VLM, with
-    ``patches`` (B, n_vis, feat_dim) projected and prepended."""
+    ``patches`` (B, n_vis, feat_dim) projected and prepended.  Under a
+    mesh the projector is column-parallel and its output gathered whole
+    over ``model``, as the residual stream is (the backward keeps the
+    rank's block of the gradient)."""
     dt = _dtype(cfg)
     x = embedding_apply(p["embed"], tokens, compute_dtype=dt)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     if cfg.modality.kind == "vision" and patches is not None:
-        vis = linear_apply(p["projector"], patches.to(dt))
+        vis = linear_apply(p["projector"], patches.to(dt), "col")
+        mesh = current_mesh()
+        if mesh is not None:
+            vis = gather_from_model(vis, vis.dim() - 1, mesh)
         x = torch.cat([vis, x], dim=1)
     return x
 
@@ -365,6 +378,10 @@ def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     nothing."""
     prefix, n_cycles, P, suffix = layer_plan(cfg)
     x = embed_inputs(p, cfg, tokens, patches)
+    if memory is not None and current_mesh() is not None:
+        # *f* once: every layer's wk and wv add their part of the memory's
+        # gradient, summed over ``model`` in one all-reduce
+        memory = copy_to_model(memory, current_mesh())
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -415,13 +432,14 @@ def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
     (a window's layer fewer).  On a ``mesh`` with a ``data`` or ``model``
     axis above 1, only this rank's block of it, as
     ``sharding.cache_shardings`` places it (``batch_sharded`` defaults to
-    the reference's ``batch >= 8``): empty slots (position -1) and zeros,
+    ``sharding.default_batch_sharded``): empty slots (position -1) and zeros,
     allocated at the block's shape."""
     device = resolve_device(device)
     if sharding.intra_pod(mesh):
         whole = lm_init_cache(cfg, batch, cache_len, long_mode, "meta")
         if batch_sharded is None:
-            batch_sharded = batch >= 8
+            batch_sharded = sharding.default_batch_sharded(cfg, batch, mesh)
+        sharding.check_cache_placement(cfg, mesh, batch_sharded)
         return pytree.tree_map(
             lambda t: torch.full(tuple(t.shape), -1 if t.dtype ==
                                  torch.int32 else 0, dtype=t.dtype,

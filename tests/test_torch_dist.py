@@ -284,14 +284,17 @@ def _rank_checks(rank, dev, P, out_dir):
     res["adpsgd0"] = all(torch.equal(x, y) for x, y in
                          zip(outs["adpsgd"], outs["dpsgd"]))
 
-    # (vi) the mesh refuses a family its data and model axes do not take
+    # (vi) the mesh refuses a width its data and model axes do not split:
+    # an RG-LRU width of 255 (over data, the gates' rows)
     refused = []
+    cfg = get_config("recurrentgemma-2b").reduced()
+    cfg = dataclasses.replace(cfg, rglru=dataclasses.replace(
+        cfg.rglru, lru_width=255))
     for shape in ((P // 2, 2, 1), (P // 2, 1, 2)):
         try:
-            mesh_lib.make_mesh(shape, device=dev, cfg=get_config(
-                "recurrentgemma-2b").reduced())
+            mesh_lib.make_mesh(shape, device=dev, cfg=cfg)
         except ValueError as e:
-            refused.append("A11c" in str(e))
+            refused.append("lru_width" in str(e))
     res["refused"] = refused
     return res
 
@@ -445,10 +448,10 @@ def test_checkpoint_of_ranks_is_the_one_card_checkpoint(ranks, strategy):
 
 
 def test_mesh_refuses_data_and_model_axes(ranks):
-    """A data or model axis above 1 takes the dense GQA and the MLA (and
-    MoE) families (``test_torch_intrapod.py``,
-    ``test_torch_intrapod_moe.py``); the RG-LRU family raises, naming
-    ROADMAP A11c."""
+    """A data or model axis above 1 takes every family at the widths it
+    splits (``test_torch_intrapod.py``, ``test_torch_intrapod_moe.py``,
+    ``test_torch_intrapod_families.py``); an RG-LRU width neither axis
+    splits raises, naming it."""
     _, _, results = ranks
     assert all(r["refused"] == [True, True] for r in results)
 

@@ -219,15 +219,44 @@ def _refused(fn):
     return None, rec.calls
 
 
-#: configs no mesh with a data or model axis takes: (case, config)
-BAD = {"rglru": lambda: get_config("recurrentgemma-2b").reduced(),
-       "encdec": lambda: get_config("seamless-m4t-large-v2").reduced(),
-       "ssm": lambda: get_config("mamba2-780m").reduced(),
+def _lru_width(width):
+    cfg = get_config("recurrentgemma-2b").reduced()
+    return dataclasses.replace(cfg, rglru=dataclasses.replace(
+        cfg.rglru, lru_width=width))
+
+
+def _encoder_width(width):
+    cfg = get_config("seamless-m4t-large-v2").reduced()
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(
+        cfg.encoder, d_model=width))
+
+
+def _ssm_heads(heads, head_dim, d_model):
+    cfg = get_config("mamba2-780m").reduced()
+    return dataclasses.replace(cfg, d_model=d_model, ssm=dataclasses.replace(
+        cfg.ssm, n_heads=heads, head_dim=head_dim))
+
+
+#: configs no mesh with a data or model axis takes: (case, config).  Every
+#: family is placed inside a pod; each case is a width the axes do not
+#: split: the RG-LRU's width of 255 (over ``model``, and over ``data``
+#: for the gates' rows), the encoder's d_model of 255 (both axes), an SSM
+#: of 3 heads (``model`` only), 3 KV heads (``model`` only) and a d_model
+#: of 255
+BAD = {"rglru": lambda: _lru_width(255),
+       "encdec": lambda: _encoder_width(255),
+       "ssm": lambda: _ssm_heads(3, 256, 384),
        "kv_heads": lambda: dataclasses.replace(_cfg(), attention=dataclasses.
                                                replace(_cfg().attention,
                                                        n_heads=6,
                                                        n_kv_heads=3)),
        "d_model": lambda: dataclasses.replace(_cfg(), d_model=255)}
+#: the dimension each case's refusal names
+NAMED = {"rglru": "lru_width", "encdec": "encoder d_model",
+         "ssm": "ssm n_heads", "kv_heads": "n_kv_heads",
+         "d_model": "d_model"}
+#: the cases a ``model`` axis alone refuses
+MODEL_ONLY = ("ssm", "kv_heads")
 
 
 # ---------------------------------------------------------------------------
@@ -573,18 +602,16 @@ def test_checkpoint_on_the_mesh_is_the_one_card_checkpoint(ref, ranks):
 @pytest.mark.parametrize("where", ["make_mesh", "make_train_step"])
 @pytest.mark.parametrize("case", list(BAD))
 def test_refusals_come_before_any_collective(four, case, where):
-    """A family the port does not place inside a pod yet (the SSM, RG-LRU
-    and enc-dec, naming ROADMAP A11c), KV heads or a width the axes do not
-    divide: ``ValueError`` from ``make_mesh(..., cfg=)`` and from
-    ``make_train_step`` before any collective or process group."""
+    """A width the axes do not divide, of each family (the RG-LRU's width,
+    the encoder's d_model, the SSM's heads), KV heads or d_model:
+    ``ValueError`` from ``make_mesh(..., cfg=)`` and from
+    ``make_train_step`` before any collective or process group, naming
+    the dimension."""
     _, results = four
     for r in results:
         text, calls = r["refused"][case, where]
         assert text is not None and calls == [], (text, calls)
-        if case in ("rglru", "encdec", "ssm"):
-            assert "A11c" in text, text
-        else:
-            assert case in text, text
+        assert NAMED[case] in text, text
 
 
 def test_a_batch_that_does_not_split_over_data_is_refused(four):
@@ -600,11 +627,11 @@ def test_a_batch_that_does_not_split_over_data_is_refused(four):
                          ids=_id)
 def test_check_layout_refuses_what_the_axes_cannot_take(case, shape):
     mesh = mesh_lib.Mesh(shape, mesh_lib.AXES)
-    if case == "d_model" and shape[1] == 1 or case == "kv_heads" and \
+    if case == "d_model" and shape[1] == 1 or case in MODEL_ONLY and \
             shape[2] == 1:
         sharding.check_layout(BAD[case](), mesh)     # no such axis: taken
         return
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match=NAMED[case]):
         sharding.check_layout(BAD[case](), mesh)
 
 

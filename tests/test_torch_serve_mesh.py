@@ -346,21 +346,32 @@ def test_ranks_hold_their_coordinates(ranks):
 # Refusals, on mesh descriptions (no process group)
 # ---------------------------------------------------------------------------
 
-OTHER = ("mamba2-780m", "recurrentgemma-2b", "seamless-m4t-large-v2",
-         "phi-3-vision-4.2b")
+#: the SSM, RG-LRU, enc-dec and VLM families at full width, each on a mesh
+#: one of its widths does not split, and the dimension the refusal names
+OTHER = {"mamba2-780m": ((1, 1, 32), "ssm n_heads"),
+         "recurrentgemma-2b": ((1, 1, 4), "n_heads"),
+         "seamless-m4t-large-v2": ((1, 1, 4), "vocab"),
+         "phi-3-vision-4.2b": ((1, 3, 1), "feat_dim")}
 
 
-@pytest.mark.parametrize("arch", OTHER)
+@pytest.mark.parametrize("arch", list(OTHER))
 @pytest.mark.parametrize("mode", ["train", "serve"])
 def test_other_families_are_refused_naming_a11c(arch, mode):
-    mesh = Mesh((1, 2, 2), AXES)
-    with pytest.raises(ValueError, match="A11c"):
-        sharding.check_layout(_cfg(arch), mesh, mode=mode)
+    """Every family is placed inside a pod (``test_torch_intrapod_
+    families.py``); what each still gets refused is a width the axis does
+    not split: mamba2's 48 heads on 32 model ranks, recurrentgemma's 10
+    heads on 4, seamless' vocabulary of 256,206 on 4 and phi-3-vision's
+    1024 frontend features (the projector's rows) on 3 data ranks,
+    named, by ``check_layout`` and by the serve steps."""
+    shape, what = OTHER[arch]
+    cfg, mesh = get_config(arch), Mesh(shape, AXES)
+    with pytest.raises(ValueError, match=what):
+        sharding.check_layout(cfg, mesh, mode=mode)
     if mode == "serve":
-        with pytest.raises(ValueError, match="A11c"):
-            steps.make_prefill_step(_cfg(arch), mesh=mesh)
-        with pytest.raises(ValueError, match="A11c"):
-            steps.make_serve_step(_cfg(arch), mesh=mesh)
+        with pytest.raises(ValueError, match=what):
+            steps.make_prefill_step(cfg, mesh=mesh)
+        with pytest.raises(ValueError, match=what):
+            steps.make_serve_step(cfg, mesh=mesh)
 
 
 @pytest.mark.parametrize("arch", MLA)
