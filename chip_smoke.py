@@ -404,6 +404,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -414,9 +415,11 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
+# H100 SXM, NVIDIA data sheet: HBM3 bytes/s, bfloat16 tensor-core FLOP/s
+from repro_torch.launch.analysis import (  # noqa: E402
+    BF16_FLOPS_PER_S, HBM_BYTES_PER_S)
+
 FP32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside the tensor cores
-BF16_FLOPS_PER_S = 989e12       # H100 SXM, bfloat16 tensor cores, dense
 STEPS = 30
 CPU_CHECK_STEPS = 5
 K = 5
@@ -1570,6 +1573,13 @@ def _pod_axis(parts):
             for t_ in pytree.leaves(parts[k_])]
 
 
+def _requested() -> int:
+    """Bytes the live CUDA tensors asked the caching allocator for, before
+    its rounding (512 B a block; a large block left unsplit keeps up to
+    1 MiB more in ``memory_allocated``)."""
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
+
+
 def _own_rows(t, axis, rank, rows):
     """Rank ``rank``'s ``rows`` pods of a stacked tensor's pod ``axis``."""
     return t.narrow(axis, rank * rows, rows)
@@ -1601,6 +1611,8 @@ def dist_rank(rank: int, dev: torch.device) -> dict:
     from repro_torch.configs.base import CommConfig, FabricConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import ops
+    from repro_torch.launch import meta as meta_lib
+    from repro_torch.launch import sharding
     from repro_torch.launch import steps as lsteps
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as lm
@@ -1632,15 +1644,41 @@ def dist_rank(rank: int, dev: torch.device) -> dict:
         torch.cuda.reset_peak_memory_stats()
         step = lsteps.make_train_step(cfg, comm, mesh=mesh, lr=TRAIN_LR,
                                       remat=True)
+        standin = rank == 0 and strategy in STANDIN_RUNS
+        m0 = torch.cuda.memory_allocated()
+        q0 = _requested()
         kw = operands(comm, mesh)
         box = [lsteps.make_train_state(base, comm, TRAIN_PODS, mesh=mesh),
                None]
+        if standin:         # phase 17 (b): the state's and operands' bytes,
+            #                 the rank's rows of the batch
+            placed = sharding.batch_shardings(batches[0], mesh,
+                                              pod_stacked=True)
+            rec = {"arg_bytes": _requested() - q0,
+                   "arg_alloc_bytes": torch.cuda.memory_allocated() - m0,
+                   "arg_tensors": len(meta_lib.tensors_of((box[0], kw))),
+                   "rows": {k_: (tuple(sharding.local_block(
+                       v_, placed[k_], mesh).shape), str(v_.dtype))
+                       for k_, v_ in batches[0].items()}}
 
         def one(i):
             box[0], box[1] = step(box[0], batches[i], i, **kw)
             losses.append(box[1]["loss"])
         losses = []
-        one(0)                                               # warm-up
+        if standin:             # phase 17 (b): the warm-up step recorded
+            before = dict(ops.launches)
+            m_step = torch.cuda.memory_allocated()
+            with meta_lib.record_collectives(mesh) as colls:
+                one(0)
+            torch.cuda.synchronize()
+            rec.update(
+                collectives=[c_.key() for c_ in colls],
+                launches={k_: n_ - before[k_] for k_, n_ in
+                          ops.launches.items() if n_ != before[k_]},
+                max_allocated=torch.cuda.max_memory_allocated(),
+                step_rise=torch.cuda.max_memory_allocated() - m_step)
+        else:
+            one(0)                                           # warm-up
         torch.cuda.synchronize()
         for k_ in ops.launches:
             ops.launches[k_] = 0
@@ -1671,6 +1709,8 @@ def dist_rank(rank: int, dev: torch.device) -> dict:
              "finite": all(bool(torch.isfinite(t_).all())
                            for t_ in pytree.leaves(box[0]["params"])),
              "metrics": {k_: float(v_) for k_, v_ in box[1].items()}}
+        if standin:
+            r["standin"] = rec
         del box, step
         (parts, kw_, got), = calls
         del calls
@@ -1895,12 +1935,16 @@ def src_many_times(dev: torch.device) -> dict:
     return r
 
 
-def dist_phase(dev: torch.device):
+def dist_phase(dev: torch.device, background=None):
     """Phase 12: the pod axis across processes.  The kernels are built (the
     parent built them in phase 2); the parent empties its CUDA cache, then
     ``procs.spawn`` starts two gloo ranks on the card (``dist_rank``) and
     one NCCL rank (``dist_nccl_rank``); every check is gated here.
-    Returns (summary, the kernels' phase 12 figures by kernel name)."""
+    ``background``, a thread, is started just before the gloo ranks
+    (phase 17's sweep, host work on ``meta`` tensors while the parent
+    waits).  Returns (summary, the kernels' phase 12 figures by kernel
+    name); the summary's ``"standin"`` holds rank 0's phase 17 (b)
+    records."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch import procs
     t_phase = time.perf_counter()
@@ -1918,6 +1962,8 @@ def dist_phase(dev: torch.device):
           f"plain version max |err| {mix_t['max_abs_err']:.3g}, "
           f"{mix_t['differ']} entries differ (gate: bit for bit)", flush=True)
     torch.cuda.empty_cache()
+    if background is not None:
+        background.start()
     t0 = time.perf_counter()
     ranks = procs.spawn(dist_rank, DIST_RANKS, backend="gloo", device=dev,
                         timeout=DIST_TIMEOUT)
@@ -1928,7 +1974,9 @@ def dist_phase(dev: torch.device):
                    "adpsgd": {"neighbor_mix_src": 2}}
     summary = {"ranks": DIST_RANKS, "backend": "gloo", "strategies": {},
                "cut_by_rank": [r_["cut"] for r_ in ranks],
-               "gloo_spawn_s": t_gloo, "parent_allocated_gb": parent_gb}
+               "gloo_spawn_s": t_gloo, "parent_allocated_gb": parent_gb,
+               "standin": {s_: ranks[0]["strategies"][s_]["standin"]
+                           for s_ in STANDIN_RUNS}}
     tokens = TRAIN_PODS * TRAIN_B * TRAIN_T
     for strategy, _ in TRAIN_RUNS:
         rs = [r_["strategies"][strategy] for r_ in ranks]
@@ -4692,6 +4740,168 @@ def families_phase(dev: torch.device):
 
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the dry-run stand-in against the card
+# ---------------------------------------------------------------------------
+
+#: phase 12's strategies whose first step rank 0 records for phase 17 (b)
+STANDIN_RUNS = ("bsp", "dpsgd")
+#: the stand-in's per-tensor slack against the caching allocator, which
+#: rounds each block up to a multiple of 512 bytes
+ALLOC_ROUND = 512
+#: how long phase 17 waits for its sweep beyond phase 12 (seconds)
+SWEEP_TIMEOUT = 300
+
+
+class StandinSweep(threading.Thread):
+    """Phase 17 (a): the stand-in's audit matrix (``dryrun.iter_combos()``:
+    the reduced qwen3-0.6b on ``SWEEP_MESH``, 22 rows), traced on ``meta``
+    tensors on the host in a thread beside phase 12's gloo ranks, while
+    the parent waits for them.  Every row is kept, a failed one with its
+    error; ``rows``, ``seconds`` and ``error`` (an exception that ended
+    the thread) are read after ``join``."""
+
+    def __init__(self):
+        super().__init__(name="standin-sweep", daemon=True)
+        self.rows, self.seconds, self.error = [], None, None
+
+    def run(self):
+        from repro_torch.launch import dryrun
+        t0 = time.perf_counter()
+        try:
+            mesh = dryrun._parse_mesh(dryrun.SWEEP_MESH)
+            for shape, strategy, topology in dryrun.iter_combos():
+                try:
+                    self.rows.append(dryrun.dryrun_one(
+                        dryrun.SWEEP_ARCH, shape, strategy=strategy,
+                        topology=topology, reduced=True, mesh=mesh,
+                        verbose=False))
+                except Exception as e:  # a failed row is kept, as the
+                    #                     stand-in's sweep keeps it
+                    self.rows.append({"shape": shape, "strategy": strategy,
+                                      "topology": topology, "ok": False,
+                                      "error": f"{type(e).__name__}: {e}"})
+        except BaseException as e:  # reported by standin_phase
+            self.error = f"{type(e).__name__}: {e}"
+        self.seconds = time.perf_counter() - t0
+
+
+def standin_phase(sweep: StandinSweep, dist12: dict, smi: str) -> dict:
+    """Phase 17: (a) the sweep's rows, each ``ok``, each gossip row's
+    exchange on the pod axis alone, above 0 bytes and free of findings;
+    (b) phase 12's bsp and dpsgd steps (qwen3-0.6b at full width cut to
+    ``DIST_TIMED_LAYERS``, bf16, 2 pods of TRAIN_B x TRAIN_T, remat) traced
+    by the stand-in for rank 0 of a ``MetaMesh((2, 1, 1))``, against rank
+    0's run: the collective records equal entry for entry, each kernel's
+    launches over the step equal the stand-in's count, the stand-in's
+    state and operand bytes within ``ALLOC_ROUND`` a tensor of the bytes
+    rank 0's state and operands asked the allocator for
+    (``requested_bytes``; what ``memory_allocated`` added, the allocator's
+    blocks, is reported beside it), and its rows of the batch of the rank's
+    shapes (phase 12 feeds int64 token ids where the specs, and so the
+    stand-in, have int32: the dtypes are reported).  The
+    stand-in's peak against ``max_memory_allocated`` and its largest
+    roofline term against the measured median step are reported, not
+    gated: its bytes are unfused traffic and its rates the data sheet's.
+    Adds no spawn."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import dryrun, meta
+    t_phase = time.perf_counter()
+    sweep.join(timeout=SWEEP_TIMEOUT)
+    waited = time.perf_counter() - t_phase
+    assert not sweep.is_alive(), "the stand-in sweep did not finish"
+    assert sweep.error is None, sweep.error
+    rows = sweep.rows
+    gossip = [r_ for r_ in rows if r_.get("strategy") in ("dpsgd", "adpsgd")]
+    print(f"(a) the stand-in's audit sweep (reduced {dryrun.SWEEP_ARCH} on "
+          f"{dryrun.SWEEP_MESH}): {sum(r_['ok'] for r_ in rows)} of "
+          f"{len(rows)} rows ok in {sweep.seconds:.2f} s on the host beside "
+          f"phase 12 (phase 17 waited {waited:.2f} s for it); {len(gossip)} "
+          "gossip rows", flush=True)
+    assert len(rows) == 22 and all(r_["ok"] for r_ in rows), [
+        r_.get("error") for r_ in rows if not r_["ok"]]
+    for r_ in gossip:
+        pex = r_["pod_exchange"]
+        assert pex["pod_axis_only"] and pex[
+            "permute_cross_gbytes_per_dev"] > 0, (r_["strategy"], pex)
+        assert r_["audit"]["findings"] == [], r_["audit"]["findings"]
+    out = {"sweep": {"rows": len(rows), "ok": sum(r_["ok"] for r_ in rows),
+                     "seconds": sweep.seconds, "waited_s": waited},
+           "runs": {}}
+    cfg = dataclasses.replace(get_config("qwen3-0.6b"),
+                              n_layers=DIST_TIMED_LAYERS)
+    shape = InputShape("phase 12", TRAIN_T, TRAIN_PODS * TRAIN_B, "train")
+    for strategy in STANDIN_RUNS:
+        real = dist12["standin"][strategy]
+        mesh = meta.MetaMesh((DIST_RANKS, 1, 1))
+        step, args, notes = dryrun.build_step(
+            cfg, shape, strategy=strategy, topology="ring", mesh=mesh)
+        trace = meta.trace_step(step, args, mesh)
+        rep = dryrun.dryrun_one(cfg, shape, strategy=strategy,
+                                topology="ring",
+                                mesh=meta.MetaMesh((DIST_RANKS, 1, 1)),
+                                verbose=False)
+        got = [c_.key() for c_ in trace.collectives]
+        want = [tuple(tuple(x_) if isinstance(x_, list) else x_ for x_ in k_)
+                for k_ in real["collectives"]]
+        launches = {k_: int(v_["launches"])
+                    for k_, v_ in trace.cost.kernels.items()}
+        arg = rep["memory"]["argument_size_in_bytes"]
+        held = meta.block_bytes((args[0], args[3:]))      # state, operands
+        slack = real["arg_bytes"] - held
+        rows = {k_: (s_, str(args[1][k_].dtype)) for k_, s_ in
+                dryrun.batch_blocks(args[1], mesh, pod_stacked=True).items()}
+        peak = arg + rep["memory"]["temp_size_in_bytes"]
+        ro = rep["roofline"]
+        term = max(("compute", "memory", "collective"),
+                   key=lambda k_: ro[f"t_{k_}_ms"])
+        median = dist12["strategies"][strategy]["median_ms_by_rank"][0]
+        r = {"collectives": len(got), "records_equal": got == want,
+             "launches": launches, "rank_launches": real["launches"],
+             "argument_bytes": arg, "state_operand_bytes": held,
+             "rank_state_operand_bytes": real["arg_bytes"],
+             "rank_state_operand_allocated_bytes": real["arg_alloc_bytes"],
+             "rows": rows, "rank_rows": real["rows"],
+             "argument_tensors": real["arg_tensors"],
+             "standin_peak_bytes": peak,
+             "rank_max_allocated_bytes": real["max_allocated"],
+             "rank_step_rise_bytes": real["step_rise"],
+             "roofline_ms": {k_: ro[f"t_{k_}_ms"] for k_ in
+                             ("compute", "memory", "collective")},
+             "largest_term": term, "rank_median_step_ms": median}
+        out["runs"][strategy] = r
+        print(f"(b) {strategy}: {len(got)} collectives on rank 0, the "
+              f"stand-in's records {'equal' if got == want else 'DIFFER'} "
+              f"entry for entry; launches over the step: stand-in "
+              f"{launches}, rank 0 {real['launches']}; the state's and "
+              f"operands' bytes: stand-in {held}, rank 0 requested "
+              f"{real['arg_bytes']} ({real['arg_tensors']} tensors, slack "
+              f"{slack} B) and allocated {real['arg_alloc_bytes']} "
+              f"(blocks); the rows of the batch: stand-in {rows}, rank 0 "
+              f"{real['rows']}; argument bytes in all {arg}; peak: "
+              f"stand-in {peak / 1e9:.3f} GB (arguments + its live temps, "
+              f"unfused) against the rank's max_memory_allocated "
+              f"{real['max_allocated'] / 1e9:.3f} GB (the step's rise "
+              f"{real['step_rise'] / 1e9:.3f} GB); the stand-in's largest "
+              f"roofline term {term} {ro[f't_{term}_ms']:.3f} ms (c "
+              f"{ro['t_compute_ms']:.3f} / m {ro['t_memory_ms']:.3f} / x "
+              f"{ro['t_collective_ms']:.3f}) against the measured median "
+              f"step {median:.1f} ms on {smi} (gloo, two ranks sharing the "
+              "card)", flush=True)
+        assert got == want, (strategy, got, want)
+        assert launches == real["launches"], (strategy, launches,
+                                              real["launches"])
+        assert 0 <= slack < ALLOC_ROUND * real["arg_tensors"], (
+            strategy, held, real["arg_bytes"], real["arg_tensors"])
+        assert {k_: tuple(v_[0]) for k_, v_ in rows.items()} == {
+            k_: tuple(v_[0]) for k_, v_ in real["rows"].items()}, (
+            rows, real["rows"])
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 17: {out['wall_s']:.2f} s", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -6918,8 +7128,10 @@ def main() -> int:
     # --------------------------------------------------------------- 12
     phase(12, "the pod axis across processes: qwen3-0.6b, one pod a rank, "
               "two gloo ranks on the card and NCCL at world size 1")
-    dist12, kern12 = dist_phase(dev)
-    print("pod axis across processes: " + json.dumps(dist12))
+    sweep = StandinSweep()
+    dist12, kern12 = dist_phase(dev, background=sweep)
+    print("pod axis across processes: " + json.dumps(
+        {k_: v_ for k_, v_ in dist12.items() if k_ != "standin"}))
     sys.stdout.flush()
 
     # --------------------------------------------------------------- 13
@@ -6951,6 +7163,14 @@ def main() -> int:
               "(1, 2, 2)")
     fam16, kern16 = families_phase(dev)
     print("the four families inside a pod: " + json.dumps(fam16))
+    sys.stdout.flush()
+
+    # --------------------------------------------------------------- 17
+    phase(17, "the dry-run stand-in against the card: the reduced audit "
+              "sweep (run beside phase 12's ranks), and phase 12's bsp and "
+              "dpsgd steps traced on meta against rank 0's run")
+    standin17 = standin_phase(sweep, dist12, smi)
+    print("the dry-run stand-in: " + json.dumps(standin17))
     sys.stdout.flush()
 
     kernels = [

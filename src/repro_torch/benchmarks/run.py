@@ -16,9 +16,11 @@ wall time of the run and ``derived`` carries the headline metric
 ``experiments/results_torch/``.  Every bench runs on ``--device``, CUDA by
 default.
 
-The reference's ``roofline`` bench is not here: it reads TPU dry-run
-artifacts, which the port has no counterpart of, so ``--only roofline``
-is an unknown bench.
+``roofline`` reads the dry-run stand-in's rows
+(``repro_torch.launch.dryrun --outdir experiments/dryrun_torch/combos``)
+and prints nothing it measures: its terms are predictions at the H100
+data-sheet rates, so it runs on the CPU as well
+(``--only roofline --device cpu``).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import time
 from repro_torch.benchmarks import (common, fig1_accuracy, fig2_flickr,
                                     fig4_bn_divergence, fig5_groupnorm,
                                     fig6_skew_degree, fig8_skewscout,
-                                    fig_topology, kernels_bench,
+                                    fig_topology, kernels_bench, roofline,
                                     tab678_hparams)
 
 
@@ -50,16 +52,23 @@ BENCHES = {  # priority order: cheap + headline results first
     "fig2": (fig2_flickr.run, "geo-skew (Flickr-Mammal analogue)"),
     "fig_topology": (fig_topology.run, "D-PSGD topology x skew sweep"),
     "tab678": (tab678_hparams.run, "theta sensitivity"),
+    "roofline": (roofline.run, "dry-run roofline table"),
 }
 
 
 def _headline(name, rows):
-    """The reference's headline of a bench's rows, without its roofline
-    case."""
+    """The reference's headline of a bench's rows."""
     if not rows:
         return ""
     if name == "kernels":
         return ""
+    if name == "roofline":
+        ok = [r for r in rows if r.get("ok")]
+        fail = len(rows) - len(ok)
+        from collections import Counter
+        c = Counter(r["bottleneck"] for r in ok)
+        return f"ok={len(ok)};fail={fail};" + \
+            ";".join(f"{k}={v}" for k, v in sorted(c.items()))
     if name == "fig4":
         import numpy as np
         by = {}
@@ -108,7 +117,7 @@ def main(argv=None) -> int:
     for name in names:
         run, _desc = BENCHES[name]
         t0 = time.perf_counter()
-        if args.use_cache and name != "kernels":
+        if args.use_cache and name not in ("kernels", "roofline"):
             rows = common.load_rows(name)
             if rows is None:
                 if args.cache_only:

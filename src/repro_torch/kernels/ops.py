@@ -44,13 +44,25 @@ its wrapper.
 only where the kernel is launched (a list of tensors too long for one
 launch counts each of its launches), so a run can show that its path
 went through the kernels.
+
+A tensor on the ``meta`` device is a description, not a third place to
+compute: every public op checks its operands as the card route does, then
+returns ``torch.empty`` outputs of the kernel's own shapes and dtypes on
+``meta``, runs none of the plain version's arithmetic, and hands each
+listener of the thread's ``meta_sinks()`` (``launch.meta.CostMode`` while
+it is active) one entry a launch the card would make: the kernel's name
+and the flops and bytes of its bound (``attention_work`` for
+``flash_attention``; for the others their operands' bytes and the few
+flops an element ``chip_smoke.py``'s bounds count).  ``launches`` counts
+no meta entry.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import List, Optional, Sequence, Tuple
+import threading
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -129,25 +141,61 @@ launches = {"gaia_select": 0, "neighbor_mix": 0, "neighbor_mix_src": 0,
             "flash_attention": 0}
 
 
+#: each thread's listeners (``meta_sinks``)
+_local = threading.local()
+#: the most tensors one launch of a list kernel takes (``gaia_select``,
+#: ``neighbor_mix``, ``rand_k_select``): a longer list is several launches
+_LIST_LAUNCH = 32
+
+
 def _kernel(lib: str, entry: str, dtype: torch.dtype, argtypes):
     fn = getattr(build.load(lib), f"{entry}_{_SUFFIX[dtype]}")
     fn.argtypes, fn.restype = argtypes, ctypes.c_int
     return fn
 
 
-def _on_cpu(*tensors: torch.Tensor) -> bool:
-    """True when every tensor lies on the CPU; False when all lie on one
-    CUDA device; raises otherwise."""
+def _device_type(*tensors: torch.Tensor) -> str:
+    """``"cpu"``, ``"cuda"`` or ``"meta"``: the type of the one device
+    every tensor lies on; raises for tensors on several devices, or on
+    another type."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(
             f"tensors on several devices: {sorted(map(str, devices))}")
     device = devices.pop()
-    if device.type == "cpu":
-        return True
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"no kernel for device {device}")
-    return False
+    return device.type
+
+
+def _nbytes(*tensors) -> int:
+    """Bytes of the tensors (None left out)."""
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def meta_sinks() -> List[Callable[[str, float, float], None]]:
+    """This thread's listeners, each called ``sink(kernel, flops,
+    n_bytes)`` once a launch that an op's meta route stands for
+    (``launch.meta.CostMode`` adds itself while it is active)."""
+    if not hasattr(_local, "sinks"):
+        _local.sinks = []
+    return _local.sinks
+
+
+def _meta_launch(kernel: str, flops: float, n_bytes: float,
+                 n: int = 1) -> None:
+    """Hand each of this thread's ``meta_sinks`` ``n`` launches of
+    ``kernel`` that together do ``flops`` and move ``n_bytes``, split
+    evenly."""
+    for sink in meta_sinks():
+        for _ in range(n):
+            sink(kernel, flops / n, n_bytes / n)
+
+
+def _list_launches(count: int) -> int:
+    """Launches of a list kernel over ``count`` tensors."""
+    return -(-count // _LIST_LAUNCH)
 
 
 def _check(name: str, t: torch.Tensor, dtypes) -> None:
@@ -224,7 +272,8 @@ def gaia_select_many(vs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
     _one_dtype("gaia_select", vs)
     _one_dtype("gaia_select", ws)
     t = torch.as_tensor(threshold, dtype=torch.float32, device=vs[0].device)
-    if _on_cpu(*vs, *ws, t):
+    kind = _device_type(*vs, *ws, t)
+    if kind == "cpu":
         return ref.gaia_select_many_ref(vs, ws, t)
     _check_many("gaia_select", vs)
     _check_many("gaia_select", ws)
@@ -232,6 +281,12 @@ def gaia_select_many(vs: Sequence[torch.Tensor], ws: Sequence[torch.Tensor],
         raise TypeError(f"gaia_select: (v, w) dtypes ({vs[0].dtype}, "
                         f"{ws[0].dtype}) not in {sorted(map(str, GAIA_DTYPES))}")
     outs = [torch.empty_like(v) for v in vs]
+    if kind == "meta":
+        counts = torch.empty(len(vs), dtype=torch.int32, device="meta")
+        _meta_launch("gaia_select", 3 * sum(v.numel() for v in vs),
+                     _nbytes(*vs, *ws, *outs, counts, t),
+                     _list_launches(len(vs)))
+        return outs, counts
     counts = torch.zeros(len(vs), dtype=torch.int32, device=vs[0].device)
     launch_gaia_select(vs, ws, t.reshape(1).contiguous(), outs, counts)
     return outs, counts
@@ -344,14 +399,26 @@ def neighbor_mix(x: torch.Tensor, nbr_idx: torch.Tensor,
             raise TypeError(f"neighbor_mix: src dtype {src.dtype} differs "
                             f"from x's {x.dtype}")
         M = src.shape[0]
-    on_cpu = _on_cpu(x, nbr_idx, nbr_w, self_w,
-                     *(() if src is None else (src,)))
+    kind = _device_type(x, nbr_idx, nbr_w, self_w,
+                        *(() if src is None else (src,)))
+    if kind == "meta":
+        # the index has no values here: its range check, a host read on
+        # the other routes, has nothing to read
+        _check("neighbor_mix x", x, _SUFFIX)
+        _check_mix_operands(nbr_idx, nbr_w, self_w)
+        if src is not None:
+            _check("neighbor_mix src", src, _SUFFIX)
+        out = torch.empty_like(x)
+        _meta_launch("neighbor_mix" if src is None else "neighbor_mix_src",
+                     _mix_flops(out, nbr_idx),
+                     _nbytes(x, src, nbr_idx, nbr_w, self_w, out))
+        return out
     if nbr_idx.numel():
         lo, hi = (int(b) for b in torch.aminmax(nbr_idx))
         if lo < 0 or hi >= M:
             raise ValueError(f"neighbor_mix: neighbor index outside "
                              f"[0, {M}): range [{lo}, {hi}]")
-    if on_cpu:
+    if kind == "cpu":
         return ref.neighbor_mix_padded_ref(x, nbr_idx, nbr_w, self_w, src)
     _check("neighbor_mix x", x, _SUFFIX)
     _check_mix_operands(nbr_idx, nbr_w, self_w)
@@ -379,12 +446,16 @@ def neighbor_mix_many(xs: Sequence[torch.Tensor], operands: MixOperands
         raise ValueError(f"neighbor_mix_many: operands index {operands.n_src}"
                          f" source rows, the leaves have {K}")
     _one_dtype("neighbor_mix_many", xs)
-    if _on_cpu(*xs, operands.idx, operands.w, operands.self_w):
+    kind = _device_type(*xs, operands.idx, operands.w, operands.self_w)
+    if kind == "cpu":
         return ref.neighbor_mix_many_ref(xs, operands.idx, operands.w,
                                          operands.self_w)
     _check_many("neighbor_mix_many", xs)
     _check_mix_operands(operands.idx, operands.w, operands.self_w)
     outs = [torch.empty_like(x) for x in xs]
+    if kind == "meta":
+        _meta_mix("neighbor_mix", xs, outs, operands)
+        return outs
     launch_neighbor_mix_many(xs, operands, outs)
     return outs
 
@@ -418,13 +489,18 @@ def neighbor_mix_push_many(xs: Sequence[torch.Tensor], snaps: torch.Tensor,
         raise TypeError(f"neighbor_mix_push_many: snaps dtype {snaps.dtype} "
                         f"differs from the leaves' {xs[0].dtype}")
     _one_dtype("neighbor_mix_push_many", xs)
-    if _on_cpu(*xs, snaps, operands.idx, operands.w, operands.self_w):
+    kind = _device_type(*xs, snaps, operands.idx, operands.w,
+                        operands.self_w)
+    if kind == "cpu":
         return ref.neighbor_mix_push_many_ref(xs, snaps, operands.idx,
                                               operands.w, operands.self_w)
     _check_many("neighbor_mix_push_many", xs + [snaps])
     _check_mix_operands(operands.idx, operands.w, operands.self_w)
     outs = [torch.empty_like(x) for x in xs]
     new_snaps = torch.empty_like(snaps)
+    if kind == "meta":
+        _meta_mix("neighbor_mix_src", xs, outs, operands, snaps, new_snaps)
+        return outs, new_snaps
     launch_neighbor_mix_push_many(xs, snaps, operands, outs, new_snaps)
     return outs, new_snaps
 
@@ -456,12 +532,16 @@ def neighbor_mix_src_many(xs: Sequence[torch.Tensor], src: torch.Tensor,
         raise TypeError(f"neighbor_mix_src_many: src dtype {src.dtype} "
                         f"differs from the leaves' {xs[0].dtype}")
     _one_dtype("neighbor_mix_src_many", xs)
-    if _on_cpu(*xs, src, operands.idx, operands.w, operands.self_w):
+    kind = _device_type(*xs, src, operands.idx, operands.w, operands.self_w)
+    if kind == "cpu":
         return ref.neighbor_mix_src_many_ref(xs, src, operands.idx,
                                              operands.w, operands.self_w)
     _check_many("neighbor_mix_src_many", xs + [src])
     _check_mix_operands(operands.idx, operands.w, operands.self_w)
     outs = [torch.empty_like(x) for x in xs]
+    if kind == "meta":
+        _meta_mix("neighbor_mix_src", xs, outs, operands, src)
+        return outs
     launch_neighbor_mix_src_many(xs, src, operands, outs)
     return outs
 
@@ -483,6 +563,23 @@ def _check_mix_operands(nbr_idx: torch.Tensor, nbr_w: torch.Tensor,
     _check("neighbor_mix nbr_idx", nbr_idx, (torch.int32,))
     _check("neighbor_mix nbr_w", nbr_w, (torch.float32,))
     _check("neighbor_mix self_w", self_w, (torch.float32,))
+
+
+def _mix_flops(outs, nbr_idx: torch.Tensor) -> int:
+    """The gossip's multiply-adds, two flops each: the self term and D
+    neighbours an output element."""
+    outs = outs if isinstance(outs, (list, tuple)) else [outs]
+    return 2 * (nbr_idx.shape[1] + 1) * sum(y.numel() for y in outs)
+
+
+def _meta_mix(kernel: str, xs, outs, operands: MixOperands,
+              *bufs: torch.Tensor) -> None:
+    """The meta route's entries of a list gossip launch (``kernel`` its
+    count name): the leaves, the outputs, the operands and ``bufs`` (a
+    source, a snapshot buffer and its pushed copy) moved once."""
+    _meta_launch(kernel, _mix_flops(outs, operands.idx),
+                 _nbytes(*xs, *outs, *bufs, operands.idx, operands.w,
+                         operands.self_w), _list_launches(len(xs)))
 
 
 def _launch_mix(kernel: str, xs: Sequence[torch.Tensor],
@@ -587,10 +684,15 @@ def rand_k_sparsify(v: torch.Tensor, keep_prob, seed
     one tensor and no vel."""
     p = float(np.float32(keep_prob))
     key = int(seed) & 0xFFFFFFFF
-    if _on_cpu(v):
+    kind = _device_type(v)
+    if kind == "cpu":
         return ref.rand_k_select_ref(v, p, key)
     _check("rand_k_sparsify v", v, _SUFFIX)
     out = torch.empty_like(v)
+    if kind == "meta":
+        count = torch.empty((), dtype=torch.int32, device="meta")
+        _meta_launch("rand_k_select", 18 * v.numel(), _nbytes(v, out, count))
+        return out, count
     counts = torch.zeros(1, dtype=torch.int32, device=v.device)
     launch_rand_k_select([v], None, [out], None, counts, [key], p, [None])
     return out, counts.reshape(())
@@ -624,11 +726,18 @@ def rand_k_sparsify_many(accs: Sequence[torch.Tensor],
     p = float(np.float32(keep_prob))
     keys = [int(s_) & 0xFFFFFFFF for s_ in seeds]
     _one_dtype("rand_k_sparsify", accs + vels)
-    if _on_cpu(*accs, *vels):
+    kind = _device_type(*accs, *vels)
+    if kind == "cpu":
         return ref.rand_k_sparsify_many_ref(accs, vels, p, keys, perms)
     _check_many("rand_k_sparsify", accs + vels)
     shared = [torch.empty_like(a) for a in accs]
     new_vels = [torch.empty_like(u) for u in vels]
+    if kind == "meta":
+        counts = torch.empty(len(accs), dtype=torch.int32, device="meta")
+        _meta_launch("rand_k_select", 18 * sum(a.numel() for a in accs),
+                     _nbytes(*accs, *vels, *shared, *new_vels, counts),
+                     _list_launches(len(accs)))
+        return shared, new_vels, counts
     counts = torch.zeros(len(accs), dtype=torch.int32, device=accs[0].device)
     launch_rand_k_select(accs, vels, shared, new_vels, counts, keys, p, perms)
     return shared, new_vels, counts
@@ -733,9 +842,14 @@ def abs_histogram(v: torch.Tensor, v_max, *, n_bins: int = 256
     card one launch of the ``dgc_topk`` kernel, histogram phase only."""
     _check_bins(n_bins)
     vm = _scalar("abs_histogram v_max", v_max, v.device)
-    if _on_cpu(v, vm):
+    kind = _device_type(v, vm)
+    if kind == "cpu":
         return ref.abs_histogram_ref(v, n_bins, vm)
     _check("abs_histogram v", v, _SUFFIX)
+    if kind == "meta":
+        hist = torch.empty(n_bins, dtype=torch.int32, device="meta")
+        _meta_launch("abs_histogram", 7 * v.numel(), _nbytes(v, vm, hist))
+        return hist
     work = dgc_work(n_bins, v.device)
     launch_dgc_topk("abs_histogram", v, work, n_bins, v_max=vm.reshape(1))
     return dgc_outputs(work, n_bins)[0]
@@ -749,10 +863,17 @@ def abs_histogram_fused(v: torch.Tensor, *, n_bins: int = 256
     _check_bins(n_bins)
     if v.numel() == 0:
         raise ValueError("abs_histogram_fused: v is empty")
-    if _on_cpu(v):
+    kind = _device_type(v)
+    if kind == "cpu":
         v_max = v.float().abs().max()
         return ref.abs_histogram_ref(v, n_bins, v_max), v_max
     _check("abs_histogram_fused v", v, _SUFFIX)
+    if kind == "meta":
+        hist = torch.empty(n_bins, dtype=torch.int32, device="meta")
+        v_max = torch.empty((), dtype=torch.float32, device="meta")
+        _meta_launch("abs_histogram_fused", 9 * v.numel(),
+                     _nbytes(v, hist, v_max))
+        return hist, v_max
     work = dgc_work(n_bins, v.device)
     launch_dgc_topk("abs_histogram_fused", v, work, n_bins)
     hist, _, _, v_max = dgc_outputs(work, n_bins)
@@ -766,10 +887,15 @@ def dgc_select(v: torch.Tensor, threshold
     scalar tensor (on the device of ``v`` to avoid a copy).  On the card
     one launch of the ``dgc_topk`` kernel, select phase only."""
     t = _scalar("dgc_select threshold", threshold, v.device)
-    if _on_cpu(v, t):
+    kind = _device_type(v, t)
+    if kind == "cpu":
         return ref.dgc_select_ref(v, t)
     _check("dgc_select v", v, _SUFFIX)
     out = torch.empty_like(v)
+    if kind == "meta":
+        count = torch.empty((), dtype=torch.int32, device="meta")
+        _meta_launch("dgc_select", 3 * v.numel(), _nbytes(v, t, out, count))
+        return out, count
     work = dgc_work(1, v.device)
     launch_dgc_topk("dgc_select", v, work, 1, out=out, threshold=t.reshape(1))
     return out, dgc_outputs(work, 1)[1]
@@ -788,10 +914,17 @@ def dgc_sparsify(v: torch.Tensor, sparsity, *, n_bins: int = 256
     _check_bins(n_bins)
     if v.numel() == 0:
         raise ValueError("dgc_sparsify: v is empty")
-    if _on_cpu(v):
+    kind = _device_type(v)
+    if kind == "cpu":
         return ref.dgc_sparsify_ref(v, sparsity, n_bins=n_bins)
     _check("dgc_sparsify v", v, _SUFFIX)
     out = torch.empty_like(v)
+    if kind == "meta":
+        count = torch.empty((), dtype=torch.int32, device="meta")
+        t = torch.empty((), dtype=torch.float32, device="meta")
+        _meta_launch("dgc_sparsify", 12 * v.numel(),
+                     _nbytes(v, out, count, t))
+        return out, count, t
     work = dgc_work(n_bins, v.device)
     launch_dgc_topk("dgc_sparsify", v, work, n_bins, out=out,
                     sparsity=sparsity)
@@ -856,13 +989,18 @@ def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     if scale.shape != (C,) or bias.shape != (C,):
         raise ValueError(f"group_norm: scale {tuple(scale.shape)} and bias "
                          f"{tuple(bias.shape)} must be ({C},)")
-    if _on_cpu(x, scale, bias):
+    kind = _device_type(x, scale, bias)
+    if kind == "cpu":
         return ref.group_norm_ref(x, scale, bias, group_size=group_size,
                                   eps=eps)
     _check("group_norm x", x, _SUFFIX)
     _check("group_norm scale", scale, (torch.float32,))
     _check("group_norm bias", bias, (torch.float32,))
     out = torch.empty_like(x)
+    if kind == "meta":
+        _meta_launch("group_norm", 8 * x.numel(),
+                     _nbytes(x, scale, bias, out))
+        return out
     launch_group_norm(x, scale, bias, out, group_size, eps)
     return out
 
@@ -949,6 +1087,36 @@ def _flash_card_operands(q: torch.Tensor, k: torch.Tensor,
                          f"65535 blocks of {_FLASH_BLOCK_Q} rows")
 
 
+def attention_pairs(Tq: int, Tk: int, causal: bool,
+                    window: Optional[int]) -> int:
+    """The (query, key) pairs a head's attention keeps, as
+    ``ref.flash_attention_ref`` masks them: the query at row i at
+    position ``i + Tk - Tq``, the keys up to it where ``causal``, the
+    last ``window`` of them where a window is set."""
+    pos = np.arange(Tq, dtype=np.int64) + (Tk - Tq)
+    hi = np.minimum(pos, Tk - 1) if causal else np.full(Tq, Tk - 1)
+    lo = np.maximum(pos - window + 1, 0) if window else np.zeros(Tq,
+                                                                 np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def attention_work(B: int, H: int, Hkv: int, Tq: int, Tk: int, Dk: int,
+                   Dv: int, dtype_bytes: int, causal: bool,
+                   window: Optional[int]) -> Tuple[int, int]:
+    """(flops, bytes) of one attention forward at its bound: two
+    multiply-adds a kept pair and head dim (q.k over Dk, p.v over Dv), so
+    4·B·H·Tq·Tk·D with the causal half for Dk = Dv = D; q, k, v and o
+    each moved once."""
+    flops = 2 * B * H * (Dk + Dv) * attention_pairs(Tq, Tk, causal, window)
+    return flops, (B * H * Tq + B * Hkv * Tk) * (Dk + Dv) * dtype_bytes
+
+
+def _meta_flash(B, H, Hkv, Tq, Tk, Dk, Dv, dtype_bytes, causal,
+                window) -> None:
+    _meta_launch("flash_attention", *attention_work(
+        B, H, Hkv, Tq, Tk, Dk, Dv, dtype_bytes, causal, window))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     logit_softcap: Optional[float] = None,
@@ -983,13 +1151,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             *(t.transpose(1, 2) for t in (q, k, v)), causal, window,
             logit_softcap, scale).transpose(1, 2).contiguous()
     q, k, v = q.detach(), k.detach(), v.detach()     # no graph to record
-    if _on_cpu(q, k, v):
+    kind = _device_type(q, k, v)
+    if kind == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
                                        logit_softcap=logit_softcap,
                                        scale=scale)
     _flash_layout(q, k, v)
     _flash_card_operands(q, k, v, Tq)
     out = torch.empty((B, H, Tq, v.shape[3]), dtype=q.dtype, device=q.device)
+    if kind == "meta":
+        _meta_flash(q.shape[0], H, k.shape[1], Tq, k.shape[2], D,
+                    v.shape[3], q.element_size(), causal, window)
+        return out
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
                            logit_softcap=logit_softcap,
                            scale=D ** -0.5 if scale is None else scale)
@@ -1041,7 +1214,8 @@ def _flash_bthd_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float]) -> torch.Tensor:
     """``flash_attention_bthd``'s forward on operands it checked: the plain
     version on the CPU, the kernel on the card."""
-    if _on_cpu(q, k, v):
+    kind = _device_type(q, k, v)
+    if kind == "cpu":
         return ref.flash_attention_bthd_ref(q, k, v, causal=causal,
                                             window=window,
                                             logit_softcap=logit_softcap,
@@ -1049,6 +1223,10 @@ def _flash_bthd_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     B, Tq, H, D = q.shape
     _flash_card_operands(q, k, v, Tq)
     out = torch.empty((B, Tq, H, v.shape[3]), dtype=q.dtype, device=q.device)
+    if kind == "meta":
+        _meta_flash(B, H, k.shape[2], Tq, k.shape[1], D, v.shape[3],
+                    q.element_size(), causal, window)
+        return out
     launch_flash_attention(q, k, v, out, causal=causal, window=window,
                            logit_softcap=logit_softcap,
                            scale=D ** -0.5 if scale is None else scale,

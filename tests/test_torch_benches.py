@@ -282,6 +282,11 @@ HEADLINE_ROWS = {
     "tab678": [{"algo": "dgc", "theta": 0.999, "skew": 1.0, "val_acc": 0.3}],
     "fig_topology": [{"schedule": "constant", "topology": "ring",
                       "sim_time_s": 1.0}],
+    "roofline": [{"arch": "a", "shape": "s", "ok": True,
+                  "bottleneck": "memory"},
+                 {"arch": "b", "shape": "s", "ok": True,
+                  "bottleneck": "compute"},
+                 {"arch": "c", "shape": "s", "ok": False, "error": "x"}],
 }
 
 
@@ -292,11 +297,17 @@ def test_headline_equal(name):
     assert run._headline(name, []) == jax_run._headline(name, []) == ""
 
 
-def test_benches_are_the_references_but_roofline():
-    assert list(run.BENCHES) == [n for n in jax_run.BENCHES
-                                 if n != "roofline"]
-    with pytest.raises(SystemExit):
-        run.main(["--only", "roofline", "--device", "cpu"])
+def test_benches_are_the_references_but_roofline(tmp_path, monkeypatch,
+                                                 capsys):
+    """Every bench of the reference, ``roofline`` included since the port
+    has the dry-run stand-in: its rows are the stand-in's JSON, read (none
+    here: an empty table on the CPU)."""
+    from repro_torch.benchmarks import roofline
+    assert list(run.BENCHES) == list(jax_run.BENCHES)
+    monkeypatch.setitem(run.BENCHES, "roofline", (
+        lambda quick, device: roofline.run(combo_dir=str(tmp_path)), ""))
+    assert run.main(["--only", "roofline", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.splitlines()[-1].startswith("roofline,")
 
 
 def test_kernels_entry_adapts_kernels_bench(monkeypatch):

@@ -9,6 +9,8 @@ after float32 accumulation in another order).  The CUDA kernels themselves are
 held against these plain versions on the card by
 ``tests/test_torch_cuda.py`` and ``chip_smoke.py``.
 """
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -326,8 +328,13 @@ def test_dgc_and_group_norm_ops_reject_bad_operands(no_kernel_build):
         ops.dgc_select(v, torch.ones(3))
     with pytest.raises(ValueError, match="empty"):
         ops.dgc_sparsify(torch.zeros(0), 0.9)
+    # a meta tensor is a description: the op's meta route; any device but
+    # the CPU, CUDA and meta has no kernel
+    sel, cnt = ops.dgc_select(torch.zeros(4, device="meta"),
+                              torch.tensor(0.5))
+    assert sel.device.type == "meta" and cnt.dtype == torch.int32
     with pytest.raises(ValueError, match="no kernel"):
-        ops.dgc_select(torch.zeros(4, device="meta"), torch.tensor(0.5))
+        ops._device_type(types.SimpleNamespace(device=torch.device("mps")))
     x = torch.zeros(2, 4, 4, 6)
     with pytest.raises(ValueError, match="multiple"):
         ops.group_norm(x, torch.ones(6), torch.zeros(6), group_size=4)
