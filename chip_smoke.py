@@ -149,7 +149,7 @@ before the last line is printed:
    prompts of 2048 tokens, the launch counts set to 0 just before the
    timed calls and read just after: 28 ``flash_attention`` launches a
    call; (b) the ``serve_decode`` example's loop answers 4 requests of a
-   64-token prompt with 32 generated tokens over a 128-slot cache; (c)
+   16-token prompt with 16 generated tokens over a 128-slot cache; (c)
    ``forward``'s logits at every position of 256 tokens against
    ``decode_step``'s after the same tokens (the kernel's causal prefill
    against the kernel-free decode path); (d) every arch of the registry,
@@ -220,7 +220,7 @@ before the last line is printed:
    bfloat16 leaves; (b) ``qwen3-0.6b`` at full width, bfloat16, random
    weights, 2 pods of 2 x 1024 tokens, remat, through
    ``launch.steps.make_train_step`` under bsp, gaia, fedavg, dgc, dpsgd
-   and adpsgd: one warm-up and 3 timed steps each, every launch count
+   and adpsgd: one warm-up and one timed step each, every launch count
    set to 0 just before the timed steps and read just after (112
    ``flash_attention`` launches a step, the forward run again under
    remat; 2 ``gaia_select``, 26 ``dgc_sparsify``, 2 ``neighbor_mix``, 2
@@ -240,7 +240,7 @@ before the last line is printed:
    the card, one phase 11 pod each (qwen3-0.6b at full width cut to its
    first 4 layers, bfloat16, 2 x 1024 tokens, remat),
    ``launch.mesh.make_mesh`` over them, under
-   the six strategies: one warm-up and 3 timed steps each, every launch
+   the six strategies: one warm-up and one timed step each, every launch
    count set to 0 just before the timed steps and read just after in
    each rank (8 ``flash_attention``, 2 ``gaia_select``, 13
    ``dgc_sparsify``, 2 ``neighbor_mix_src`` launches a step a rank for
@@ -268,16 +268,17 @@ before the last line is printed:
    data, model) = (2, 2, 2): each pod over 2 data ranks (FSDP) and 2
    model ranks (tensor parallelism)): (a) a float32 2-layer cut of
    qwen3-0.6b at full width (TF32 off), one step of each strategy on
-   phase 12's global batch against the one-card step that each rank runs
-   in turn: the gathered params and velocities within 1e-5 relative L2
+   phase 12's global batch against the one-card step, which rank 0 runs
+   once and each rank cuts its blocks of through CUDA IPC: the gathered
+   params and velocities within 1e-5 relative L2
    (for gaia and dgc, whose selections may flip an entry at the
    threshold, the exchange's inputs), the mesh exchange on the one-card
    step's own inputs bit for bit (DGC's sharded leaves through
    ``abs_histogram`` summed over the ranks and ``dgc_select``), 0 host
    syncs, the launches a rank (4 ``flash_attention``, 8 ``abs_histogram``
    and 8 ``dgc_select`` beside 5 ``dgc_sparsify`` for dgc); (b) the
-   first 4 layers at full width, bf16, remat, bsp and dpsgd, 2 x 1024
-   tokens a pod, one warm-up and 3 timed steps: the slower rank's ms a
+   first 2 layers at full width, bf16, remat, bsp and dpsgd, 2 x 1024
+   tokens a pod, one warm-up and 2 timed steps: the slower rank's ms a
    step, tokens/s, peak memory a rank, host syncs, launches a step a rank
    (8 ``flash_attention`` at (1, 1024, 8 over 4, 128)); (c) (b)'s bsp
    params saved on the mesh, each rank's blocks restored on the mesh,
@@ -308,12 +309,12 @@ before the last line is printed:
    route's first MoE layer against ``moe_apply_ep_ref`` on the one-card
    run's own input: every logit row, and that layer's output, within
    1e-5 relative L2; (b) bf16 at full width, the weights drawn by the
-   ranks in turns (each keeps clones of its blocks): qwen3-0.6b at full
-   depth over (1, 2, 2), deepseek-v2-lite-16b's first 14 layers (1 dense,
-   13 MoE) over (1, 1, 4) with the dense
-   and the EP route: one warm-up and 3 timed prefill calls and decode
+   ranks in turns (each keeps clones of its blocks): qwen3-0.6b's first 4
+   layers over (1, 2, 2), deepseek-v2-lite-16b's first 3 layers (1 dense,
+   2 MoE) over (1, 1, 4) with the dense
+   and the EP route: one warm-up and 2 timed prefill calls and decode
    steps, the slowest rank's median, tokens/s, peak memory a rank, 0 host
-   syncs a decode step, the launches (28 and 14 ``flash_attention`` a
+   syncs a decode step, the launches (4 and 3 ``flash_attention`` a
    prefill call a rank, none a decode step), one decode step's
    collectives (calls, bytes handed, ms inside them); qwen3's logits no
    farther from the float32 one-card logits than 1.25x the one-card bf16
@@ -322,7 +323,9 @@ before the last line is printed:
    serve steps on a (1, 1, 1) mesh equal the steps without one, 0 host
    syncs a decode step.  (Until phase 15 needed the script's time, (a)
    decoded qwen3 for 8 steps and the deepseek cut for all 95 (32 under
-   the heads placement), and (b) served deepseek at its full 27 layers.)
+   the heads placement), and (b) served deepseek at its full 27 layers;
+   until phase 16 (d) and (e) did, (b) served qwen3 at its 28 layers
+   and deepseek's first 14, with 3 timed calls and steps.)
 15. training MLA + MoE inside a pod, and a model axis wider than
    n_kv_heads (``launch.procs.spawn``, four gloo ranks on the card, one
    spawn, a deadline): (a) deepseek-v2-lite-16b at full width, float32
@@ -341,8 +344,8 @@ before the last line is printed:
    each rank's blocks against the one-card exchange's, bit for bit (rank
    0 runs the one-card exchange and checks every rank's blocks by their
    bits' fingerprints); (c) a 3-layer cut (1 dense, 2 MoE) in bf16,
-   remat, 2 x 1024 tokens, bsp, both routes, one warm-up and 3 timed
-   steps: the slowest rank's ms a step, tokens/s, peak memory a rank,
+   remat, 2 x 1024 tokens, bsp, both routes, one warm-up and one timed
+   step: the slowest rank's ms a step, tokens/s, peak memory a rank,
    the first timed step's collectives by kind, the warm-up step's plain
    attention backward, 0 host syncs a step, 5 ``flash_attention``
    launches a step a rank (3 forward, 2 recomputed: the dense first
@@ -354,7 +357,7 @@ before the last line is printed:
    teacher-forced decode steps of 8 requests under the flash-decode and
    the heads placements against the one-card serve by phase 14's float32
    gate; (e) starcoder2-3b bf16, remat, a 4-layer cut, 1 x 1024 tokens,
-   bsp, one warm-up and 2 timed steps, as (c) (8 launches a step a
+   bsp, one warm-up and one timed step, as (c) (8 launches a step a
    rank).
 16. training and serving the SSM, RG-LRU hybrid, enc-dec and VLM
    families inside a pod (``launch.procs.spawn``, four gloo ranks on the
@@ -364,20 +367,21 @@ before the last line is printed:
    cuts (2 layers; recurrentgemma one (rglru, rglru, attn) cycle;
    seamless 2 encoder and 2 decoder layers): (a) float32 (TF32 off), one
    bsp step on 2 x 256 tokens against the one-card step each rank runs
-   in turn (1e-5 relative L2, the loss within 1e-6 relative), a 2 x 512
+   in turn, two at once (1e-5 relative L2, the loss within 1e-6
+   relative), a 2 x 512
    prefill and 4 teacher-forced decode steps of 8 requests over 128
    slots (the enc-dec's memory encoded once on the rank's requests)
    against the parent's one-card serve by phase 14's gate (C12), and the
    cache gathered whole (the SSD state's head_dim blocks, the conv
    histories and RG-LRU states whole on every model rank) within the
    decode gate of the one-card cache; (b) bf16, remat, 2 x 1024 tokens
-   (and the frames or patches), bsp, one warm-up and 2 timed steps: the
+   (and the frames or patches), bsp, one warm-up and one timed step: the
    slowest rank's ms a step, tokens/s, peak memory a rank, the first
    timed step's collectives by kind, 0 host syncs a step, the
    ``flash_attention`` launches of the layer plan (0, 2, 10 and 4 a
    step a rank: every attention of the forward, the body cycles'
    again); (c) mamba2 and recurrentgemma served in bf16: a 4 x 2048
-   prefill (one warm-up call, one timed) and 8 decode steps of 4
+   prefill (one warm-up call, one timed) and 3 decode steps of 4
    requests over 128 slots, 0 host syncs a decode step.  The ranks
    record every shape, dtype and mask (a), (b) and (c) call
    ``flash_attention`` at (recurrentgemma's 5 query heads over one KV
@@ -386,7 +390,21 @@ before the last line is printed:
    a sequence of text and patches, seamless' cross-attention at a decode
    step); the parent then holds the kernel at each against its plain
    version: bf16 within max |err| 8e-3 and mean 1e-6, float32 within
-   2e-5 + 2e-5 |plain| an output.
+   2e-5 + 2e-5 |plain| an output.  What an axis does not divide (ROADMAP
+   A11d), in the same spawn: (d) (a) re-meshed over (1, 1, 4) for
+   recurrentgemma-2b (10 query heads over 4 ranks: every head on each)
+   and seamless-m4t-large-v2 (its vocabulary of 256,206 whole on each
+   model rank); (e) one long_500k request whole on every rank of (1, 2,
+   2) for 2-layer float32 cuts of qwen3-0.6b and mamba2-780m at full
+   width, each decode cache seeded as it stands after 4,160 tokens (the
+   4,096-slot ring wrapped; the SSD state's heads over data) and placed
+   with its length over data: 4 decode steps against the one-card
+   decode on the same cache by phase 14's gate, 0 host syncs a step;
+17. the dry-run stand-in against the card (phase 12's bsp and dpsgd steps
+   traced on meta; its audit sweep on the host beside phase 12's ranks).
+
+Every phase ends with its own line, ``phase N: X.XX s (script Y.YY s)``
+(phases 4, 8 and 9 run in two parts and print one a part).
 
 The line before the last is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  The kernel checks and the
@@ -409,6 +427,8 @@ import time
 import warnings
 from pathlib import Path
 
+#: the script's start, before torch is imported
+_T_SCRIPT = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
@@ -495,8 +515,10 @@ NEW_ARCHS = {"mamba2-780m": 0, "recurrentgemma-2b": 8,
 #: rglru, attn) cycle), and seamless' encoder layers
 NEW_CUT_LAYERS = {"mamba2-780m": 4, "recurrentgemma-2b": 3,
                   "seamless-m4t-large-v2": 2}
-#: serving: 4 requests, 64-token prompts, 32 generated, 128 cache slots
-SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 4, 64, 32, 128
+#: serving (phases 7-9's timed decode loops): 4 requests, 16-token prompts,
+#: 16 generated, 128 cache slots (64 and 32, 95 steps a loop, until the
+#: smoke needed the time on slow hosts; every gate reads the loop as before)
+SERVE_B, SERVE_PROMPT, SERVE_GEN, SERVE_CACHE = 4, 16, 16, 128
 #: prefill/decode agreement: 2 sequences of 256 tokens
 AGREE_B, AGREE_T = 2, 256
 #: its tolerances: in float32 (the same weights, TF32 off) max |logit
@@ -551,9 +573,10 @@ BENCH_STEPS = (("bsp", "bsp", {}, {}, 1),
 
 
 #: phase 11, LM training: qwen3-0.6b at full width, bfloat16, 2 pods of 2
-#: x 1024 tokens, remat, lr 1e-2; one warm-up step, 3 timed steps and one
+#: x 1024 tokens, remat, lr 1e-2; one warm-up step, TRAIN_STEPS timed
+#: steps (3 until phase 16 (d) and (e) needed the script's time) and one
 #: step under PyTorch's sync debug mode a strategy
-TRAIN_PODS, TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 2, 2, 1024, 3, 1e-2
+TRAIN_PODS, TRAIN_B, TRAIN_T, TRAIN_STEPS, TRAIN_LR = 2, 2, 1024, 1, 1e-2
 #: its strategies and their CommConfig fields (a ring fabric), and the
 #: AD-PSGD read's staleness slot
 TRAIN_RUNS = (("bsp", {}), ("gaia", {"gaia_t0": 0.05}),
@@ -587,8 +610,27 @@ TRAIN_ROUTE_TOL, TRAIN_ROUTE_CUT = 1e-3, 4
 TRAIN_ROUTE_GRAD_TOL, TRAIN_BF16_FROM_F32 = 1e-3, 1.25
 
 
+#: the phase that runs: its number and start
+_PHASE: dict = {"n": None, "t": None}
+
+
 def phase(n: int, title: str) -> None:
+    """Ends the phase that runs (``end_phase``) and starts phase ``n``."""
+    end_phase()
+    _PHASE.update(n=n, t=time.perf_counter())
     print(f"[phase {n}] {title}", flush=True)
+
+
+def end_phase() -> None:
+    """Prints the running phase's own time and the script's so far, as
+    ``phase N: X.XX s (script Y.YY s)``: a phase that runs in parts (8, 9
+    and 4 continue after phase 10) prints one line a part."""
+    if _PHASE["n"] is None:
+        return
+    now = time.perf_counter()
+    print(f"phase {_PHASE['n']}: {now - _PHASE['t']:.2f} s (script "
+          f"{now - _T_SCRIPT:.2f} s)", flush=True)
+    _PHASE["n"] = None
 
 
 def time_ms(fn, reps: int = 50) -> float:
@@ -1543,6 +1585,11 @@ def lm_train_phase(dev: torch.device, out_dir: Path):
 #: at world size 1 (the two pods on the one rank, a bf16 cut), its steps
 #: timed and one under the sync debug mode
 DIST_RANKS, DIST_CUT, DIST_VEL_TOL, DIST_NCCL_STEPS = 2, 2, 1e-3, 3
+#: (a)'s steps a strategy: one warm-up, then DIST_STEPS timed, the last
+#: of which records the exchange (b) holds and counts the host syncs (3
+#: until phase 16 (d) and (e) needed the script's time; an odd count, so
+#: that fedavg's last step averages)
+DIST_STEPS = 1
 #: the depth of (a)'s timed steps and (b)'s exchange, at full width: 4 of
 #: qwen3-0.6b's 28 layers (full depth until phase 14 needed the script's
 #: time, 7 until phase 15 did; the exchange's leaves, and so its
@@ -1617,13 +1664,14 @@ def dist_rank(rank: int, dev: torch.device) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as lm
     from repro_torch.topology.graphs import build_demo_schedule
+    t_rank = time.perf_counter()
     mesh = make_mesh((DIST_RANKS, 1, 1), device=dev)
     rows = TRAIN_PODS // DIST_RANKS
     cfg = dataclasses.replace(get_config("qwen3-0.6b"),
                               n_layers=DIST_TIMED_LAYERS)
     base = lm.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
                          dev)
-    batches = _dist_batches(dev, TRAIN_STEPS + 1)
+    batches = _dist_batches(dev, DIST_STEPS + 1)
     sched = build_demo_schedule("ring", TRAIN_PODS)
     out = {"rank": rank, "device": str(dev), "strategies": {}, "cut": {}}
 
@@ -1685,9 +1733,9 @@ def dist_rank(rank: int, dev: torch.device) -> dict:
         # the last timed step (where fedavg syncs) also counts its host
         # syncs and records its exchange for (b)
         ex, calls, times, syncs = step.exchange, [], [], None
-        for i in range(1, TRAIN_STEPS + 1):
+        for i in range(1, DIST_STEPS + 1):
             t0 = time.perf_counter()
-            if i < TRAIN_STEPS:
+            if i < DIST_STEPS:
                 one(i)
             else:
                 def recorded(parts, **kw_):
@@ -1698,10 +1746,11 @@ def dist_rank(rank: int, dev: torch.device) -> dict:
                 syncs = count_syncs(lambda: one(i))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        per_step = {k_: c_ / TRAIN_STEPS for k_, c_ in ops.launches.items()
+        per_step = {k_: c_ / DIST_STEPS for k_, c_ in ops.launches.items()
                     if c_}
         if rank == 0:
-            print(f"phase 12 rank 0: {strategy} timed", flush=True)
+            print(f"phase 12 rank 0: {strategy} timed at "
+                  f"{time.perf_counter() - t_rank:.1f} s", flush=True)
         r = {"losses": [float(x_) for x_ in losses], "wall_ms": times,
              "median_ms": float(np.median(times)),
              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1736,6 +1785,9 @@ def dist_rank(rank: int, dev: torch.device) -> dict:
             mesh.barrier()
         r["exchange_check"] = {"elements": n_el, "differ": differ}
         out["strategies"][strategy] = r
+        if rank == 0:
+            print(f"phase 12 rank 0: {strategy} exchange held at "
+                  f"{time.perf_counter() - t_rank:.1f} s", flush=True)
         torch.cuda.empty_cache()
     del base
     torch.cuda.empty_cache()
@@ -1772,6 +1824,9 @@ def dist_rank(rank: int, dev: torch.device) -> dict:
             out["cut"][strategy] = r
             del mine, one_card
             torch.cuda.empty_cache()
+    if rank == 0:
+        print(f"phase 12 rank 0: (c) done at "
+              f"{time.perf_counter() - t_rank:.1f} s", flush=True)
     return out
 
 
@@ -1994,7 +2049,7 @@ def dist_phase(dev: torch.device, background=None):
         summary["strategies"][strategy] = s
         print(f"(a) {strategy}, {DIST_RANKS} gloo ranks on the card, one "
               f"pod each: {slow:.1f} ms a step (the slower rank's median "
-              f"of {TRAIN_STEPS}; by rank "
+              f"of {DIST_STEPS}; by rank "
               f"{[round(x_, 1) for x_ in s['median_ms_by_rank']]}), "
               f"{s['tokens_per_s']:.0f} tokens/s, peak "
               f"{[round(x_, 2) for x_ in s['peak_gb_by_rank']]} GB a rank, "
@@ -2069,10 +2124,13 @@ def dist_phase(dev: torch.device, background=None):
 #: context each.  (a) a float32 INTRA_CUT-layer cut at full width, one
 #: step of each strategy against the one-card step (relative L2 of the
 #: gathered params and velocities within INTRA_L2_TOL; the exchange on the
-#: one-card step's own inputs bit for bit); (b) a cut of
+#: one-card step's own inputs bit for bit), which rank 0 runs once and
+#: every rank cuts its blocks of through CUDA IPC (each of the eight ranks
+#: ran it in turn until phase 16 (d) and (e) needed the script's time);
+#: (b) a cut of
 #: INTRA_TIMED_LAYERS at full width, bf16, remat, INTRA_TIMED
 #: strategies, 2 x 1024 tokens a pod, one warm-up and
-#: TRAIN_STEPS timed steps; (c) (b)'s bsp params saved on the mesh and
+#: INTRA_STEPS timed steps; (c) (b)'s bsp params saved on the mesh and
 #: restored on one device
 INTRA_MESH, INTRA_CUT, INTRA_L2_TOL = (2, 2, 2), 2, 1e-5
 #: strategies whose exchange selects entries by a threshold: an entry at
@@ -2083,10 +2141,11 @@ INTRA_MESH, INTRA_CUT, INTRA_L2_TOL = (2, 2, 2), 2, 1e-5
 #: are gradients, whose relative L2 is the rounding of their own sums)
 INTRA_SELECTS = ("gaia", "dgc")
 INTRA_TIMED = ("bsp", "dpsgd")
-#: (b)'s depth at full width: 4 of qwen3-0.6b's 28 layers (full depth
-#: until phase 14 needed the script's time, 7 until phase 15 did; (a)'s
-#: float32 cut was 4 layers until then)
-INTRA_TIMED_LAYERS = 4
+#: (b)'s depth at full width: 2 of qwen3-0.6b's 28 layers (full depth
+#: until phase 14 needed the script's time, 7 until phase 15 did, 4 until
+#: phase 16 (d) and (e) did; (a)'s float32 cut was 4 layers until phase
+#: 15), and its timed steps after a warm-up (3 until phase 16 (d) and (e))
+INTRA_TIMED_LAYERS, INTRA_STEPS = 2, 2
 INTRA_TIMEOUT = 900
 
 
@@ -2121,6 +2180,7 @@ def intra_rank(rank: int, dev: torch.device, ckpt_dir: str) -> dict:
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import model as lm
     from repro_torch.topology.graphs import build_demo_schedule
+    from torch.multiprocessing.reductions import reduce_tensor
     import torch.distributed as dist
     t_rank = time.perf_counter()
     cfg = get_config("qwen3-0.6b")
@@ -2129,7 +2189,7 @@ def intra_rank(rank: int, dev: torch.device, ckpt_dir: str) -> dict:
     pods = lsteps.local_pods(TRAIN_PODS, mesh)
     rows = slice(pods.start, pods.stop)
     sched = build_demo_schedule("ring", TRAIN_PODS)
-    batches = _dist_batches(dev, TRAIN_STEPS + 1)
+    batches = _dist_batches(dev, INTRA_STEPS + 1)
     out = {"rank": rank, "coords": mesh.coords, "cut": {}, "timed": {}}
 
     def comm_of(strategy):
@@ -2181,46 +2241,74 @@ def intra_rank(rank: int, dev: torch.device, ckpt_dir: str) -> dict:
         dist.barrier()
         for strategy, _ in TRAIN_RUNS:
             comm = comm_of(strategy)
-            # the one-card step, one rank at a time on the card: this
-            # rank keeps its blocks of the new state and of the step's
-            # exchange (inputs and result)
-            for turn in range(world):
+            # the one-card step once, on rank 0: every rank cuts its
+            # blocks of the new state and of the step's exchange (inputs
+            # and result) from rank 0's tensors, mapped through CUDA IPC
+            # (one handle set a receiving rank: PyTorch counts one release
+            # a handle, and frees the memory once the count is back to 0)
+            t_turns = time.perf_counter()
+            box = [None]
+            if rank == 0:
+                step = lsteps.make_train_step(cfg32, comm, lr=TRAIN_LR,
+                                              remat=True)
+                calls = recording(step)
+                new, _ = step(lsteps.make_train_state(p32, comm, TRAIN_PODS),
+                              batches[0], 1, **operands(comm, None))
+                (parts, kw_, got), = calls
+                whole = ({k_: pytree.leaves(new[k_])
+                          for k_ in ("params", "vel")}, parts, got)
+                torch.cuda.empty_cache()    # the step's temporaries
+                box = [(pytree.tree_map(lambda t_: 0, whole),
+                        [[reduce_tensor(t_.detach())
+                          for t_ in pytree.leaves(whole)]
+                         for _ in range(world - 1)],
+                        {k_: v_.cpu() if torch.is_tensor(v_) else v_
+                         for k_, v_ in kw_.items() if k_ != "mix"})]
+            dist.broadcast_object_list(box, src=0)
+            like_whole, handles, kw_ = box[0]
+            kw_ = {k_: v_.to(dev) if torch.is_tensor(v_) else v_
+                   for k_, v_ in kw_.items()}
+            if rank != 0:
+                whole = pytree.unflatten(like_whole, [
+                    fn_(*args_) for fn_, args_ in handles[rank - 1]])
+            new_, parts_, got_ = whole
+            for turn in range(world):   # one rank's cuts at a time
                 if turn == rank:
-                    step = lsteps.make_train_step(cfg32, comm, lr=TRAIN_LR,
-                                                  remat=True)
-                    calls = recording(step)
-                    new, _ = step(lsteps.make_train_state(p32, comm,
-                                                          TRAIN_PODS),
-                                  batches[0], 1, **operands(comm, None))
-                    (parts, kw_, got), = calls
-                    want = {k_: _intra_blocks(pytree.leaves(new[k_]), specs,
-                                              mesh, rows)
+                    want = {k_: _intra_blocks(new_[k_], specs, mesh, rows)
                             for k_ in ("params", "vel")}
                     ex_in = {k_: _intra_blocks(v_, specs, mesh, rows)
-                             for k_, v_ in parts.items() if k_ != "snaps"}
+                             for k_, v_ in parts_.items() if k_ != "snaps"}
                     ex_out = {k_: _intra_blocks(v_, specs, mesh, rows)
-                              for k_, v_ in got.items() if k_ != "snaps"}
-                    if "snaps" in parts:
-                        ex_in["snaps"] = _intra_snaps(parts["snaps"], like,
+                              for k_, v_ in got_.items() if k_ != "snaps"}
+                    if "snaps" in parts_:
+                        ex_in["snaps"] = _intra_snaps(parts_["snaps"], like,
                                                       specs, mesh, rows)
-                        ex_out["snaps"] = _intra_snaps(got["snaps"], like,
+                        ex_out["snaps"] = _intra_snaps(got_["snaps"], like,
                                                        specs, mesh, rows)
-                    # held on the host through the other ranks' turns: a
-                    # block kept on the card would pin the segment of the
-                    # one-card step's memory it was cut from
-                    kept = pytree.tree_map(lambda t_: t_.cpu(),
-                                           (want, ex_in, ex_out))
-                    # the step refers to itself (its closure reads
-                    # ``train_step.exchange``), so only the collector
-                    # frees it and the recorded tensors
-                    calls.clear()
-                    del step, calls, new, parts, got, want, ex_in, ex_out
-                    gc.collect()
+                    torch.cuda.synchronize()
                     torch.cuda.empty_cache()
                 dist.barrier()
-            want, ex_in, ex_out = pytree.tree_map(lambda t_: t_.to(dev),
-                                                  kept)
-            del kept
+            del whole, new_, parts_, got_, box, handles
+            dist.barrier()      # no rank maps rank 0's tensors any more
+            if rank == 0:
+                # rank 0's blocks through the host while the step's
+                # memory goes: a block kept on the card would pin the
+                # segment it was cut from; the step refers to itself (its
+                # closure reads ``train_step.exchange``), so only the
+                # collector frees it and the recorded tensors
+                want, ex_in, ex_out = pytree.tree_map(
+                    lambda t_: t_.cpu(), (want, ex_in, ex_out))
+                calls.clear()
+                del step, calls, new, parts, got
+                gc.collect()
+                torch.cuda.ipc_collect()
+                torch.cuda.empty_cache()
+                want, ex_in, ex_out = pytree.tree_map(
+                    lambda t_: t_.to(dev), (want, ex_in, ex_out))
+            dist.barrier()      # rank 0's one-card memory given back
+            if rank == 0:
+                print(f"phase 13 rank 0: (a) {strategy} the one-card step "
+                      f"{time.perf_counter() - t_turns:.1f} s", flush=True)
             # the mesh step on the same weights and batch
             for k_ in ops.launches:
                 ops.launches[k_] = 0
@@ -2290,20 +2378,20 @@ def intra_rank(rank: int, dev: torch.device, ckpt_dir: str) -> dict:
         for k_ in ops.launches:
             ops.launches[k_] = 0
         times, syncs, blocked = [], None, None
-        for i in range(1, TRAIN_STEPS + 1):
+        for i in range(1, INTRA_STEPS + 1):
             torch.cuda.synchronize()
             dist.barrier()
             t0 = time.perf_counter()
             if i == 1:              # the first timed step: its collectives
                 with _timed_collectives() as blocked:
                     one(i)
-            elif i < TRAIN_STEPS:
+            elif i < INTRA_STEPS:
                 one(i)
             else:
                 syncs = count_syncs(lambda: one(i))
             torch.cuda.synchronize()
             times.append((time.perf_counter() - t0) * 1e3)
-        per_step = {k_: c_ / TRAIN_STEPS for k_, c_ in ops.launches.items()
+        per_step = {k_: c_ / INTRA_STEPS for k_, c_ in ops.launches.items()
                     if c_}
         r = {"losses": [float(x_) for x_ in losses], "wall_ms": times,
              "median_ms": float(np.median(times)),
@@ -2322,13 +2410,13 @@ def intra_rank(rank: int, dev: torch.device, ckpt_dir: str) -> dict:
                 mesh)["params"]
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            ckpt.save(ckpt_dir, state, step=TRAIN_STEPS, mesh=mesh,
+            ckpt.save(ckpt_dir, state, step=INTRA_STEPS, mesh=mesh,
                       specs=pspecs)
             r["save_s"] = time.perf_counter() - t0
             t0 = time.perf_counter()
             back = ckpt.restore(ckpt_dir, pytree.tree_map(torch.empty_like,
                                                           state),
-                                step=TRAIN_STEPS, mesh=mesh, specs=pspecs)
+                                step=INTRA_STEPS, mesh=mesh, specs=pspecs)
             torch.cuda.synchronize()
             r["restore_s"] = time.perf_counter() - t0
             r["restored_equal"] = all(torch.equal(x_, y_) for x_, y_ in zip(
@@ -2516,7 +2604,7 @@ def intra_phase(dev: torch.device):
         print(f"(b) {strategy}, {INTRA_TIMED_LAYERS} layers at full width, "
               f"bf16, remat, mesh {INTRA_MESH} "
               f"of gloo ranks on the card: {slow:.1f} ms a step (the slower "
-              f"rank's median of {TRAIN_STEPS}), {s['tokens_per_s']:.0f} "
+              f"rank's median of {INTRA_STEPS}), {s['tokens_per_s']:.0f} "
               f"tokens/s, peak {max(s['peak_gb_by_rank']):.2f} GB a rank "
               f"(by rank {[round(x_, 2) for x_ in s['peak_gb_by_rank']]}), "
               f"{s['syncs_per_step_by_rank']} host syncs a step (the calling "
@@ -2537,7 +2625,7 @@ def intra_phase(dev: torch.device):
         tuple(t_.shape), dtype=t_.dtype, device=dev),
         lsteps.train_state_shape(cfg, comm, TRAIN_PODS)["params"])
     t0 = time.perf_counter()
-    whole = ckpt.restore(ckpt_dir, like, step=TRAIN_STEPS)
+    whole = ckpt.restore(ckpt_dir, like, step=INTRA_STEPS)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
     desc = Mesh(INTRA_MESH, AXES)
@@ -2595,8 +2683,7 @@ def intra_phase(dev: torch.device):
 MESH_SHAPES = {"qwen3-0.6b": (1, 2, 2), "deepseek-v2-lite-16b": (1, 1, 4)}
 #: 8 requests (the reference's batch_sharded rule: B >= 8), a 64-token
 #: prompt fed through the serve step, 31 generated, 128 slots
-MESH_B, MESH_PROMPT, MESH_GEN, MESH_CACHE = 8, SERVE_PROMPT, SERVE_GEN - 1, \
-    SERVE_CACHE
+MESH_B, MESH_PROMPT, MESH_GEN, MESH_CACHE = 8, 64, 31, SERVE_CACHE
 #: (a)'s float32 parity (TF32 off): deepseek-v2-lite-16b on a MESH_CUT-layer
 #: cut (1 dense and 3 MoE layers) over its first MESH_DS_F32_STEPS decode
 #: steps under the flash-decode placement and its first MESH_BASE_STEPS
@@ -2615,15 +2702,21 @@ MESH_CUT, MESH_QWEN_F32_STEPS, MESH_BASE_STEPS = 4, 4, 16
 #: script's time; 8 qwen3 steps and 32 deepseek steps under the heads
 #: placement until then)
 MESH_DS_F32_STEPS = 32
-#: (b)'s deepseek-v2-lite-16b depth: 14 of its 27 layers (1 dense, 13
-#: MoE; full depth until phase 15 needed the script's time)
-MESH_DS_LAYERS = 14
+#: (b)'s deepseek-v2-lite-16b depth: 3 of its 27 layers (1 dense, 2 MoE,
+#: phase 15 (c)'s cut; full depth until phase 15 needed the script's time,
+#: 14 until phase 16 (d) and (e) did)
+MESH_DS_LAYERS = 3
+#: (b)'s qwen3-0.6b depth: 4 of its 28 layers (full depth until phase 16
+#: (d) and (e) needed the script's time); its bf16 rule holds the mesh's
+#: logits against the one-card bf16 and float32 serves of the same cut
+MESH_QWEN_LAYERS = 4
 MESH_F32_TOL, MESH_WITNESS_X = 1e-5, 1.25
 #: the EP route's decode steps in (a): the dense route's function at one
 #: token a step (the reference's rule), run to show the route takes it
 MESH_EP_STEPS = 8
-#: (b)'s timing: one warm-up call or step, then MESH_TIMED timed
-MESH_TIMED = 3
+#: (b)'s timing: one warm-up call or step, then MESH_TIMED timed (3 until
+#: phase 16 (d) and (e) needed the script's time)
+MESH_TIMED = 2
 MESH_TIMEOUT = 900
 #: flash_attention at each rank's prefill shape: (B, T, Hq, Hkv, Dk, Dv)
 MESH_FA_SHAPES = {"qwen3-0.6b": (2, PREFILL_T, 8, 4, 128, 128),
@@ -2896,10 +2989,11 @@ def serve_mesh_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
     del params
     torch.cuda.empty_cache()
     mark("(a) qwen3 float32 prefill and decode")
-    params = blocks(qcfg, mesh)
+    qcut = dataclasses.replace(qcfg, n_layers=MESH_QWEN_LAYERS)
+    params = blocks(qcut, mesh)
     mark("(b) qwen3 bf16 draw")
     torch.cuda.reset_peak_memory_stats()
-    out["qwen3_bf16"] = full(qcfg, mesh, params, "qwen3", ("dense",))
+    out["qwen3_bf16"] = full(qcut, mesh, params, "qwen3", ("dense",))
     out["qwen3_bf16"]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     del params
     torch.cuda.empty_cache()
@@ -3062,16 +3156,23 @@ def serve_mesh_phase(dev: torch.device):
         witness = {"qwen3_f32": _rounding_witness(q32, p, dev, n_q, fed, pre,
                                                   dec)}
     saved.update({"qwen3_f32/prefill": pre, "qwen3_f32/decode": dec,
-                  "qwen3_f32/fed": fed, "qwen3/fed": fed,
-                  "qwen3/prefill_f32": pre,
-                  "qwen3/decode_f32": dec[:MESH_TIMED + 1]})
+                  "qwen3_f32/fed": fed, "qwen3/fed": fed})
     del p
     torch.cuda.empty_cache()
-    p = lm.init_model(torch.Generator(device=dev).manual_seed(0), qcfg, dev)
-    pre, dec, _ = _one_card_serve(qcfg, p, dev, MESH_TIMED + 1, fed)
-    saved.update({"qwen3/prefill_bf16": pre, "qwen3/decode_bf16": dec})
-    del p
-    torch.cuda.empty_cache()
+    # (b)'s cut, float32 (TF32 off) and bf16
+    qcut = dataclasses.replace(qcfg, n_layers=MESH_QWEN_LAYERS)
+    for dt_, tf32 in (("float32", tf32_off), ("bf16", contextlib.nullcontext)):
+        cut_ = (dataclasses.replace(qcut, dtype="float32")
+                if dt_ == "float32" else qcut)
+        with tf32():
+            p = lm.init_model(torch.Generator(device=dev).manual_seed(0),
+                              cut_, dev)
+            pre, dec, _ = _one_card_serve(cut_, p, dev, MESH_TIMED + 1, fed)
+        key = "f32" if dt_ == "float32" else "bf16"
+        saved.update({f"qwen3/prefill_{key}": pre,
+                      f"qwen3/decode_{key}": dec})
+        del p
+        torch.cuda.empty_cache()
     dcfg = get_config("deepseek-v2-lite-16b")
     cut = dataclasses.replace(dcfg, n_layers=MESH_CUT, dtype="float32")
     D, M = MESH_SHAPES["deepseek-v2-lite-16b"][1:]
@@ -3172,13 +3273,12 @@ def serve_mesh_phase(dev: torch.device):
           f"{aux[1]:.6g}", flush=True)
     check(ep_l2 <= MESH_F32_TOL and abs(aux[0] - aux[1]) <=
           MESH_F32_TOL * abs(aux[1]), ("ep layer", ep_l2, aux))
-    # (b) bf16 at full width, qwen3 at full depth, deepseek cut
+    # (b) bf16 at full width, qwen3 and deepseek cut
     kern_launches = {}
     for key, arch in (("qwen3_bf16", "qwen3-0.6b"),
                       ("deepseek_bf16", "deepseek-v2-lite-16b")):
-        cfg_ = get_config(arch)
-        if arch != "qwen3-0.6b":
-            cfg_ = dataclasses.replace(cfg_, n_layers=MESH_DS_LAYERS)
+        cfg_ = dataclasses.replace(get_config(arch), n_layers=(
+            MESH_QWEN_LAYERS if arch == "qwen3-0.6b" else MESH_DS_LAYERS))
         s = {"peak_gb_by_rank": [r_[key]["peak_gb"] for r_ in ranks]}
         for route, r0 in ranks[0][key].items():
             if not isinstance(r0, dict):
@@ -3319,8 +3419,8 @@ MOE_EX_MESH = (2, 1, 2)
 #: (c) deepseek-v2-lite-16b bf16, remat, MOE_TIMED_CUT layers (1 dense, 2
 #: MoE; 4 until the script's time asked for the cut) over (1, 1, 4), 2 x
 #: 1024 tokens, bsp, both routes: one warm-up and PHASE15_TIMED timed
-#: steps
-MOE_TIMED_CUT, PHASE15_TIMED = 3, 3
+#: steps (3 until phase 16 (d) and (e) needed the script's time)
+MOE_TIMED_CUT, PHASE15_TIMED = 3, 1
 #: (d) starcoder2-3b at full width (24 heads over 2 KV heads: each KV head
 #: serves two of the four model ranks), float32, KV_CUT layers over (1, 1,
 #: 4): one bsp step against one card (INTRA_L2_TOL); a prefill of KV_PRE_B
@@ -3330,8 +3430,8 @@ MOE_TIMED_CUT, PHASE15_TIMED = 3, 3
 KV_CUT, KV_PRE_B, KV_PRE_T, KV_DECODE = 2, 4, 512, 8
 #: (e) starcoder2-3b bf16, remat, KV_TIMED_CUT layers (8 until the
 #: script's time asked for the cut), 1 x 1024 tokens, bsp: one warm-up and
-#: KV_TIMED timed steps
-KV_TIMED_CUT, KV_TIMED = 4, 2
+#: KV_TIMED timed steps (2 until phase 16 (d) and (e) needed the time)
+KV_TIMED_CUT, KV_TIMED = 4, 1
 PHASE15_TIMEOUT = 600
 
 
@@ -3445,7 +3545,7 @@ def _turns(fn, rank: int, world: int) -> None:
     torch.cuda.empty_cache()
     dist.barrier()
     for turn in range(world):
-        if turn == rank:
+        if rank == turn:
             fn()
             gc.collect()
             torch.cuda.empty_cache()
@@ -3453,10 +3553,10 @@ def _turns(fn, rank: int, world: int) -> None:
 
 
 def _timed_train(cfg_, mesh_, batch_, route, n_timed, dev):
-    """One warm-up and ``n_timed`` (2 or more) timed bsp steps of
-    ``cfg_`` on this rank of ``mesh_``, the weights drawn from seed 0:
-    walls, launches a step, host syncs (the last step), collectives of
-    the first timed step, losses, peak memory, the warm-up step's plain
+    """One warm-up and ``n_timed`` timed bsp steps of ``cfg_`` on this
+    rank of ``mesh_``, the weights drawn from seed 0: walls, launches a
+    step, host syncs (the last step), collectives of the first timed step
+    (one step: both), losses, peak memory, the warm-up step's plain
     attention backward."""
     from repro_torch import pytree
     from repro_torch.configs.base import CommConfig
@@ -3504,7 +3604,10 @@ def _timed_train(cfg_, mesh_, batch_, route, n_timed, dev):
         torch.cuda.synchronize()
         mesh_.barrier()
         t0 = time.perf_counter()
-        if i == 1:
+        if i == 1 == n_timed:
+            with _timed_collectives() as blocked:
+                syncs = count_syncs(lambda: one(i))
+        elif i == 1:
             with _timed_collectives() as blocked:
                 one(i)
         elif i < n_timed:
@@ -4188,18 +4291,35 @@ FAM_LAYERS = {"mamba2-780m": 2, "recurrentgemma-2b": 3,
 FAM_B, FAM_T = 2, 256
 FAM_PRE_B, FAM_PRE_T, FAM_DECODE = 2, 512, 4
 #: (b) bf16, remat, TRAIN_B x TRAIN_T tokens a pod (and patches or
-#: frames), bsp: one warm-up and FAM_TIMED timed steps
-FAM_TIMED = 2
+#: frames), bsp: one warm-up and FAM_TIMED timed steps (2 until (d) and
+#: (e) needed the script's time)
+FAM_TIMED = 1
 #: (c) bf16 serving of the two families whose decode caches are new to a
 #: mesh: a FAM_SERVE_B x PREFILL_T prefill (one warm-up call, one timed),
 #: then FAM_SERVE_STEPS decode steps of FAM_SERVE_B requests over
-#: MESH_CACHE slots (the first a warm-up, the last's host syncs counted)
+#: MESH_CACHE slots (the first a warm-up, one timed, the last's host syncs
+#: counted; 8 until (d) and (e) needed the script's time)
 FAM_SERVE = ("mamba2-780m", "recurrentgemma-2b")
-FAM_SERVE_B, FAM_SERVE_STEPS = 4, 8
+FAM_SERVE_B, FAM_SERVE_STEPS = 4, 3
 FAM_TIMEOUT = 600
 #: flash_attention's float32 bound at the shapes the ranks launch it at:
 #: |err| <= FAM_FA_F32_TOL * (1 + |plain|) an output (phase 5's allclose)
 FAM_FA_F32_TOL = 2e-5
+#: (d), what an axis does not divide (ROADMAP A11d): (a)'s float32 step
+#: and serve of these archs re-meshed over (1, 1, 4): recurrentgemma's 10
+#: query heads over 4 ranks (a column block of 640: 2.5 heads, every head
+#: run on every rank), seamless' vocabulary of 256,206 whole on every
+#: model rank
+UNEVEN_MESH = (1, 1, 4)
+UNEVEN_ARCHS = ("recurrentgemma-2b", "seamless-m4t-large-v2")
+#: (e) one request at long_500k's placement over FAM_MESH (the request
+#: whole on every rank, each decode cache's length over data): 2-layer
+#: float32 cuts at full width, the cache seeded as it stands after
+#: ONE_T0 tokens (qwen3's 4,096-slot window ring wrapped; mamba2's SSD
+#: state and conv history), then ONE_DECODE decode steps from ONE_T0
+#: against the one-card decode on the same cache by (a)'s gate (C12)
+ONE_ARCHS = ("qwen3-0.6b", "mamba2-780m")
+ONE_LAYERS, ONE_T0, ONE_DECODE = 2, 4160, 4
 
 
 def _fam_cut(arch: str, dtype: str):
@@ -4283,6 +4403,58 @@ def _fam_serve(cfg, params, dev, mesh=None):
     return pre.float(), torch.stack(dec), cache
 
 
+def _one_cut(arch: str):
+    """(e)'s ``arch``: full width, ONE_LAYERS layers, float32."""
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config(arch), n_layers=ONE_LAYERS,
+                               dtype="float32")
+
+
+def _one_cache(cfg, dev):
+    """(e)'s whole decode cache of one ``long_500k`` request, seeded on
+    ``dev``: every float leaf from a generator, every position ring as
+    it stands after ONE_T0 tokens (position t in slot t mod L)."""
+    from repro_torch import pytree
+    from repro_torch.configs.base import INPUT_SHAPES
+    from repro_torch.models import model as lm
+    whole = lm.init_cache(cfg, 1, INPUT_SHAPES["long_500k"].seq_len,
+                          long_mode=True, device="meta")
+    gen = torch.Generator(device=dev).manual_seed(190)
+    out = []
+    for t_ in pytree.leaves(whole):
+        if t_.dtype == torch.int32:
+            L = t_.shape[-1]
+            pos = ONE_T0 - L + (torch.arange(L, device=dev) - (ONE_T0 - L)) % L
+            out.append(pos.to(torch.int32).expand(t_.shape).contiguous())
+        else:
+            out.append(0.5 * torch.randn(t_.shape, generator=gen,
+                                         device=dev))
+    return pytree.unflatten(whole, out)
+
+
+def _one_serve(cfg, params, cache, dev, mesh=None):
+    """(e)'s ONE_DECODE decode steps of one request from ONE_T0 on
+    ``cache`` (on ``mesh``: the rank's block, the request whole): each
+    step's float32 logits (1, V), and the host syncs of each step's
+    serve step (its greedy token, on a copy of the cache)."""
+    from repro_torch import pytree
+    from repro_torch.launch import steps as lsteps
+    fed = torch.from_numpy(np.random.default_rng(191).integers(
+        0, cfg.vocab, (1, ONE_DECODE)))
+    step = lsteps.make_serve_step(cfg, mesh=mesh, batch_sharded=False)
+    logits, syncs = [], []
+    with torch.inference_mode():
+        for i in range(ONE_DECODE):
+            batch = {"token": fed[:, i].to(dev),
+                     "t": torch.full((1,), ONE_T0 + i, dtype=torch.int32,
+                                     device=dev)}
+            copy = pytree.tree_map(torch.clone, cache)
+            syncs.append(count_syncs(lambda: step(params, copy, batch)))
+            lg, cache = step.logits(params, cache, batch)
+            logits.append(lg.float())
+    return torch.stack(logits), syncs
+
+
 def _rel(got, want) -> float:
     """Relative L2 of two tensors, in float64."""
     num, den = _sq(got, want)
@@ -4326,11 +4498,6 @@ def families_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
     def launched():
         return {k_: c_ for k_, c_ in ops.launches.items() if c_}
 
-    def own(t_, n_):
-        """This rank's data block of ``n_`` requests' rows of ``t_``."""
-        b_ = n_ // mesh.size_of("data")
-        return t_[mesh.coords["data"] * b_:(mesh.coords["data"] + 1) * b_]
-
     fa_calls = {}
     fa_kernel = ops.flash_attention_bthd
 
@@ -4345,74 +4512,120 @@ def families_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
         return fa_kernel(q, k, v, **kw)
     ops.flash_attention_bthd = fa_recorded
 
+    def step_and_serve(arch, mesh):
+        """(a) on ``mesh``: one float32 bsp step, the serve and the cache
+        against the one-card ones (the parent's serve; the step in
+        turns)."""
+        def own(t_, n_):
+            """This rank's data block of ``n_`` requests' rows of ``t_``."""
+            b_ = n_ // mesh.size_of("data")
+            return t_[mesh.coords["data"] * b_:(mesh.coords["data"] + 1)
+                      * b_]
+        cut = _fam_cut(arch, "float32")
+        for mode in ("train", "serve"):
+            sharding.check_layout(cut, mesh, mode=mode)
+        specs = sharding.leaf_specs(lsteps.param_shape(cut), mesh)
+        batch = _fam_batch(cut, FAM_B, FAM_T, 170, dev)
+        whole = draw(cut)
+        state = lsteps.make_train_state(whole, bsp, 1, mesh=mesh)
+        params = pytree.tree_map(lambda t_: t_.clone(),
+                                 sharding.local_params(whole, mesh))
+        del whole
+        torch.cuda.empty_cache()
+        reset()
+        box = []
+        syncs = count_syncs(lambda: box.append(lsteps.make_train_step(
+            cut, bsp, mesh=mesh, lr=TRAIN_LR, remat=True)(state, batch,
+                                                         1)))
+        new, metrics = box[0]
+        a = {"loss": float(metrics["loss"]), "syncs": syncs,
+             "launches": launched()}
+        mine = [t_ for k_ in ("params", "vel")
+                for t_ in pytree.leaves(new[k_])]
+        del state, box, new
+        mark(f"(a) {arch} the mesh step on {tuple(mesh.shape.values())}")
+        # the serve against the parent's one-card serve
+        pre, dec, cache = _fam_serve(cut, params, dev, mesh)
+        a["prefill"] = _row_rel(pre, own(ref[f"{arch}/prefill"],
+                                         FAM_PRE_B).to(dev))
+        a["decode"] = max(_row_rel(dec[t], own(
+            ref[f"{arch}/decode"][t], MESH_B).to(dev))
+            for t in range(FAM_DECODE))
+        whole_c = lm.init_cache(cut, MESH_B, MESH_CACHE, device="meta")
+        c_specs = pytree.leaves_like(sharding.cache_shardings(
+            whole_c, mesh, batch_sharded=True), whole_c)
+        a["cache"] = {}
+        for (path, t_), s_, w_ in zip(
+                pytree.leaves_with_paths(cache), c_specs,
+                ref[f"{arch}/cache"], strict=True):
+            g_ = sharding.gather_leaf(t_, s_, mesh)
+            a["cache"][path] = (bool(torch.equal(g_.cpu(), w_))
+                                if w_.dtype == torch.int32 else
+                                _rel(g_, w_.to(dev)))
+        del params, pre, dec, cache
+        mark(f"(a) {arch} the mesh serve on {tuple(mesh.shape.values())}")
+
+        def one_card():
+            a["free_gib"] = torch.cuda.mem_get_info(dev)[0] / 2 ** 30
+            torch.cuda.reset_peak_memory_stats(dev)
+            whole_ = draw(cut)
+            ops.flash_attention_bthd = fa_kernel   # not the mesh's
+            new_, m_ = lsteps.make_train_step(cut, bsp, lr=TRAIN_LR,
+                                              remat=True)(
+                lsteps.make_train_state(whole_, bsp, 1), batch, 1)
+            ops.flash_attention_bthd = fa_recorded
+            del whole_
+            want = [t_ for k_ in ("params", "vel")
+                    for t_ in pytree.leaves(new_[k_])]
+            a["sq"] = _p15_sq(mine, _intra_blocks(
+                want, list(specs) * 2, mesh, slice(0, 1)),
+                [(None,) + tuple(s_) for s_ in specs] * 2, mesh)
+            a["one_card_loss"] = float(m_["loss"])
+            a["one_card_peak_gib"] = (torch.cuda.max_memory_allocated(dev)
+                                      / 2 ** 30)
+            del new_, want
+        _turns(one_card, rank, world)
+        del mine
+        mark(f"(a) {arch} the one-card step in turns")
+        return a
+
     mesh = make_mesh(FAM_MESH, device=dev)
     out["coords"] = mesh.coords
     # ----------------------------------------------------------------- (a)
     with tf32_off():
         for arch in FAM_ARCHS:
-            cut = _fam_cut(arch, "float32")
-            for mode in ("train", "serve"):
-                sharding.check_layout(cut, mesh, mode=mode)
-            specs = sharding.leaf_specs(lsteps.param_shape(cut), mesh)
-            batch = _fam_batch(cut, FAM_B, FAM_T, 170, dev)
+            out["a"][arch] = step_and_serve(arch, mesh)
+    # ------------------------------------------------------------ (d), (e)
+    # what an axis does not divide: (a) re-meshed, and one request whole
+    t_new = time.perf_counter()
+    out["d"], out["e"] = {}, {}
+    with tf32_off():
+        mesh4 = make_mesh(UNEVEN_MESH, device=dev)
+        out["coords4"] = mesh4.coords
+        for arch in UNEVEN_ARCHS:
+            out["d"][arch] = step_and_serve(arch, mesh4)
+        for arch in ONE_ARCHS:
+            cut = _one_cut(arch)
             whole = draw(cut)
-            state = lsteps.make_train_state(whole, bsp, 1, mesh=mesh)
             params = pytree.tree_map(lambda t_: t_.clone(),
                                      sharding.local_params(whole, mesh))
             del whole
+            cache = pytree.tree_map(lambda t_: t_.clone(),
+                                    sharding.local_cache(
+                                        _one_cache(cut, dev), mesh,
+                                        batch_sharded=False))
+            blocks = {p_: list(t_.shape) for p_, t_ in
+                      pytree.leaves_with_paths(cache)
+                      if p_.startswith("body/0/")}
+            logits, syncs = _one_serve(cut, params, cache, dev, mesh)
+            out["e"][arch] = {
+                "decode": [_row_rel(logits[i], ref[f"{arch}/one"][i].to(dev))
+                           for i in range(ONE_DECODE)],
+                "syncs": syncs, "blocks": blocks}
+            del params, cache, logits
             torch.cuda.empty_cache()
-            reset()
-            box = []
-            syncs = count_syncs(lambda: box.append(lsteps.make_train_step(
-                cut, bsp, mesh=mesh, lr=TRAIN_LR, remat=True)(state, batch,
-                                                             1)))
-            new, metrics = box[0]
-            a = {"loss": float(metrics["loss"]), "syncs": syncs,
-                 "launches": launched()}
-            mine = [t_ for k_ in ("params", "vel")
-                    for t_ in pytree.leaves(new[k_])]
-            del state, box, new
-            mark(f"(a) {arch} the mesh step")
-            # the serve against the parent's one-card serve
-            pre, dec, cache = _fam_serve(cut, params, dev, mesh)
-            a["prefill"] = _row_rel(pre, own(ref[f"{arch}/prefill"],
-                                             FAM_PRE_B).to(dev))
-            a["decode"] = max(_row_rel(dec[t], own(
-                ref[f"{arch}/decode"][t], MESH_B).to(dev))
-                for t in range(FAM_DECODE))
-            whole_c = lm.init_cache(cut, MESH_B, MESH_CACHE, device="meta")
-            c_specs = pytree.leaves_like(sharding.cache_shardings(
-                whole_c, mesh, batch_sharded=True), whole_c)
-            a["cache"] = {}
-            for (path, t_), s_, w_ in zip(
-                    pytree.leaves_with_paths(cache), c_specs,
-                    ref[f"{arch}/cache"], strict=True):
-                g_ = sharding.gather_leaf(t_, s_, mesh)
-                a["cache"][path] = (bool(torch.equal(g_.cpu(), w_))
-                                    if w_.dtype == torch.int32 else
-                                    _rel(g_, w_.to(dev)))
-            del params, pre, dec, cache
-            mark(f"(a) {arch} the mesh serve")
-
-            def one_card():
-                whole_ = draw(cut)
-                ops.flash_attention_bthd = fa_kernel   # not the mesh's
-                new_, m_ = lsteps.make_train_step(cut, bsp, lr=TRAIN_LR,
-                                                  remat=True)(
-                    lsteps.make_train_state(whole_, bsp, 1), batch, 1)
-                ops.flash_attention_bthd = fa_recorded
-                del whole_
-                want = [t_ for k_ in ("params", "vel")
-                        for t_ in pytree.leaves(new_[k_])]
-                a["sq"] = _p15_sq(mine, _intra_blocks(
-                    want, list(specs) * 2, mesh, slice(0, 1)),
-                    [(None,) + tuple(s_) for s_ in specs] * 2, mesh)
-                a["one_card_loss"] = float(m_["loss"])
-                del new_, want
-            _turns(one_card, rank, world)
-            del mine
-            out["a"][arch] = a
-            mark(f"(a) {arch} the one-card step in turns")
+            mark(f"(e) {arch} one request over {FAM_MESH}")
+    out["new_checks_s"] = time.perf_counter() - t_new
     # ----------------------------------------------------------------- (b)
     for arch in FAM_ARCHS:
         cfg = _fam_cut(arch, "bfloat16")
@@ -4531,6 +4744,29 @@ def families_phase(dev: torch.device):
             floors[arch] = floor
             del p, pre, dec
             torch.cuda.empty_cache()
+    # (e)'s one-card decodes of one request on the seeded cache, and their
+    # floors
+    t_new = time.perf_counter()
+    with tf32_off():
+        for arch in ONE_ARCHS:
+            cut = _one_cut(arch)
+            p = lm.init_model(torch.Generator(device=dev).manual_seed(0),
+                              cut, dev)
+            dec, _ = _one_serve(cut, p, _one_cache(cut, dev), dev)
+            saved[f"{arch}/one"] = dec.cpu()
+            floor = 0.0
+            for seed in (7, 8):
+                g_ = torch.Generator(device=dev).manual_seed(seed)
+                moved = pytree.tree_map(lambda t_: t_ * (
+                    1 + 2 ** -24 * torch.randn(t_.shape, generator=g_,
+                                               device=dev)), p)
+                dec_w, _ = _one_serve(cut, moved, _one_cache(cut, dev), dev)
+                del moved
+                floor = max(floor, _row_rel(dec_w, dec))
+            floors[arch, "one"] = floor
+            del p, dec
+            torch.cuda.empty_cache()
+    summary["new_one_card_s"] = time.perf_counter() - t_new
     out_dir = ROOT / "build" / "phase16"
     shutil.rmtree(out_dir, ignore_errors=True)
     out_dir.mkdir(parents=True)
@@ -4539,6 +4775,11 @@ def families_phase(dev: torch.device):
     del saved
     summary["one_card_s"] = time.perf_counter() - t_phase
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 16: the parent holds "
+          f"{torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} GiB of the card "
+          "(reserved) as the ranks start", flush=True)
     t0 = time.perf_counter()
     ranks = procs.spawn(families_rank, 4, backend="gloo", device=dev,
                         timeout=FAM_TIMEOUT, args=(ref_path,))
@@ -4584,11 +4825,13 @@ def families_phase(dev: torch.device):
     def rel(num_den):
         return (num_den[0] / max(num_den[1], 1e-300)) ** 0.5
 
-    # (a)
-    summary["a"] = {}
-    for arch in FAM_ARCHS:
+    # (a), and (d): (a) re-meshed where an axis does not divide a width
+    summary["a"], summary["d"] = {}, {}
+    for part, mesh_shape, arch in (
+            [("a", FAM_MESH, a_) for a_ in FAM_ARCHS]
+            + [("d", UNEVEN_MESH, a_) for a_ in UNEVEN_ARCHS]):
         cut = _fam_cut(arch, "float32")
-        rs = [r_["a"][arch] for r_ in ranks]
+        rs = [r_[part][arch] for r_ in ranks]
         a0 = rs[0]
         gate = {k_: max(MESH_F32_TOL, MESH_WITNESS_X * floors[arch][k_])
                 for k_ in ("prefill", "decode")}
@@ -4600,17 +4843,20 @@ def families_phase(dev: torch.device):
              "prefill": max(r_["prefill"] for r_ in rs),
              "decode": max(r_["decode"] for r_ in rs),
              "cache": a0["cache"], "rounding_floor": floors[arch],
-             "gates": gate}
+             "gates": gate,
+             "one_card_peak_gib_by_rank": [r_["one_card_peak_gib"]
+                                           for r_ in rs],
+             "free_gib_before_by_rank": [r_["free_gib"] for r_ in rs]}
         a["loss_rel_diff"] = abs(a["loss"] - a["one_card_loss"]) / abs(
             a["one_card_loss"])
-        summary["a"][arch] = a
+        summary[part][arch] = a
         floats = {k_: v_ for k_, v_ in a["cache"].items()
                   if not isinstance(v_, bool)}
-        print(f"(a) {arch}, float32 (TF32 off), full width, "
+        print(f"({part}) {arch}, float32 (TF32 off), full width, "
               f"{FAM_LAYERS[arch]}-layer cut"
               + (f" ({FAM_LAYERS[arch]} encoder layers)" if cut.encoder
                  else "")
-              + f", {FAM_MESH} of gloo ranks on the card: one bsp step on "
+              + f", {mesh_shape} of gloo ranks on the card: one bsp step on "
               f"{FAM_B} x {FAM_T} tokens against the one-card step, the "
               f"gathered params and velocities' relative L2 "
               f"{a['params_vel_rel_l2']:.3g} (gate {INTRA_L2_TOL}), loss "
@@ -4628,16 +4874,54 @@ def families_phase(dev: torch.device):
               + "); the cache gathered whole, relative L2 by leaf (the "
               "largest) " + f"{max(floats.values()):.3g}, positions equal: "
               + str(all(v_ for v_ in a["cache"].values()
-                        if isinstance(v_, bool))), flush=True)
-        check(a["params_vel_rel_l2"] <= INTRA_L2_TOL, ("(a) step", arch, a))
-        check(a["loss_rel_diff"] <= MOE_LOSS_TOL, ("(a) loss", arch, a))
+                        if isinstance(v_, bool)))
+              + "; the one-card step in turns, a rank at a time: its peak "
+              f"{max(a['one_card_peak_gib_by_rank']):.2f} GiB allocated, "
+              "the card's least free memory before it "
+              f"{min(a['free_gib_before_by_rank']):.2f} GiB", flush=True)
+        check(a["params_vel_rel_l2"] <= INTRA_L2_TOL,
+              (f"({part}) step", arch, a))
+        check(a["loss_rel_diff"] <= MOE_LOSS_TOL, (f"({part}) loss", arch, a))
         check(a["launches"].get("flash_attention", 0) == _fa_per_step(cut),
-              ("(a) launches", arch, a["launches"]))
-        check(a["prefill"] <= gate["prefill"], ("(a) prefill", arch, a))
-        check(a["decode"] <= gate["decode"], ("(a) decode", arch, a))
+              (f"({part}) launches", arch, a["launches"]))
+        check(a["prefill"] <= gate["prefill"], (f"({part}) prefill", arch, a))
+        check(a["decode"] <= gate["decode"], (f"({part}) decode", arch, a))
         check(all(v_ is True if isinstance(v_, bool) else
                   v_ <= gate["decode"] for v_ in a["cache"].values()),
-              ("(a) cache", arch, a["cache"]))
+              (f"({part}) cache", arch, a["cache"]))
+
+    # (e)
+    summary["e"] = {}
+    for arch in ONE_ARCHS:
+        rs = [r_["e"][arch] for r_ in ranks]
+        gate = max(MESH_F32_TOL, MESH_WITNESS_X * floors[arch, "one"])
+        e = {"decode_by_step": [max(r_["decode"][i] for r_ in rs)
+                                for i in range(ONE_DECODE)],
+             "syncs_by_rank": [r_["syncs"] for r_ in rs],
+             "rank0_blocks": rs[0]["blocks"],
+             "rounding_floor": floors[arch, "one"], "gate": gate}
+        summary["e"][arch] = e
+        print(f"(e) {arch}, float32 (TF32 off), full width, "
+              f"{ONE_LAYERS}-layer cut, one long_500k request whole on "
+              f"every rank of {FAM_MESH}, each decode cache's length over "
+              f"data, seeded as after {ONE_T0} tokens: {ONE_DECODE} decode "
+              "steps against the one-card decode on the same cache, the "
+              "logit row's relative L2 by step (the largest over the "
+              f"ranks) {[float(f'{x_:.3g}') for x_ in e['decode_by_step']]}"
+              f" (gate {gate:.3g}, the floor {e['rounding_floor']:.3g}); "
+              f"host syncs a step by rank {e['syncs_by_rank']}; rank 0's "
+              f"blocks of layer 0's cache {json.dumps(e['rank0_blocks'])}",
+              flush=True)
+        check(max(e["decode_by_step"]) <= gate, ("(e) decode", arch, e))
+        check(all(n_ == 0 for r_ in rs for n_ in r_["syncs"]),
+              ("(e) syncs", arch, e["syncs_by_rank"]))
+    summary["new_checks_s"] = summary["new_one_card_s"] + max(
+        r_["new_checks_s"] for r_ in ranks)
+    print(f"phase 16, the checks of what an axis does not divide ((d), (e) "
+          f"and their one-card runs): {summary['new_checks_s']:.2f} s "
+          f"(the ranks' {max(r_['new_checks_s'] for r_ in ranks):.2f} s, "
+          f"the parent's one-card decodes {summary['new_one_card_s']:.2f} "
+          "s)", flush=True)
 
     # (b)
     summary["b"] = {}
@@ -6385,7 +6669,9 @@ def main() -> int:
     # (b) decode: the serve_decode example's loop
     prompt = torch.from_numpy(rs.integers(0, V, (SERVE_B, SERVE_PROMPT))).to(
         dev)
-    serve_decode.serve(lm_params, lm_cfg, prompt, SERVE_GEN, SERVE_CACHE)
+    # a short warm-up, as phases 8-9's (a whole loop until the smoke
+    # needed the time)
+    serve_decode.serve(lm_params, lm_cfg, prompt[:, :4], 2, SERVE_CACHE)
     for k_ in ops.launches:
         ops.launches[k_] = 0
     gen_tok, secs = serve_decode.serve(lm_params, lm_cfg, prompt, SERVE_GEN,
@@ -7290,6 +7576,7 @@ def main() -> int:
             entry["intrapod_moe_train"] = kern15[entry["name"]]
         if entry["name"] in kern16:
             entry["intrapod_families"] = kern16[entry["name"]]
+    end_phase()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
           "included")
     print(smi)

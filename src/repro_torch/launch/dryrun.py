@@ -9,10 +9,12 @@ allocated or sent: the port's own train, prefill and decode steps run
 once on ``meta`` tensors for rank 0 of a ``launch.meta.MetaMesh`` of the
 mesh's shape, every collective recorded by the mesh, every aten op and
 kernel launch counted by ``launch.meta.CostMode``.  Rank 0 stands for
-every rank: ``sharding.check_layout`` refuses a mesh whose axes do not
-split a placed dimension, so every rank's blocks have one shape (only
-AD-PSGD's all-to-all splits and the gossip's neighbour sets differ by
-pod rank).  No card, no ``XLA_FLAGS``, no process group.
+every rank: a placed dimension is split evenly or, where the reference's
+clamp keeps it whole (heads or a vocabulary ``model`` does not divide,
+``long_500k``'s one request), whole on every rank, and
+``sharding.check_layout`` refuses the rest, so every rank's blocks have
+one shape (only AD-PSGD's all-to-all splits and the gossip's neighbour
+sets differ by pod rank).  No card, no ``XLA_FLAGS``, no process group.
 
 Usage (the reference's flags, ``--save-hlo`` aside: there is no HLO):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\

@@ -28,15 +28,25 @@ each decode-cache leaf (``local_cache``; ``cache_split`` names the axis
 its length is split over) and which of the pod's sequences.
 ``gather_leaf`` is the inverse, for checkpoints and checks.  Where an
 axis does not divide a dimension the reference's ``_clamp_spec`` keeps
-the dimension whole; under the port's explicit tensor parallelism model
-code would read a whole weight as the rank's block, so ``check_layout``
-refuses such a mesh instead.  The whole dimensions the port takes are
-a GQA decode cache's KV heads on a ``model`` axis that is a multiple of
-n_kv_heads (each KV head shared by M / n_kv_heads ranks): ``wk`` and
-``wv`` stay split by columns, and the cache keeps every head on every
-``model`` rank, as the clamp leaves it; and the dimensions the placement
-itself leaves whole: the SSM's and the RG-LRU's conv history and the
-RG-LRU's state on every ``model`` rank (the requests over ``data``).
+the dimension whole.  The model code takes these whole dimensions
+(``check_layout`` refuses the rest, each named):
+- a vocabulary the ``model`` axis does not divide (``vocab_whole``): the
+  table and the unembedding whole over ``model`` (d_model still over
+  ``data``), the lookup, the logits, the cross-entropy and the greedy
+  argmax no longer vocabulary-parallel;
+- query heads the ``model`` axis does not divide (``heads_whole``): the
+  projections' columns still split, so the rank gathers its column
+  blocks of q, k and v over ``model``, computes every head, and hands the
+  row-parallel ``wo`` the attention output's columns of its row block;
+  MLA's ``wukv`` keeps its heads whole on every rank;
+- a GQA decode cache's KV heads on a ``model`` axis that is a multiple of
+  n_kv_heads (each KV head shared by M / n_kv_heads ranks) or that does
+  not divide them: ``wk`` and ``wv`` stay split by columns, and the cache
+  keeps every head on every ``model`` rank;
+- the SSM's and the RG-LRU's conv history and the RG-LRU's state on every
+  ``model`` rank (the requests over ``data``), and, for requests the
+  ``data`` axis does not divide (one ``long_500k`` request), the conv
+  history whole beside the SSD state's heads over ``data``.
 Where the placement does not follow a model's structure (the SSM's
 ``in_proj`` and ``conv_w`` blocks cut across its heads; its SSD state's
 head_dim over ``model``) the model code computes around it
@@ -91,6 +101,12 @@ def _axis_size(mesh: Mesh, ax) -> int:
                      (ax if isinstance(ax, tuple) else (ax,)))
 
 
+def splits(dim: int, size: int) -> bool:
+    """Whether ``size`` ranks split a dimension of ``dim`` (the clamp's
+    rule)."""
+    return dim % size == 0 and dim >= size
+
+
 def _clamp_spec(spec: Spec, shape, mesh: Mesh) -> Spec:
     """Drop sharding on dims the mesh can't divide (tiny reduced configs):
     one entry a dimension of ``shape``."""
@@ -100,8 +116,7 @@ def _clamp_spec(spec: Spec, shape, mesh: Mesh) -> Spec:
         if ax is None:
             out.append(None)
             continue
-        size = _axis_size(mesh, ax)
-        out.append(ax if dim % size == 0 and dim >= size else None)
+        out.append(ax if splits(dim, _axis_size(mesh, ax)) else None)
     return tuple(out)
 
 
@@ -262,6 +277,23 @@ def kv_shared(a, M: int) -> bool:
     return a.kind == "gqa" and M > a.n_kv_heads
 
 
+def heads_whole(a, M: int) -> bool:
+    """Whether the attention ``a`` (GQA, MLA, the enc-dec's encoder and
+    cross-attention) runs every head on each of ``M`` ``model`` ranks:
+    where M does not divide n_heads (nor then n_kv_heads, unless the axis
+    is wider than them: ``kv_shared``).  The rank gathers its column
+    blocks of q, k and v whole and hands ``wo`` its row block of the
+    output."""
+    return M > 1 and a.n_heads % M != 0
+
+
+def vocab_whole(vocab: int, M: int) -> bool:
+    """Whether the table and the unembedding keep ``vocab`` whole on each
+    of ``M`` ``model`` ranks (the clamp's rule): the logits are then
+    whole on every ``model`` rank."""
+    return M > 1 and not splits(vocab, M)
+
+
 def recurrent(cfg) -> bool:
     """Whether ``cfg`` keeps an SSM or RG-LRU state in its decode cache."""
     return cfg.ssm is not None or cfg.rglru is not None
@@ -270,51 +302,72 @@ def recurrent(cfg) -> bool:
 def default_batch_sharded(cfg, batch: int, mesh: Optional[Mesh]) -> bool:
     """The decode cache's placement for ``batch`` requests where the
     caller names none: the requests over ``data`` from 8 of them (the
-    reference's rule), and always for a model with an SSM or RG-LRU state
-    on a ``data`` axis above 1 (``check_cache_placement``)."""
-    return batch >= 8 or (recurrent(cfg) and mesh is not None
-                          and mesh.size_of("data") > 1)
+    reference's rule), and for a model with an SSM or RG-LRU state on a
+    ``data`` axis above 1 wherever that axis splits the requests
+    (``check_cache_placement``)."""
+    D = 1 if mesh is None else mesh.size_of("data")
+    return batch >= 8 or (recurrent(cfg) and D > 1 and splits(batch, D))
 
 
-def check_cache_placement(cfg, mesh: Optional[Mesh],
-                          batch_sharded: bool) -> None:
-    """Raises ``ValueError`` where the decode cache of ``cfg`` cannot take
-    ``batch_sharded`` on ``mesh``: with the requests whole
-    (``batch_sharded=False``) the reference places the SSM's and the
-    RG-LRU's conv history's K - 1 slots over ``data``, which no data axis
-    above 1 splits (its clamp keeps them whole on every rank, beside an
-    SSD state split over the heads), so the port serves those models
-    with the requests over ``data`` (ROADMAP C16)."""
-    if (intra_pod(mesh) and not batch_sharded and recurrent(cfg)
-            and mesh.size_of("data") > 1):
+def check_cache_placement(cfg, mesh: Optional[Mesh], batch_sharded: bool,
+                          batch: int) -> None:
+    """Raises ``ValueError`` where the decode cache of ``batch`` requests
+    of ``cfg`` cannot take ``batch_sharded`` on ``mesh``.  With the
+    requests whole (``batch_sharded=False``) the reference places the
+    SSM's and the RG-LRU's conv history's K - 1 slots over ``data`` (its
+    clamp keeps them whole on every rank, beside an SSD state split over
+    the heads and the RG-LRU's state by channel over ``model``).  The port
+    takes that placement where the ``data`` axis does not split the
+    requests either (every rank decodes all of them: one ``long_500k``
+    request); where it splits them, a rank would decode its rows against
+    every row's state, so the port serves them with the requests over
+    ``data`` (ROADMAP C16); and where it splits the K - 1 slots, it
+    refuses."""
+    D = 1 if mesh is None else mesh.size_of("data")
+    if not (intra_pod(mesh) and not batch_sharded and recurrent(cfg)
+            and D > 1):
+        return
+    k = (cfg.ssm or cfg.rglru).d_conv - 1
+    if splits(batch, D):
         raise ValueError(
-            f"{cfg.arch_id} on data={mesh.size_of('data')}: the SSM and "
-            "RG-LRU decode caches are served with the requests over data "
-            "(batch_sharded=True); the placement of a whole batch puts the "
-            "conv history's slots over data, which it does not split")
+            f"{cfg.arch_id} on data={D}: {batch} requests split over data, "
+            "so the SSM and RG-LRU decode caches are served with the "
+            "requests over data (batch_sharded=True); the placement of a "
+            "whole batch would decode the rank's rows against every row's "
+            "state")
+    if splits(k, D):
+        raise ValueError(
+            f"{cfg.arch_id}: d_conv - 1={k} over data={D} (the whole "
+            "batch's conv history): the decode reads every slot")
 
 
 def _alignment(cfg, M: int) -> list:
     """The refusals no leaf's clamp can see: a ``model`` axis that cuts
-    across a head (the attention's query and KV heads, the SSM's heads,
-    whose rows of ``out_proj`` and SSD state the rank computes), and a
-    ``model`` axis wider than n_kv_heads that is not a multiple of it
-    (``kv_shared``)."""
+    across the SSM's heads (whose rows of ``out_proj`` and SSD state the
+    rank computes), a ``model`` axis wider than n_kv_heads that is not a
+    multiple of it (``kv_shared``), and one that splits the query heads
+    but cuts across a KV head.  Query heads the axis does not divide are
+    taken (``heads_whole``: every head on every rank)."""
     a, bad = cfg.attention, []
-    widths = []
     if cfg.encoder is not None or any(
             cfg.block_kind(i) == "attn" for i in range(cfg.n_layers)):
-        widths.append(("n_heads", a.n_heads))
         if kv_shared(a, M):
             if M % a.n_kv_heads:
                 bad.append(f"model={M} over n_kv_heads={a.n_kv_heads} (a "
                            "model axis wider than n_kv_heads must be a "
                            "multiple of it)")
-        elif a.kind == "gqa":
-            widths.append(("n_kv_heads", a.n_kv_heads))
-    if cfg.ssm is not None:
-        widths.append(("ssm n_heads", cfg.ssm.n_heads))
-    return bad + [f"{k}={n} over model={M}" for k, n in widths if n % M]
+        elif (a.kind == "gqa" and not heads_whole(a, M)
+              and a.n_kv_heads % M):
+            bad.append(f"n_kv_heads={a.n_kv_heads} over model={M}")
+    if cfg.ssm is not None and cfg.ssm.n_heads % M:
+        bad.append(f"ssm n_heads={cfg.ssm.n_heads} over model={M}")
+    return bad
+
+
+#: the dimensions the model code takes whole where the clamp keeps them
+#: so (``_DIM_NAMES``' names): the vocabulary (``vocab_whole``), MLA's
+#: ``wukv`` heads (``heads_whole``), a whole batch's conv history slots
+_TAKEN_WHOLE = ("vocab", "n_heads", "d_conv - 1")
 
 
 #: the names of a leaf's dimensions (the last ones; a stacked cycle axis
@@ -361,7 +414,8 @@ _DIM_NAMES = (
 def _clamped(path: str, shape, want: Spec, mesh: Mesh) -> list:
     """Where the clamp drops an axis that ``want`` (one entry a dimension
     of ``shape``) names: (what, ``path``) for each dimension the axis does
-    not split, what as "name=n over axis=k" (``_DIM_NAMES``)."""
+    not split, what as "name=n over axis=k" (``_DIM_NAMES``), but the
+    dimensions the model code takes whole (``_TAKEN_WHOLE``)."""
     got = _clamp_spec(want, shape, mesh)
     names = next((n for pat, n in _DIM_NAMES if re.search(pat, path)), ())
     out = []
@@ -369,7 +423,9 @@ def _clamped(path: str, shape, want: Spec, mesh: Mesh) -> list:
         if w is not None and g is None:
             j = i - (len(shape) - len(names))
             name = names[j] if j >= 0 else f"dimension {i}"
-            out.append((f"{name}={n} over {w}={_axis_size(mesh, w)}", path))
+            if name not in _TAKEN_WHOLE:
+                out.append((f"{name}={n} over {w}={_axis_size(mesh, w)}",
+                            path))
     return out
 
 
@@ -392,17 +448,16 @@ def cache_refusals(cache: Tree, mesh: Mesh, *, batch_sharded: bool,
     """The leaves of a whole decode ``cache`` that ``mesh`` does not split
     as ``cache_shardings`` places them (a dimension the reference's clamp
     would keep whole, which the decode would read as the rank's block),
-    as ``_clamped`` gives them; a GQA cache's KV heads on a ``model`` axis
-    that is a multiple of their count are taken (every ``model`` rank
-    holds them all, and the decode reads its own: ``kv_shared``)."""
-    M = mesh.size_of("model")
+    as ``_clamped`` gives them; a GQA cache's KV heads that the ``model``
+    axis does not split are taken (every ``model`` rank holds them all,
+    and the decode reads its own: ``kv_shared``, or every head:
+    ``heads_whole``; ``_alignment`` refuses the rest)."""
     out = []
     for path, t in pytree.leaves_with_paths(cache):
         shape = tuple(t.shape)
         want = _cache_spec(path, shape, batch_sharded, baseline_decode)
         if path.endswith(("/k", "/v")):
-            want = tuple(None if w == "model" and M % n == 0 else w
-                         for w, n in zip(want, shape))
+            want = want[:-2] + (None,) + want[-1:]
         out += _clamped(path, shape, want, mesh)
     return out
 
@@ -416,10 +471,12 @@ def check_layout(cfg, mesh: Optional[Mesh], mode: str = "train") -> None:
     would drop an axis its rule names, and, to serve, every leaf of the
     decode cache (the requests over ``data``) that ``cache_shardings``
     would leave whole so (the SSD state's head_dim over ``model``), each
-    dimension named by ``_DIM_NAMES``.  By alignment, which no clamp
-    sees (``_alignment``): the query heads, the KV heads (or a ``model``
-    axis a multiple of them) and the SSM's heads over ``model``.  Nothing
-    to check without an axis above 1."""
+    dimension named by ``_DIM_NAMES``, but the dimensions the model code
+    takes whole (``_TAKEN_WHOLE``: the vocabulary, MLA's ``wukv`` heads,
+    a GQA cache's KV heads).  By alignment, which no clamp sees
+    (``_alignment``): the SSM's heads over ``model``, and a ``model`` axis
+    wider than n_kv_heads that is not a multiple of them.  Nothing to
+    check without an axis above 1."""
     if mode not in MODES:
         raise ValueError(f"check_layout: mode={mode!r}; want one of "
                          f"{MODES}")

@@ -766,15 +766,14 @@ def _serve_layout(cfg: ModelConfig, mesh: Optional[Mesh],
 
 def _serve_rows(batch: Dict, mesh: Mesh) -> Tuple[Dict, int]:
     """(The rank's rows of a serve batch by ``batch_shardings``, the
-    global request count B); raises ``ValueError`` where the leaves'
-    request counts differ or the ``data`` axis does not split B."""
+    global request count B): B / D of them where the ``data`` axis splits
+    B, all B on every rank where it does not (the reference's clamp: one
+    ``long_500k`` request); raises ``ValueError`` where the leaves'
+    request counts differ."""
     got = {k: v.shape[0] for k, v in batch.items()}
     if len(set(got.values())) != 1:
         raise ValueError(f"serve batch leaves {got}: want one request count")
-    B, D = next(iter(got.values())), mesh.size_of("data")
-    if B % D:
-        raise ValueError(f"{B} requests must split over the data axis of "
-                         f"{D}")
+    B = next(iter(got.values()))
     specs = sharding.batch_shardings(batch, mesh, pod_stacked=False)
     return {k: sharding.local_block(v, specs[k], mesh)
             for k, v in batch.items()}, B
@@ -786,9 +785,9 @@ def _check_cache(cfg: ModelConfig, cache, mesh: Mesh, rows: int,
     ``init_cache(..., mesh=)`` makes for the step's placement: an
     attention cache's ``rows`` requests, its length split by ``split``
     (the whole ``pos`` beside a length split over ``model``), GQA's KV
-    heads over ``model`` unless the length is, or the axis is wider than
-    n_kv_heads; an SSM or RG-LRU state's block of the shape ``states``
-    names by path (``_state_blocks``)."""
+    heads over ``model`` unless the length is or the axis does not split
+    them; an SSM or RG-LRU state's block of the shape ``states`` names by
+    path (``_state_blocks``)."""
     leaves = dict(pytree.leaves_with_paths(cache))
     M = mesh.size_of("model")
     for path, want in states.items():
@@ -808,7 +807,7 @@ def _check_cache(cfg: ModelConfig, cache, mesh: Mesh, rows: int,
             continue
         want_len = pos.shape[off + 1] // (M if split == "model" else 1)
         heads = cfg.attention.n_kv_heads
-        if split != "model" and not sharding.kv_shared(cfg.attention, M):
+        if split != "model" and sharding.splits(heads, M):
             heads //= M
         if (pos.shape[off] != rows or kv.shape[off] != rows
                 or kv.shape[off + 1] != want_len
@@ -833,11 +832,16 @@ def _state_blocks(cfg: ModelConfig, mesh: Mesh, B: int,
         whole, mesh, batch_sharded=batch_sharded).items()}
 
 
-def _vocab_argmax(logits: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def _vocab_argmax(logits: torch.Tensor, mesh: Mesh, whole: bool = False
+                  ) -> torch.Tensor:
     """The greedy token of the rank's vocabulary columns ``logits`` (B, V /
     M): each rank's max and its first index, the max all-reduced (MAX)
     over ``model``, then the smallest global index among the ranks that
-    hold it (MIN): ``torch.argmax`` of the whole row, ties included."""
+    hold it (MIN): ``torch.argmax`` of the whole row, ties included.
+    ``whole``: the logits hold every column (``sharding.vocab_whole``),
+    and their ``torch.argmax`` is the token."""
+    if whole:
+        return torch.argmax(logits, dim=-1).to(torch.int32)
     n = logits.shape[-1]
     top, idx = logits.max(dim=-1)
     best = top.clone()
@@ -862,9 +866,11 @@ def make_prefill_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None,
     or ``model`` axis above 1, ``params`` are the rank's blocks
     (``sharding.local_params``), ``batch`` the global batch, of which the
     rank runs its rows (``batch_shardings``: over ``data``); it returns
-    the rank's rows' (B / D, V) logits, whole: the rank's vocabulary
-    columns gathered over ``model``.  ``sharding.check_layout(mode=
-    "serve")`` refuses the widths the axes do not divide."""
+    the rank's rows' (B / D, V) logits (all B where ``data`` does not
+    divide them), whole: the rank's vocabulary columns gathered over
+    ``model`` (where the axis splits the vocabulary).  ``sharding.
+    check_layout(mode="serve")`` refuses the widths the axes do not
+    divide but the model code takes whole."""
     intra = _serve_layout(cfg, mesh, moe_route)
 
     def prefill_step(params, batch):
@@ -876,8 +882,18 @@ def make_prefill_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None,
         with activation_sharding(mesh):
             logits, _ = forward(params, cfg, rows, remat=False, chunk=chunk,
                                 moe_route=moe_route)
-        return mesh.all_gather_dim(logits[:, -1].contiguous(), 1, "model")
+        return _whole_vocab(cfg, mesh, logits[:, -1])
     return prefill_step
+
+
+def _whole_vocab(cfg: ModelConfig, mesh: Mesh, logits: torch.Tensor
+                 ) -> torch.Tensor:
+    """The rows' logits over every column: the rank's vocabulary columns
+    gathered over ``model``, or ``logits`` where they hold every column
+    already (``sharding.vocab_whole``)."""
+    if sharding.vocab_whole(cfg.vocab, mesh.size_of("model")):
+        return logits
+    return mesh.all_gather_dim(logits.contiguous(), 1, "model")
 
 
 def make_encode_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None
@@ -927,10 +943,13 @@ def make_serve_step(cfg: ModelConfig,
     ``baseline_decode`` (the reference's ``REPRO_BASELINE_DECODE``
     placement) keeps the attention caches' KV heads over ``model``, else
     their length (flash-decode).  The function is the one-device step's
-    either way.  The token is the
-    vocabulary-parallel argmax of the rank's rows, gathered over
-    ``data``: every rank returns the whole batch's (B,) tokens;
-    ``.logits`` returns the rank's rows' (B / D, V), whole."""
+    either way.  Requests the ``data`` axis does not divide (one
+    ``long_500k`` request) are held whole by every rank; placed over
+    ``data`` (``batch_sharded=True``) they raise ``ValueError``.  The
+    token is the vocabulary-parallel argmax of the rank's rows (a plain
+    argmax where the vocabulary is whole: ``sharding.vocab_whole``),
+    gathered over ``data``: every rank returns the whole batch's (B,)
+    tokens; ``.logits`` returns the rank's rows' (B / D, V), whole."""
     intra = _serve_layout(cfg, mesh, moe_route)
     states: Dict = {}                # (B, batch_sharded): _state_blocks
 
@@ -944,14 +963,19 @@ def make_serve_step(cfg: ModelConfig,
         rows, B = _serve_rows(batch, mesh)
         placed = (sharding.default_batch_sharded(cfg, B, mesh)
                   if batch_sharded is None else batch_sharded)
-        sharding.check_cache_placement(cfg, mesh, placed)
+        D = mesh.size_of("data")
+        if placed and D > 1 and not sharding.splits(B, D):
+            raise ValueError(
+                f"{B} requests must split over the data axis of {D} to lie "
+                "over it (batch_sharded=True); batch_sharded=False holds "
+                "them all on every rank")
+        sharding.check_cache_placement(cfg, mesh, placed, B)
         split = sharding.cache_split(mesh, batch_sharded=placed,
                                      baseline_decode=baseline_decode)
         if (B, placed) not in states:
             states[B, placed] = _state_blocks(cfg, mesh, B, placed)
-        _check_cache(cfg, cache, mesh,
-                     B // mesh.size_of("data") if placed else B, split,
-                     states[B, placed])
+        _check_cache(cfg, cache, mesh, next(iter(rows.values())).shape[0]
+                     if placed else B, split, states[B, placed])
         with activation_sharding(mesh):
             if memory is None:
                 return decode_step(params, cfg, rows, cache,
@@ -963,13 +987,16 @@ def make_serve_step(cfg: ModelConfig,
         logits, new_cache = decode(params, cache, batch)
         if not intra:
             return torch.argmax(logits, dim=-1).to(torch.int32), new_cache
-        return (mesh.all_gather_dim(_vocab_argmax(logits, mesh), 0, "data"),
-                new_cache)
+        toks = _vocab_argmax(logits, mesh, sharding.vocab_whole(
+            cfg.vocab, mesh.size_of("model")))
+        if toks.shape[0] != next(iter(batch.values())).shape[0]:
+            toks = mesh.all_gather_dim(toks, 0, "data")   # the rank's rows
+        return toks, new_cache
 
     def logits_of(params, cache, batch):
         logits, new_cache = decode(params, cache, batch)
         if intra:
-            logits = mesh.all_gather_dim(logits.contiguous(), 1, "model")
+            logits = _whole_vocab(cfg, mesh, logits)
         return logits, new_cache
 
     serve_step.logits = logits_of

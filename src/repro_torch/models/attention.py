@@ -25,13 +25,23 @@ of wk and wv is a part of one KV head, so k and v are gathered whole over
 n_heads / M heads (the column blocks of wq or wuq and the rank's heads of wukv; the
 latent columns of wdkv and wdq are gathered over ``model`` first, since
 the RMSNorm reads the whole latent), the kernel on those, and wo
-row-parallel.  The decode step reads the rank's block of the cache, as
+row-parallel.  Where the ``model`` axis does not divide the heads
+(``sharding.heads_whole``: the projections' columns still split, a
+rank's block a part of a head) the rank gathers its column blocks of q,
+k and v whole over ``model`` (their backward sums every rank's part of a
+head's gradient), computes every head, and hands the row-parallel wo the
+columns of the output its row block reads (``_wo_cols``); MLA's wukv is
+whole on every rank then (the clamp), its gradient summed over ``model``
+once (``copy_to_model``: each rank's output columns give a part).  The
+decode step reads the rank's block of the cache, as
 ``launch.sharding.cache_shardings`` places it; its ``split`` argument
 (``sharding.cache_split``) names the axis the cache's length is split
 over.  Where it is split (``"model"``: flash-decode; ``"data"``: a batch
 below 8, every row's length over ``data``) each rank scores the query
 against its own slots (over ``model``: every head, q gathered; over
-``data``: every row, q gathered), the slot's owner writes the new token,
+``data``: every row, q gathered where the rank holds its rows of the
+requests, not where it holds them all: requests the ``data`` axis does
+not divide, ``_rows_split``), the slot's owner writes the new token,
 and the softmax is combined: the max of the partial scores all-reduced,
 then the sum of their exponentials, p normalised by both before it is
 rounded to the cache's dtype (as ``decode_attention`` rounds it on one
@@ -56,7 +66,7 @@ import torch.distributed as dist
 
 from repro_torch.launch import collectives as coll
 from repro_torch.launch.collectives import copy_to_model
-from repro_torch.launch.sharding import kv_shared
+from repro_torch.launch.sharding import heads_whole, kv_shared
 from repro_torch.models.layers import (init_linear, init_normal, init_rmsnorm,
                                        linear_apply, rmsnorm_apply, softcap)
 from repro_torch.models.rope import apply_rope
@@ -201,6 +211,29 @@ def _own_block(x: torch.Tensor, dim: int, axis: str, mesh) -> torch.Tensor:
     return x.narrow(dim, mesh.coords[axis] * n, n)
 
 
+def _rows_split(split: Optional[str], x: torch.Tensor, cache: Params
+                ) -> bool:
+    """Whether a decode whose cache length lies over ``data`` holds the
+    rank's rows of the requests (fewer than the cache's rows), so that it
+    gathers every row's query; where ``data`` does not divide the
+    requests, every rank holds them all."""
+    return split == "data" and x.shape[0] != cache["pos"].shape[0]
+
+
+def _head_cols(t: torch.Tensor, whole: bool, mesh) -> torch.Tensor:
+    """The column block ``t`` of q, k or v (heads x head_dim last),
+    gathered whole over ``model`` where the rank runs every head
+    (``heads_whole``); ``t`` elsewhere."""
+    return coll.gather_model(t, t.dim() - 1, mesh) if whole else t
+
+
+def _wo_cols(out: torch.Tensor, whole: bool, mesh) -> torch.Tensor:
+    """The columns of the attention output ``out`` (every head's, last
+    dimension) that the row-parallel wo's row block of this rank reads,
+    where the rank ran every head; ``out`` elsewhere."""
+    return _own_block(out, out.dim() - 1, "model", mesh) if whole else out
+
+
 # ---------------------------------------------------------------------------
 # GQA block
 # ---------------------------------------------------------------------------
@@ -238,21 +271,25 @@ def gqa_qkv(p: Params, a: AttentionConfig, x: torch.Tensor,
     (``sharding.kv_shared``) the rank's column blocks of k and v are
     gathered whole over ``model`` (whose backward sums each rank's part
     of a head's gradient), and the rank keeps the one KV head its query
-    heads read, or all n_kv_heads with ``every_kv``."""
+    heads read, or all n_kv_heads with ``every_kv``.  Where M does not
+    divide the heads (``sharding.heads_whole``) q, k and v are gathered
+    whole: every head."""
     B, T, _ = x.shape
     m = axis_env_size("model")
     mesh = current_mesh()
+    whole = heads_whole(a, m)
     if mesh is not None:
         x = copy_to_model(x, mesh)
-    q = linear_apply(p["wq"], x, "col").reshape(B, T, a.n_heads // m,
-                                                 a.head_dim)
+    q = linear_apply(p["wq"], x, "col")
     k = linear_apply(p["wk"], x, "col")
     v = linear_apply(p["wv"], x, "col")
-    if kv_shared(a, m):
+    q = _head_cols(q, whole, mesh)
+    if kv_shared(a, m) or whole:
         k, v = (coll.gather_model(u, 2, mesh) for u in (k, v))
-        if not every_kv:
+        if not (every_kv or whole):
             lo = _kv_head(a, mesh) * a.head_dim
             k, v = (u[..., lo:lo + a.head_dim] for u in (k, v))
+    q = q.reshape(B, T, -1, a.head_dim)
     k = k.reshape(B, T, -1, a.head_dim)
     v = v.reshape(B, T, -1, a.head_dim)
     if a.qk_norm:
@@ -267,12 +304,15 @@ def gqa_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
               window: Optional[int], positions: torch.Tensor,
               chunk: int = 512) -> torch.Tensor:
     """Train/prefill path (full sequence): under a mesh on the rank's
-    heads, wo's partial products summed over ``model``."""
+    heads (every head where ``heads_whole``), wo's partial products
+    summed over ``model``."""
     q, k, v = gqa_qkv(p, a, x, positions)
     out = chunked_attention(q, k, v, causal=True, window=window,
                             logit_softcap=a.attn_softcap, chunk=chunk)
     B, T = x.shape[:2]
-    return linear_apply(p["wo"], out.reshape(B, T, -1), "row")
+    out = _wo_cols(out.reshape(B, T, -1),
+                   heads_whole(a, axis_env_size("model")), current_mesh())
+    return linear_apply(p["wo"], out, "row")
 
 
 def gqa_init_cache(a: AttentionConfig, batch: int, length: int, dtype,
@@ -298,33 +338,37 @@ def gqa_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
     (no copy of the cache a step) and returns it.  Under a mesh ``cache``
     is the rank's block and ``split`` the axis its length is split over
     (the module docstring).  Where the ``model`` axis is wider than
-    n_kv_heads the cache holds every KV head on every ``model`` rank: each
-    rank writes them all and reads the one its query heads read (every
-    head, over its own slots, under flash-decode)."""
+    n_kv_heads, or does not divide them, the cache holds every KV head on
+    every ``model`` rank: each rank writes them all and reads the one its
+    query heads read (every head, over its own slots, under flash-decode
+    or where the rank runs every head: ``heads_whole``)."""
     B = x.shape[0]
     mesh = current_mesh()
-    shared = kv_shared(a, axis_env_size("model"))
+    m = axis_env_size("model")
+    shared, whole = kv_shared(a, m), heads_whole(a, m)
+    rows = _rows_split(split, x, cache)
     q, k, v = gqa_qkv(p, a, x, t[:, None], every_kv=shared)
-    if split == "model":                     # every head on the rank's slots
+    if split == "model" and not whole:       # every head on the rank's slots
         q = coll.gather_model(q, 2, mesh)
         if not shared:
             k, v = (coll.gather_model(u, 2, mesh) for u in (k, v))
-    elif split == "data":                    # every row on the rank's slots
+    elif rows:                               # every row on the rank's slots
         q, k, v = (coll.gather_data(u, 0, mesh) for u in (q, k, v))
         t = mesh.all_gather_dim(t, 0, "data")
     pos = _write_token(cache, {"k": k[:, 0], "v": v[:, 0]}, t, split, mesh)
     k_c, v_c = cache["k"], cache["v"]
-    if shared and split != "model":
+    if shared and split != "model" and not whole:
         h = _kv_head(a, mesh)
         k_c, v_c = k_c[:, :, h:h + 1], v_c[:, :, h:h + 1]
     out = decode_attention(q, k_c, v_c, q_pos=t,
                            cache_positions=pos, logit_softcap=a.attn_softcap,
                            split=split, mesh=mesh)
-    if split == "model":
+    if split == "model" and not whole:
         out = _own_block(out, 2, "model", mesh)
-    elif split == "data":
+    elif rows:
         out = _own_block(out, 0, "data", mesh)
-    return linear_apply(p["wo"], out.reshape(B, 1, -1), "row"), cache
+    out = _wo_cols(out.reshape(B, 1, -1), whole, mesh)
+    return linear_apply(p["wo"], out, "row"), cache
 
 
 # ---------------------------------------------------------------------------
@@ -359,9 +403,10 @@ def init_mla(gen: torch.Generator, a: AttentionConfig, d_model: int, dtype,
 def _mla_q(p: Params, a: AttentionConfig, x: torch.Tensor,
            positions: torch.Tensor):
     """(q_nope, q_rope) on the rank's n_heads / M heads (M its ``model``
-    size, 1 without a mesh); the caller applied ``copy_to_model`` to
-    ``x``.  With a q_lora rank, wdq's latent columns are gathered over
-    ``model`` before ``q_norm``."""
+    size, 1 without a mesh; every head where ``heads_whole``: the rank's
+    columns gathered); the caller applied ``copy_to_model`` to ``x``.
+    With a q_lora rank, wdq's latent columns are gathered over ``model``
+    before ``q_norm``."""
     B, T, _ = x.shape
     mesh = current_mesh()
     if a.q_lora_rank:
@@ -371,8 +416,8 @@ def _mla_q(p: Params, a: AttentionConfig, x: torch.Tensor,
         q = linear_apply(p["wuq"], rmsnorm_apply(p["q_norm"], cq), "col")
     else:
         q = linear_apply(p["wq"], x, "col")
-    q = q.reshape(B, T, a.n_heads // axis_env_size("model"),
-                  a.nope_head_dim + a.rope_head_dim)
+    q = _head_cols(q, heads_whole(a, axis_env_size("model")), mesh)
+    q = q.reshape(B, T, -1, a.nope_head_dim + a.rope_head_dim)
     q_nope = q[..., :a.nope_head_dim]
     q_rope = apply_rope(q[..., a.nope_head_dim:], positions, a.rope_theta)
     return q_nope, q_rope
@@ -399,6 +444,16 @@ def _mla_in(x: torch.Tensor) -> torch.Tensor:
     return x if mesh is None else copy_to_model(x, mesh)
 
 
+def _wukv(p: Params, a: AttentionConfig) -> torch.Tensor:
+    """wukv: the rank's heads, or every head where ``heads_whole`` (the
+    clamp keeps them whole), its gradient then summed over ``model``
+    (each rank's output columns give a part of it)."""
+    mesh = current_mesh()
+    if heads_whole(a, axis_env_size("model")):
+        return copy_to_model(p["wukv"], mesh)
+    return p["wukv"]
+
+
 def mla_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
               positions: torch.Tensor, window: Optional[int] = None,
               chunk: int = 512) -> torch.Tensor:
@@ -407,12 +462,12 @@ def mla_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
     ``kv[..., nope:]`` of the expansion, which the kernel reads in place
     (at both full widths its rows start 16-byte aligned, its strides
     multiples of 8).  Under a mesh on the rank's heads (wukv's), wo
-    row-parallel."""
+    row-parallel (every head where ``heads_whole``)."""
     B, T, _ = x.shape
     x = _mla_in(x)
     q_nope, q_rope = _mla_q(p, a, x, positions)
     c_kv, k_rope = _mla_ckv(p, a, x, positions)
-    wukv = p["wukv"].to(x.dtype)
+    wukv = _wukv(p, a).to(x.dtype)
     h = wukv.shape[1]
     kv = (c_kv @ wukv.flatten(1)).unflatten(-1, wukv.shape[1:])  # (B,T,h,·)
     k_nope = kv[..., :a.nope_head_dim]
@@ -423,7 +478,9 @@ def mla_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
     scale = (a.nope_head_dim + a.rope_head_dim) ** -0.5
     out = chunked_attention(q, k, v, causal=True, window=window,
                             scale=scale, chunk=chunk)
-    return linear_apply(p["wo"], out.reshape(B, T, -1), "row")
+    out = _wo_cols(out.reshape(B, T, -1),
+                   heads_whole(a, axis_env_size("model")), current_mesh())
+    return linear_apply(p["wo"], out, "row")
 
 
 def mla_init_cache(a: AttentionConfig, batch: int, length: int, dtype,
@@ -453,6 +510,8 @@ def mla_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
     latent are combined over that axis, as ``gqa_decode`` combines."""
     B = x.shape[0]
     mesh = current_mesh()
+    whole = heads_whole(a, axis_env_size("model"))
+    rows = _rows_split(split, x, cache)
     x = _mla_in(x)
     q_nope, q_rope = _mla_q(p, a, x, t[:, None])           # (B,1,h,*)
     c_kv, k_rope = _mla_ckv(p, a, x, t[:, None])           # (B,1,r),(B,1,rd)
@@ -461,10 +520,10 @@ def mla_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
     w_uv = wukv[..., a.nope_head_dim:]                     # (r,h,v)
     q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_uk)
     q_rope = q_rope[:, 0].float()
-    if split == "model":
+    if split == "model" and not whole:
         q_abs, q_rope = (coll.gather_model(u, 1, mesh)
                          for u in (q_abs, q_rope))
-    elif split == "data":
+    elif rows:
         q_abs, q_rope, c_kv, k_rope = (coll.gather_data(u, 0, mesh) for u in
                                        (q_abs, q_rope, c_kv, k_rope))
         t = mesh.all_gather_dim(t, 0, "data")
@@ -480,10 +539,12 @@ def mla_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
                     torch.full((), NEG_INF, device=s.device))
     pr = _softmax(s, split, mesh)
     out_c = torch.einsum("bhl,blr->bhr", pr, ckv_f)        # (B,h,r)
-    if split == "model":
-        out_c = _own_block(mesh.all_reduce(out_c, split), 1, "model", mesh)
-    elif split == "data":
-        out_c = _own_block(mesh.all_reduce(out_c, split), 0, "data", mesh)
+    if split is not None:
+        out_c = mesh.all_reduce(out_c, split)
+    if split == "model" and not whole:
+        out_c = _own_block(out_c, 1, "model", mesh)
+    elif rows:
+        out_c = _own_block(out_c, 0, "data", mesh)
     out = torch.einsum("bhr,rhv->bhv", out_c, w_uv)        # (B,h,v)
-    out = out.reshape(B, 1, -1).to(x.dtype)
+    out = _wo_cols(out.reshape(B, 1, -1).to(x.dtype), whole, mesh)
     return linear_apply(p["wo"], out, "row"), cache

@@ -17,8 +17,9 @@ steps inside a pod) ``in_proj`` is column-parallel and its output is
 gathered whole over ``model`` (the residual stream is whole on every
 ``model`` rank; the backward keeps the rank's block of the gradient),
 and each layer runs the GQA column and row routes on the rank's n_heads
-/ M heads, non-causal, and the gated MLP on its d_ff columns; the
-LayerNorms are replicated.
+/ M heads (every head where ``sharding.heads_whole``, as
+``attention.py`` runs them), non-causal, and the gated MLP on its d_ff
+columns; the LayerNorms are replicated.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import collectives as coll
+from repro_torch.launch.sharding import heads_whole
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (NORM_APPLY, gated_mlp_apply,
                                        init_gated_mlp, init_linear,
@@ -75,7 +77,8 @@ def encoder_apply(p: Params, cfg: ModelConfig, frames: torch.Tensor
     """frames: (B, S, feat_dim) -> memory (B, S, encoder d_model); under a
     mesh the rank's rows, whole (the module docstring)."""
     a = cfg.attention
-    h, hd = a.n_heads // axis_env_size("model"), a.head_dim
+    hd = a.head_dim
+    whole = heads_whole(a, axis_env_size("model"))
     norm_apply = NORM_APPLY[cfg.norm]
     mesh = current_mesh()
     x = linear_apply(p["in_proj"], frames.to(_dtype(cfg)), "col")
@@ -87,10 +90,11 @@ def encoder_apply(p: Params, cfg: ModelConfig, frames: torch.Tensor
         hh = norm_apply(lp["norm1"], x)
         if mesh is not None:
             hh = coll.copy_to_model(hh, mesh)
-        q = linear_apply(lp["wq"], hh, "col").reshape(B, S, h, hd)
-        k = linear_apply(lp["wk"], hh, "col").reshape(B, S, h, hd)
-        v = linear_apply(lp["wv"], hh, "col").reshape(B, S, h, hd)
+        q, k, v = (attn._head_cols(linear_apply(lp[w], hh, "col"), whole,
+                                   mesh).reshape(B, S, -1, hd)
+                   for w in ("wq", "wk", "wv"))
         y = attn.chunked_attention(q, k, v, causal=False)
-        x = x + linear_apply(lp["wo"], y.reshape(B, S, -1), "row")
+        y = attn._wo_cols(y.reshape(B, S, -1), whole, mesh)
+        x = x + linear_apply(lp["wo"], y, "row")
         x = x + gated_mlp_apply(lp["ffn"], norm_apply(lp["norm2"], x))
     return norm_apply(p["final_norm"], x)

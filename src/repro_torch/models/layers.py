@@ -277,7 +277,8 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
 
 
 def embedding_apply(p: Params, tokens: torch.Tensor,
-                    compute_dtype=None) -> torch.Tensor:
+                    compute_dtype=None, whole_vocab: bool = False
+                    ) -> torch.Tensor:
     """The table's rows at ``tokens``.  Under a mesh, vocabulary-parallel,
     on the rank's block of the table (vocab over ``model``, d over
     ``data``), never gathered: every ``data`` rank's tokens are gathered
@@ -286,8 +287,11 @@ def embedding_apply(p: Params, tokens: torch.Tensor,
     rank its tokens' lookups (``all_to_all_data``: the rank receives its
     tokens' rows, every rank's columns), and the rows are summed over
     ``model`` (one nonzero term each: the one-device rows, bit for bit).
-    The backward sends each lookup's gradient back to the rank whose
-    columns it read, which adds it to its block's rows."""
+    With ``whole_vocab`` (a vocabulary the ``model`` axis does not divide:
+    every rank's block holds every row) the rows are looked up whole and
+    not summed over ``model``.  The backward sends each lookup's gradient
+    back to the rank whose columns it read, which adds it to its block's
+    rows."""
     mesh = current_mesh()
     t = p["table"]
     if compute_dtype is not None:
@@ -297,27 +301,33 @@ def embedding_apply(p: Params, tokens: torch.Tensor,
     n, c = t.shape
     D = mesh.size_of("data")
     every = mesh.all_gather_dim(tokens.contiguous(), 0, "data")
-    local = every - mesh.coords.get("model", 0) * n
-    mine = (local >= 0) & (local < n)
-    rows = t[local.clamp(0, n - 1)]
-    rows = torch.where(mine[..., None], rows,
-                       torch.zeros((), dtype=rows.dtype, device=rows.device))
+    if whole_vocab:
+        rows = t[every]
+    else:
+        local = every - mesh.coords.get("model", 0) * n
+        mine = (local >= 0) & (local < n)
+        rows = t[local.clamp(0, n - 1)]
+        rows = torch.where(mine[..., None], rows, torch.zeros(
+            (), dtype=rows.dtype, device=rows.device))
     # rows (D B, T, c), data rank j's tokens in block j: to their rank,
     # then the D column blocks received side by side
     got = coll.all_to_all_data(rows.reshape(-1, c), mesh)
     got = got.reshape(D, -1, c).transpose(0, 1).reshape(
         tuple(tokens.shape) + (D * c,))
-    return coll.reduce_from_model(got, mesh)
+    return got if whole_vocab else coll.reduce_from_model(got, mesh)
 
 
-def unembed_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
+def unembed_apply(p: Params, x: torch.Tensor, whole_vocab: bool = False
+                  ) -> torch.Tensor:
     """``x @ table.T``; under a mesh the rank's vocabulary columns of the
     logits (the table gathered over ``data``, ``x``'s gradient summed
-    over ``model``)."""
+    over ``model``), or, with ``whole_vocab``, every column (``x``'s
+    gradient whole on every ``model`` rank: no sum)."""
     mesh = current_mesh()
     if mesh is None:
         return x @ p["table"].to(x.dtype).T
-    x = coll.copy_to_model(x, mesh)
+    if not whole_vocab:
+        x = coll.copy_to_model(x, mesh)
     return x @ coll.gather_data(p["table"], 1, mesh).to(x.dtype).T
 
 

@@ -34,6 +34,7 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import collectives as coll
+from repro_torch.launch import sharding
 from repro_torch.models import encdec, transformer
 from repro_torch.models.shard_hints import current_mesh
 
@@ -94,7 +95,8 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     labels = batch["labels"]
     mesh = current_mesh()
     if mesh is not None:
-        ce = _sharded_ce(logits, labels, mesh)
+        ce = _sharded_ce(logits, labels, mesh, sharding.vocab_whole(
+            cfg.vocab, mesh.size_of("model")))
         return ce + aux, {"ce": ce, "aux": aux}
     logp = torch.log_softmax(logits, dim=-1)
     nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None].long()
@@ -104,8 +106,8 @@ def loss_fn(p: Params, cfg: ModelConfig, batch: Dict[str, Any], *,
     return ce + aux, {"ce": ce, "aux": aux}
 
 
-def _sharded_ce(logits: torch.Tensor, labels: torch.Tensor, mesh
-                ) -> torch.Tensor:
+def _sharded_ce(logits: torch.Tensor, labels: torch.Tensor, mesh,
+                whole_vocab: bool = False) -> torch.Tensor:
     """The vocabulary-parallel cross-entropy of a pod, from the rank's
     (B / D, T, V / M) logits: the row max all-reduced (MAX) over
     ``model`` and held constant (the log-sum-exp does not depend on it);
@@ -113,18 +115,22 @@ def _sharded_ce(logits: torch.Tensor, labels: torch.Tensor, mesh
     the label's column, zero elsewhere) summed over ``model``; the
     negative log-likelihood's masked sum and the count of labels >= 0
     summed over ``data``, so the mean is over the pod's labels, not the
-    rank's."""
+    rank's.  With ``whole_vocab`` the logits hold every column on every
+    ``model`` rank, and nothing is summed over ``model``."""
     n = logits.shape[-1]
     top = logits.detach().amax(dim=-1, keepdim=True)
-    mesh.all_reduce(top, "model", op=dist.ReduceOp.MAX)
+    if not whole_vocab:
+        mesh.all_reduce(top, "model", op=dist.ReduceOp.MAX)
     z = logits - top
-    local = labels.long() - mesh.coords.get("model", 0) * n
+    local = labels.long() - (0 if whole_vocab else
+                             mesh.coords.get("model", 0) * n)
     mine = (local >= 0) & (local < n) & (labels >= 0)
     picked = torch.gather(z, -1, local.clamp(0, n - 1)[..., None])[..., 0]
     picked = torch.where(mine, picked, torch.zeros((), dtype=z.dtype,
                                                    device=z.device))
-    sums = coll.reduce_from_model(torch.stack([z.exp().sum(dim=-1), picked]),
-                                  mesh)
+    sums = torch.stack([z.exp().sum(dim=-1), picked])
+    if not whole_vocab:
+        sums = coll.reduce_from_model(sums, mesh)
     nll = sums[0].log() - sums[1]
     mask = (labels >= 0).float()
     num_count = coll.reduce_from_data(torch.stack([(nll * mask).sum(),

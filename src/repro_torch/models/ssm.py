@@ -30,6 +30,10 @@ rank, the SSD state's head_dim split over ``model``; the update and
 the readout are elementwise in head_dim, so the rank updates its
 head_dim block of every head (the conv runs on every channel, whole),
 and the readout's blocks are gathered over ``model`` before the norm.
+Where the ``data`` axis does not divide the requests (one ``long_500k``
+request) every rank decodes all of them and the reference's placement
+puts the SSD state's heads over ``data``: the rank updates its heads'
+head_dim block, and the readout is gathered over ``data`` too.
 """
 from __future__ import annotations
 
@@ -235,8 +239,9 @@ def ssm_decode(p: Params, s: SSMConfig, d_model: int, x: torch.Tensor,
     """One-token decode.  x: (B, 1, d_model).  The new conv history and
     SSD state are written into ``state``'s tensors, which are returned.
     Under a mesh ``state`` is the rank's block: the conv history whole,
-    the SSD state (B, n_heads, head_dim / M, d_state) (the module
-    docstring)."""
+    the SSD state (B, n_heads, head_dim / M, d_state), or (B, n_heads /
+    D, head_dim / M, d_state) for requests whole over ``data`` (the
+    module docstring)."""
     Bsz = x.shape[0]
     di = d_inner(s, d_model)
     mesh = current_mesh()
@@ -250,19 +255,24 @@ def ssm_decode(p: Params, s: SSMConfig, d_model: int, x: torch.Tensor,
     xs = xbc_t[..., :di].reshape(Bsz, s.n_heads, s.head_dim)
     B_in = xbc_t[..., di:di + s.d_state].float()
     C_in = xbc_t[..., di + s.d_state:].float()
-    dt_t = softplus(dt.float() + p["dt_bias"])                 # (B,h)
-    decay = torch.exp(dt_t * -torch.exp(p["A_log"]))           # (B,h)
-    # the rank's head_dim block of every head (all of it without a mesh)
-    pl = state["ssd"].shape[2]
+    # the rank's head_dim block of its heads: every head but where they
+    # lie over ``data`` (all of it without a mesh)
+    hd_, pl = state["ssd"].shape[1:3]
     lo = 0 if pl == s.head_dim else mesh.coords["model"] * pl
-    xs = xs[..., lo:lo + pl]
+    heads = slice(0, s.n_heads) if hd_ == s.n_heads else slice(
+        mesh.coords["data"] * hd_, (mesh.coords["data"] + 1) * hd_)
+    dt_t = softplus(dt.float()[:, heads] + p["dt_bias"][heads])   # (B,h)
+    decay = torch.exp(dt_t * -torch.exp(p["A_log"][heads]))       # (B,h)
+    xs = xs[:, heads, lo:lo + pl]
     xd = xs.float() * dt_t[..., None]
     S = decay[:, :, None, None] * state["ssd"] + torch.einsum(
         "bn,bhp->bhpn", B_in, xd)
     y = torch.einsum("bn,bhpn->bhp", C_in, S)
-    y = y + xs.float() * p["D"][None, :, None]
+    y = y + xs.float() * p["D"][heads][None, :, None]
     if pl != s.head_dim:
         y = coll.gather_model(y, 2, mesh)
+    if hd_ != s.n_heads:
+        y = mesh.all_gather_dim(y.contiguous(), 1, "data")
     y = y.reshape(Bsz, di).to(x.dtype)
     y = rmsnorm_apply(p["norm"], y * F.silu(z))
     if mesh is not None:                  # the rank's heads, out_proj's rows

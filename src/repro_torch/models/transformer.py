@@ -153,21 +153,26 @@ def _xattn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
                  memory: torch.Tensor) -> torch.Tensor:
     """Cross-attention of x (B, T, d) to ``memory`` (B, S, encoder
     d_model): no mask and no RoPE, any T and S (T = 1 at decode).  Under a
-    mesh on the rank's n_heads / M heads: ``wq`` reads the residual, ``wk``
-    and ``wv`` the memory (to which ``lm_apply`` applied *f* once), each
+    mesh on the rank's n_heads / M heads (every head where
+    ``sharding.heads_whole``: the column blocks gathered, ``wo`` handed
+    its row block's columns): ``wq`` reads the residual, ``wk`` and
+    ``wv`` the memory (to which ``lm_apply`` applied *f* once), each
     column-parallel, ``wo`` row-parallel."""
     a = cfg.attention
     B, T, _ = x.shape
     S = memory.shape[1]
-    h, hd = a.n_heads // axis_env_size("model"), a.head_dim
+    hd = a.head_dim
     mesh = current_mesh()
+    whole = sharding.heads_whole(a, axis_env_size("model"))
     if mesh is not None:
         x = copy_to_model(x, mesh)
-    q = linear_apply(p["wq"], x, "col").reshape(B, T, h, hd)
-    k = linear_apply(p["wk"], memory, "col").reshape(B, S, h, hd)
-    v = linear_apply(p["wv"], memory, "col").reshape(B, S, h, hd)
+    q, k, v = (attn._head_cols(linear_apply(p[w], y, "col"), whole,
+                               mesh).reshape(B, n, -1, hd)
+               for w, y, n in (("wq", x, T), ("wk", memory, S),
+                               ("wv", memory, S)))
     out = attn.chunked_attention(q, k, v, causal=False)
-    return linear_apply(p["wo"], out.reshape(B, T, -1), "row")
+    out = attn._wo_cols(out.reshape(B, T, -1), whole, mesh)
+    return linear_apply(p["wo"], out, "row")
 
 
 def _xattn_and_ffn(p: Params, cfg: ModelConfig, sig: Tuple,
@@ -332,7 +337,8 @@ def embed_inputs(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     over ``model``, as the residual stream is (the backward keeps the
     rank's block of the gradient)."""
     dt = _dtype(cfg)
-    x = embedding_apply(p["embed"], tokens, compute_dtype=dt)
+    x = embedding_apply(p["embed"], tokens, compute_dtype=dt,
+                        whole_vocab=_vocab_whole(cfg))
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     if cfg.modality.kind == "vision" and patches is not None:
         vis = linear_apply(p["projector"], patches.to(dt), "col")
@@ -343,15 +349,24 @@ def embed_inputs(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
     return x
 
 
+def _vocab_whole(cfg: ModelConfig) -> bool:
+    """Whether the active mesh's ``model`` axis keeps ``cfg``'s vocabulary
+    whole (``sharding.vocab_whole``)."""
+    return sharding.vocab_whole(cfg.vocab, axis_env_size("model"))
+
+
 def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """float32 logits, softcapped; under a mesh the rank's vocabulary
-    columns (the softcap is elementwise)."""
+    columns (the softcap is elementwise), every column where the ``model``
+    axis keeps the vocabulary whole (``_vocab_whole``: no *f*, the logits
+    and what follows them are the same on every ``model`` rank)."""
     x = NORM_APPLY[cfg.norm](p["final_norm"], x)
+    whole = _vocab_whole(cfg)
     if cfg.tie_embeddings:
-        logits = unembed_apply(p["embed"], x)
+        logits = unembed_apply(p["embed"], x, whole_vocab=whole)
     else:
         mesh = current_mesh()
-        if mesh is not None:
+        if mesh is not None and not whole:
             x = copy_to_model(x, mesh)
         logits = linear_apply(p["unembed"], x, "col")
     return softcap(logits.float(), cfg.final_softcap)
@@ -439,7 +454,7 @@ def lm_init_cache(cfg: ModelConfig, batch: int, cache_len: int,
         whole = lm_init_cache(cfg, batch, cache_len, long_mode, "meta")
         if batch_sharded is None:
             batch_sharded = sharding.default_batch_sharded(cfg, batch, mesh)
-        sharding.check_cache_placement(cfg, mesh, batch_sharded)
+        sharding.check_cache_placement(cfg, mesh, batch_sharded, batch)
         return pytree.tree_map(
             lambda t: torch.full(tuple(t.shape), -1 if t.dtype ==
                                  torch.int32 else 0, dtype=t.dtype,
@@ -481,7 +496,8 @@ def lm_decode(p: Params, cfg: ModelConfig, token: torch.Tensor,
     columns."""
     prefix, n_cycles, P, suffix = layer_plan(cfg)
     dt = _dtype(cfg)
-    x = embedding_apply(p["embed"], token[:, None], compute_dtype=dt)
+    x = embedding_apply(p["embed"], token[:, None], compute_dtype=dt,
+                        whole_vocab=_vocab_whole(cfg))
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     kw = {"moe_route": moe_route, "split": split}
 

@@ -3,11 +3,13 @@ card: its pieces against the JAX reference's, the kernel ops' meta
 routes against their plain versions, the audit's findings, the refused
 combos and two full-width rows.
 
-- Per-leaf blocks: for each arch the port places on the production
-  meshes, on (16, 16) and (2, 16, 16), the stand-in's per-rank block of
-  every parameter, train-state (bsp and adpsgd), decode-cache (decode_32k)
-  and batch leaf equals ``NamedSharding(AbstractMesh(...), spec)
-  .shard_shape(...)`` of the reference's placements; the per-rank
+- Per-leaf blocks: for each of the ten archs, on (16, 16) and (2, 16,
+  16), the stand-in's per-rank block of every parameter, train-state (bsp
+  and adpsgd), decode-cache (decode_32k, and long_500k's one request with
+  the cache's length over ``data``) and batch leaf equals
+  ``NamedSharding(AbstractMesh(...), spec).shard_shape(...)`` of the
+  reference's placements, whole where its clamp keeps a dimension whole
+  (heads and vocabularies ``model`` does not divide); the per-rank
   argument bytes are equal too (AD-PSGD's snapshot buffers are the
   port's flat per-dtype ones: their bytes are held, not their leaves).
 - ``model_flops_estimate``: equal to the reference's, bit for bit, for
@@ -21,9 +23,10 @@ combos and two full-width rows.
 - Findings: a host read inside a step is GA203 and fails the combo under
   ``--strict-audit``; an exchange that widens bf16 rows to float32 on the
   pod axis is GA202.
-- Refusals: the five archs ``check_layout`` refuses on the production
-  meshes come back as failure rows carrying the refusal's text, and
-  ``main`` returns 1.
+- The five archs ``check_layout`` refused on the production meshes until
+  their heads and vocabularies were taken whole (ROADMAP C17), and
+  long_500k's one request (C18): their rows are ok, and ``main`` returns
+  0.
 - Two full-width rows on (2, 16, 16): qwen3-0.6b train_4k under bsp and
   deepseek-v2-lite-16b decode_32k.
 """
@@ -48,10 +51,11 @@ from repro_torch.kernels import ops, ref as tref
 from repro_torch.launch import analysis, dryrun, meta, sharding, steps
 
 ROOT = Path(__file__).resolve().parents[1]
-#: the archs the port places on the production meshes
-PLACED = ("qwen3-0.6b", "phi-3-vision-4.2b", "gemma2-9b", "deepseek-v2-236b",
-          "deepseek-v2-lite-16b")
-#: the archs ``check_layout`` refuses there, with a width each names
+#: the archs the port places on the production meshes: all ten
+PLACED = ARCH_IDS
+#: the archs ``check_layout`` refused there before the model code took
+#: their heads and vocabularies whole (ROADMAP C17), with the width each
+#: refusal named
 REFUSED = {"recurrentgemma-2b": "n_heads=10", "starcoder2-3b": "n_heads=24",
            "minicpm3-4b": "n_heads=40", "mamba2-780m": "vocab=50280",
            "seamless-m4t-large-v2": "vocab=256206"}
@@ -148,6 +152,22 @@ def test_blocks_and_argument_bytes_match_reference(ref, arch, mesh_shape):
     assert notes["batch_sharded"] is True
     assert _shapes(args[1]) == want_c
     jb = ref.specs.input_specs(jcfg, "decode_32k")
+    b_blocks = _blocks(ref, jb, ref.sharding.batch_shardings(
+        jb, jmesh, pod_stacked=False), jmesh)
+    assert notes["argument_bytes"] == p_bytes + _nbytes(
+        ref, jc, want_c) + _nbytes(ref, jb, b_blocks)
+
+    # long_500k's one request: whole on every rank, the cache's length
+    # over data (the reference's batch_sharded=False)
+    shape = INPUT_SHAPES["long_500k"]
+    jc = ref.steps.cache_shape(jcfg, shape.global_batch, shape.seq_len,
+                               long_mode=True)
+    want_c = _blocks(ref, jc, ref.sharding.cache_shardings(
+        jc, jmesh, batch_sharded=False), jmesh)
+    _, args, notes = dryrun.build_step(arch, "long_500k", mesh=mesh)
+    assert notes["batch_sharded"] is False
+    assert _shapes(args[1]) == want_c
+    jb = ref.specs.input_specs(jcfg, "long_500k")
     b_blocks = _blocks(ref, jb, ref.sharding.batch_shardings(
         jb, jmesh, pod_stacked=False), jmesh)
     assert notes["argument_bytes"] == p_bytes + _nbytes(
@@ -384,17 +404,21 @@ def test_widened_exchange_is_ga202():
 
 @pytest.mark.parametrize("multi_pod", [False, True])
 def test_refused_archs_are_failure_rows(tmp_path, multi_pod):
+    """The five archs once refused (their rows carried the width in
+    ``REFUSED``) at long_500k, whose one request was refused as well: ok
+    rows, each with the whole-batch placement, no finding."""
     out = tmp_path / "rows.json"
     rows = []
     for arch in REFUSED:
-        assert dryrun.main(["--arch", arch, "--shape", "train_4k", "--out",
+        assert dryrun.main(["--arch", arch, "--shape", "long_500k", "--out",
                             str(out)] + (["--multi-pod"] if multi_pod
-                                         else [])) == 1
+                                         else [])) == 0
         rows += json.loads(out.read_text())
     for arch, row in zip(REFUSED, rows):
-        assert row["arch"] == arch and not row["ok"]
-        assert row["error"].startswith("ValueError: ")
-        assert REFUSED[arch] in row["error"], row["error"]
+        assert row["arch"] == arch and row["ok"], row.get("error")
+        assert "error" not in row or not row["error"], row["error"]
+        assert row["placement"]["batch_sharded"] is False
+        assert row["audit"]["findings"] == []
 
 
 def test_full_width_rows_on_the_multi_pod_mesh():

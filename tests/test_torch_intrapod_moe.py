@@ -780,14 +780,15 @@ def test_check_layout_takes_the_full_widths(arch, shape, mode):
 
 
 @pytest.mark.parametrize("arch,shape,what", [
-    ("minicpm3-4b", (1, 1, 16), "n_heads"),
+    ("minicpm3-4b", (1, 1, 3), "d_ff"),
     ("starcoder2-3b", (1, 1, 3), "n_kv_heads"),
-    ("starcoder2-3b", (1, 1, 16), "n_heads"),
-    ("deepseek-v2-lite-16b", (1, 1, 32), "n_heads")], ids=_id)
+    ("starcoder2-3b", (1, 1, 5), "n_kv_heads"),
+    ("deepseek-v2-lite-16b", (1, 1, 128), "n_experts")], ids=_id)
 def test_check_layout_refuses_what_the_axes_cannot_take(arch, shape, what):
-    """minicpm3's 40 heads on 16 ranks (as before); starcoder2's 2 KV heads
-    on 3 (not a multiple of them), its 24 heads on 16; deepseek-lite's 16
-    heads on 32."""
+    """minicpm3's d_ff of 6,400 on 3 ranks; starcoder2's 2 KV heads on 3
+    and on 5 (not a multiple of them); deepseek-lite's 64 experts on 128.
+    Heads the axis does not divide are taken (every head on every rank:
+    ``tests/test_torch_uneven.py``)."""
     with pytest.raises(ValueError, match=what):
         sharding.check_layout(get_config(arch), mesh_lib.Mesh(
             shape, mesh_lib.AXES), mode="train")

@@ -349,8 +349,8 @@ def test_ranks_hold_their_coordinates(ranks):
 #: the SSM, RG-LRU, enc-dec and VLM families at full width, each on a mesh
 #: one of its widths does not split, and the dimension the refusal names
 OTHER = {"mamba2-780m": ((1, 1, 32), "ssm n_heads"),
-         "recurrentgemma-2b": ((1, 1, 4), "n_heads"),
-         "seamless-m4t-large-v2": ((1, 1, 4), "vocab"),
+         "recurrentgemma-2b": ((1, 1, 3), "lru_width"),
+         "seamless-m4t-large-v2": ((1, 3, 1), "feat_dim"),
          "phi-3-vision-4.2b": ((1, 3, 1), "feat_dim")}
 
 
@@ -359,10 +359,12 @@ OTHER = {"mamba2-780m": ((1, 1, 32), "ssm n_heads"),
 def test_other_families_are_refused_naming_a11c(arch, mode):
     """Every family is placed inside a pod (``test_torch_intrapod_
     families.py``); what each still gets refused is a width the axis does
-    not split: mamba2's 48 heads on 32 model ranks, recurrentgemma's 10
-    heads on 4, seamless' vocabulary of 256,206 on 4 and phi-3-vision's
-    1024 frontend features (the projector's rows) on 3 data ranks,
-    named, by ``check_layout`` and by the serve steps."""
+    not split (ROADMAP A11e): mamba2's 48 heads on 32 model ranks,
+    recurrentgemma's lru_width of 2,560 on 3, seamless' and
+    phi-3-vision's 1024 frontend features (the encoder's ``in_proj`` and
+    the projector's rows) on 3 data ranks, named, by ``check_layout`` and
+    by the serve steps.  Query heads and a vocabulary the ``model`` axis
+    does not divide are taken (``tests/test_torch_uneven.py``)."""
     shape, what = OTHER[arch]
     cfg, mesh = get_config(arch), Mesh(shape, AXES)
     with pytest.raises(ValueError, match=what):
@@ -430,16 +432,22 @@ def test_serving_takes_one_pod():
 
 
 def test_a_batch_the_data_axis_does_not_split_is_refused():
+    """Three requests on a data axis of 2, placed over it: their cache's
+    block is refused, naming the requests, and so is the serve step,
+    before any collective.  Held whole on every rank (the reference's
+    clamp: ``batch_sharded=False``) they are taken
+    (``tests/test_torch_uneven.py``)."""
     cfg = _cfg("qwen3-0.6b")
     mesh = Mesh((1, 2, 2), AXES)
     p = sharding.local_params(model.init_model(
         torch.Generator().manual_seed(0), cfg, "cpu"), mesh)
+    with pytest.raises(ValueError, match="requests=3 over data=2"):
+        model.init_cache(cfg, 3, CACHE, device="cpu", mesh=mesh,
+                         batch_sharded=True)
+    cache = model.init_cache(cfg, 4, CACHE, device="cpu", mesh=mesh,
+                             batch_sharded=True)
     with pytest.raises(ValueError, match="split over the data axis"):
-        steps.make_prefill_step(cfg, mesh=mesh)(
-            p, {"tokens": torch.zeros(3, 4, dtype=torch.long)})
-    cache = model.init_cache(cfg, 4, CACHE, device="cpu", mesh=mesh)
-    with pytest.raises(ValueError, match="split over the data axis"):
-        steps.make_serve_step(cfg, mesh=mesh)(
+        steps.make_serve_step(cfg, mesh=mesh, batch_sharded=True)(
             p, cache, {"token": torch.zeros(3, dtype=torch.long),
                        "t": torch.zeros(3, dtype=torch.int32)})
 
