@@ -85,7 +85,13 @@ before the last line is printed:
    set to 0 just before each run and read just after: one ``gaia_select``
    launch a Gaia step, one ``rand_k_select`` launch a DGC rand-k step.
    D-PSGD and SkewScout make one ``neighbor_mix`` launch a step, AD-PSGD
-   one ``neighbor_mix_src`` launch.
+   one ``neighbor_mix_src`` launch.  Then one more step of each of the
+   eight, from its run's last state, under the step audit
+   (``repro_torch.analysis.step_audit``: JA401 by PyTorch's sync debug
+   mode, JA404, JA405): no finding, and exactly those launches
+   (``STEP_LAUNCHES``); and the audit's positive control, a planted
+   ``.item()`` of a card tensor: exactly one JA401, the caller's sync
+   debug mode restored.
    Then one step of Gaia, DGC rand-k, D-PSGD and AD-PSGD on the earlier
    design (one ``gaia_select`` launch a tensor; two ``rand_k_select``
    launches a tensor and permuted copies into the reference's layout and
@@ -143,6 +149,14 @@ before the last line is printed:
    launch count set to 0 just before and read just after: the DGC
    histogram kernel (one ``dgc_sparsify`` launch a call) and
    ``group_norm`` run on no training path, so this is their main path;
+   then a kernel and an oracle row of each public op the reference has
+   no twin of (``gaia_select_many``, ``rand_k_sparsify_many``, DGC's
+   parts, one launch a call each, the three gossip list ops,
+   ``flash_attention_bthd``), and the report twin's gate
+   (``repro_torch.benchmarks.report --gate``) over the rows written: a
+   verdict line a ``kernel/`` row with an ``oracle/`` twin, every such
+   row covered, the verdicts reported, not asserted (each row a call's
+   device time: ``kernels_bench.time_us`` queues a spin kernel first);
 7. LM serving: ``qwen3-0.6b`` at full width (28 layers, d_model 1024, 16
    heads over 8 KV heads of 128, vocab 151,936), bfloat16, random weights
    from a seeded generator on the card.  (a) ``make_prefill_step`` on 4
@@ -401,7 +415,8 @@ before the last line is printed:
    with its length over data: 4 decode steps against the one-card
    decode on the same cache by phase 14's gate, 0 host syncs a step;
 17. the dry-run stand-in against the card (phase 12's bsp and dpsgd steps
-   traced on meta; its audit sweep on the host beside phase 12's ranks).
+   traced on meta; its audit sweep on the host beside phase 12's ranks),
+   every one of those traces also under the step audit, no finding.
 
 Every phase ends with its own line, ``phase N: X.XX s (script Y.YY s)``
 (phases 4, 8 and 9 run in two parts and print one a part).
@@ -539,7 +554,8 @@ GEMM_KEYS = ("gemm", "nvjet", "sm90", "cutlass")
 DISPATCH_KEYS = ("topk", "sort", "scan", "cumsum", "index", "scatter",
                  "gather")
 #: the rows of the kernel bench: the reference's rows without interpret
-#: mode, and the library calls
+#: mode, the library calls, then a kernel and an oracle row of each public
+#: op the reference has no twin of (the registry parity's PA303)
 BENCH_ROWS = (
     "kernel/flash_attention", "oracle/flash_attention",
     "library/flash_attention", "prod/chunked_attention",
@@ -549,7 +565,16 @@ BENCH_ROWS = (
     "kernel/rand_k_1M", "oracle/rand_k_1M",
     "kernel/neighbor_mix_ring8_128k", "oracle/neighbor_mix_ring8_128k",
     "oracle/neighbor_mix_dense", "library/neighbor_mix_dense",
-    "kernel/group_norm", "oracle/group_norm", "library/group_norm")
+    "kernel/group_norm", "oracle/group_norm", "library/group_norm") + tuple(
+    f"{kind_}/{op_}" for op_ in (
+        "gaia_select_many_1M", "rand_k_sparsify_many_1M",
+        "abs_histogram_1M", "abs_histogram_fused_1M", "dgc_select_1M",
+        "neighbor_mix_many_ring8_128k", "neighbor_mix_push_many_ring8_128k",
+        "neighbor_mix_src_many_ring8_128k", "flash_attention_bthd")
+    for kind_ in ("kernel", "oracle"))
+#: the calls a bench row makes: 3 warm-up and 50 timed
+#: (``kernels_bench.time_us``)
+BENCH_CALLS = 53
 #: the main path's runs: (label, strategy, CommConfig fields besides the
 #: ring fabric); the SkewScout run's travel interval is set per phase
 RUNS = (("bsp", "bsp", {}), ("gaia", "gaia", {}), ("dpsgd", "dpsgd", {}),
@@ -558,6 +583,15 @@ RUNS = (("bsp", "bsp", {}), ("gaia", "gaia", {}), ("dpsgd", "dpsgd", {}),
         ("dgc-randk", "dgc", {"dgc_compressor": "randk"}),
         ("fedavg", "fedavg", {"iter_local": 5}),
         ("dpsgd-skewscout", "dpsgd", {"skewscout": True}))
+
+
+#: the kernel launches of one step of each of RUNS (the others launch
+#: none), as phase 4 holds its runs to them
+STEP_LAUNCHES = {"gaia": {"gaia_select": 1},
+                 "dgc-randk": {"rand_k_select": 1},
+                 "dpsgd": {"neighbor_mix": 1},
+                 "dpsgd-skewscout": {"neighbor_mix": 1},
+                 "adpsgd": {"neighbor_mix_src": 1}}
 
 
 #: the strategies the paper benches run that phase 4's comparison of two
@@ -813,17 +847,13 @@ def marked(fn, label: str):
 
 
 def count_syncs(fn):
-    """Host syncs ``fn()`` makes, by PyTorch's sync debug mode: its
-    "called a synchronizing CUDA operation" warnings."""
+    """Host syncs ``fn()`` makes, by PyTorch's sync debug mode
+    (``step_audit.host_syncs``, the step audit's JA401 capture)."""
+    from repro_torch.analysis.step_audit import host_syncs
     torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            fn()
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
-    return sum("called a synchronizing" in str(w_.message) for w_ in caught)
+    with host_syncs() as syncs:
+        fn()
+    return len(syncs)
 
 
 def prefill_and_decode(lm, params, cfg, tokens, extra=None):
@@ -5041,9 +5071,10 @@ class StandinSweep(threading.Thread):
     """Phase 17 (a): the stand-in's audit matrix (``dryrun.iter_combos()``:
     the reduced qwen3-0.6b on ``SWEEP_MESH``, 22 rows), traced on ``meta``
     tensors on the host in a thread beside phase 12's gloo ranks, while
-    the parent waits for them.  Every row is kept, a failed one with its
-    error; ``rows``, ``seconds`` and ``error`` (an exception that ended
-    the thread) are read after ``join``."""
+    the parent waits for them, each trace also under the step audit
+    (``dryrun_one``'s ``"step_audit"``).  Every row is kept, a failed one
+    with its error; ``rows``, ``seconds`` and ``error`` (an exception that
+    ended the thread) are read after ``join``."""
 
     def __init__(self):
         super().__init__(name="standin-sweep", daemon=True)
@@ -5110,6 +5141,14 @@ def standin_phase(sweep: StandinSweep, dist12: dict, smi: str) -> dict:
         assert pex["pod_axis_only"] and pex[
             "permute_cross_gbytes_per_dev"] > 0, (r_["strategy"], pex)
         assert r_["audit"]["findings"] == [], r_["audit"]["findings"]
+    audited = [r_["step_audit"] for r_ in rows]
+    print(f"(a) the step audit over the sweep's traces: "
+          f"{sum(a_['ok'] for a_ in audited)} of {len(audited)} rows "
+          f"without a finding ({sum(a_['n_eqns'] for a_ in audited)} ops, "
+          f"{sum(a_['n_collectives'] for a_ in audited)} collectives)",
+          flush=True)
+    for a_ in audited:
+        assert a_["findings"] == [], (a_["tag"], a_["findings"])
     out = {"sweep": {"rows": len(rows), "ok": sum(r_["ok"] for r_ in rows),
                      "seconds": sweep.seconds, "waited_s": waited},
            "runs": {}}
@@ -5141,7 +5180,11 @@ def standin_phase(sweep: StandinSweep, dist12: dict, smi: str) -> dict:
         term = max(("compute", "memory", "collective"),
                    key=lambda k_: ro[f"t_{k_}_ms"])
         median = dist12["strategies"][strategy]["median_ms_by_rank"][0]
+        sa = rep["step_audit"]
+        assert sa["findings"] == [], (strategy, sa["findings"])
         r = {"collectives": len(got), "records_equal": got == want,
+             "step_audit": {"ops": sa["n_eqns"],
+                            "findings": len(sa["findings"])},
              "launches": launches, "rank_launches": real["launches"],
              "argument_bytes": arg, "state_operand_bytes": held,
              "rank_state_operand_bytes": real["arg_bytes"],
@@ -5199,7 +5242,9 @@ def main() -> int:
     from repro_torch.core.algorithms.base import tree_leaf_order
     from repro_torch.core.partition import partition_label_skew
     from repro_torch.data.synthetic import synth_images
+    from repro_torch.analysis import step_audit
     from repro_torch.benchmarks import kernels_bench
+    from repro_torch.benchmarks import report as bench_report
     from repro_torch.examples import serve_decode
     from repro_torch.kernels import build, dgc_topk, ops, ref
     from repro_torch.launch.steps import make_prefill_step
@@ -5882,8 +5927,9 @@ def main() -> int:
     for label, algo_name, fields in RUNS:
         run(label, algo_name, fields, steps=CPU_CHECK_STEPS)
 
-    # record each run's last training state, to check where it lives
-    last_state = {}
+    # record each run's last step: its state, to check where it lives, and
+    # its call, to audit one more step of it
+    last_call, audit_calls = {}, {}
     make_algorithm = trainer.make_algorithm
 
     def recording_make_algorithm(*args, **kwargs):
@@ -5892,7 +5938,7 @@ def main() -> int:
 
         def recorded(state, *a, **kw):
             out = step(state, *a, **kw)
-            last_state[algo.name] = out[0]
+            last_call[algo.name] = (step, out[0], a, kw)
             return out
         algo.step = recorded
         return algo
@@ -5923,10 +5969,11 @@ def main() -> int:
                      if r.skewscout_history else ""), flush=True)
             assert len(losses) == STEPS and np.all(np.isfinite(losses)), \
                 (label, losses)
-            for part, tree in last_state[algo_name].items():
+            for part, tree in last_call[algo_name][1].items():
                 tensors = tree.values() if isinstance(tree, dict) else [tree]
                 for t in tensors:
                     assert t.device.type == "cuda", (label, part, t.device)
+            audit_calls[label] = last_call[algo_name]
     finally:
         trainer.make_algorithm = make_algorithm
     bsp_losses = [loss for _, loss in results["bsp"].loss_curve]
@@ -5943,7 +5990,39 @@ def main() -> int:
     print(f"main-path launches: {launches}")
     print("steps/s: " + json.dumps({k_: round(v, 2)
                                    for k_, v in rates.items()}))
+    # one more step of each design, from its run's last state, under the
+    # step audit (analysis.step_audit: JA401 by the sync debug mode, JA404,
+    # JA405): no finding, and the launches phase 4 holds each design to
+    t0 = time.perf_counter()
+    audit4 = {}
+    for label, _, _ in RUNS:
+        step_, state_, a_, kw_ = audit_calls[label]
+        for k_ in ops.launches:
+            ops.launches[k_] = 0
+        rep_ = step_audit.audit_step(
+            step_, (state_,) + tuple(a_[:-1]) + (a_[-1] + 1,), kw_,
+            tag=f"phase 4/{label}")
+        torch.cuda.synchronize()
+        got_ = {k_: c_ for k_, c_ in ops.launches.items() if c_}
+        audit4[label] = {"ops": rep_.n_eqns, "launches": got_,
+                         "findings": [f_.format() for f_ in rep_.findings]}
+    print(f"one more step of each design under the step audit on the card "
+          f"in {time.perf_counter() - t0:.2f} s: " + json.dumps(audit4))
     sys.stdout.flush()
+    for label, a_ in audit4.items():
+        assert a_["findings"] == [], (label, a_["findings"])
+        assert a_["launches"] == STEP_LAUNCHES.get(label, {}), (label, a_)
+    # the audit's positive control: a planted `.item()` on the card is one
+    # JA401, and the caller's sync debug mode comes back as it was
+    mode_ = torch.cuda.get_sync_debug_mode()
+    planted_ = step_audit.audit_step(
+        lambda x_: (x_ * 2).sum().item(), (torch.ones(4, device=dev),),
+        tag="phase 4/planted .item()")
+    print("a planted .item() under the step audit: "
+          + json.dumps([f_.format() for f_ in planted_.findings]))
+    assert [f_.rule for f_ in planted_.findings] == ["JA401"], \
+        planted_.findings
+    assert torch.cuda.get_sync_debug_mode() == mode_
 
     # one training step on the earlier design against the one-launch step:
     # the earlier design is swapped in here, for this comparison only
@@ -6609,12 +6688,32 @@ def main() -> int:
     for k_ in ("gaia_select", "rand_k_select", "neighbor_mix",
                "dgc_sparsify", "group_norm", "flash_attention"):
         assert bench_launches[k_] > 0, (k_, bench_launches)
-    # the bench's DGC row makes one launch a call and no other
-    for k_ in ("abs_histogram_fused", "abs_histogram", "dgc_select"):
-        assert bench_launches[k_] == 0, (k_, bench_launches)
+    # the bench's DGC row makes one launch a call and no other, and so do
+    # its parts' rows, one row each; the list ops one launch a call
+    for k_ in ("dgc_sparsify", "abs_histogram_fused", "abs_histogram",
+               "dgc_select"):
+        assert bench_launches[k_] == BENCH_CALLS, (k_, bench_launches)
+    assert bench_launches["neighbor_mix_src"] == 2 * BENCH_CALLS, \
+        bench_launches
     print(f"bench-path launches: {bench_launches}")
     print("bench rows (us a call): " + json.dumps(
         {r["name"]: round(r["us_per_call"], 3) for r in rows}))
+    # the report twin's gate over the rows just written: a verdict a
+    # kernel row with an oracle twin, reported, not asserted (each row a
+    # call's device time behind a spin kernel: flash_attention at the
+    # bench's shape is slower than its plain version, a known finding)
+    twins = sorted(r["name"].split("/", 1)[1] for r in rows
+                   if r["name"].startswith("kernel/")
+                   and f"oracle/{r['name'].split('/', 1)[1]}" in BENCH_ROWS)
+    gate_rc = bench_report.gate(str(bench_json))
+    verdicts = bench_report.gate_rows(
+        {r["name"]: r["us_per_call"] for r in rows})
+    assert [v_["op"] for v_ in verdicts] == twins, (verdicts, twins)
+    print(f"the bench gate (repro_torch.benchmarks.report --gate, noise "
+          f"band 0.5) over {len(verdicts)} kernel rows: exit {gate_rc}; "
+          f"slower than the plain version: "
+          f"{[v_['op'] for v_ in verdicts if v_['ratio'] > 1]}; beyond the "
+          f"band: {[v_['op'] for v_ in verdicts if not v_['ok']]}")
     sys.stdout.flush()
 
     # ---------------------------------------------------------------- 7

@@ -29,14 +29,17 @@ Rules (the reference's codes and names):
   attribute to the exchange or to a pod: a ``gather`` or ``barrier``
   (checkpoint plumbing) inside a step, or an axis that is not the mesh's.
 
-``audit_trace`` returns the findings and a summary whose ``to_json()``
-has the reference's keys.
+``audit_trace`` returns the findings (``analysis.base.Finding``, the
+record every pass shares) and a summary whose ``to_json()`` has the
+reference's keys.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
+
+from repro_torch.analysis.base import Finding
 
 RULES = {
     "GA201": "off-pod-axis",
@@ -52,22 +55,6 @@ _FLOAT_BYTES = {"float64": 8, "float32": 4, "bfloat16": 2, "float16": 2,
 #: the transfers (the reference's collective-permutes), by ``Mesh``
 #: method; the other records are reductions
 _TRANSFERS = ("all_gather", "all_to_all", "all_gather_dim")
-
-
-@dataclass
-class Finding:
-    """One rule violation (``repro.analysis.base.Finding``'s fields)."""
-    rule: str
-    path: str                   # the audit's tag
-    line: int                   # 0: a whole-trace finding
-    message: str
-    source: str = ""            # what the rule keyed on
-    baselined: bool = False
-
-    def to_json(self) -> Dict:
-        return {"rule": self.rule, "path": self.path, "line": self.line,
-                "message": self.message, "source": self.source,
-                "baselined": self.baselined}
 
 
 @dataclass

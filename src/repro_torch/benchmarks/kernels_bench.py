@@ -19,14 +19,27 @@ Rows, printed as ``name,us_per_call,``:
   views): on the card the ``flash_attention`` kernel reading them in
   place.
 
+Then a ``kernel/<op>`` and ``oracle/<op>`` pair for each public op of
+the port that the reference has no twin of, on the same operands: the
+list ops as the training path calls them (``gaia_select_many`` and
+``rand_k_sparsify_many`` over the 1M elements as 16 tensors,
+``neighbor_mix_many``, ``neighbor_mix_push_many`` (a 3-slot snapshot
+buffer read at staleness 2) and ``neighbor_mix_src_many`` over the ring's
+(8, 128k) as 16 leaves), DGC's parts (``abs_histogram``,
+``abs_histogram_fused``, ``dgc_select`` at the 0.999 quantile) and
+``flash_attention_bthd`` on (B, T, H, D) views, so the gate
+(``repro_torch.benchmarks.report --gate``) sees every op.
+
 The attention rows run at the reference's shape, B, H, T, D = 1, 4, 256,
 64, float32, causal.  The reference's ``interp/<op>`` rows (Pallas in
 interpret mode) have no counterpart.
 
 A call's time is the median of 50 calls after 3 warm-up calls.  On the
-card each call lies between two CUDA events, so a row reads the device's
-time, or the host's time to enqueue the call where that is longer.  On
-the CPU (``--device cpu``, for tests at small sizes) the host clock
+card each call lies between two CUDA events, queued behind a spin kernel
+(``SPIN_CYCLES``, ~0.6 ms) that holds the device while the host enqueues
+the call, so a row reads the device's time; only a call whose enqueue
+outlasts the spin (the plain list ops' Python loops) also reads some of
+the host's.  On the CPU (``--device cpu``, for tests at small sizes) the host clock
 times them, and the numbers are CPU numbers.
 """
 from __future__ import annotations
@@ -47,6 +60,10 @@ from repro_torch.models.attention import chunked_attention
 from repro_torch.topology import ring
 
 
+#: GPU clock cycles of the spin kernel queued ahead of each timed call
+SPIN_CYCLES = 1_000_000
+
+
 def time_us(fn: Callable[[], object], device: torch.device,
             reps: int = 50, warmup: int = 3) -> float:
     """Median time of one ``fn()`` in microseconds over ``reps`` calls."""
@@ -58,6 +75,7 @@ def time_us(fn: Callable[[], object], device: torch.device,
         for _ in range(reps):
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
             start.record()
             fn()
             end.record()
@@ -163,6 +181,54 @@ def run(device: str = "cuda", *, n: int = 1 << 20, mix_cols: int = 1 << 17,
           lambda: ref.group_norm_ref(x, sc, bi, group_size=2))
     bench("library/group_norm",
           lambda: F.group_norm(x.permute(0, 3, 1, 2), C // 2, sc, bi))
+
+    # the port's own ops, on the same operands
+    vs, ws = list(vv.chunk(16)), list(ww.chunk(16))
+    bench("kernel/gaia_select_many_1M",
+          lambda: ops.gaia_select_many(vs, ws, 0.5))
+    bench("oracle/gaia_select_many_1M",
+          lambda: ref.gaia_select_many_ref(vs, ws, 0.5))
+    keep, seeds, perms = float(np.float32(0.001)), range(16), [None] * 16
+    bench("kernel/rand_k_sparsify_many_1M",
+          lambda: ops.rand_k_sparsify_many(vs, ws, keep, seeds, perms))
+    bench("oracle/rand_k_sparsify_many_1M",
+          lambda: ref.rand_k_sparsify_many_ref(vs, ws, keep, seeds, perms))
+    vmax = vv.abs().amax()
+    thresh = ref.dgc_threshold_ref(vv, 0.999)
+    bench("kernel/abs_histogram_1M", lambda: ops.abs_histogram(vv, vmax))
+    bench("oracle/abs_histogram_1M",
+          lambda: ref.abs_histogram_ref(vv, 256, vmax))
+    bench("kernel/abs_histogram_fused_1M",
+          lambda: ops.abs_histogram_fused(vv))
+    bench("oracle/abs_histogram_fused_1M",
+          lambda: ref.abs_histogram_ref(vv, 256, vv.abs().amax()))
+    bench("kernel/dgc_select_1M", lambda: ops.dgc_select(vv, thresh))
+    bench("oracle/dgc_select_1M", lambda: ref.dgc_select_ref(vv, thresh))
+
+    K = xs.shape[0]
+    leaves = [c.contiguous() for c in xs.chunk(16, dim=1)]
+    idx, nw, sw = (t.cpu().numpy() for t in mix_ops)
+    mix = ops.mix_operands(idx, nw, sw, K, dev)
+    bench("kernel/neighbor_mix_many_ring8_128k",
+          lambda: ops.neighbor_mix_many(leaves, mix))
+    bench("oracle/neighbor_mix_many_ring8_128k",
+          lambda: ref.neighbor_mix_many_ref(leaves, *mix_ops))
+    snaps = xs.unsqueeze(0).repeat(3, 1, 1)
+    stale = ops.mix_operands(idx + 2 * K, nw, sw, 3 * K, dev)
+    bench("kernel/neighbor_mix_push_many_ring8_128k",
+          lambda: ops.neighbor_mix_push_many(leaves, snaps, stale))
+    bench("oracle/neighbor_mix_push_many_ring8_128k",
+          lambda: ref.neighbor_mix_push_many_ref(
+              leaves, snaps, stale.idx, stale.w, stale.self_w))
+    bench("kernel/neighbor_mix_src_many_ring8_128k",
+          lambda: ops.neighbor_mix_src_many(leaves, xs, mix))
+    bench("oracle/neighbor_mix_src_many_ring8_128k",
+          lambda: ref.neighbor_mix_src_many_ref(leaves, xs, *mix_ops))
+
+    bench("kernel/flash_attention_bthd",
+          lambda: ops.flash_attention_bthd(qb, kb, vb))
+    bench("oracle/flash_attention_bthd",
+          lambda: ref.flash_attention_bthd_ref(qb, kb, vb))
     return rows
 
 

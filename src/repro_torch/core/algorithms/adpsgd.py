@@ -95,7 +95,7 @@ class ADPSGD(DPSGD):
             stale = np.where(w > 0, self.staleness, 0).astype(np.int32)
             gidx = stale * self.K + idx
             ent = (self.schedule.at(t),
-                   torch.from_numpy(stale).to(device),
+                   ops.host_to_device(stale, np.int32, device),
                    ops.mix_operands(gidx, w, sw,
                                     (self.max_staleness + 1) * self.K,
                                     device))

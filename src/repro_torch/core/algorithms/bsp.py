@@ -36,9 +36,10 @@ class BSP:
         vel = {n: self.m * u - lr * (g[n] + self.wd * w[n])
                for n, u in state["vel"].items()}
         params = {n: w[n] + vel[n] for n in w}
+        # a fill on the device: a tensor made from a host number is a
+        # copy the host waits for
         metrics = {"loss": losses.mean(),
-                   "comm_floats": torch.tensor(float(tree_size(w)),
-                                               device=losses.device)}
+                   "comm_floats": losses.new_full((), float(tree_size(w)))}
         return {"params": params, "mstate": new_ms, "vel": vel}, metrics
 
     def eval_params(self, state):

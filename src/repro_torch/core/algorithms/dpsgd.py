@@ -118,8 +118,8 @@ class DPSGD:
         # rows still sum to 1 and sampled-out nodes mix with nobody
         w2 = np.where(m[idx_np] & m[:, None], w_np, 0.0).astype(np.float32)
         sw2 = (1.0 - w2.sum(axis=1)).astype(np.float32)
-        return mix.with_weights(torch.from_numpy(w2).to(device),
-                                torch.from_numpy(sw2).to(device))
+        return mix.with_weights(ops.host_to_device(w2, np.float32, device),
+                                ops.host_to_device(sw2, np.float32, device))
 
     def init(self, params: Tree, mstate: Tree) -> Dict[str, Tree]:
         return {"params": tree_stack_n(params, self.K),

@@ -51,11 +51,13 @@ class FedAvg:
         if synced:
             params = _broadcast_mean(params, avg)
             new_ms = _broadcast_mean(new_ms, tree_mean0(new_ms))
+        # fills on the device: a tensor made from a host number is a copy
+        # the host waits for
         metrics = {"loss": losses.mean(),
-                   "comm_floats": losses.new_tensor(
-                       float(tree_size(avg)) if synced else 0.0),
+                   "comm_floats": losses.new_full(
+                       (), float(tree_size(avg)) if synced else 0.0),
                    "local_delta": delta,
-                   "synced": losses.new_tensor(synced, dtype=torch.bool)}
+                   "synced": losses.new_full((), synced, dtype=torch.bool)}
         return {"params": params, "mstate": new_ms, "vel": vel}, metrics
 
     def eval_params(self, state):

@@ -334,14 +334,26 @@ class MixOperands:
         return dataclasses.replace(self, w=w, self_w=self_w)
 
 
+def host_to_device(a: np.ndarray, dtype, device) -> torch.Tensor:
+    """A host array as a contiguous tensor of ``dtype`` (a NumPy dtype) on
+    ``device``.  To a card through pinned memory and an asynchronous copy:
+    a copy from pageable memory makes the host wait for the card, a sync
+    inside any step that builds operands (PyTorch's caching host allocator
+    keeps the pinned block until the copy is done)."""
+    t = torch.from_numpy(np.ascontiguousarray(a, dtype))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def mix_operands(nbr_idx: np.ndarray, nbr_w: np.ndarray,
                  self_w: np.ndarray, n_src: int, device) -> MixOperands:
     """``MixOperands`` from the host arrays of
     ``TopologySchedule.neighbor_arrays`` (or AD-PSGD's gather index into
     its snapshot buffer): ``0 <= nbr_idx < n_src`` is checked on these
     arrays, and a failure raises ``ValueError`` before anything reaches
-    ``device``; then the arrays are uploaded once, as int32, float32 and
-    float32.  An empty source (``n_src`` 0: pods that read no neighbour
+    ``device``; then the arrays are uploaded once (``host_to_device``), as
+    int32, float32 and float32.  An empty source (``n_src`` 0: pods that read no neighbour
     this round) takes only zero weights over padding index 0; the kernel
     then reads no row and each pod keeps its self term."""
     nbr_idx, nbr_w, self_w = (np.asarray(a) for a in (nbr_idx, nbr_w,
@@ -361,7 +373,7 @@ def mix_operands(nbr_idx: np.ndarray, nbr_w: np.ndarray,
         raise ValueError("mix_operands: no source rows, but a neighbour "
                          "weight is not 0")
     idx_t, w_t, sw_t = (
-        torch.from_numpy(np.ascontiguousarray(a, dtype)).to(device)
+        host_to_device(a, dtype, device)
         for a, dtype in ((nbr_idx, np.int32), (nbr_w, np.float32),
                          (self_w, np.float32)))
     return MixOperands(idx_t, w_t, sw_t, int(n_src))

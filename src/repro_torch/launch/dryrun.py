@@ -1,7 +1,7 @@
 """The dry-run stand-in (``repro.launch.dryrun``): one rank's step of every
 (architecture x input shape) combination on the reference's production
 meshes, traced on ``meta`` tensors, with its memory, an H100 roofline,
-the cross-pod exchange and a graph audit.
+the cross-pod exchange, a graph audit and a step audit.
 
 The reference lowers and compiles each combo's step for 512 forced host
 devices and reads XLA's memory, cost and HLO.  Here nothing is compiled,
@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch import pytree
-from repro_torch.analysis import graph_audit
+from repro_torch.analysis import graph_audit, step_audit
 from repro_torch.configs.base import (CommConfig, FabricConfig, INPUT_SHAPES,
                                       InputShape, ModelConfig)
 from repro_torch.configs.registry import ARCH_IDS, get_config
@@ -238,6 +238,48 @@ def build_step(arch: Union[str, ModelConfig],
             (params, cache, batch), notes)
 
 
+def audit_graph(trace, mesh, shape: Union[str, InputShape],
+                strategy: Optional[str], *, tag: str,
+                combo: Optional[str] = None) -> graph_audit.GraphAudit:
+    """The graph audit (GA2xx) of one combo's ``trace`` on ``mesh`` as
+    the sweep runs it: the pod-axis report and GA205 for a train step on
+    more than one pod, GA201 for the gossip strategies, GA202 over the
+    cross-pod transfers of a train step."""
+    shape = INPUT_SHAPES[shape] if isinstance(shape, str) else shape
+    train_graph = shape.mode == "train" and mesh_n_pods(mesh) > 1
+    return graph_audit.audit_trace(
+        trace, tag=tag, combo=combo,
+        devices_per_pod=devices_per_pod(mesh) if train_graph else None,
+        check_wire_dtype=train_graph,
+        check_pod_axis=strategy in GOSSIP_STRATEGIES
+        and shape.mode == "train",
+        expect_donation=shape.mode == "train")
+
+
+def trace_combo(arch: Union[str, ModelConfig],
+                shape: Union[str, InputShape], mesh, *,
+                strategy: Optional[str], topology: Optional[str], tag: str,
+                combo: str,
+                const_threshold_bytes: int = step_audit.CONST_THRESHOLD_BYTES,
+                **build) -> Tuple[Dict, meta.Trace, step_audit.StepAudit,
+                                  graph_audit.GraphAudit]:
+    """One combo's step (``build_step`` on ``mesh``, ``build`` its other
+    options) traced once on ``meta`` tensors under the step audit
+    (JA401–JA405), and the graph audit (GA2xx) over the same trace: the
+    per-combo work of both sweeps, ``dryrun_one``'s and
+    ``analysis.step_audit.audit_combos``.  Returns ``(notes, trace,
+    step_audit, graph_audit)``, each audit's findings under ``tag``."""
+    shape = INPUT_SHAPES[shape] if isinstance(shape, str) else shape
+    step, args, notes = build_step(arch, shape, strategy=strategy,
+                                   topology=topology, mesh=mesh, **build)
+    trace, sa = step_audit.trace_and_audit(
+        step, args, notes["mesh"], wire_groups=notes.get("wire_groups"),
+        gossip=strategy in GOSSIP_STRATEGIES and shape.mode == "train",
+        tag=tag, const_threshold_bytes=const_threshold_bytes)
+    ga = audit_graph(trace, mesh, shape, strategy, tag=tag, combo=combo)
+    return notes, trace, sa, ga
+
+
 def dryrun_one(arch: Union[str, ModelConfig],
                shape_name: Union[str, InputShape], *,
                multi_pod: bool = False,
@@ -274,7 +316,11 @@ def dryrun_one(arch: Union[str, ModelConfig],
 
     A host read in the step ends its trace: GA203 in the audit, and the
     ``cost`` of what was traced up to it, under ``traced_to_host_sync``
-    (a failed combo where the audit fails it)."""
+    (a failed combo where the audit fails it).
+
+    The same trace runs under the dataflow audit (``analysis.step_audit``,
+    JA401–JA405), its summary under ``"step_audit"``: reported, not failed
+    on (``python -m repro_torch.analysis`` is that gate)."""
     if audit_fail not in AUDIT_FAIL_MODES:
         raise ValueError(
             f"audit_fail {audit_fail!r}: expected one of "
@@ -287,12 +333,14 @@ def dryrun_one(arch: Union[str, ModelConfig],
     mesh = mesh or make_production_mesh(multi_pod=multi_pod)
     pods = mesh_n_pods(mesh)
     mesh_name = mesh.name
-    step, args, notes = build_step(
-        cfg, shape, strategy=strategy, topology=topology,
-        staleness=staleness, max_staleness=max_staleness, chunk=chunk,
-        remat=remat, mesh=mesh)
-    trace = meta.trace_step(step, args, notes["mesh"],
-                            wire_groups=notes.get("wire_groups"))
+    gossip = strategy in GOSSIP_STRATEGIES and shape.mode == "train"
+    combo = f"{shape.name}/{strategy or '-'}/{topology or '-'}"
+    arch_name = arch if isinstance(arch, str) else cfg.arch_id
+    notes, trace, sa, ga = trace_combo(
+        cfg, shape, mesh, strategy=strategy, topology=topology,
+        tag=f"{arch_name}/{shape.name}/{strategy or shape.mode}",
+        combo=combo, staleness=staleness, max_staleness=max_staleness,
+        chunk=chunk, remat=remat)
     cost = trace.cost
     mem_summary = {
         "argument_size_in_bytes": int(notes["argument_bytes"]),
@@ -306,12 +354,10 @@ def dryrun_one(arch: Union[str, ModelConfig],
             colls[name] = colls.get(name, 0) + by[kind]
     n_chips = mesh.size
     mf = analysis.model_flops_estimate(cfg, shape, shape.mode)
-    arch_name = arch if isinstance(arch, str) else cfg.arch_id
     roof = analysis.derive_roofline(
         arch_name, shape.name, mesh_name, n_chips, cost.flops, cost.bytes,
         colls, mf, bytes_per_device=mem_summary["argument_size_in_bytes"]
         + mem_summary["temp_size_in_bytes"])
-    gossip = strategy in GOSSIP_STRATEGIES and shape.mode == "train"
     train_graph = shape.mode == "train" and pods > 1
     pod_exchange = None
     if train_graph:
@@ -349,14 +395,6 @@ def dryrun_one(arch: Union[str, ModelConfig],
                     "report cannot classify (a gather or barrier in the "
                     "step, or an axis not the mesh's): cross-pod byte "
                     "totals would understate the exchange")
-    combo = f"{shape.name}/{strategy or '-'}/{topology or '-'}"
-    ga = graph_audit.audit_trace(
-        trace, tag=f"{arch_name}/{shape.name}/{strategy or shape.mode}",
-        combo=combo,
-        devices_per_pod=devices_per_pod(mesh) if train_graph else None,
-        check_wire_dtype=train_graph,
-        check_pod_axis=gossip,
-        expect_donation=shape.mode == "train")
     audit = ga.to_json()
     hard_fail = audit_fail == "all" or (audit_fail == "gossip" and gossip)
     if hard_fail and ga.findings:
@@ -378,6 +416,7 @@ def dryrun_one(arch: Union[str, ModelConfig],
         "ok": True,
         "pod_exchange": pod_exchange,
         "audit": audit,
+        "step_audit": sa.to_json(),
         "memory": mem_summary,
         "cost": cost_json,
         "roofline": {
@@ -514,8 +553,8 @@ def main(argv=None) -> int:
                 chunk=args.chunk, remat=not args.no_remat,
                 audit_fail=audit_fail)
             reports.append(rep)
-        except Exception as e:  # the sweep records the failure row and
-            #                     goes on
+        except Exception as e:  # repro-allow: RA104 — the sweep records
+            #                     the failure row and goes on
             traceback.print_exc()
             rep = {"arch": a, "shape": s, "ok": False,
                    "error": f"{type(e).__name__}: {e}"}

@@ -235,6 +235,54 @@ def test_dpsgd_step_on_card_matches_cpu(dev, algo, comm_kw):
          torch.backends.cudnn.allow_tf32) = flags
 
 
+@pytest.mark.parametrize("algo,comm_kw,kw", [
+    ("bsp", {}, {}), ("gaia", {}, {"t0": 0.1}), ("dpsgd", {}, {}),
+    ("adpsgd", {"max_staleness": 2}, {}), ("dgc", {}, {"sparsity": 0.99}),
+    ("dgc", {"dgc_compressor": "randk"}, {"sparsity": 0.99}),
+    ("fedavg", {"iter_local": 2}, {"iter_local": 2})],
+    ids=["bsp", "gaia", "dpsgd", "adpsgd", "dgc", "dgc-randk", "fedavg"])
+def test_cnn_step_on_card_has_no_audit_finding(dev, algo, comm_kw, kw):
+    """One GN-LeNet step of each algorithm on the card under the step
+    audit: no host sync (PyTorch's sync debug mode), no large closed-over
+    tensor, no draw from a generator the step did not receive."""
+    from repro_torch.analysis import step_audit
+    cfg = CNN_ZOO["gn-lenet"]
+    fns, _ = trainer.make_cnn_fns(cfg)
+    comm = CommConfig(fabric=FabricConfig(topology="ring"), **comm_kw)
+    step_algo = trainer.make_algorithm(algo, fns, 5, comm)
+    params, mstate = init_cnn(torch.Generator().manual_seed(0), cfg)
+    state = step_algo.init({n: t.to(dev) for n, t in params.items()},
+                           {n: t.to(dev) for n, t in mstate.items()})
+    rs = np.random.default_rng(1)
+    batch = {"x": torch.from_numpy(rs.standard_normal(
+                 (5, 20, 16, 16, 3)).astype(np.float32)).to(dev),
+             "y": torch.from_numpy(rs.integers(0, 10, (5, 20))).to(dev)}
+    lr = torch.tensor(0.05, device=dev)
+    kw = {k: (torch.tensor(v, device=dev) if k == "t0" else v)
+          for k, v in kw.items()}
+    for t in range(2):                  # the first call warms cuDNN up
+        rep = step_audit.audit_step(step_algo.step, (state, batch, lr, t),
+                                    kw)
+        state = rep.output[0]
+    assert rep.ok, [f.format() for f in rep.findings]
+
+
+def test_planted_host_read_on_card_is_one_JA401(dev):
+    """The step audit's capture of PyTorch's sync debug mode fires: one
+    ``.item()`` of a card tensor in a step is exactly one JA401, and the
+    caller's debug mode is restored after the call."""
+    from repro_torch.analysis import step_audit
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        rep = step_audit.audit_step(lambda x: (x * 2).sum().item(),
+                                    (torch.ones(4, device=dev),))
+        assert torch.cuda.get_sync_debug_mode() == 1
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert [f.rule for f in rep.findings] == ["JA401"], rep.findings
+    assert rep.output == 8.0
+
+
 DGC_SHAPES = [(1,), (37,), (5, 32, 3, 5, 5), (1_000_003,)]
 
 

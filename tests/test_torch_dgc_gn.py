@@ -365,6 +365,14 @@ REFERENCE_ROWS = [
     "kernel/group_norm", "oracle/group_norm"]
 LIBRARY_ROWS = ["library/flash_attention", "library/dgc_quantile_1M",
                 "library/neighbor_mix_dense", "library/group_norm"]
+#: the port's own ops, which the reference has no twin of, a kernel and an
+#: oracle row each
+PORT_ROWS = [f"{kind}/{op}" for op in (
+    "gaia_select_many_1M", "rand_k_sparsify_many_1M", "abs_histogram_1M",
+    "abs_histogram_fused_1M", "dgc_select_1M",
+    "neighbor_mix_many_ring8_128k", "neighbor_mix_push_many_ring8_128k",
+    "neighbor_mix_src_many_ring8_128k", "flash_attention_bthd")
+    for kind in ("kernel", "oracle")]
 
 
 def test_kernels_bench_rows_on_cpu():
@@ -373,8 +381,11 @@ def test_kernels_bench_rows_on_cpu():
                              gn_shape=(4, 4, 4, 8), attn_shape=(1, 2, 32, 64),
                              reps=2)
     names = [name for name, _ in rows]
-    assert [n for n in names if not n.startswith("library/")] == \
-        REFERENCE_ROWS
+    assert [n for n in names if not n.startswith("library/")
+            and n not in PORT_ROWS] == REFERENCE_ROWS
+    assert [n for n in names if n in PORT_ROWS] == PORT_ROWS
+    assert len(names) == len(REFERENCE_ROWS) + len(LIBRARY_ROWS) + len(
+        PORT_ROWS)
     assert sorted(n for n in names if n.startswith("library/")) == \
         sorted(LIBRARY_ROWS)
     assert all(np.isfinite(us) and us > 0 for _, us in rows)
