@@ -2214,7 +2214,7 @@ def intra_rank(rank: int, dev: torch.device, ckpt_dir: str) -> dict:
     import torch.distributed as dist
     t_rank = time.perf_counter()
     cfg = get_config("qwen3-0.6b")
-    mesh = make_mesh(INTRA_MESH, device=dev, cfg=cfg)
+    mesh = make_mesh(INTRA_MESH, device=dev)
     world = dist.get_world_size()
     pods = lsteps.local_pods(TRAIN_PODS, mesh)
     rows = slice(pods.start, pods.stop)
@@ -3004,8 +3004,7 @@ def serve_mesh_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
 
     # qwen3-0.6b over (1, 2, 2)
     qcfg = get_config("qwen3-0.6b")
-    mesh = make_mesh(MESH_SHAPES["qwen3-0.6b"], device=dev, cfg=qcfg,
-                     mode="serve")
+    mesh = make_mesh(MESH_SHAPES["qwen3-0.6b"], device=dev)
     out["qwen3_coords"] = mesh.coords
     q32 = dataclasses.replace(qcfg, dtype="float32")
     mark("start")
@@ -3031,8 +3030,7 @@ def serve_mesh_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
 
     # deepseek-v2-lite-16b over (1, 1, 4)
     dcfg = get_config("deepseek-v2-lite-16b")
-    mesh = make_mesh(MESH_SHAPES["deepseek-v2-lite-16b"], device=dev,
-                     cfg=dcfg, mode="serve")
+    mesh = make_mesh(MESH_SHAPES["deepseek-v2-lite-16b"], device=dev)
     out["deepseek_coords"] = mesh.coords
     cut = dataclasses.replace(dcfg, n_layers=MESH_CUT, dtype="float32")
     with tf32_off():
@@ -3083,7 +3081,7 @@ def serve_mesh_nccl_rank(rank: int, dev: torch.device) -> dict:
     from repro_torch.models import model as lm
     import torch.distributed as dist
     cfg = dataclasses.replace(get_config("qwen3-0.6b"), n_layers=2)
-    mesh = make_mesh((1, 1, 1), device=dev, cfg=cfg, mode="serve")
+    mesh = make_mesh((1, 1, 1), device=dev)
     params = lm.init_model(torch.Generator(device=dev).manual_seed(0), cfg,
                            dev)
     pre_tok, prompt = _mesh_tokens(cfg.vocab)
@@ -3720,7 +3718,7 @@ def moe_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
     # ----------------------------------------------------------------- (a)
     dcfg = get_config("deepseek-v2-lite-16b")
     cut = dataclasses.replace(dcfg, n_layers=MOE_CUT, dtype="float32")
-    mesh = make_mesh(MOE_MESH, device=dev, cfg=cut)
+    mesh = make_mesh(MOE_MESH, device=dev)
     out["coords"] = mesh.coords
     specs = sharding.leaf_specs(lsteps.param_shape(cut), mesh)
     batch = _p15_tokens(cut.vocab, MOE_B, MOE_T, 150, dev)
@@ -3843,7 +3841,7 @@ def moe_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
 
     # ----------------------------------------------------------------- (b)
     cut16 = dataclasses.replace(cut, dtype="bfloat16")
-    ex_mesh = make_mesh(MOE_EX_MESH, device=dev, cfg=cut16)
+    ex_mesh = make_mesh(MOE_EX_MESH, device=dev)
     like16 = pytree.leaves(lsteps.param_shape(cut16))
     ex_specs = sharding.leaf_specs(lsteps.param_shape(cut16), ex_mesh)
     sched = build_demo_schedule("ring", TRAIN_PODS)
@@ -3924,7 +3922,7 @@ def moe_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
     # ----------------------------------------------------------------- (d)
     scfg = get_config("starcoder2-3b")
     s32 = dataclasses.replace(scfg, n_layers=KV_CUT, dtype="float32")
-    kv_mesh = make_mesh(MOE_MESH, device=dev, cfg=s32)
+    kv_mesh = make_mesh(MOE_MESH, device=dev)
     s_specs = sharding.leaf_specs(lsteps.param_shape(s32), kv_mesh)
     d = {}
     with tf32_off():
@@ -4387,16 +4385,16 @@ def _fam_batch(cfg, B: int, T: int, seed: int, dev, dtype=torch.float32):
     return batch
 
 
-def _fa_per_step(cfg) -> int:
-    """``flash_attention`` launches of one pod's remat train step, by the
-    layer plan: every attention of the forward (the encoder's layers, the
-    decoder's self- and cross-attention), and again those of the
-    checkpointed body cycles (C14's rule)."""
+def _fa_per_step(cfg, remat: bool = True) -> int:
+    """``flash_attention`` launches of one pod's train step, by the layer
+    plan: every attention of the forward (the encoder's layers, the
+    decoder's self- and cross-attention), and, under ``remat``, again
+    those of the checkpointed body cycles (C14's rule)."""
     from repro_torch.models.transformer import layer_plan, layer_sig
     prefix, n_cycles, P, _ = layer_plan(cfg)
     per = [(layer_sig(cfg, i)[0] == "attn") + (cfg.encoder is not None)
            for i in range(cfg.n_layers)]
-    body = per[len(prefix):len(prefix) + n_cycles * P]
+    body = per[len(prefix):len(prefix) + n_cycles * P] if remat else []
     return sum(per) + sum(body) + (cfg.encoder.n_layers if cfg.encoder
                                    else 0)
 
@@ -4552,8 +4550,6 @@ def families_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
             return t_[mesh.coords["data"] * b_:(mesh.coords["data"] + 1)
                       * b_]
         cut = _fam_cut(arch, "float32")
-        for mode in ("train", "serve"):
-            sharding.check_layout(cut, mesh, mode=mode)
         specs = sharding.leaf_specs(lsteps.param_shape(cut), mesh)
         batch = _fam_batch(cut, FAM_B, FAM_T, 170, dev)
         whole = draw(cut)
@@ -5052,6 +5048,337 @@ def families_phase(dev: torch.device):
         "intrapod_families_shapes": summary["fa"]}}
     return summary, kern
 
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: what the clamp keeps whole
+# ---------------------------------------------------------------------------
+
+#: phase 18: three gloo ranks sharing the card, each arch on the mesh
+#: whose axis of 3 does not divide its widths (the reference's clamp keeps
+#: them whole on every rank), at full width on depth cuts (FAM_LAYERS';
+#: 2 layers for the rest), float32, correctness only
+CLAMP_ARCHS = {(1, 1, 3): ("qwen3-0.6b", "starcoder2-3b", "minicpm3-4b",
+                           "mamba2-780m"),
+               (1, 3, 1): ("deepseek-v2-lite-16b", "recurrentgemma-2b",
+                           "seamless-m4t-large-v2", "phi-3-vision-4.2b")}
+#: one bsp step's forward and backward (``pod_grads``; no remat: the CPU
+#: tests hold remat on and off) on a pod batch of CLAMP_B x CLAMP_T
+#: tokens (and patches or frames), its gradients gathered against the
+#: one-card step's (rank 0 alone, the others waiting);
+#: a CLAMP_B x CLAMP_T prefill, then CLAMP_DECODE decode steps of CLAMP_B
+#: requests over CLAMP_CACHE slots against the parent's one-card serve by
+#: phase 14's gate (C12)
+CLAMP_B, CLAMP_T, CLAMP_DECODE, CLAMP_CACHE = 3, 64, 2, 48
+CLAMP_TIMEOUT = 600
+
+
+def _clamp_cut(arch: str):
+    """Phase 18's ``arch``: full width, FAM_LAYERS' depth (2 layers
+    elsewhere; seamless' encoder as many), float32."""
+    from repro_torch.configs.registry import get_config
+    cfg = get_config(arch)
+    n = FAM_LAYERS.get(arch, 2)
+    kw = {"n_layers": n, "dtype": "float32"}
+    if cfg.encoder is not None:
+        kw["encoder"] = dataclasses.replace(cfg.encoder, n_layers=n)
+    return dataclasses.replace(cfg, **kw)
+
+
+def _clamp_serve(cfg, params, dev, mesh=None):
+    """Phase 18's serve (on ``mesh``: the rank's blocks, rows and cache
+    block, the default placement): the prefill's last logits and each
+    decode step's, float32."""
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.models import model as lm
+    toks = torch.from_numpy(np.random.default_rng(180).integers(
+        0, cfg.vocab, (CLAMP_B, CLAMP_T))).to(dev)
+    fed = torch.from_numpy(np.random.default_rng(181).integers(
+        0, cfg.vocab, (CLAMP_B, CLAMP_DECODE)))
+    extra = _fam_extras(cfg, CLAMP_B, 182, dev)
+    with torch.inference_mode():
+        pre = lsteps.make_prefill_step(cfg, mesh=mesh)(
+            params, {"tokens": toks, **extra})
+        memory = None
+        if cfg.encoder is not None:
+            memory = lsteps.make_encode_step(cfg, mesh=mesh)(params, extra)
+        cache = lm.init_cache(cfg, CLAMP_B, CLAMP_CACHE, device=dev,
+                              mesh=mesh)
+        step = lsteps.make_serve_step(cfg, memory, mesh=mesh)
+        dec = []
+        for t in range(CLAMP_DECODE):
+            logits, cache = step.logits(params, cache,
+                                        _decode_batch(fed, t, dev))
+            dec.append(logits.float())
+    return pre.float(), torch.stack(dec)
+
+
+def clamp_rank(rank: int, dev: torch.device, ref_path: str) -> dict:
+    """One gloo rank of phase 18 (``procs.spawn``).  Returns host numbers;
+    the parent gates them."""
+    from repro_torch.configs.base import CommConfig
+    from repro_torch.kernels import ops
+    from repro_torch.launch import sharding
+    from repro_torch.launch import steps as lsteps
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import model as lm
+    import torch.distributed as dist
+    ref = torch.load(ref_path, weights_only=True)
+    out = {"rank": rank, "walls_s": {}, "arch": {}, "coords": {}}
+    bsp = CommConfig(strategy="bsp")
+    fa_calls = {}
+    fa_kernel = ops.flash_attention_bthd
+
+    def fa_recorded(q, k, v, **kw):
+        key = (tuple(q.shape), tuple(k.shape), tuple(v.shape),
+               str(q.dtype).removeprefix("torch."),
+               tuple(sorted((k_, v_) for k_, v_ in kw.items()
+                            if v_ is not None)))
+        fa_calls[key] = fa_calls.get(key, 0) + 1
+        return fa_kernel(q, k, v, **kw)
+    ops.flash_attention_bthd = fa_recorded
+
+    def draw(cfg_):
+        return lm.init_model(torch.Generator(device=dev).manual_seed(0),
+                             cfg_, dev)
+
+    for shape, archs in CLAMP_ARCHS.items():
+        mesh = make_mesh(shape, device=dev)
+        out["coords"][shape] = mesh.coords
+        for arch in archs:
+            t0 = time.perf_counter()
+            cut = _clamp_cut(arch)
+            a = {}
+            with tf32_off():
+                specs = sharding.leaf_specs(lsteps.param_shape(cut), mesh)
+                whole = draw(cut)
+                # the serve on the rank's blocks (views), then the step:
+                # one copy of the weights at a time (three ranks share
+                # the card)
+                pre, dec = _clamp_serve(cut, sharding.local_params(
+                    whole, mesh), dev, mesh)
+                b_ = pre.shape[0]
+                rows = (slice(0, b_) if b_ == CLAMP_B else slice(
+                    mesh.coords["data"] * b_, (mesh.coords["data"] + 1) * b_))
+                a["prefill"] = _row_rel(pre, ref[f"{arch}/prefill"][
+                    rows].to(dev))
+                a["decode"] = max(_row_rel(dec[t], ref[f"{arch}/decode"][t][
+                    rows].to(dev)) for t in range(CLAMP_DECODE))
+                del pre, dec
+                # the step's forward and backward (``pod_grads``; bsp's
+                # exchange over one pod and the SGD update are
+                # elementwise): one copy of the weights and one of the
+                # gradients a rank, three ranks sharing the card
+                params = lsteps.make_train_state(whole, bsp, 1,
+                                                 mesh=mesh)["params"]
+                del whole
+                gc.collect()
+                torch.cuda.empty_cache()
+                batch = _fam_batch(cut, CLAMP_B, CLAMP_T, 185, dev)
+                b_specs = sharding.batch_shardings(batch, mesh,
+                                                   pod_stacked=True)
+                rows = {k_: sharding.local_block(v_, b_specs[k_], mesh)
+                        for k_, v_ in batch.items()}
+                for k_ in ops.launches:
+                    ops.launches[k_] = 0
+                losses, grads = lsteps.make_train_step(
+                    cut, bsp, mesh=mesh, lr=TRAIN_LR, remat=False
+                ).pod_grads(params, rows)
+                a["loss"] = float(losses[0])
+                a["launches"] = {k_: c_ for k_, c_ in ops.launches.items()
+                                 if c_}
+                del params, losses
+                mine = [sharding.gather_leaf(g_[0], s_, mesh)
+                        for g_, s_ in zip(grads, specs)]
+                del grads
+                if rank != 0:
+                    mine = None
+                gc.collect()
+                torch.cuda.empty_cache()
+                dist.barrier()
+                if rank == 0:                # the one-card step, alone
+                    torch.cuda.reset_peak_memory_stats(dev)
+                    whole_ = draw(cut)
+                    p_ = lsteps.make_train_state(whole_, bsp, 1)["params"]
+                    del whole_
+                    ops.flash_attention_bthd = fa_kernel
+                    losses_, grads_ = lsteps.make_train_step(
+                        cut, bsp, lr=TRAIN_LR, remat=False).pod_grads(
+                        p_, batch)
+                    ops.flash_attention_bthd = fa_recorded
+                    del p_
+                    num, den = _sq_diff(mine, [g_[0] for g_ in grads_])
+                    a["grads_rel_l2"] = (num / max(den, 1e-300)) ** 0.5
+                    a["one_card_loss"] = float(losses_[0])
+                    a["one_card_peak_gib"] = (
+                        torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+                    del grads_, losses_
+                del mine
+                gc.collect()
+                torch.cuda.empty_cache()
+                dist.barrier()
+            out["arch"][arch] = a
+            out["walls_s"][arch] = time.perf_counter() - t0
+            if rank == 0:
+                print(f"phase 18 rank 0: {arch} on {shape} "
+                      f"{out['walls_s'][arch]:.1f} s", flush=True)
+    ops.flash_attention_bthd = fa_kernel
+    out["fa_calls"] = sorted(fa_calls.items())
+    return out
+
+
+def clamp_phase(dev: torch.device):
+    """Phase 18: every leaf the reference's clamp keeps whole, trained and
+    served by three gloo ranks on the card.  The parent runs the one-card
+    serves and their rounding floors, then ``procs.spawn`` starts the
+    ranks (``clamp_rank``), then holds ``flash_attention`` at every shape,
+    dtype and mask the ranks called it at against its plain version;
+    every check is gated after every number is printed.  Returns
+    (summary, the kernels' phase 18 figures by kernel name)."""
+    import shutil
+    from repro_torch import pytree
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ref as kref
+    from repro_torch.launch import procs
+    from repro_torch.models import model as lm
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    summary, failures, saved, floors = {"arch": {}}, [], {}, {}
+
+    def check(ok, what):
+        if not ok:
+            failures.append(what)
+            print(f"phase 18 FAILED: {what}", flush=True)
+
+    with tf32_off():
+        for archs in CLAMP_ARCHS.values():
+            for arch in archs:
+                cut = _clamp_cut(arch)
+                p = lm.init_model(torch.Generator(device=dev).manual_seed(
+                    0), cut, dev)
+                pre, dec = _clamp_serve(cut, p, dev)
+                saved[f"{arch}/prefill"], saved[f"{arch}/decode"] = (
+                    pre.cpu(), dec.cpu())
+                floor = {"prefill": 0.0, "decode": 0.0}
+                for seed in (7, 8):
+                    g_ = torch.Generator(device=dev).manual_seed(seed)
+                    moved = pytree.tree_map(lambda t_: t_ * (
+                        1 + 2 ** -24 * torch.randn(t_.shape, generator=g_,
+                                                   device=dev)), p)
+                    pre_w, dec_w = _clamp_serve(cut, moved, dev)
+                    del moved
+                    floor = {"prefill": max(floor["prefill"],
+                                            _row_rel(pre_w, pre)),
+                             "decode": max(floor["decode"],
+                                           _row_rel(dec_w, dec))}
+                floors[arch] = floor
+                del p, pre, dec
+                torch.cuda.empty_cache()
+    out_dir = ROOT / "build" / "phase18"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    ref_path = str(out_dir / "one_card.pt")
+    torch.save(saved, ref_path)
+    summary["one_card_s"] = time.perf_counter() - t_phase
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 18: the parent holds "
+          f"{torch.cuda.memory_reserved(dev) / 2 ** 30:.2f} GiB of the card "
+          "(reserved) as the ranks start", flush=True)
+    t0 = time.perf_counter()
+    ranks = procs.spawn(clamp_rank, 3, backend="gloo", device=dev,
+                        timeout=CLAMP_TIMEOUT, args=(ref_path,))
+    summary["spawn_s"] = time.perf_counter() - t0
+    shutil.rmtree(out_dir, ignore_errors=True)
+
+    calls = {}
+    for r_ in ranks:
+        for key, n_ in r_["fa_calls"]:
+            calls[key] = calls.get(key, 0) + n_
+    gen = torch.Generator(device=dev).manual_seed(18)
+    summary["fa"] = []
+    for (qs, ks, vs, dt, kw), n_ in sorted(calls.items()):
+        dtype, kw = getattr(torch, dt), dict(kw)
+        q, k, v = (torch.randn(s_, generator=gen, device=dev).to(dtype)
+                   for s_ in (qs, ks, vs))
+        with tf32_off():
+            want = kref.flash_attention_bthd_ref(q, k, v, **kw).float()
+        err = (ops.flash_attention_bthd(q, k, v, **kw).float()
+               - want).abs()
+        f = {"q": list(qs), "k": list(ks), "v": list(vs), "dtype": dt,
+             "mask": kw, "calls_by_the_ranks": n_,
+             "max_abs_err": float(err.max()),
+             "mean_abs_err": float(err.mean())}
+        summary["fa"].append(f)
+        print(f"phase 18: flash_attention at q {qs}, k {ks}, v {vs} (B, T, "
+              f"heads, D), {dt}, {kw}, as the ranks called it {n_} times: "
+              f"against the plain version max |err| {f['max_abs_err']:.3g}"
+              f", mean {f['mean_abs_err']:.3g} (tol {FAM_FA_F32_TOL} (1 + "
+              "|plain|))", flush=True)
+        check(dtype == torch.float32 and bool(
+            (err <= FAM_FA_F32_TOL * (1 + want.abs())).all()),
+            ("flash_attention", f))
+        del q, k, v, want, err
+    check(len(summary["fa"]) > 0, "flash_attention: no call by the ranks")
+
+    for shape, archs in CLAMP_ARCHS.items():
+        for arch in archs:
+            cut = _clamp_cut(arch)
+            rs = [r_["arch"][arch] for r_ in ranks]
+            a0 = rs[0]
+            gate = {k_: max(MESH_F32_TOL, MESH_WITNESS_X * floors[arch][k_])
+                    for k_ in ("prefill", "decode")}
+            a = {"mesh": list(shape), "loss": a0["loss"],
+                 "losses_by_rank": [r_["loss"] for r_ in rs],
+                 "one_card_loss": a0["one_card_loss"],
+                 "grads_rel_l2": a0["grads_rel_l2"],
+                 "launches": a0["launches"],
+                 "fa_plan": _fa_per_step(cut, remat=False),
+                 "prefill": max(r_["prefill"] for r_ in rs),
+                 "decode": max(r_["decode"] for r_ in rs),
+                 "rounding_floor": floors[arch], "gates": gate,
+                 "one_card_peak_gib": a0["one_card_peak_gib"],
+                 "wall_s_rank0": ranks[0]["walls_s"][arch]}
+            a["loss_rel_diff"] = abs(a["loss"] - a["one_card_loss"]) / abs(
+                a["one_card_loss"])
+            summary["arch"][arch] = a
+            print(f"phase 18: {arch}, float32 (TF32 off), full width, "
+                  f"{cut.n_layers}-layer cut, {shape} of gloo ranks on the "
+                  f"card: one bsp step's forward and backward on {CLAMP_B} x "
+                  f"{CLAMP_T} tokens, the gathered gradients' relative L2 to "
+                  f"the one-card step's {a['grads_rel_l2']:.3g} (gate "
+                  f"{INTRA_L2_TOL}), loss "
+                  f"{a['loss']:.9g} against {a['one_card_loss']:.9g} "
+                  f"(relative {a['loss_rel_diff']:.3g}, gate {MOE_LOSS_TOL})"
+                  f", launches a rank {a['launches']} (flash_attention by "
+                  f"the layer plan {a['fa_plan']}); the serve, the largest "
+                  f"logit row's relative L2 over the ranks: prefill "
+                  f"{a['prefill']:.3g}, {CLAMP_DECODE} decode steps "
+                  f"{a['decode']:.3g} (gates "
+                  + json.dumps({k_: float(f"{v_:.3g}") for k_, v_ in
+                                gate.items()}) + ", the floor "
+                  + json.dumps({k_: float(f"{v_:.3g}") for k_, v_ in
+                                floors[arch].items()})
+                  + f"); rank 0 {a['wall_s_rank0']:.1f} s", flush=True)
+            check(a["grads_rel_l2"] <= INTRA_L2_TOL, ("step", arch, a))
+            check(len(set(a["losses_by_rank"])) == 1
+                  and a["loss_rel_diff"] <= MOE_LOSS_TOL, ("loss", arch, a))
+            check(a["launches"].get("flash_attention", 0) == a["fa_plan"],
+                  ("launches", arch, a["launches"]))
+            check(a["prefill"] <= gate["prefill"], ("prefill", arch, a))
+            check(a["decode"] <= gate["decode"], ("decode", arch, a))
+    summary["wall_s"] = time.perf_counter() - t_phase
+    print(f"phase 18: the one-card serves and floors "
+          f"{summary['one_card_s']:.1f} s, the ranks {summary['spawn_s']:.1f}"
+          " s", flush=True)
+    assert not failures, failures
+    kern = {"flash_attention": {
+        "clamp_launches_per_step_a_rank": {
+            arch: a_["launches"].get("flash_attention", 0)
+            for arch, a_ in summary["arch"].items()},
+        "clamp_shapes": summary["fa"]}}
+    return summary, kern
 
 
 # ---------------------------------------------------------------------------
@@ -7558,6 +7885,13 @@ def main() -> int:
     print("the dry-run stand-in: " + json.dumps(standin17))
     sys.stdout.flush()
 
+    # --------------------------------------------------------------- 18
+    phase(18, "what the clamp keeps whole: eight archs on (1, 1, 3) and "
+              "(1, 3, 1), three gloo ranks on the card")
+    clamp18, kern18 = clamp_phase(dev)
+    print("what the clamp keeps whole: " + json.dumps(clamp18))
+    sys.stdout.flush()
+
     kernels = [
         {"name": "gaia_select", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gaia_select.cu",
@@ -7675,6 +8009,8 @@ def main() -> int:
             entry["intrapod_moe_train"] = kern15[entry["name"]]
         if entry["name"] in kern16:
             entry["intrapod_families"] = kern16[entry["name"]]
+        if entry["name"] in kern18:
+            entry["clamp"] = kern18[entry["name"]]
     end_phase()
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s, the build "
           "included")

@@ -25,8 +25,9 @@ its blocks of the weights (FSDP over ``data``, tensor and expert
 parallelism over ``model``) and of the decode cache (the reference's
 placement: the requests over ``data`` from a batch of 8, and for the SSM
 and the RG-LRU hybrid from any batch, the attention caches' length over
-``model``), and decodes its requests; every family, at the widths the
-axes split (``sharding.check_layout``); the enc-dec's encoder runs on
+``model``), and decodes its requests; every family, on any axes (a
+width an axis does not divide whole on every rank of it); the enc-dec's
+encoder runs on
 the rank's requests (``make_encode_step``).
 The ranks use NCCL on the card (one card a rank) and gloo on the CPU
 unless ``--backend`` says otherwise.  ``--moe-route`` picks the MoE
@@ -156,7 +157,7 @@ def run(args: argparse.Namespace) -> Dict:
 
 def _rank(rank: int, device: torch.device, args: argparse.Namespace,
           shape) -> Dict:
-    mesh = make_mesh(shape, device=device, cfg=_config(args), mode="serve")
+    mesh = make_mesh(shape, device=device)
     return _run(args, device, mesh)
 
 

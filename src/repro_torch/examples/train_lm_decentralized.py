@@ -130,8 +130,7 @@ def mesh_shape(args: argparse.Namespace):
 
 def _rank(rank: int, device: torch.device, args: argparse.Namespace,
           shape) -> Dict:
-    mesh = make_mesh(shape, device=device,
-                     cfg=model_config(args.d_model, args.layers))
+    mesh = make_mesh(shape, device=device)
     return {**_run(args, device, mesh), "state": None}
 
 

@@ -15,7 +15,10 @@ GSPMD inserts for the reference under ``sharding.py``'s placements.
   computation after it is the same on every ``model`` rank).
 - ``reduce_from_data(x, mesh)``: *g* over ``data``, for the loss's
   numerator (each ``data`` rank sums its own sequences; the pod's loss
-  is the same on every rank).
+  is the same on every rank).  On a mesh whose ``data`` ranks each hold
+  all the pod's sequences (a count the axis does not split:
+  ``Mesh.with_rows_whole``) it is the identity, and ``gather_data``'s
+  backward keeps the rank's block: nothing is summed over ``data``.
 - ``gather_model(x, dim, mesh)``: the ``model`` ranks' blocks of ``x``
   all-gathered along ``dim`` (MLA's latent columns before its norm, the
   router's logit columns, the heads of a flash-decode); backward: the
@@ -40,7 +43,14 @@ GSPMD inserts for the reference under ``sharding.py``'s placements.
   embedding's lookups: each rank's columns of every ``data`` rank's
   tokens' rows, sent to the rank that holds those tokens).
 
-Each is the identity, with no collective, where its axis has one rank.
+Each is the identity, with no collective, where its axis has one rank;
+``gather_data``, ``gather_model``, ``copy_to_model``,
+``reduce_from_model``, ``gather_from_model`` and ``sum_over_model`` also
+where their ``split`` is False: the dimension lies whole on every rank of
+the axis (``sharding.split``: the clamp kept it so), every rank computes
+the whole result, and nothing is gathered, summed or summed again, in
+the forward or the backward.  Megatron's *f* and *g* are then off
+together for the block.
 Every rank of a pod runs the same model code, so the collectives come in
 one order on every rank, also where a checkpointed cycle runs again in
 the backward.
@@ -73,17 +83,17 @@ class _GatherModel(torch.autograd.Function):
                                             "model"), None, None)
 
 
-class _GatherFromModel(torch.autograd.Function):
+class _GatherWhole(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, mesh):
-        ctx.dim, ctx.mesh = dim, mesh
-        return mesh.all_gather_dim(x, dim, "model")
+    def forward(ctx, x, dim, axis, mesh):
+        ctx.dim, ctx.axis, ctx.mesh = dim, axis, mesh
+        return mesh.all_gather_dim(x, dim, axis)
 
     @staticmethod
     def backward(ctx, grad):
-        n = grad.shape[ctx.dim] // ctx.mesh.size_of("model")
-        return (grad.narrow(ctx.dim, ctx.mesh.coords["model"] * n, n),
-                None, None)
+        n = grad.shape[ctx.dim] // ctx.mesh.size_of(ctx.axis)
+        return (grad.narrow(ctx.dim, ctx.mesh.coords[ctx.axis] * n, n),
+                None, None, None)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -139,57 +149,69 @@ class _Reduce(torch.autograd.Function):
         return grad, None, None
 
 
-def gather_data(w: torch.Tensor, dim: int, mesh) -> torch.Tensor:
-    """The rank's ``data`` block of ``w`` gathered along ``dim``."""
-    if mesh.size_of("data") == 1:
+def gather_data(w: torch.Tensor, dim: int, mesh, split: bool = True
+                ) -> torch.Tensor:
+    """The rank's ``data`` block of ``w`` gathered along ``dim``; where
+    every ``data`` rank holds all the pod's sequences (``mesh.rows_whole``)
+    each computes the whole gradient, and the backward keeps the rank's
+    block of it."""
+    if not split or mesh.size_of("data") == 1:
         return w
+    if mesh.rows_whole:
+        return _GatherWhole.apply(w, dim, "data", mesh)
     return _GatherData.apply(w, dim, mesh)
 
 
-def copy_to_model(x: torch.Tensor, mesh) -> torch.Tensor:
+def copy_to_model(x: torch.Tensor, mesh, split: bool = True
+                  ) -> torch.Tensor:
     """*f*: ``x``; its gradient summed over ``model``."""
-    if mesh.size_of("model") == 1:
+    if not split or mesh.size_of("model") == 1:
         return x
     return _Copy.apply(x, "model", mesh)
 
 
-def reduce_from_model(x: torch.Tensor, mesh) -> torch.Tensor:
+def reduce_from_model(x: torch.Tensor, mesh, split: bool = True
+                      ) -> torch.Tensor:
     """*g*: ``x`` summed over ``model``; its gradient passed as it is."""
-    if mesh.size_of("model") == 1:
+    if not split or mesh.size_of("model") == 1:
         return x
     return _Reduce.apply(x, "model", mesh)
 
 
-def sum_over_model(x: torch.Tensor, mesh) -> torch.Tensor:
+def sum_over_model(x: torch.Tensor, mesh, split: bool = True
+                   ) -> torch.Tensor:
     """``x`` summed over ``model``; its gradient summed over ``model``
     too."""
-    if mesh.size_of("model") == 1:
+    if not split or mesh.size_of("model") == 1:
         return x
     return _SumBoth.apply(x, mesh)
 
 
 def reduce_from_data(x: torch.Tensor, mesh) -> torch.Tensor:
-    """*g* over ``data``: ``x`` summed over the pod's ``data`` ranks."""
-    if mesh.size_of("data") == 1:
+    """*g* over ``data``: ``x`` summed over the pod's ``data`` ranks; ``x``
+    itself where each holds all the pod's sequences (``mesh.rows_whole``)."""
+    if mesh.size_of("data") == 1 or mesh.rows_whole:
         return x
     return _Reduce.apply(x, "data", mesh)
 
 
-def gather_model(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+def gather_model(x: torch.Tensor, dim: int, mesh, split: bool = True
+                 ) -> torch.Tensor:
     """The ``model`` ranks' blocks of ``x`` gathered along ``dim``; the
     gradient reduce-scattered back (summed over ``model``)."""
-    if mesh.size_of("model") == 1:
+    if not split or mesh.size_of("model") == 1:
         return x
     return _GatherModel.apply(x, dim, mesh)
 
 
-def gather_from_model(x: torch.Tensor, dim: int, mesh) -> torch.Tensor:
+def gather_from_model(x: torch.Tensor, dim: int, mesh, split: bool = True
+                      ) -> torch.Tensor:
     """The ``model`` ranks' blocks of ``x`` gathered along ``dim``; the
     rank's block of the gradient (the computation after it is the same
     on every ``model`` rank)."""
-    if mesh.size_of("model") == 1:
+    if not split or mesh.size_of("model") == 1:
         return x
-    return _GatherFromModel.apply(x, dim, mesh)
+    return _GatherWhole.apply(x, dim, "model", mesh)
 
 
 def all_to_all_model(x: torch.Tensor, mesh) -> torch.Tensor:

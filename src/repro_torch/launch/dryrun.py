@@ -10,11 +10,12 @@ once on ``meta`` tensors for rank 0 of a ``launch.meta.MetaMesh`` of the
 mesh's shape, every collective recorded by the mesh, every aten op and
 kernel launch counted by ``launch.meta.CostMode``.  Rank 0 stands for
 every rank: a placed dimension is split evenly or, where the reference's
-clamp keeps it whole (heads or a vocabulary ``model`` does not divide,
-``long_500k``'s one request), whole on every rank, and
-``sharding.check_layout`` refuses the rest, so every rank's blocks have
-one shape (only AD-PSGD's all-to-all splits and the gossip's neighbour
-sets differ by pod rank).  No card, no ``XLA_FLAGS``, no process group.
+clamp keeps it whole (any width an axis does not divide, ``long_500k``'s
+one request, a pod's sequences ``data`` does not divide), whole on every
+rank, so every rank's blocks have one shape (only AD-PSGD's all-to-all
+splits and the gossip's neighbour sets differ by pod rank).  ``--mesh``
+takes any (pod, data, model) shape the reference's dry run takes.  No
+card, no ``XLA_FLAGS``, no process group.
 
 Usage (the reference's flags, ``--save-hlo`` aside: there is no HLO):
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
@@ -26,8 +27,8 @@ A serve shape (prefill, decode) on a mesh of more than one pod traces one
 pod's (data, model) grid: the reference's serve placements replicate
 the parameters and the requests over ``pod``, and the port serves one site
 a mesh (``steps.make_prefill_step``), so each pod's ranks run that step.
-A combo ``check_layout`` refuses comes back as a failure row carrying
-its ``ValueError``, as the reference's sweep records a failed combo.
+A combo the steps refuse comes back as a failure row carrying its
+``ValueError``, as the reference's sweep records a failed combo.
 """
 from __future__ import annotations
 
@@ -179,7 +180,6 @@ def build_step(arch: Union[str, ModelConfig],
     baseline = bool(os.environ.get("REPRO_BASELINE_DECODE"))
     notes: Dict = {}
     if shape.mode == "train":
-        sharding.check_layout(cfg, mesh)
         comm = CommConfig(strategy=strategy or "bsp",
                           fabric=FabricConfig(topology=topology or "ring"),
                           max_staleness=max_staleness)
@@ -215,7 +215,6 @@ def build_step(arch: Union[str, ModelConfig],
         notes["mesh"] = mesh
         return step, args, notes
     mesh = _serve_mesh(mesh)
-    sharding.check_layout(cfg, mesh, mode="serve")
     params = sharding.local_params(param_shape(cfg), mesh)
     notes["mesh"] = mesh
     if shape.mode == "prefill":

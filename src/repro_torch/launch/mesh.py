@@ -16,8 +16,8 @@ the ``data`` group (its pod and model position), the ``model`` group
 collectives on the pod group (``all_reduce``, ``all_gather``,
 ``all_to_all``), and a checkpoint ``gather``s the rows to the group's
 first rank.  Inside a pod (``sharding.py``'s FSDP over ``data`` and
-tensor and expert parallelism over ``model``; ``sharding.check_layout``
-says which widths) weights are gathered and their gradients
+tensor and expert parallelism over ``model``; a width an axis does not
+divide whole on every rank of it) weights are gathered and their gradients
 reduce-scattered along a dimension over ``data`` (``all_gather_dim``,
 ``reduce_scatter_dim``), activations summed over ``model``
 (``all_reduce(..., axis="model")``) or gathered along a dimension over
@@ -32,6 +32,7 @@ on the running group.
 """
 from __future__ import annotations
 
+import copy
 import math
 import socket
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
@@ -57,8 +58,10 @@ class Mesh:
     this rank's (data, model) position (None where the mesh only
     describes a layout, or has no ``pod`` axis), and ``groups``, this
     rank's process group along ``("data",)``, ``("model",)`` and
-    ``INTRA`` where that axis spans more than one rank.  A collective along an
-    axis of size 1 sends nothing and returns its input (the pod axis
+    ``INTRA`` where that axis spans more than one rank, and
+    ``rows_whole``: whether each rank of the ``data`` axis holds every
+    one of the pod's sequences (``with_rows_whole``).  A collective along
+    an axis of size 1 sends nothing and returns its input (the pod axis
     excepted: its group always exists on a mesh made by ``make_mesh``)."""
 
     def __init__(self, shape: Sequence[int], axis_names: Sequence[str], *,
@@ -76,6 +79,7 @@ class Mesh:
         self.device = None if device is None else torch.device(device)
         self.pod_group = pod_group
         self.groups: Dict[Tuple[str, ...], Any] = {}
+        self.rows_whole = False
 
     def __repr__(self) -> str:
         return (f"Mesh({self.shape}, coords={self.coords}, "
@@ -89,6 +93,19 @@ class Mesh:
     def pod_rank(self) -> int:
         """This rank's index on the ``pod`` axis (0 without one)."""
         return self.coords.get("pod", 0)
+
+    def with_rows_whole(self, whole: bool = True) -> "Mesh":
+        """This mesh, its groups and records shared, as a step runs a
+        pod's sequences that its ``data`` axis does not split (the clamp
+        keeps the count whole): every ``data`` rank runs all of them, so
+        ``collectives.gather_data``'s backward keeps the rank's block of
+        the whole gradient and ``reduce_from_data`` sums nothing.  The
+        mesh itself where ``whole`` is False."""
+        if not whole:
+            return self
+        view = copy.copy(self)
+        view.rows_whole = True
+        return view
 
     def size_of(self, axis: Axis) -> int:
         """Ranks along ``axis`` (a name or a tuple of names)."""
@@ -239,29 +256,21 @@ def batch_axes(mesh: Mesh) -> tuple:
 # ---------------------------------------------------------------------------
 
 def make_mesh(shape: Sequence[int], axes: Sequence[str] = AXES, *,
-              device, cfg=None, mode: str = "train") -> Mesh:
+              device) -> Mesh:
     """The mesh of ``shape`` over ``axes`` on the default process group,
     which must be initialized with ``prod(shape)`` ranks; this rank's
     coordinates are its rank unravelled pod-major.  Every rank calls it
-    (it makes the groups).  ``device`` is this rank's.  With ``cfg`` (a
-    ``ModelConfig``), the model is checked against the data and model
-    axes first (``sharding.check_layout(cfg, mesh, mode=mode)``: ``mode``
-    is ``"train"`` or ``"serve"``).
+    (it makes the groups).  ``device`` is this rank's.  Every model is
+    placed on any ``data`` and ``model`` axes: a width an axis does not
+    divide is whole on every rank of it (``sharding.split``).
 
-    Raises ``ValueError``, before any collective, where ``cfg`` cannot be
-    placed on a ``data`` or ``model`` axis above 1 (a width the axis does
-    not divide, named, or a ``model`` axis wider than n_kv_heads that is
-    not a multiple of it; every family is placed) and, under NCCL, where
-    two ranks hold one device (NCCL would abort at the first
-    collective)."""
+    Raises ``ValueError``, before any collective, under NCCL where two
+    ranks hold one device (NCCL would abort at the first collective)."""
     if not dist.is_initialized():
         raise RuntimeError("make_mesh: no process group; call "
                            "torch.distributed.init_process_group (or run "
                            "under repro_torch.launch.procs.spawn) first")
     mesh = Mesh(shape, axes, device=device)
-    if cfg is not None:
-        from repro_torch.launch.sharding import check_layout
-        check_layout(cfg, mesh, mode=mode)
     world, rank = dist.get_world_size(), dist.get_rank()
     if mesh.size != world:
         raise ValueError(f"make_mesh: shape {tuple(shape)} holds {mesh.size} "

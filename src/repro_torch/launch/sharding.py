@@ -21,36 +21,31 @@ specs shaped like their input.
 
 The train and serve steps apply them (``local_slices``, ``local_block``):
 the ``pod`` entries say which rows of the stacked state and batch a rank
-holds; on a mesh with a ``data`` or ``model`` axis above 1 (every family, at
-the widths ``check_layout`` takes for training or serving) the ``data`` and
-``model`` entries say which block of each leaf (``local_params``), of
+holds; on a mesh with a ``data`` or ``model`` axis above 1 (every family,
+on any such axes, for training and serving) the ``data`` and ``model``
+entries say which block of each leaf (``local_params``), of
 each decode-cache leaf (``local_cache``; ``cache_split`` names the axis
 its length is split over) and which of the pod's sequences.
 ``gather_leaf`` is the inverse, for checkpoints and checks.  Where an
 axis does not divide a dimension the reference's ``_clamp_spec`` keeps
-the dimension whole.  The model code takes these whole dimensions
-(``check_layout`` refuses the rest, each named):
-- a vocabulary the ``model`` axis does not divide (``vocab_whole``): the
-  table and the unembedding whole over ``model`` (d_model still over
-  ``data``), the lookup, the logits, the cross-entropy and the greedy
-  argmax no longer vocabulary-parallel;
-- query heads the ``model`` axis does not divide (``heads_whole``): the
-  projections' columns still split, so the rank gathers its column
-  blocks of q, k and v over ``model``, computes every head, and hands the
-  row-parallel ``wo`` the attention output's columns of its row block;
-  MLA's ``wukv`` keeps its heads whole on every rank;
-- a GQA decode cache's KV heads on a ``model`` axis that is a multiple of
-  n_kv_heads (each KV head shared by M / n_kv_heads ranks) or that does
-  not divide them: ``wk`` and ``wv`` stay split by columns, and the cache
-  keeps every head on every ``model`` rank;
-- the SSM's and the RG-LRU's conv history and the RG-LRU's state on every
-  ``model`` rank (the requests over ``data``), and, for requests the
-  ``data`` axis does not divide (one ``long_500k`` request), the conv
-  history whole beside the SSD state's heads over ``data``.
-Where the placement does not follow a model's structure (the SSM's
-``in_proj`` and ``conv_w`` blocks cut across its heads; its SSD state's
-head_dim over ``model``) the model code computes around it
-(``models/ssm.py``); the placements stay the reference's.
+the dimension whole, and so does the port, on every family, to train and
+to serve: the model code asks ``split`` of each dimension it reads (with
+the leaf's whole size) and never assumes the rule's placement.  A block
+(attention, an MLP, a mixer, the MoE layer) runs split over ``model``
+where the axis splits the rows of its row-parallel exit (Megatron's *f*
+before it and *g* after it; a leaf whole inside it through *f*, its
+gradient a part on each rank), and whole where it does not (no *f*, no
+*g*, every rank the whole block; a leaf split inside it gathered whole,
+``layers.block_whole``, ``linear_apply(..., whole=True)``).  Query heads
+the axis does not divide run whole on every rank (``heads_whole``), KV
+heads are read as the rank's query heads read them
+(``attention._kv_select``), a vocabulary the axis does not divide is
+whole (``vocab_whole``), a weight a ``data`` axis does not split is
+whole with no gather, and a pod's sequences a ``data`` axis does not
+split run on every rank of it (``Mesh.with_rows_whole``).  What the
+decode cache's placement still refuses is ``check_cache_placement``'s
+and ``cache_refusals``' (ROADMAP A11e).  The replicated leaves' gradient
+sums follow the blocks (``grad_sync_axis``, ``block_splits``).
 """
 from __future__ import annotations
 
@@ -265,25 +260,34 @@ def intra_pod(mesh: Optional[Mesh]) -> bool:
     return mesh is not None and mesh.size_of(INTRA) > 1
 
 
-MODES = ("train", "serve")
+def split(mesh: Optional[Mesh], axis: str, n: int) -> bool:
+    """Whether ``mesh``'s ``axis`` splits a leaf dimension of ``n`` that the
+    leaf's rule (``rule_spec``, ``_cache_spec``) places on ``axis``: what
+    ``_clamp_spec`` keeps; where it does not, the dimension is whole on
+    every rank of the axis.  False without a mesh; True on an axis of one
+    rank (each rank's block is the whole dimension, and the collectives
+    over it are the identity).  The model code asks this of every
+    dimension it reads, with the leaf's whole size, and never assumes the
+    rule's placement."""
+    return mesh is not None and splits(n, mesh.size_of(axis))
 
 
-def kv_shared(a, M: int) -> bool:
-    """Whether a ``model`` axis of ``M`` ranks is wider than the GQA
-    attention ``a``'s n_kv_heads (``check_layout`` takes it where M is a
-    multiple of n_kv_heads): each KV head then serves M / n_kv_heads
-    ranks, every rank computes its column block of ``wk`` and ``wv``,
-    gathers k and v whole and keeps the head its query heads read."""
-    return a.kind == "gqa" and M > a.n_kv_heads
+def rank_heads(n_heads: int, M: int, m: int) -> Tuple[int, int]:
+    """(the heads ``model`` rank ``m`` of ``M`` runs, its first head):
+    n_heads / M from m n_heads / M where M divides them, else all of them
+    from 0 (``heads_whole``)."""
+    if M > 1 and n_heads % M == 0:
+        return n_heads // M, m * n_heads // M
+    return n_heads, 0
 
 
 def heads_whole(a, M: int) -> bool:
     """Whether the attention ``a`` (GQA, MLA, the enc-dec's encoder and
     cross-attention) runs every head on each of ``M`` ``model`` ranks:
-    where M does not divide n_heads (nor then n_kv_heads, unless the axis
-    is wider than them: ``kv_shared``).  The rank gathers its column
-    blocks of q, k and v whole and hands ``wo`` its row block of the
-    output."""
+    where M does not divide n_heads.  Where the projections' columns
+    still split (``split``), the rank gathers its column blocks of q, k
+    and v whole and hands a row-parallel ``wo`` its row block of the
+    output; where they are whole the block runs whole."""
     return M > 1 and a.n_heads % M != 0
 
 
@@ -341,165 +345,27 @@ def check_cache_placement(cfg, mesh: Optional[Mesh], batch_sharded: bool,
             "batch's conv history): the decode reads every slot")
 
 
-def _alignment(cfg, M: int) -> list:
-    """The refusals no leaf's clamp can see: a ``model`` axis that cuts
-    across the SSM's heads (whose rows of ``out_proj`` and SSD state the
-    rank computes), a ``model`` axis wider than n_kv_heads that is not a
-    multiple of it (``kv_shared``), and one that splits the query heads
-    but cuts across a KV head.  Query heads the axis does not divide are
-    taken (``heads_whole``: every head on every rank)."""
-    a, bad = cfg.attention, []
-    if cfg.encoder is not None or any(
-            cfg.block_kind(i) == "attn" for i in range(cfg.n_layers)):
-        if kv_shared(a, M):
-            if M % a.n_kv_heads:
-                bad.append(f"model={M} over n_kv_heads={a.n_kv_heads} (a "
-                           "model axis wider than n_kv_heads must be a "
-                           "multiple of it)")
-        elif (a.kind == "gqa" and not heads_whole(a, M)
-              and a.n_kv_heads % M):
-            bad.append(f"n_kv_heads={a.n_kv_heads} over model={M}")
-    if cfg.ssm is not None and cfg.ssm.n_heads % M:
-        bad.append(f"ssm n_heads={cfg.ssm.n_heads} over model={M}")
-    return bad
-
-
-#: the dimensions the model code takes whole where the clamp keeps them
-#: so (``_DIM_NAMES``' names): the vocabulary (``vocab_whole``), MLA's
-#: ``wukv`` heads (``heads_whole``), a whole batch's conv history slots
-_TAKEN_WHOLE = ("vocab", "n_heads", "d_conv - 1")
-
-
-#: the names of a leaf's dimensions (the last ones; a stacked cycle axis
-#: goes before them), by its path, the first pattern that matches: what a
-#: refusal calls a dimension the clamp would keep whole
-_DIM_NAMES = (
-    (r"encoder/in_proj/w$", ("feat_dim", "encoder d_model")),
-    (r"encoder/layers/w[qkv]/w$|xattn/w[kv]/w$",
-     ("encoder d_model", "n_heads * head_dim")),
-    (r"encoder/layers/wo/w$", ("n_heads * head_dim", "encoder d_model")),
-    (r"encoder/layers/ffn/(gate|up)/w$", ("encoder d_model", "d_ff")),
-    (r"encoder/layers/ffn/down/w$", ("d_ff", "encoder d_model")),
-    (r"table$", ("vocab", "d_model")),
-    (r"unembed/w$", ("d_model", "vocab")),
-    (r"projector/w$", ("feat_dim", "d_model")),
-    (r"router/w$", ("d_model", "n_experts")),
-    (r"ffn/w_(gate|up)$", ("n_experts", "d_model", "d_ff_expert")),
-    (r"ffn/w_down$", ("n_experts", "d_ff_expert", "d_model")),
-    (r"shared/(gate|up)/w$", ("d_model", "n_shared * d_ff_expert")),
-    (r"shared/down/w$", ("n_shared * d_ff_expert", "d_model")),
-    (r"ffn/(gate|up)/w$", ("d_model", "d_ff")),
-    (r"ffn/down/w$", ("d_ff", "d_model")),
-    (r"wq/w$", ("d_model", "n_heads * head_dim")),
-    (r"w[kv]/w$", ("d_model", "n_kv_heads * head_dim")),
-    (r"wo/w$", ("n_heads * head_dim", "d_model")),
-    (r"wdq/w$", ("d_model", "q_lora_rank")),
-    (r"wuq/w$", ("q_lora_rank", "n_heads * qk_head_dim")),
-    (r"wdkv/w$", ("d_model", "kv_lora_rank + rope_head_dim")),
-    (r"wukv$", ("kv_lora_rank", "n_heads", "qk_nope_head_dim + v_head_dim")),
-    (r"in_proj/w$", ("d_model", "ssm in_proj width")),
-    (r"out_proj/w$", ("d_inner", "d_model")),
-    (r"(in_x|in_gate)/w$", ("d_model", "lru_width")),
-    (r"(w_a|w_i)/w$", ("lru_width", "lru_width")),
-    (r"out/w$", ("lru_width", "d_model")),
-    (r"conv_w$", ("d_conv", "conv channels")),
-    (r"ssd$", ("requests", "ssm n_heads", "ssm head_dim", "d_state")),
-    (r"/[kv]$", ("requests", "cache length", "n_kv_heads", "head_dim")),
-    (r"conv$", ("requests", "d_conv - 1", "conv channels")),
-    (r"(ckv|krope)$", ("requests", "cache length", "latent width")),
-    (r"/h$", ("requests", "lru_width")),
-    (r"pos$", ("requests", "cache length")))
-
-
-def _clamped(path: str, shape, want: Spec, mesh: Mesh) -> list:
-    """Where the clamp drops an axis that ``want`` (one entry a dimension
-    of ``shape``) names: (what, ``path``) for each dimension the axis does
-    not split, what as "name=n over axis=k" (``_DIM_NAMES``), but the
-    dimensions the model code takes whole (``_TAKEN_WHOLE``)."""
-    got = _clamp_spec(want, shape, mesh)
-    names = next((n for pat, n in _DIM_NAMES if re.search(pat, path)), ())
-    out = []
-    for i, (n, w, g) in enumerate(zip(shape, want, got)):
-        if w is not None and g is None:
-            j = i - (len(shape) - len(names))
-            name = names[j] if j >= 0 else f"dimension {i}"
-            if name not in _TAKEN_WHOLE:
-                out.append((f"{name}={n} over {w}={_axis_size(mesh, w)}",
-                            path))
-    return out
-
-
-def _param_refusals(cfg, mesh: Mesh) -> list:
-    """``_clamped`` over every parameter leaf of ``cfg``, by the rules of
-    ``param_shardings``."""
-    from repro_torch.models.model import init_model
-    out = []
-    for ps, leaf in pytree.leaves_with_paths(init_model(None, cfg, "meta")):
-        shape = tuple(leaf.shape)
-        segs = ps.split("/")
-        lead = (None,) if ("body" in segs or "layers" in segs) else ()
-        out += _clamped(ps, shape, lead + rule_spec(ps, shape[len(lead):]),
-                        mesh)
-    return out
-
-
 def cache_refusals(cache: Tree, mesh: Mesh, *, batch_sharded: bool,
                    baseline_decode: bool) -> list:
-    """The leaves of a whole decode ``cache`` that ``mesh`` does not split
-    as ``cache_shardings`` places them (a dimension the reference's clamp
-    would keep whole, which the decode would read as the rank's block),
-    as ``_clamped`` gives them; a GQA cache's KV heads that the ``model``
-    axis does not split are taken (every ``model`` rank holds them all,
-    and the decode reads its own: ``kv_shared``, or every head:
-    ``heads_whole``; ``_alignment`` refuses the rest)."""
+    """The leaves of a whole decode ``cache`` that the port does not place
+    as ``cache_shardings`` does: (what, path) for an attention cache's
+    length that the whole-batch placement (``batch_sharded=False``) puts
+    over a ``data`` axis that does not split it.  Its ring's slot of a
+    token is the position modulo the whole length, which the rank's
+    block, whole or a part, does not tell the decode (ROADMAP A11e).
+    Every other dimension the clamp keeps whole is whole on every rank
+    of its axis, and the model code reads it so."""
     out = []
+    if batch_sharded or mesh.size_of("data") == 1:
+        return out
     for path, t in pytree.leaves_with_paths(cache):
-        shape = tuple(t.shape)
-        want = _cache_spec(path, shape, batch_sharded, baseline_decode)
-        if path.endswith(("/k", "/v")):
-            want = want[:-2] + (None,) + want[-1:]
-        out += _clamped(path, shape, want, mesh)
+        off = 1 if path.startswith("body") else 0
+        if not path.endswith(("/k", "/v", "ckv", "krope")):
+            continue
+        L, D = t.shape[off + 1], mesh.size_of("data")
+        if not splits(L, D):
+            out.append((f"cache length={L} over data={D}", path))
     return out
-
-
-def check_layout(cfg, mesh: Optional[Mesh], mode: str = "train") -> None:
-    """Raises ``ValueError`` where ``cfg`` (a ``ModelConfig``) cannot be
-    placed on ``mesh``'s ``data`` and ``model`` axes for ``mode``
-    (``"train"`` or ``"serve"``): every family is placed for both, so the
-    refusals are widths an axis does not split, each named.  By the
-    placements: every parameter leaf where ``param_shardings``' clamp
-    would drop an axis its rule names, and, to serve, every leaf of the
-    decode cache (the requests over ``data``) that ``cache_shardings``
-    would leave whole so (the SSD state's head_dim over ``model``), each
-    dimension named by ``_DIM_NAMES``, but the dimensions the model code
-    takes whole (``_TAKEN_WHOLE``: the vocabulary, MLA's ``wukv`` heads,
-    a GQA cache's KV heads).  By alignment, which no clamp sees
-    (``_alignment``): the SSM's heads over ``model``, and a ``model`` axis
-    wider than n_kv_heads that is not a multiple of them.  Nothing to
-    check without an axis above 1."""
-    if mode not in MODES:
-        raise ValueError(f"check_layout: mode={mode!r}; want one of "
-                         f"{MODES}")
-    if not intra_pod(mesh):
-        return
-    leaves = _param_refusals(cfg, mesh)
-    if mode == "serve":
-        from repro_torch.models.model import init_cache
-        whole = init_cache(cfg, mesh.size_of("data"), mesh.size_of("model"),
-                           device="meta")
-        for base in (False, True):
-            leaves += cache_refusals(whole, mesh, batch_sharded=True,
-                                     baseline_decode=base)
-    first = {}
-    for what, path in leaves:
-        first.setdefault(what, path)
-    bad = _alignment(cfg, mesh.size_of("model")) + [
-        f"{what} ({path})" for what, path in first.items()]
-    if bad:
-        raise ValueError(
-            f"{cfg.arch_id}: {'; '.join(bad)}: the axis does not divide the "
-            "dimension; a dimension left whole would be read as the rank's "
-            "block")
 
 
 def cache_split(mesh: Optional[Mesh], *, batch_sharded: bool,
@@ -524,19 +390,16 @@ def local_cache(cache: Tree, mesh: Mesh, *, batch_sharded: bool,
                 baseline_decode: bool = False) -> Tree:
     """This rank's block of every leaf of a whole decode ``cache`` (views),
     as ``cache_shardings`` places them: the counterpart of
-    ``local_params``.  Raises ``ValueError`` where an axis does not split
-    a dimension the placement shards (the reference's ``_clamp_spec``
-    would leave it whole, which the decode would read as the rank's
-    block), but a GQA cache's KV heads on a ``model`` axis that is a
-    multiple of their count: every ``model`` rank holds them all, and the
-    decode reads its own (``kv_shared``)."""
+    ``local_params``; a dimension the clamp keeps whole is whole in the
+    block.  Raises ``ValueError`` for what ``cache_refusals`` names."""
     bad = cache_refusals(cache, mesh, batch_sharded=batch_sharded,
                          baseline_decode=baseline_decode)
     if bad:
         raise ValueError(
-            f"cache leaves: the mesh {mesh.shape} does not split "
-            f"{', '.join(f'{w} ({p})' for w, p in bad)} as the placement asks (a batch the data axis "
-            "divides; a length the axis it is split over divides)")
+            f"cache leaves on the mesh {mesh.shape}: "
+            f"{', '.join(f'{w} ({p})' for w, p in bad)}: the whole-batch "
+            "placement's attention cache length must split over data "
+            "(ROADMAP A11e)")
     return pytree.unflatten(cache, [
         local_block(t, _clamp_spec(_cache_spec(
             path, tuple(t.shape), batch_sharded, baseline_decode),
@@ -570,33 +433,90 @@ def gather_leaf(t: torch.Tensor, spec: Spec, mesh: Mesh) -> torch.Tensor:
 
 #: replicated leaves that act on a rank's own heads, columns or channels
 #: under tensor parallelism, so each ``model`` rank holds a part of their
-#: gradient: GQA's qk-norm scales (on the rank's heads), MLA's latent norms
-#: ``q_norm`` and ``kv_norm`` (on the latent gathered whole, then read by
-#: the rank's columns of ``wuq`` and heads of ``wukv``), the SSM's
-#: per-head ``A_log``, ``dt_bias`` and ``D`` and its gated norm's scale
-#: (the rank's heads and channels), the conv biases of the SSM and the
-#: RG-LRU and the RG-LRU's ``lam`` (the rank's channels; the SSM's B and C
+#: gradient where their block runs split over ``model``: GQA's qk-norm
+#: scales (on the rank's heads), MLA's latent norms ``q_norm`` and
+#: ``kv_norm`` (on the latent gathered whole, then read by the rank's
+#: columns of ``wuq`` and heads of ``wukv``), the SSM's per-head
+#: ``A_log``, ``dt_bias`` and ``D`` and its gated norm's scale (the
+#: rank's heads and channels), the conv biases of the SSM and the RG-LRU
+#: and the RG-LRU's ``lam`` (the rank's channels; the SSM's B and C
 #: channels read by every rank's heads, each a part), and the bias of a
 #: column-parallel projection
 _MODEL_PARTIAL = re.compile(r"(^|/)(q_norm|k_norm|kv_norm)/scale$"
                             r"|mixer/(A_log|dt_bias|D|conv_b|lam|norm/scale)$")
 
+#: a block's row-parallel exit, by its last path segment: Megatron's *g*
+#: sums over ``model`` there where the block runs split
+_EXIT = ("wo", "out_proj", "out", "down")
 
-def grad_sync_axis(path: str, spec: Spec, mesh: Mesh):
+
+def _model_partial(path: str) -> bool:
+    """Whether the replicated leaf at ``path`` acts on a rank's share of
+    its block (``_MODEL_PARTIAL``, or a column-parallel projection's
+    bias)."""
+    return bool(_MODEL_PARTIAL.search(path) or (
+        path.endswith("/b") and not re.search(_OUT_PROJ + r"/b$", path)))
+
+
+def block_split(mesh: Optional[Mesh], exit_rows: int) -> bool:
+    """Whether a block (attention, an MLP, an SSM or RG-LRU mixer) whose
+    row-parallel exit has ``exit_rows`` whole rows runs split over
+    ``mesh``'s ``model`` axis: the axis splits those rows (``split``).
+    The one rule of the model code (``layers.block_whole``) and of the
+    gradient sums (``block_splits``)."""
+    return split(mesh, "model", exit_rows)
+
+
+def grad_sync_axis(path: str, spec: Spec, mesh: Mesh, *,
+                   block_split: Optional[bool] = True):
     """The axis over which the gradient of the leaf at ``path`` (placed
     by ``spec``) is summed after the backward, None where the backward
     left it whole: a leaf sharded over ``data`` got its sum from the
     reduce-scatter of its gather; any other leaf is summed over ``data``
     (each rank saw its share of the pod's sequences) and, where it acts
-    on the rank's heads or columns, over ``model`` too."""
+    on the rank's heads or columns inside a block that runs split over
+    ``model`` (``block_split``, ``block_splits``' verdict), over
+    ``model`` too.  In a block that runs whole every ``model`` rank
+    computes the whole gradient, which is not summed again."""
     axes = []
     if "data" not in spec:
         axes.append("data")
-        partial = _MODEL_PARTIAL.search(path) or (
-            path.endswith("/b") and not re.search(_OUT_PROJ + r"/b$", path))
-        if partial and "model" not in spec:
+        if _model_partial(path) and "model" not in spec and block_split:
             axes.append("model")
     axes = tuple(a for a in axes if mesh.size_of(a) > 1)
     if not axes:
         return None
     return axes if len(axes) > 1 else axes[0]
+
+
+def block_splits(params_shape: Tree, mesh: Mesh) -> list:
+    """For each leaf of a params(-shaped) tree, in ``pytree.leaves``'
+    order: for a leaf that acts on a rank's share of its block
+    (``_model_partial``), whether the block runs split over ``model``:
+    ``block_split`` of the rows of the block's row-parallel exit (the
+    nearest ``wo``, ``out_proj``, ``out`` or ``down`` weight up its
+    path), the width the model code hands ``layers.block_whole``; None
+    for every other leaf, whose gradient sum no block decides.  Raises
+    ``ValueError`` for such a leaf with no exit up its path (a new block
+    kind, or an exit renamed), whose sum over ``model`` would be a
+    guess."""
+    paths = pytree.leaves_with_paths(params_shape)
+    shapes = {p: tuple(t.shape) for p, t in paths}
+    out = []
+    for path, _ in paths:
+        if not _model_partial(path):
+            out.append(None)
+            continue
+        segs = path.split("/")[:-1]
+        exits = []
+        while segs and not exits:
+            exits = [e for e in ("/".join(segs + [x, "w"]) for x in _EXIT)
+                     if e in shapes]
+            segs = segs[:-1]
+        if not exits:
+            raise ValueError(
+                f"{path}: acts on a rank's share of its block, but no "
+                f"row-parallel exit ({', '.join(_EXIT)}) lies up its path, "
+                "so whether its gradient is summed over model is unknown")
+        out.append(block_split(mesh, shapes[exits[0]][-2]))
+    return out

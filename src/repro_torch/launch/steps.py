@@ -50,7 +50,8 @@ built and checked on the host by ``gossip_operands``, and every metric is
 a tensor.
 
 Inside a pod (a mesh whose ``data`` or ``model`` axis is above 1; every
-family, at the widths ``sharding.check_layout`` takes) a rank holds its
+family, any widths: a dimension an axis does not divide is whole on
+every rank of it, as the reference's clamp keeps it) a rank holds its
 block of every leaf of its
 pods, FSDP over ``data``, tensor parallelism over ``model`` and the
 experts over ``model`` as ``sharding.param_shardings`` places them, and
@@ -545,11 +546,11 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
     and ``"comm_floats"`` (per-pod floats sent: one model a neighbour),
     for adpsgd ``"mean_staleness"``; each a float32 0-d tensor.
 
-    On a mesh with a ``data`` or ``model`` axis above 1 (``sharding.
-    check_layout`` refuses the widths the axes do not divide with
-    ``ValueError`` here, before any collective) the state holds the
-    rank's blocks and each pod's sequences split over ``data``: the module
-    docstring.
+    On a mesh with a ``data`` or ``model`` axis above 1 the state holds
+    the rank's blocks (a width an axis does not divide whole on every
+    rank of it) and each pod's sequences split over ``data`` (all of
+    them on every ``data`` rank where the axis does not divide them:
+    ``Mesh.with_rows_whole``): the module docstring.
 
     ``moe_route``: the MoE layers' function (``moe.moe_apply``):
     ``"dense"``, the reference's default, or ``"ep"``, its
@@ -567,7 +568,6 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
     """
     if moe_route not in ROUTES:
         raise ValueError(f"moe_route {moe_route!r}; known: {ROUTES}")
-    sharding.check_layout(cfg, mesh)
     shape = param_shape(cfg)
     n_model = float(sum(t.numel() for t in pytree.leaves(shape)))
     intra = sharding.intra_pod(mesh)
@@ -576,9 +576,11 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
     # the replicated leaves' gradient sums after the backward, by axis
     syncs: Dict = {}
     if intra:
-        for i, ((path, _), spec) in enumerate(zip(
-                pytree.leaves_with_paths(shape), specs)):
-            axis = sharding.grad_sync_axis(path, spec, mesh)
+        for i, ((path, _), spec, block_split) in enumerate(zip(
+                pytree.leaves_with_paths(shape), specs,
+                sharding.block_splits(shape, mesh))):
+            axis = sharding.grad_sync_axis(path, spec, mesh,
+                                           block_split=block_split)
             if axis is not None:
                 syncs.setdefault(axis, []).append(i)
     exchange = make_exchange(comm, mesh=mesh, lr=lr, lr0=lr0, specs=specs)
@@ -586,12 +588,14 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
     gossip = comm.strategy in GOSSIP_STRATEGIES
     group = 1 if mesh is None else mesh_pods(mesh)
 
-    def pod_grads(params, batch):
+    def pod_grads(params, batch, rows_whole=False):
         """(losses (L,), grads): each leaf's gradient (L, ...) in its
         dtype, in ``pytree.leaves``' order; inside a pod the rank's blocks
-        of the pod's gradient."""
-        layout = activation_sharding(mesh) if intra else \
-            contextlib.nullcontext()
+        of the pod's gradient.  ``rows_whole``: ``batch`` holds every
+        sequence of the pod on every ``data`` rank (``local_batch``), so
+        nothing is summed over ``data`` (``Mesh.with_rows_whole``)."""
+        layout = activation_sharding(mesh.with_rows_whole(rows_whole)) \
+            if intra else contextlib.nullcontext()
         with torch.enable_grad(), layout:
             leaves = [t.detach().requires_grad_()
                       for t in pytree.leaves(params)]
@@ -603,6 +607,12 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
                 for i in range(leaves[0].shape[0])])
             grads = list(torch.autograd.grad(losses.sum(), leaves))
         for axis, idx in syncs.items():     # one all-reduce a dtype group
+            if rows_whole:                  # each data rank's is whole
+                axis = tuple(a for a in ((axis,) if isinstance(axis, str)
+                                         else axis) if a != "data")
+                if not axis:
+                    continue
+                axis = axis if len(axis) > 1 else axis[0]
             for group_ in dtype_groups([grads[i] for i in idx]).values():
                 ids = [idx[k] for k in group_]
                 flat = mesh.all_reduce(torch.cat(
@@ -624,21 +634,25 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
                 vel)
 
     def local_batch(batch, n_pods):
-        """The rank's rows of the global batch, by ``batch_shardings``."""
+        """(The rank's rows of the global batch, by ``batch_shardings``;
+        whether they are every sequence of the pod on every ``data`` rank:
+        a count the ``data`` axis does not split, which the clamp keeps
+        whole)."""
         got = {k: v.shape[0] for k, v in batch.items()}
         if set(got.values()) != {n_pods}:
             raise ValueError(f"batch leaves {got} must lead with the "
                              f"{n_pods} pods (the global batch)")
         if mesh is None:
-            return batch
+            return batch, False
         D = mesh.size_of("data")
-        b = {k: v.shape[1] for k, v in batch.items() if v.dim() > 1}
-        if D > 1 and any(n % D for n in b.values()):
-            raise ValueError(f"batch leaves {b}: a pod's sequences must "
-                             f"split over the data axis of {D}")
+        b = {v.shape[1] for v in batch.values() if v.dim() > 1}
+        if len(b) > 1:
+            raise ValueError(f"batch leaves {got}: want one sequence count "
+                             "a pod")
+        whole = D > 1 and not all(sharding.splits(n, D) for n in b)
         specs_ = sharding.batch_shardings(batch, mesh, pod_stacked=True)
         return {k: sharding.local_block(v, specs_[k], mesh)
-                for k, v in batch.items()}
+                for k, v in batch.items()}, whole
 
     def check_mix(mix, rows):
         if mix is None:
@@ -667,11 +681,11 @@ def make_train_step(cfg: ModelConfig, comm: CommConfig, *,
         p0 = pytree.leaves(state["params"])
         rows = p0[0].shape[0]
         n_pods = rows * group
-        batch = local_batch(batch, n_pods)
+        batch, whole_rows = local_batch(batch, n_pods)
         if gossip:
             check_mix(mix, rows)
         vel0 = pytree.leaves(state["vel"])
-        losses, grads = pod_grads(state["params"], batch)
+        losses, grads = pod_grads(state["params"], batch, whole_rows)
         loss = losses.sum(0, keepdim=True)
         if group > 1:
             mesh.all_reduce(loss)
@@ -751,8 +765,8 @@ def _serve_layout(cfg: ModelConfig, mesh: Optional[Mesh],
                   moe_route: str) -> bool:
     """Whether the serve steps run inside a pod's ranks (an intra-pod
     ``mesh``); raises ``ValueError``, before any collective, for an
-    unknown ``moe_route``, a mesh of more than one pod (one site serves)
-    or a model ``sharding.check_layout`` does not place for serving."""
+    unknown ``moe_route`` or a mesh of more than one pod (one site
+    serves)."""
     if moe_route not in ROUTES:
         raise ValueError(f"moe_route {moe_route!r}; known: {ROUTES}")
     if mesh is None:
@@ -760,7 +774,6 @@ def _serve_layout(cfg: ModelConfig, mesh: Optional[Mesh],
     if mesh_pods(mesh) > 1:
         raise ValueError(f"serving on a mesh of {mesh_pods(mesh)} pods: one "
                          "decentralized site serves (pod axis 1)")
-    sharding.check_layout(cfg, mesh, mode="serve")
     return sharding.intra_pod(mesh)
 
 
@@ -779,15 +792,23 @@ def _serve_rows(batch: Dict, mesh: Mesh) -> Tuple[Dict, int]:
             for k, v in batch.items()}, B
 
 
+def _rows_mesh(rows: Dict, B: int, mesh: Mesh) -> Mesh:
+    """The mesh the serve step runs the model on: ``mesh``, or its
+    ``with_rows_whole`` view where the step's ``rows`` (``_serve_rows``)
+    are all ``B`` requests on every rank of a ``data`` axis above 1."""
+    return mesh.with_rows_whole(mesh.size_of("data") > 1 and next(iter(
+        rows.values())).shape[0] == B)
+
+
 def _check_cache(cfg: ModelConfig, cache, mesh: Mesh, rows: int,
                  split: Optional[str], states: Dict[str, Tuple]) -> None:
     """Raises ``ValueError`` where a cache leaf's block is not the one
     ``init_cache(..., mesh=)`` makes for the step's placement: an
     attention cache's ``rows`` requests, its length split by ``split``
-    (the whole ``pos`` beside a length split over ``model``), GQA's KV
-    heads over ``model`` unless the length is or the axis does not split
-    them; an SSM or RG-LRU state's block of the shape ``states`` names by
-    path (``_state_blocks``)."""
+    (the whole ``pos`` beside a length split over ``model``, whole where
+    the axis does not split it), GQA's KV heads over ``model`` unless the
+    length is or the axis does not split them; an SSM or RG-LRU state's
+    block of the shape ``states`` names by path (``_state_blocks``)."""
     leaves = dict(pytree.leaves_with_paths(cache))
     M = mesh.size_of("model")
     for path, want in states.items():
@@ -805,7 +826,9 @@ def _check_cache(cfg: ModelConfig, cache, mesh: Mesh, rows: int,
         kv = leaves.get(path[:-3] + "k", leaves.get(path[:-3] + "ckv"))
         if kv is None:
             continue
-        want_len = pos.shape[off + 1] // (M if split == "model" else 1)
+        L = pos.shape[off + 1]
+        want_len = L // M if split == "model" and sharding.splits(L, M) \
+            else L
         heads = cfg.attention.n_kv_heads
         if split != "model" and sharding.splits(heads, M):
             heads //= M
@@ -868,9 +891,8 @@ def make_prefill_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None,
     rank runs its rows (``batch_shardings``: over ``data``); it returns
     the rank's rows' (B / D, V) logits (all B where ``data`` does not
     divide them), whole: the rank's vocabulary columns gathered over
-    ``model`` (where the axis splits the vocabulary).  ``sharding.
-    check_layout(mode="serve")`` refuses the widths the axes do not
-    divide but the model code takes whole."""
+    ``model`` (where the axis splits the vocabulary).  Every width an
+    axis does not divide is whole on every rank of it."""
     intra = _serve_layout(cfg, mesh, moe_route)
 
     def prefill_step(params, batch):
@@ -878,8 +900,8 @@ def make_prefill_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None,
             logits, _ = forward(params, cfg, batch, remat=False, chunk=chunk,
                                 moe_route=moe_route)
             return logits[:, -1]
-        rows, _ = _serve_rows(batch, mesh)
-        with activation_sharding(mesh):
+        rows, B = _serve_rows(batch, mesh)
+        with activation_sharding(_rows_mesh(rows, B, mesh)):
             logits, _ = forward(params, cfg, rows, remat=False, chunk=chunk,
                                 moe_route=moe_route)
         return _whole_vocab(cfg, mesh, logits[:, -1])
@@ -912,8 +934,8 @@ def make_encode_step(cfg: ModelConfig, *, mesh: Optional[Mesh] = None
     def encode_step(params, batch):
         if not intra:
             return encoder_apply(params["encoder"], cfg, batch["frames"])
-        rows, _ = _serve_rows({"frames": batch["frames"]}, mesh)
-        with activation_sharding(mesh):
+        rows, B = _serve_rows({"frames": batch["frames"]}, mesh)
+        with activation_sharding(_rows_mesh(rows, B, mesh)):
             return encoder_apply(params["encoder"], cfg, rows["frames"])
     return encode_step
 
@@ -944,8 +966,8 @@ def make_serve_step(cfg: ModelConfig,
     placement) keeps the attention caches' KV heads over ``model``, else
     their length (flash-decode).  The function is the one-device step's
     either way.  Requests the ``data`` axis does not divide (one
-    ``long_500k`` request) are held whole by every rank; placed over
-    ``data`` (``batch_sharded=True``) they raise ``ValueError``.  The
+    ``long_500k`` request) are held whole by every rank, under either
+    placement (the clamp).  The
     token is the vocabulary-parallel argmax of the rank's rows (a plain
     argmax where the vocabulary is whole: ``sharding.vocab_whole``),
     gathered over ``data``: every rank returns the whole batch's (B,)
@@ -963,12 +985,6 @@ def make_serve_step(cfg: ModelConfig,
         rows, B = _serve_rows(batch, mesh)
         placed = (sharding.default_batch_sharded(cfg, B, mesh)
                   if batch_sharded is None else batch_sharded)
-        D = mesh.size_of("data")
-        if placed and D > 1 and not sharding.splits(B, D):
-            raise ValueError(
-                f"{B} requests must split over the data axis of {D} to lie "
-                "over it (batch_sharded=True); batch_sharded=False holds "
-                "them all on every rank")
         sharding.check_cache_placement(cfg, mesh, placed, B)
         split = sharding.cache_split(mesh, batch_sharded=placed,
                                      baseline_decode=baseline_decode)
@@ -976,7 +992,7 @@ def make_serve_step(cfg: ModelConfig,
             states[B, placed] = _state_blocks(cfg, mesh, B, placed)
         _check_cache(cfg, cache, mesh, next(iter(rows.values())).shape[0]
                      if placed else B, split, states[B, placed])
-        with activation_sharding(mesh):
+        with activation_sharding(_rows_mesh(rows, B, mesh)):
             if memory is None:
                 return decode_step(params, cfg, rows, cache,
                                    moe_route=moe_route, split=split)

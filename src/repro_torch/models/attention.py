@@ -17,12 +17,16 @@ minicpm3), with two paths:
 
 Under ``shard_hints.activation_sharding(mesh)`` (the train and serve
 steps on a mesh with a ``data`` or ``model`` axis) attention runs on the
-rank's heads: GQA's n_heads / M query heads over n_kv_heads / M KV heads
-(the column blocks of wq, wk, wv, whole heads each; where M is a multiple
-of n_kv_heads above it, ``sharding.kv_shared``, the rank's column block
-of wk and wv is a part of one KV head, so k and v are gathered whole over
-``model`` and the rank keeps the one KV head its query heads read), MLA's
-n_heads / M heads (the column blocks of wq or wuq and the rank's heads of wukv; the
+rank's heads where the ``model`` axis of M splits wo's rows (the block
+runs split; where it does not, ``layers.block_whole``, every rank runs
+the whole block with no *f* or *g*, any projection the axis splits
+gathered whole): GQA's n_heads / M query heads and the KV heads they
+read (the column blocks of wk and wv where those are the rank's KV
+heads; else k and v whole, gathered over ``model`` where their columns
+split, computed whole where the clamp keeps them so, and cut to the KV
+heads the rank's query heads read, ``_kv_select``: one KV head shared
+by several ranks, or query heads straddling two), MLA's n_heads / M
+heads (the column blocks of wq or wuq and the rank's heads of wukv; the
 latent columns of wdkv and wdq are gathered over ``model`` first, since
 the RMSNorm reads the whole latent), the kernel on those, and wo
 row-parallel.  Where the ``model`` axis does not divide the heads
@@ -36,8 +40,10 @@ once (``copy_to_model``: each rank's output columns give a part).  The
 decode step reads the rank's block of the cache, as
 ``launch.sharding.cache_shardings`` places it; its ``split`` argument
 (``sharding.cache_split``) names the axis the cache's length is split
-over.  Where it is split (``"model"``: flash-decode; ``"data"``: a batch
-below 8, every row's length over ``data``) each rank scores the query
+over (per layer: a flash-decode length the axis does not split is whole
+on every rank, ``_length_split``).  Where it is split (``"model"``:
+flash-decode; ``"data"``: a batch below 8, every row's length over
+``data``) each rank scores the query
 against its own slots (over ``model``: every head, q gathered; over
 ``data``: every row, q gathered where the rank holds its rows of the
 requests, not where it holds them all: requests the ``data`` axis does
@@ -65,10 +71,10 @@ from repro_torch.kernels import ops
 import torch.distributed as dist
 
 from repro_torch.launch import collectives as coll
-from repro_torch.launch.collectives import copy_to_model
-from repro_torch.launch.sharding import heads_whole, kv_shared
-from repro_torch.models.layers import (init_linear, init_normal, init_rmsnorm,
-                                       linear_apply, rmsnorm_apply, softcap)
+from repro_torch.launch.sharding import heads_whole, rank_heads, split
+from repro_torch.models.layers import (block_whole, init_linear, init_normal,
+                                       init_rmsnorm, linear_apply,
+                                       rmsnorm_apply, softcap)
 from repro_torch.models.rope import apply_rope
 from repro_torch.models.shard_hints import axis_env_size, current_mesh
 
@@ -256,42 +262,74 @@ def init_gqa(gen: torch.Generator, a: AttentionConfig, d_model: int, dtype,
     return p
 
 
-def _kv_head(a: AttentionConfig, mesh) -> int:
-    """The KV head that this ``model`` rank's query heads read where the
-    axis is wider than n_kv_heads: the head of its first query head."""
-    return (mesh.coords["model"] * (a.n_heads // mesh.size_of("model"))
-            // (a.n_heads // a.n_kv_heads))
+def _rank_q(a: AttentionConfig, mesh) -> Tuple[int, int]:
+    """(the query heads this ``model`` rank runs, its first):
+    ``sharding.rank_heads``; every head without a mesh."""
+    if mesh is None:
+        return a.n_heads, 0
+    return rank_heads(a.n_heads, mesh.size_of("model"),
+                      mesh.coords.get("model", 0))
+
+
+def _kv_select(t: torch.Tensor, a: AttentionConfig, h0: int, hl: int
+               ) -> torch.Tensor:
+    """The KV heads that query heads h0, ..., h0 + hl - 1 read, of ``t``
+    (..., n_kv_heads, D), laid out for those hl query heads as the kernel
+    and ``decode_attention`` read GQA (query head j on KV head j // (hl /
+    n)): a slice where each of the n KV heads serves as many consecutive
+    query heads (a rank's query heads within one KV head, or across
+    whole groups, or straddling two of them evenly), else one KV head a
+    query head."""
+    g = a.n_heads // a.n_kv_heads
+    idx = [(h0 + j) // g for j in range(hl)]
+    lo, n = idx[0], idx[-1] - idx[0] + 1
+    if hl % n == 0 and all(i - lo == j // (hl // n)
+                           for j, i in enumerate(idx)):
+        return t[..., lo:lo + n, :]
+    return t[..., idx, :]
 
 
 def gqa_qkv(p: Params, a: AttentionConfig, x: torch.Tensor,
             positions: torch.Tensor, every_kv: bool = False):
-    """(q, k, v) after qk-norm and RoPE: (B, T, heads, head_dim), the
-    rank's n_heads / M and n_kv_heads / M heads under a mesh (M its
-    ``model`` size, 1 without one).  Where M is wider than n_kv_heads
-    (``sharding.kv_shared``) the rank's column blocks of k and v are
-    gathered whole over ``model`` (whose backward sums each rank's part
-    of a head's gradient), and the rank keeps the one KV head its query
-    heads read, or all n_kv_heads with ``every_kv``.  Where M does not
-    divide the heads (``sharding.heads_whole``) q, k and v are gathered
-    whole: every head."""
-    B, T, _ = x.shape
+    """(q, k, v) after qk-norm and RoPE: (B, T, heads, head_dim).  Under a
+    mesh whose ``model`` axis of M splits wo's rows (the block runs
+    split: *f* on ``x``), the rank's n_heads / M query heads and the KV
+    heads they read, or every query head where M does not divide them
+    (``sharding.heads_whole``: q's column blocks gathered whole, whose
+    backward sums each rank's part of a head's gradient).  k and v come
+    as the rank's column blocks where those are its query heads' KV
+    heads; else whole (gathered over ``model`` where their columns split,
+    computed whole where the clamp keeps wk and wv whole) and cut to the
+    KV heads its query heads read (``_kv_select``), or all n_kv_heads
+    with ``every_kv``.  Where the axis does not split wo's rows
+    (``layers.block_whole``) every rank runs the whole block, every
+    head."""
+    B, T, d = x.shape
     m = axis_env_size("model")
     mesh = current_mesh()
-    whole = heads_whole(a, m)
+    hd = a.head_dim
+    nq, nkv = a.n_heads * hd, a.n_kv_heads * hd
+    whole = block_whole(nq)
+    hw = heads_whole(a, m)
+    own = False
     if mesh is not None:
-        x = copy_to_model(x, mesh)
-    q = linear_apply(p["wq"], x, "col")
-    k = linear_apply(p["wk"], x, "col")
-    v = linear_apply(p["wv"], x, "col")
-    q = _head_cols(q, whole, mesh)
-    if kv_shared(a, m) or whole:
-        k, v = (coll.gather_model(u, 2, mesh) for u in (k, v))
-        if not (every_kv or whole):
-            lo = _kv_head(a, mesh) * a.head_dim
-            k, v = (u[..., lo:lo + a.head_dim] for u in (k, v))
-    q = q.reshape(B, T, -1, a.head_dim)
-    k = k.reshape(B, T, -1, a.head_dim)
-    v = v.reshape(B, T, -1, a.head_dim)
+        x = coll.copy_to_model(x, mesh, not whole)
+    q = linear_apply(p["wq"], x, "col", (d, nq), whole)
+    k = linear_apply(p["wk"], x, "col", (d, nkv), whole)
+    v = linear_apply(p["wv"], x, "col", (d, nkv), whole)
+    if mesh is not None and not whole:
+        q = coll.gather_model(q, q.dim() - 1, mesh, hw)
+        kv_split = split(mesh, "model", nkv)
+        own = kv_split and a.n_kv_heads % m == 0 and not hw
+        if every_kv or not own:
+            k, v = (coll.gather_model(u, u.dim() - 1, mesh, kv_split)
+                    for u in (k, v))
+    q = q.reshape(B, T, -1, hd)
+    k = k.reshape(B, T, -1, hd)
+    v = v.reshape(B, T, -1, hd)
+    if mesh is not None and not (whole or hw or own or every_kv):
+        hl, h0 = _rank_q(a, mesh)
+        k, v = _kv_select(k, a, h0, hl), _kv_select(v, a, h0, hl)
     if a.qk_norm:
         q = rmsnorm_apply(p["q_norm"], q)
         k = rmsnorm_apply(p["k_norm"], k)
@@ -300,19 +338,32 @@ def gqa_qkv(p: Params, a: AttentionConfig, x: torch.Tensor,
     return q, k, v
 
 
+def _out(p: Params, a: AttentionConfig, out: torch.Tensor, d: int,
+         v_dim: int) -> torch.Tensor:
+    """``wo`` on the attention output ``out`` (B, T, heads x ``v_dim``):
+    row-parallel where the block runs split (the columns of its row block
+    where the rank ran every head: ``_wo_cols``), whole where it runs
+    whole."""
+    n = a.n_heads * v_dim
+    whole = block_whole(n)
+    mesh = current_mesh()
+    out = _wo_cols(out, mesh is not None and not whole and heads_whole(
+        a, axis_env_size("model")), mesh)
+    return linear_apply(p["wo"], out, "row", (n, d), whole)
+
+
 def gqa_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
               window: Optional[int], positions: torch.Tensor,
               chunk: int = 512) -> torch.Tensor:
     """Train/prefill path (full sequence): under a mesh on the rank's
-    heads (every head where ``heads_whole``), wo's partial products
-    summed over ``model``."""
+    heads (every head where ``heads_whole`` or where the block runs
+    whole), wo's partial products summed over ``model`` where it runs
+    split."""
     q, k, v = gqa_qkv(p, a, x, positions)
     out = chunked_attention(q, k, v, causal=True, window=window,
                             logit_softcap=a.attn_softcap, chunk=chunk)
-    B, T = x.shape[:2]
-    out = _wo_cols(out.reshape(B, T, -1),
-                   heads_whole(a, axis_env_size("model")), current_mesh())
-    return linear_apply(p["wo"], out, "row")
+    B, T, d = x.shape
+    return _out(p, a, out.reshape(B, T, -1), d, a.head_dim)
 
 
 def gqa_init_cache(a: AttentionConfig, batch: int, length: int, dtype,
@@ -328,6 +379,17 @@ def gqa_init_cache(a: AttentionConfig, batch: int, length: int, dtype,
     }
 
 
+def _length_split(split_: Optional[str], cache: Params, name: str
+                  ) -> Optional[str]:
+    """The axis this layer's cache length lies split over: ``split_``,
+    but None under flash-decode (``"model"``, whose ``pos`` keeps the
+    whole length) where the axis does not split the length, so that
+    every rank holds every slot (the clamp)."""
+    if split_ == "model" and cache[name].shape[1] == cache["pos"].shape[1]:
+        return None
+    return split_
+
+
 def gqa_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
                cache: Params, t: torch.Tensor, split: Optional[str] = None
                ) -> Tuple[torch.Tensor, Params]:
@@ -337,38 +399,39 @@ def gqa_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
     this writes the token's k, v and position into ``cache`` in place
     (no copy of the cache a step) and returns it.  Under a mesh ``cache``
     is the rank's block and ``split`` the axis its length is split over
-    (the module docstring).  Where the ``model`` axis is wider than
-    n_kv_heads, or does not divide them, the cache holds every KV head on
-    every ``model`` rank: each rank writes them all and reads the one its
-    query heads read (every head, over its own slots, under flash-decode
-    or where the rank runs every head: ``heads_whole``)."""
-    B = x.shape[0]
+    (the module docstring; a length the axis does not split is whole on
+    every rank: ``_length_split``).  Where the cache holds every KV head
+    on every ``model`` rank (the flash-decode placement, or KV heads the
+    axis does not split) each rank writes them all and reads the ones its
+    query heads read (every head, over its own slots, under flash-decode,
+    where the rank runs every head: ``heads_whole``, or where the block
+    runs whole)."""
+    B, _, d = x.shape
     mesh = current_mesh()
-    m = axis_env_size("model")
-    shared, whole = kv_shared(a, m), heads_whole(a, m)
-    rows = _rows_split(split, x, cache)
-    q, k, v = gqa_qkv(p, a, x, t[:, None], every_kv=shared)
-    if split == "model" and not whole:       # every head on the rank's slots
+    sp = _length_split(split, cache, "k")
+    whole = block_whole(a.n_heads * a.head_dim)
+    hw = whole or heads_whole(a, axis_env_size("model"))
+    every_kv = mesh is not None and cache["k"].shape[2] == a.n_kv_heads
+    rows = _rows_split(sp, x, cache)
+    q, k, v = gqa_qkv(p, a, x, t[:, None], every_kv=every_kv)
+    if sp == "model" and not hw:             # every head on the rank's slots
         q = coll.gather_model(q, 2, mesh)
-        if not shared:
-            k, v = (coll.gather_model(u, 2, mesh) for u in (k, v))
     elif rows:                               # every row on the rank's slots
         q, k, v = (coll.gather_data(u, 0, mesh) for u in (q, k, v))
         t = mesh.all_gather_dim(t, 0, "data")
-    pos = _write_token(cache, {"k": k[:, 0], "v": v[:, 0]}, t, split, mesh)
+    pos = _write_token(cache, {"k": k[:, 0], "v": v[:, 0]}, t, sp, mesh)
     k_c, v_c = cache["k"], cache["v"]
-    if shared and split != "model" and not whole:
-        h = _kv_head(a, mesh)
-        k_c, v_c = k_c[:, :, h:h + 1], v_c[:, :, h:h + 1]
+    if every_kv and not (hw or sp == "model"):
+        hl, h0 = _rank_q(a, mesh)
+        k_c, v_c = _kv_select(k_c, a, h0, hl), _kv_select(v_c, a, h0, hl)
     out = decode_attention(q, k_c, v_c, q_pos=t,
                            cache_positions=pos, logit_softcap=a.attn_softcap,
-                           split=split, mesh=mesh)
-    if split == "model" and not whole:
+                           split=sp, mesh=mesh)
+    if sp == "model" and not hw:
         out = _own_block(out, 2, "model", mesh)
     elif rows:
         out = _own_block(out, 0, "data", mesh)
-    out = _wo_cols(out.reshape(B, 1, -1), whole, mesh)
-    return linear_apply(p["wo"], out, "row"), cache
+    return _out(p, a, out.reshape(B, 1, -1), d, a.head_dim), cache
 
 
 # ---------------------------------------------------------------------------
@@ -400,24 +463,39 @@ def init_mla(gen: torch.Generator, a: AttentionConfig, d_model: int, dtype,
     return p
 
 
+def _mla_whole(a: AttentionConfig) -> bool:
+    """Whether MLA's block runs whole over the active mesh's ``model``
+    axis: the axis does not split wo's n_heads x v_head_dim rows
+    (``layers.block_whole``)."""
+    return block_whole(a.n_heads * a.v_head_dim)
+
+
 def _mla_q(p: Params, a: AttentionConfig, x: torch.Tensor,
            positions: torch.Tensor):
     """(q_nope, q_rope) on the rank's n_heads / M heads (M its ``model``
     size, 1 without a mesh; every head where ``heads_whole``: the rank's
-    columns gathered); the caller applied ``copy_to_model`` to ``x``.
-    With a q_lora rank, wdq's latent columns are gathered over ``model``
-    before ``q_norm``."""
-    B, T, _ = x.shape
+    columns gathered, or where the block runs whole); ``_mla_in`` gave
+    ``x``.  With a q_lora rank, wdq's latent is whole before ``q_norm``:
+    its columns gathered over ``model`` where they split."""
+    B, T, d = x.shape
     mesh = current_mesh()
+    whole = _mla_whole(a)
+    qhead = a.nope_head_dim + a.rope_head_dim
+    n = a.n_heads * qhead
     if a.q_lora_rank:
-        cq = linear_apply(p["wdq"], x, "col")
-        if mesh is not None:
-            cq = coll.gather_model(cq, cq.dim() - 1, mesh)
-        q = linear_apply(p["wuq"], rmsnorm_apply(p["q_norm"], cq), "col")
+        r = a.q_lora_rank
+        cq = linear_apply(p["wdq"], x, "col", (d, r), whole)
+        if mesh is not None and not whole:
+            cq = coll.gather_model(cq, cq.dim() - 1, mesh,
+                                   split(mesh, "model", r))
+        q = linear_apply(p["wuq"], rmsnorm_apply(p["q_norm"], cq), "col",
+                         (r, n), whole)
     else:
-        q = linear_apply(p["wq"], x, "col")
-    q = _head_cols(q, heads_whole(a, axis_env_size("model")), mesh)
-    q = q.reshape(B, T, -1, a.nope_head_dim + a.rope_head_dim)
+        q = linear_apply(p["wq"], x, "col", (d, n), whole)
+    if mesh is not None and not whole:
+        q = _head_cols(q, heads_whole(a, axis_env_size("model"))
+                       and split(mesh, "model", n), mesh)
+    q = q.reshape(B, T, -1, qhead)
     q_nope = q[..., :a.nope_head_dim]
     q_rope = apply_rope(q[..., a.nope_head_dim:], positions, a.rope_theta)
     return q_nope, q_rope
@@ -426,32 +504,41 @@ def _mla_q(p: Params, a: AttentionConfig, x: torch.Tensor,
 def _mla_ckv(p: Params, a: AttentionConfig, x: torch.Tensor,
              positions: torch.Tensor):
     """(c_kv (B, T, r) after kv_norm, k_rope (B, T, rope_dim)): whole on
-    every rank, wdkv's columns gathered over ``model`` under a mesh."""
-    ckv_kr = linear_apply(p["wdkv"], x, "col")
+    every rank, wdkv's columns gathered over ``model`` where they split
+    (the weight, where the block runs whole)."""
+    n = a.kv_lora_rank + a.rope_head_dim
     mesh = current_mesh()
-    if mesh is not None:
-        ckv_kr = coll.gather_model(ckv_kr, ckv_kr.dim() - 1, mesh)
+    whole = _mla_whole(a)
+    ckv_kr = linear_apply(p["wdkv"], x, "col", (x.shape[-1], n), whole)
+    if mesh is not None and not whole:
+        ckv_kr = coll.gather_model(ckv_kr, ckv_kr.dim() - 1, mesh,
+                                   split(mesh, "model", n))
     c_kv = rmsnorm_apply(p["kv_norm"], ckv_kr[..., :a.kv_lora_rank])
     k_rope = ckv_kr[..., a.kv_lora_rank:][:, :, None, :]   # (B,T,1,rope_dim)
     k_rope = apply_rope(k_rope, positions, a.rope_theta)[:, :, 0]
     return c_kv, k_rope
 
 
-def _mla_in(x: torch.Tensor) -> torch.Tensor:
-    """*f* on MLA's input under a mesh (its projections are
-    column-parallel)."""
+def _mla_in(x: torch.Tensor, a: AttentionConfig) -> torch.Tensor:
+    """*f* on MLA's input under a mesh where the block runs split (its
+    projections are column-parallel)."""
     mesh = current_mesh()
-    return x if mesh is None else copy_to_model(x, mesh)
+    return x if mesh is None else coll.copy_to_model(x, mesh,
+                                                     not _mla_whole(a))
 
 
 def _wukv(p: Params, a: AttentionConfig) -> torch.Tensor:
-    """wukv: the rank's heads, or every head where ``heads_whole`` (the
-    clamp keeps them whole), its gradient then summed over ``model``
-    (each rank's output columns give a part of it)."""
+    """wukv: the rank's heads; where the clamp keeps them whole
+    (``heads_whole``) every head, its gradient summed over ``model``
+    (each rank's output columns give a part of it); where the block runs
+    whole every head, gathered over ``model`` where they split."""
     mesh = current_mesh()
-    if heads_whole(a, axis_env_size("model")):
-        return copy_to_model(p["wukv"], mesh)
-    return p["wukv"]
+    if mesh is None:
+        return p["wukv"]
+    heads = split(mesh, "model", a.n_heads)
+    if _mla_whole(a):
+        return coll.gather_from_model(p["wukv"], 1, mesh, heads)
+    return coll.copy_to_model(p["wukv"], mesh, not heads)
 
 
 def mla_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
@@ -462,9 +549,10 @@ def mla_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
     ``kv[..., nope:]`` of the expansion, which the kernel reads in place
     (at both full widths its rows start 16-byte aligned, its strides
     multiples of 8).  Under a mesh on the rank's heads (wukv's), wo
-    row-parallel (every head where ``heads_whole``)."""
-    B, T, _ = x.shape
-    x = _mla_in(x)
+    row-parallel (every head where ``heads_whole`` or where the block
+    runs whole)."""
+    B, T, d = x.shape
+    x = _mla_in(x, a)
     q_nope, q_rope = _mla_q(p, a, x, positions)
     c_kv, k_rope = _mla_ckv(p, a, x, positions)
     wukv = _wukv(p, a).to(x.dtype)
@@ -478,9 +566,7 @@ def mla_apply(p: Params, a: AttentionConfig, x: torch.Tensor, *,
     scale = (a.nope_head_dim + a.rope_head_dim) ** -0.5
     out = chunked_attention(q, k, v, causal=True, window=window,
                             scale=scale, chunk=chunk)
-    out = _wo_cols(out.reshape(B, T, -1),
-                   heads_whole(a, axis_env_size("model")), current_mesh())
-    return linear_apply(p["wo"], out, "row")
+    return _out(p, a, out.reshape(B, T, -1), d, a.v_head_dim)
 
 
 def mla_init_cache(a: AttentionConfig, batch: int, length: int, dtype,
@@ -504,23 +590,26 @@ def mla_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
     The cache is a ring buffer of ``L`` slots (slot = t mod L); this
     writes the token's c_kv, k_rope and position into it in place, as
     ``gqa_decode`` does, and returns it.  Under a mesh on the rank's
-    heads; where the cache's length is split (``split``), the absorbed
-    queries of every head (over ``model``) or of every row (over
-    ``data``) score the rank's slots and the softmax and the weighted
-    latent are combined over that axis, as ``gqa_decode`` combines."""
-    B = x.shape[0]
+    heads (every head where ``heads_whole`` or where the block runs
+    whole); where the cache's length is split (``split``, and
+    ``_length_split``), the absorbed queries of every head (over
+    ``model``) or of every row (over ``data``) score the rank's slots and
+    the softmax and the weighted latent are combined over that axis, as
+    ``gqa_decode`` combines."""
+    B, _, d = x.shape
     mesh = current_mesh()
-    whole = heads_whole(a, axis_env_size("model"))
-    rows = _rows_split(split, x, cache)
-    x = _mla_in(x)
+    sp = _length_split(split, cache, "ckv")
+    hw = _mla_whole(a) or heads_whole(a, axis_env_size("model"))
+    rows = _rows_split(sp, x, cache)
+    x = _mla_in(x, a)
     q_nope, q_rope = _mla_q(p, a, x, t[:, None])           # (B,1,h,*)
     c_kv, k_rope = _mla_ckv(p, a, x, t[:, None])           # (B,1,r),(B,1,rd)
-    wukv = p["wukv"].float()
+    wukv = _wukv(p, a).float()
     w_uk = wukv[..., :a.nope_head_dim]                     # (r,h,nope)
     w_uv = wukv[..., a.nope_head_dim:]                     # (r,h,v)
     q_abs = torch.einsum("bhn,rhn->bhr", q_nope[:, 0].float(), w_uk)
     q_rope = q_rope[:, 0].float()
-    if split == "model" and not whole:
+    if sp == "model" and not hw:
         q_abs, q_rope = (coll.gather_model(u, 1, mesh)
                          for u in (q_abs, q_rope))
     elif rows:
@@ -528,7 +617,7 @@ def mla_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
                                        (q_abs, q_rope, c_kv, k_rope))
         t = mesh.all_gather_dim(t, 0, "data")
     pos = _write_token(cache, {"ckv": c_kv[:, 0], "krope": k_rope[:, 0]}, t,
-                       split, mesh)
+                       sp, mesh)
     ckv_f = cache["ckv"].float()                           # (B,L,r)
     s_nope = torch.einsum("bhr,blr->bhl", q_abs, ckv_f)
     s_rope = torch.einsum("bhd,bld->bhl", q_rope, cache["krope"].float())
@@ -537,14 +626,14 @@ def mla_decode(p: Params, a: AttentionConfig, x: torch.Tensor,
     valid = (pos >= 0) & (pos <= t[:, None])
     s = torch.where(valid[:, None], s,
                     torch.full((), NEG_INF, device=s.device))
-    pr = _softmax(s, split, mesh)
+    pr = _softmax(s, sp, mesh)
     out_c = torch.einsum("bhl,blr->bhr", pr, ckv_f)        # (B,h,r)
-    if split is not None:
-        out_c = mesh.all_reduce(out_c, split)
-    if split == "model" and not whole:
+    if sp is not None:
+        out_c = mesh.all_reduce(out_c, sp)
+    if sp == "model" and not hw:
         out_c = _own_block(out_c, 1, "model", mesh)
     elif rows:
         out_c = _own_block(out_c, 0, "data", mesh)
     out = torch.einsum("bhr,rhv->bhv", out_c, w_uv)        # (B,h,v)
-    out = _wo_cols(out.reshape(B, 1, -1).to(x.dtype), whole, mesh)
-    return linear_apply(p["wo"], out, "row"), cache
+    return _out(p, a, out.reshape(B, 1, -1).to(x.dtype), d,
+                a.v_head_dim), cache

@@ -13,13 +13,15 @@ stacked on a leading axis, as the reference stacks them for its
 ``lax.scan``, which becomes a Python loop over the layers here.
 
 Under ``shard_hints.activation_sharding(mesh)`` (the train and serve
-steps inside a pod) ``in_proj`` is column-parallel and its output is
-gathered whole over ``model`` (the residual stream is whole on every
-``model`` rank; the backward keeps the rank's block of the gradient),
-and each layer runs the GQA column and row routes on the rank's n_heads
-/ M heads (every head where ``sharding.heads_whole``, as
-``attention.py`` runs them), non-causal, and the gated MLP on its d_ff
-columns; the LayerNorms are replicated.
+steps inside a pod) ``in_proj``'s output is whole on every rank, as the
+residual stream is (its weight gathered over each axis that splits it:
+``linear_apply(..., whole=True)``; the backward keeps the rank's block of
+the gradient), and each layer runs the GQA column and row routes on the
+rank's n_heads / M heads (every head where ``sharding.heads_whole``, as
+``attention.py`` runs them; the whole block where the ``model`` axis
+does not split wo's rows), non-causal, and the gated MLP on its d_ff
+columns (all of them where the axis does not split d_ff); the
+LayerNorms are replicated.
 """
 from __future__ import annotations
 
@@ -32,9 +34,9 @@ from repro_torch.device import resolve_device
 from repro_torch.launch import collectives as coll
 from repro_torch.launch.sharding import heads_whole
 from repro_torch.models import attention as attn
-from repro_torch.models.layers import (NORM_APPLY, gated_mlp_apply,
-                                       init_gated_mlp, init_linear,
-                                       linear_apply, make_norm)
+from repro_torch.models.layers import (NORM_APPLY, block_whole,
+                                       gated_mlp_apply, init_gated_mlp,
+                                       init_linear, linear_apply, make_norm)
 from repro_torch.models.shard_hints import axis_env_size, current_mesh
 from repro_torch.models.transformer import _cycle, _dtype, _stacked
 
@@ -78,23 +80,27 @@ def encoder_apply(p: Params, cfg: ModelConfig, frames: torch.Tensor
     mesh the rank's rows, whole (the module docstring)."""
     a = cfg.attention
     hd = a.head_dim
-    whole = heads_whole(a, axis_env_size("model"))
+    ed = cfg.encoder.d_model
+    n = a.n_heads * hd
     norm_apply = NORM_APPLY[cfg.norm]
     mesh = current_mesh()
-    x = linear_apply(p["in_proj"], frames.to(_dtype(cfg)), "col")
-    if mesh is not None:
-        x = coll.gather_from_model(x, x.dim() - 1, mesh)
+    whole = block_whole(n)
+    hw = mesh is not None and not whole and heads_whole(
+        a, axis_env_size("model"))
+    x = linear_apply(p["in_proj"], frames.to(_dtype(cfg)), "col",
+                     (cfg.modality.feat_dim, ed), whole=True)
     B, S, _ = x.shape
     for i in range(cfg.encoder.n_layers):
         lp = _cycle(p["layers"], i)
         hh = norm_apply(lp["norm1"], x)
         if mesh is not None:
-            hh = coll.copy_to_model(hh, mesh)
-        q, k, v = (attn._head_cols(linear_apply(lp[w], hh, "col"), whole,
+            hh = coll.copy_to_model(hh, mesh, not whole)
+        q, k, v = (attn._head_cols(linear_apply(lp[w], hh, "col", (ed, n),
+                                                whole), hw,
                                    mesh).reshape(B, S, -1, hd)
                    for w in ("wq", "wk", "wv"))
         y = attn.chunked_attention(q, k, v, causal=False)
-        y = attn._wo_cols(y.reshape(B, S, -1), whole, mesh)
-        x = x + linear_apply(lp["wo"], y, "row")
-        x = x + gated_mlp_apply(lp["ffn"], norm_apply(lp["norm2"], x))
+        x = x + attn._out(lp, a, y.reshape(B, S, -1), ed, hd)
+        x = x + gated_mlp_apply(lp["ffn"], norm_apply(lp["norm2"], x),
+                                cfg.d_ff)
     return norm_apply(p["final_norm"], x)

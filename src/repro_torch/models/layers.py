@@ -41,6 +41,7 @@ import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
 from repro_torch.launch import collectives as coll
+from repro_torch.launch.sharding import block_split, split
 from repro_torch.models.shard_hints import current_mesh
 
 Params = Dict[str, torch.Tensor]
@@ -218,34 +219,65 @@ def init_linear(gen: torch.Generator, d_in: int, d_out: int,
     return p
 
 
-def linear_apply(p: Params, x: torch.Tensor, tp: Optional[str] = None
-                 ) -> torch.Tensor:
-    """``x @ w (+ b)``.  Under a mesh (``current_mesh()``), ``tp`` says how
-    ``sharding.rule_spec`` places the weight: ``"col"``, an in-projection
-    (d_in over ``data``, d_out over ``model``): the rank's output columns,
-    its slice of a bias; ``"row"``, an out-projection (d_in over
-    ``model``, d_out over ``data``): the partial product summed over
-    ``model``, then the whole bias.  Without a mesh (or ``tp``) the
-    weight is whole."""
+def block_whole(n_rows: int) -> bool:
+    """Whether a block whose row-parallel exit has ``n_rows`` whole rows
+    runs whole over the active mesh's ``model`` axis: the axis does not
+    split those rows (``sharding.block_split``, which the gradient sums
+    read too), so every ``model`` rank computes the whole block, with no
+    *f* before it and no *g* after it.  False without a mesh."""
+    mesh = current_mesh()
+    return mesh is not None and not block_split(mesh, n_rows)
+
+
+def linear_apply(p: Params, x: torch.Tensor, tp: Optional[str] = None,
+                 shape: Optional[Tuple[int, int]] = None,
+                 whole: bool = False) -> torch.Tensor:
+    """``x @ w (+ b)``.  Under a mesh (``current_mesh()``), ``tp`` names the
+    weight's rule (``sharding.rule_spec``) and ``shape`` its whole (d_in,
+    d_out), which place it (``sharding.split`` asks the clamp of each
+    dimension): ``"col"``, an in-projection (d_in over ``data``, d_out
+    over ``model``); ``"row"``, an out-projection (d_in over ``model``,
+    d_out over ``data``).  The rank's block is gathered over ``data``
+    along a dimension split there.  Inside a block that runs split over
+    ``model`` (*f* applied to ``x`` by the caller): ``"col"`` gives the
+    rank's output columns and its slice of a bias where the columns are
+    split, and every column where they are whole (the weight through
+    *f*, since each rank's use of it gives a part of its gradient);
+    ``"row"`` sums the partial products over ``model`` (*g*) where the
+    rows are split, then adds the whole bias.  With ``whole`` (a block
+    that runs whole over ``model``: ``block_whole``) the weight is
+    gathered whole over ``model`` too where it lies split there (its
+    gradient's block comes back) and every rank computes the whole
+    product.  Without a mesh (or ``tp``) the weight is whole."""
     mesh = current_mesh() if tp else None
     if mesh is None:
         y = x @ p["w"].to(x.dtype)
         if "b" in p:
             y = y + p["b"].to(x.dtype)
         return y
-    if tp == "col":
-        y = x @ coll.gather_data(p["w"], 0, mesh).to(x.dtype)
-        if "b" in p:
+    if tp not in ("col", "row"):
+        raise ValueError(f"linear_apply: tp={tp!r}; want 'col' or 'row'")
+    if shape is None:
+        raise ValueError("linear_apply: under a mesh the weight's whole "
+                         "(d_in, d_out) places it")
+    d_ax, m_ax = (0, 1) if tp == "col" else (1, 0)
+    w = coll.gather_data(p["w"], d_ax, mesh,
+                         split(mesh, "data", shape[d_ax]))
+    m_split = split(mesh, "model", shape[m_ax])
+    if whole:
+        w = coll.gather_from_model(w, m_ax, mesh, m_split)
+        y = x @ w.to(x.dtype)
+    elif tp == "col":
+        y = x @ coll.copy_to_model(w, mesh, not m_split).to(x.dtype)
+    else:
+        y = coll.reduce_from_model(x @ w.to(x.dtype), mesh, m_split)
+    if "b" in p:
+        b = p["b"]
+        if tp == "col" and m_split and not whole:
             n = y.shape[-1]
             i = mesh.coords.get("model", 0)
-            y = y + p["b"][i * n:(i + 1) * n].to(x.dtype)
-        return y
-    if tp != "row":
-        raise ValueError(f"linear_apply: tp={tp!r}; want 'col' or 'row'")
-    y = coll.reduce_from_model(x @ coll.gather_data(p["w"], 1, mesh).to(
-        x.dtype), mesh)
-    if "b" in p:
-        y = y + p["b"].to(x.dtype)
+            b = b[i * n:(i + 1) * n]
+        y = y + b.to(x.dtype)
     return y
 
 
@@ -258,15 +290,22 @@ def init_gated_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def gated_mlp_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """``down(silu(gate(x)) * up(x))``; under a mesh the rank's d_ff
-    columns (gate and up column-parallel, down row-parallel)."""
+def gated_mlp_apply(p: Params, x: torch.Tensor,
+                    d_ff: Optional[int] = None) -> torch.Tensor:
+    """``down(silu(gate(x)) * up(x))``; under a mesh (``d_ff`` its whole
+    hidden width) the rank's d_ff columns (gate and up column-parallel,
+    down row-parallel), or every column on every ``model`` rank where
+    the axis does not split d_ff (``block_whole``)."""
     mesh = current_mesh()
-    if mesh is not None:
-        x = coll.copy_to_model(x, mesh)
-    g = F.silu(linear_apply(p["gate"], x, "col"))
-    u = linear_apply(p["up"], x, "col")
-    return linear_apply(p["down"], g * u, "row")
+    if mesh is None:
+        return linear_apply(p["down"], F.silu(linear_apply(p["gate"], x))
+                            * linear_apply(p["up"], x))
+    d = x.shape[-1]
+    whole = block_whole(d_ff)
+    x = coll.copy_to_model(x, mesh, not whole)
+    g = F.silu(linear_apply(p["gate"], x, "col", (d, d_ff), whole))
+    u = linear_apply(p["up"], x, "col", (d, d_ff), whole)
+    return linear_apply(p["down"], g * u, "row", (d_ff, d), whole)
 
 
 def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
@@ -277,19 +316,23 @@ def init_embedding(gen: torch.Generator, vocab: int, d_model: int,
 
 
 def embedding_apply(p: Params, tokens: torch.Tensor,
-                    compute_dtype=None, whole_vocab: bool = False
-                    ) -> torch.Tensor:
+                    compute_dtype=None, whole_vocab: bool = False,
+                    d_model: Optional[int] = None) -> torch.Tensor:
     """The table's rows at ``tokens``.  Under a mesh, vocabulary-parallel,
-    on the rank's block of the table (vocab over ``model``, d over
-    ``data``), never gathered: every ``data`` rank's tokens are gathered
-    (integers), the rank looks up its d / D columns of each token's row
-    in its vocabulary rows (zeros for the rest) and sends each ``data``
-    rank its tokens' lookups (``all_to_all_data``: the rank receives its
-    tokens' rows, every rank's columns), and the rows are summed over
-    ``model`` (one nonzero term each: the one-device rows, bit for bit).
-    With ``whole_vocab`` (a vocabulary the ``model`` axis does not divide:
-    every rank's block holds every row) the rows are looked up whole and
-    not summed over ``model``.  The backward sends each lookup's gradient
+    on the rank's block of the table (vocab over ``model``, ``d_model``,
+    its whole width, over ``data``), never gathered: every ``data``
+    rank's tokens are gathered (integers), the rank looks up its d / D
+    columns of each token's row in its vocabulary rows (zeros for the
+    rest) and sends each ``data`` rank its tokens' lookups
+    (``all_to_all_data``: the rank receives its tokens' rows, every
+    rank's columns), and the rows are summed over ``model`` (one nonzero
+    term each: the one-device rows, bit for bit).  With ``whole_vocab``
+    (a vocabulary the ``model`` axis does not divide: every rank's block
+    holds every row) the rows are looked up whole and not summed over
+    ``model``.  Where the ``data`` axis does not split d_model (every
+    rank's block holds every column), or where every ``data`` rank holds
+    every token (``Mesh.with_rows_whole``: the table's columns gathered
+    first), the rank looks up its own tokens alone and sends nothing.  The backward sends each lookup's gradient
     back to the rank whose columns it read, which adds it to its block's
     rows."""
     mesh = current_mesh()
@@ -300,7 +343,14 @@ def embedding_apply(p: Params, tokens: torch.Tensor,
         return t[tokens]
     n, c = t.shape
     D = mesh.size_of("data")
-    every = mesh.all_gather_dim(tokens.contiguous(), 0, "data")
+    cols = split(mesh, "data", c if d_model is None else d_model)
+    if cols and mesh.rows_whole:
+        # every data rank holds every token: the table's columns gathered
+        # (its gradient's block kept), the rank's tokens looked up whole
+        t, cols = coll.gather_data(t, 1, mesh), False
+        c = t.shape[1]
+    every = (mesh.all_gather_dim(tokens.contiguous(), 0, "data") if cols
+             else tokens)
     if whole_vocab:
         rows = t[every]
     else:
@@ -309,26 +359,28 @@ def embedding_apply(p: Params, tokens: torch.Tensor,
         rows = t[local.clamp(0, n - 1)]
         rows = torch.where(mine[..., None], rows, torch.zeros(
             (), dtype=rows.dtype, device=rows.device))
-    # rows (D B, T, c), data rank j's tokens in block j: to their rank,
-    # then the D column blocks received side by side
-    got = coll.all_to_all_data(rows.reshape(-1, c), mesh)
-    got = got.reshape(D, -1, c).transpose(0, 1).reshape(
-        tuple(tokens.shape) + (D * c,))
-    return got if whole_vocab else coll.reduce_from_model(got, mesh)
+    if cols:
+        # rows (D B, T, c), data rank j's tokens in block j: to their
+        # rank, then the D column blocks received side by side
+        got = coll.all_to_all_data(rows.reshape(-1, c), mesh)
+        rows = got.reshape(D, -1, c).transpose(0, 1).reshape(
+            tuple(tokens.shape) + (D * c,))
+    return coll.reduce_from_model(rows, mesh, not whole_vocab)
 
 
 def unembed_apply(p: Params, x: torch.Tensor, whole_vocab: bool = False
                   ) -> torch.Tensor:
     """``x @ table.T``; under a mesh the rank's vocabulary columns of the
-    logits (the table gathered over ``data``, ``x``'s gradient summed
-    over ``model``), or, with ``whole_vocab``, every column (``x``'s
-    gradient whole on every ``model`` rank: no sum)."""
+    logits (the table gathered over ``data`` where it lies split there,
+    ``x``'s gradient summed over ``model``), or, with ``whole_vocab``,
+    every column (``x``'s gradient whole on every ``model`` rank: no
+    sum)."""
     mesh = current_mesh()
     if mesh is None:
         return x @ p["table"].to(x.dtype).T
-    if not whole_vocab:
-        x = coll.copy_to_model(x, mesh)
-    return x @ coll.gather_data(p["table"], 1, mesh).to(x.dtype).T
+    x = coll.copy_to_model(x, mesh, not whole_vocab)
+    return x @ coll.gather_data(p["table"], 1, mesh, split(
+        mesh, "data", x.shape[-1])).to(x.dtype).T
 
 
 def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.launch import collectives as coll
+from repro_torch.launch.sharding import split
 from repro_torch.models import moe_ep
 from repro_torch.models.layers import (gated_mlp_apply, init_gated_mlp,
                                        init_linear, init_normal,
@@ -154,11 +155,12 @@ def moe_apply(p: Params, m: MoEConfig, x: torch.Tensor,
         raise ValueError(f"moe route {route!r}; known: {ROUTES}")
     mesh = current_mesh()
     B, T, d = x.shape
-    D = 1 if mesh is None else mesh.size_of("data")
+    D = 1 if mesh is None or mesh.rows_whole else mesh.size_of("data")
     if route == "ep" and moe_ep.ep_applicable_seq(m, B * D, T, mesh):
         y, aux = moe_ep.moe_apply_ep(p, m, x, mesh)
         if "shared" in p:
-            y = y + gated_mlp_apply(p["shared"], x.reshape(B * T, d)
+            y = y + gated_mlp_apply(p["shared"], x.reshape(B * T, d),
+                                    m.n_shared * m.d_ff_expert
                                     ).reshape(B, T, d)
         return y, aux
     if mesh is not None:
@@ -186,26 +188,36 @@ def moe_apply(p: Params, m: MoEConfig, x: torch.Tensor,
 def _moe_apply_mesh(p: Params, m: MoEConfig, x: torch.Tensor, mesh
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The dense route on the rank's rows ``x`` (B, T, d) and its E / M
-    experts: the one-device function (the module docstring)."""
+    experts: the one-device function (the module docstring).  Where the
+    ``model`` axis does not split the experts (``sharding.split``; the
+    router's columns then neither) every rank runs every expert on its
+    rows, with no *f* before the layer and nothing summed over ``model``
+    after it."""
     B, T, d = x.shape
     N = B * T
-    E = m.n_experts
-    D, M = mesh.size_of("data"), mesh.size_of("model")
+    E, ff = m.n_experts, m.d_ff_expert
+    # the data ranks whose rows make up the pod's tokens (one where each
+    # holds every sequence: ``Mesh.with_rows_whole``)
+    D = 1 if mesh.rows_whole else mesh.size_of("data")
+    M = mesh.size_of("model")
     n_all = N * D
     C = moe_capacity(m, n_all)
-    E_r = E // M
-    e0 = mesh.coords["model"] * E_r
-    xf = coll.copy_to_model(x.reshape(N, d), mesh)
-    logits = linear_apply(p["router"], xf.float(), "col")     # (N, E / M)
+    par = split(mesh, "model", E)
+    E_r = E // M if par else E
+    e0 = mesh.coords["model"] * E_r if par else 0
+    xf = coll.copy_to_model(x.reshape(N, d), mesh, par)
+    logits = linear_apply(p["router"], xf.float(), "col", (d, E),
+                          not par)                          # (N, E_r)
     _, gate_w, expert_idx = route_logits(
-        m, coll.gather_model(logits, 1, mesh))
+        m, coll.gather_model(logits, 1, mesh, par))
 
     # the auxiliary loss from the pod's routing statistics, the same on
     # every model rank: its logits gathered by ``gather_from_model``, whose
     # backward keeps the rank's columns (``gather_model``'s would sum the
     # M equal gradients); the dispatch's, of the rank's experts alone,
     # are summed
-    probs = torch.softmax(coll.gather_from_model(logits, 1, mesh), dim=-1)
+    probs = torch.softmax(coll.gather_from_model(logits, 1, mesh, par),
+                          dim=-1)
     top1 = expert_idx[:, :1] == torch.arange(E, device=x.device)
     stats = coll.reduce_from_data(torch.stack([probs.sum(dim=0),
                                                top1.float().sum(dim=0)]),
@@ -223,10 +235,11 @@ def _moe_apply_mesh(p: Params, m: MoEConfig, x: torch.Tensor, mesh
     mine = (pos < C) & (flat_e >= e0) & (flat_e < e0 + E_r)
     slot = torch.where(mine, (flat_e - e0) * C + pos,
                        torch.full_like(flat_e, E_r * C))
-    w = [coll.gather_data(p[n], 1, mesh) for n in ("w_gate", "w_up",
-                                                   "w_down")]
+    w = [coll.gather_data(p[n], 1, mesh, split(mesh, "data", n_in))
+         for n, n_in in (("w_gate", d), ("w_up", d), ("w_down", ff))]
     y = coll.reduce_from_model(_experts(xf, slot, mine, gate_w, *w, C),
-                               mesh)
+                               mesh, par)
     if "shared" in p:
-        y = y + gated_mlp_apply(p["shared"], x.reshape(N, d))
+        y = y + gated_mlp_apply(p["shared"], x.reshape(N, d),
+                                m.n_shared * ff)
     return y.reshape(B, T, d), aux

@@ -46,6 +46,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.launch import collectives as coll
+from repro_torch.launch.sharding import split
 
 Params = Dict[str, object]
 
@@ -174,13 +175,15 @@ def moe_apply_ep(p: Params, m: MoEConfig, x: torch.Tensor, mesh
     i = mesh.coords["model"]
     xb = coll.copy_to_model(x, mesh)[:, i * span:(i + 1) * span]
     xb = xb.reshape(-1, d)
-    rw = coll.gather_model(coll.gather_data(p["router"]["w"], 0, mesh), 1,
-                           mesh)
+    rw = coll.gather_model(coll.gather_data(p["router"]["w"], 0, mesh,
+                                            split(mesh, "data", d)), 1, mesh)
     send_x, send_el, state, aux = _dispatch(m, xb, rw, M, c_send)
     recv_x = coll.all_to_all_model(send_x, mesh)
     recv_el = coll.all_to_all_model(send_el, mesh)
-    w = [coll.gather_data(p[n], 1, mesh).to(x.dtype)
-         for n in ("w_gate", "w_up", "w_down")]
+    ff = p["w_gate"].shape[2]               # placed whole (no axis)
+    w = [coll.gather_data(p[n], 1, mesh, split(mesh, "data", n_in)).to(
+        x.dtype) for n, n_in in (("w_gate", d), ("w_up", d),
+                                  ("w_down", ff))]
     back = coll.all_to_all_model(_experts(recv_x, recv_el, *w, c_exp),
                                  mesh)
     y = _combine(back, state, m.top_k).view(B, span, d)

@@ -39,9 +39,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import RGLRUConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import collectives as coll
-from repro_torch.models.layers import (causal_conv, causal_conv_step,
-                                       init_linear, init_normal, linear_apply,
-                                       softplus)
+from repro_torch.models.layers import (block_whole, causal_conv,
+                                       causal_conv_step, init_linear,
+                                       init_normal, linear_apply, softplus)
 from repro_torch.models.shard_hints import current_mesh
 
 Params = Dict[str, object]
@@ -72,22 +72,35 @@ def init_rglru(gen: torch.Generator, r: RGLRUConfig, d_model: int, dtype,
     }
 
 
-def _cols(n_local: int, mesh) -> slice:
+def _cols(n_local: int, mesh, whole: bool) -> slice:
     """The ``model`` rank's channels of the width, ``n_local`` of them
-    (every channel without a mesh)."""
-    lo = 0 if mesh is None else mesh.coords.get("model", 0) * n_local
+    (every channel without a mesh or where the block runs whole)."""
+    lo = 0 if mesh is None or whole else \
+        mesh.coords.get("model", 0) * n_local
     return slice(lo, lo + n_local)
 
 
-def _gates(p: Params, xw: torch.Tensor, mesh=None):
+def _whole(r: RGLRUConfig, d_model: int) -> bool:
+    """Whether the block runs whole over the active mesh's ``model`` axis:
+    the axis does not split the lru_width rows of ``out``
+    (``layers.block_whole``); every width of the block is lru_width, so
+    it splits none of them."""
+    return block_whole(r.lru_width or d_model)
+
+
+def _gates(p: Params, xw: torch.Tensor, width: int = 0, mesh=None,
+           whole: bool = False):
     """(a, sqrt(1 - a^2) * i * x), float32, on the channels of ``xw``;
-    under a mesh the rank's, the gates' input ``xw`` gathered whole."""
+    under a mesh (``width`` the whole lru_width) the rank's (every channel
+    where the block runs whole), the gates' input ``xw`` gathered
+    whole."""
     xf = xw.float()
     xin = xf if mesh is None else coll.gather_model(
-        xw, xw.dim() - 1, mesh).float()
-    r_g = torch.sigmoid(linear_apply(p["w_a"], xin, "col"))
-    i_g = torch.sigmoid(linear_apply(p["w_i"], xin, "col"))
-    lam = p["lam"][_cols(xw.shape[-1], mesh)]
+        xw, xw.dim() - 1, mesh, not whole).float()
+    shape = (width, width)
+    r_g = torch.sigmoid(linear_apply(p["w_a"], xin, "col", shape, whole))
+    i_g = torch.sigmoid(linear_apply(p["w_i"], xin, "col", shape, whole))
+    lam = p["lam"][_cols(xw.shape[-1], mesh, whole)]
     log_a = -_C * softplus(lam) * r_g                   # (..., w), <= 0
     a = torch.exp(log_a)
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), 1e-12, 1.0))
@@ -135,24 +148,30 @@ def scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return b
 
 
-def _in(x: torch.Tensor, mesh) -> torch.Tensor:
-    """*f* on the block's input under a mesh (in_x and in_gate are
-    column-parallel)."""
-    return x if mesh is None else coll.copy_to_model(x, mesh)
+def _in(x: torch.Tensor, mesh, whole: bool) -> torch.Tensor:
+    """*f* on the block's input under a mesh where the block runs split
+    (in_x and in_gate are column-parallel)."""
+    return x if mesh is None else coll.copy_to_model(x, mesh, not whole)
 
 
 def rglru_apply(p: Params, r: RGLRUConfig, x: torch.Tensor) -> torch.Tensor:
     """Full-sequence path.  x: (B, T, d_model); under a mesh on the rank's
-    channels, ``out`` row-parallel."""
+    channels, ``out`` row-parallel (every channel, ``out`` whole, where
+    the block runs whole)."""
     mesh = current_mesh()
-    x = _in(x, mesh)
-    gate = F.gelu(linear_apply(p["in_gate"], x, "col"), approximate="tanh")
-    xw = linear_apply(p["in_x"], x, "col")
-    xw = _conv(xw, p["conv_w"], p["conv_b"][_cols(xw.shape[-1], mesh)])
-    a, b = _gates(p, xw, mesh)                           # (B,T,w) fp32
+    d = x.shape[-1]
+    w = r.lru_width or d
+    whole = _whole(r, d)
+    x = _in(x, mesh, whole)
+    gate = F.gelu(linear_apply(p["in_gate"], x, "col", (d, w), whole),
+                  approximate="tanh")
+    xw = linear_apply(p["in_x"], x, "col", (d, w), whole)
+    xw = _conv(xw, p["conv_w"],
+               p["conv_b"][_cols(xw.shape[-1], mesh, whole)])
+    a, b = _gates(p, xw, w, mesh, whole)                 # (B,T,w) fp32
     h = scan(a, b)
     y = h.to(x.dtype) * gate
-    return linear_apply(p["out"], y, "row")
+    return linear_apply(p["out"], y, "row", (w, d), whole)
 
 
 def rglru_init_state(r: RGLRUConfig, d_model: int, batch: int, dtype,
@@ -174,19 +193,24 @@ def rglru_decode(p: Params, r: RGLRUConfig, x: torch.Tensor, state: Params
     mesh ``state`` is the rank's block: the conv history whole, h whole
     or the rank's channels (the module docstring)."""
     mesh = current_mesh()
-    x0 = _in(x[:, 0], mesh)
-    gate = F.gelu(linear_apply(p["in_gate"], x0, "col"), approximate="tanh")
-    xw_t = linear_apply(p["in_x"], x0, "col")
-    cols = _cols(xw_t.shape[-1], mesh)
-    row = xw_t if mesh is None else coll.gather_model(xw_t, 1, mesh)
+    d = x.shape[-1]
+    w = r.lru_width or d
+    whole = _whole(r, d)
+    x0 = _in(x[:, 0], mesh, whole)
+    gate = F.gelu(linear_apply(p["in_gate"], x0, "col", (d, w), whole),
+                  approximate="tanh")
+    xw_t = linear_apply(p["in_x"], x0, "col", (d, w), whole)
+    cols = _cols(xw_t.shape[-1], mesh, whole)
+    row = xw_t if mesh is None else coll.gather_model(xw_t, 1, mesh,
+                                                      not whole)
     hist = torch.cat([state["conv"], row[:, None]], dim=1)
     xw = causal_conv_step(hist[..., cols], p["conv_w"],
                           p["conv_b"][cols]).to(x.dtype)
-    a, b = _gates(p, xw, mesh)
-    whole = state["h"].shape[-1] != xw.shape[-1]
-    h = a * (state["h"][:, cols] if whole else state["h"]) + b
+    a, b = _gates(p, xw, w, mesh, whole)
+    full_h = state["h"].shape[-1] != xw.shape[-1]
+    h = a * (state["h"][:, cols] if full_h else state["h"]) + b
     y = h.to(x.dtype) * gate
-    out = linear_apply(p["out"], y, "row")[:, None]
+    out = linear_apply(p["out"], y, "row", (w, d), whole)[:, None]
     state["conv"].copy_(hist[:, 1:])
-    state["h"].copy_(coll.gather_model(h, 1, mesh) if whole else h)
+    state["h"].copy_(coll.gather_model(h, 1, mesh) if full_h else h)
     return out, state

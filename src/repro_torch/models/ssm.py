@@ -45,8 +45,10 @@ import torch.nn.functional as F
 from repro_torch.configs.base import SSMConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import collectives as coll
-from repro_torch.models.layers import (causal_conv, causal_conv_step,
-                                       init_linear, init_normal, init_rmsnorm,
+from repro_torch.launch.sharding import rank_heads, split
+from repro_torch.models.layers import (block_whole, causal_conv,
+                                       causal_conv_step, init_linear,
+                                       init_normal, init_rmsnorm,
                                        linear_apply, rmsnorm_apply, softplus)
 from repro_torch.models.shard_hints import current_mesh
 
@@ -158,22 +160,57 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y, S
 
 
-def _rank_heads(s: SSMConfig, mesh) -> Tuple[int, int]:
+def _whole(s: SSMConfig, d_model: int) -> bool:
+    """Whether the block runs whole over the active mesh's ``model`` axis:
+    the axis does not split ``out_proj``'s d_inner rows
+    (``layers.block_whole``)."""
+    return block_whole(d_inner(s, d_model))
+
+
+def _rank_heads(s: SSMConfig, mesh, whole: bool) -> Tuple[int, int]:
     """(the heads this ``model`` rank runs, its first head): every head
-    without a mesh."""
-    if mesh is None:
+    without a mesh, where the block runs whole, or where the axis does not
+    divide the heads (``sharding.rank_heads``)."""
+    if mesh is None or whole:
         return s.n_heads, 0
-    hl = s.n_heads // mesh.size_of("model")
-    return hl, mesh.coords.get("model", 0) * hl
+    return rank_heads(s.n_heads, mesh.size_of("model"),
+                      mesh.coords.get("model", 0))
 
 
-def _whole_proj(p: Params, x: torch.Tensor, mesh) -> torch.Tensor:
+def _whole_proj(p: Params, s: SSMConfig, x: torch.Tensor, mesh,
+                whole: bool) -> torch.Tensor:
     """``in_proj``'s output, whole: under a mesh the rank's column block
-    gathered over ``model`` (its gradient reduce-scattered back)."""
+    gathered over ``model`` (its gradient reduce-scattered back), or, where
+    the clamp keeps the columns whole, the whole product (the weight
+    through *f*: each rank's heads give a part of its gradient); where the
+    block runs whole, the weight gathered and no *f*."""
     if mesh is None:
         return linear_apply(p["in_proj"], x)
-    proj = linear_apply(p["in_proj"], coll.copy_to_model(x, mesh), "col")
-    return coll.gather_model(proj, proj.dim() - 1, mesh)
+    d = x.shape[-1]
+    n = 2 * d_inner(s, d) + 2 * s.d_state + s.n_heads
+    if whole:
+        return linear_apply(p["in_proj"], x, "col", (d, n), whole=True)
+    proj = linear_apply(p["in_proj"], coll.copy_to_model(x, mesh), "col",
+                        (d, n))
+    return coll.gather_model(proj, proj.dim() - 1, mesh,
+                             split(mesh, "model", n))
+
+
+def _conv_w(p: Params, s: SSMConfig, d_model: int, mesh, whole: bool
+            ) -> torch.Tensor:
+    """``conv_w`` whole (K x channels): its channel blocks gathered over
+    ``model`` where they split (the gradient summed over ``model`` and
+    scattered back where the block runs split, its block kept where it
+    runs whole), or, where the clamp keeps the channels whole, through
+    *f* inside a block that runs split."""
+    w = p["conv_w"]
+    if mesh is None:
+        return w
+    ch = split(mesh, "model", d_inner(s, d_model) + 2 * s.d_state)
+    if whole:
+        return coll.gather_from_model(w, 1, mesh, ch)
+    return (coll.gather_model(w, 1, mesh) if ch
+            else coll.copy_to_model(w, mesh))
 
 
 def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor, di: int,
@@ -181,13 +218,24 @@ def _gated_norm(p: Params, y: torch.Tensor, z: torch.Tensor, di: int,
     """``rmsnorm_apply(p["norm"], y * silu(z))`` over all d_inner ``di``
     channels, of which ``y`` and ``z`` hold the ``model`` rank's from
     channel ``c0`` on: the float32 sum of squares summed over ``model``,
-    its gradient as well."""
+    its gradient as well (all of them: the plain norm)."""
     g = y * F.silu(z)
-    if mesh is None:
+    if mesh is None or g.shape[-1] == di:
         return rmsnorm_apply(p["norm"], g)
     scale = p["norm"]["scale"][c0:c0 + g.shape[-1]]
     return rmsnorm_apply({"scale": scale}, g, width=di,
                          total=lambda v: coll.sum_over_model(v, mesh))
+
+
+def _out_proj(p: Params, y: torch.Tensor, di: int, d_model: int, mesh,
+              whole: bool) -> torch.Tensor:
+    """``out_proj`` on ``y``: row-parallel where the block runs split (the
+    rank's row block of channels taken where ``y`` holds all of them),
+    whole where it runs whole."""
+    if mesh is not None and not whole and y.shape[-1] == di:
+        n = di // mesh.size_of("model")
+        y = y.narrow(-1, mesh.coords["model"] * n, n)
+    return linear_apply(p["out_proj"], y, "row", (di, d_model), whole)
 
 
 def ssm_apply(p: Params, s: SSMConfig, d_model: int, x: torch.Tensor
@@ -197,14 +245,14 @@ def ssm_apply(p: Params, s: SSMConfig, d_model: int, x: torch.Tensor
     Bsz, T, _ = x.shape
     di = d_inner(s, d_model)
     mesh = current_mesh()
-    hl, h0 = _rank_heads(s, mesh)
+    whole = _whole(s, d_model)
+    hl, h0 = _rank_heads(s, mesh, whole)
     c0, cl = h0 * s.head_dim, hl * s.head_dim
-    proj = _whole_proj(p, x, mesh)
+    proj = _whole_proj(p, s, x, mesh, whole)
     z, xbc, dt = _split_proj(s, proj, d_model)
-    conv_w, conv_b = p["conv_w"], p["conv_b"]
-    if mesh is not None:
+    conv_w, conv_b = _conv_w(p, s, d_model, mesh, whole), p["conv_b"]
+    if hl != s.n_heads:
         # the rank's heads' z, x and dt, and all of B and C
-        conv_w = coll.gather_model(conv_w, 1, mesh)
         pick = lambda t: torch.cat([t[..., c0:c0 + cl], t[..., di:]], -1)
         z, dt = z[..., c0:c0 + cl], dt[..., h0:h0 + hl]
         xbc, conv_w, conv_b = pick(xbc), pick(conv_w), pick(conv_b)
@@ -218,7 +266,7 @@ def ssm_apply(p: Params, s: SSMConfig, d_model: int, x: torch.Tensor
                        chunk=s.chunk)
     y = y.reshape(Bsz, T, cl).to(x.dtype)
     y = _gated_norm(p, y, z, di, mesh, c0)
-    return linear_apply(p["out_proj"], y, "row")
+    return _out_proj(p, y, di, d_model, mesh, whole)
 
 
 def ssm_init_state(s: SSMConfig, d_model: int, batch: int, dtype,
@@ -245,11 +293,11 @@ def ssm_decode(p: Params, s: SSMConfig, d_model: int, x: torch.Tensor,
     Bsz = x.shape[0]
     di = d_inner(s, d_model)
     mesh = current_mesh()
-    proj = _whole_proj(p, x[:, 0], mesh)
+    whole = _whole(s, d_model)
+    proj = _whole_proj(p, s, x[:, 0], mesh, whole)
     z, xbc, dt = _split_proj(s, proj, d_model)
     hist = torch.cat([state["conv"], xbc[:, None]], dim=1)    # (B,K,Ch)
-    conv_w = p["conv_w"] if mesh is None else coll.gather_model(
-        p["conv_w"], 1, mesh)
+    conv_w = _conv_w(p, s, d_model, mesh, whole)
     xbc_t = F.silu(causal_conv_step(hist, conv_w, p["conv_b"])
                    ).to(x.dtype)
     xs = xbc_t[..., :di].reshape(Bsz, s.n_heads, s.head_dim)
@@ -275,10 +323,7 @@ def ssm_decode(p: Params, s: SSMConfig, d_model: int, x: torch.Tensor,
         y = mesh.all_gather_dim(y.contiguous(), 1, "data")
     y = y.reshape(Bsz, di).to(x.dtype)
     y = rmsnorm_apply(p["norm"], y * F.silu(z))
-    if mesh is not None:                  # the rank's heads, out_proj's rows
-        hl, h0 = _rank_heads(s, mesh)
-        y = y[:, h0 * s.head_dim:(h0 + hl) * s.head_dim]
-    out = linear_apply(p["out_proj"], y, "row")[:, None]
+    out = _out_proj(p, y, di, d_model, mesh, whole)[:, None]
     state["conv"].copy_(hist[:, 1:])
     state["ssd"].copy_(S)
     return out, state

@@ -19,8 +19,8 @@ wraps its cycle in ``jax.checkpoint``; the prefix and suffix layers are
 not wrapped, as there.
 
 Under ``shard_hints.activation_sharding(mesh)`` (the train and serve
-steps on a mesh with a ``data`` or ``model`` axis; the families
-``launch.sharding.check_layout`` takes) every rank of a pod runs the
+steps on a mesh with a ``data`` or ``model`` axis; every family) every
+rank of a pod runs the
 same layers on its blocks (``layers.py``, ``attention.py``, ``moe.py``)
 and its share of the pod's sequences, and ``lm_apply`` and ``lm_decode``
 return the rank's vocabulary columns of the logits; ``lm_init_cache``
@@ -43,18 +43,18 @@ from repro_torch import pytree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.launch import sharding
-from repro_torch.launch.collectives import copy_to_model, gather_from_model
+from repro_torch.launch.collectives import copy_to_model
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.shard_hints import (activation_sharding,
                                             axis_env_size, current_mesh)
-from repro_torch.models.layers import (NORM_APPLY, embedding_apply,
-                                       gated_mlp_apply, init_embedding,
-                                       init_gated_mlp, init_linear,
-                                       linear_apply, make_norm, softcap,
-                                       unembed_apply)
+from repro_torch.models.layers import (NORM_APPLY, block_whole,
+                                       embedding_apply, gated_mlp_apply,
+                                       init_embedding, init_gated_mlp,
+                                       init_linear, linear_apply, make_norm,
+                                       softcap, unembed_apply)
 
 Params = Dict[str, object]
 
@@ -157,22 +157,33 @@ def _xattn_apply(p: Params, cfg: ModelConfig, x: torch.Tensor,
     ``sharding.heads_whole``: the column blocks gathered, ``wo`` handed
     its row block's columns): ``wq`` reads the residual, ``wk`` and
     ``wv`` the memory (to which ``lm_apply`` applied *f* once), each
-    column-parallel, ``wo`` row-parallel."""
+    column-parallel, ``wo`` row-parallel; every head on every rank with
+    no *f* or *g* where the axis does not split wo's rows
+    (``_xattn_whole``)."""
     a = cfg.attention
-    B, T, _ = x.shape
-    S = memory.shape[1]
+    B, T, d = x.shape
+    S, ed = memory.shape[1:]
     hd = a.head_dim
+    n = a.n_heads * hd
     mesh = current_mesh()
-    whole = sharding.heads_whole(a, axis_env_size("model"))
+    whole = _xattn_whole(cfg)
+    hw = mesh is not None and not whole and sharding.heads_whole(
+        a, axis_env_size("model"))
     if mesh is not None:
-        x = copy_to_model(x, mesh)
-    q, k, v = (attn._head_cols(linear_apply(p[w], y, "col"), whole,
-                               mesh).reshape(B, n, -1, hd)
-               for w, y, n in (("wq", x, T), ("wk", memory, S),
-                               ("wv", memory, S)))
+        x = copy_to_model(x, mesh, not whole)
+    q, k, v = (attn._head_cols(linear_apply(p[w], y, "col", (w_in, n),
+                                            whole), hw,
+                               mesh).reshape(B, t, -1, hd)
+               for w, y, t, w_in in (("wq", x, T, d), ("wk", memory, S, ed),
+                                     ("wv", memory, S, ed)))
     out = attn.chunked_attention(q, k, v, causal=False)
-    out = attn._wo_cols(out.reshape(B, T, -1), whole, mesh)
-    return linear_apply(p["wo"], out, "row")
+    return attn._out(p, a, out.reshape(B, T, -1), d, hd)
+
+
+def _xattn_whole(cfg: ModelConfig) -> bool:
+    """Whether the cross-attention runs whole over the active mesh's
+    ``model`` axis (``layers.block_whole`` of wo's rows)."""
+    return block_whole(cfg.attention.n_heads * cfg.attention.head_dim)
 
 
 def _xattn_and_ffn(p: Params, cfg: ModelConfig, sig: Tuple,
@@ -193,7 +204,7 @@ def _xattn_and_ffn(p: Params, cfg: ModelConfig, sig: Tuple,
     if sig[2]:
         y2, aux = moe_mod.moe_apply(p["ffn"], cfg.moe, h2, moe_route)
         return x + y2, aux
-    return x + gated_mlp_apply(p["ffn"], h2), None
+    return x + gated_mlp_apply(p["ffn"], h2, cfg.d_ff), None
 
 
 def layer_apply(p: Params, cfg: ModelConfig, sig: Tuple, x: torch.Tensor, *,
@@ -333,18 +344,17 @@ def embed_inputs(p: Params, cfg: ModelConfig, tokens: torch.Tensor,
                  patches: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The text's embeddings scaled by √d_model; for the VLM, with
     ``patches`` (B, n_vis, feat_dim) projected and prepended.  Under a
-    mesh the projector is column-parallel and its output gathered whole
-    over ``model``, as the residual stream is (the backward keeps the
-    rank's block of the gradient)."""
+    mesh the projector's output is whole on every rank, as the residual
+    stream is: its weight gathered over each axis that splits it
+    (``linear_apply(..., whole=True)``; the backward keeps the rank's
+    block of the gradient)."""
     dt = _dtype(cfg)
     x = embedding_apply(p["embed"], tokens, compute_dtype=dt,
-                        whole_vocab=_vocab_whole(cfg))
+                        whole_vocab=_vocab_whole(cfg), d_model=cfg.d_model)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     if cfg.modality.kind == "vision" and patches is not None:
-        vis = linear_apply(p["projector"], patches.to(dt), "col")
-        mesh = current_mesh()
-        if mesh is not None:
-            vis = gather_from_model(vis, vis.dim() - 1, mesh)
+        vis = linear_apply(p["projector"], patches.to(dt), "col",
+                           (cfg.modality.feat_dim, cfg.d_model), whole=True)
         x = torch.cat([vis, x], dim=1)
     return x
 
@@ -366,9 +376,10 @@ def _logits(p: Params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
         logits = unembed_apply(p["embed"], x, whole_vocab=whole)
     else:
         mesh = current_mesh()
-        if mesh is not None and not whole:
-            x = copy_to_model(x, mesh)
-        logits = linear_apply(p["unembed"], x, "col")
+        if mesh is not None:
+            x = copy_to_model(x, mesh, not whole)
+        logits = linear_apply(p["unembed"], x, "col",
+                              (cfg.d_model, cfg.vocab), whole)
     return softcap(logits.float(), cfg.final_softcap)
 
 
@@ -395,8 +406,9 @@ def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
     x = embed_inputs(p, cfg, tokens, patches)
     if memory is not None and current_mesh() is not None:
         # *f* once: every layer's wk and wv add their part of the memory's
-        # gradient, summed over ``model`` in one all-reduce
-        memory = copy_to_model(memory, current_mesh())
+        # gradient, summed over ``model`` in one all-reduce (none where
+        # the cross-attention runs whole)
+        memory = copy_to_model(memory, current_mesh(), not _xattn_whole(cfg))
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -413,7 +425,8 @@ def lm_apply(p: Params, cfg: ModelConfig, tokens: torch.Tensor, *,
         mesh = current_mesh()
 
         def cycle(x, aux, cyc):
-            with activation_sharding(mesh):     # also in the recompute
+            # also in the recompute
+            with activation_sharding(mesh):
                 for j in range(P):
                     x, aux = run(cyc[j], sigs[j], x, aux)
             return x, aux
@@ -497,7 +510,7 @@ def lm_decode(p: Params, cfg: ModelConfig, token: torch.Tensor,
     prefix, n_cycles, P, suffix = layer_plan(cfg)
     dt = _dtype(cfg)
     x = embedding_apply(p["embed"], token[:, None], compute_dtype=dt,
-                        whole_vocab=_vocab_whole(cfg))
+                        whole_vocab=_vocab_whole(cfg), d_model=cfg.d_model)
     x = x * torch.tensor(cfg.d_model ** 0.5, dtype=dt)
     kw = {"moe_route": moe_route, "split": split}
 

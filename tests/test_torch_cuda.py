@@ -1356,7 +1356,7 @@ def _four_rank_intrapod(rank, dev, shape, strategy, dtype):
     from repro_torch.launch.mesh import make_mesh
     cfg = dataclasses.replace(get_config("qwen3-0.6b").reduced(),
                               dtype=dtype)
-    mesh = make_mesh(shape, device=dev, cfg=cfg)
+    mesh = make_mesh(shape, device=dev)
     p = model.init_model(torch.Generator().manual_seed(0), cfg, dev)
     like, specs = pytree.leaves(p), sharding.leaf_specs(p, mesh)
     rows = steps.local_pods(2, mesh)

@@ -284,18 +284,23 @@ def _rank_checks(rank, dev, P, out_dir):
     res["adpsgd0"] = all(torch.equal(x, y) for x, y in
                          zip(outs["adpsgd"], outs["dpsgd"]))
 
-    # (vi) the mesh refuses a width its data and model axes do not split:
-    # an RG-LRU width of 255 (over data, the gates' rows)
-    refused = []
+    # (vi) the mesh takes a width its data and model axes do not split:
+    # an RG-LRU width of 255 (over data, the gates' rows), whole on every
+    # rank of the axis
+    taken = []
     cfg = get_config("recurrentgemma-2b").reduced()
     cfg = dataclasses.replace(cfg, rglru=dataclasses.replace(
         cfg.rglru, lru_width=255))
     for shape in ((P // 2, 2, 1), (P // 2, 1, 2)):
-        try:
-            mesh_lib.make_mesh(shape, device=dev, cfg=cfg)
-        except ValueError as e:
-            refused.append("lru_width" in str(e))
-    res["refused"] = refused
+        mesh = mesh_lib.make_mesh(shape, device=dev)
+        shapes = steps.param_shape(cfg)
+        gates = [s_ for (p_, _), s_ in zip(pytree.leaves_with_paths(
+            shapes), sharding.leaf_specs(shapes, mesh))
+            if p_.endswith("mixer/w_a/w")]
+        taken.append(bool(gates) and all(
+            a_ is None or mesh.size_of(a_) == 1 for s_ in gates
+            for a_ in s_))
+    res["refused"] = taken
     return res
 
 
@@ -450,8 +455,9 @@ def test_checkpoint_of_ranks_is_the_one_card_checkpoint(ranks, strategy):
 def test_mesh_refuses_data_and_model_axes(ranks):
     """A data or model axis above 1 takes every family at the widths it
     splits (``test_torch_intrapod.py``, ``test_torch_intrapod_moe.py``,
-    ``test_torch_intrapod_families.py``); an RG-LRU width neither axis
-    splits raises, naming it."""
+    ``test_torch_intrapod_families.py``), and a width neither axis
+    splits too: an RG-LRU width of 255, its gates' rows and columns whole
+    on every rank (``tests/test_torch_clamp.py`` runs such leaves)."""
     _, _, results = ranks
     assert all(r["refused"] == [True, True] for r in results)
 

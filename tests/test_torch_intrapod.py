@@ -43,6 +43,7 @@ import numpy as np
 import pytest
 import torch
 import torch.distributed as dist
+from _torch_layout import trace_layout
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro_torch import checkpointing as ckpt
@@ -237,12 +238,12 @@ def _ssm_heads(heads, head_dim, d_model):
         cfg.ssm, n_heads=heads, head_dim=head_dim))
 
 
-#: configs no mesh with a data or model axis takes: (case, config).  Every
-#: family is placed inside a pod; each case is a width the axes do not
-#: split: the RG-LRU's width of 255 (over ``model``, and over ``data``
-#: for the gates' rows), the encoder's d_model of 255 (both axes), an SSM
-#: of 3 heads (``model`` only), 3 KV heads (``model`` only) and a d_model
-#: of 255
+#: configs each with a width the axes do not split, which the clamp keeps
+#: whole on every rank of the axis (refused until ROADMAP A11e closed):
+#: the RG-LRU's width of 255 (over ``model``, and over ``data`` for the
+#: gates' rows), the encoder's d_model of 255 (both axes), an SSM of 3
+#: heads (its in_proj width of 1,571 over ``model``), 3 KV heads (the
+#: heads placement's cache over ``model``) and a d_model of 255
 BAD = {"rglru": lambda: _lru_width(255),
        "encdec": lambda: _encoder_width(255),
        "ssm": lambda: _ssm_heads(3, 256, 384),
@@ -251,12 +252,50 @@ BAD = {"rglru": lambda: _lru_width(255),
                                                        n_heads=6,
                                                        n_kv_heads=3)),
        "d_model": lambda: dataclasses.replace(_cfg(), d_model=255)}
-#: the dimension each case's refusal names
+#: the dimension of each case the axes do not split
 NAMED = {"rglru": "lru_width", "encdec": "encoder d_model",
          "ssm": "ssm n_heads", "kv_heads": "n_kv_heads",
          "d_model": "d_model"}
-#: the cases a ``model`` axis alone refuses
-MODEL_ONLY = ("ssm", "kv_heads")
+#: the leaves (path suffix, dimension from the end) each case's clamp
+#: keeps whole, where the rule puts an axis above one rank there; "/k":
+#: the heads placement's decode cache
+WHOLE = {"rglru": (("mixer/w_a/w", -2), ("mixer/w_a/w", -1)),
+         "encdec": (("encoder/in_proj/w", -1), ("encoder/layers/wq/w", -2)),
+         "ssm": (("mixer/in_proj/w", -1),),
+         "kv_heads": (("/k", -2),),
+         "d_model": (("embed/table", -1),)}
+
+
+def _clamped_whole(cfg, mesh, case):
+    """Whether each of ``WHOLE[case]``'s dimensions is whole (None) where
+    its leaf's rule (``rule_spec``, or the cache's heads over ``model``)
+    names an axis above one rank of ``mesh``; and how many were held."""
+    n = 0
+    for suffix, dim in WHOLE[case]:
+        if suffix == "/k":
+            tree = model.init_cache(cfg, 2, 8, device="meta")
+            specs = sharding.cache_shardings(tree, mesh, batch_sharded=True,
+                                             baseline_decode=True)
+            rules = [(None,) * (t_.dim() - 2) + ("model", None)
+                     for t_ in pytree.leaves(tree)]
+        else:
+            tree = steps.param_shape(cfg)
+            specs = sharding.param_shardings(tree, mesh)
+            rules = []
+            for p_, t_ in pytree.leaves_with_paths(tree):
+                lead = 1 if {"body", "layers"} & set(p_.split("/")) else 0
+                r_ = sharding.rule_spec(p_, tuple(t_.shape)[lead:])
+                rules.append(r_ + (None,) * (t_.dim() - lead - len(r_)))
+        for (p_, _), rule, spec in zip(pytree.leaves_with_paths(tree), rules,
+                                       pytree.leaves_like(specs, tree)):
+            if not p_.endswith(suffix):
+                continue
+            ax = rule[dim]
+            if ax and mesh.size_of(ax) > 1:
+                if spec[dim] is not None:
+                    return False, n
+                n += 1
+    return True, n
 
 
 # ---------------------------------------------------------------------------
@@ -374,16 +413,41 @@ def _checkpoint(cfg, comm, mesh, state, out_dir):
                                                   pytree.leaves(state)))
 
 
+def _prefill_gap(cfg, mesh):
+    """The largest gap between the prefill's logits of ``cfg`` (seeded
+    weights, four requests of ``STEP_T`` tokens, the enc-dec's frames) on
+    ``mesh``'s ranks, each its rows, and one device's, over max(1,
+    max|logits|)."""
+    p = model.init_model(torch.Generator().manual_seed(0), cfg, "cpu")
+    rng = np.random.default_rng(101)
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (4, STEP_T)))}
+    if cfg.encoder is not None:
+        batch["frames"] = torch.from_numpy(rng.standard_normal(
+            (4, cfg.encoder.n_frames, cfg.modality.feat_dim)).astype(
+            np.float32))
+    with torch.inference_mode():
+        one = steps.make_prefill_step(cfg)(p, batch)
+        got = steps.make_prefill_step(cfg, mesh=mesh)(
+            sharding.local_params(p, mesh), batch)
+    n = got.shape[0]
+    i = mesh.coords["data"] if n < one.shape[0] else 0
+    return float((got - one[i * n:(i + 1) * n]).abs().max()
+                 / max(1.0, float(one.abs().max())))
+
+
 def _four_ranks(rank, dev, cases, out_dir):
     torch.set_num_threads(1)
     res = {"refused": {}, "grads": {}, "meshes": {}}
-    # (iv) the refusals, before any collective
+    # (iv) what was refused: each case's prefill against one device, and
+    # its train step made before any collective
+    grad_mesh = mesh_lib.make_mesh(GRAD_MESH, device=dev)
+    res["coords"] = grad_mesh.coords
+    res["prefill_gap"] = {}
     for name, make in BAD.items():
         res["refused"][name, "make_mesh"] = _refused(
-            lambda make=make: mesh_lib.make_mesh(GRAD_MESH, device=dev,
-                                                 cfg=make()))
-    grad_mesh = mesh_lib.make_mesh(GRAD_MESH, device=dev, cfg=_cfg())
-    res["coords"] = grad_mesh.coords
+            lambda name=name, make=make: res["prefill_gap"].__setitem__(
+                name, _prefill_gap(make(), grad_mesh)))
     for name, make in BAD.items():
         res["refused"][name, "make_train_step"] = _refused(
             lambda make=make: steps.make_train_step(
@@ -407,13 +471,13 @@ def _four_ranks(rank, dev, cases, out_dir):
     # (ii), (iii)
     for shape in FOUR:
         res["meshes"][shape] = _mesh_checks(
-            mesh_lib.make_mesh(shape, device=dev, cfg=_cfg()), dev, out_dir)
+            mesh_lib.make_mesh(shape, device=dev), dev, out_dir)
     return res
 
 
 def _eight_ranks(rank, dev, out_dir):
     torch.set_num_threads(1)
-    mesh = mesh_lib.make_mesh(EIGHT, device=dev, cfg=_cfg())
+    mesh = mesh_lib.make_mesh(EIGHT, device=dev)
     return {"coords": mesh.coords,
             "meshes": {EIGHT: _mesh_checks(mesh, dev, out_dir)}}
 
@@ -603,44 +667,57 @@ def test_checkpoint_on_the_mesh_is_the_one_card_checkpoint(ref, ranks):
 @pytest.mark.parametrize("case", list(BAD))
 def test_refusals_come_before_any_collective(four, case, where):
     """A width the axes do not divide, of each family (the RG-LRU's width,
-    the encoder's d_model, the SSM's heads), KV heads or d_model:
-    ``ValueError`` from ``make_mesh(..., cfg=)`` and from
-    ``make_train_step`` before any collective or process group, naming
-    the dimension."""
+    the encoder's d_model, the SSM's heads), KV heads or d_model, once
+    refused: on the mesh ``make_mesh`` makes, the prefill on the rank's
+    blocks (the dimension whole on every rank of its axis) within
+    ``GRAD_TOL`` of one device's; ``make_train_step`` takes it and
+    reaches no collective (``tests/test_torch_clamp.py`` trains such
+    leaves)."""
     _, results = four
     for r in results:
         text, calls = r["refused"][case, where]
-        assert text is not None and calls == [], (text, calls)
-        assert NAMED[case] in text, text
+        assert text is None, text
+        if where == "make_train_step":
+            assert calls == [], calls
+        else:
+            assert r["prefill_gap"][case] <= GRAD_TOL, r["prefill_gap"]
 
 
 def test_a_batch_that_does_not_split_over_data_is_refused(four):
+    """One sequence a pod on a data axis of 2: the clamp keeps it whole,
+    every ``data`` rank runs it and nothing is summed over ``data``
+    (``Mesh.with_rows_whole``; ``tests/test_torch_clamp.py`` holds such
+    steps against one device): the step is taken."""
     _, results = four
     for r in results:
-        text, calls = r["refused"]["batch", "train_step"]
-        assert text is not None and "data axis" in text, text
-        assert calls == [], calls
+        text, _ = r["refused"]["batch", "train_step"]
+        assert text is None, text
 
 
 @pytest.mark.parametrize("case", list(BAD))
 @pytest.mark.parametrize("shape", [(1, 2, 1), (1, 1, 2), (2, 2, 2)],
                          ids=_id)
 def test_check_layout_refuses_what_the_axes_cannot_take(case, shape):
+    """Each case is taken on each mesh (its train step traced on the
+    mesh's last rank, ``_torch_layout``), and the leaves of its width the
+    mesh's axes do not split keep that dimension whole (``WHOLE``); where
+    the mesh has no such axis (a ``data`` axis alone for the SSM's and the
+    KV heads' cases, a ``model`` axis alone for d_model) there is none to
+    hold."""
     mesh = mesh_lib.Mesh(shape, mesh_lib.AXES)
-    if case == "d_model" and shape[1] == 1 or case in MODEL_ONLY and \
-            shape[2] == 1:
-        sharding.check_layout(BAD[case](), mesh)     # no such axis: taken
-        return
-    with pytest.raises(ValueError, match=NAMED[case]):
-        sharding.check_layout(BAD[case](), mesh)
+    trace_layout(BAD[case](), shape, "train")
+    ok, held = _clamped_whole(BAD[case](), mesh, case)
+    assert ok, (case, NAMED[case])
+    model_only = case in ("ssm", "kv_heads")
+    assert held > 0 or (model_only and shape[2] == 1) or (
+        case == "d_model" and shape[1] == 1), (case, held)
 
 
 @pytest.mark.parametrize("arch", list(DENSE))
 def test_check_layout_takes_the_dense_archs(arch):
     """The full-width dense archs on the reference's (2, 2, 2) sweep
-    mesh."""
-    sharding.check_layout(get_config(arch), mesh_lib.Mesh(
-        (2, 2, 2), mesh_lib.AXES))
+    mesh, the train step traced on its last rank."""
+    trace_layout(get_config(arch), (2, 2, 2), "train")
 
 
 def test_check_layout_at_the_production_width():
@@ -648,14 +725,12 @@ def test_check_layout_at_the_production_width():
     model ranks; the production (2, 16, 16) puts its 8 KV heads on a
     16-way model axis, each head shared by two ranks, and deepseek-v2-
     lite-16b's 16 heads and 64 experts on 16 model ranks: both taken,
-    for training and for serving."""
-    sharding.check_layout(get_config("qwen3-0.6b"), mesh_lib.Mesh(
-        (2, 16, 8), mesh_lib.AXES))
+    for training and for serving (the steps traced on the last rank)."""
+    trace_layout(get_config("qwen3-0.6b"), (2, 16, 8), "train")
+    prod = mesh_lib.make_production_mesh(multi_pod=True)
     for arch in ("qwen3-0.6b", "deepseek-v2-lite-16b"):
         for mode in ("train", "serve"):
-            sharding.check_layout(
-                get_config(arch),
-                mesh_lib.make_production_mesh(multi_pod=True), mode=mode)
+            trace_layout(get_config(arch), tuple(prod.shape.values()), mode)
 
 
 # ---------------------------------------------------------------------------

@@ -51,6 +51,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from _torch_layout import trace_layout
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro_torch import pytree
@@ -694,8 +695,9 @@ def test_ranks_hold_their_coordinates(ranks):
 @pytest.mark.parametrize("mode", ["train", "serve"])
 def test_check_layout_takes_the_four_families_at_full_width(arch, shape,
                                                             mode):
-    sharding.check_layout(get_config(arch), mesh_lib.Mesh(
-        shape, mesh_lib.AXES), mode=mode)
+    """The step of ``mode`` traced on the mesh's last rank
+    (``_torch_layout``)."""
+    trace_layout(get_config(arch), shape, mode)
 
 
 def test_specs_are_the_reference_rules():

@@ -57,6 +57,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from _torch_layout import trace_layout
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro_torch import pytree
@@ -688,7 +689,7 @@ def test_kv_heads_shared_by_ranks_grads_match(ref, trees, ranks, arch):
     one-device port and the reference."""
     tree, nb = trees[arch]
     cfg = _cfg(arch)
-    assert sharding.kv_shared(cfg.attention, KV_MESH[2])
+    assert KV_MESH[2] > cfg.attention.n_kv_heads    # KV heads shared
     _, results = ranks
     losses = [r["kv"][arch][0] for r in results]
     whole = [g.numpy() for g in results[0]["kv"][arch][1]]
@@ -775,8 +776,9 @@ def test_ranks_hold_their_coordinates(ranks):
     ("starcoder2-3b", (1, 1, 4)), ("gemma2-9b", (2, 16, 16))], ids=_id)
 @pytest.mark.parametrize("mode", ["train", "serve"])
 def test_check_layout_takes_the_full_widths(arch, shape, mode):
-    sharding.check_layout(get_config(arch), mesh_lib.Mesh(
-        shape, mesh_lib.AXES), mode=mode)
+    """The step of ``mode`` traced on the mesh's last rank
+    (``_torch_layout``)."""
+    trace_layout(get_config(arch), shape, mode)
 
 
 @pytest.mark.parametrize("arch,shape,what", [
@@ -785,13 +787,23 @@ def test_check_layout_takes_the_full_widths(arch, shape, mode):
     ("starcoder2-3b", (1, 1, 5), "n_kv_heads"),
     ("deepseek-v2-lite-16b", (1, 1, 128), "n_experts")], ids=_id)
 def test_check_layout_refuses_what_the_axes_cannot_take(arch, shape, what):
-    """minicpm3's d_ff of 6,400 on 3 ranks; starcoder2's 2 KV heads on 3
-    and on 5 (not a multiple of them); deepseek-lite's 64 experts on 128.
-    Heads the axis does not divide are taken (every head on every rank:
-    ``tests/test_torch_uneven.py``)."""
-    with pytest.raises(ValueError, match=what):
-        sharding.check_layout(get_config(arch), mesh_lib.Mesh(
-            shape, mesh_lib.AXES), mode="train")
+    """minicpm3's d_ff of 6,400 on 3 ranks; starcoder2's 2 KV heads (their
+    256 columns of wk and wv) on 3 and on 5; deepseek-lite's 64 experts on
+    128: taken (they were refused until ROADMAP A11e closed; the train
+    step traced on the mesh's last rank), the dimension whole on every
+    ``model`` rank in ``leaf_specs``
+    (``tests/test_torch_clamp.py`` runs such leaves; chip_smoke.py phase
+    18 these archs at full width)."""
+    cfg = get_config(arch)
+    mesh = mesh_lib.Mesh(shape, mesh_lib.AXES)
+    trace_layout(cfg, shape, "train")
+    leaf, dim = {"d_ff": ("ffn/gate/w", -1), "n_kv_heads": ("mixer/wk/w", -1),
+                 "n_experts": ("ffn/w_gate", -3)}[what]
+    shapes = steps.param_shape(cfg)
+    got = [s_ for (p_, _), s_ in zip(pytree.leaves_with_paths(shapes),
+                                     sharding.leaf_specs(shapes, mesh))
+           if p_.endswith(leaf)]
+    assert got and all(s_[dim] is None for s_ in got), (what, got)
 
 
 def test_train_step_refuses_an_unknown_moe_route():

@@ -41,6 +41,7 @@ import types
 import numpy as np
 import pytest
 import torch
+from _torch_layout import trace_layout
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 from repro_torch import pytree
@@ -347,33 +348,50 @@ def test_ranks_hold_their_coordinates(ranks):
 # ---------------------------------------------------------------------------
 
 #: the SSM, RG-LRU, enc-dec and VLM families at full width, each on a mesh
-#: one of its widths does not split, and the dimension the refusal names
-OTHER = {"mamba2-780m": ((1, 1, 32), "ssm n_heads"),
-         "recurrentgemma-2b": ((1, 1, 3), "lru_width"),
-         "seamless-m4t-large-v2": ((1, 3, 1), "feat_dim"),
-         "phi-3-vision-4.2b": ((1, 3, 1), "feat_dim")}
+#: one of its widths does not split: the dimension, and the leaf (path
+#: suffix, dimension from the end) the clamp keeps whole
+OTHER = {"mamba2-780m": ((1, 1, 32), "ssm in_proj width", "mixer/in_proj/w",
+                         -1),
+         "recurrentgemma-2b": ((1, 1, 3), "lru_width", "mixer/in_x/w", -1),
+         "seamless-m4t-large-v2": ((1, 3, 1), "feat_dim",
+                                   "encoder/in_proj/w", -2),
+         "phi-3-vision-4.2b": ((1, 3, 1), "feat_dim", "projector/w", -2)}
+
+
+def _whole_in_specs(cfg, mesh, suffix, dim):
+    """Whether every leaf of ``cfg`` whose path ends in ``suffix`` keeps
+    its dimension ``dim`` (from the end) whole on ``mesh``, as
+    ``leaf_specs`` places it, where its rule names an axis."""
+    shapes = steps.param_shape(cfg)
+    got = []
+    for (p_, t_), spec in zip(pytree.leaves_with_paths(shapes),
+                              sharding.leaf_specs(shapes, mesh)):
+        if not p_.endswith(suffix):
+            continue
+        lead = 1 if {"body", "layers"} & set(p_.split("/")) else 0
+        rule = (None,) * lead + sharding.rule_spec(
+            p_, tuple(t_.shape)[lead:])
+        got.append((rule + (None,) * (t_.dim() - len(rule)), spec))
+    return bool(got) and all(rule[dim] is not None and spec[dim] is None
+                             for rule, spec in got)
 
 
 @pytest.mark.parametrize("arch", list(OTHER))
 @pytest.mark.parametrize("mode", ["train", "serve"])
 def test_other_families_are_refused_naming_a11c(arch, mode):
     """Every family is placed inside a pod (``test_torch_intrapod_
-    families.py``); what each still gets refused is a width the axis does
-    not split (ROADMAP A11e): mamba2's 48 heads on 32 model ranks,
-    recurrentgemma's lru_width of 2,560 on 3, seamless' and
-    phi-3-vision's 1024 frontend features (the encoder's ``in_proj`` and
-    the projector's rows) on 3 data ranks, named, by ``check_layout`` and
-    by the serve steps.  Query heads and a vocabulary the ``model`` axis
-    does not divide are taken (``tests/test_torch_uneven.py``)."""
-    shape, what = OTHER[arch]
+    families.py``), also where an axis does not split one of its widths
+    (ROADMAP A11e, closed here): mamba2's in_proj width of 6,448 (and its
+    48 heads) on 32 model ranks, recurrentgemma's lru_width of 2,560 on
+    3, seamless' and phi-3-vision's 1024 frontend features (the encoder's
+    ``in_proj`` and the projector's rows) on 3 data ranks are whole on
+    every rank of the axis, the steps of ``mode`` traced on the mesh's
+    last rank (``_torch_layout``; ``tests/test_torch_clamp.py`` runs such
+    leaves against one device and the reference)."""
+    shape, _, suffix, dim = OTHER[arch]
     cfg, mesh = get_config(arch), Mesh(shape, AXES)
-    with pytest.raises(ValueError, match=what):
-        sharding.check_layout(cfg, mesh, mode=mode)
-    if mode == "serve":
-        with pytest.raises(ValueError, match=what):
-            steps.make_prefill_step(cfg, mesh=mesh)
-        with pytest.raises(ValueError, match=what):
-            steps.make_serve_step(cfg, mesh=mesh)
+    trace_layout(cfg, shape, mode)
+    assert _whole_in_specs(cfg, mesh, suffix, dim)
 
 
 @pytest.mark.parametrize("arch", MLA)
@@ -382,7 +400,7 @@ def test_mla_and_moe_training_is_taken(arch):
     as for serving (``tests/test_torch_intrapod_moe.py`` trains it)."""
     mesh = Mesh((1, 2, 2), AXES)
     for mode in ("serve", "train"):
-        sharding.check_layout(_cfg(arch), mesh, mode=mode)
+        trace_layout(_cfg(arch), (1, 2, 2), mode)
     for route in moe.ROUTES:
         step = steps.make_train_step(_cfg(arch), CommConfig(strategy="bsp"),
                                      mesh=mesh, moe_route=route)
@@ -402,16 +420,29 @@ def _layout_cfg(arch):
         cfg.attention, n_heads=12, n_kv_heads=3))
 
 
-@pytest.mark.parametrize("arch,shape,what", [
-    (KV3, (1, 1, 4), "n_kv_heads"),
-    ("deepseek-v2-lite-16b", (1, 1, 8), "n_experts"),
-    ("deepseek-v2-lite-16b", (1, 1, 3), "kv_lora_rank"),
-    ("minicpm3-4b", (1, 3, 1), "q_lora_rank"),
-    ("qwen3-0.6b", (1, 3, 1), "d_model")], ids=_id)
-def test_axes_that_do_not_divide_are_refused(arch, shape, what):
-    with pytest.raises(ValueError, match=what):
-        sharding.check_layout(_layout_cfg(arch), Mesh(shape, AXES),
-                              mode="serve")
+@pytest.mark.parametrize("arch,shape,what,suffix,dim", [
+    (KV3, (1, 1, 4), "n_kv_heads", "/k", -2),
+    ("deepseek-v2-lite-16b", (1, 1, 8), "n_experts", "ffn/w_gate", -3),
+    ("deepseek-v2-lite-16b", (1, 1, 3), "kv_lora_rank", "mixer/wdkv/w", -1),
+    ("minicpm3-4b", (1, 3, 1), "q_lora_rank", "mixer/wuq/w", -2),
+    ("qwen3-0.6b", (1, 3, 1), "d_model", "embed/table", -1)], ids=_id)
+def test_axes_that_do_not_divide_are_refused(arch, shape, what, suffix,
+                                             dim):
+    """Widths an axis does not divide are taken to serve (they were
+    refused until ROADMAP A11e closed): the dimension ``what`` of the
+    leaf at ``suffix`` is whole on every rank of its axis; for 3 KV heads
+    on 4 model ranks, the heads placement's cache keeps them whole."""
+    cfg, mesh = _layout_cfg(arch), Mesh(shape, AXES)
+    trace_layout(cfg, shape, "serve")
+    if suffix != "/k":
+        assert _whole_in_specs(cfg, mesh, suffix, dim), what
+        return
+    whole = model.init_cache(cfg, B, CACHE, device="meta")
+    specs = [s_ for (p_, _), s_ in zip(pytree.leaves_with_paths(whole),
+             pytree.leaves_like(sharding.cache_shardings(
+                 whole, mesh, batch_sharded=True, baseline_decode=True),
+                 whole)) if p_.endswith(suffix)]
+    assert specs and all(s_[dim] is None for s_ in specs), what
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "deepseek-v2-lite-16b"])
@@ -420,9 +451,9 @@ def test_full_width_serving_layouts_are_taken(arch):
     production (16, 16) for deepseek's 16 heads and 64 experts."""
     cfg = get_config(arch)
     for shape in ((1, 2, 2), (1, 1, 4)):
-        sharding.check_layout(cfg, Mesh(shape, AXES), mode="serve")
+        trace_layout(cfg, shape, "serve")
     if arch != "qwen3-0.6b":
-        sharding.check_layout(cfg, Mesh((1, 16, 16), AXES), mode="serve")
+        trace_layout(cfg, (1, 16, 16), "serve")
 
 
 def test_serving_takes_one_pod():
@@ -432,24 +463,19 @@ def test_serving_takes_one_pod():
 
 
 def test_a_batch_the_data_axis_does_not_split_is_refused():
-    """Three requests on a data axis of 2, placed over it: their cache's
-    block is refused, naming the requests, and so is the serve step,
-    before any collective.  Held whole on every rank (the reference's
-    clamp: ``batch_sharded=False``) they are taken
-    (``tests/test_torch_uneven.py``)."""
+    """Three requests on a data axis of 2, placed over it: the clamp keeps
+    them whole, so every rank's cache block holds all three (its length
+    still over ``model``), as it holds them where they are placed whole
+    (``batch_sharded=False``, ``tests/test_torch_uneven.py``)."""
     cfg = _cfg("qwen3-0.6b")
     mesh = Mesh((1, 2, 2), AXES)
-    p = sharding.local_params(model.init_model(
-        torch.Generator().manual_seed(0), cfg, "cpu"), mesh)
-    with pytest.raises(ValueError, match="requests=3 over data=2"):
-        model.init_cache(cfg, 3, CACHE, device="cpu", mesh=mesh,
-                         batch_sharded=True)
-    cache = model.init_cache(cfg, 4, CACHE, device="cpu", mesh=mesh,
+    cache = model.init_cache(cfg, 3, CACHE, device="cpu", mesh=mesh,
                              batch_sharded=True)
-    with pytest.raises(ValueError, match="split over the data axis"):
-        steps.make_serve_step(cfg, mesh=mesh, batch_sharded=True)(
-            p, cache, {"token": torch.zeros(3, dtype=torch.long),
-                       "t": torch.zeros(3, dtype=torch.int32)})
+    for path, t in pytree.leaves_with_paths(cache):
+        off = 1 if path.startswith("body") else 0
+        assert t.shape[off] == 3, (path, tuple(t.shape))
+        if path.endswith("/k"):
+            assert t.shape[off + 1] == CACHE // 2, (path, tuple(t.shape))
 
 
 @pytest.mark.parametrize("made,used", [
@@ -469,9 +495,21 @@ def test_a_cache_of_another_placement_is_refused(made, used):
 
 
 def test_a_length_the_axis_does_not_split_is_refused():
-    with pytest.raises(ValueError, match="does not split"):
-        model.init_cache(_cfg("qwen3-0.6b"), B, 6, device="cpu",
-                         mesh=Mesh((1, 1, 4), AXES))
+    """A flash-decode cache length of 6 on 4 model ranks: the clamp keeps
+    it whole, so every rank holds every slot beside the whole ``pos``
+    (the decode then combines nothing over ``model``:
+    ``attention._length_split``); a length the whole-batch placement puts
+    over a data axis that does not split it is refused, named (ROADMAP
+    A11e)."""
+    cache = model.init_cache(_cfg("qwen3-0.6b"), B, 6, device="cpu",
+                             mesh=Mesh((1, 1, 4), AXES))
+    for path, t in pytree.leaves_with_paths(cache):
+        off = 1 if path.startswith("body") else 0
+        if path.endswith(("/k", "/pos")):
+            assert t.shape[off + 1] == 6, (path, tuple(t.shape))
+    with pytest.raises(ValueError, match="cache length=6 over data=4"):
+        model.init_cache(_cfg("qwen3-0.6b"), 2, 6, device="cpu",
+                         mesh=Mesh((1, 4, 1), AXES), batch_sharded=False)
 
 
 def test_the_flags_pick_the_cache_split():

@@ -11,7 +11,7 @@ tests read their results.
 - (1, 1, 3), three ranks: reduced archs of the families C17 touches,
   each widened so that 3 divides every projection's columns but not the
   4 query heads, nor the vocabulary of 512: GQA with qk-norm (4 over 4 KV
-  heads of 48, every head gathered), GQA with one KV head (``kv_shared``),
+  heads of 48, every head gathered), GQA with one KV head (shared by the ranks),
   MLA (wukv's heads whole on every rank), the RG-LRU hybrid and the
   enc-dec (its encoder and cross-attention too).  (i) the pod's loss and
   each gathered gradient leaf, remat on and off; (ii) the prefill and
@@ -500,8 +500,33 @@ def test_ranks_hold_their_coordinates(ranks):
 @pytest.mark.parametrize("arch", [GQA, KV1, MLA, RGLRU, ENCDEC])
 @pytest.mark.parametrize("mode", ["train", "serve"])
 def test_check_layout_takes_heads_and_vocab_whole(arch, mode):
-    sharding.check_layout(_cfg(arch, "three"), mesh_lib.Mesh(
-        (1, 1, 3), mesh_lib.AXES), mode=mode)
+    """The widened configs on (1, 1, 3), which the ranks above train and
+    serve (their heads of 48 are no kernel's, so no ``meta`` trace): the
+    query heads and the vocabulary the axis does not divide are whole on
+    every rank (``heads_whole``, ``vocab_whole``; the table's vocabulary
+    rows whole in ``leaf_specs``) inside attention blocks that run split
+    (the query columns over ``model``); to serve, the heads placement's
+    KV heads whole in the cache's specs."""
+    cfg = _cfg(arch, "three")
+    mesh = mesh_lib.Mesh((1, 1, 3), mesh_lib.AXES)
+    assert sharding.heads_whole(cfg.attention, 3)
+    assert sharding.vocab_whole(cfg.vocab, 3)
+    if mode == "train":
+        shapes = steps.param_shape(cfg)
+        specs = dict(zip((p_ for p_, _ in pytree.leaves_with_paths(shapes)),
+                         sharding.leaf_specs(shapes, mesh)))
+        assert specs["embed/table"][-2] is None
+        cols = [s_ for p_, s_ in specs.items()
+                if p_.endswith(("mixer/wq/w", "mixer/wuq/w"))]
+        assert cols and all(s_[-1] == "model" for s_ in cols), cols
+        return
+    cache = model.init_cache(cfg, 3, 12, device="meta")
+    kv = [s_ for (p_, _), s_ in zip(
+        pytree.leaves_with_paths(cache), pytree.leaves_like(
+            sharding.cache_shardings(cache, mesh, batch_sharded=True,
+                                     baseline_decode=True), cache))
+        if p_.endswith("/k")]
+    assert all(s_[-2] is None for s_ in kv), kv
 
 
 @pytest.mark.parametrize("arch", [SSM, RGLRU])
